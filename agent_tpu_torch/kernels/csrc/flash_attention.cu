@@ -1,0 +1,367 @@
+// Flash attention forward for Hopper (sm_90a), with a key-padding mask.
+//
+// Replaces the Pallas TPU kernel `_flash_kernel` (agent_tpu/kernels/
+// flash_attention.py:149-175, launched by `flash_attention` at :228). It
+// computes softmax(Q K^T * D^-1/2, keys masked to NEG_INF) V with an online
+// softmax: running max m, denominator l and numerator acc in f32, P rounded
+// to the input type before P V, masked scores set to NEG_INF *and* their
+// probabilities multiplied by keep (so a fully masked tile adds exactly 0),
+// output acc / max(l, 1e-30) in the input type (a fully masked row is 0).
+//
+// Bound on an H100 SXM at the classify path's shape (B 256, H 12, L 512,
+// D 64, bf16): 4*B*H*L^2*D = 2.06e11 FLOP over 989 TFLOP/s = 0.21 ms, and
+// Q, K, V read once plus O written once = 4*B*H*L*D*2 B = 0.81 GB over
+// 3.35 TB/s = 0.24 ms, so the bound is the bytes, 0.24 ms; the arithmetic
+// intensity (~255 FLOP/B) sits just under the card's ridge (~295).
+//
+// What the design does about it: the [L, L] score matrix never reaches
+// device memory. One block owns one (b, h, 64-row query tile) and loops
+// over 64-key tiles staged in shared memory, so Q, K and V each cross
+// device memory about once per query tile (K/V re-reads of the L/64 query
+// tiles of one head mostly hit the 50 MB L2). The bf16 kernel runs both
+// products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// accumulate), keeps the score tile in registers and reuses the QK^T
+// accumulator fragments directly as the P operand of P V. It does not yet
+// overlap tile loads with compute (no cp.async/TMA pipeline) nor use wgmma:
+// that is later work. The f32 kernel is a plain FMA loop (no f32 tensor
+// core path keeps f32 accuracy); it serves f32 models and the tests.
+//
+// Blocks run in no order, so the TPU kernel's sequential K-tile grid axis
+// becomes the loop inside the block, and the ragged edges (Lq, Lk not
+// multiples of the tiles) are masked here: keys past Lk load as zeros with
+// keep = 0, query rows past Lq are computed and not stored.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e9f;  // finite, as agent_tpu.models.layers.NEG_INF
+constexpr int kThreads = 128;
+
+// ---- bf16: tensor-core kernel ----------------------------------------------
+
+constexpr int kBq = 64;  // query rows per block, 16 per warp
+constexpr int kBk = 64;  // keys per tile
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
+                                             __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4):
+//   A: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
+//      a3 = A[g+8][2t+8..];
+//   B: b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g];
+//   C: c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const int32_t* __restrict__ mask,
+                   __nv_bfloat16* __restrict__ out, int H, int Lq, int Lk,
+                   int n_q_tiles, int mask_b_stride, float scale) {
+  constexpr int kStride = D + 8;  // smem row pitch: 16-byte pad, no conflicts
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  __shared__ __align__(16) __nv_bfloat16 k_s[kBk * kStride];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kBk * kStride];
+  __shared__ float keep_s[kBk];
+
+  const int bh = blockIdx.x / n_q_tiles;
+  const int q0 = (blockIdx.x % n_q_tiles) * kBq;
+  const int b = bh / H;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* qh = q + static_cast<size_t>(bh) * Lq * D;
+  const __nv_bfloat16* kh = k + static_cast<size_t>(bh) * Lk * D;
+  const __nv_bfloat16* vh = v + static_cast<size_t>(bh) * Lk * D;
+  const int32_t* mrow = mask + static_cast<size_t>(b) * mask_b_stride;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+
+  // This warp's 16 query rows as A fragments, straight from device memory.
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kt = 0; kt < D / 16; ++kt) {
+    const int c = kt * 16 + 2 * t;
+    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(r0) * D + c);
+    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(r1) * D + c);
+    qf[kt][0] = r0 < Lq ? p0[0] : 0u;
+    qf[kt][1] = r1 < Lq ? p1[0] : 0u;
+    qf[kt][2] = r0 < Lq ? p0[4] : 0u;
+    qf[kt][3] = r1 < Lq ? p1[4] : 0u;
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += kBk) {
+    __syncthreads();  // every warp is done with the previous tile
+    for (int i = tid; i < kBk * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8, key = k0 + r;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (key < Lk) {
+        kv = *reinterpret_cast<const uint4*>(kh + static_cast<size_t>(key) * D + c);
+        vv = *reinterpret_cast<const uint4*>(vh + static_cast<size_t>(key) * D + c);
+      }
+      *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
+      *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
+    }
+    for (int i = tid; i < kBk; i += kThreads) {
+      const int key = k0 + i;
+      keep_s[i] = (key < Lk && mrow[key] > 0) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 accumulator tiles of 16x8.
+    float s[kBk / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBk / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const __nv_bfloat16* kp = k_s + (nt * 8 + g) * kStride + 2 * t;
+#pragma unroll
+      for (int kt = 0; kt < D / 16; ++kt) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp + kt * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + kt * 16 + 8);
+        mma_16816(s[nt], qf[kt], b0, b1);
+      }
+    }
+
+    // Scale after the product, mask, and fold the tile into (m, l, acc).
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kBk / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool keep = keep_s[nt * 8 + 2 * t + j] != 0.f;
+        s[nt][j] = keep ? s[nt][j] * scale : kNegInf;
+        s[nt][2 + j] = keep ? s[nt][2 + j] * scale : kNegInf;
+        mx[0] = fmaxf(mx[0], s[nt][j]);
+        mx[1] = fmaxf(mx[1], s[nt][2 + j]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {  // the 4 lanes holding a row
+      mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
+      mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kBk / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float keep = keep_s[nt * 8 + 2 * t + j];
+        s[nt][j] = expf(s[nt][j] - mx[0]) * keep;
+        s[nt][2 + j] = expf(s[nt][2 + j] - mx[1]) * keep;
+        rs[0] += s[nt][j];
+        rs[1] += s[nt][2 + j];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      rs[0] += __shfl_xor_sync(0xffffffffu, rs[0], off);
+      rs[1] += __shfl_xor_sync(0xffffffffu, rs[1], off);
+    }
+    const float corr0 = expf(m[0] - mx[0]), corr1 = expf(m[1] - mx[1]);
+    l[0] = l[0] * corr0 + rs[0];
+    l[1] = l[1] * corr1 + rs[1];
+    m[0] = mx[0];
+    m[1] = mx[1];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt][0] *= corr0;
+      acc[dt][1] *= corr0;
+      acc[dt][2] *= corr1;
+      acc[dt][3] *= corr1;
+    }
+
+    // acc += bf16(P) V: the S accumulators of key tiles 2kk and 2kk+1 are
+    // exactly the A fragment of a 16-key slice of P.
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      const uint32_t pa[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
+                              pack_f32(s[2 * kk][2], s[2 * kk][3]),
+                              pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* vp = v_s + (kk * 16 + 2 * t) * kStride + g;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const __nv_bfloat16* p = vp + dt * 8;
+        const uint32_t b0 = pack_raw(p[0], p[kStride]);
+        const uint32_t b1 = pack_raw(p[8 * kStride], p[9 * kStride]);
+        mma_16816(acc[dt], pa, b0, b1);
+      }
+    }
+  }
+
+  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  __nv_bfloat16* oh = out + static_cast<size_t>(bh) * Lq * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    if (r0 < Lq)
+      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(r0) * D + c) =
+          pack_f32(acc[dt][0] / d0, acc[dt][1] / d0);
+    if (r1 < Lq)
+      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(r1) * D + c) =
+          pack_f32(acc[dt][2] / d1, acc[dt][3] / d1);
+  }
+}
+
+// ---- f32: FMA kernel ---------------------------------------------------------
+
+constexpr int kRowsF32 = 32;  // query rows per block, 4 threads per row
+constexpr int kTileF32 = 32;  // keys per tile
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int32_t* __restrict__ mask,
+                  float* __restrict__ out, int H, int Lq, int Lk, int n_q_tiles,
+                  int mask_b_stride, float scale) {
+  constexpr int kPer = D / 4;  // this thread's dims: t + 4 i
+  __shared__ __align__(16) float k_s[kTileF32 * D];
+  __shared__ __align__(16) float v_s[kTileF32 * D];
+  __shared__ float keep_s[kTileF32];
+
+  const int bh = blockIdx.x / n_q_tiles;
+  const int row = (blockIdx.x % n_q_tiles) * kRowsF32 + threadIdx.x / 4;
+  const int t = threadIdx.x % 4;
+  const int b = bh / H;
+  const float* qh = q + static_cast<size_t>(bh) * Lq * D;
+  const float* kh = k + static_cast<size_t>(bh) * Lk * D;
+  const float* vh = v + static_cast<size_t>(bh) * Lk * D;
+  const int32_t* mrow = mask + static_cast<size_t>(b) * mask_b_stride;
+
+  float qr[kPer], acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    qr[i] = row < Lq ? qh[static_cast<size_t>(row) * D + t + 4 * i] : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += kTileF32) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTileF32 * D / 4; i += kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4, key = k0 + r;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (key < Lk) {
+        kv = *reinterpret_cast<const float4*>(kh + static_cast<size_t>(key) * D + c);
+        vv = *reinterpret_cast<const float4*>(vh + static_cast<size_t>(key) * D + c);
+      }
+      *reinterpret_cast<float4*>(k_s + r * D + c) = kv;
+      *reinterpret_cast<float4*>(v_s + r * D + c) = vv;
+    }
+    for (int i = threadIdx.x; i < kTileF32; i += kThreads) {
+      const int key = k0 + i;
+      keep_s[i] = (key < Lk && mrow[key] > 0) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    float s[kTileF32];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kTileF32; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) part = fmaf(qr[i], k_s[j * D + t + 4 * i], part);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      s[j] = keep_s[j] != 0.f ? part * scale : kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTileF32; ++j) {
+      s[j] = expf(s[j] - mx) * keep_s[j];
+      rs += s[j];
+    }
+    const float corr = expf(m - mx);
+    l = l * corr + rs;
+    m = mx;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      float a = acc[i] * corr;
+#pragma unroll
+      for (int j = 0; j < kTileF32; ++j) a = fmaf(s[j], v_s[j * D + t + 4 * i], a);
+      acc[i] = a;
+    }
+  }
+
+  if (row < Lq) {
+    const float den = fmaxf(l, 1e-30f);
+    float* orow = out + (static_cast<size_t>(bh) * Lq + row) * D;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) orow[t + 4 * i] = acc[i] / den;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: [B, H, Lq, D], k/v: [B, H, Lk, D], out: [B, H, Lq, D], all contiguous
+// and of one type (bf16 when is_bf16, else f32); mask: int32 [B or 1, Lk]
+// (mask_b_stride = Lk or 0), > 0 = attend. D in {32, 64, 128}. Launches on
+// `stream` and returns the launch's cudaError_t (0 = success).
+int flash_attention_fwd(const void* q, const void* k, const void* v,
+                        const void* mask, void* out, int B, int H, int Lq,
+                        int Lk, int D, int mask_b_stride, int is_bf16,
+                        float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  if (is_bf16) {
+    const int n_q = (Lq + kBq - 1) / kBq;
+    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
+    const auto* qq = static_cast<const __nv_bfloat16*>(q);
+    const auto* kk = static_cast<const __nv_bfloat16*>(k);
+    const auto* vv = static_cast<const __nv_bfloat16*>(v);
+    auto* oo = static_cast<__nv_bfloat16*>(out);
+    switch (D) {
+      case 32: flash_fwd_bf16<32><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 64: flash_fwd_bf16<64><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      default: flash_fwd_bf16<128><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+    }
+  } else {
+    const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
+    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
+    const auto* qq = static_cast<const float*>(q);
+    const auto* kk = static_cast<const float*>(k);
+    const auto* vv = static_cast<const float*>(v);
+    auto* oo = static_cast<float*>(out);
+    switch (D) {
+      case 32: flash_fwd_f32<32><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 64: flash_fwd_f32<64><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      default: flash_fwd_f32<128><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* flash_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,134 @@
+"""Transformer encoder classifier — the model behind ``map_classify_tpu``;
+counterpart of ``agent_tpu.models.encoder``.
+
+Weights are deterministic from the model id (the same arrays the JAX package
+builds, :func:`init_params`) or loaded from a flat ``.npz`` checkpoint
+(:func:`load_npz`); :func:`from_jax_params` turns either into an
+:class:`Encoder` module.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from agent_tpu_torch.models import layers, prng
+from agent_tpu_torch.models.layers import AttnFn
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Model hyperparameters (the JAX package's fields and defaults)."""
+
+    vocab_size: int = 260          # byte vocab (256 bytes + specials)
+    d_model: int = 256
+    n_heads: int = 8
+    n_layers: int = 4
+    d_ff: int = 1024
+    max_len: int = 2048
+    n_classes: int = 1000
+    dtype: str = "bfloat16"
+    # Serving strategies of the reference; this port serves only the
+    # defaults (quant "none", pp 1, no MoE) and rejects the others.
+    quant: str = "none"
+    pp: int = 1
+    moe_experts: int = 0
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"unsupported dtype {self.dtype!r}; one of {sorted(_DTYPES)}")
+        return _DTYPES[self.dtype]
+
+
+def init_params(cfg: EncoderConfig, model_id: str = "classify-default") -> Dict[str, np.ndarray]:
+    """Deterministic weights for ``model_id`` as flat dotted keys (float32
+    numpy), equal leaf for leaf to ``agent_tpu.models.encoder.init_params``."""
+    key = layers.seed_from(model_id)
+    ks = prng.split(key, cfg.n_layers + 3)
+    tree = {
+        "embed": prng.normal(ks[0], (cfg.vocab_size, cfg.d_model)) * np.float32(0.02),
+        "pos": layers.sinusoidal_positions(cfg.max_len, cfg.d_model),
+        "blocks": [
+            layers.init_block(ks[i + 1], cfg.d_model, cfg.n_heads, cfg.d_ff)
+            for i in range(cfg.n_layers)
+        ],
+        "ln_f": layers.init_layer_norm(cfg.d_model),
+        "head": layers.init_dense(ks[-1], cfg.d_model, cfg.n_classes),
+    }
+    return layers.flatten(tree)
+
+
+def load_npz(path: str, cfg: EncoderConfig) -> Dict[str, np.ndarray]:
+    """Params from a flat ``.npz`` (keys like ``blocks.0.attn.wq``); leaves
+    absent from the file keep the deterministic init for id ``path``."""
+    return layers.assign_from_npz(init_params(cfg, model_id=path), path)
+
+
+class Encoder(nn.Module):
+    """Embeddings + sinusoidal positions, pre-LN blocks, final LN, mean-pool
+    over real tokens, linear head. Parameter names are the JAX tree's dotted
+    keys; matmul weights live in the compute dtype, layer norms in f32."""
+
+    def __init__(self, cfg: EncoderConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        dtype = cfg.compute_dtype
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.d_model, dtype=dtype, device=device),
+            requires_grad=False)
+        self.register_buffer(
+            "pos", torch.empty(cfg.max_len, cfg.d_model, dtype=dtype, device=device))
+        self.blocks = nn.ModuleList(
+            layers.EncoderBlock(cfg.d_model, cfg.n_heads, cfg.d_ff, dtype, device)
+            for _ in range(cfg.n_layers))
+        self.ln_f = layers.LayerNorm(cfg.d_model, device)
+        self.head = layers.Dense(cfg.d_model, cfg.n_classes, dtype, device)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                attn_fn: AttnFn = layers.dot_product_attention) -> torch.Tensor:
+        """ids, mask [B, L] int (mask 1 = real token) -> logits [B, n_classes] f32."""
+        L = ids.shape[1]
+        x = self.embed[ids.long()] + self.pos[:L][None]
+        attn_mask = layers.pad_mask_to_attn(mask)
+        for block in self.blocks:
+            x = block(x, attn_mask, attn_fn)
+        x = self.ln_f(x)
+        denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
+        pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
+        return self.head(pooled.to(self.embed.dtype)).float()
+
+
+def from_jax_params(flat: Dict[str, np.ndarray], cfg: EncoderConfig,
+                    device: Optional[torch.device] = None) -> Encoder:
+    """An :class:`Encoder` holding ``flat`` — the dotted-key layout of
+    ``assign_from_npz`` (``init_params``, ``load_npz``, or a flattened JAX
+    param tree) — cast to the compute dtype where the reference casts."""
+    model = Encoder(cfg, device=device)
+    state = {k: torch.tensor(np.asarray(v)) for k, v in flat.items()}
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def topk_probs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over f32 softmax probabilities -> (values, indices) [B, k],
+    descending, ties broken toward the lower index as ``lax.top_k`` does (a
+    stable descending sort; ``torch.topk`` leaves tie order unspecified)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def topk_rows(values: np.ndarray, indices: np.ndarray) -> list:
+    """(values, indices) -> per-row ``[{"index", "score"}]``, in order."""
+    return [
+        [{"index": i, "score": s} for i, s in zip(idx_row, val_row)]
+        for idx_row, val_row in zip(np.asarray(indices).tolist(),
+                                    np.asarray(values).tolist())
+    ]

@@ -1,0 +1,251 @@
+"""Transformer building blocks in PyTorch — counterpart of
+``agent_tpu.models.layers``.
+
+Initialisation reproduces the JAX package's weights exactly: ``seed_from``
+and the ``init_*`` functions build the same nested dicts of float32 numpy
+arrays from the same model id, through the numpy port of ``jax.random``
+(:mod:`agent_tpu_torch.models.prng`). The compute side is ``nn.Module``s
+whose attribute names follow the JAX parameter tree, so a module's
+``state_dict`` keys are the dotted keys of ``assign_from_npz``
+(``blocks.0.attn.wq``). Numerics follow the reference: layer norm in f32
+with eps 1e-6, matmuls in the compute dtype, tanh GELU, attention with
+scores stored in the compute dtype and softmax statistics in f32, and a
+finite ``NEG_INF`` so bf16 stays NaN-free.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from agent_tpu_torch.models import prng
+
+Params = Dict[str, Any]
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+NEG_INF = -1e9  # additive mask value; finite so bf16 stays NaN-free
+
+
+# ---- deterministic init (numpy, bit-identical to the JAX package) ----
+
+def seed_from(name: str) -> np.ndarray:
+    """A PRNG key fully determined by ``name`` (model id -> weights)."""
+    h = hashlib.sha256(name.encode("utf-8")).digest()
+    return prng.PRNGKey(int.from_bytes(h[:4], "big"))
+
+
+def _dense_init(key: np.ndarray, shape: Tuple[int, ...], fan_in: int) -> np.ndarray:
+    scale = np.float32(1.0 / np.sqrt(max(1, fan_in)))
+    return prng.normal(key, shape) * scale
+
+
+def init_dense(key: np.ndarray, d_in: int, d_out: int) -> Params:
+    return {"w": _dense_init(key, (d_in, d_out), d_in),
+            "b": np.zeros((d_out,), np.float32)}
+
+
+def init_layer_norm(d: int) -> Params:
+    return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
+
+
+def init_attention(key: np.ndarray, d_model: int, n_heads: int) -> Params:
+    """wq/wk/wv ``[d_model, n_heads, d_head]``, wo ``[n_heads, d_head, d_model]``."""
+    d_head = d_model // n_heads
+    ks = prng.split(key, 4)
+    return {
+        "wq": _dense_init(ks[0], (d_model, n_heads, d_head), d_model),
+        "wk": _dense_init(ks[1], (d_model, n_heads, d_head), d_model),
+        "wv": _dense_init(ks[2], (d_model, n_heads, d_head), d_model),
+        "wo": _dense_init(ks[3], (n_heads, d_head, d_model), d_model),
+    }
+
+
+def init_ffn(key: np.ndarray, d_model: int, d_ff: int) -> Params:
+    k1, k2 = prng.split(key)
+    return {"wi": init_dense(k1, d_model, d_ff), "wo": init_dense(k2, d_ff, d_model)}
+
+
+def init_block(key: np.ndarray, d_model: int, n_heads: int, d_ff: int) -> Params:
+    ks = prng.split(key, 3)
+    return {
+        "ln1": init_layer_norm(d_model),
+        "attn": init_attention(ks[0], d_model, n_heads),
+        "ln2": init_layer_norm(d_model),
+        "ffn": init_ffn(ks[1], d_model, d_ff),
+    }
+
+
+def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts/lists of arrays -> ``{"blocks.0.attn.wq": array, ...}``."""
+    out: Dict[str, np.ndarray] = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def assign_from_npz(flat: Dict[str, np.ndarray], path: str) -> Dict[str, np.ndarray]:
+    """Overlay a flat ``.npz`` checkpoint (dotted keys) onto ``flat``;
+    leaves absent from the file keep their initialised values."""
+    with np.load(path) as ckpt:
+        return {k: (np.asarray(ckpt[k]) if k in ckpt.files else v)
+                for k, v in flat.items()}
+
+
+def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
+    """Classic fixed sinusoidal position table [length, d_model] (f32)."""
+    pos = np.arange(length)[:, None].astype(np.float64)
+    dim = np.arange(0, d_model, 2)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, dim / d_model)
+    table = np.zeros((length, d_model), dtype=np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    return table
+
+
+# ---- masks ----
+
+def pad_mask_to_attn(mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] padding mask (1 = real token) -> [B, 1, 1, L] broadcastable."""
+    return mask[:, None, None, :]
+
+
+def is_key_padding_mask(mask: torch.Tensor, batch: int, lk: int) -> bool:
+    """True iff ``mask`` is a key-padding attention mask ``[B|1, 1, 1, Lk]``."""
+    return (
+        mask.ndim == 4
+        and mask.shape[1] == 1
+        and mask.shape[2] == 1
+        and mask.shape[0] in (1, batch)
+        and mask.shape[3] == lk
+    )
+
+
+# ---- compute ----
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Normalise in f32 whatever the compute dtype (f32 ``scale``/``bias``),
+    rounding to x's dtype once at the end. PyTorch's fused layer norm in
+    f32: spelled out as the reference writes it, the f32 temporaries made
+    layer norm about half the device time of a BERT-base request. (The
+    CUDA op does not take a bf16 input with f32 parameters, hence the
+    casts.)"""
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias, eps).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.to(w.dtype), w) + b
+
+
+def dot_product_attention(
+    q: torch.Tensor,     # [B, H, Lq, D]
+    k: torch.Tensor,     # [B, H, Lk, D]
+    v: torch.Tensor,     # [B, H, Lk, D]
+    mask: torch.Tensor,  # [B, 1|H, Lq|1, Lk] (1 = attend)
+) -> torch.Tensor:
+    """Masked softmax(QKᵀ)V -> [B, H, Lq, D], the reference's dense path:
+    QKᵀ accumulated in f32 and stored in the compute dtype, softmax
+    statistics (exp, sum, divide) in f32."""
+    d = q.shape[-1]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = (scores / float(np.float32(np.sqrt(d)))).to(q.dtype)
+    scores = scores.masked_fill(~(mask > 0), NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp((scores - m).float())
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None) -> None:
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(d, device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias)
+
+
+class Dense(nn.Module):
+    """``x @ w + b`` with ``w`` [d_in, d_out] kept in the compute dtype."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device),
+                              requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
+                              requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.w, self.b)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with the head axis kept in the weights:
+    wq/wk/wv ``[d, H, E]``, wo ``[H, E, d]``."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        e = d_model // n_heads
+        kw = dict(dtype=dtype, device=device)
+        self.wq = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
+        self.wk = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
+        self.wv = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
+        self.wo = nn.Parameter(torch.empty(n_heads, e, d_model, **kw), requires_grad=False)
+
+    @staticmethod
+    def _proj_in(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """x [B, L, d] @ w [d, H, E] -> [B, H, L, E]."""
+        d, h, e = w.shape
+        y = torch.matmul(x.to(w.dtype), w.reshape(d, h * e))
+        return y.view(x.shape[0], x.shape[1], h, e).transpose(1, 2)
+
+    @staticmethod
+    def _proj_out(w: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """o [B, H, L, E] @ w [H, E, d] -> [B, L, d]."""
+        h, e, d = w.shape
+        b, _, length, _ = o.shape
+        return torch.matmul(o.transpose(1, 2).reshape(b, length, h * e),
+                            w.reshape(h * e, d))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        q = self._proj_in(self.wq, x)
+        k = self._proj_in(self.wk, x)
+        v = self._proj_in(self.wv, x)
+        return self._proj_out(self.wo, attn_fn(q, k, v, mask))
+
+
+class FFN(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        self.wi = Dense(d_model, d_ff, dtype, device)
+        self.wo = Dense(d_ff, d_model, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # jax.nn.gelu's default is the tanh form.
+        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN transformer block: x + Attn(LN(x)); x + FFN(LN(x))."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype: torch.dtype,
+                 device=None) -> None:
+        super().__init__()
+        self.ln1 = LayerNorm(d_model, device)
+        self.attn = Attention(d_model, n_heads, dtype, device)
+        self.ln2 = LayerNorm(d_model, device)
+        self.ffn = FFN(d_model, d_ff, dtype, device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask, attn_fn)
+        return x + self.ffn(self.ln2(x))

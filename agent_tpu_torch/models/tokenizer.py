@@ -1,0 +1,98 @@
+"""Byte tokenization and bucketed padding for the classify path.
+
+A copy of the part of ``agent_tpu.models.tokenizer`` that
+``map_classify_tpu`` uses: the byte vocabulary's specials, the length
+buckets, the fused byte-tokenize-and-pad (``byte_encode_pad``, with its
+``raw_uint8`` wire) and ``pad_batch`` for pre-tokenized ids. BOS/EOS
+insertion and the wordpiece/BPE tokenizers are not part of this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+PAD_ID = 0
+N_SPECIAL = 4  # <pad>, <bos>, <eos>, <unk>; byte b has id b + N_SPECIAL
+
+# Powers of two and their midpoints, so a row pads by at most ~1.5x.
+DEFAULT_BUCKETS = (
+    16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048,
+    3072, 4096,
+)
+
+
+def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    """Smallest bucket >= n (or the largest bucket — callers truncate to it)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def byte_encode_pad(
+    texts: Sequence[str],
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    batch_buckets: Optional[Sequence[int]] = None,
+    max_len_cap: Optional[int] = None,
+    raw_uint8: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fused byte-tokenize + pad: texts -> (ids[B, L], lengths[B] int32).
+
+    ids are ``byte + N_SPECIAL`` as int32, or with ``raw_uint8=True`` the
+    unshifted bytes as uint8: the device rebuilds ``(raw + N_SPECIAL) *
+    mask``, which is exact because the mask tells a body NUL byte (raw 0,
+    masked in) from padding (raw 0, masked out). Rows longer than the cap
+    (or the top bucket) are truncated; B is bucketed when ``batch_buckets``
+    is given, with all-pad rows appended.
+    """
+    cap = max_len_cap if max_len_cap is not None else buckets[-1]
+    bufs = [t.encode("utf-8") for t in texts]
+    rows = len(bufs)
+    lens = np.fromiter((len(b) for b in bufs), dtype=np.int64, count=rows)
+    totals = np.minimum(lens, cap)
+    L = bucket_length(max(1, int(totals.max()) if rows else 1), buckets)
+    totals = np.minimum(totals, L)
+    B = bucket_length(max(1, rows), batch_buckets) if batch_buckets else rows
+    ids = np.zeros((B, L), dtype=np.uint8 if raw_uint8 else np.int32)
+    lengths = np.zeros(B, dtype=np.int32)
+    lengths[:rows] = totals
+    if rows:
+        # One vectorised gather from the joined bytes instead of a per-row
+        # copy loop.
+        flat = np.frombuffer(b"".join(bufs), dtype=np.uint8)
+        starts = np.zeros(rows, dtype=np.int64)
+        if rows > 1:
+            np.cumsum(lens[:-1], out=starts[1:])
+        cols = np.arange(L, dtype=np.int64)[None, :]
+        body = cols < totals[:, None]
+        if flat.size:
+            src = np.clip(starts[:, None] + cols, 0, flat.size - 1)
+            ids[:rows][body] = flat[src][body]
+    if raw_uint8:
+        return ids, lengths
+    body = np.arange(L)[None, :] < lengths[:, None]
+    ids[body] += N_SPECIAL  # every body byte, NULs included
+    return ids, lengths
+
+
+def pad_batch(
+    seqs: Sequence[Sequence[int]],
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    pad_id: int = PAD_ID,
+    batch_buckets: Optional[Sequence[int]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ragged int lists -> (ids[B, L] int32, mask[B, L] int32) with bucketed
+    shapes; sequences longer than the top bucket are truncated."""
+    max_len = max((len(s) for s in seqs), default=1)
+    L = bucket_length(max(1, max_len), buckets)
+    rows = len(seqs)
+    B = bucket_length(max(1, rows), batch_buckets) if batch_buckets else rows
+    ids = np.full((B, L), pad_id, dtype=np.int32)
+    mask = np.zeros((B, L), dtype=np.int32)
+    for r, s in enumerate(seqs):
+        s = list(s)[:L]
+        ids[r, : len(s)] = s
+        mask[r, : len(s)] = 1
+    return ids, mask

@@ -1,0 +1,202 @@
+"""Shared plumbing of the model-backed ops — the part of
+``agent_tpu.ops._model_common`` that ``map_classify_tpu`` uses: model-id
+and config resolution, config-aware cache keys, batch and length buckets,
+host staging of texts into padded chunks, the result sink, and the
+analytic-FLOPs and rows stamps.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import fields
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def encoder_fwd_flops(batch: int, seq_len: int, d_model: int, d_ff: int,
+                      n_layers: int, n_classes: int = 0) -> float:
+    """Forward matmul FLOPs of ``batch`` rows through an encoder stack at
+    padded length ``seq_len``: QKVO projections + score/value products +
+    FFN per layer, plus the classifier head (2·M·N·K per matmul)."""
+    d, f, L = float(d_model), float(d_ff), float(seq_len)
+    attn_proj = 8.0 * L * d * d
+    attn_sdpa = 4.0 * L * L * d
+    ffn = 4.0 * L * d * f
+    return batch * (n_layers * (attn_proj + attn_sdpa + ffn) + 2.0 * d * n_classes)
+
+
+def stamp_device_flops(ctx, flops: float, shape: str) -> None:
+    """Accumulate an analytic-FLOPs estimate and its dominant shape bucket
+    into ``ctx.tags["device_attr"]``; no-op without a ctx."""
+    if ctx is None or not hasattr(ctx, "tags") or flops <= 0:
+        return
+    attr = ctx.tags.setdefault("device_attr", {})
+    attr["flops"] = attr.get("flops", 0.0) + float(flops)
+    attr["shape"] = str(shape)
+
+
+def stamp_rows(ctx, rows: Any) -> None:
+    """Accumulate the rows this task processed into ``ctx.tags["usage"]``;
+    no-op without a ctx or a positive int count."""
+    if ctx is None or not hasattr(ctx, "tags"):
+        return
+    if isinstance(rows, bool) or not isinstance(rows, int) or rows <= 0:
+        return
+    usage = ctx.tags.setdefault("usage", {})
+    usage["rows"] = usage.get("rows", 0.0) + float(rows)
+
+
+def resolve_model_id(payload: Dict[str, Any], env_var: str, default: str) -> str:
+    """payload ``model_path`` -> env var -> default."""
+    mp = payload.get("model_path")
+    if isinstance(mp, str) and mp:
+        return mp
+    return os.environ.get(env_var) or default
+
+
+def config_from_payload(payload: Dict[str, Any], config_cls):
+    """``config_cls`` with any recognised ``model_config`` overrides."""
+    overrides = payload.get("model_config")
+    if isinstance(overrides, dict):
+        return config_cls(**{k: v for k, v in overrides.items()
+                             if k in config_cls.__dataclass_fields__})
+    return config_cls()
+
+
+def cfg_key(cfg) -> Tuple:
+    """Hashable fingerprint of a frozen config dataclass, so distinct
+    configs never share weights or forward functions."""
+    return tuple((f.name, getattr(cfg, f.name)) for f in fields(cfg))
+
+
+def batch_buckets(dp: int, cap: int) -> List[int]:
+    """Batch-size buckets dp, 2·dp, … <= cap."""
+    out, b = [], max(1, dp)
+    while b <= cap:
+        out.append(b)
+        b *= 2
+    return out or [max(1, dp)]
+
+
+def length_buckets_for(max_len: int) -> List[int]:
+    """Length buckets capped at ``max_len``, with ``max_len`` itself as the
+    top bucket, so a full-length row is always representable."""
+    from agent_tpu_torch.models.tokenizer import DEFAULT_BUCKETS
+
+    return [b for b in DEFAULT_BUCKETS if b < max_len] + [max_len]
+
+
+def iter_chunks(seqs: Sequence, max_chunk: int) -> Iterator[Sequence]:
+    """Slice an oversize batch into <= max_chunk pieces."""
+    for i in range(0, len(seqs), max_chunk):
+        yield seqs[i: i + max_chunk]
+
+
+# Dispatch budget (rows × padded length) for chunks whose attention takes
+# the dense path, which holds [B, H, L, L] score temporaries. The value is
+# the reference's and has not been measured on an H100; on this port only
+# shapes the flash kernel does not take (another d_head or dtype) use it.
+DENSE_CHUNK_TOKENS = 131_072
+
+
+def split_padded_chunk(ids: np.ndarray, lengths: np.ndarray, n: int, dp: int,
+                       d_head: int, dtype: torch.dtype) -> List[Tuple]:
+    """Split one padded ``(ids [B, L], lengths [B], n_real)`` chunk into
+    dispatch slices of at most ``DENSE_CHUNK_TOKENS`` tokens when its
+    attention takes the dense path; kernel-path chunks stay whole. Slices
+    are the largest batch bucket within budget (so they divide B); slices
+    holding only padding rows are dropped."""
+    from agent_tpu_torch.kernels.flash_attention import selects_flash
+
+    B, L = ids.shape
+    if selects_flash(L, d_head, dtype) or B * L <= DENSE_CHUNK_TOKENS:
+        return [(ids, lengths, n)]
+    rows = max(1, DENSE_CHUNK_TOKENS // L)
+    cap = max(1, dp)
+    while cap * 2 <= rows:
+        cap *= 2
+    if cap >= B:
+        return [(ids, lengths, n)]
+    out: List[Tuple] = []
+    for s in range(0, B, cap):
+        n_i = min(n - s, cap)
+        if n_i <= 0:
+            break
+        out.append((ids[s:s + cap], lengths[s:s + cap], n_i))
+    return out
+
+
+def stage_text_chunks(dp: int, texts: Sequence[str], *, max_len: int,
+                      vocab_size: int, max_batch: int, d_head: int,
+                      dtype: torch.dtype) -> List[Tuple]:
+    """Pure host: byte-tokenize and pad ``texts`` into dispatch chunks
+    ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]``.
+
+    The wire is the narrowest exact encoding: uint8 unshifted bytes when the
+    vocabulary holds all 256 byte ids (the device rebuilds ``(raw +
+    N_SPECIAL) * mask``), else uint16 ids for vocabularies < 2^16, else
+    int32. uint8 on this wire always means shifted-raw bytes.
+    """
+    from agent_tpu_torch.models.tokenizer import N_SPECIAL, byte_encode_pad
+
+    buckets = length_buckets_for(max_len)
+    bbuckets = batch_buckets(dp, max_batch)
+    raw_u8 = vocab_size >= N_SPECIAL + 256
+    wire_dtype = np.uint16 if vocab_size <= (1 << 16) else np.int32
+    chunks: List[Tuple] = []
+    for chunk in iter_chunks(texts, bbuckets[-1]):
+        ids, lengths = byte_encode_pad(chunk, buckets=buckets, batch_buckets=bbuckets,
+                                       max_len_cap=max_len, raw_uint8=raw_u8)
+        if not raw_u8:
+            ids = ids.astype(wire_dtype)
+        chunks.extend(split_padded_chunk(ids, lengths, len(chunk), dp, d_head, dtype))
+    return chunks
+
+
+def validate_start_row(payload: Dict[str, Any]) -> int:
+    """``start_row`` as a non-negative int (0 when absent); ValueError on
+    anything else — sink files are named by it."""
+    raw = payload.get("start_row", 0)
+    if raw is None:
+        return 0
+    if isinstance(raw, bool) or not isinstance(raw, int) or raw < 0:
+        raise ValueError("start_row must be a non-negative int")
+    return raw
+
+
+def validate_output_uri(payload: Dict[str, Any]):
+    """Optional result sink: ``output_uri`` names a local directory the op
+    writes full per-row results to, returning only a receipt. Returns the
+    directory (created if missing) or None; ValueError when unusable."""
+    uri = payload.get("output_uri")
+    if uri is None:
+        return None
+    if not isinstance(uri, str) or not uri:
+        raise ValueError("output_uri must be a non-empty directory path")
+    try:
+        os.makedirs(uri, exist_ok=True)
+    except OSError as exc:
+        raise ValueError(f"output_uri not creatable: {exc}") from exc
+    if not os.path.isdir(uri) or not os.access(uri, os.W_OK):
+        raise ValueError(f"output_uri not a writable directory: {uri}")
+    return uri
+
+
+def write_output_shard(output_dir: str, op: str, start_row: int,
+                       rows: Iterator[Dict[str, Any]]) -> Tuple[str, int]:
+    """Write one shard's rows as JSONL -> (path, n_rows); line k holds
+    dataset row ``start_row + k``. Atomic (tmp + ``os.replace``), so a
+    retried shard rewrites identical content and never leaves a torn file."""
+    path = os.path.join(output_dir, f"{op}_rows_{start_row:012d}.jsonl")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    n = 0
+    with open(tmp, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row, separators=(",", ":")))
+            f.write("\n")
+            n += 1
+    os.replace(tmp, path)
+    return path, n

@@ -1,0 +1,349 @@
+"""Text classification on the card — counterpart of
+``agent_tpu.ops.map_classify_tpu`` with the same op name, phases, payload
+and result contract.
+
+- Payload: ``input`` (flat token ids), ``text`` or ``texts``, plus
+  ``topk`` (default 5), ``model_path``, ``model_config``, ``result_format``
+  (``rows`` | ``columnar``), ``output_uri`` / ``start_row`` and
+  ``allow_fallback``.
+- Result: ``{ok, op, model_path, device, n_rows, elapsed_ms, topk}`` (plus
+  ``results`` per row for ``texts``, or ``indices``/``scores`` columns, or
+  an ``output_path`` receipt); caller errors come back as soft
+  ``bad_input`` results.
+- ``allow_fallback`` is accepted and has no effect: unlike the reference,
+  the port never retries a request on the CPU. A failure on the card (a
+  kernel that does not build or launch, a lost device) raises and fails the
+  request; the CPU runs only when the caller's runtime is a CPU one.
+
+Rows batch into bucketed shapes, and the forward for each (model, batch,
+length, k, config) is built once per runtime. Top-k runs on the device and
+the host fetches one packed ``[B, k, 2]`` array per request.
+
+Not ported yet, each rejected with a ``bad_input`` that names it:
+``source_uri`` CSV addressing, HF-checkpoint ``model_path`` (BERT family),
+``quant`` other than ``none``, ``pp`` > 1 and ``moe_experts`` > 0.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from agent_tpu_torch.ops import register_op
+from agent_tpu_torch.utils.errors import bad_input
+
+DEFAULT_TOPK = 5
+DEFAULT_MODEL_ID = "classify-default"
+MAX_BATCH = 8192
+
+
+def _get_cfg(payload: Dict[str, Any]):
+    from agent_tpu_torch.models.encoder import EncoderConfig
+    from agent_tpu_torch.ops._model_common import config_from_payload
+
+    cfg = config_from_payload(payload, EncoderConfig)
+    quant = cfg.quant if cfg.quant != "none" else os.environ.get("TPU_QUANT", "").strip().lower()
+    if quant not in ("", "none"):
+        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
+                         "(only 'none')")
+    if cfg.pp > 1:
+        raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
+                         "agent_tpu_torch yet")
+    if cfg.moe_experts > 0:
+        raise ValueError("moe_experts > 0 (MoE) is not supported by agent_tpu_torch yet")
+    cfg.compute_dtype  # noqa: B018 — raises ValueError on an unknown dtype
+    return cfg
+
+
+def _collect_sequences(payload: Dict[str, Any], cfg) -> Tuple[List, str, bool]:
+    """Payload -> (items, kind, was_single_input); kind ``"ids"`` (token-id
+    lists) or ``"texts"``. Precedence: ``input``, then ``texts``, then
+    ``text``."""
+    if "input" in payload:
+        raw = payload["input"]
+        if not isinstance(raw, list) or not raw:
+            raise ValueError("input must be a non-empty flat list of ints")
+        ids = []
+        for v in raw:
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError("input values must be numeric")
+            iv = int(v)
+            if not 0 <= iv < cfg.vocab_size:
+                raise ValueError(f"input id {iv} out of range [0, {cfg.vocab_size})")
+            ids.append(iv)
+        return [ids[: cfg.max_len]], "ids", True
+    texts = payload.get("texts")
+    single = False
+    if texts is None and "text" in payload:
+        texts = [payload["text"]]
+        single = True
+    if texts is None and "source_uri" in payload:
+        raise ValueError("source_uri CSV shard addressing is not supported by "
+                         "agent_tpu_torch yet")
+    if texts is not None:
+        if not isinstance(texts, list) or not texts or not all(
+            isinstance(t, str) for t in texts
+        ):
+            raise ValueError("texts must be a non-empty list of strings")
+        return texts, "texts", single
+    raise ValueError("payload requires 'input' (token ids) or 'text'/'texts'")
+
+
+def _stage_chunks(items: List, kind: str, cfg) -> List[Tuple]:
+    """Pure host: tokenize and pad ``items`` into dispatch chunks
+    ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]`` (one device, so
+    batch buckets are powers of two)."""
+    from agent_tpu_torch.models.tokenizer import pad_batch
+    from agent_tpu_torch.ops._model_common import (
+        batch_buckets,
+        iter_chunks,
+        length_buckets_for,
+        split_padded_chunk,
+        stage_text_chunks,
+    )
+
+    d_head, dtype = cfg.d_model // cfg.n_heads, cfg.compute_dtype
+    if kind == "texts":
+        return stage_text_chunks(1, items, max_len=cfg.max_len, vocab_size=cfg.vocab_size,
+                                 max_batch=MAX_BATCH, d_head=d_head, dtype=dtype)
+    buckets = length_buckets_for(cfg.max_len)
+    bbuckets = batch_buckets(1, MAX_BATCH)
+    chunks: List[Tuple] = []
+    for chunk in iter_chunks(items, bbuckets[-1]):
+        ids, _ = pad_batch(chunk, buckets=buckets, batch_buckets=bbuckets)
+        lengths = np.zeros(ids.shape[0], dtype=np.int32)
+        lengths[: len(chunk)] = [min(len(s), ids.shape[1]) for s in chunk]
+        chunks.extend(split_padded_chunk(ids, lengths, len(chunk), 1, d_head, dtype))
+    return chunks
+
+
+def _build_model(model_id: str, cfg):
+    from agent_tpu_torch.models import encoder
+
+    if model_id.endswith(".npz") and os.path.exists(model_id):
+        flat = encoder.load_npz(model_id, cfg)
+    else:
+        flat = encoder.init_params(cfg, model_id=model_id)
+    return encoder.from_jax_params(flat, cfg)
+
+
+def _make_forward(L: int, k: int, attn_fn):
+    """The forward for one (batch, length, k) shape: rebuild ids and mask
+    from the wire on the device, run the encoder, and pack the top-k values
+    and indices (int32 bit patterns as f32) into one ``[B, k, 2]`` tensor,
+    so the host fetches one array."""
+    from agent_tpu_torch.models.encoder import topk_probs
+    from agent_tpu_torch.models.tokenizer import N_SPECIAL
+
+    def run_fwd(model, wire: torch.Tensor, nlen: torch.Tensor) -> torch.Tensor:
+        mask = (torch.arange(L, device=wire.device)[None, :] < nlen[:, None]).to(torch.int32)
+        ids = wire.to(torch.int32)
+        if wire.dtype == torch.uint8:
+            ids = (ids + N_SPECIAL) * mask  # raw-byte wire (stage_text_chunks)
+        vals, idx = topk_probs(model(ids, mask, attn_fn), k)
+        return torch.stack([vals, idx.to(torch.int32).view(torch.float32)], dim=-1)
+
+    return run_fwd
+
+
+def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
+    """Device phase -> the pending device result, fetched by finalize: one
+    ``(packed, n)`` entry, or ``("cat", packed, layout)`` when several
+    dispatch chunks were concatenated on the device."""
+    from agent_tpu_torch.ops._model_common import cfg_key
+
+    model = runtime.get_params(
+        f"{model_id}#encoder#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}",
+        lambda: _build_model(model_id, cfg),
+    )
+    attn_fn = runtime.attention_fn()
+    pending: List[Tuple[Any, int]] = []
+    with torch.inference_mode():
+        for ids, lengths, n in chunks:
+            B, L = ids.shape
+            fn = runtime.compiled(
+                ("map_classify_tpu", model_id, B, L, k, cfg_key(cfg)),
+                lambda L=L: _make_forward(L, k, attn_fn),
+            )
+            if ids.dtype == np.uint16:
+                ids = ids.astype(np.int32)  # torch's uint16 support is thin
+            pending.append((fn(model, runtime.put_batch(ids),
+                               runtime.put_batch(lengths)), n))
+        if len(pending) > 1:
+            packed = torch.cat([p for p, _ in pending], dim=0)
+            pending = [("cat", packed, [(p.shape[0], n) for p, n in pending])]
+    return pending
+
+
+def _fetch_pending(pending) -> Tuple[np.ndarray, np.ndarray]:
+    """Pending device result -> (vals [N, k] f32, idx [N, k] int32) numpy,
+    padding rows dropped; one device-to-host copy."""
+    first = pending[0]
+    if isinstance(first[0], str):  # ("cat", packed, layout)
+        _, packed, layout = first
+        arr = packed.cpu().numpy()
+        parts, off = [], 0
+        for B, n in layout:
+            parts.append(arr[off:off + n])
+            off += B
+        arr = np.concatenate(parts)
+    else:
+        packed, n = first
+        arr = packed.cpu().numpy()[:n]
+    vals = np.ascontiguousarray(arr[..., 0])
+    idx = np.ascontiguousarray(arr[..., 1]).view(np.int32)
+    return vals, idx
+
+
+def _is_hf_dir(path: str) -> bool:
+    return os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json"))
+
+
+def stage(payload: Any, ctx: Optional[object] = None):
+    """Host-only phase: ``("done", result)`` for an immediate soft result,
+    else ``("staged", state)`` for :func:`execute`. Touches no device."""
+    from agent_tpu_torch.ops._model_common import (
+        resolve_model_id,
+        validate_output_uri,
+        validate_start_row,
+    )
+
+    t0 = time.perf_counter()
+    if not isinstance(payload, dict):
+        return "done", bad_input("payload must be a dict")
+    topk = payload.get("topk", DEFAULT_TOPK)
+    if isinstance(topk, bool) or not isinstance(topk, int) or topk <= 0:
+        return "done", bad_input("topk must be a positive int")
+    result_format = payload.get("result_format", "rows")
+    if result_format not in ("rows", "columnar"):
+        return "done", bad_input("result_format must be 'rows' or 'columnar'")
+    model_id = resolve_model_id(payload, "TPU_MODEL_PATH", DEFAULT_MODEL_ID)
+    try:
+        if _is_hf_dir(model_id):
+            raise ValueError("HF-checkpoint model_path (the BERT family) is not "
+                             "supported by agent_tpu_torch yet")
+        cfg = _get_cfg(payload)
+        items, kind, single = _collect_sequences(payload, cfg)
+        output_dir = validate_output_uri(payload)
+        start_row = validate_start_row(payload)
+    except ValueError as exc:
+        return "done", bad_input(str(exc))
+
+    state = {
+        "t0": t0,
+        "chunks": _stage_chunks(items, kind, cfg),
+        "n_rows": len(items),
+        "cfg": cfg,
+        "k": min(topk, cfg.n_classes),
+        "model_id": model_id,
+        "result_format": result_format,
+        "single": single,
+        "output_dir": output_dir,
+        "start_row": start_row,
+        "t_staged": time.perf_counter(),
+    }
+    return "staged", state
+
+
+def _stamp_flops(state: Dict[str, Any], ctx: Optional[object]) -> None:
+    """Analytic matmul FLOPs of the staged chunks into ``ctx.tags``."""
+    from agent_tpu_torch.ops._model_common import encoder_fwd_flops, stamp_device_flops
+
+    cfg = state["cfg"]
+    total, biggest = 0.0, (0, "?")
+    for ids, _, _ in state["chunks"]:
+        B, L = ids.shape
+        total += encoder_fwd_flops(B, L, cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_classes)
+        if B * L > biggest[0]:
+            biggest = (B * L, f"B{B}xL{L}")
+    stamp_device_flops(ctx, total, biggest[1])
+
+
+def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Device phase: dispatch the staged chunks and leave the result on the
+    device; finalize pays the fetch. A device failure raises here or there
+    and fails the request (no CPU retry)."""
+    state["t_exec0"] = time.perf_counter()
+    _stamp_flops(state, ctx)
+    if ctx is not None and getattr(ctx, "require_runtime", None):
+        runtime = ctx.require_runtime()
+    else:
+        from agent_tpu_torch.runtime.runtime import get_runtime
+
+        runtime = get_runtime()
+    state.update(
+        pending_dev=_execute_chunks(runtime, state["chunks"], state["model_id"],
+                                    state["cfg"], state["k"]),
+        device=runtime.platform,
+        t_device=time.perf_counter(),
+    )
+    return state
+
+
+def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Host phase: top-k arrays -> the JSON-shaped result."""
+    from agent_tpu_torch.models.encoder import topk_rows
+    from agent_tpu_torch.ops._model_common import stamp_rows, write_output_shard
+
+    t0, model_id = state["t0"], state["model_id"]
+    result_format = state["result_format"]
+    t_f = time.perf_counter()
+    vals, idx = _fetch_pending(state["pending_dev"])
+    fetch_ms = (time.perf_counter() - t_f) * 1000.0
+
+    if ctx is not None and hasattr(ctx, "tags"):
+        ctx.tags.setdefault("timings", {}).update(
+            stage_ms=round((state["t_staged"] - t0) * 1000.0, 3),
+            queue_ms=round((state["t_exec0"] - state["t_staged"]) * 1000.0, 3),
+            device_ms=round((state["t_device"] - state["t_exec0"]) * 1000.0, 3),
+            fetch_ms=round(fetch_ms, 3),
+        )
+    stamp_rows(ctx, state["n_rows"])
+    out: Dict[str, Any] = {
+        "ok": True,
+        "op": "map_classify_tpu",
+        "model_path": model_id,
+        "device": state["device"],
+        "n_rows": state["n_rows"],
+        "elapsed_ms": (time.perf_counter() - t0) * 1000.0,
+    }
+    if state["output_dir"] is not None:
+        idx_l = np.asarray(idx).tolist()
+        val_l = np.round(np.asarray(vals), 6).tolist()
+        path, n = write_output_shard(
+            state["output_dir"], "map_classify_tpu", state["start_row"],
+            ({"indices": i, "scores": s} for i, s in zip(idx_l, val_l)),
+        )
+        out["output_path"] = path
+        out["rows_written"] = n
+        return out
+
+    if result_format == "columnar":
+        out["indices"] = np.asarray(idx).tolist()
+        out["scores"] = np.round(np.asarray(vals), 6).tolist()
+        return out
+
+    per_row = topk_rows(vals, idx)
+    out["topk"] = per_row[0]
+    if not state["single"]:
+        out["results"] = [{"topk": t} for t in per_row]
+    return out
+
+
+@register_op("map_classify_tpu")
+def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Monolithic entry: stage -> execute -> finalize inline."""
+    phase, value = stage(payload, ctx)
+    if phase == "done":
+        return value
+    return finalize(execute(value, ctx), ctx)
+
+
+# Phase hooks for a pipelined caller.
+run.stage = stage
+run.execute = execute
+run.finalize = finalize

@@ -1,0 +1,186 @@
+"""The device runtime: owns the device, the build-once cache of forward
+functions, and the device-resident model weights.
+
+Counterpart of ``agent_tpu.runtime.runtime.TpuRuntime`` on one card. With
+no device given it takes ``cuda:0`` and raises when CUDA is absent: the
+port never quietly runs on the CPU. Callers that want the CPU (the tests)
+pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class BuildOnceCache:
+    """Thread-safe build-once map: key -> built value. The build runs outside
+    the lock, and concurrent first callers of one key wait for one build."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._cache: Dict[Hashable, Any] = {}
+        self._building: Dict[Hashable, threading.Event] = {}
+        self._generation = 0  # bumped by clear(); a racing build is not kept
+        self.hits = 0
+        self.misses = 0
+
+    def get_or_build(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        while True:
+            with self._lock:
+                if key in self._cache:
+                    self.hits += 1
+                    return self._cache[key]
+                ev = self._building.get(key)
+                if ev is None:
+                    self._building[key] = threading.Event()
+                    self.misses += 1
+                    gen = self._generation
+                    break
+            ev.wait()
+        try:
+            value = build()
+            with self._lock:
+                if gen == self._generation:
+                    self._cache[key] = value
+            return value
+        finally:
+            with self._lock:
+                self._building.pop(key).set()
+
+    def evict(self, key: Hashable) -> None:
+        with self._lock:
+            self._cache.pop(key, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._cache.clear()
+            self._generation += 1
+
+    def keys(self) -> List[Hashable]:
+        with self._lock:
+            return list(self._cache)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._cache), "hits": self.hits, "misses": self.misses}
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchRuntime: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU explicitly"
+            )
+        return torch.device("cuda", 0)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"TorchRuntime: {dev} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"TorchRuntime: unsupported device {dev}")
+    return dev
+
+
+class TorchRuntime:
+    """One device, a forward-function cache and a weights store."""
+
+    def __init__(self, device=None) -> None:
+        self.device = _resolve_device(device)
+        self.devices = [self.device]
+        self.platform = self.device.type  # "cuda" | "cpu"
+        self.cache = BuildOnceCache()
+        self._params = BuildOnceCache()  # model id -> module on the device
+
+    # ---- topology (one device: every mesh axis has size 1) ----
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, name: str) -> int:
+        return 1
+
+    def attention_fn(self):
+        """The attention function: the flash kernel path (the CUDA kernel on
+        the card, its plain version on the CPU, dense for shapes the kernel
+        does not take)."""
+        from agent_tpu_torch.kernels.flash_attention import make_flash_attention
+
+        return make_flash_attention()
+
+    # ---- weights store ----
+
+    def get_params(self, model_id: str, build: Callable[[], Any]) -> Any:
+        """Weights on this runtime's device, built once per model id.
+        ``build()`` returns a module (or tensor tree the caller owns); a
+        module is moved to the device here."""
+
+        def place() -> Any:
+            value = build()
+            return value.to(self.device) if hasattr(value, "to") else value
+
+        return self._params.get_or_build(model_id, place)
+
+    def evict_params(self, model_id: str) -> None:
+        self._params.evict(model_id)
+
+    def clear_params(self) -> None:
+        """Drop every resident model; the next ``get_params`` rebuilds."""
+        self._params.clear()
+
+    # ---- forward functions ----
+
+    def compiled(self, key: Tuple[Hashable, ...], build: Callable[[], Callable]) -> Callable:
+        """The callable for ``key``, built at most once (PyTorch runs eagerly:
+        what is cached is the forward bound to its model and shape)."""
+        return self.cache.get_or_build(key, build)
+
+    def put_batch(self, arr: np.ndarray) -> torch.Tensor:
+        """Host batch -> device. On CUDA the copy goes through pinned memory
+        with ``non_blocking=True``; PyTorch's pinned-memory allocator keeps
+        the staging buffer alive until the stream has read it."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def describe(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "platform": self.platform,
+            "n_devices": self.n_devices,
+            "device": str(self.device),
+            "executable_cache": self.cache.stats(),
+            "models_resident": sorted(self._params.keys()),
+        }
+        if self.device.type == "cuda":
+            out["device_kind"] = torch.cuda.get_device_name(self.device)
+            out["hbm_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
+            out["hbm_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        return out
+
+
+# Process-wide singleton, built lazily.
+_runtime: Optional[TorchRuntime] = None
+_runtime_lock = threading.Lock()
+
+
+def get_runtime() -> TorchRuntime:
+    global _runtime
+    with _runtime_lock:
+        if _runtime is None:
+            _runtime = TorchRuntime()
+        return _runtime
+
+
+def reset_runtime() -> None:
+    """Tests only: drop the singleton so the next get_runtime rebuilds."""
+    global _runtime
+    with _runtime_lock:
+        _runtime = None

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (the directory is
-git-ignored). The hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one loads the existing library. A file lock per
+git-ignored). The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads the existing library. A file lock per
 kernel keeps concurrent processes from building the same library twice.
 Nothing here runs at import time.
 """
@@ -51,7 +52,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,7 +1,13 @@
 // Flash attention forward for Hopper (sm_90a), with a key-padding mask.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` (agent_tpu/kernels/
-// flash_attention.py:149-175, launched by `flash_attention` at :228). It
+// Replaces the Pallas TPU kernels `_flash_kernel` (agent_tpu/kernels/
+// flash_attention.py:149-175, launched by `flash_attention` at :228) and,
+// as the WriteLse = true variant, `_flash_fwd_lse_kernel` (:598-626,
+// launched by `_flash_fwd_res` at :719), the training forward, which also
+// stores each query row's logsumexp lse = m + log(max(l, 1e-30)) in f32 as
+// the only softmax residual of the backward (flash_attention_bwd.cu). The
+// variant adds one store per query row; WriteLse = false compiles the
+// serving kernel as before. It
 // computes softmax(Q K^T * D^-1/2, keys masked to NEG_INF) V with an online
 // softmax: running max m, denominator l and numerator acc in f32, P rounded
 // to the input type before P V, masked scores set to NEG_INF *and* their
@@ -12,7 +18,9 @@
 // D 64, bf16): 4*B*H*L^2*D = 2.06e11 FLOP over 989 TFLOP/s = 0.21 ms, and
 // Q, K, V read once plus O written once = 4*B*H*L*D*2 B = 0.81 GB over
 // 3.35 TB/s = 0.24 ms, so the bound is the bytes, 0.24 ms; the arithmetic
-// intensity (~255 FLOP/B) sits just under the card's ridge (~295).
+// intensity (~255 FLOP/B) sits just under the card's ridge (~295). The
+// training shape (B 128, H 12, L 512, D 64) halves both: 0.10 ms of FLOP,
+// 0.12 ms of bytes (the lse adds 3 MB).
 //
 // What the design does about it: the [L, L] score matrix never reaches
 // device memory. One block owns one (b, h, 64-row query tile) and loops
@@ -35,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e9f;  // finite, as agent_tpu.models.layers.NEG_INF
@@ -45,40 +55,15 @@ constexpr int kThreads = 128;
 constexpr int kBq = 64;  // query rows per block, 16 per warp
 constexpr int kBk = 64;  // keys per tile
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-// Fragments (g = lane / 4, t = lane % 4):
-//   A: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
-//      a3 = A[g+8][2t+8..];
-//   B: b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g];
-//   C: c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1].
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int D>
+template <int D, bool WriteLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    const int32_t* __restrict__ mask,
-                   __nv_bfloat16* __restrict__ out, int H, int Lq, int Lk,
-                   int n_q_tiles, int mask_b_stride, float scale) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int H, int Lq, int Lk, int n_q_tiles, int mask_b_stride,
+                   float scale) {
   constexpr int kStride = D + 8;  // smem row pitch: 16-byte pad, no conflicts
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 k_s[kBk * kStride];
@@ -98,16 +83,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // This warp's 16 query rows as A fragments, straight from device memory.
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kt = 0; kt < D / 16; ++kt) {
-    const int c = kt * 16 + 2 * t;
-    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(r0) * D + c);
-    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(qh + static_cast<size_t>(r1) * D + c);
-    qf[kt][0] = r0 < Lq ? p0[0] : 0u;
-    qf[kt][1] = r1 < Lq ? p1[0] : 0u;
-    qf[kt][2] = r0 < Lq ? p0[4] : 0u;
-    qf[kt][3] = r1 < Lq ? p1[4] : 0u;
-  }
+  load_a_rows<D>(qf, qh, r0, r1, Lq, t);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -225,6 +201,12 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(r1) * D + c) =
           pack_f32(acc[dt][2] / d1, acc[dt][3] / d1);
   }
+  if constexpr (WriteLse) {
+    // m and l are the same in the 4 lanes that hold a row; one stores.
+    float* lh = lse + static_cast<size_t>(bh) * Lq;
+    if (t == 0 && r0 < Lq) lh[r0] = m[0] + logf(d0);
+    if (t == 0 && r1 < Lq) lh[r1] = m[1] + logf(d1);
+  }
 }
 
 // ---- f32: FMA kernel ---------------------------------------------------------
@@ -232,12 +214,13 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kRowsF32 = 32;  // query rows per block, 4 threads per row
 constexpr int kTileF32 = 32;  // keys per tile
 
-template <int D>
+template <int D, bool WriteLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int32_t* __restrict__ mask,
-                  float* __restrict__ out, int H, int Lq, int Lk, int n_q_tiles,
-                  int mask_b_stride, float scale) {
+                  float* __restrict__ out, float* __restrict__ lse, int H,
+                  int Lq, int Lk, int n_q_tiles, int mask_b_stride,
+                  float scale) {
   constexpr int kPer = D / 4;  // this thread's dims: t + 4 i
   __shared__ __align__(16) float k_s[kTileF32 * D];
   __shared__ __align__(16) float v_s[kTileF32 * D];
@@ -313,7 +296,46 @@ __global__ void __launch_bounds__(kThreads)
     float* orow = out + (static_cast<size_t>(bh) * Lq + row) * D;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) orow[t + 4 * i] = acc[i] / den;
+    if constexpr (WriteLse) {
+      if (t == 0) lse[static_cast<size_t>(bh) * Lq + row] = m + logf(den);
+    }
   }
+}
+
+template <bool WriteLse>
+int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
+               void* out, float* lse, int B, int H, int Lq, int Lk, int D,
+               int mask_b_stride, int is_bf16, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  if (is_bf16) {
+    const int n_q = (Lq + kBq - 1) / kBq;
+    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
+    const auto* qq = static_cast<const __nv_bfloat16*>(q);
+    const auto* kk = static_cast<const __nv_bfloat16*>(k);
+    const auto* vv = static_cast<const __nv_bfloat16*>(v);
+    auto* oo = static_cast<__nv_bfloat16*>(out);
+    switch (D) {
+      case 32: flash_fwd_bf16<32, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 64: flash_fwd_bf16<64, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      default: flash_fwd_bf16<128, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+    }
+  } else {
+    const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
+    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
+    const auto* qq = static_cast<const float*>(q);
+    const auto* kk = static_cast<const float*>(k);
+    const auto* vv = static_cast<const float*>(v);
+    auto* oo = static_cast<float*>(out);
+    switch (D) {
+      case 32: flash_fwd_f32<32, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 64: flash_fwd_f32<64, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      default: flash_fwd_f32<128, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -328,36 +350,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* mask, void* out, int B, int H, int Lq,
                         int Lk, int D, int mask_b_stride, int is_bf16,
                         float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
-  if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* m = static_cast<const int32_t*>(mask);
-  if (is_bf16) {
-    const int n_q = (Lq + kBq - 1) / kBq;
-    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
-    const auto* qq = static_cast<const __nv_bfloat16*>(q);
-    const auto* kk = static_cast<const __nv_bfloat16*>(k);
-    const auto* vv = static_cast<const __nv_bfloat16*>(v);
-    auto* oo = static_cast<__nv_bfloat16*>(out);
-    switch (D) {
-      case 32: flash_fwd_bf16<32><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      case 64: flash_fwd_bf16<64><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      default: flash_fwd_bf16<128><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-    }
-  } else {
-    const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
-    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
-    const auto* qq = static_cast<const float*>(q);
-    const auto* kk = static_cast<const float*>(k);
-    const auto* vv = static_cast<const float*>(v);
-    auto* oo = static_cast<float*>(out);
-    switch (D) {
-      case 32: flash_fwd_f32<32><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      case 64: flash_fwd_f32<64><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      default: flash_fwd_f32<128><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(q, k, v, mask, out, nullptr, B, H, Lq, Lk, D,
+                           mask_b_stride, is_bf16, scale, stream);
+}
+
+// As flash_attention_fwd, and lse: f32 [B, H, Lq] (contiguous) receives
+// each query row's m + log(max(l, 1e-30)).
+int flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                            const void* mask, void* out, void* lse, int B,
+                            int H, int Lq, int Lk, int D, int mask_b_stride,
+                            int is_bf16, float scale, void* stream) {
+  return launch_fwd<true>(q, k, v, mask, out, static_cast<float*>(lse), B, H,
+                          Lq, Lk, D, mask_b_stride, is_bf16, scale, stream);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,29 +1,37 @@
-"""Flash attention: the hand-written Hopper kernel, its plain version, and
-the selection between them and dense attention.
+"""Flash attention: the hand-written Hopper kernels, their plain versions,
+and the selection between them and dense attention.
 
 Counterpart of ``agent_tpu.kernels.flash_attention`` (``flash_attention``,
-``selects_flash``, ``SELECTION_COUNTS``, ``make_flash_attention``). The
-kernel itself is ``csrc/flash_attention.cu``; it replaces the Pallas kernel
-``_flash_kernel`` and computes the same function: softmax(QKᵀ·D^-½ with a
-key-padding mask) V with an online softmax in f32, zero output for a fully
-masked row.
+``flash_attention_trainable``, ``selects_flash``, ``SELECTION_COUNTS``,
+``make_flash_attention``, ``make_flash_attention_trainable``). The kernels
+are ``csrc/flash_attention.cu`` (the forward, replacing the Pallas kernels
+``_flash_kernel`` and, as its lse-writing variant, ``_flash_fwd_lse_kernel``)
+and ``csrc/flash_attention_bwd.cu`` (``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). They compute what the Pallas kernels compute:
+softmax(QKᵀ·D^-½ with a key-padding mask) V with an online softmax in f32,
+zero output for a fully masked row, and for training the row logsumexp and
+the recompute backward of FlashAttention-2.
 
 Selection is by shape support alone. Every key-padding mask ``[B|1, 1, 1,
 Lk]`` with d_head 32, 64 or 128 in bf16 or f32 takes the kernel path, at
-any length: the kernel masks its own ragged edge, so the reference's
-length gate and tile-divisibility rule (both measured on a TPU) have no
-counterpart here. Other shapes (a mask with a query dimension, another
-d_head or dtype) take :func:`~agent_tpu_torch.models.layers.dot_product_attention`.
+any length, serving and training alike: the kernels mask their own ragged
+edges, so the reference's length gates (2048 keys to serve, 512 to train)
+and tile-divisibility rule (all measured on a TPU) have no counterpart
+here. Other shapes (a mask with a query dimension, another d_head or dtype)
+take :func:`~agent_tpu_torch.models.layers.dot_product_attention`.
 
-On the kernel path a CUDA tensor launches the kernel, and a CPU tensor runs
-:func:`flash_attention_reference`, the same tile loop in plain PyTorch.
-A CUDA launch that fails raises; it never falls back to the plain version.
+On the kernel path a CUDA tensor launches the kernels, and a CPU tensor
+runs the plain versions (:func:`flash_attention_reference`,
+:func:`flash_attention_fwd_lse_reference`,
+:func:`flash_attention_bwd_reference`): the same tile loops in plain
+PyTorch, rounding where the kernels round. A CUDA launch that fails
+raises; it never falls back to a plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -36,16 +44,22 @@ from agent_tpu_torch.models.layers import (
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# Key tile of the plain version; the bf16 CUDA kernel uses the same 64, so
+# Key tile of the plain versions; the bf16 CUDA kernels use the same 64, so
 # P is rounded to bf16 against the same running maxima.
 BLOCK_K = 64
+# Cap on s - lse before exp in the backward: exp(80) is finite in f32, so a
+# fully masked row (lse ≈ NEG_INF) never makes inf · 0 (reference :644-649).
+EXP_CAP = 80.0
 
-# Per-call tally of the selection: "flash" = the kernel path (the CUDA
-# kernel, or its plain version for CPU tensors), "dense" = dot-product.
-SELECTION_COUNTS: Dict[str, int] = {"flash": 0, "dense": 0}
-# CUDA kernel launches, counted where the kernel is launched and nowhere
-# else: a run proves it went through the kernel by reading this.
-LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0}
+# Per-call tally of the selection: "flash" / "flash_train" = the kernel path
+# (the CUDA kernels, or their plain versions for CPU tensors) of serving /
+# training, "dense" / "dense_train" = dot-product attention.
+SELECTION_COUNTS: Dict[str, int] = {"flash": 0, "dense": 0, "flash_train": 0,
+                                    "dense_train": 0}
+# CUDA kernel launches, counted where each kernel is launched and nowhere
+# else: a run proves it went through the kernels by reading this.
+LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0, "flash_attention_fwd_lse": 0,
+                                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def selects_flash(seq_len: int, d_head: int, dtype: torch.dtype) -> bool:
@@ -54,8 +68,50 @@ def selects_flash(seq_len: int, d_head: int, dtype: torch.dtype) -> bool:
     return seq_len >= 1 and d_head in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES
 
 
+def _supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor) -> bool:
+    B, _, _, D = q.shape
+    Lk = k.shape[2]
+    return (is_key_padding_mask(mask, B, Lk) and selects_flash(Lk, D, q.dtype)
+            and k.dtype == v.dtype == q.dtype)
+
+
 def _scale(d: int) -> float:
     return float(np.float32(1.0 / np.sqrt(d)))
+
+
+def key_keep(mask: torch.Tensor) -> torch.Tensor:
+    """Key-padding mask ``[B|1, 1, 1, Lk]`` -> the kernels' int32 ``[B|1,
+    Lk]`` (1 = attend), the reference's ``mask3d`` without its middle axis."""
+    return (mask[:, 0, 0, :] > 0).to(torch.int32).contiguous()
+
+
+def _fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               keep: torch.Tensor, block_k: int) -> Tuple[torch.Tensor, ...]:
+    """The forward kernels' tile loop: (out in q's dtype, m, max(l, 1e-30))
+    with m and l f32 ``[B, H, Lq, 1]``."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scale = _scale(D)
+    keep_all = (keep > 0)[:, None, None, :]  # [B|1, 1, 1, Lk]
+    qf = q.float()
+    m = torch.full((B, H, Lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Lk, block_k):
+        kt = k[:, :, k0:k0 + block_k].float()
+        vt = v[:, :, k0:k0 + block_k]
+        kp = keep_all[..., k0:k0 + block_k]
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        s = torch.where(kp, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new) * kp
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vt.float())
+        m = m_new
+    den = torch.clamp_min(l, 1e-30)
+    return (acc / den).to(q.dtype), m, den
 
 
 def flash_attention_reference(
@@ -72,77 +128,188 @@ def flash_attention_reference(
     rounded to the input dtype before P·V, output ``acc / max(l, 1e-30)``
     in q's dtype. Products of bf16 inputs are exact in f32, so computing
     them in f32 gives the kernel's bf16-in, f32-accumulate arithmetic."""
-    B, H, Lq, D = q.shape
+    return _fwd_tiles(q, k, v, key_keep(mask), block_k)[0]
+
+
+def flash_attention_fwd_lse_reference(
+    q: torch.Tensor,     # [B, H, Lq, D]
+    k: torch.Tensor,     # [B, H, Lk, D]
+    v: torch.Tensor,     # [B, H, Lk, D]
+    keep: torch.Tensor,  # int32 [B|1, Lk] (> 0 = attend), see key_keep
+    *,
+    block_k: int = BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward (reference
+    ``_flash_fwd_lse_kernel``): :func:`flash_attention_reference`'s tile
+    loop, also returning the row logsumexp ``lse = m + log(max(l, 1e-30))``
+    as f32 ``[B, H, Lq, 1]`` (≈ NEG_INF − 69 for a row with no real key)."""
+    out, m, den = _fwd_tiles(q, k, v, keep, block_k)
+    return out, m + torch.log(den)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO ∘ O)`` in f32, ``[B, H, Lq, 1]``, from the
+    forward's rounded output (reference :759-761)."""
+    return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    keep: torch.Tensor,  # int32 [B|1, Lk]
+    o: torch.Tensor,     # the forward's output [B, H, Lq, D]
+    lse: torch.Tensor,   # f32 [B, H, Lq, 1]
+    do: torch.Tensor,    # [B, H, Lq, D]
+    *,
+    block_k: int = BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels (reference ``_flash_bwd_res``):
+    (dq, dk, dv) in the input dtype. Per key tile, with s = QKᵀ·scale in
+    f32: p = where(keep, exp(min(s − lse, 80)), 0), ds = p ∘ (dO·Vᵀ −
+    delta); dq += scale · bf16(ds)·K, dk = scale · bf16(ds)ᵀ·Q, dv =
+    bf16(p)ᵀ·dO, rounding where the kernels round (bf16 meaning the input
+    dtype). A row with no real key has p = 0 everywhere, so it gets zero
+    gradients (the reference's documented caveat, :848-851)."""
+    D = q.shape[-1]
     Lk = k.shape[2]
     scale = _scale(D)
-    keep_all = (mask[:, 0, 0, :] > 0)[:, None, None, :]  # [B|1, 1, 1, Lk]
-    qf = q.float()
-    m = torch.full((B, H, Lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
+    keep_all = (keep > 0)[:, None, None, :]
+    delta = attention_delta(o, do)
+    qf, dof = q.float(), do.float()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
     for k0 in range(0, Lk, block_k):
         kt = k[:, :, k0:k0 + block_k].float()
-        vt = v[:, :, k0:k0 + block_k]
-        keep = keep_all[..., k0:k0 + block_k]
+        vt = v[:, :, k0:k0 + block_k].float()
         s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
-        s = torch.where(keep, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new) * keep
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vt.float())
-        m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+        p = torch.where(keep_all[..., k0:k0 + block_k],
+                        torch.exp(torch.clamp_max(s - lse, EXP_CAP)), 0.0)
+        ds = p * (torch.matmul(dof, vt.transpose(-1, -2)) - delta)
+        ds_r = ds.to(k.dtype).float()
+        dq += scale * torch.matmul(ds_r, kt)
+        dks.append(scale * torch.matmul(ds_r.transpose(-1, -2), qf))
+        dvs.append(torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof))
+    return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+# ---- launchers -------------------------------------------------------------
+
+def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  keep: torch.Tensor, do=None, lse=None, delta=None) -> Tuple[int, ...]:
+    """Raise ``ValueError`` on anything ``kernel`` does not take: tensors on
+    another device than one CUDA device, dtypes, shapes, non-contiguous
+    memory, sizes out of range. Returns (B, H, Lq, Lk, D)."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    given = [x for x in (q, k, v, keep, do, lse, delta) if x is not None]
+    if not (q.is_cuda and all(x.device == q.device for x in given)):
+        raise ValueError(f"{kernel} kernel: inputs must share one CUDA device")
+    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in (k, v, do)
+                                           if x is not None):
+        raise ValueError(f"{kernel} kernel: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+                         f"not one of {KERNEL_DTYPES}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel: d_head {D} not in {KERNEL_HEAD_DIMS}")
+    want = {"k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D)), "do": (do, (B, H, Lq, D)),
+            "lse": (lse, (B, H, Lq, 1)), "delta": (delta, (B, H, Lq, 1))}
+    for name, (x, shape) in want.items():
+        if x is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{kernel} kernel: {name} {tuple(x.shape)} is not {shape}")
+    if keep.dtype != torch.int32 or keep.ndim != 2 or keep.shape[0] not in (1, B) \
+            or keep.shape[1] != Lk:
+        raise ValueError(f"{kernel} kernel: keep {keep.dtype} {tuple(keep.shape)} is "
+                         f"not int32 [{B}|1, {Lk}]")
+    if any(x.dtype != torch.float32 for x in (lse, delta) if x is not None):
+        raise ValueError(f"{kernel} kernel: lse and delta must be float32")
+    if not all(x.is_contiguous() for x in given):
+        raise ValueError(f"{kernel} kernel: inputs must be contiguous")
+    if min(B, H, Lq, Lk) < 1 or B * H * (-(-max(Lq, Lk) // 32)) >= 2 ** 31:
+        raise ValueError(f"{kernel} kernel: shape {tuple(q.shape)} out of range")
+    return B, H, Lq, Lk, D
+
+
+def _invoke(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call ``fn_name`` of kernel library ``lib_name`` with ``args`` (tensors
+    by pointer, floats as C float, ints as C int) and the current stream;
+    raise on a non-zero cudaError. The tensors' memory may be freed once
+    this returns, before the kernel has run: safe, because the caching
+    allocator hands it only to later work on the same (current) stream."""
+    from agent_tpu_torch.kernels import build
+
+    lib = build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
+                   else ctypes.c_float if isinstance(a, float) else ctypes.c_int
+                   for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        errstr = getattr(lib, f"{lib_name}_error_string")
+        errstr.restype = ctypes.c_char_p
+        errstr.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err} "
+                           f"({errstr(err).decode()})")
+
+
+def _dims(q: torch.Tensor, keep: torch.Tensor, Lk: int, D: int) -> tuple:
+    """The trailing C arguments every entry takes after the shape."""
+    return (Lk if keep.shape[0] > 1 else 0, int(q.dtype == torch.bfloat16), _scale(D))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raise on anything it
-    does not take and on a failed launch."""
-    from agent_tpu_torch.kernels import build
-
-    B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
-            and mask.device == q.device):
-        raise ValueError("flash_attention kernel: q, k, v, mask must share one CUDA device")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention kernel: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
-                         f"not one of {KERNEL_DTYPES}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: d_head {D} not in {KERNEL_HEAD_DIMS}")
-    if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D):
-        raise ValueError(f"flash_attention kernel: k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)}")
-    if not is_key_padding_mask(mask, B, Lk):
+    """Launch the serving forward on the current stream; raise on anything
+    it does not take and on a failed launch."""
+    if not is_key_padding_mask(mask, q.shape[0], k.shape[2]):
         raise ValueError(f"flash_attention kernel: mask {tuple(mask.shape)} is not "
-                         f"[{B}|1, 1, 1, {Lk}]")
-    if min(B, H, Lq, Lk) < 1 or B * H * (-(-Lq // 32)) >= 2 ** 31:
-        raise ValueError(f"flash_attention kernel: shape {tuple(q.shape)} out of range")
-    # The temporaries below may be freed once this returns, before the kernel
-    # has run: safe, because the caching allocator hands their memory only to
-    # later work on the same (current) stream.
+                         f"[{q.shape[0]}|1, 1, 1, {k.shape[2]}]")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    keep = (mask[:, 0, 0, :] > 0).to(torch.int32).contiguous()  # [B|1, Lk]
+    keep = key_keep(mask)
+    B, H, Lq, Lk, D = _check_launch("flash_attention", q, k, v, keep)
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                                 ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(),
-                 out.data_ptr(), B, H, Lq, Lk, D, Lk if keep.shape[0] > 1 else 0,
-                 int(q.dtype == torch.bfloat16), _scale(D),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err} ({msg})")
+    _invoke("flash_attention", "flash_attention_fwd", q.device, q, k, v, keep, out,
+            B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
     LAUNCH_COUNTS["flash_attention"] += 1
     return out
 
+
+def _launch_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the training forward: (out, lse f32 [B, H, Lq, 1])."""
+    B, H, Lq, Lk, D = _check_launch("flash_attention_fwd_lse", q, k, v, keep)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq, 1), dtype=torch.float32, device=q.device)
+    _invoke("flash_attention", "flash_attention_fwd_lse", q.device, q, k, v, keep, out,
+            lse, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
+    LAUNCH_COUNTS["flash_attention_fwd_lse"] += 1
+    return out, lse
+
+
+def _launch_bwd_dq(q, k, v, keep, do, lse, delta) -> torch.Tensor:
+    """Launch the dQ kernel: dq in q's dtype."""
+    B, H, Lq, Lk, D = _check_launch("flash_attention_bwd_dq", q, k, v, keep, do, lse,
+                                    delta)
+    dq = torch.empty_like(q)
+    _invoke("flash_attention_bwd", "flash_attention_bwd_dq", q.device, q, k, v, keep,
+            do, lse, delta, dq, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
+    LAUNCH_COUNTS["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, keep, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel: (dk, dv) in k's dtype."""
+    B, H, Lq, Lk, D = _check_launch("flash_attention_bwd_dkv", q, k, v, keep, do, lse,
+                                    delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _invoke("flash_attention_bwd", "flash_attention_bwd_dkv", q.device, q, k, v, keep,
+            do, lse, delta, dk, dv, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
+    LAUNCH_COUNTS["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+# ---- entry points ------------------------------------------------------------
 
 def flash_attention(
     q: torch.Tensor,     # [B, H, Lq, D]
@@ -152,10 +319,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Drop-in ``attn_fn``: the kernel path for supported shapes (CUDA
     kernel, or its plain version for CPU tensors), dense otherwise."""
-    B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    supported = (is_key_padding_mask(mask, B, Lk) and selects_flash(Lk, D, q.dtype)
-                 and k.dtype == v.dtype == q.dtype)
+    supported = _supported(q, k, v, mask)
     SELECTION_COUNTS["flash" if supported else "dense"] += 1
     if not supported:
         return dot_product_attention(q, k, v, mask)
@@ -164,8 +328,77 @@ def flash_attention(
     return _launch(q, k, v, mask)
 
 
+class FlashAttentionTrainable(torch.autograd.Function):
+    """Attention whose forward and backward are the flash kernels
+    (counterpart of the reference's ``_trainable_core`` ``custom_vjp``).
+
+    ``apply(q, k, v, mask, plain)``: ``plain`` runs the plain versions
+    (what CPU tensors take); otherwise the CUDA kernels. The forward saves
+    (q, k, v, keep, o, lse), q/k/v as the contiguous copies the kernels
+    read; the backward computes ``delta`` in PyTorch, then dQ and dK/dV,
+    and returns no gradient for the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, plain: bool):
+        keep = key_keep(mask)
+        if plain:
+            o, lse = flash_attention_fwd_lse_reference(q, k, v, keep)
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o, lse = _launch_fwd_lse(q, k, v, keep)
+        ctx.save_for_backward(q, k, v, keep, o, lse)
+        ctx.plain = plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, keep, o, lse = ctx.saved_tensors
+        if ctx.plain:
+            dq, dk, dv = flash_attention_bwd_reference(q, k, v, keep, o, lse, do)
+        else:
+            do = do.contiguous()
+            delta = attention_delta(o, do)
+            dq = _launch_bwd_dq(q, k, v, keep, do, lse, delta)
+            dk, dv = _launch_bwd_dkv(q, k, v, keep, do, lse, delta)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(
+    q: torch.Tensor,     # [B, H, Lq, D]
+    k: torch.Tensor,     # [B, H, Lk, D]
+    v: torch.Tensor,     # [B, H, Lk, D]
+    mask: torch.Tensor,  # [B|1, 1, 1, Lk] key-padding mask (1 = attend)
+) -> torch.Tensor:
+    """Differentiable drop-in ``attn_fn``: the kernels in both directions
+    for supported shapes (their plain versions for CPU tensors), dense
+    attention (differentiated by autograd) otherwise.
+
+    Gradient caveat, as in the reference: rows whose mask keeps no key get
+    zero (dq, dk, dv) here, while the dense path backpropagates through its
+    uniform softmax; with any real key present the two agree to dtype
+    tolerance."""
+    supported = _supported(q, k, v, mask)
+    SELECTION_COUNTS["flash_train" if supported else "dense_train"] += 1
+    if not supported:
+        return dot_product_attention(q, k, v, mask)
+    return FlashAttentionTrainable.apply(q, k, v, mask, q.device.type == "cpu")
+
+
+def flash_attention_trainable_reference(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The trainable attention through the plain versions on any device:
+    the yardstick that a card run holds the kernels against."""
+    return FlashAttentionTrainable.apply(q, k, v, mask, True)
+
+
 def make_flash_attention(mesh=None):
     """The attention function for a mesh: on one card, :func:`flash_attention`
     itself (the reference wraps its kernel in ``shard_map`` for dp/tp
     meshes; the port has no mesh yet)."""
     return flash_attention
+
+
+def make_flash_attention_trainable(mesh=None):
+    """The differentiable attention function for a mesh: on one card,
+    :func:`flash_attention_trainable` itself."""
+    return flash_attention_trainable

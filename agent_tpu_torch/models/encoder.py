@@ -4,7 +4,8 @@ counterpart of ``agent_tpu.models.encoder``.
 Weights are deterministic from the model id (the same arrays the JAX package
 builds, :func:`init_params`) or loaded from a flat ``.npz`` checkpoint
 (:func:`load_npz`); :func:`from_jax_params` turns either into an
-:class:`Encoder` module.
+:class:`Encoder` module, for serving or (``trainable=True``) for training,
+and :meth:`Encoder.to_flat_numpy` turns a module back into the flat arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from agent_tpu_torch.models import layers, prng
 from agent_tpu_torch.models.layers import AttnFn
@@ -74,46 +76,65 @@ def load_npz(path: str, cfg: EncoderConfig) -> Dict[str, np.ndarray]:
 class Encoder(nn.Module):
     """Embeddings + sinusoidal positions, pre-LN blocks, final LN, mean-pool
     over real tokens, linear head. Parameter names are the JAX tree's dotted
-    keys; matmul weights live in the compute dtype, layer norms in f32."""
+    keys. Serving form: matmul weights and embeddings in the compute dtype,
+    frozen, ``pos`` a buffer. Training form (``trainable=True``): every leaf
+    an f32 parameter with gradients, ``pos`` included (it is a trained leaf
+    of the reference's tree), cast to the compute dtype at use."""
 
-    def __init__(self, cfg: EncoderConfig, device=None) -> None:
+    def __init__(self, cfg: EncoderConfig, device=None, trainable: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
         dtype = cfg.compute_dtype
-        self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, dtype=dtype, device=device),
-            requires_grad=False)
-        self.register_buffer(
-            "pos", torch.empty(cfg.max_len, cfg.d_model, dtype=dtype, device=device))
+        self.embed = layers.make_weight((cfg.vocab_size, cfg.d_model), dtype, device, trainable)
+        pos = layers.make_weight((cfg.max_len, cfg.d_model), dtype, device, trainable)
+        if trainable:
+            self.pos = pos
+        else:
+            self.register_buffer("pos", pos.data)
         self.blocks = nn.ModuleList(
-            layers.EncoderBlock(cfg.d_model, cfg.n_heads, cfg.d_ff, dtype, device)
+            layers.EncoderBlock(cfg.d_model, cfg.n_heads, cfg.d_ff, dtype, device, trainable)
             for _ in range(cfg.n_layers))
-        self.ln_f = layers.LayerNorm(cfg.d_model, device)
-        self.head = layers.Dense(cfg.d_model, cfg.n_classes, dtype, device)
+        self.ln_f = layers.LayerNorm(cfg.d_model, device, trainable)
+        self.head = layers.Dense(cfg.d_model, cfg.n_classes, dtype, device, trainable)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                attn_fn: AttnFn = layers.dot_product_attention) -> torch.Tensor:
-        """ids, mask [B, L] int (mask 1 = real token) -> logits [B, n_classes] f32."""
+                attn_fn: AttnFn = layers.dot_product_attention,
+                remat: bool = False) -> torch.Tensor:
+        """ids, mask [B, L] int (mask 1 = real token) -> logits [B, n_classes] f32.
+
+        ``remat=True`` recomputes each block's activations in the backward
+        instead of storing them (``torch.utils.checkpoint``, the reference's
+        ``jax.checkpoint`` per block): less memory for one more forward."""
+        dtype = self.cfg.compute_dtype
         L = ids.shape[1]
-        x = self.embed[ids.long()] + self.pos[:L][None]
+        x = self.embed.to(dtype)[ids.long()] + self.pos[:L].to(dtype)[None]
         attn_mask = layers.pad_mask_to_attn(mask)
         for block in self.blocks:
-            x = block(x, attn_mask, attn_fn)
+            if remat:
+                x = checkpoint(block, x, attn_mask, attn_fn, use_reentrant=False)
+            else:
+                x = block(x, attn_mask, attn_fn)
         x = self.ln_f(x)
         denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
         pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
-        return self.head(pooled.to(self.embed.dtype)).float()
+        return self.head(pooled.to(dtype)).float()
+
+    def to_flat_numpy(self) -> Dict[str, np.ndarray]:
+        """The inverse of :func:`from_jax_params`: dotted key -> f32 array."""
+        return {k: v.detach().float().cpu().numpy() for k, v in self.state_dict().items()}
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: EncoderConfig,
-                    device: Optional[torch.device] = None) -> Encoder:
+                    device: Optional[torch.device] = None,
+                    trainable: bool = False) -> Encoder:
     """An :class:`Encoder` holding ``flat`` — the dotted-key layout of
     ``assign_from_npz`` (``init_params``, ``load_npz``, or a flattened JAX
-    param tree) — cast to the compute dtype where the reference casts."""
-    model = Encoder(cfg, device=device)
+    param tree) — in the serving form (cast to the compute dtype where the
+    reference casts) or the training form (f32)."""
+    model = Encoder(cfg, device=device, trainable=trainable)
     state = {k: torch.tensor(np.asarray(v)) for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
-    return model.eval()
+    return model.train(trainable)
 
 
 def topk_probs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,6 +11,14 @@ whose attribute names follow the JAX parameter tree, so a module's
 with eps 1e-6, matmuls in the compute dtype, tanh GELU, attention with
 scores stored in the compute dtype and softmax statistics in f32, and a
 finite ``NEG_INF`` so bf16 stays NaN-free.
+
+Each module has two forms. Serving (``trainable=False``) stores its matmul
+weights in the compute dtype, frozen. Training (``trainable=True``) stores
+f32 master weights with gradients, as the reference trains, and casts them
+to the compute dtype at each use (``x.astype(dtype) @ w.astype(dtype)``,
+``agent_tpu/models/layers.py:51-58``). The cast of a weight already in the
+compute dtype returns the weight itself, so serving copies nothing per call.
+Layer norm parameters are f32 in both forms.
 """
 
 from __future__ import annotations
@@ -142,8 +150,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return F.layer_norm(x.float(), x.shape[-1:], scale, bias, eps).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x.to(w.dtype), w) + b
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    return torch.matmul(x.to(dtype), w.to(dtype)) + b.to(dtype)
 
 
 def dot_product_attention(
@@ -165,70 +174,80 @@ def dot_product_attention(
     return torch.matmul(probs, v)
 
 
+def make_weight(shape: Tuple[int, ...], dtype: torch.dtype, device, trainable: bool,
+            init=torch.empty) -> nn.Parameter:
+    """A weight of the serving form (``dtype``, frozen) or of the training
+    form (f32 master copy with gradients)."""
+    t = init(shape, dtype=torch.float32 if trainable else dtype, device=device)
+    return nn.Parameter(t, requires_grad=trainable)
+
+
 class LayerNorm(nn.Module):
-    def __init__(self, d: int, device=None) -> None:
+    def __init__(self, d: int, device=None, trainable: bool = False) -> None:
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(d, device=device), requires_grad=False)
+        self.scale = make_weight((d,), torch.float32, device, trainable, torch.ones)
+        self.bias = make_weight((d,), torch.float32, device, trainable, torch.zeros)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.scale, self.bias)
 
 
 class Dense(nn.Module):
-    """``x @ w + b`` with ``w`` [d_in, d_out] kept in the compute dtype."""
+    """``x @ w + b`` with ``w`` [d_in, d_out], computed in ``dtype``."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None) -> None:
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device=None,
+                 trainable: bool = False) -> None:
         super().__init__()
-        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device),
-                              requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
-                              requires_grad=False)
+        self.dtype = dtype
+        self.w = make_weight((d_in, d_out), dtype, device, trainable)
+        self.b = make_weight((d_out,), dtype, device, trainable, torch.zeros)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.w, self.b)
+        return dense(x, self.w, self.b, self.dtype)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with the head axis kept in the weights:
     wq/wk/wv ``[d, H, E]``, wo ``[H, E, d]``."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, device=None) -> None:
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype, device=None,
+                 trainable: bool = False) -> None:
         super().__init__()
         e = d_model // n_heads
-        kw = dict(dtype=dtype, device=device)
-        self.wq = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
-        self.wk = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
-        self.wv = nn.Parameter(torch.empty(d_model, n_heads, e, **kw), requires_grad=False)
-        self.wo = nn.Parameter(torch.empty(n_heads, e, d_model, **kw), requires_grad=False)
+        self.dtype = dtype
+        self.wq = make_weight((d_model, n_heads, e), dtype, device, trainable)
+        self.wk = make_weight((d_model, n_heads, e), dtype, device, trainable)
+        self.wv = make_weight((d_model, n_heads, e), dtype, device, trainable)
+        self.wo = make_weight((n_heads, e, d_model), dtype, device, trainable)
 
     @staticmethod
-    def _proj_in(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def _proj_in(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """x [B, L, d] @ w [d, H, E] -> [B, H, L, E]."""
         d, h, e = w.shape
-        y = torch.matmul(x.to(w.dtype), w.reshape(d, h * e))
+        y = torch.matmul(x.to(dtype), w.reshape(d, h * e).to(dtype))
         return y.view(x.shape[0], x.shape[1], h, e).transpose(1, 2)
 
     @staticmethod
-    def _proj_out(w: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    def _proj_out(w: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """o [B, H, L, E] @ w [H, E, d] -> [B, L, d]."""
         h, e, d = w.shape
         b, _, length, _ = o.shape
         return torch.matmul(o.transpose(1, 2).reshape(b, length, h * e),
-                            w.reshape(h * e, d))
+                            w.reshape(h * e, d).to(dtype))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
-        q = self._proj_in(self.wq, x)
-        k = self._proj_in(self.wk, x)
-        v = self._proj_in(self.wv, x)
-        return self._proj_out(self.wo, attn_fn(q, k, v, mask))
+        q = self._proj_in(self.wq, x, self.dtype)
+        k = self._proj_in(self.wk, x, self.dtype)
+        v = self._proj_in(self.wv, x, self.dtype)
+        return self._proj_out(self.wo, attn_fn(q, k, v, mask), self.dtype)
 
 
 class FFN(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device=None) -> None:
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device=None,
+                 trainable: bool = False) -> None:
         super().__init__()
-        self.wi = Dense(d_model, d_ff, dtype, device)
-        self.wo = Dense(d_ff, d_model, dtype, device)
+        self.wi = Dense(d_model, d_ff, dtype, device, trainable)
+        self.wo = Dense(d_ff, d_model, dtype, device, trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu's default is the tanh form.
@@ -239,12 +258,12 @@ class EncoderBlock(nn.Module):
     """Pre-LN transformer block: x + Attn(LN(x)); x + FFN(LN(x))."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype: torch.dtype,
-                 device=None) -> None:
+                 device=None, trainable: bool = False) -> None:
         super().__init__()
-        self.ln1 = LayerNorm(d_model, device)
-        self.attn = Attention(d_model, n_heads, dtype, device)
-        self.ln2 = LayerNorm(d_model, device)
-        self.ffn = FFN(d_model, d_ff, dtype, device)
+        self.ln1 = LayerNorm(d_model, device, trainable)
+        self.attn = Attention(d_model, n_heads, dtype, device, trainable)
+        self.ln2 = LayerNorm(d_model, device, trainable)
+        self.ffn = FFN(d_model, d_ff, dtype, device, trainable)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), mask, attn_fn)

@@ -115,6 +115,14 @@ class TorchRuntime:
 
         return make_flash_attention()
 
+    def train_attention_fn(self):
+        """The differentiable attention function for the training path: the
+        flash kernels in both directions (their plain versions on the CPU,
+        dense attention for shapes the kernels do not take)."""
+        from agent_tpu_torch.kernels.flash_attention import make_flash_attention_trainable
+
+        return make_flash_attention_trainable()
+
     # ---- weights store ----
 
     def get_params(self, model_id: str, build: Callable[[], Any]) -> Any:

@@ -7,15 +7,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   — CUDA present, an H100 SXM (compute capability (9, 0)),
               nvidia-smi's name and power limit.
-2. build    — nvcc builds every kernel of the path from csrc/ (sm_90a).
+2. build    — nvcc builds every kernel of the paths from csrc/ (sm_90a),
+              all sources at once.
 3. kernels vs plain — each kernel's wrapper on the card against its plain
-              PyTorch version: at the shapes and key lengths that the
-              requests of phases 4 and 5 stage (taken from the op's own
-              stage phase), and at edge cases. Two planted faults (the
-              first key tile dropped, the score scale 10 % off)
-              must fail the same check. Non-contiguous inputs must give the
+              PyTorch version. The serving forward: at the shapes and key
+              lengths that the requests of phases 4 and 5 stage (taken from
+              the op's own stage phase), and at edge cases; two planted
+              faults (the first key tile dropped, the score scale 10 % off)
+              must fail the same check; non-contiguous inputs must give the
               contiguous result, and the launcher must refuse what the
-              kernel does not take.
+              kernel does not take. The training kernels (forward with lse,
+              dQ, dK/dV): o, lse, dq, dk and dv at phase 6's batch shape
+              and key lengths and at edge cases; a backward that drops the
+              first key tile and a dq with its scale 10 % off must fail.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -28,7 +32,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               same op on the CPU.
 5. long context — d_model 512, 4 heads (d_head 128), max_len 4096: 8 rows
               of 3000-4096 bytes.
-6. kernels  — per kernel: launches on the main path, error against plain,
+6. train    — train_classifier through the op registry at BERT-base width:
+              256 keyword rows of ~500 bytes (L 512), batch 128, 3 epochs.
+              Every epoch loss finite; each training kernel launched once
+              per layer per step and no dense attention; the artifact
+              served by map_classify_tpu on cuda. Then the train step alone:
+              p50 of 5 steps after 2 warm-ups, examples/s, peak memory,
+              device time by kind of kernel; one step's gradients with the
+              kernels against the plain trainable attention, leaf by leaf
+              (the planted tile drop must fail); a small f32 model trained
+              by the op on the card and on the CPU, losses compared.
+7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
@@ -44,6 +58,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +70,17 @@ LONG_CTX = {"d_model": 512, "n_heads": 4, "max_len": 4096}
 SMALL_F32 = {"d_model": 128, "n_heads": 2, "n_layers": 2, "d_ff": 256, "max_len": 128,
              "n_classes": 50, "dtype": "float32"}
 REPS = 5  # timed repetitions of each main-path request, after one warm-up
+# Phase 6: the two keyword "languages" of tests/test_train_lifecycle.py:11-14.
+TRAIN_WORDS = {
+    0: ["invoice", "payment", "ledger", "account", "balance"],
+    1: ["sensor", "voltage", "telemetry", "actuator", "signal"],
+}
+TRAIN = {"batch_size": 128, "epochs": 3, "seed": 0}  # bench.py's train leg: batch 128, L 512
+TRAIN_ROWS = 256
+TIMED_STEPS, WARM_STEPS = 5, 2  # bench.py:488-510
+SMALL_TRAIN_F32 = {"d_model": 64, "n_heads": 2, "n_layers": 2, "d_ff": 128, "max_len": 64,
+                   "dtype": "float32"}
+SMALL_TRAIN = {"epochs": 10, "batch_size": 32, "learning_rate": 1e-2, "seed": 1}
 
 # Kernel vs plain: the reference's elementwise tolerances
 # (tests/test_flash_attention.py:30, :94), and a bound on the largest error
@@ -68,6 +94,26 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 LOGP_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 SCORE_TOL = 2e-2
 DROP_TILE = 64  # keys in the tile that the planted fault drops
+# One train step's gradients, kernels against the plain trainable attention,
+# leaf by leaf in relative L2 (|g_kernel - g_plain| / |g_plain|). Both
+# round p, ds and o to bf16 at the same places, so they differ only where
+# an f32 sum in another order lands a value on the other side of a bf16
+# rounding boundary. How far that moves a leaf depends on the leaf: softmax
+# is shift-invariant (sum_k ds = 0), so the q and k projections' gradients
+# are small differences of large terms and carry most of bf16's noise
+# (phase 6 reports it per kind of leaf: on an H100 at BERT-base width and
+# 65k tokens, about 0.1 for wq/wk and under 1e-2 for the rest). So each
+# leaf is held against the noise of a second valid evaluation measured in
+# the same run, the plain attention with 32-key tiles (which moves every
+# rounding point of P): a leaf passes within GRAD_NOISE_FACTOR times that
+# spread, or within GRAD_REL_L2_FLOOR where the spread is smaller.
+GRAD_NOISE_FACTOR = 2.0
+GRAD_REL_L2_FLOOR = 1e-2
+# The small f32 model trained on the card and on the CPU: every epoch loss
+# within 1e-3 relative. f32 sums in another order drift apart step by step
+# under AdamW; tests/test_torch_train_classifier.py holds the port to the
+# JAX package on one CPU within the same 1e-3 after the same 40 steps.
+TRAIN_F32_REL_TOL = 1e-3
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
@@ -207,6 +253,104 @@ def check_kernels(fa, main_cases) -> dict:
             "max_rel_err": max(r["max_rel_err"] for r in main), "inputs": inputs["main"]}
 
 
+TRAIN_EDGE_CASES = [
+    # name, (B, H, Lq, Lk, D), key lengths (one = shared mask; 0 = no key)
+    ("ragged_L77", (2, 3, 77, 77, 64), [77, 40]),
+    ("lq_ne_lk", (2, 4, 100, 300, 64), [300, 129]),
+    ("dead_row", (3, 4, 48, 48, 64), [48, 0, 30]),
+    ("shared_mask", (2, 2, 70, 70, 64), [33]),
+    ("d32", (2, 4, 130, 130, 32), [130, 65]),
+    ("d128", (2, 2, 200, 200, 128), [200, 17]),
+]
+
+
+def train_kernel_outputs(fa, q, k, v, keep, do):
+    """(o, lse, dq, dk, dv) from the three training kernels."""
+    o, lse = fa._launch_fwd_lse(q, k, v, keep)
+    delta = fa.attention_delta(o, do)
+    dq = fa._launch_bwd_dq(q, k, v, keep, do, lse, delta)
+    return (o, lse, dq, *fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta))
+
+
+def check_train_kernels(fa, main_case) -> dict:
+    """Phase 3, training kernels: the forward with lse against its plain
+    version, and dQ, dK/dV against the plain backward on the same inputs
+    (the kernel forward's o and lse), under the serving check's
+    tolerances; lse (f32 either way) under f32's, on rows with a key."""
+    cases = [(n, s, ln, dt) for n, s, ln in TRAIN_EDGE_CASES
+             for dt in (torch.bfloat16, torch.float32)] + [main_case]
+    results, inputs = [], None
+    for i, (name, (B, H, Lq, Lk, D), lengths, dtype) in enumerate(cases):
+        q, k, v, mask = attn_inputs(B, H, Lq, Lk, D, dtype, lengths, seed=100 + i)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)).to("cuda", dtype)
+        keep = fa.key_keep(mask)
+        got = train_kernel_outputs(fa, q, k, v, keep, do)
+        o, lse = got[0], got[1]
+        o_p, lse_p = fa.flash_attention_fwd_lse_reference(q, k, v, keep)
+        want = (o_p, lse_p, *fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, do))
+        live = (keep.sum(-1) > 0).expand(B)  # rows with a key (lse ≈ NEG_INF - 69 otherwise)
+
+        def verdicts(outs):
+            res = {}
+            for j, part in enumerate(("o", "lse", "dq", "dk", "dv")):
+                g, w = outs[j], want[j]
+                if part == "lse":
+                    res[part] = compare(g[live], w[live], torch.float32)
+                else:
+                    res[part] = compare(g, w, dtype)
+            return res
+
+        res = verdicts(got)
+        ok = all(r[0] for r in res.values())
+        if len(lengths) == B and 0 in lengths:
+            dead = torch.as_tensor(np.asarray(lengths) == 0, device=q.device)
+            ok = ok and all(bool((x[dead] == 0).all()) for x in got[2:])
+        faults = {
+            "drop_first_tile": (o, lse, *fa.flash_attention_bwd_reference(
+                q, k, v, fa.key_keep(drop_first_tile(mask)), o, lse, do)),
+            "dq_scale_x1.1": (want[0], want[1], want[2] * 1.1, want[3], want[4]),
+        }
+        fault_res = {f: verdicts(outs) for f, outs in faults.items()}
+        caught = all(not all(r[0] for r in fr.values()) for fr in fault_res.values())
+        results.append({
+            "case": name, "dtype": str(dtype).split(".")[-1], "shape": [B, H, Lq, Lk, D],
+            "max_abs_err": {p: r[1] for p, r in res.items()},
+            "max_rel_err": {p: r[2] for p, r in res.items()},
+            "fault_max_rel_err": {f: max(r[2] for r in fr.values()) for f, fr in fault_res.items()},
+            "ok": ok, "faults_caught": caught})
+        if name.startswith("train/"):
+            inputs = (q, k, v, keep, do, lengths)
+    # The launchers refuse what the kernels do not take.
+    q, k, v, keep, do, _ = inputs
+    lse = torch.zeros(q.shape[:3] + (1,), device="cuda")
+    refused = {}
+    for why, fn in (("non_contiguous_q", lambda: fa._launch_fwd_lse(q.transpose(1, 2), k, v, keep)),
+                    ("lse_bf16", lambda: fa._launch_bwd_dq(q, k, v, keep, do, lse.bfloat16(), lse)),
+                    ("keep_on_cpu", lambda: fa._launch_bwd_dkv(q, k, v, keep.cpu(), do, lse, lse)),
+                    ("keep_bool", lambda: fa._launch_fwd_lse(q, k, v, keep.bool()))):
+        try:
+            fn()
+            refused[why] = False
+        except ValueError:
+            refused[why] = True
+    torch.cuda.synchronize()
+    emit({"phase": "train_kernels_vs_plain", "tolerance": {"bf16": TOL[torch.bfloat16],
+                                                           "f32": TOL[torch.float32]},
+          "rel_tolerance": {"bf16": REL_TOL[torch.bfloat16], "f32": REL_TOL[torch.float32]},
+          "cases": results, "refused": refused})
+    bad = [r for r in results if not (r["ok"] and r["faults_caught"])]
+    if bad or not all(refused.values()):
+        raise SystemExit(f"training kernel check failed: {bad}, refused {refused}")
+    main = results[-1]
+    return {"inputs": inputs,
+            "max_abs_err": {"fwd_lse": max(main["max_abs_err"][p] for p in ("o", "lse")),
+                            "dq": main["max_abs_err"]["dq"],
+                            "dkv": max(main["max_abs_err"][p] for p in ("dk", "dv"))},
+            "max_rel_err": {"fwd_lse": max(main["max_rel_err"][p] for p in ("o", "lse")),
+                            "dq": main["max_rel_err"]["dq"],
+                            "dkv": max(main["max_rel_err"][p] for p in ("dk", "dv"))}}
+
+
 def random_texts(rng: random.Random, n: int, lo: int, hi: int):
     alphabet = "abcdefghijklmnopqrstuvwxyz      .,;:!?0123456789ABCDEFGHIJ"
     return ["".join(rng.choice(alphabet) for _ in range(rng.randint(lo, hi)))
@@ -278,8 +422,11 @@ def timed_requests(classify, ctx, fa, requests, n_layers: int, k: int) -> list:
 # Device kernels by what they do, from their names (first match wins).
 KERNEL_KINDS = (
     ("flash_attention", ("flash_fwd",)),
+    ("flash_attention_bwd", ("flash_bwd",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
-    ("layer_norm", ("layer_norm",)),
+    ("layer_norm", ("layer_norm", "GammaBeta")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("embedding_index", ("embedding", "index", "scatter", "gather")),
     ("memcpy", ("Memcpy", "Memset")),
     ("reduce_sort_softmax", ("reduce", "sort", "Sort", "softmax")),
     ("elementwise", ("elementwise", "copy", "Gelu", "fill")),
@@ -291,17 +438,18 @@ def kernel_kind(name: str) -> str:
                 "other")
 
 
-def profile_request(classify, ctx, payload) -> dict:
-    """One request under torch.profiler: wall time, summed device time of
-    its kernels (so 1 - device/wall is the device's idle share, kernels
-    being serialised on one stream), device time by kind of kernel, and the
-    kernels that took the most."""
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall time, summed device
+    time of its kernels (so 1 - device/wall is the device's idle share,
+    kernels being serialised on one stream), device time by kind of
+    kernel, and the kernels that took the most."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        classify(dict(payload), ctx)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -315,6 +463,265 @@ def profile_request(classify, ctx, payload) -> dict:
             "device_ms_by_kind": by_kind,
             "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                             for e in top]}
+
+
+def keyword_rows(n: int, seed: int, lo: int = 0, hi: int = 0):
+    """n rows from the two keyword vocabularies, label i % 2: four words a
+    row, or words up to a length drawn from [lo, hi] bytes when hi > 0."""
+    rng = np.random.default_rng(seed)
+    texts, labels = [], []
+    for i in range(n):
+        words = TRAIN_WORDS[i % 2]
+        if hi:
+            target, text = int(rng.integers(lo, hi + 1)), ""
+            while len(text) < target:
+                text = f"{text} {rng.choice(words)}" if text else str(rng.choice(words))
+            texts.append(text[:target])
+        else:
+            texts.append(" ".join(rng.choice(words, size=4)))
+        labels.append(i % 2)
+    return texts, labels
+
+
+def reset_counts(fa) -> None:
+    for counts in (fa.LAUNCH_COUNTS, fa.SELECTION_COUNTS):
+        for key in counts:
+            counts[key] = 0
+
+
+class PlainTile32(torch.autograd.Function):
+    """The plain trainable attention with 32-key tiles: another valid bf16
+    evaluation of the same function, whose spread from the 64-key plain
+    version measures bf16's own noise in the gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        from agent_tpu_torch.kernels import flash_attention as fa
+
+        keep = fa.key_keep(mask)
+        o, lse = fa.flash_attention_fwd_lse_reference(q, k, v, keep, block_k=32)
+        ctx.save_for_backward(q, k, v, keep, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from agent_tpu_torch.kernels import flash_attention as fa
+
+        return (*fa.flash_attention_bwd_reference(*ctx.saved_tensors, do, block_k=32), None)
+
+
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def train_phase(fa, train_op, classify, payload, first_batch, tmp) -> dict:
+    """Phase 6: the op at BERT-base width, then its step alone on the op's
+    first batch (``first_batch``: the op's staged state and that batch's
+    rows). Returns the op's kernel launches."""
+    from agent_tpu_torch.models import encoder, train
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    rt = TorchRuntime()
+    ctx = OpContext(runtime=rt)
+    n_layers = BERT_BASE["n_layers"]
+    reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_op(dict(payload, output_path=f"{tmp}/bert_base.npz"), ctx)
+    launches, selection = dict(fa.LAUNCH_COUNTS), dict(fa.SELECTION_COUNTS)
+    op_peak = torch.cuda.max_memory_allocated()
+    if not out.get("ok") or out.get("device") != "cuda":
+        raise SystemExit(f"train_classifier did not run on cuda: {str(out)[:500]}")
+    losses = ctx.tags["train"]["epoch_losses"]
+    n_steps = out["n_steps"]
+    want = n_layers * n_steps
+    if not all(math.isfinite(x) for x in losses) or len(losses) != payload["epochs"]:
+        raise SystemExit(f"epoch losses {losses}")
+    if any(launches[k] != want for k in TRAIN_KERNELS) or selection["dense_train"] \
+            or selection["flash_train"] != want:
+        raise SystemExit(f"train launches {launches}, selection {selection}; want {want} each")
+
+    # The artifact serves on the card.
+    texts, labels = keyword_rows(64, SEED + 1, 490, 500)
+    served = classify({"texts": texts, "topk": 1, "model_path": out["output_path"],
+                       "model_config": out["model_config"], "result_format": "columnar",
+                       "allow_fallback": False}, ctx)
+    if not served.get("ok") or served.get("device") != "cuda":
+        raise SystemExit(f"trained artifact did not serve on cuda: {str(served)[:500]}")
+    served_acc = float(np.mean([r[0] == lab for r, lab in zip(served["indices"], labels)]))
+    rt.clear_params()
+
+    # The step alone, on the op's first batch, from the op's trained weights.
+    state, take = first_batch
+    batch = [rt.put_batch(state[key][take]) for key in ("ids", "mask", "labels")]
+    cfg = state["cfg"]
+    with np.load(out["output_path"]) as f:
+        flat = {key: f[key] for key in f.files}
+    model = encoder.from_jax_params(flat, cfg, device=rt.device, trainable=True)
+    init_state, step = train.make_train_step(cfg, train.adamw(1e-3),
+                                             attn_fn=rt.train_attention_fn())
+    opt = init_state(model)
+    for _ in range(WARM_STEPS):
+        step(model, opt, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        _, _, loss = step(model, opt, *batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    step_peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss.item()):
+        raise SystemExit(f"step loss {loss.item()}")
+    p50 = statistics.median(walls)
+    step_profile = profile_call(lambda: step(model, opt, *batch))
+
+    # One step's gradients: the kernels against the plain trainable
+    # attention, against bf16's own spread (the plain attention with
+    # 32-key tiles), and the planted tile drop, leaf by leaf.
+    def grads(attn):
+        model.zero_grad(set_to_none=True)
+        loss = train.cross_entropy_loss(model, *batch, attn_fn=attn)
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    def rel_l2(g, w) -> dict:
+        return {k: ((g[k] - w[k]).norm() / w[k].norm()).item() for k in w if w[k].norm() > 0}
+
+    loss_p, g_plain = grads(fa.flash_attention_trainable_reference)
+    loss_k, g = grads(rt.train_attention_fn())
+    rel_kernel = rel_l2(g, g_plain)
+    loss_n, g = grads(PlainTile32.apply)
+    rel_noise = rel_l2(g, g_plain)
+    loss_f, g = grads(lambda q, k_, v, m: fa.flash_attention_trainable_reference(
+        q, k_, v, drop_first_tile(m)))
+    rel_fault = rel_l2(g, g_plain)
+    del model, opt, g_plain, g
+    limit = {k: max(GRAD_REL_L2_FLOOR, GRAD_NOISE_FACTOR * rel_noise[k]) for k in rel_kernel}
+    grad_fails = sorted(k for k in limit if rel_kernel[k] > limit[k])
+    fault_fails = sorted(k for k in limit if rel_fault[k] > limit[k])
+    by_kind = {}
+    for k in limit:
+        kind = k.split(".", 2)[2] if k.startswith("blocks.") else k
+        worst = by_kind.setdefault(kind, [0.0, 0.0, 0.0])
+        for i, rel in enumerate((rel_kernel, rel_noise, rel_fault)):
+            worst[i] = max(worst[i], rel[k])
+
+    # A small f32 model: the op on the card against the same op on the CPU.
+    texts, labels = keyword_rows(160, SEED)
+    small = dict(SMALL_TRAIN, texts=texts, labels=labels, model_config=SMALL_TRAIN_F32)
+    runs = {}
+    for where, run_rt in (("cuda", rt), ("cpu", TorchRuntime(device="cpu"))):
+        run_ctx = OpContext(runtime=run_rt)
+        res = train_op(dict(small, output_path=f"{tmp}/small_{where}.npz"), run_ctx)
+        if not res.get("ok") or res["device"] != where:
+            raise SystemExit(f"small f32 training on {where}: {str(res)[:500]}")
+        runs[where] = (res, run_ctx.tags["train"]["epoch_losses"])
+    (card, card_losses), (cpu, cpu_losses) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    small_ok = (loss_rel <= TRAIN_F32_REL_TOL and card["eval_accuracy"] > 0.9
+                and cpu["eval_accuracy"] > 0.9
+                and card["last_epoch_loss"] < card["first_epoch_loss"])
+
+    emit({
+        "phase": "train", "config": BERT_BASE, "payload": {
+            "rows": len(payload["texts"]), **TRAIN, "seq_len": int(state["ids"].shape[1])},
+        "op": {key: out[key] for key in ("n_train", "n_eval", "n_steps", "first_epoch_loss",
+                                         "last_epoch_loss", "eval_accuracy", "elapsed_ms")},
+        "epoch_losses": losses, "train_ms": ctx.tags["train"]["train_ms"],
+        "launches": launches, "selection": selection, "op_peak_bytes": op_peak,
+        "served_accuracy_64_rows": served_acc,
+        "step": {"p50_ms": p50 * 1e3, "examples_per_s": payload["batch_size"] / p50,
+                 "step_ms": [w * 1e3 for w in walls], "peak_bytes": step_peak,
+                 "profile": step_profile},
+        "grads_vs_plain": {
+            "noise_factor": GRAD_NOISE_FACTOR, "floor": GRAD_REL_L2_FLOOR,
+            "leaves": len(limit), "failing_leaves": grad_fails,
+            "planted_tile_drop_failing_leaves": len(fault_fails),
+            "max_rel_l2_by_kind_kernel_noise_fault": by_kind,
+            "loss_kernel_plain_tile32_fault": [loss_k, loss_p, loss_n, loss_f]},
+        "small_f32_card_vs_cpu": {"tolerance": TRAIN_F32_REL_TOL, "max_loss_rel_diff": loss_rel,
+                                  "card_losses": card_losses, "cpu_losses": cpu_losses,
+                                  "eval_accuracy": [card["eval_accuracy"], cpu["eval_accuracy"]],
+                                  "ok": small_ok},
+    })
+    if grad_fails or not fault_fails or not small_ok:
+        raise SystemExit("train gradients or the card-vs-CPU training disagree (or the "
+                         "planted fault went unnoticed)")
+    return launches
+
+
+def first_train_batch(payload) -> tuple:
+    """The op's staged state for phase 6's payload and the rows of its first
+    batch, as the op permutes them."""
+    from agent_tpu_torch.ops import train_classifier
+
+    _, state = train_classifier.stage(dict(payload, output_path="first_batch.npz"))
+    take = np.random.default_rng(payload["seed"]).permutation(state["train_idx"])[
+        : payload["batch_size"]]
+    return state, take
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, max_rel_err, ms, plain_ms,
+                 n_bytes, flops, library_ms, q, **extra) -> dict:
+    """One entry of the kernels line; the bound is the larger of the bytes
+    over the card's memory rate and the bf16 products over its peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": list(q.shape),
+            "dtype": str(q.dtype).split(".")[-1], **extra}
+
+
+def train_kernel_entries(fa, check, launches) -> list:
+    """The kernels line's entries of the three training kernels, timed at
+    phase 6's first batch. Their library yardsticks are
+    scaled_dot_product_attention's forward and its backward (which
+    computes dq, dk and dv together, so both backward entries carry it)."""
+    q, k, v, keep, do, lengths = check["inputs"]
+    B, H, L, D = q.shape
+    mask = keep[:, None, None, :] > 0
+    o, lse = fa._launch_fwd_lse(q, k, v, keep)
+    delta = fa.attention_delta(o, do)
+    plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, do),
+                           iters=3, warmup=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do,
+                                                      retain_graph=True))
+    tensor = B * H * L * D * q.element_size()
+    rows = B * H * L * 4  # one f32 per query row (lse, delta)
+    keys = float(np.sum(lengths)) * H * L * D  # per product of 2 FLOP: real keys only
+    src = "agent_tpu_torch/kernels/csrc/"
+    covers = "dq, dk and dv in one call"
+    return [
+        kernel_entry(
+            "flash_attention_fwd_lse", src + "flash_attention.cu",
+            "agent_tpu/kernels/flash_attention.py:598", launches["flash_attention_fwd_lse"],
+            check["max_abs_err"]["fwd_lse"], check["max_rel_err"]["fwd_lse"],
+            cuda_ms(lambda: fa._launch_fwd_lse(q, k, v, keep)),
+            cuda_ms(lambda: fa.flash_attention_fwd_lse_reference(q, k, v, keep), iters=5),
+            4 * tensor + rows + keep.numel() * 4, 4 * keys,
+            cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)), q),
+        kernel_entry(
+            "flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
+            "agent_tpu/kernels/flash_attention.py:629", launches["flash_attention_bwd_dq"],
+            check["max_abs_err"]["dq"], check["max_rel_err"]["dq"],
+            cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
+            5 * tensor + 2 * rows + keep.numel() * 4, 6 * keys, sdpa_bwd_ms, q,
+            plain_covers=covers, library_covers=covers),
+        kernel_entry(
+            "flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
+            "agent_tpu/kernels/flash_attention.py:665", launches["flash_attention_bwd_dkv"],
+            check["max_abs_err"]["dkv"], check["max_rel_err"]["dkv"],
+            cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
+            6 * tensor + 2 * rows + keep.numel() * 4, 8 * keys, sdpa_bwd_ms, q,
+            plain_covers=covers, library_covers=covers),
+    ]
 
 
 def main() -> int:
@@ -344,7 +751,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    paths = build.build_all(["flash_attention"])
+    paths = build.build_all(["flash_attention", "flash_attention_bwd"])
     ptxas = {}
     for name in paths:
         log = (build.BUILD_DIR / f"{name}.nvcc.log")
@@ -373,9 +780,21 @@ def main() -> int:
                     "topk": k, "allow_fallback": False}
     long_requests = [("texts8_L4096", long_payload, 8)]
 
+    # Phase 6's payload; phase 3 holds the training kernels against their
+    # plain versions at its first batch's shape and key lengths.
+    train_op = load_ops(["train_classifier"])["train_classifier"]
+    texts, labels = keyword_rows(TRAIN_ROWS, SEED, 490, 500)
+    train_payload = dict(TRAIN, texts=texts, labels=labels, model_config=BERT_BASE)
+    train_state, take = first_train_batch(train_payload)
+    cfg = train_state["cfg"]
+    B, L = len(take), train_state["ids"].shape[1]
+    train_case = (f"train/B{B}xL{L}", (B, cfg.n_heads, L, L, cfg.d_model // cfg.n_heads),
+                  train_state["mask"][take].sum(axis=1).tolist(), cfg.compute_dtype)
+
     # 3. kernel vs plain
     kernel_check = check_kernels(fa, staged_cases(
         classify, requests + long_requests + [("small_f32", small_payload, 12)]))
+    train_check = check_train_kernels(fa, train_case)
 
     # 4. main path
     rt = TorchRuntime()
@@ -383,12 +802,11 @@ def main() -> int:
     t_build = time.perf_counter()
     classify(dict(requests[0][1]), ctx)  # builds the BERT-base weights once
     build_weights_s = time.perf_counter() - t_build
-    fa.LAUNCH_COUNTS["flash_attention"] = 0
-    fa.SELECTION_COUNTS.update(flash=0, dense=0)
+    reset_counts(fa)
     report = timed_requests(classify, ctx, fa, requests, BERT_BASE["n_layers"], k)
     main_launches = fa.LAUNCH_COUNTS["flash_attention"]
     main_selection = dict(fa.SELECTION_COUNTS)
-    profile = profile_request(classify, ctx, requests[2][1])
+    profile = profile_call(lambda: classify(dict(requests[2][1]), ctx))
 
     # The 64-row request again, asking for every class, with the plain
     # attention swapped in (a test hook: a runtime with another attention
@@ -427,42 +845,34 @@ def main() -> int:
     # 5. long context
     rt.clear_params()
     classify(dict(long_payload), ctx)  # weights
-    fa.LAUNCH_COUNTS["flash_attention"] = 0
-    fa.SELECTION_COUNTS.update(flash=0, dense=0)
+    reset_counts(fa)
     long_report = timed_requests(classify, ctx, fa, long_requests, 4, k)
     emit({"phase": "long_context", "config": LONG_CTX, "requests": long_report,
           "launches": fa.LAUNCH_COUNTS["flash_attention"],
           "selection": dict(fa.SELECTION_COUNTS)})
     rt.clear_params()
 
-    # 6. kernels: timed on the 256-row request's staged shape and key lengths.
+    # 6. train
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = train_phase(fa, train_op, classify, train_payload,
+                                     (train_state, take), tmp)
+
+    # 7. kernels: the serving kernel on the 256-row request's staged shape
+    # and key lengths, the training kernels on phase 6's first batch.
     q, k_, v, mask, lengths = kernel_check["inputs"]
     B, H, L, D = q.shape
-    ms = cuda_ms(lambda: fa.flash_attention(q, k_, v, mask))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k_, v, mask), iters=5)
     bool_mask = mask > 0
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_, v, attn_mask=bool_mask))
-    n_bytes = 4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size()
-    flops = 4 * H * L * D * float(np.sum(lengths))  # products with real keys only
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    emit({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "agent_tpu_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "agent_tpu/kernels/flash_attention.py:149",
-        "launches": main_launches,
-        "max_abs_err": kernel_check["max_abs_err"],
-        "max_rel_err": kernel_check["max_rel_err"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "shape": [B, H, L, D],
-        "dtype": str(q.dtype).split(".")[-1],
-    }]})
+    serving = kernel_entry(
+        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "agent_tpu/kernels/flash_attention.py:149", main_launches,
+        kernel_check["max_abs_err"], kernel_check["max_rel_err"],
+        cuda_ms(lambda: fa.flash_attention(q, k_, v, mask)),
+        cuda_ms(lambda: fa.flash_attention_reference(q, k_, v, mask), iters=5),
+        4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size(),
+        4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_, v, attn_mask=bool_mask)), q)
+    emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,200 @@
+"""train_classifier through the port's registry on a CPU TorchRuntime must
+do what the JAX op does on a one-device JAX CPU runtime for the same
+payload: the same split, batches and step count, the same holdout
+accuracy, epoch losses and weights within f32 tolerance, an artifact that
+serves through either package's map_classify_tpu, and the same soft
+errors (tests/test_train_lifecycle.py:145-170).
+
+The model is tiny and f32 with d_head 32, so the port's attention takes
+the flash path (its plain versions on the CPU) where the reference's CPU
+runtime trains with dense attention. Tolerances: epoch losses within 1e-3
+relative and weights within 1e-3 absolute after 40 AdamW steps at lr
+1e-2, since two f32 implementations that sum in another order drift
+apart step by step."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from agent_tpu.config import DeviceConfig
+from agent_tpu.ops import get_op as jax_get_op
+from agent_tpu.runtime.context import OpContext as JaxOpContext
+from agent_tpu.runtime.runtime import TpuRuntime
+from agent_tpu_torch.kernels import flash_attention as fa
+from agent_tpu_torch.ops import load_ops
+from agent_tpu_torch.runtime.context import OpContext
+from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+torch.set_num_threads(1)
+
+# The two keyword "languages" of tests/test_train_lifecycle.py:11-14.
+WORDS = {
+    0: ["invoice", "payment", "ledger", "account", "balance"],
+    1: ["sensor", "voltage", "telemetry", "actuator", "signal"],
+}
+SMALL = {"d_model": 64, "n_heads": 2, "n_layers": 2, "d_ff": 128, "max_len": 64,
+         "dtype": "float32"}
+PAYLOAD = {"model_config": SMALL, "epochs": 10, "batch_size": 32, "learning_rate": 1e-2,
+           "seed": 1}
+REL_TOL = ATOL = 1e-3
+
+
+def _rows(n, seed=0):
+    rng = np.random.default_rng(seed)
+    texts, labels = [], []
+    for i in range(n):
+        texts.append(" ".join(rng.choice(WORDS[i % 2], size=4)))
+        labels.append(i % 2)
+    return texts, labels
+
+
+@pytest.fixture(scope="module")
+def jax_ctx():
+    rt = TpuRuntime(config=DeviceConfig(tpu_disabled=True, mesh_shape={"dp": 1}),
+                    devices=jax.devices("cpu")[:1])
+    return JaxOpContext(runtime=rt)
+
+
+@pytest.fixture(scope="module")
+def port_rt():
+    return TorchRuntime(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def train():
+    return load_ops(["train_classifier"])["train_classifier"]
+
+
+@pytest.fixture(scope="module")
+def trained(train, port_rt, jax_ctx, tmp_path_factory):
+    """Both ops on one payload: (port result, JAX result, port ctx)."""
+    d = tmp_path_factory.mktemp("train")
+    texts, labels = _rows(160)
+    payload = dict(PAYLOAD, texts=texts, labels=labels)
+    ctx = OpContext(runtime=port_rt)
+    launches = dict(fa.LAUNCH_COUNTS)
+    got = train(dict(payload, output_path=str(d / "port.npz")), ctx)
+    assert fa.LAUNCH_COUNTS == launches  # the CPU never launches a kernel
+    want = jax_get_op("train_classifier")(dict(payload, output_path=str(d / "jax.npz")),
+                                           jax_ctx)
+    return got, want, ctx
+
+
+def test_result_matches_jax(trained):
+    got, want, ctx = trained
+    assert got["ok"] and want["ok"]
+    assert set(got) == set(want)
+    assert got["device"] == "cpu"
+    for key in ("n_train", "n_eval", "n_steps", "eval_accuracy"):
+        assert got[key] == want[key], key
+    assert got["n_steps"] == 10 * 4 and got["eval_accuracy"] > 0.9
+    for key in ("first_epoch_loss", "last_epoch_loss"):
+        np.testing.assert_allclose(got[key], want[key], rtol=REL_TOL, err_msg=key)
+    assert got["last_epoch_loss"] < got["first_epoch_loss"]
+    losses = ctx.tags["train"]["epoch_losses"]
+    assert len(losses) == 10 and losses[0] == got["first_epoch_loss"] \
+        and losses[-1] == got["last_epoch_loss"]
+    assert got["model_config"]["n_classes"] == 2
+
+
+def test_artifact_matches_jax(trained):
+    got, want, _ = trained
+    with np.load(got["output_path"]) as a, np.load(want["output_path"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == np.float32 and a[k].shape == b[k].shape, k
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=ATOL, err_msg=k)
+
+
+def _accuracy(result, labels):
+    return float(np.mean([row[0] == lab for row, lab in zip(result["indices"], labels)]))
+
+
+def test_artifact_serves_through_port_classify(trained, port_rt):
+    got, _, _ = trained
+    texts, labels = _rows(32, seed=99)  # unseen combinations
+    classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
+    served = classify({"texts": texts, "topk": 1, "model_path": got["output_path"],
+                       "model_config": got["model_config"], "result_format": "columnar"},
+                      OpContext(runtime=port_rt))
+    assert served["ok"] and served["device"] == "cpu"
+    assert _accuracy(served, labels) > 0.9
+
+
+def test_artifact_loads_and_serves_in_jax(trained, jax_ctx):
+    got, _, _ = trained
+    texts, labels = _rows(32, seed=99)
+    served = jax_get_op("map_classify_tpu")(
+        {"texts": texts, "topk": 1, "model_path": got["output_path"],
+         "model_config": got["model_config"], "allow_fallback": False,
+         "result_format": "columnar"}, jax_ctx)
+    assert served["ok"], served
+    assert _accuracy(served, labels) > 0.9
+
+
+def test_string_labels_and_sidecar(train, port_rt, tmp_path):
+    texts, labels = _rows(20)
+    names = {0: "finance", 1: "iot"}
+    path = str(tmp_path / "s.npz")
+    out = train({"texts": texts, "labels": [names[x] for x in labels], "output_path": path,
+                 "model_config": SMALL, "epochs": 1, "batch_size": 8},
+                OpContext(runtime=port_rt))
+    assert out["ok"] and out["label_names"] == ["finance", "iot"]
+    with open(path + ".labels.json", encoding="utf-8") as f:
+        assert json.load(f) == ["finance", "iot"]
+
+
+def test_tiny_dataset_smaller_than_batch_and_warm_start(train, port_rt, trained, tmp_path):
+    """n_train < batch still trains (batches tile); init_from warm-starts
+    from an artifact (tests/test_train_lifecycle.py:127-142)."""
+    texts, labels = _rows(13)
+    out = train({"texts": texts, "labels": labels, "output_path": str(tmp_path / "t.npz"),
+                 "model_config": SMALL, "epochs": 1, "batch_size": 64,
+                 "init_from": trained[0]["output_path"]}, OpContext(runtime=port_rt))
+    assert out["ok"] and out["n_train"] + out["n_eval"] == 13 and out["n_steps"] == 1
+    assert out["eval_accuracy"] is not None
+
+
+def test_missing_warm_start_rejected(train, jax_ctx, tmp_path):
+    payload = {"texts": ["a", "b"], "labels": [0, 1], "output_path": str(tmp_path / "w.npz"),
+               "init_from": str(tmp_path / "does_not_exist.npz")}
+    for out in (train(dict(payload)), jax_get_op("train_classifier")(dict(payload), jax_ctx)):
+        assert out["ok"] is False and "not found" in out["error"]
+
+
+BAD = {
+    "no_output_path": {"texts": ["a"], "labels": [0]},
+    "not_npz": {"output_path": "x.txt", "texts": ["a"], "labels": [0]},
+    "no_rows": {"output_path": "OK"},
+    "length_mismatch": {"output_path": "OK", "texts": ["a"], "labels": [0, 1]},
+    "label_over_n_classes": {"output_path": "OK", "texts": ["a"], "labels": [5],
+                             "model_config": {"n_classes": 2}},
+    "zero_epochs": {"output_path": "OK", "texts": ["a"], "labels": [0], "epochs": 0},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD))
+def test_bad_payloads_soft_fail_like_jax(train, jax_ctx, tmp_path, case):
+    payload = {k: (str(tmp_path / "x.npz") if v == "OK" else v) for k, v in BAD[case].items()}
+    got = train(dict(payload))
+    want = jax_get_op("train_classifier")(dict(payload), jax_ctx)
+    assert got["ok"] is False and want["ok"] is False
+    assert got["error"] == want["error"]
+
+
+@pytest.mark.parametrize("extra,needle", [
+    ({"source_uri": "train.csv"}, "source_uri"),
+    ({"texts": ["a"], "labels": [0], "model_config": {"quant": "int8"}}, "quant"),
+    ({"texts": ["a"], "labels": [0], "model_config": {"moe_experts": 4}}, "moe_experts"),
+    ({"texts": ["a"], "labels": [0], "model_config": {"pp": 2}}, "pp"),
+    ({"texts": ["a"], "labels": [0], "model_config": {"dtype": "float16"}}, "dtype"),
+    ("not a dict", "dict"),
+])
+def test_not_ported_yet_is_soft(train, tmp_path, extra, needle):
+    payload = extra if isinstance(extra, str) else dict(extra, output_path=str(tmp_path / "x.npz"))
+    out = train(payload)
+    assert out["ok"] is False and needle in out["error"], out

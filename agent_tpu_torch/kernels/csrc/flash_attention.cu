@@ -38,6 +38,23 @@
 // becomes the loop inside the block, and the ragged edges (Lq, Lk not
 // multiples of the tiles) are masked here: keys past Lk load as zeros with
 // keep = 0, query rows past Lq are computed and not stored.
+//
+// The CarryState = true variant replaces `_flash_fold_kernel` (agent_tpu/
+// kernels/flash_attention.py:258-288, launched by `flash_fold` at :329),
+// one hop of ring attention (agent_tpu_torch/parallel/ring.py): instead of
+// starting from (NEG_INF, 0, 0) it reads each query row's f32 (m, l, acc)
+// from device memory, folds the K/V block into it with the same per-tile
+// update, and writes (m, l, acc) back unnormalised instead of the output.
+// A wholly masked tile leaves the state exactly as it was (its p are 0 and
+// its correction exp(0) = 1). Each block owns its query rows, and every
+// thread reads its state before the first __syncthreads and writes it after
+// the last, so the state is updated in place. Bound on an H100 SXM at the
+// ring's shard shape (B 8, H 4, Lq = Lk = 2048, D 128, bf16): 4*B*H*Lq*Lk*D
+// = 6.87e10 FLOP over 989 TFLOP/s = 0.069 ms against 118.5 MB (Q, K, V in
+// bf16, acc in and out in f32, m and l) over 3.35 TB/s = 0.035 ms, so the
+// products bound it (~580 FLOP/B, above the ridge). What the design does
+// about it: the tensor-core loop is the forward's, and the state crosses
+// device memory once in and once out per query row, in registers in between.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +72,7 @@ constexpr int kThreads = 128;
 constexpr int kBq = 64;  // query rows per block, 16 per warp
 constexpr int kBk = 64;  // keys per tile
 
-template <int D, bool WriteLse>
+template <int D, bool WriteLse, bool CarryState>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
@@ -63,7 +80,8 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ mask,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                    int H, int Lq, int Lk, int n_q_tiles, int mask_b_stride,
-                   float scale) {
+                   float scale, float* __restrict__ st_m,
+                   float* __restrict__ st_l, float* __restrict__ st_acc) {
   constexpr int kStride = D + 8;  // smem row pitch: 16-byte pad, no conflicts
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 k_s[kBk * kStride];
@@ -89,6 +107,32 @@ __global__ void __launch_bounds__(kThreads)
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  if constexpr (CarryState) {
+    // The carried state of this lane's rows: m and l in all 4 lanes of a
+    // row, acc as the fragment [dt][0..1] = row r0, columns dt*8 + 2t, +1,
+    // [dt][2..3] = row r1.
+    const size_t s0 = static_cast<size_t>(bh) * Lq + r0, s1 = s0 + 8;
+    if (r0 < Lq) {
+      m[0] = st_m[s0];
+      l[0] = st_l[s0];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const float2 a = *reinterpret_cast<const float2*>(st_acc + s0 * D + dt * 8 + 2 * t);
+        acc[dt][0] = a.x;
+        acc[dt][1] = a.y;
+      }
+    }
+    if (r1 < Lq) {
+      m[1] = st_m[s1];
+      l[1] = st_l[s1];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const float2 a = *reinterpret_cast<const float2*>(st_acc + s1 * D + dt * 8 + 2 * t);
+        acc[dt][2] = a.x;
+        acc[dt][3] = a.y;
+      }
+    }
+  }
 
   for (int k0 = 0; k0 < Lk; k0 += kBk) {
     __syncthreads();  // every warp is done with the previous tile
@@ -189,6 +233,28 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if constexpr (CarryState) {
+    // Unnormalised state back in place; m and l from one lane of the 4.
+    const size_t s0 = static_cast<size_t>(bh) * Lq + r0, s1 = s0 + 8;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      if (r0 < Lq)
+        *reinterpret_cast<float2*>(st_acc + s0 * D + dt * 8 + 2 * t) =
+            make_float2(acc[dt][0], acc[dt][1]);
+      if (r1 < Lq)
+        *reinterpret_cast<float2*>(st_acc + s1 * D + dt * 8 + 2 * t) =
+            make_float2(acc[dt][2], acc[dt][3]);
+    }
+    if (t == 0 && r0 < Lq) {
+      st_m[s0] = m[0];
+      st_l[s0] = l[0];
+    }
+    if (t == 0 && r1 < Lq) {
+      st_m[s1] = m[1];
+      st_l[s1] = l[1];
+    }
+    return;
+  }
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
   __nv_bfloat16* oh = out + static_cast<size_t>(bh) * Lq * D;
 #pragma unroll
@@ -214,13 +280,14 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kRowsF32 = 32;  // query rows per block, 4 threads per row
 constexpr int kTileF32 = 32;  // keys per tile
 
-template <int D, bool WriteLse>
+template <int D, bool WriteLse, bool CarryState>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int32_t* __restrict__ mask,
                   float* __restrict__ out, float* __restrict__ lse, int H,
                   int Lq, int Lk, int n_q_tiles, int mask_b_stride,
-                  float scale) {
+                  float scale, float* __restrict__ st_m,
+                  float* __restrict__ st_l, float* __restrict__ st_acc) {
   constexpr int kPer = D / 4;  // this thread's dims: t + 4 i
   __shared__ __align__(16) float k_s[kTileF32 * D];
   __shared__ __align__(16) float v_s[kTileF32 * D];
@@ -242,6 +309,15 @@ __global__ void __launch_bounds__(kThreads)
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
+  const size_t srow = static_cast<size_t>(bh) * Lq + row;
+  if constexpr (CarryState) {
+    if (row < Lq) {
+      m = st_m[srow];
+      l = st_l[srow];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] = st_acc[srow * D + t + 4 * i];
+    }
+  }
 
   for (int k0 = 0; k0 < Lk; k0 += kTileF32) {
     __syncthreads();
@@ -291,6 +367,17 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if constexpr (CarryState) {
+    if (row < Lq) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) st_acc[srow * D + t + 4 * i] = acc[i];
+      if (t == 0) {
+        st_m[srow] = m;
+        st_l[srow] = l;
+      }
+    }
+    return;
+  }
   if (row < Lq) {
     const float den = fmaxf(l, 1e-30f);
     float* orow = out + (static_cast<size_t>(bh) * Lq + row) * D;
@@ -302,10 +389,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool WriteLse>
+template <bool WriteLse, bool CarryState>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                void* out, float* lse, int B, int H, int Lq, int Lk, int D,
-               int mask_b_stride, int is_bf16, float scale, void* stream) {
+               int mask_b_stride, int is_bf16, float scale, void* stream,
+               float* st_m = nullptr, float* st_l = nullptr,
+               float* st_acc = nullptr) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -318,9 +407,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     const auto* vv = static_cast<const __nv_bfloat16*>(v);
     auto* oo = static_cast<__nv_bfloat16*>(out);
     switch (D) {
-      case 32: flash_fwd_bf16<32, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      case 64: flash_fwd_bf16<64, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      default: flash_fwd_bf16<128, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 32: flash_fwd_bf16<32, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      case 64: flash_fwd_bf16<64, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      default: flash_fwd_bf16<128, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
     }
   } else {
     const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
@@ -330,9 +419,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     const auto* vv = static_cast<const float*>(v);
     auto* oo = static_cast<float*>(out);
     switch (D) {
-      case 32: flash_fwd_f32<32, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      case 64: flash_fwd_f32<64, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
-      default: flash_fwd_f32<128, WriteLse><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale); break;
+      case 32: flash_fwd_f32<32, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      case 64: flash_fwd_f32<64, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      default: flash_fwd_f32<128, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -350,8 +439,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* mask, void* out, int B, int H, int Lq,
                         int Lk, int D, int mask_b_stride, int is_bf16,
                         float scale, void* stream) {
-  return launch_fwd<false>(q, k, v, mask, out, nullptr, B, H, Lq, Lk, D,
-                           mask_b_stride, is_bf16, scale, stream);
+  return launch_fwd<false, false>(q, k, v, mask, out, nullptr, B, H, Lq, Lk, D,
+                                  mask_b_stride, is_bf16, scale, stream);
 }
 
 // As flash_attention_fwd, and lse: f32 [B, H, Lq] (contiguous) receives
@@ -360,8 +449,24 @@ int flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                             const void* mask, void* out, void* lse, int B,
                             int H, int Lq, int Lk, int D, int mask_b_stride,
                             int is_bf16, float scale, void* stream) {
-  return launch_fwd<true>(q, k, v, mask, out, static_cast<float*>(lse), B, H,
-                          Lq, Lk, D, mask_b_stride, is_bf16, scale, stream);
+  return launch_fwd<true, false>(q, k, v, mask, out, static_cast<float*>(lse), B,
+                                 H, Lq, Lk, D, mask_b_stride, is_bf16, scale, stream);
+}
+
+// One ring hop: fold the K/V block (k, v, mask as above) into the carried
+// softmax state of each query row, IN PLACE: m, l f32 [B, H, Lq] and acc
+// f32 [B, H, Lq, D] (contiguous) are read as the state before the block and
+// overwritten with the state after it, unnormalised (the caller divides acc
+// by max(l, 1e-30) after the last hop). Start a ring from m = -1e9, l = 0,
+// acc = 0.
+int flash_attention_fold(const void* q, const void* k, const void* v,
+                         const void* mask, void* m, void* l, void* acc, int B,
+                         int H, int Lq, int Lk, int D, int mask_b_stride,
+                         int is_bf16, float scale, void* stream) {
+  return launch_fwd<false, true>(q, k, v, mask, nullptr, nullptr, B, H, Lq, Lk, D,
+                                 mask_b_stride, is_bf16, scale, stream,
+                                 static_cast<float*>(m), static_cast<float*>(l),
+                                 static_cast<float*>(acc));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -3,14 +3,17 @@ and the selection between them and dense attention.
 
 Counterpart of ``agent_tpu.kernels.flash_attention`` (``flash_attention``,
 ``flash_attention_trainable``, ``selects_flash``, ``SELECTION_COUNTS``,
-``make_flash_attention``, ``make_flash_attention_trainable``). The kernels
-are ``csrc/flash_attention.cu`` (the forward, replacing the Pallas kernels
-``_flash_kernel`` and, as its lse-writing variant, ``_flash_fwd_lse_kernel``)
+``make_flash_attention``, ``make_flash_attention_trainable``, ``flash_fold``,
+``flash_fold_supported``). The kernels are ``csrc/flash_attention.cu`` (the
+forward, replacing the Pallas kernels ``_flash_kernel`` and, as its
+variants, ``_flash_fwd_lse_kernel`` and the ring hop ``_flash_fold_kernel``)
 and ``csrc/flash_attention_bwd.cu`` (``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel``). They compute what the Pallas kernels compute:
 softmax(QKᵀ·D^-½ with a key-padding mask) V with an online softmax in f32,
-zero output for a fully masked row, and for training the row logsumexp and
-the recompute backward of FlashAttention-2.
+zero output for a fully masked row, for training the row logsumexp and the
+recompute backward of FlashAttention-2, and for ring attention
+(:mod:`agent_tpu_torch.parallel.ring`) one fold of a K/V block into carried
+(m, l, acc) state.
 
 Selection is by shape support alone. Every key-padding mask ``[B|1, 1, 1,
 Lk]`` with d_head 32, 64 or 128 in bf16 or f32 takes the kernel path, at
@@ -23,9 +26,9 @@ take :func:`~agent_tpu_torch.models.layers.dot_product_attention`.
 On the kernel path a CUDA tensor launches the kernels, and a CPU tensor
 runs the plain versions (:func:`flash_attention_reference`,
 :func:`flash_attention_fwd_lse_reference`,
-:func:`flash_attention_bwd_reference`): the same tile loops in plain
-PyTorch, rounding where the kernels round. A CUDA launch that fails
-raises; it never falls back to a plain version.
+:func:`flash_attention_bwd_reference`, :func:`flash_fold_reference`): the
+same tile loops in plain PyTorch, rounding where the kernels round. A CUDA
+launch that fails raises; it never falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -53,13 +56,16 @@ EXP_CAP = 80.0
 
 # Per-call tally of the selection: "flash" / "flash_train" = the kernel path
 # (the CUDA kernels, or their plain versions for CPU tensors) of serving /
-# training, "dense" / "dense_train" = dot-product attention.
+# training, "dense" / "dense_train" = dot-product attention; "ring" /
+# "ring_dense" = ring attention over sp (parallel/ring.py) / the shapes it
+# sends to dot-product attention.
 SELECTION_COUNTS: Dict[str, int] = {"flash": 0, "dense": 0, "flash_train": 0,
-                                    "dense_train": 0}
+                                    "dense_train": 0, "ring": 0, "ring_dense": 0}
 # CUDA kernel launches, counted where each kernel is launched and nowhere
 # else: a run proves it went through the kernels by reading this.
 LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0, "flash_attention_fwd_lse": 0,
-                                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                                 "flash_fold": 0}
 
 
 def selects_flash(seq_len: int, d_head: int, dtype: torch.dtype) -> bool:
@@ -76,7 +82,16 @@ def _supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and k.dtype == v.dtype == q.dtype)
 
 
-def _scale(d: int) -> float:
+def flash_fold_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Does the fold kernel take this hop (shape support alone: d_head 32,
+    64 or 128, bf16 or f32, one dtype)? The kernel masks its own ragged
+    edges, so the reference's tile-divisibility gate has no counterpart."""
+    return (q.shape[-1] in KERNEL_HEAD_DIMS and q.dtype in KERNEL_DTYPES
+            and k.dtype == q.dtype)
+
+
+def softmax_scale(d: int) -> float:
+    """D^-½ rounded to f32, the scale of every path."""
     return float(np.float32(1.0 / np.sqrt(d)))
 
 
@@ -86,18 +101,25 @@ def key_keep(mask: torch.Tensor) -> torch.Tensor:
     return (mask[:, 0, 0, :] > 0).to(torch.int32).contiguous()
 
 
-def _fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               keep: torch.Tensor, block_k: int) -> Tuple[torch.Tensor, ...]:
-    """The forward kernels' tile loop: (out in q's dtype, m, max(l, 1e-30))
-    with m and l f32 ``[B, H, Lq, 1]``."""
+def initial_state(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The softmax state before any key: (m, l, acc) = (NEG_INF, 0, 0), f32
+    ``[B, H, Lq, 1]``, ``[B, H, Lq, 1]``, ``[B, H, Lq, D]`` on q's device."""
     B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    scale = _scale(D)
-    keep_all = (keep > 0)[:, None, None, :]  # [B|1, 1, 1, Lk]
-    qf = q.float()
     m = torch.full((B, H, Lq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
+    return m, l, acc
+
+
+def _fold_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor,
+                m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                block_k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernels' tile loop from the state (m, l, acc): the state
+    after every key of ``k``/``v``, unnormalised."""
+    Lk = k.shape[2]
+    scale = softmax_scale(q.shape[-1])
+    keep_all = (keep > 0)[:, None, None, :]  # [B|1, 1, 1, Lk]
+    qf = q.float()
     for k0 in range(0, Lk, block_k):
         kt = k[:, :, k0:k0 + block_k].float()
         vt = v[:, :, k0:k0 + block_k]
@@ -110,6 +132,14 @@ def _fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vt.float())
         m = m_new
+    return m, l, acc
+
+
+def _fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               keep: torch.Tensor, block_k: int) -> Tuple[torch.Tensor, ...]:
+    """The forward kernels' tile loop: (out in q's dtype, m, max(l, 1e-30))
+    with m and l f32 ``[B, H, Lq, 1]``."""
+    m, l, acc = _fold_tiles(q, k, v, keep, *initial_state(q), block_k)
     den = torch.clamp_min(l, 1e-30)
     return (acc / den).to(q.dtype), m, den
 
@@ -147,6 +177,24 @@ def flash_attention_fwd_lse_reference(
     return out, m + torch.log(den)
 
 
+def flash_fold_reference(
+    q: torch.Tensor,     # [B, H, Lq, D]
+    k: torch.Tensor,     # [B, H, Lk, D]
+    v: torch.Tensor,     # [B, H, Lk, D]
+    keep: torch.Tensor,  # int32 [B|1, Lk] (> 0 = attend), see key_keep
+    m: torch.Tensor,     # f32 [B, H, Lq, 1] running max
+    l: torch.Tensor,     # f32 [B, H, Lq, 1] running denominator
+    acc: torch.Tensor,   # f32 [B, H, Lq, D] running numerator
+    *,
+    block_k: int = BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the ring hop (reference ``_flash_fold_kernel``):
+    :func:`flash_attention_reference`'s tile loop started from the carried
+    state, returning the new (m, l, acc) unnormalised, as new tensors. A
+    wholly masked block returns the state unchanged."""
+    return _fold_tiles(q, k, v, keep, m, l, acc, block_k)
+
+
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(dO ∘ O)`` in f32, ``[B, H, Lq, 1]``, from the
     forward's rounded output (reference :759-761)."""
@@ -171,7 +219,7 @@ def flash_attention_bwd_reference(
     gradients (the reference's documented caveat, :848-851)."""
     D = q.shape[-1]
     Lk = k.shape[2]
-    scale = _scale(D)
+    scale = softmax_scale(D)
     keep_all = (keep > 0)[:, None, None, :]
     delta = attention_delta(o, do)
     qf, dof = q.float(), do.float()
@@ -195,13 +243,17 @@ def flash_attention_bwd_reference(
 # ---- launchers -------------------------------------------------------------
 
 def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  keep: torch.Tensor, do=None, lse=None, delta=None) -> Tuple[int, ...]:
+                  keep: torch.Tensor, do=None, lse=None, delta=None,
+                  state=None) -> Tuple[int, ...]:
     """Raise ``ValueError`` on anything ``kernel`` does not take: tensors on
-    another device than one CUDA device, dtypes, shapes, non-contiguous
-    memory, sizes out of range. Returns (B, H, Lq, Lk, D)."""
+    another device than one CUDA device, dtypes, shapes, non-contiguous or
+    misaligned memory, sizes out of range. ``state`` is the fold's (m, l,
+    acc). Returns (B, H, Lq, Lk, D)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    given = [x for x in (q, k, v, keep, do, lse, delta) if x is not None]
+    m, l, acc = state if state is not None else (None, None, None)
+    f32_given = [x for x in (lse, delta, m, l, acc) if x is not None]
+    given = [x for x in (q, k, v, keep, do) if x is not None] + f32_given
     if not (q.is_cuda and all(x.device == q.device for x in given)):
         raise ValueError(f"{kernel} kernel: inputs must share one CUDA device")
     if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in (k, v, do)
@@ -211,7 +263,8 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} kernel: d_head {D} not in {KERNEL_HEAD_DIMS}")
     want = {"k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D)), "do": (do, (B, H, Lq, D)),
-            "lse": (lse, (B, H, Lq, 1)), "delta": (delta, (B, H, Lq, 1))}
+            "lse": (lse, (B, H, Lq, 1)), "delta": (delta, (B, H, Lq, 1)),
+            "m": (m, (B, H, Lq, 1)), "l": (l, (B, H, Lq, 1)), "acc": (acc, (B, H, Lq, D))}
     for name, (x, shape) in want.items():
         if x is not None and tuple(x.shape) != shape:
             raise ValueError(f"{kernel} kernel: {name} {tuple(x.shape)} is not {shape}")
@@ -219,10 +272,12 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             or keep.shape[1] != Lk:
         raise ValueError(f"{kernel} kernel: keep {keep.dtype} {tuple(keep.shape)} is "
                          f"not int32 [{B}|1, {Lk}]")
-    if any(x.dtype != torch.float32 for x in (lse, delta) if x is not None):
-        raise ValueError(f"{kernel} kernel: lse and delta must be float32")
+    if any(x.dtype != torch.float32 for x in f32_given):
+        raise ValueError(f"{kernel} kernel: lse, delta and the fold state must be float32")
     if not all(x.is_contiguous() for x in given):
         raise ValueError(f"{kernel} kernel: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in given if x is not keep):
+        raise ValueError(f"{kernel} kernel: inputs must be 16-byte aligned")
     if min(B, H, Lq, Lk) < 1 or B * H * (-(-max(Lq, Lk) // 32)) >= 2 ** 31:
         raise ValueError(f"{kernel} kernel: shape {tuple(q.shape)} out of range")
     return B, H, Lq, Lk, D
@@ -255,7 +310,7 @@ def _invoke(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
 
 def _dims(q: torch.Tensor, keep: torch.Tensor, Lk: int, D: int) -> tuple:
     """The trailing C arguments every entry takes after the shape."""
-    return (Lk if keep.shape[0] > 1 else 0, int(q.dtype == torch.bfloat16), _scale(D))
+    return (Lk if keep.shape[0] > 1 else 0, int(q.dtype == torch.bfloat16), softmax_scale(D))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,6 +340,18 @@ def _launch_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
     LAUNCH_COUNTS["flash_attention_fwd_lse"] += 1
     return out, lse
+
+
+def _launch_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor,
+                 m: torch.Tensor, l: torch.Tensor,
+                 acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the ring hop: fold k/v into (m, l, acc) IN PLACE (each block of
+    the kernel owns its query rows) and return the same three tensors."""
+    B, H, Lq, Lk, D = _check_launch("flash_fold", q, k, v, keep, state=(m, l, acc))
+    _invoke("flash_attention", "flash_attention_fold", q.device, q, k, v, keep, m, l, acc,
+            B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
+    LAUNCH_COUNTS["flash_fold"] += 1
+    return m, l, acc
 
 
 def _launch_bwd_dq(q, k, v, keep, do, lse, delta) -> torch.Tensor:
@@ -326,6 +393,30 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, mask)
     return _launch(q, k, v, mask)
+
+
+def flash_fold(
+    q: torch.Tensor,     # [B, H, Lq, D]
+    k: torch.Tensor,     # [B, H, Lk, D]
+    v: torch.Tensor,     # [B, H, Lk, D]
+    mask: torch.Tensor,  # [B|1, 1, 1, Lk] key-padding mask (1 = attend)
+    m: torch.Tensor,     # f32 [B, H, Lq, 1]
+    l: torch.Tensor,     # f32 [B, H, Lq, 1]
+    acc: torch.Tensor,   # f32 [B, H, Lq, D]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring hop (reference ``flash_fold``): fold the K/V block into the
+    carried softmax state and return the new (m, l, acc), unnormalised. A
+    CUDA tensor launches the kernel, which updates the given state tensors
+    in place (so they must be f32 and contiguous; it raises otherwise); a
+    CPU tensor runs :func:`flash_fold_reference`. Callers use the returned
+    tensors either way. For the shapes :func:`flash_fold_supported` takes."""
+    if not is_key_padding_mask(mask, q.shape[0], k.shape[2]):
+        raise ValueError(f"flash_fold: mask {tuple(mask.shape)} is not "
+                         f"[{q.shape[0]}|1, 1, 1, {k.shape[2]}]")
+    keep = key_keep(mask)
+    if q.device.type == "cpu":
+        return flash_fold_reference(q, k, v, keep, m, l, acc)
+    return _launch_fold(q.contiguous(), k.contiguous(), v.contiguous(), keep, m, l, acc)
 
 
 class FlashAttentionTrainable(torch.autograd.Function):
@@ -392,13 +483,14 @@ def flash_attention_trainable_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def make_flash_attention(mesh=None):
-    """The attention function for a mesh: on one card, :func:`flash_attention`
-    itself (the reference wraps its kernel in ``shard_map`` for dp/tp
-    meshes; the port has no mesh yet)."""
+    """The attention function for a mesh without ``sp``: :func:`flash_attention`
+    itself. The reference wraps its kernel in ``shard_map`` for dp/tp
+    meshes; the port's meshes have neither axis yet (``TorchRuntime``
+    refuses them), so the kernel runs whole on the mesh's first device."""
     return flash_attention
 
 
 def make_flash_attention_trainable(mesh=None):
-    """The differentiable attention function for a mesh: on one card,
+    """The differentiable attention function for a mesh without ``sp``:
     :func:`flash_attention_trainable` itself."""
     return flash_attention_trainable

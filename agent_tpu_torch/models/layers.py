@@ -137,6 +137,14 @@ def is_key_padding_mask(mask: torch.Tensor, batch: int, lk: int) -> bool:
     )
 
 
+def materialize_key_padding_mask(mask: torch.Tensor, batch: int, lk: int) -> torch.Tensor:
+    """Broadcast a shared ``[1, 1, 1, Lk]`` mask to ``[B, 1, 1, Lk]``: the
+    sharded fast paths split the mask with the batch's rows."""
+    if mask.shape[0] == 1 and batch > 1:
+        return mask.expand(batch, 1, 1, lk)
+    return mask
+
+
 # ---- compute ----
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -19,6 +19,12 @@ Rows batch into bucketed shapes, and the forward for each (model, batch,
 length, k, config) is built once per runtime. Top-k runs on the device and
 the host fetches one packed ``[B, k, 2]`` array per request.
 
+On a runtime whose mesh has ``sp`` > 1 every layer attends through ring
+attention (``runtime.attention_fn()``). Nothing else changes: an sp mesh
+has dp = 1, so staging is the one-device staging, and the forward cache
+belongs to the runtime, whose attention function is fixed, so its keys
+need no mesh.
+
 Not ported yet, each rejected with a ``bad_input`` that names it:
 ``source_uri`` CSV addressing, HF-checkpoint ``model_path`` (BERT family),
 ``quant`` other than ``none``, ``pp`` > 1 and ``moe_experts`` > 0.

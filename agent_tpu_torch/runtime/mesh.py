@@ -1,0 +1,116 @@
+"""The device mesh over the canonical ``(dp, tp, sp)`` axes — counterpart of
+``agent_tpu.runtime.mesh``.
+
+Axis vocabulary (the reference's):
+
+- ``dp`` — data parallelism: batch rows sharded, params replicated.
+- ``tp`` — tensor/model parallelism: heads and MLP hidden sharded.
+- ``sp`` — sequence/context parallelism: the sequence axis of ring
+  attention (:mod:`agent_tpu_torch.parallel.ring`).
+
+:class:`MeshSpec` resolves a possibly partial shape over a device count
+exactly as the reference does (``dp`` absorbs what the other axes leave).
+:func:`build_mesh` lays a list of ``torch.device`` out on it. One process
+owns the whole mesh, as one ``TpuRuntime`` does in the reference: blocks
+move between its devices by ``Tensor.to`` inside that process, where the
+reference's ``ppermute`` moves them inside one program.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+AXES: Tuple[str, ...] = ("dp", "tp", "sp")
+
+
+def check_sizes(shape: Dict[str, int]) -> None:
+    """Raise ``ValueError`` unless every axis size is a positive int."""
+    for name, size in shape.items():
+        if not isinstance(size, int) or size <= 0:
+            raise ValueError(f"mesh axis {name!r} must be a positive int, got {size!r}")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """A validated mesh shape: ordered axis name -> size, covering all devices."""
+
+    axes: Tuple[Tuple[str, int], ...] = field(default_factory=tuple)
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(s for _, s in self.axes)
+
+    @property
+    def n_devices(self) -> int:
+        return int(np.prod(self.sizes, dtype=np.int64))
+
+    @staticmethod
+    def resolve(n_devices: int, shape: Optional[Dict[str, int]] = None) -> "MeshSpec":
+        """Fill a possibly partial shape dict into a full spec over
+        ``n_devices``: absent axes are 1, except ``dp``, which absorbs every
+        device the other axes leave. A shape that does not divide the device
+        count is an error (the reference's rule and messages)."""
+        shape = dict(shape or {})
+        check_sizes(shape)
+        extra = [n for n in shape if n not in AXES]
+        names = AXES + tuple(extra)  # unknown axes appended innermost
+        claimed = 1
+        for n in names:
+            if n != "dp" and n in shape:
+                claimed *= shape[n]
+        if n_devices % claimed:
+            raise ValueError(
+                f"mesh shape {shape} claims {claimed} devices per dp-slice but "
+                f"{n_devices} devices are available (not divisible)"
+            )
+        dp = shape.get("dp", n_devices // claimed)
+        sizes = {**{n: 1 for n in names}, **shape, "dp": dp}
+        total = 1
+        for n in names:
+            total *= sizes[n]
+        if total != n_devices:
+            raise ValueError(f"mesh shape {shape} covers {total} devices, have {n_devices}")
+        return MeshSpec(axes=tuple((n, sizes[n]) for n in names))
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """Devices laid out on named axes: ``devices`` is an object ndarray of
+    ``torch.device`` of shape ``spec.sizes``."""
+
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None) -> Mesh:
+    """A :class:`Mesh` over ``devices`` (kept in the order given) with spec
+    ``shape``.
+
+    A device may appear more than once, when the caller lists it so: then
+    several shards of the mesh live on one card (or on the CPU), the
+    counterpart of the reference's virtual host devices
+    (``--xla_force_host_platform_device_count``). That is how one card runs
+    an ``sp`` ring, and how the tests run one on the CPU."""
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("build_mesh: no devices")
+    spec = MeshSpec.resolve(len(devs), shape)
+    grid = np.empty(len(devs), dtype=object)
+    grid[:] = devs
+    return Mesh(grid.reshape(spec.sizes), spec.names)

@@ -1,19 +1,29 @@
-"""The device runtime: owns the device, the build-once cache of forward
-functions, and the device-resident model weights.
+"""The device runtime: owns the device mesh, the build-once cache of
+forward functions, and the device-resident model weights.
 
-Counterpart of ``agent_tpu.runtime.runtime.TpuRuntime`` on one card. With
-no device given it takes ``cuda:0`` and raises when CUDA is absent: the
-port never quietly runs on the CPU. Callers that want the CPU (the tests)
-pass ``device="cpu"``.
+Counterpart of ``agent_tpu.runtime.runtime.TpuRuntime``. With no device
+given it takes ``cuda:0`` and raises when CUDA is absent: the port never
+quietly runs on the CPU. Callers that want the CPU (the tests) pass
+``device="cpu"``.
+
+A mesh (``mesh_shape``, or ``MESH_SHAPE="sp=2"`` for :func:`get_runtime`)
+covers the given ``devices``, or, without them, the first cards of that
+many; a device listed more than once holds several shards (one card running
+an ``sp`` ring: ``devices=["cuda:0"] * 2``). Of the axes only ``sp`` is
+ported: ``attention_fn`` is then ring attention. ``dp`` and ``tp`` wait for
+ROADMAP Queue 1 item 13 and are refused.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from agent_tpu_torch.runtime.mesh import AXES, build_mesh, check_sizes
 
 
 class BuildOnceCache:
@@ -88,40 +98,85 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-class TorchRuntime:
-    """One device, a forward-function cache and a weights store."""
+def _mesh_devices(device, devices: Optional[Sequence],
+                  mesh_shape: Optional[Dict[str, int]]) -> List[torch.device]:
+    """The devices the mesh covers: ``devices`` as given, else ``device``
+    alone, else, for a ``mesh_shape`` of N devices, the first N cards."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("TorchRuntime: pass device or devices, not both")
+        devs = [_resolve_device(d) for d in devices]
+        if not devs or len({d.type for d in devs}) != 1:
+            raise ValueError(f"TorchRuntime: devices {devices} must be one or more "
+                             "devices of one type")
+        return devs
+    if device is not None or not mesh_shape:
+        return [_resolve_device(device)]
+    check_sizes(mesh_shape)
+    n = int(np.prod(list(mesh_shape.values()), dtype=np.int64))
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < n:
+        raise RuntimeError(
+            f"TorchRuntime: mesh {mesh_shape} needs {n} CUDA devices and {visible} "
+            f"are visible; to run several shards on one card, list it so: "
+            f"devices=['cuda:0'] * {n}")
+    return [torch.device("cuda", i) for i in range(n)]
 
-    def __init__(self, device=None) -> None:
-        self.device = _resolve_device(device)
-        self.devices = [self.device]
+
+class TorchRuntime:
+    """A device mesh, a forward-function cache and a weights store. Weights
+    and staged batches live on the mesh's first device."""
+
+    def __init__(self, device=None, devices: Optional[Sequence] = None,
+                 mesh_shape: Optional[Dict[str, int]] = None) -> None:
+        self.devices = _mesh_devices(device, devices, mesh_shape)
+        self.mesh = build_mesh(self.devices, mesh_shape)
+        unported = {n: s for n, s in self.mesh.shape.items()
+                    if n not in AXES or (n != "sp" and s > 1)}
+        if unported:
+            raise ValueError(
+                f"TorchRuntime: mesh axes {unported} are not ported yet (only sp; "
+                "dp, tp and other axes are ROADMAP Queue 1 item 13)")
+        self.device = self.devices[0]
         self.platform = self.device.type  # "cuda" | "cpu"
         self.cache = BuildOnceCache()
         self._params = BuildOnceCache()  # model id -> module on the device
 
-    # ---- topology (one device: every mesh axis has size 1) ----
+    # ---- topology ----
 
     @property
     def n_devices(self) -> int:
         return len(self.devices)
 
     def axis_size(self, name: str) -> int:
-        return 1
+        return self.mesh.shape.get(name, 1)
 
     def attention_fn(self):
-        """The attention function: the flash kernel path (the CUDA kernel on
-        the card, its plain version on the CPU, dense for shapes the kernel
-        does not take)."""
+        """The attention function: ring attention over ``sp`` when the mesh
+        has ``sp`` > 1 (the fold kernel in every hop), else the flash kernel
+        path (the CUDA kernel on the card, its plain version on the CPU).
+        Each sends the shapes it does not take to dense attention."""
+        if self.axis_size("sp") > 1:
+            from agent_tpu_torch.parallel.ring import make_ring_attention
+
+            return make_ring_attention(self.mesh)
         from agent_tpu_torch.kernels.flash_attention import make_flash_attention
 
-        return make_flash_attention()
+        return make_flash_attention(self.mesh)
 
     def train_attention_fn(self):
         """The differentiable attention function for the training path: the
         flash kernels in both directions (their plain versions on the CPU,
-        dense attention for shapes the kernels do not take)."""
+        dense attention for shapes the kernels do not take). Ring attention
+        is forward-only, as the reference's, so an ``sp`` mesh trains on
+        dense attention."""
+        if self.axis_size("sp") > 1:
+            from agent_tpu_torch.models.layers import dot_product_attention
+
+            return dot_product_attention
         from agent_tpu_torch.kernels.flash_attention import make_flash_attention_trainable
 
-        return make_flash_attention_trainable()
+        return make_flash_attention_trainable(self.mesh)
 
     # ---- weights store ----
 
@@ -164,6 +219,8 @@ class TorchRuntime:
             "platform": self.platform,
             "n_devices": self.n_devices,
             "device": str(self.device),
+            "mesh": self.mesh.shape,
+            "mesh_devices": [str(d) for d in self.devices],
             "executable_cache": self.cache.stats(),
             "models_resident": sorted(self._params.keys()),
         }
@@ -179,11 +236,28 @@ _runtime: Optional[TorchRuntime] = None
 _runtime_lock = threading.Lock()
 
 
+def mesh_shape_from_env() -> Dict[str, int]:
+    """``MESH_SHAPE="sp=2"`` (comma-separated ``axis=size``) -> ``{"sp": 2}``,
+    as the reference's ``DeviceConfig.from_env`` parses it: a size that is
+    not an int is skipped, and a bare name means size 1."""
+    shape: Dict[str, int] = {}
+    for tok in os.environ.get("MESH_SHAPE", "").split(","):
+        name, eq, size = (part.strip() for part in tok.partition("="))
+        if not name:
+            continue
+        try:
+            shape[name] = int(size) if eq else 1
+        except ValueError:
+            pass
+    return shape
+
+
 def get_runtime() -> TorchRuntime:
+    """The process-wide runtime, on ``MESH_SHAPE``'s mesh when it is set."""
     global _runtime
     with _runtime_lock:
         if _runtime is None:
-            _runtime = TorchRuntime()
+            _runtime = TorchRuntime(mesh_shape=mesh_shape_from_env() or None)
         return _runtime
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (agent_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card
+    python3 chip_smoke.py --cards 4    # phases 1, 2 and the ring over 4 cards
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -20,6 +21,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               dQ, dK/dV): o, lse, dq, dk and dv at phase 6's batch shape
               and key lengths and at edge cases; a backward that drops the
               first key tile and a dq with its scale 10 % off must fail.
+              The ring's fold kernel: m, l and acc after two hops, the
+              second from carried state, at the shard shape and key lengths
+              of phase 5b and at edge cases (a wholly masked block, a row
+              with no key anywhere, ragged Lq != Lk, d_head 32 and 64,
+              f32); a fold that ignores the carried state and one that
+              drops the first key tile must fail; the launcher must refuse
+              f16, misshapen, non-contiguous and CPU state.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -32,6 +40,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               same op on the CPU.
 5. long context — d_model 512, 4 heads (d_head 128), max_len 4096: 8 rows
               of 3000-4096 bytes.
+5b. ring    — the same request on an sp = 2 mesh whose two shards share the
+              card (TorchRuntime(devices=["cuda:0"] * 2, mesh_shape={"sp":
+              2})): ring attention in every layer, n_layers x sp^2 fold
+              launches a request and no other attention. Log-probabilities
+              of every class against the one-card run and against the ring
+              with the plain fold (the planted state reset must fail); the
+              same at sp = 4; a small f32 model at sp = 2 on the card
+              against two CPU shards. The shards share one card, so the
+              rotation copies nothing: the times show sp^2 folds and no
+              communication.
 6. train    — train_classifier through the op registry at BERT-base width:
               256 keyword rows of ~500 bytes (L 512), batch 128, 3 epochs.
               Every epoch loss finite; each training kernel launched once
@@ -43,7 +61,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (the planted tile drop must fail); a small f32 model trained
               by the op on the card and on the CPU, losses compared.
 7. kernels  — per kernel: launches on its path, error against plain,
-              kernel / plain / library times and the card's bound.
+              kernel / plain / library times and the card's bound (the fold
+              at phase 5b's shard shape: launches over its timed requests).
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -75,6 +94,9 @@ TRAIN_WORDS = {
     0: ["invoice", "payment", "ledger", "account", "balance"],
     1: ["sensor", "voltage", "telemetry", "actuator", "signal"],
 }
+LONG_LAYERS = 4  # EncoderConfig's default depth, which LONG_CTX keeps
+SP, SP_WIDE = 2, 4  # phase 5b's ring sizes
+CARD = "cuda:0"  # the device every shard of phase 5b's rings lists
 TRAIN = {"batch_size": 128, "epochs": 3, "seed": 0}  # bench.py's train leg: batch 128, L 512
 TRAIN_ROWS = 256
 TIMED_STEPS, WARM_STEPS = 5, 2  # bench.py:488-510
@@ -395,22 +417,25 @@ def op_agreement(got: dict, want: dict, tol: float) -> dict:
             "non_tie_flips": non_ties, "ok": ok}
 
 
-def timed_requests(classify, ctx, fa, requests, n_layers: int, k: int) -> list:
+def timed_requests(classify, ctx, fa, requests, launches: dict, k: int) -> list:
     """Run each request once to warm up, then REPS times; every run must
-    launch the kernel once per layer and take no dense path."""
+    launch each kernel as often as ``launches`` says (the others not at
+    all) and select no dense attention."""
+    want = {key: launches.get(key, 0) for key in fa.LAUNCH_COUNTS}
     report = []
     for name, payload, n_rows in requests:
         walls = []
         for rep in range(REPS + 1):
-            launches, dense = fa.LAUNCH_COUNTS["flash_attention"], fa.SELECTION_COUNTS["dense"]
+            before, sel = dict(fa.LAUNCH_COUNTS), dict(fa.SELECTION_COUNTS)
             t0 = time.perf_counter()
             out = classify(dict(payload), ctx)
             wall = time.perf_counter() - t0
             check_result(out, n_rows, k)
-            d_launch = fa.LAUNCH_COUNTS["flash_attention"] - launches
-            if d_launch != n_layers or fa.SELECTION_COUNTS["dense"] != dense:
-                raise SystemExit(f"{name}: {d_launch} kernel launches (want {n_layers}), "
-                                 f"dense selections {fa.SELECTION_COUNTS['dense'] - dense}")
+            got = {key: fa.LAUNCH_COUNTS[key] - before[key] for key in want}
+            dense = {key: fa.SELECTION_COUNTS[key] - sel[key] for key in ("dense", "ring_dense")}
+            if got != want or any(dense.values()):
+                raise SystemExit(f"{name}: kernel launches {got} (want {want}), "
+                                 f"dense selections {dense}")
             if rep:
                 walls.append(wall)
         p50 = statistics.median(walls)
@@ -421,6 +446,7 @@ def timed_requests(classify, ctx, fa, requests, n_layers: int, k: int) -> list:
 
 # Device kernels by what they do, from their names (first match wins).
 KERNEL_KINDS = (
+    ("flash_fold", (", true>(", "ELb1EE")),  # flash_fwd_*<D, false, true>: CarryState
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -724,7 +750,259 @@ def train_kernel_entries(fa, check, launches) -> list:
     ]
 
 
-def main() -> int:
+FOLD_EDGE_CASES = [
+    # name, (B, H, Lq, Lk, D), key lengths of the first block, of the second
+    ("masked_after_real", (2, 4, 128, 192, 64), [192, 100], [0, 0]),
+    ("dead_row", (3, 4, 96, 96, 64), [96, 0, 40], [50, 0, 96]),
+    ("ragged_lq_ne_lk", (2, 3, 77, 131, 32), [131, 64], [100, 7]),
+    ("d32", (2, 4, 160, 160, 32), [160, 33], [70, 160]),
+    ("d64", (2, 4, 130, 200, 64), [200, 1], [150, 199]),
+]
+
+
+def ring_fold_case(long_case) -> tuple:
+    """The fold's main case: shard 0 of phase 5b's ring at sp = SP, whose
+    second hop folds the second key block into the state of the first."""
+    name, (B, H, L, _, D), lengths, dtype = long_case
+    lq = L // SP
+    blocks = [np.clip(np.asarray(lengths) - j * lq, 0, lq).tolist() for j in (0, 1)]
+    return (f"ring_shard/{name}", (B, H, lq, lq, D), *blocks, dtype)
+
+
+def check_fold_kernel(fa, main_case) -> dict:
+    """Phase 3, the fold kernel: two hops, the first from the initial state,
+    the second from the state the plain version carried out of the first;
+    m, l and acc of each against the plain version under the serving
+    check's tolerances (those of the input dtype)."""
+    cases = [(n, s, l0, l1, dt) for n, s, l0, l1 in FOLD_EDGE_CASES
+             for dt in (torch.bfloat16, torch.float32)] + [main_case]
+    results, inputs = [], None
+    for i, (name, (B, H, Lq, Lk, D), len0, len1, dtype) in enumerate(cases):
+        q, k0, v0, mask0 = attn_inputs(B, H, Lq, Lk, D, dtype, len0, seed=200 + i)
+        _, k1, v1, mask1 = attn_inputs(B, H, Lq, Lk, D, dtype, len1, seed=300 + i)
+        keep0, keep1 = fa.key_keep(mask0), fa.key_keep(mask1)
+        start = fa.initial_state(q)
+        prev = fa.flash_fold_reference(q, k0, v0, keep0, *start)
+        want = fa.flash_fold_reference(q, k1, v1, keep1, *prev)
+        hop1 = fa.flash_fold(q, k0, v0, mask0, *(x.clone() for x in start))
+        hop2 = fa.flash_fold(q, k1, v1, mask1, *(x.clone() for x in prev))
+
+        def verdict(got, ref) -> list:
+            return [compare(g, w, dtype) for g, w in zip(got, ref)]
+
+        res = verdict(hop1, prev) + verdict(hop2, want)
+        ok = all(r[0] for r in res)
+        if name == "masked_after_real":  # the state passes through unchanged
+            ok = ok and all(torch.equal(g, w) for g, w in zip(hop2, prev))
+        if name == "dead_row":  # row 1 has no key in either block
+            ok = ok and bool((hop2[0][1] == fa.NEG_INF).all() and (hop2[1][1] == 0).all()
+                             and (hop2[2][1] == 0).all())
+        faults = {"state_reset": fa.flash_fold_reference(q, k1, v1, keep1, *start)}
+        if max(len1) > 0:  # a wholly masked block has no tile to drop
+            faults["drop_first_tile"] = fa.flash_fold_reference(
+                q, k1, v1, fa.key_keep(drop_first_tile(mask1)), *prev)
+        fault_res = {f: verdict(out, want) for f, out in faults.items()}
+        caught = all(not all(r[0] for r in fr) for fr in fault_res.values())
+        results.append({
+            "case": name, "dtype": str(dtype).split(".")[-1], "shape": [B, H, Lq, Lk, D],
+            "max_abs_err": {"m": max(res[0][1], res[3][1]), "l": max(res[1][1], res[4][1]),
+                            "acc": max(res[2][1], res[5][1])},
+            "max_rel_err": max(r[2] for r in res),
+            "fault_max_rel_err": {f: max(r[2] for r in fr) for f, fr in fault_res.items()},
+            "ok": ok, "faults_caught": caught})
+        if name.startswith("ring_shard/"):
+            inputs = (q, k1, v1, keep1, prev, len1)
+    # The launcher refuses state it does not take.
+    q, k, v, keep, (m, l, acc), _ = inputs
+    refused = {}
+    for why, state in (("state_f16", (m.half(), l, acc)),
+                       ("state_shape", (m, l[:, :, :-1], acc)),
+                       ("state_non_contiguous",
+                        (m, l, acc.transpose(-1, -2).contiguous().transpose(-1, -2))),
+                       ("state_on_cpu", (m.cpu(), l, acc))):
+        try:
+            fa._launch_fold(q, k, v, keep, *state)
+            refused[why] = False
+        except ValueError:
+            refused[why] = True
+    torch.cuda.synchronize()
+    emit({"phase": "fold_kernel_vs_plain", "tolerance": {"bf16": TOL[torch.bfloat16],
+                                                         "f32": TOL[torch.float32]},
+          "rel_tolerance": {"bf16": REL_TOL[torch.bfloat16], "f32": REL_TOL[torch.float32]},
+          "cases": results, "refused": refused})
+    bad = [r for r in results if not (r["ok"] and r["faults_caught"])]
+    if bad or not all(refused.values()):
+        raise SystemExit(f"fold kernel check failed: {bad}, refused {refused}")
+    main = results[-1]
+    return {"inputs": inputs, "max_abs_err": max(main["max_abs_err"].values()),
+            "max_rel_err": main["max_rel_err"]}
+
+
+def shared_runtime(base, attn=None, **kwargs):
+    """A test hook: a runtime over ``kwargs``'s devices that shares
+    ``base``'s resident weights and, when ``attn`` is given, attends with
+    it instead of its own attention function."""
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    rt = TorchRuntime(**kwargs)
+    rt._params = base._params
+    if attn is not None:
+        rt.attention_fn = lambda: attn
+    return rt
+
+
+def ring_phase(fa, classify, rt, long_payload, one_card, small_payload, k) -> int:
+    """Phase 5b: phase 5's request on an sp mesh whose shards share the
+    card; ``rt`` is phase 5's one-card runtime, holding the weights.
+    Returns the fold launches of the timed sp = SP requests."""
+    from agent_tpu_torch.parallel import ring as ring_mod
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    def mesh_kwargs(sp, device=CARD):
+        return {"devices": [device] * sp, "mesh_shape": {"sp": sp}}
+
+    ring_rt = shared_runtime(rt, **mesh_kwargs(SP))
+    ctx = OpContext(runtime=ring_rt)
+    classify(dict(long_payload), ctx)  # warm-up
+    reset_counts(fa)
+    report = timed_requests(classify, ctx, fa, [(f"texts8_L4096_sp{SP}", long_payload, 8)],
+                            {"flash_fold": LONG_LAYERS * SP * SP}, k)
+    launches, selection = fa.LAUNCH_COUNTS["flash_fold"], dict(fa.SELECTION_COUNTS)
+    if selection["ring"] != LONG_LAYERS * (REPS + 1) or selection["flash"]:
+        raise SystemExit(f"ring selections {selection}")
+    profile = profile_call(lambda: classify(dict(long_payload), ctx))
+
+    # Every class: the ring against the one-card run, and against the ring
+    # with the plain fold swapped in; the planted state reset must fail.
+    every = dict(long_payload, topk=1000)
+    one_card_out = classify(dict(every), OpContext(runtime=rt))
+    ring_out = classify(dict(every), ctx)
+    devices = list(ring_rt.mesh.devices.reshape(-1))
+
+    def ring_with(fold):
+        return lambda q, k_, v, mask: ring_mod.ring_attention_blocks(q, k_, v, mask, devices,
+                                                                     fold)
+
+    def plain_fold(q, k_, v, mask, m, l, acc):
+        return fa.flash_fold_reference(q, k_, v, fa.key_keep(mask), m, l, acc)
+
+    def reset_fold(q, k_, v, mask, m, l, acc):
+        return plain_fold(q, k_, v, mask, *fa.initial_state(q))
+
+    plain_out, fault_out = (classify(dict(every), OpContext(runtime=shared_runtime(
+        rt, ring_with(fold), **mesh_kwargs(SP)))) for fold in (plain_fold, reset_fold))
+    logp = LOGP_TOL["bfloat16"]
+    vs_one_card = op_agreement(ring_out, one_card_out, logp)
+    vs_plain = op_agreement(ring_out, plain_out, logp)
+    fault_vs_plain = op_agreement(fault_out, plain_out, logp)
+
+    # sp = SP_WIDE: the same request, n_layers x SP_WIDE^2 fold launches.
+    reset_counts(fa)
+    wide_out = classify(dict(every), OpContext(runtime=shared_runtime(
+        rt, **mesh_kwargs(SP_WIDE))))
+    wide_launches = fa.LAUNCH_COUNTS["flash_fold"]
+    wide_vs_one_card = op_agreement(wide_out, one_card_out, logp)
+
+    # A small f32 model at sp = SP: on the card against two CPU shards.
+    reset_counts(fa)
+    card = classify(dict(small_payload), OpContext(runtime=TorchRuntime(**mesh_kwargs(SP))))
+    small_launches, small_selection = fa.LAUNCH_COUNTS["flash_fold"], dict(fa.SELECTION_COUNTS)
+    cpu = classify(dict(small_payload),
+                   OpContext(runtime=TorchRuntime(**mesh_kwargs(SP, "cpu"))))
+    small_vs_cpu = op_agreement(card, cpu, LOGP_TOL["float32"])
+    torch.cuda.synchronize()
+    emit({"phase": "ring", "config": LONG_CTX, "sp": SP, "requests": report,
+          "one_card_p50_ms": one_card[0]["p50_ms"], "launches": launches,
+          "selection": selection, "profile_one_request": profile,
+          "note": (f"the {SP} shards share one card, so rotating a K/V block copies "
+                   "nothing: these times are sp^2 fold launches and no communication"),
+          "logp_tolerance": LOGP_TOL, "vs_one_card": vs_one_card,
+          "vs_plain_fold": vs_plain, "planted_state_reset_vs_plain_fold": fault_vs_plain,
+          "sp_wide": {"sp": SP_WIDE, "launches": wide_launches,
+                      "vs_one_card": wide_vs_one_card},
+          "small_f32_vs_cpu": {"launches": small_launches, "selection": small_selection,
+                               **small_vs_cpu}})
+    if not (vs_one_card["ok"] and vs_plain["ok"] and wide_vs_one_card["ok"]
+            and small_vs_cpu["ok"]) or fault_vs_plain["ok"]:
+        raise SystemExit("ring results disagree (or the planted fault went unnoticed)")
+    if wide_launches != LONG_LAYERS * SP_WIDE ** 2 or card["device"] != torch.device(CARD).type \
+            or not small_launches or small_selection["ring_dense"] or small_selection["flash"]:
+        raise SystemExit(f"sp={SP_WIDE} launches {wide_launches}; small f32 on the card: "
+                         f"{card['device']}, launches {small_launches}, {small_selection}")
+    return launches
+
+
+def fold_kernel_entry(fa, check, launches) -> dict:
+    """The kernels line's entry of the fold kernel at its main case (phase
+    5b's second hop of shard 0). The kernel updates the state in place, so
+    repeated launches fold the same block again: the same work each time.
+    No single PyTorch call returns the carried (m, l, acc), so it has no
+    library yardstick."""
+    q, k, v, keep, state, lengths = check["inputs"]
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    work = [x.clone() for x in state]
+    rows = B * H * Lq * 4
+    return kernel_entry(
+        "flash_fold", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "agent_tpu/kernels/flash_attention.py:258", launches,
+        check["max_abs_err"], check["max_rel_err"],
+        cuda_ms(lambda: fa._launch_fold(q, k, v, keep, *work)),
+        cuda_ms(lambda: fa.flash_fold_reference(q, k, v, keep, *state), iters=5),
+        B * H * (Lq + 2 * Lk) * D * q.element_size() + 2 * (B * H * Lq * D * 4 + 2 * rows)
+        + keep.numel() * 4,
+        4 * H * Lq * D * float(np.sum(lengths)),  # products with real keys only
+        None, q, library_note="no single PyTorch call returns the carried (m, l, acc)")
+
+
+def ring_cards_phase(fa, classify, n, long_payload, k) -> None:
+    """``--cards N``: phase 5b's request on a ring over the first N cards,
+    one shard a card, so every hop's K/V block is a peer copy between two
+    cards; against the one-card run, and timed beside the same ring with
+    its N shards on one card (where the rotation copies nothing)."""
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    one = TorchRuntime()
+    ctx_one = OpContext(runtime=one)
+    classify(dict(long_payload), ctx_one)  # weights
+    reset_counts(fa)
+    report = timed_requests(classify, ctx_one, fa, [("texts8_L4096", long_payload, 8)],
+                            {"flash_attention": LONG_LAYERS}, k)
+    folds = {"flash_fold": LONG_LAYERS * n * n}
+    rings = {"cards": shared_runtime(one, mesh_shape={"sp": n}),
+             "one_card": shared_runtime(one, devices=[CARD] * n, mesh_shape={"sp": n})}
+    every = dict(long_payload, topk=1000)
+    want = classify(dict(every), ctx_one)
+    result = {}
+    for name, rt in rings.items():
+        ctx = OpContext(runtime=rt)
+        classify(dict(long_payload), ctx)  # warm-up
+        reset_counts(fa)
+        result[name] = {
+            "devices": [str(d) for d in rt.devices],
+            "requests": timed_requests(classify, ctx, fa,
+                                       [(f"texts8_L4096_sp{n}_{name}", long_payload, 8)],
+                                       folds, k),
+            "vs_one_card": op_agreement(classify(dict(every), ctx), want,
+                                        LOGP_TOL["bfloat16"])}
+    result["cards"]["profile_one_request"] = profile_call(
+        lambda: classify(dict(long_payload), OpContext(runtime=rings["cards"])))
+    torch.cuda.synchronize()
+    emit({"phase": "ring_cards", "config": LONG_CTX, "sp": n, "one_card_requests": report,
+          "logp_tolerance": LOGP_TOL, **result})
+    if not all(r["vs_one_card"]["ok"] for r in result.values()):
+        raise SystemExit("the ring across cards disagrees with the one-card run")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--cards", type=int, default=0,
+                        help="only phases 1, 2 and the ring over the first CARDS cards")
+    cards = parser.parse_args(argv).cards
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no CUDA card", file=sys.stderr)
         return 2
@@ -779,6 +1057,14 @@ def main() -> int:
     long_payload = {"texts": random_texts(rng, 8, 3000, 4096), "model_config": LONG_CTX,
                     "topk": k, "allow_fallback": False}
     long_requests = [("texts8_L4096", long_payload, 8)]
+    if cards:
+        if torch.cuda.device_count() < cards:
+            raise SystemExit(f"--cards {cards}: {torch.cuda.device_count()} visible")
+        ring_cards_phase(fa, classify, cards, long_payload, k)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # Phase 6's payload; phase 3 holds the training kernels against their
     # plain versions at its first batch's shape and key lengths.
@@ -792,9 +1078,12 @@ def main() -> int:
                   train_state["mask"][take].sum(axis=1).tolist(), cfg.compute_dtype)
 
     # 3. kernel vs plain
-    kernel_check = check_kernels(fa, staged_cases(
-        classify, requests + long_requests + [("small_f32", small_payload, 12)]))
+    kernel_cases = staged_cases(
+        classify, requests + long_requests + [("small_f32", small_payload, 12)])
+    kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
+    fold_check = check_fold_kernel(fa, ring_fold_case(
+        next(c for c in kernel_cases if c[0].startswith("texts8_L4096/"))))
 
     # 4. main path
     rt = TorchRuntime()
@@ -803,7 +1092,8 @@ def main() -> int:
     classify(dict(requests[0][1]), ctx)  # builds the BERT-base weights once
     build_weights_s = time.perf_counter() - t_build
     reset_counts(fa)
-    report = timed_requests(classify, ctx, fa, requests, BERT_BASE["n_layers"], k)
+    report = timed_requests(classify, ctx, fa, requests,
+                            {"flash_attention": BERT_BASE["n_layers"]}, k)
     main_launches = fa.LAUNCH_COUNTS["flash_attention"]
     main_selection = dict(fa.SELECTION_COUNTS)
     profile = profile_call(lambda: classify(dict(requests[2][1]), ctx))
@@ -811,20 +1101,13 @@ def main() -> int:
     # The 64-row request again, asking for every class, with the plain
     # attention swapped in (a test hook: a runtime with another attention
     # function, sharing the weights), and with the planted tile drop.
-    class HookedRuntime(TorchRuntime):
-        def __init__(self, attn):
-            super().__init__()
-            self._params, self._attn = rt._params, attn
-
-        def attention_fn(self):
-            return self._attn
-
     every_class = dict(requests[1][1], topk=1000)
     kernel_out = classify(dict(every_class), ctx)
-    plain_out = classify(dict(every_class), OpContext(runtime=HookedRuntime(
-        fa.flash_attention_reference)))
-    fault_out = classify(dict(every_class), OpContext(runtime=HookedRuntime(
-        lambda q, k_, v, mask: fa.flash_attention_reference(q, k_, v, drop_first_tile(mask)))))
+    plain_out = classify(dict(every_class), OpContext(runtime=shared_runtime(
+        rt, fa.flash_attention_reference)))
+    fault_out = classify(dict(every_class), OpContext(runtime=shared_runtime(
+        rt, lambda q, k_, v, mask: fa.flash_attention_reference(q, k_, v,
+                                                                drop_first_tile(mask)))))
     vs_plain = op_agreement(kernel_out, plain_out, LOGP_TOL["bfloat16"])
     fault_vs_plain = op_agreement(fault_out, plain_out, LOGP_TOL["bfloat16"])
 
@@ -846,10 +1129,14 @@ def main() -> int:
     rt.clear_params()
     classify(dict(long_payload), ctx)  # weights
     reset_counts(fa)
-    long_report = timed_requests(classify, ctx, fa, long_requests, 4, k)
+    long_report = timed_requests(classify, ctx, fa, long_requests,
+                                 {"flash_attention": LONG_LAYERS}, k)
     emit({"phase": "long_context", "config": LONG_CTX, "requests": long_report,
           "launches": fa.LAUNCH_COUNTS["flash_attention"],
           "selection": dict(fa.SELECTION_COUNTS)})
+
+    # 5b. ring
+    fold_launches = ring_phase(fa, classify, rt, long_payload, long_report, small_payload, k)
     rt.clear_params()
 
     # 6. train
@@ -872,7 +1159,8 @@ def main() -> int:
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v, attn_mask=bool_mask)), q)
-    emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches)]})
+    emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
+                      fold_kernel_entry(fa, fold_check, fold_launches)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

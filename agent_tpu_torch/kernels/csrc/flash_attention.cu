@@ -55,6 +55,27 @@
 // products bound it (~580 FLOP/B, above the ridge). What the design does
 // about it: the tensor-core loop is the forward's, and the state crosses
 // device memory once in and once out per query row, in registers in between.
+//
+// The RelBias = true variant replaces `_flash_t5_kernel` (agent_tpu/kernels/
+// flash_attention.py:354-411, launched by `flash_attention_t5` at :467), the
+// T5 encoder's self-attention: unscaled scores (scale = 1) plus T5's bucketed
+// relative-position bias, s = q.k * scale + bias[h, bucket(k - q)], before
+// the mask. The bucket saturates beyond +-max_distance, so the wrapper hands
+// in a per-distance table, f32 [H, 2 * max_distance + 1], row h holding
+// bias[h, bucket(clamp(k - q, -maxd, maxd))] at index clamp(k - q) + maxd,
+// computed from the learned [num_buckets, H] table with the port's own
+// bucket function (no logf in the kernel, where an ulp at rel = 16, 32, 64
+// would flip a bucket). Each block copies its head's row into dynamic shared
+// memory (1 KB at max_distance 128) and looks it up per score element; the
+// [H, Lq, Lk] bias never exists in device memory. The scale and the bias are
+// applied as two rounded operations, as the plain version computes them.
+// Bound on an H100 SXM at the T5-large encoder's shape (B 64, H 16, L 512,
+// D 64, bf16): Q, K, V and O read or written once are 268 MB, 0.080 ms at
+// 3.35 TB/s, against 4*B*H*L^2*D = 6.9e10 FLOP, 0.069 ms at 989 TFLOP/s
+// with every key real, so the bytes bound it (~255 FLOP/B, as row 1). What
+// the design does about it: the tensor-core loop is the forward's, so each
+// tensor crosses device memory about once per query tile; the bias costs
+// one shared-memory read and one add per score.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,13 +87,35 @@ namespace {
 
 constexpr float kNegInf = -1e9f;  // finite, as agent_tpu.models.layers.NEG_INF
 constexpr int kThreads = 128;
+// Largest max_distance of the RelBias table: 2 * 1024 + 1 floats (8 KB) of
+// dynamic shared memory stay, with the largest tile buffers (35 KB), under
+// the 48 KB a block gets without opting in.
+constexpr int kMaxBiasDistance = 1024;
+
+// This lane's bias for relative position rel = key - query, from the head's
+// per-distance row staged in shared memory.
+__device__ __forceinline__ float rel_bias_at(const float* bias_s, int rel,
+                                             int max_distance) {
+  return bias_s[min(max(rel, -max_distance), max_distance) + max_distance];
+}
+
+// Copies head h's per-distance row of `dist_bias` into the dynamic shared
+// memory and returns it; visible to the block after its next __syncthreads.
+__device__ __forceinline__ float* stage_bias_row(const float* dist_bias, int h,
+                                                 int max_distance) {
+  extern __shared__ float dyn_smem[];
+  const int n = 2 * max_distance + 1;
+  const float* row = dist_bias + static_cast<size_t>(h) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dyn_smem[i] = row[i];
+  return dyn_smem;
+}
 
 // ---- bf16: tensor-core kernel ----------------------------------------------
 
 constexpr int kBq = 64;  // query rows per block, 16 per warp
 constexpr int kBk = 64;  // keys per tile
 
-template <int D, bool WriteLse, bool CarryState>
+template <int D, bool WriteLse, bool CarryState, bool RelBias>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
@@ -81,7 +124,8 @@ __global__ void __launch_bounds__(kThreads)
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                    int H, int Lq, int Lk, int n_q_tiles, int mask_b_stride,
                    float scale, float* __restrict__ st_m,
-                   float* __restrict__ st_l, float* __restrict__ st_acc) {
+                   float* __restrict__ st_l, float* __restrict__ st_acc,
+                   const float* __restrict__ dist_bias, int max_distance) {
   constexpr int kStride = D + 8;  // smem row pitch: 16-byte pad, no conflicts
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 k_s[kBk * kStride];
@@ -98,6 +142,8 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* vh = v + static_cast<size_t>(bh) * Lk * D;
   const int32_t* mrow = mask + static_cast<size_t>(b) * mask_b_stride;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float* bias_s = nullptr;
+  if constexpr (RelBias) bias_s = stage_bias_row(dist_bias, bh % H, max_distance);
 
   // This warp's 16 query rows as A fragments, straight from device memory.
   uint32_t qf[D / 16][4];
@@ -173,8 +219,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool keep = keep_s[nt * 8 + 2 * t + j] != 0.f;
-        s[nt][j] = keep ? s[nt][j] * scale : kNegInf;
-        s[nt][2 + j] = keep ? s[nt][2 + j] * scale : kNegInf;
+        if constexpr (RelBias) {
+          const int key = k0 + nt * 8 + 2 * t + j;
+          s[nt][j] = keep ? __fadd_rn(__fmul_rn(s[nt][j], scale),
+                                      rel_bias_at(bias_s, key - r0, max_distance))
+                          : kNegInf;
+          s[nt][2 + j] = keep ? __fadd_rn(__fmul_rn(s[nt][2 + j], scale),
+                                          rel_bias_at(bias_s, key - r1, max_distance))
+                              : kNegInf;
+        } else {
+          s[nt][j] = keep ? s[nt][j] * scale : kNegInf;
+          s[nt][2 + j] = keep ? s[nt][2 + j] * scale : kNegInf;
+        }
         mx[0] = fmaxf(mx[0], s[nt][j]);
         mx[1] = fmaxf(mx[1], s[nt][2 + j]);
       }
@@ -280,14 +336,15 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kRowsF32 = 32;  // query rows per block, 4 threads per row
 constexpr int kTileF32 = 32;  // keys per tile
 
-template <int D, bool WriteLse, bool CarryState>
+template <int D, bool WriteLse, bool CarryState, bool RelBias>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int32_t* __restrict__ mask,
                   float* __restrict__ out, float* __restrict__ lse, int H,
                   int Lq, int Lk, int n_q_tiles, int mask_b_stride,
                   float scale, float* __restrict__ st_m,
-                  float* __restrict__ st_l, float* __restrict__ st_acc) {
+                  float* __restrict__ st_l, float* __restrict__ st_acc,
+                  const float* __restrict__ dist_bias, int max_distance) {
   constexpr int kPer = D / 4;  // this thread's dims: t + 4 i
   __shared__ __align__(16) float k_s[kTileF32 * D];
   __shared__ __align__(16) float v_s[kTileF32 * D];
@@ -301,6 +358,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* kh = k + static_cast<size_t>(bh) * Lk * D;
   const float* vh = v + static_cast<size_t>(bh) * Lk * D;
   const int32_t* mrow = mask + static_cast<size_t>(b) * mask_b_stride;
+  const float* bias_s = nullptr;
+  if constexpr (RelBias) bias_s = stage_bias_row(dist_bias, bh % H, max_distance);
 
   float qr[kPer], acc[kPer];
 #pragma unroll
@@ -346,7 +405,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kPer; ++i) part = fmaf(qr[i], k_s[j * D + t + 4 * i], part);
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = keep_s[j] != 0.f ? part * scale : kNegInf;
+      if constexpr (RelBias) {
+        s[j] = keep_s[j] != 0.f
+                   ? __fadd_rn(__fmul_rn(part, scale),
+                               rel_bias_at(bias_s, k0 + j - row, max_distance))
+                   : kNegInf;
+      } else {
+        s[j] = keep_s[j] != 0.f ? part * scale : kNegInf;
+      }
       mx = fmaxf(mx, s[j]);
     }
     float rs = 0.f;
@@ -389,16 +455,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool WriteLse, bool CarryState>
+template <bool WriteLse, bool CarryState, bool RelBias = false>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                void* out, float* lse, int B, int H, int Lq, int Lk, int D,
                int mask_b_stride, int is_bf16, float scale, void* stream,
                float* st_m = nullptr, float* st_l = nullptr,
-               float* st_acc = nullptr) {
+               float* st_acc = nullptr, const float* dist_bias = nullptr,
+               int max_distance = 0) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (RelBias && (max_distance < 1 || max_distance > kMaxBiasDistance))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* m = static_cast<const int32_t*>(mask);
+  const size_t smem = RelBias ? (2 * max_distance + 1) * sizeof(float) : 0;
   if (is_bf16) {
     const int n_q = (Lq + kBq - 1) / kBq;
     const dim3 grid(static_cast<unsigned>(n_q) * B * H);
@@ -407,9 +477,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     const auto* vv = static_cast<const __nv_bfloat16*>(v);
     auto* oo = static_cast<__nv_bfloat16*>(out);
     switch (D) {
-      case 32: flash_fwd_bf16<32, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
-      case 64: flash_fwd_bf16<64, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
-      default: flash_fwd_bf16<128, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      case 32: flash_fwd_bf16<32, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
+      case 64: flash_fwd_bf16<64, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
+      default: flash_fwd_bf16<128, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
     }
   } else {
     const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
@@ -419,9 +489,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     const auto* vv = static_cast<const float*>(v);
     auto* oo = static_cast<float*>(out);
     switch (D) {
-      case 32: flash_fwd_f32<32, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
-      case 64: flash_fwd_f32<64, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
-      default: flash_fwd_f32<128, WriteLse, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      case 32: flash_fwd_f32<32, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
+      case 64: flash_fwd_f32<64, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
+      default: flash_fwd_f32<128, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -467,6 +537,21 @@ int flash_attention_fold(const void* q, const void* k, const void* v,
                                  mask_b_stride, is_bf16, scale, stream,
                                  static_cast<float*>(m), static_cast<float*>(l),
                                  static_cast<float*>(acc));
+}
+
+// T5 self-attention: as flash_attention_fwd with s = q.k * scale +
+// dist_bias[h, clamp(k - q, -max_distance, max_distance) + max_distance]
+// before the mask; dist_bias: f32 [H, 2 * max_distance + 1] (contiguous),
+// 1 <= max_distance <= 1024.
+int flash_attention_fwd_t5(const void* q, const void* k, const void* v,
+                           const void* mask, void* out, const void* dist_bias,
+                           int B, int H, int Lq, int Lk, int D,
+                           int mask_b_stride, int is_bf16, float scale,
+                           int max_distance, void* stream) {
+  return launch_fwd<false, false, true>(
+      q, k, v, mask, out, nullptr, B, H, Lq, Lk, D, mask_b_stride, is_bf16,
+      scale, stream, nullptr, nullptr, nullptr,
+      static_cast<const float*>(dist_bias), max_distance);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -4,16 +4,18 @@ and the selection between them and dense attention.
 Counterpart of ``agent_tpu.kernels.flash_attention`` (``flash_attention``,
 ``flash_attention_trainable``, ``selects_flash``, ``SELECTION_COUNTS``,
 ``make_flash_attention``, ``make_flash_attention_trainable``, ``flash_fold``,
-``flash_fold_supported``). The kernels are ``csrc/flash_attention.cu`` (the
-forward, replacing the Pallas kernels ``_flash_kernel`` and, as its
-variants, ``_flash_fwd_lse_kernel`` and the ring hop ``_flash_fold_kernel``)
-and ``csrc/flash_attention_bwd.cu`` (``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). They compute what the Pallas kernels compute:
-softmax(QKᵀ·D^-½ with a key-padding mask) V with an online softmax in f32,
-zero output for a fully masked row, for training the row logsumexp and the
-recompute backward of FlashAttention-2, and for ring attention
-(:mod:`agent_tpu_torch.parallel.ring`) one fold of a K/V block into carried
-(m, l, acc) state.
+``flash_fold_supported``, ``flash_attention_t5``,
+``make_flash_attention_t5``). The kernels are ``csrc/flash_attention.cu``
+(the forward, replacing the Pallas kernels ``_flash_kernel`` and, as its
+variants, ``_flash_fwd_lse_kernel``, the ring hop ``_flash_fold_kernel`` and
+T5's ``_flash_t5_kernel``) and ``csrc/flash_attention_bwd.cu``
+(``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). They compute what
+the Pallas kernels compute: softmax(QKᵀ·D^-½ with a key-padding mask) V with
+an online softmax in f32, zero output for a fully masked row, for training
+the row logsumexp and the recompute backward of FlashAttention-2, for ring
+attention (:mod:`agent_tpu_torch.parallel.ring`) one fold of a K/V block
+into carried (m, l, acc) state, and for T5 unscaled scores plus the bucketed
+relative-position bias.
 
 Selection is by shape support alone. Every key-padding mask ``[B|1, 1, 1,
 Lk]`` with d_head 32, 64 or 128 in bf16 or f32 takes the kernel path, at
@@ -26,15 +28,21 @@ take :func:`~agent_tpu_torch.models.layers.dot_product_attention`.
 On the kernel path a CUDA tensor launches the kernels, and a CPU tensor
 runs the plain versions (:func:`flash_attention_reference`,
 :func:`flash_attention_fwd_lse_reference`,
-:func:`flash_attention_bwd_reference`, :func:`flash_fold_reference`): the
-same tile loops in plain PyTorch, rounding where the kernels round. A CUDA
-launch that fails raises; it never falls back to a plain version.
+:func:`flash_attention_bwd_reference`, :func:`flash_fold_reference`,
+:func:`flash_attention_t5_reference`): the same tile loops in plain
+PyTorch, rounding where the kernels round. A CUDA launch that fails raises;
+it never falls back to a plain version.
+
+The T5 kernel takes the same shapes (and the reference's 2048-key gate,
+measured on a TPU, has no counterpart either), with a ``[num_buckets, H]``
+bias table whose ``max_distance`` is at most ``MAX_BIAS_DISTANCE``; other
+shapes return None, and the T5 encoder takes its own dense path.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,19 +61,24 @@ BLOCK_K = 64
 # Cap on s - lse before exp in the backward: exp(80) is finite in f32, so a
 # fully masked row (lse ≈ NEG_INF) never makes inf · 0 (reference :644-649).
 EXP_CAP = 80.0
+# Largest max_distance the T5 kernel stages in shared memory
+# (kMaxBiasDistance in csrc/flash_attention.cu).
+MAX_BIAS_DISTANCE = 1024
 
 # Per-call tally of the selection: "flash" / "flash_train" = the kernel path
 # (the CUDA kernels, or their plain versions for CPU tensors) of serving /
 # training, "dense" / "dense_train" = dot-product attention; "ring" /
 # "ring_dense" = ring attention over sp (parallel/ring.py) / the shapes it
-# sends to dot-product attention.
+# sends to dot-product attention; "t5_flash" / "t5_dense" = the T5 kernel
+# path / the shapes it hands back to the T5 encoder's dense path.
 SELECTION_COUNTS: Dict[str, int] = {"flash": 0, "dense": 0, "flash_train": 0,
-                                    "dense_train": 0, "ring": 0, "ring_dense": 0}
+                                    "dense_train": 0, "ring": 0, "ring_dense": 0,
+                                    "t5_flash": 0, "t5_dense": 0}
 # CUDA kernel launches, counted where each kernel is launched and nowhere
 # else: a run proves it went through the kernels by reading this.
 LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0, "flash_attention_fwd_lse": 0,
                                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                                 "flash_fold": 0}
+                                 "flash_fold": 0, "flash_attention_t5": 0}
 
 
 def selects_flash(seq_len: int, d_head: int, dtype: torch.dtype) -> bool:
@@ -111,13 +124,19 @@ def initial_state(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
     return m, l, acc
 
 
+BiasTile = Callable[[int, int], torch.Tensor]  # (k0, k1) -> f32 [1, H, Lq, k1 - k0]
+
+
 def _fold_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor,
-                m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
-                block_k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, block_k: int,
+                scale: Optional[float] = None, bias_tile: Optional[BiasTile] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward kernels' tile loop from the state (m, l, acc): the state
-    after every key of ``k``/``v``, unnormalised."""
+    after every key of ``k``/``v``, unnormalised. ``scale`` defaults to
+    D^-½; ``bias_tile`` adds an additive score bias after the scale (T5)."""
     Lk = k.shape[2]
-    scale = softmax_scale(q.shape[-1])
+    if scale is None:
+        scale = softmax_scale(q.shape[-1])
     keep_all = (keep > 0)[:, None, None, :]  # [B|1, 1, 1, Lk]
     qf = q.float()
     for k0 in range(0, Lk, block_k):
@@ -125,6 +144,8 @@ def _fold_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.T
         vt = v[:, :, k0:k0 + block_k]
         kp = keep_all[..., k0:k0 + block_k]
         s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        if bias_tile is not None:
+            s = s + bias_tile(k0, k0 + kt.shape[2])
         s = torch.where(kp, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new) * kp
@@ -136,10 +157,11 @@ def _fold_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.T
 
 
 def _fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               keep: torch.Tensor, block_k: int) -> Tuple[torch.Tensor, ...]:
+               keep: torch.Tensor, block_k: int, scale: Optional[float] = None,
+               bias_tile: Optional[BiasTile] = None) -> Tuple[torch.Tensor, ...]:
     """The forward kernels' tile loop: (out in q's dtype, m, max(l, 1e-30))
     with m and l f32 ``[B, H, Lq, 1]``."""
-    m, l, acc = _fold_tiles(q, k, v, keep, *initial_state(q), block_k)
+    m, l, acc = _fold_tiles(q, k, v, keep, *initial_state(q), block_k, scale, bias_tile)
     den = torch.clamp_min(l, 1e-30)
     return (acc / den).to(q.dtype), m, den
 
@@ -195,6 +217,44 @@ def flash_fold_reference(
     return _fold_tiles(q, k, v, keep, m, l, acc, block_k)
 
 
+def distance_bias_table(rel_bias: torch.Tensor, *, bidirectional: bool,
+                        max_distance: int) -> torch.Tensor:
+    """The T5 kernel's bias input: the learned ``[num_buckets, H]`` table as
+    f32 ``[H, 2·max_distance + 1]``, row h holding head h's bias at each
+    relative position ``k − q`` in [-max_distance, max_distance] (index
+    ``k − q + max_distance``). T5's bucket saturates beyond ±max_distance,
+    so clamping k − q into that range gives every score's exact bias."""
+    from agent_tpu_torch.models.t5 import distance_buckets
+
+    idx = distance_buckets(bool(bidirectional), int(rel_bias.shape[0]), int(max_distance),
+                           rel_bias.device)
+    return rel_bias.float()[idx].t().contiguous()
+
+
+def flash_attention_t5_reference(
+    q: torch.Tensor,          # [B, H, Lq, D]
+    k: torch.Tensor,          # [B, H, Lk, D]
+    v: torch.Tensor,          # [B, H, Lk, D]
+    mask: torch.Tensor,       # [B|1, 1, 1, Lk] key-padding mask (> 0 = attend)
+    dist_bias: torch.Tensor,  # f32 [H, 2·max_distance + 1], see distance_bias_table
+    *,
+    max_distance: int,
+    scale: float = 1.0,
+    block_k: int = BLOCK_K,
+) -> torch.Tensor:
+    """Plain version of the T5 kernel (reference ``_flash_t5_kernel``):
+    :func:`flash_attention_reference`'s tile loop with s = QKᵀ·scale +
+    bias[h, clamp(k − q) + max_distance] before the mask, T5's scale being
+    1. Output in q's dtype, 0 for a row with no real key."""
+    q_pos = torch.arange(q.shape[2], device=q.device)
+
+    def bias_tile(k0: int, k1: int) -> torch.Tensor:
+        rel = torch.arange(k0, k1, device=q.device)[None, :] - q_pos[:, None]
+        return dist_bias[:, rel.clamp(-max_distance, max_distance) + max_distance][None]
+
+    return _fwd_tiles(q, k, v, key_keep(mask), block_k, float(scale), bias_tile)[0]
+
+
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(dO ∘ O)`` in f32, ``[B, H, Lq, 1]``, from the
     forward's rounded output (reference :759-761)."""
@@ -244,15 +304,19 @@ def flash_attention_bwd_reference(
 
 def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   keep: torch.Tensor, do=None, lse=None, delta=None,
-                  state=None) -> Tuple[int, ...]:
+                  state=None, dist_bias=None, max_distance: int = 0) -> Tuple[int, ...]:
     """Raise ``ValueError`` on anything ``kernel`` does not take: tensors on
     another device than one CUDA device, dtypes, shapes, non-contiguous or
     misaligned memory, sizes out of range. ``state`` is the fold's (m, l,
-    acc). Returns (B, H, Lq, Lk, D)."""
+    acc), ``dist_bias`` the T5 kernel's per-distance table for
+    ``max_distance``. Returns (B, H, Lq, Lk, D)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     m, l, acc = state if state is not None else (None, None, None)
-    f32_given = [x for x in (lse, delta, m, l, acc) if x is not None]
+    if dist_bias is not None and not 1 <= max_distance <= MAX_BIAS_DISTANCE:
+        raise ValueError(f"{kernel} kernel: max_distance {max_distance} not in "
+                         f"[1, {MAX_BIAS_DISTANCE}]")
+    f32_given = [x for x in (lse, delta, m, l, acc, dist_bias) if x is not None]
     given = [x for x in (q, k, v, keep, do) if x is not None] + f32_given
     if not (q.is_cuda and all(x.device == q.device for x in given)):
         raise ValueError(f"{kernel} kernel: inputs must share one CUDA device")
@@ -264,7 +328,8 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{kernel} kernel: d_head {D} not in {KERNEL_HEAD_DIMS}")
     want = {"k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D)), "do": (do, (B, H, Lq, D)),
             "lse": (lse, (B, H, Lq, 1)), "delta": (delta, (B, H, Lq, 1)),
-            "m": (m, (B, H, Lq, 1)), "l": (l, (B, H, Lq, 1)), "acc": (acc, (B, H, Lq, D))}
+            "m": (m, (B, H, Lq, 1)), "l": (l, (B, H, Lq, 1)), "acc": (acc, (B, H, Lq, D)),
+            "dist_bias": (dist_bias, (H, 2 * max_distance + 1))}
     for name, (x, shape) in want.items():
         if x is not None and tuple(x.shape) != shape:
             raise ValueError(f"{kernel} kernel: {name} {tuple(x.shape)} is not {shape}")
@@ -273,7 +338,8 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{kernel} kernel: keep {keep.dtype} {tuple(keep.shape)} is "
                          f"not int32 [{B}|1, {Lk}]")
     if any(x.dtype != torch.float32 for x in f32_given):
-        raise ValueError(f"{kernel} kernel: lse, delta and the fold state must be float32")
+        raise ValueError(f"{kernel} kernel: lse, delta, the fold state and the bias "
+                         "table must be float32")
     if not all(x.is_contiguous() for x in given):
         raise ValueError(f"{kernel} kernel: inputs must be contiguous")
     if any(x.data_ptr() % 16 for x in given if x is not keep):
@@ -327,6 +393,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _invoke("flash_attention", "flash_attention_fwd", q.device, q, k, v, keep, out,
             B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
     LAUNCH_COUNTS["flash_attention"] += 1
+    return out
+
+
+def _launch_t5(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+               dist_bias: torch.Tensor, max_distance: int, scale: float) -> torch.Tensor:
+    """Launch the T5 kernel on the current stream; raise on anything it does
+    not take and on a failed launch."""
+    if not is_key_padding_mask(mask, q.shape[0], k.shape[2]):
+        raise ValueError(f"flash_attention_t5 kernel: mask {tuple(mask.shape)} is not "
+                         f"[{q.shape[0]}|1, 1, 1, {k.shape[2]}]")
+    keep = key_keep(mask)
+    B, H, Lq, Lk, D = _check_launch("flash_attention_t5", q, k, v, keep,
+                                    dist_bias=dist_bias, max_distance=max_distance)
+    out = torch.empty_like(q)
+    _invoke("flash_attention", "flash_attention_fwd_t5", q.device, q, k, v, keep, out,
+            dist_bias, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D)[:2], float(scale),
+            int(max_distance))
+    LAUNCH_COUNTS["flash_attention_t5"] += 1
     return out
 
 
@@ -419,6 +503,37 @@ def flash_fold(
     return _launch_fold(q.contiguous(), k.contiguous(), v.contiguous(), keep, m, l, acc)
 
 
+def flash_attention_t5(
+    q: torch.Tensor,         # [B, H, Lq, D]
+    k: torch.Tensor,         # [B, H, Lk, D]
+    v: torch.Tensor,         # [B, H, Lk, D]
+    mask: torch.Tensor,      # [B|1, 1, 1, Lk] key-padding mask (1 = attend)
+    rel_bias: torch.Tensor,  # [num_buckets, H] learned bias table
+    *,
+    bidirectional: bool = True,
+    max_distance: int = 128,
+    scale: float = 1.0,      # T5 attention is unscaled
+) -> Optional[torch.Tensor]:
+    """T5 attention (reference ``flash_attention_t5``): softmax(QKᵀ·scale +
+    the bucketed relative-position bias, key-padding masked) V -> [B, H, Lq,
+    D], or **None** for shapes the kernel does not take, so the caller keeps
+    its own dense path. A CUDA tensor launches the kernel (or raises), a CPU
+    tensor runs :func:`flash_attention_t5_reference`."""
+    supported = (_supported(q, k, v, mask) and rel_bias.ndim == 2
+                 and rel_bias.shape[1] == q.shape[1] and rel_bias.device == q.device
+                 and 1 <= max_distance <= MAX_BIAS_DISTANCE)
+    SELECTION_COUNTS["t5_flash" if supported else "t5_dense"] += 1
+    if not supported:
+        return None
+    table = distance_bias_table(rel_bias, bidirectional=bidirectional,
+                                max_distance=max_distance)
+    if q.device.type == "cpu":
+        return flash_attention_t5_reference(q, k, v, mask, table, max_distance=max_distance,
+                                            scale=scale)
+    return _launch_t5(q.contiguous(), k.contiguous(), v.contiguous(), mask, table,
+                      max_distance, scale)
+
+
 class FlashAttentionTrainable(torch.autograd.Function):
     """Attention whose forward and backward are the flash kernels
     (counterpart of the reference's ``_trainable_core`` ``custom_vjp``).
@@ -494,3 +609,11 @@ def make_flash_attention_trainable(mesh=None):
     """The differentiable attention function for a mesh without ``sp``:
     :func:`flash_attention_trainable` itself."""
     return flash_attention_trainable
+
+
+def make_flash_attention_t5(mesh=None):
+    """The T5 attention function for any of the port's meshes:
+    :func:`flash_attention_t5` itself, run whole on the mesh's first device.
+    The reference shards it over dp and tp, which the port's meshes do not
+    have; over ``sp`` the reference runs it unsharded too (no ring for T5)."""
+    return flash_attention_t5

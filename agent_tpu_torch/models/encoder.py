@@ -21,9 +21,6 @@ from torch.utils.checkpoint import checkpoint
 from agent_tpu_torch.models import layers, prng
 from agent_tpu_torch.models.layers import AttnFn
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
 @dataclass(frozen=True)
 class EncoderConfig:
     """Model hyperparameters (the JAX package's fields and defaults)."""
@@ -44,9 +41,7 @@ class EncoderConfig:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        if self.dtype not in _DTYPES:
-            raise ValueError(f"unsupported dtype {self.dtype!r}; one of {sorted(_DTYPES)}")
-        return _DTYPES[self.dtype]
+        return layers.compute_dtype(self.dtype)
 
 
 def init_params(cfg: EncoderConfig, model_id: str = "classify-default") -> Dict[str, np.ndarray]:

@@ -24,7 +24,7 @@ Layer norm parameters are f32 in both forms.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +35,18 @@ from agent_tpu_torch.models import prng
 
 Params = Dict[str, Any]
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+KV = Tuple[torch.Tensor, torch.Tensor]           # keys, values [B, H, L, E]
+Cache = Optional[Dict[str, torch.Tensor]]        # {"k", "v"} [B, H, Lmax, E]
 
 NEG_INF = -1e9  # additive mask value; finite so bf16 stays NaN-free
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """A config's ``dtype`` name -> the torch dtype; ValueError otherwise."""
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
 
 
 # ---- deterministic init (numpy, bit-identical to the JAX package) ----
@@ -78,14 +88,21 @@ def init_ffn(key: np.ndarray, d_model: int, d_ff: int) -> Params:
     return {"wi": init_dense(k1, d_model, d_ff), "wo": init_dense(k2, d_ff, d_model)}
 
 
-def init_block(key: np.ndarray, d_model: int, n_heads: int, d_ff: int) -> Params:
+def init_block(key: np.ndarray, d_model: int, n_heads: int, d_ff: int,
+               cross: bool = False) -> Params:
+    """An encoder block, or with ``cross`` a decoder block (adds ``ln_x`` and
+    the cross-attention ``xattn``)."""
     ks = prng.split(key, 3)
-    return {
+    p = {
         "ln1": init_layer_norm(d_model),
         "attn": init_attention(ks[0], d_model, n_heads),
         "ln2": init_layer_norm(d_model),
         "ffn": init_ffn(ks[1], d_model, d_ff),
     }
+    if cross:
+        p["ln_x"] = init_layer_norm(d_model)
+        p["xattn"] = init_attention(ks[2], d_model, n_heads)
+    return p
 
 
 def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -249,6 +266,28 @@ class Attention(nn.Module):
         v = self._proj_in(self.wv, x, self.dtype)
         return self._proj_out(self.wo, attn_fn(q, k, v, mask), self.dtype)
 
+    def kv(self, x_kv: torch.Tensor) -> KV:
+        """The keys and values of ``x_kv`` [B, Lk, d] as [B, H, Lk, E]."""
+        return (self._proj_in(self.wk, x_kv, self.dtype),
+                self._proj_in(self.wv, x_kv, self.dtype))
+
+    def attend(self, x_q: torch.Tensor, mask: torch.Tensor, kv: KV,
+               cache: Cache = None, cache_index: int = 0) -> torch.Tensor:
+        """Attention of the queries of ``x_q`` [B, Lq, d] over ``kv`` with
+        dense attention (the reference's ``attention``, scalar-position
+        cache branch). With ``cache`` (``k``/``v`` [B, H, Lmax, E]) the new
+        rows ``kv`` are written into it IN PLACE at ``cache_index`` and the
+        queries attend over the whole cache, as the reference's
+        ``dynamic_update_slice`` decode does; ``mask`` [B|1, 1, Lq|1, Lk]
+        hides what is not yet written."""
+        q = self._proj_in(self.wq, x_q, self.dtype)
+        k, v = kv
+        if cache is not None:
+            cache["k"][:, :, cache_index:cache_index + k.shape[2]] = k
+            cache["v"][:, :, cache_index:cache_index + v.shape[2]] = v
+            k, v = cache["k"], cache["v"]
+        return self._proj_out(self.wo, dot_product_attention(q, k, v, mask), self.dtype)
+
 
 class FFN(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device=None,
@@ -275,4 +314,31 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), mask, attn_fn)
+        return x + self.ffn(self.ln2(x))
+
+
+class DecoderBlock(nn.Module):
+    """Pre-LN decoder block (the reference's ``decoder_block``): x +
+    SelfAttn(LN(x)) over the KV cache; x + CrossAttn(LN(x), encoder output);
+    x + FFN(LN(x)). Both attentions are dense, as the reference's."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype: torch.dtype,
+                 device=None) -> None:
+        super().__init__()
+        self.ln1 = LayerNorm(d_model, device)
+        self.attn = Attention(d_model, n_heads, dtype, device)
+        self.ln2 = LayerNorm(d_model, device)
+        self.ffn = FFN(d_model, d_ff, dtype, device)
+        self.ln_x = LayerNorm(d_model, device)
+        self.xattn = Attention(d_model, n_heads, dtype, device)
+
+    def forward(self, x: torch.Tensor, self_mask: torch.Tensor, enc_kv: KV,
+                enc_mask: torch.Tensor, cache: Cache = None,
+                cache_index: int = 0) -> torch.Tensor:
+        """``x`` [B, Lq, d]; ``enc_kv`` = ``self.xattn.kv(enc_out)``, which
+        is the same every decode step, so callers compute it once."""
+        h = self.ln1(x)
+        x = x + self.attn.attend(h, self_mask, self.attn.kv(h), cache, cache_index)
+        h = self.ln_x(x)
+        x = x + self.xattn.attend(h, enc_mask, enc_kv)
         return x + self.ffn(self.ln2(x))

@@ -1,19 +1,23 @@
-"""Byte tokenization and bucketed padding for the classify path.
+"""Byte tokenization and bucketed padding for the classify and summarize
+paths.
 
-A copy of the part of ``agent_tpu.models.tokenizer`` that
-``map_classify_tpu`` uses: the byte vocabulary's specials, the length
-buckets, the fused byte-tokenize-and-pad (``byte_encode_pad``, with its
-``raw_uint8`` wire) and ``pad_batch`` for pre-tokenized ids. BOS/EOS
-insertion and the wordpiece/BPE tokenizers are not part of this slice.
+A copy of the part of ``agent_tpu.models.tokenizer`` that the ported ops
+use: the byte vocabulary's specials, ``ByteTokenizer``, the length buckets,
+the fused byte-tokenize-and-pad (``byte_encode_pad``, with BOS/EOS and its
+``raw_uint8`` wire) and ``pad_batch`` for pre-tokenized ids. The
+wordpiece/BPE tokenizers are not part of the port yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 PAD_ID = 0
+BOS_ID = 1
+EOS_ID = 2
+UNK_ID = 3
 N_SPECIAL = 4  # <pad>, <bos>, <eos>, <unk>; byte b has id b + N_SPECIAL
 
 # Powers of two and their midpoints, so a row pads by at most ~1.5x.
@@ -21,6 +25,25 @@ DEFAULT_BUCKETS = (
     16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048,
     3072, 4096,
 )
+
+
+class ByteTokenizer:
+    """UTF-8 byte-level tokenizer: id = byte + N_SPECIAL. Vocab size 260."""
+
+    vocab_size = 256 + N_SPECIAL
+    pad_id, bos_id, eos_id, unk_id = PAD_ID, BOS_ID, EOS_ID, UNK_ID
+
+    def encode(self, text: str, add_bos: bool = False, add_eos: bool = False) -> List[int]:
+        ids = [b + N_SPECIAL for b in text.encode("utf-8")]
+        if add_bos:
+            ids.insert(0, BOS_ID)
+        if add_eos:
+            ids.append(EOS_ID)
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        raw = bytes(i - N_SPECIAL for i in ids if i >= N_SPECIAL)
+        return raw.decode("utf-8", errors="replace")
 
 
 def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
@@ -36,28 +59,37 @@ def byte_encode_pad(
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     batch_buckets: Optional[Sequence[int]] = None,
     max_len_cap: Optional[int] = None,
+    add_bos: bool = False,
+    add_eos: bool = False,
     raw_uint8: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fused byte-tokenize + pad: texts -> (ids[B, L], lengths[B] int32).
 
-    ids are ``byte + N_SPECIAL`` as int32, or with ``raw_uint8=True`` the
-    unshifted bytes as uint8: the device rebuilds ``(raw + N_SPECIAL) *
-    mask``, which is exact because the mask tells a body NUL byte (raw 0,
-    masked in) from padding (raw 0, masked out). Rows longer than the cap
-    (or the top bucket) are truncated; B is bucketed when ``batch_buckets``
-    is given, with all-pad rows appended.
+    ids are ``byte + N_SPECIAL`` as int32, with BOS/EOS when asked (they
+    count toward the cap, exactly like ``encode(add_bos, add_eos)[:cap]``:
+    a too-long text loses its EOS), or with ``raw_uint8=True`` the unshifted
+    bytes as uint8: the device rebuilds ``(raw + N_SPECIAL) * mask``, which
+    is exact because the mask tells a body NUL byte (raw 0, masked in) from
+    padding (raw 0, masked out); that wire carries no BOS/EOS. Rows longer
+    than the cap (or the top bucket) are truncated; B is bucketed when
+    ``batch_buckets`` is given, with all-pad rows appended.
     """
+    if raw_uint8 and (add_bos or add_eos):
+        raise ValueError("raw_uint8 wire cannot carry BOS/EOS specials")
     cap = max_len_cap if max_len_cap is not None else buckets[-1]
+    off = int(add_bos)
     bufs = [t.encode("utf-8") for t in texts]
     rows = len(bufs)
     lens = np.fromiter((len(b) for b in bufs), dtype=np.int64, count=rows)
-    totals = np.minimum(lens, cap)
+    totals = np.minimum(off + lens + int(add_eos), cap)
     L = bucket_length(max(1, int(totals.max()) if rows else 1), buckets)
     totals = np.minimum(totals, L)
     B = bucket_length(max(1, rows), batch_buckets) if batch_buckets else rows
     ids = np.zeros((B, L), dtype=np.uint8 if raw_uint8 else np.int32)
     lengths = np.zeros(B, dtype=np.int32)
     lengths[:rows] = totals
+    nb = np.zeros(B, dtype=np.int64)  # body bytes of each row
+    nb[:rows] = np.minimum(np.maximum(totals - off, 0), lens)
     if rows:
         # One vectorised gather from the joined bytes instead of a per-row
         # copy loop.
@@ -66,14 +98,20 @@ def byte_encode_pad(
         if rows > 1:
             np.cumsum(lens[:-1], out=starts[1:])
         cols = np.arange(L, dtype=np.int64)[None, :]
-        body = cols < totals[:, None]
+        body = (cols >= off) & (cols < off + nb[:rows, None])
         if flat.size:
-            src = np.clip(starts[:, None] + cols, 0, flat.size - 1)
+            src = np.clip(starts[:, None] + (cols - off), 0, flat.size - 1)
             ids[:rows][body] = flat[src][body]
     if raw_uint8:
         return ids, lengths
-    body = np.arange(L)[None, :] < lengths[:, None]
+    cols = np.arange(L)[None, :]
+    body = (cols >= off) & (cols < off + nb[:, None])
     ids[body] += N_SPECIAL  # every body byte, NULs included
+    if add_bos and rows:
+        ids[:rows, 0][totals > 0] = BOS_ID
+    if add_eos and rows:
+        fits = np.flatnonzero(off + lens + 1 <= np.minimum(cap, L))
+        ids[fits, (off + nb[fits]).astype(np.int64)] = EOS_ID
     return ids, lengths
 
 

@@ -24,6 +24,7 @@ OPS_LOAD_ERRORS: List[Tuple[str, str]] = []
 # Op name -> submodule of agent_tpu_torch.ops (the ops ported so far).
 OP_TO_MODULE: Dict[str, str] = {
     "map_classify_tpu": "map_classify_tpu",
+    "map_summarize": "map_summarize",
     "train_classifier": "train_classifier",
 }
 

@@ -1,8 +1,8 @@
 """Shared plumbing of the model-backed ops — the part of
-``agent_tpu.ops._model_common`` that ``map_classify_tpu`` uses: model-id
-and config resolution, config-aware cache keys, batch and length buckets,
-host staging of texts into padded chunks, the result sink, and the
-analytic-FLOPs and rows stamps.
+``agent_tpu.ops._model_common`` that ``map_classify_tpu`` and
+``map_summarize`` use: model-id and config resolution, config-aware cache
+keys, batch and length buckets, host staging of texts into padded chunks,
+the result sink, and the analytic-FLOPs and rows stamps.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import fields
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,21 @@ def encoder_fwd_flops(batch: int, seq_len: int, d_model: int, d_ff: int,
     attn_sdpa = 4.0 * L * L * d
     ffn = 4.0 * L * d * f
     return batch * (n_layers * (attn_proj + attn_sdpa + ffn) + 2.0 * d * n_classes)
+
+
+def seq2seq_fwd_flops(batch: int, src_len: int, new_tokens: int, d_model: int,
+                      d_ff: int, n_enc_layers: int, n_dec_layers: int,
+                      vocab_size: int = 0, num_beams: int = 1) -> float:
+    """Forward matmul FLOPs of an encode + incremental greedy/beam decode:
+    the encoder stack over ``src_len``, then per generated token and row in
+    flight (beams multiply the rows) a one-position decoder step (self- and
+    cross-attention projections, FFN, cross-attention over the ``src_len``
+    cached keys, vocab projection)."""
+    d, f = float(d_model), float(d_ff)
+    enc = encoder_fwd_flops(batch, src_len, d_model, d_ff, n_enc_layers)
+    rows = float(batch * max(1, num_beams))
+    per_tok_layer = 8.0 * d * d + 8.0 * d * d + 4.0 * src_len * d + 4.0 * d * f
+    return enc + rows * new_tokens * (n_dec_layers * per_tok_layer + 2.0 * d * vocab_size)
 
 
 def stamp_device_flops(ctx, flops: float, shape: str) -> None:
@@ -130,29 +145,48 @@ def split_padded_chunk(ids: np.ndarray, lengths: np.ndarray, n: int, dp: int,
 
 
 def stage_text_chunks(dp: int, texts: Sequence[str], *, max_len: int,
-                      vocab_size: int, max_batch: int, d_head: int,
-                      dtype: torch.dtype) -> List[Tuple]:
-    """Pure host: byte-tokenize and pad ``texts`` into dispatch chunks
+                      vocab_size: int, max_batch: int, d_head: int = 0,
+                      dtype: Optional[torch.dtype] = None, add_bos: bool = False,
+                      add_eos: bool = False, encode_pad=None) -> List[Tuple]:
+    """Pure host: tokenize and pad ``texts`` into dispatch chunks
     ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]``.
 
-    The wire is the narrowest exact encoding: uint8 unshifted bytes when the
-    vocabulary holds all 256 byte ids (the device rebuilds ``(raw +
+    ``encode_pad(chunk, length_buckets, batch_buckets) -> (ids, lengths)``
+    supplies another tokenizer (a checkpoint's); the default is the fused
+    byte path, with BOS/EOS when asked. The wire is the narrowest exact
+    encoding: uint8 unshifted bytes when the byte vocabulary holds all 256
+    byte ids and no BOS/EOS is added (the device rebuilds ``(raw +
     N_SPECIAL) * mask``), else uint16 ids for vocabularies < 2^16, else
-    int32. uint8 on this wire always means shifted-raw bytes.
+    int32. uint8 on this wire always means shifted-raw bytes, so a custom
+    tokenizer may not return it. With ``dtype`` given, chunks whose
+    attention takes the dense path are split to the dense budget
+    (:func:`split_padded_chunk`); without, chunks stay whole, as the
+    reference stages summarize.
     """
     from agent_tpu_torch.models.tokenizer import N_SPECIAL, byte_encode_pad
 
     buckets = length_buckets_for(max_len)
     bbuckets = batch_buckets(dp, max_batch)
-    raw_u8 = vocab_size >= N_SPECIAL + 256
     wire_dtype = np.uint16 if vocab_size <= (1 << 16) else np.int32
+    custom = encode_pad is not None
+    raw_u8 = not custom and not add_bos and not add_eos and vocab_size >= N_SPECIAL + 256
+    if not custom:
+        def encode_pad(chunk, lb, bb):
+            return byte_encode_pad(chunk, buckets=lb, batch_buckets=bb, max_len_cap=max_len,
+                                   add_bos=add_bos, add_eos=add_eos, raw_uint8=raw_u8)
     chunks: List[Tuple] = []
     for chunk in iter_chunks(texts, bbuckets[-1]):
-        ids, lengths = byte_encode_pad(chunk, buckets=buckets, batch_buckets=bbuckets,
-                                       max_len_cap=max_len, raw_uint8=raw_u8)
+        ids, lengths = encode_pad(chunk, buckets, bbuckets)
+        if ids.dtype == np.uint8 and custom:
+            raise TypeError("encode_pad returned uint8 ids: the uint8 wire is reserved "
+                            "for the internal raw-byte path; return int32/uint16 ids "
+                            "from custom tokenizers")
         if not raw_u8:
             ids = ids.astype(wire_dtype)
-        chunks.extend(split_padded_chunk(ids, lengths, len(chunk), dp, d_head, dtype))
+        if dtype is None:
+            chunks.append((ids, lengths, len(chunk)))
+        else:
+            chunks.extend(split_padded_chunk(ids, lengths, len(chunk), dp, d_head, dtype))
     return chunks
 
 

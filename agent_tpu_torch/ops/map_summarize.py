@@ -1,0 +1,409 @@
+"""Summarization on the card — counterpart of ``agent_tpu.ops.map_summarize``
+with the same op name, phases, payload and result contract.
+
+- Payload: ``text`` or ``texts``, plus ``max_length`` (default 130),
+  ``num_beams`` (1-16, default 1 = greedy), ``length_penalty``,
+  ``early_stopping``, ``min_length``, ``model_path``, ``model_config``,
+  ``output_uri`` / ``start_row``.
+- Result: ``{ok, op, device, model, num_beams, elapsed_ms, summary}`` (plus
+  ``summaries`` for ``texts``, or an ``output_path`` receipt); caller errors
+  come back as soft ``bad_input`` results with the reference's messages.
+- Families, resolved from ``model_path`` as the reference does: a local HF
+  T5 checkpoint directory serves T5 (the encoder's self-attention through
+  the CUDA T5 kernel, ``runtime.t5_attention_kernel()``); anything else
+  that is not a checkpoint directory serves the in-house seq2seq (seeded
+  weights from the model id, or a ``.npz``), whose encoder attends through
+  ``runtime.attention_fn()``.
+- ``SUMMARIZE_FORCE_CPU=1`` is the caller's explicit request for a CPU
+  runtime; it is off by default. A failure on the card raises and fails the
+  request; it is never retried on the CPU.
+
+T5 text in and out needs the checkpoint's ``spiece.model`` and the
+``sentencepiece`` package (``t5.hf_spm`` raises the reference's actionable
+error without them); the device phase (:func:`_decode_chunks`) works on
+staged ids alone.
+
+Not ported yet, each rejected with a ``bad_input`` that names it: a BART
+checkpoint directory, ``quant`` other than ``none``, ``source_uri`` CSV
+addressing, and a mesh with ``dp`` or ``tp``. Summaries go out as JSON
+lists (the binary ``b1`` wire is not ported).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from agent_tpu_torch.ops import register_op
+from agent_tpu_torch.utils.errors import bad_input
+
+DEFAULT_MODEL_ID = "summarize-default"
+DEFAULT_MAX_LENGTH = 130
+# Decode rows per dispatch chunk; beams multiply the rows in flight, so
+# staging divides it by num_beams (the reference's budget).
+MAX_DECODE_ROWS = 8192
+_TRUTHY = ("1", "true", "yes", "on")
+
+_cpu_runtime = None
+_cpu_runtime_lock = threading.Lock()
+
+
+def _get_cpu_runtime():
+    """The process's CPU runtime, for ``SUMMARIZE_FORCE_CPU=1``."""
+    global _cpu_runtime
+    with _cpu_runtime_lock:
+        if _cpu_runtime is None:
+            from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+            _cpu_runtime = TorchRuntime(device="cpu")
+        return _cpu_runtime
+
+
+def _resolve_family(model_id: str) -> str:
+    """``"t5"`` for a local HF T5 checkpoint directory, ``"bart"`` for a BART
+    one, ``"seq2seq"`` for anything that is not a checkpoint directory. Any
+    other checkpoint directory, or one whose config.json cannot be read,
+    raises: serving seeded weights for what was a checkpoint would return
+    ok=true nonsense."""
+    cfg_path = os.path.join(model_id, "config.json")
+    if not (os.path.isdir(model_id) and os.path.exists(cfg_path)):
+        return "seq2seq"
+    try:
+        with open(cfg_path) as f:
+            model_type = json.load(f).get("model_type")
+    except json.JSONDecodeError as exc:
+        raise RuntimeError(f"unreadable checkpoint config.json at {cfg_path}: {exc}") from exc
+    if model_type in ("bart", "t5"):
+        return model_type
+    raise RuntimeError(
+        f"model_path {model_id!r} is a checkpoint directory but not a "
+        "BART/T5 one (map_summarize serves model_type=bart|t5; "
+        "classify serves BERT)"
+    )
+
+
+# model_config fields a payload may override for a checkpoint model: serving
+# controls only (structural fields are the checkpoint's).
+_CKPT_SERVING_OVERRIDES = ("dtype", "quant")
+
+
+def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
+    from agent_tpu_torch.ops._model_common import config_from_payload
+
+    if family == "t5":
+        from agent_tpu_torch.models.t5 import T5Config
+
+        overrides = payload.get("model_config")
+        allowed = ({k: v for k, v in overrides.items() if k in _CKPT_SERVING_OVERRIDES}
+                   if isinstance(overrides, dict) else {})
+        cfg = T5Config.from_hf_json(os.path.join(model_id, "config.json"), **allowed)
+    else:
+        from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
+
+        cfg = config_from_payload(payload, Seq2SeqConfig)
+    quant = cfg.quant if cfg.quant != "none" else os.environ.get("TPU_QUANT", "").strip().lower()
+    if quant not in ("", "none"):
+        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
+                         "(only 'none')")
+    cfg.compute_dtype  # noqa: B018 — raises ValueError on an unknown dtype
+    return cfg
+
+
+def _mesh_shape(ctx) -> Dict[str, int]:
+    """The mesh the op will run on: the context's runtime's, else the one
+    ``MESH_SHAPE`` asks ``get_runtime()`` for."""
+    runtime = getattr(ctx, "runtime", None)
+    if runtime is not None:
+        return dict(runtime.mesh.shape)
+    from agent_tpu_torch.runtime.runtime import mesh_shape_from_env
+
+    return mesh_shape_from_env()
+
+
+def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
+                  model_id: str) -> List[Tuple]:
+    """Tokenize and pad into dispatch chunks: the byte tokenizer with BOS and
+    EOS for the in-house seq2seq, the checkpoint's SentencePiece model
+    (``pieces </s>``) for T5."""
+    from agent_tpu_torch.ops._model_common import stage_text_chunks
+
+    encode_pad = None
+    if family == "t5":
+        from agent_tpu_torch.models import t5
+
+        sp = t5.hf_spm(model_id)  # gated: actionable error without sentencepiece
+
+        def encode_pad(chunk, lb, bb):
+            return t5.encode_pad_batch(sp, chunk, cfg, bb, lb)
+
+    return stage_text_chunks(1, texts, max_len=cfg.max_src_len, vocab_size=cfg.vocab_size,
+                             max_batch=max(1, MAX_DECODE_ROWS // num_beams),
+                             add_bos=True, add_eos=True, encode_pad=encode_pad)
+
+
+def _build_model(model_id: str, cfg, family: str, device):
+    if family == "t5":
+        from agent_tpu_torch.models import t5
+
+        return t5.load_hf_dir(model_id, device=device, dtype=cfg.dtype)[1]
+    from agent_tpu_torch.models import seq2seq
+
+    if model_id.endswith(".npz") and os.path.exists(model_id):
+        flat = seq2seq.load_npz(model_id, cfg)
+    else:
+        flat = seq2seq.init_params(cfg, model_id=model_id)
+    return seq2seq.from_jax_params(flat, cfg)
+
+
+def params_key(model_id: str, family: str, cfg) -> str:
+    """The runtime's weights-store key of a model: distinct configs never
+    share weights."""
+    from agent_tpu_torch.ops._model_common import cfg_key
+
+    return f"{model_id}#{family}#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}"
+
+
+def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: int,
+                   num_beams: int, length_penalty: float = 1.0,
+                   early_stopping: bool = False, min_length: int = 0,
+                   family: str = "seq2seq") -> List[Tuple[torch.Tensor, int]]:
+    """Device phase: decode staged ``(ids, lengths, n)`` chunks -> pending
+    ``[(tokens on the device [B, max_new], n), ...]``, fetched by finalize."""
+    from agent_tpu_torch.models import seq2seq, t5
+
+    model = runtime.get_params(params_key(model_id, family, cfg),
+                               lambda: _build_model(model_id, cfg, family, runtime.device))
+    pending = []
+    with torch.inference_mode():
+        for ids, lengths, n in chunks:
+            L = ids.shape[1]
+            if ids.dtype == np.uint16:
+                ids = ids.astype(np.int32)  # torch's uint16 support is thin
+            ids_t = runtime.put_batch(ids)
+            n_t = runtime.put_batch(lengths)
+            mask = (torch.arange(L, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
+            if family == "t5":
+                toks, _ = t5.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
+                                      length_penalty=length_penalty,
+                                      early_stopping=early_stopping, min_length=min_length,
+                                      kernel=runtime.t5_attention_kernel())
+            elif num_beams <= 1:
+                toks, _ = seq2seq.greedy_generate(model, ids_t, mask, max_new,
+                                                  min_length=min_length,
+                                                  attn_fn=runtime.attention_fn())
+            else:
+                toks, _ = seq2seq.beam_generate(model, ids_t, mask, max_new,
+                                                num_beams=num_beams,
+                                                length_penalty=length_penalty,
+                                                early_stopping=early_stopping,
+                                                min_length=min_length,
+                                                attn_fn=runtime.attention_fn())
+            pending.append((toks, n))
+    return pending
+
+
+def stage(payload: Any, ctx: Optional[object] = None):
+    """Host-only phase: validation and tokenize+pad. Returns ``("done",
+    result)`` for soft errors or ``("staged", state)``."""
+    from agent_tpu_torch.ops._model_common import (
+        resolve_model_id,
+        validate_output_uri,
+        validate_start_row,
+    )
+
+    t0 = time.perf_counter()
+    if not isinstance(payload, dict):
+        return "done", bad_input("payload must be a dict")
+    texts = payload.get("texts")
+    if texts is None and "source_uri" in payload:
+        return "done", bad_input("source_uri CSV shard addressing is not supported by "
+                                 "agent_tpu_torch yet")
+    single = texts is None
+    if single:
+        text = payload.get("text")
+        if not isinstance(text, str) or not text:
+            return "done", bad_input("payload requires a non-empty 'text' string")
+        texts = [text]
+    elif not isinstance(texts, list) or not texts or not all(
+            isinstance(t, str) and t for t in texts):
+        return "done", bad_input("texts must be a non-empty list of non-empty strings")
+
+    max_new = payload.get("max_length", DEFAULT_MAX_LENGTH)
+    if isinstance(max_new, bool) or not isinstance(max_new, int) or max_new <= 0:
+        return "done", bad_input("max_length must be a positive int")
+    num_beams = payload.get("num_beams", 1)
+    if isinstance(num_beams, bool) or not isinstance(num_beams, int) or \
+            not 1 <= num_beams <= 16:
+        return "done", bad_input("num_beams must be an int in [1, 16]")
+    length_penalty = payload.get("length_penalty", 1.0)
+    if isinstance(length_penalty, bool) or not isinstance(length_penalty, (int, float)) \
+            or not -4.0 <= float(length_penalty) <= 4.0:
+        return "done", bad_input("length_penalty must be a number in [-4, 4]")
+    early_stopping = payload.get("early_stopping", False)
+    if not isinstance(early_stopping, bool):
+        return "done", bad_input("early_stopping must be a bool")
+    # HF counting: min_length bounds the full decoder sequence (start +
+    # generated).
+    min_length = payload.get("min_length", 0)
+    if isinstance(min_length, bool) or not isinstance(min_length, int) or min_length < 0:
+        return "done", bad_input("min_length must be a non-negative int")
+    try:
+        output_dir = validate_output_uri(payload)
+        start_row = validate_start_row(payload)
+    except ValueError as exc:
+        return "done", bad_input(str(exc))
+
+    model_id = resolve_model_id(payload, "BART_MODEL", DEFAULT_MODEL_ID)
+    # Checkpoint-integrity problems raise past the soft-error handlers on
+    # purpose: a retryable failure, not bad input.
+    family = _resolve_family(model_id)
+    force_cpu = os.environ.get("SUMMARIZE_FORCE_CPU", "").strip().lower() in _TRUTHY
+    try:
+        if family == "bart":
+            raise ValueError("a BART checkpoint directory (model_path) is not supported "
+                             "by agent_tpu_torch yet")
+        cfg = _get_cfg(payload, family, model_id)
+        mesh = {} if force_cpu else _mesh_shape(ctx)
+        if mesh.get("dp", 1) > 1 or mesh.get("tp", 1) > 1:
+            raise ValueError(f"a mesh with dp or tp ({mesh}) is not supported by "
+                             "agent_tpu_torch yet")
+    except ValueError as exc:
+        return "done", bad_input(str(exc))
+
+    state = {
+        "t0": t0,
+        "chunks": _stage_chunks(texts, cfg, num_beams, family, model_id),
+        "single": single,
+        "max_new": min(max_new, cfg.max_tgt_len),
+        "num_beams": num_beams,
+        "length_penalty": float(length_penalty),
+        "early_stopping": early_stopping,
+        "min_length": min_length,
+        "model_id": model_id,
+        "family": family,
+        "cfg": cfg,
+        "force_cpu": force_cpu,
+        "output_dir": output_dir,
+        "start_row": start_row,
+        "t_staged": time.perf_counter(),
+    }
+    return "staged", state
+
+
+def _stamp_flops(state: Dict[str, Any], ctx: Optional[object]) -> None:
+    """Analytic matmul FLOPs of encode + incremental decode of the staged
+    chunks into ``ctx.tags``."""
+    from agent_tpu_torch.ops._model_common import seq2seq_fwd_flops, stamp_device_flops
+
+    cfg = state["cfg"]
+    total, biggest = 0.0, (0, "?")
+    for ids, _, _ in state["chunks"]:
+        B, L = ids.shape
+        total += seq2seq_fwd_flops(B, L, state["max_new"], cfg.d_model, cfg.d_ff,
+                                   cfg.n_enc_layers, cfg.n_dec_layers,
+                                   vocab_size=cfg.vocab_size, num_beams=state["num_beams"])
+        if B * L > biggest[0]:
+            biggest = (B * L, f"B{B}xL{L}xT{state['max_new']}")
+    stamp_device_flops(ctx, total, biggest[1])
+
+
+def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Device phase: decode the staged chunks and leave the tokens on the
+    device; finalize pays the fetch. A device failure raises here or there
+    and fails the request (no CPU retry)."""
+    state["t_exec0"] = time.perf_counter()
+    _stamp_flops(state, ctx)
+    if state["force_cpu"]:
+        runtime = _get_cpu_runtime()
+    elif ctx is not None and getattr(ctx, "require_runtime", None):
+        runtime = ctx.require_runtime()
+    else:
+        from agent_tpu_torch.runtime.runtime import get_runtime
+
+        runtime = get_runtime()
+    state["token_chunks"] = _decode_chunks(
+        runtime, state["chunks"], state["model_id"], state["cfg"], state["max_new"],
+        state["num_beams"], length_penalty=state["length_penalty"],
+        early_stopping=state["early_stopping"], min_length=state["min_length"],
+        family=state["family"])
+    state["device"] = runtime.platform
+    state["t_device"] = time.perf_counter()
+    return state
+
+
+def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Host phase: fetch the token rows, detokenize, write the sink, shape
+    the result."""
+    from agent_tpu_torch.ops._model_common import stamp_rows, write_output_shard
+
+    t_f = time.perf_counter()
+    token_chunks = [toks.cpu().numpy()[:n] for toks, n in state["token_chunks"]]
+    fetch_ms = (time.perf_counter() - t_f) * 1000.0
+    summaries: List[str] = []
+    if state["family"] == "t5":
+        from agent_tpu_torch.models import t5
+
+        cfg = state["cfg"]
+        sp = t5.hf_spm(state["model_id"])
+        n_pieces = sp.GetPieceSize()
+        # The id set transformers' skip_special_tokens drops, unk included.
+        skip = {cfg.pad_id, cfg.eos_id, sp.unk_id()}
+        for toks in token_chunks:
+            summaries.extend(
+                sp.DecodeIds([int(t) for t in row if int(t) not in skip and int(t) < n_pieces]
+                             ).strip()
+                for row in toks)
+    else:
+        from agent_tpu_torch.models.tokenizer import ByteTokenizer
+
+        tok = ByteTokenizer()
+        for toks in token_chunks:
+            summaries.extend(tok.decode([t for t in row if t > 0]) for row in toks)
+
+    if ctx is not None and hasattr(ctx, "tags"):
+        ctx.tags.setdefault("timings", {}).update(
+            stage_ms=round((state["t_staged"] - state["t0"]) * 1000.0, 3),
+            queue_ms=round((state["t_exec0"] - state["t_staged"]) * 1000.0, 3),
+            device_ms=round((state["t_device"] - state["t_exec0"]) * 1000.0, 3),
+            fetch_ms=round(fetch_ms, 3),
+        )
+    stamp_rows(ctx, len(summaries))
+    out: Dict[str, Any] = {
+        "ok": True,
+        "op": "map_summarize",
+        "device": state["device"],
+        "model": state["model_id"],
+        "num_beams": state["num_beams"],
+        "elapsed_ms": (time.perf_counter() - state["t0"]) * 1000.0,
+    }
+    if state["output_dir"] is not None:
+        path, n = write_output_shard(state["output_dir"], "map_summarize", state["start_row"],
+                                     ({"summary": s} for s in summaries))
+        out["output_path"] = path
+        out["rows_written"] = n
+        return out
+    out["summary"] = summaries[0]
+    if not state["single"]:
+        out["summaries"] = summaries
+    return out
+
+
+@register_op("map_summarize")
+def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
+    """Monolithic entry: stage -> execute -> finalize inline."""
+    phase, value = stage(payload, ctx)
+    if phase == "done":
+        return value
+    return finalize(execute(value, ctx), ctx)
+
+
+# Phase hooks for a pipelined caller.
+run.stage = stage
+run.execute = execute
+run.finalize = finalize

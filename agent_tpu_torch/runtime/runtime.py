@@ -164,6 +164,15 @@ class TorchRuntime:
 
         return make_flash_attention(self.mesh)
 
+    def t5_attention_kernel(self):
+        """The T5 encoder's attention kernel: the CUDA T5 kernel on the card,
+        its plain version on a CPU runtime (the same entry either way; it
+        returns None for shapes it does not take). On an ``sp`` mesh too the
+        T5 encoder runs it unsharded, not the ring, as the reference does."""
+        from agent_tpu_torch.kernels.flash_attention import make_flash_attention_t5
+
+        return make_flash_attention_t5(self.mesh)
+
     def train_attention_fn(self):
         """The differentiable attention function for the training path: the
         flash kernels in both directions (their plain versions on the CPU,

@@ -27,7 +27,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               with no key anywhere, ragged Lq != Lk, d_head 32 and 64,
               f32); a fold that ignores the carried state and one that
               drops the first key tile must fail; the launcher must refuse
-              f16, misshapen, non-contiguous and CPU state.
+              f16, misshapen, non-contiguous and CPU state. The T5 kernel:
+              at phase 9's staged shape and key lengths and at edge cases
+              (causal, ragged Lq != Lk, a row with no key, d_head 32 and
+              128, f32, 32 buckets with max distance 256); the relative
+              position reversed and the bias of head h + 1 must fail; the
+              launcher must refuse CPU, f16 and misshapen inputs. The
+              serving kernel's cases include phase 8's staged shapes.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -60,9 +66,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               kernels against the plain trainable attention, leaf by leaf
               (the planted tile drop must fail); a small f32 model trained
               by the op on the card and on the CPU, losses compared.
+8. summarize — map_summarize through the op registry with the in-house
+              seq2seq at its defaults (d_model 256, 8 heads, 4 + 4 layers,
+              d_ff 1024, vocab 260, bf16; random weights from the model
+              id), bench.py's summarize leg: 256 rows of "a document to
+              compress " * 20 with max_length 32, greedy, then 64 of them
+              with 4 beams. Every request on cuda, the serving kernel once
+              per encoder layer and no dense attention on the encoder; p50
+              ms and emitted tokens/s. A small f32 config gives the same
+              summaries on the card as on the CPU.
+9. T5-large — a checkpoint directory with t5-large's published config.json
+              and random weights from a seeded generator at HF T5's
+              initialisation scales (bf16, not pretrained), served by the
+              op's device phase (the family resolved from model_path,
+              weights read by load_hf_dir) on ids staged with the op's
+              bucketing (the text step needs spiece.model): 64 rows of
+              384-512 ids, 32 new tokens greedy, then 8 rows with 4 beams.
+              The T5 kernel runs once per encoder layer (24) and nothing
+              takes the dense T5 path. Teacher-forced log-probabilities on
+              the kernel's encoder output against the plain T5 attention's,
+              and the planted reversed relative position against both; a
+              small f32 T5 (gated-gelu, untied) gives the same tokens on
+              the card as on the CPU. p50 ms, tokens/s, peak memory and
+              device time by kind.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound (the fold
-              at phase 5b's shard shape: launches over its timed requests).
+              at phase 5b's shard shape: launches over its timed requests;
+              the T5 kernel at phase 9's staged shape: launches over its
+              requests). Printed after phases 8 and 9.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -73,7 +104,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -103,6 +136,33 @@ TIMED_STEPS, WARM_STEPS = 5, 2  # bench.py:488-510
 SMALL_TRAIN_F32 = {"d_model": 64, "n_heads": 2, "n_layers": 2, "d_ff": 128, "max_len": 64,
                    "dtype": "float32"}
 SMALL_TRAIN = {"epochs": 10, "batch_size": 32, "learning_rate": 1e-2, "seed": 1}
+
+# Phase 8: bench.py's summarize leg (SUMMARIZE_BATCH, SUMMARIZE_MAX_NEW and
+# its text) on Seq2SeqConfig's defaults, greedy and with 4 beams.
+S2S_TEXT = "a document to compress " * 20
+S2S_ROWS, S2S_BEAM_ROWS, S2S_MAX_NEW, S2S_BEAMS = 256, 64, 32, 4
+S2S_ENC_LAYERS = 4  # Seq2SeqConfig's n_enc_layers
+SMALL_S2S_F32 = {"d_model": 128, "n_heads": 4, "n_enc_layers": 2, "n_dec_layers": 2,
+                 "d_ff": 256, "max_src_len": 256, "max_tgt_len": 32, "dtype": "float32"}
+# Phase 9: google-t5/t5-large's published config.json (the fields the
+# model reads).
+T5_LARGE = {"model_type": "t5", "vocab_size": 32128, "d_model": 1024, "d_kv": 64,
+            "num_heads": 16, "num_layers": 24, "num_decoder_layers": 24, "d_ff": 4096,
+            "feed_forward_proj": "relu", "relative_attention_num_buckets": 32,
+            "relative_attention_max_distance": 128, "tie_word_embeddings": True,
+            "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0,
+            "layer_norm_epsilon": 1e-6}
+SMALL_T5_F32 = dict(T5_LARGE, vocab_size=512, d_model=128, d_kv=32, num_heads=4, num_layers=2,
+                    num_decoder_layers=2, d_ff=256, feed_forward_proj="gated-gelu",
+                    tie_word_embeddings=False)
+T5_ROWS, T5_BEAM_ROWS, T5_MAX_NEW, T5_BEAMS = 64, 8, 32, 4
+T5_LENGTHS = (384, 512)  # ids a row, EOS included: all in the 512 bucket
+# The reversed-position fault moves the log-probabilities only by as much
+# as bf16 rounding does when the relative bias tables are drawn at HF's
+# initialisation scale (d_model^-1/2, small beside scores of order 1); with
+# both tables redrawn at this standard deviation, of the order of the
+# scores, it must fail the comparison.
+T5_FAULT_BIAS_STD = 1.0
 
 # Kernel vs plain: the reference's elementwise tolerances
 # (tests/test_flash_attention.py:30, :94), and a bound on the largest error
@@ -170,10 +230,10 @@ def attn_inputs(B, H, Lq, Lk, D, dtype, lengths, seed=0):
     """Random q, k, v on the card and a key-padding mask [len(lengths), 1, 1,
     Lk] (one length = a mask shared by the batch; 0 = a row with no key)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, D, generator=g).to("cuda", dtype)
+    q, k, v = (torch.randn(B, H, L, D, generator=g).to(CARD, dtype)
                for L in (Lq, Lk, Lk))
     mask = (torch.arange(Lk)[None, :] < torch.as_tensor(lengths)[:, None]).to(torch.int32)
-    return q, k, v, mask[:, None, None, :].cuda()
+    return q, k, v, mask[:, None, None, :].to(CARD)
 
 
 def drop_first_tile(mask: torch.Tensor) -> torch.Tensor:
@@ -444,9 +504,11 @@ def timed_requests(classify, ctx, fa, requests, launches: dict, k: int) -> list:
     return report
 
 
-# Device kernels by what they do, from their names (first match wins).
+# Device kernels by what they do, from their names (first match wins); the
+# forward's variants by their template flags, flash_fwd_*<D, WriteLse,
+# CarryState, RelBias> (demangled or mangled).
+FWD_VARIANT = re.compile(r"flash_fwd_\w+?(?:<\d+, (\w+), (\w+), (\w+)>|ILi\d+ELb(\d)ELb(\d)ELb(\d)E)")
 KERNEL_KINDS = (
-    ("flash_fold", (", true>(", "ELb1EE")),  # flash_fwd_*<D, false, true>: CarryState
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -460,6 +522,11 @@ KERNEL_KINDS = (
 
 
 def kernel_kind(name: str) -> str:
+    variant = FWD_VARIANT.search(name)
+    if variant:
+        flags = variant.groups()[:3] if variant.group(1) else variant.groups()[3:]
+        _, carry, bias = (f in ("true", "1") for f in flags)
+        return "flash_t5" if bias else "flash_fold" if carry else "flash_attention"
     return next((kind for kind, keys in KERNEL_KINDS if any(k in name for k in keys)),
                 "other")
 
@@ -468,7 +535,9 @@ def profile_call(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, summed device
     time of its kernels (so 1 - device/wall is the device's idle share,
     kernels being serialised on one stream), device time by kind of
-    kernel, and the kernels that took the most."""
+    kernel, the kernels that took the most, and the host's time blocked
+    reading a device value (``aten::_local_scalar_dense``: ``bool(t)``,
+    ``t.item()``, which wait for the stream), with their count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -484,8 +553,11 @@ def profile_call(fn) -> dict:
         kind = kernel_kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    reads = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
+            "host_blocked_reads": sum(e.count for e in reads),
+            "host_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
             "device_ms_by_kind": by_kind,
             "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                             for e in top]}
@@ -996,6 +1068,407 @@ def ring_cards_phase(fa, classify, n, long_payload, k) -> None:
         raise SystemExit("the ring across cards disagrees with the one-card run")
 
 
+T5_EDGE_CASES = [
+    # name, (B, H, Lq, Lk, D), key lengths, bidirectional, (buckets, max distance), dtype
+    ("causal", (2, 4, 130, 130, 64), [130, 77], False, (32, 128), torch.bfloat16),
+    ("ragged_100x300", (2, 4, 100, 300, 64), [300, 129], True, (32, 128), torch.bfloat16),
+    ("dead_row", (3, 4, 96, 96, 64), [96, 0, 40], True, (32, 128), torch.bfloat16),
+    ("d32", (2, 4, 200, 200, 32), [200, 90], True, (32, 128), torch.bfloat16),
+    ("d128", (2, 4, 200, 200, 128), [200, 90], True, (32, 128), torch.bfloat16),
+    ("f32", (2, 4, 150, 170, 64), [170, 60], True, (32, 128), torch.float32),
+    ("f32_causal", (2, 3, 77, 77, 32), [77, 20], False, (32, 128), torch.float32),
+    ("buckets32_maxd256", (2, 4, 600, 600, 64), [600, 400], True, (32, 256), torch.bfloat16),
+]
+
+
+def check_t5_kernel(fa, main_case) -> dict:
+    """Phase 3, the T5 kernel: its entry on the card against the plain
+    version on the same per-distance table, with learned tables of standard
+    deviation 1 (so the bias matters beside the scores); the relative
+    position reversed (k - q read as q - k) and the table of head h + 1 must
+    fail the same check."""
+    results, inputs = [], None
+    for i, (name, (B, H, Lq, Lk, D), lengths, bidir, (nb, maxd), dtype) in enumerate(
+            T5_EDGE_CASES + [main_case]):
+        q, k, v, mask = attn_inputs(B, H, Lq, Lk, D, dtype, lengths, seed=400 + i)
+        rel_bias = torch.randn(nb, H, generator=torch.Generator().manual_seed(i)).to(CARD)
+        table = fa.distance_bias_table(rel_bias, bidirectional=bidir, max_distance=maxd)
+        got = fa.flash_attention_t5(q, k, v, mask, rel_bias, bidirectional=bidir,
+                                    max_distance=maxd)
+        want = fa.flash_attention_t5_reference(q, k, v, mask, table, max_distance=maxd)
+        ok, err, rel = compare(got, want, dtype)
+        if len(lengths) == B and 0 in lengths:
+            dead = torch.as_tensor(np.asarray(lengths) == 0, device=got.device)
+            ok = ok and bool((got[dead] == 0).all())
+        faults = {
+            "reversed_position": fa.flash_attention_t5_reference(
+                q, k, v, mask, table.flip(-1), max_distance=maxd),
+            "bias_of_head_h+1": fa.flash_attention_t5_reference(
+                q, k, v, mask, table.roll(-1, 0), max_distance=maxd),
+        }
+        fault_rel = {f: compare(out, want, dtype)[2] for f, out in faults.items()}
+        caught = all(not compare(out, want, dtype)[0] for out in faults.values())
+        results.append({"case": name, "dtype": str(dtype).split(".")[-1],
+                        "shape": [B, H, Lq, Lk, D], "bidirectional": bidir,
+                        "buckets_max_distance": [nb, maxd], "max_abs_err": err,
+                        "max_rel_err": rel, "fault_rel_err": fault_rel, "ok": ok,
+                        "faults_caught": caught})
+        if name.startswith("t5_large/"):
+            inputs = (q, k, v, mask, rel_bias, table, lengths)
+    # The launcher refuses what the kernel does not take.
+    q, k, v, mask, _, table, _ = inputs
+    refused = {}
+    for why, args in (("cpu", (q.cpu(), k.cpu(), v.cpu(), mask.cpu(), table.cpu())),
+                      ("f16", (q.half(), k.half(), v.half(), mask, table)),
+                      ("table_shape", (q, k, v, mask, table[:, :-1])),
+                      ("table_bf16", (q, k, v, mask, table.bfloat16())),
+                      ("mask_shape", (q, k, v, mask[..., :-1], table))):
+        try:
+            fa._launch_t5(*args, 128, 1.0)
+            refused[why] = False
+        except ValueError:
+            refused[why] = True
+    torch.cuda.synchronize()
+    emit({"phase": "t5_kernel_vs_plain", "tolerance": {"bf16": TOL[torch.bfloat16],
+                                                       "f32": TOL[torch.float32]},
+          "rel_tolerance": {"bf16": REL_TOL[torch.bfloat16], "f32": REL_TOL[torch.float32]},
+          "cases": results, "refused": refused})
+    bad = [r for r in results if not (r["ok"] and r["faults_caught"])]
+    if bad or not all(refused.values()):
+        raise SystemExit(f"T5 kernel check failed: {bad}, refused {refused}")
+    main = results[-1]
+    return {"inputs": inputs, "max_abs_err": main["max_abs_err"],
+            "max_rel_err": main["max_rel_err"]}
+
+
+def count_emitted(token_chunks, pad_id: int, eos_id: int) -> int:
+    """Generated tokens of the real rows, EOS and padding excluded."""
+    return sum(int(((t[:n] != pad_id) & (t[:n] != eos_id)).sum()) for t, n in token_chunks)
+
+
+def summarize_phase(fa, summarize, rt) -> dict:
+    """Phase 8: bench.py's summarize leg through the op's phases (stage,
+    execute, finalize, as a pipelined caller drives them). Returns the
+    serving kernel's launches over the requests' runs."""
+    from agent_tpu_torch.models.tokenizer import EOS_ID, PAD_ID
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    ctx = OpContext(runtime=rt)
+    requests = [
+        ("texts256_greedy", {"texts": [S2S_TEXT] * S2S_ROWS, "max_length": S2S_MAX_NEW},
+         S2S_ROWS),
+        ("texts64_beam4", {"texts": [S2S_TEXT] * S2S_BEAM_ROWS, "max_length": S2S_MAX_NEW,
+                           "num_beams": S2S_BEAMS}, S2S_BEAM_ROWS),
+    ]
+    t0 = time.perf_counter()
+    summarize(dict(requests[0][1], texts=[S2S_TEXT]), ctx)  # builds the weights once
+    weights_s = time.perf_counter() - t0
+    want = {key: 0 for key in fa.LAUNCH_COUNTS}
+    want["flash_attention"] = S2S_ENC_LAYERS
+    report = []
+    reset_counts(fa)
+    for name, payload, n_rows in requests:
+        walls, emitted = [], []
+        for rep in range(REPS + 1):
+            before, sel = dict(fa.LAUNCH_COUNTS), dict(fa.SELECTION_COUNTS)
+            t0 = time.perf_counter()
+            _, state = summarize.stage(dict(payload), ctx)
+            state = summarize.execute(state, ctx)
+            out = summarize.finalize(state, ctx)
+            wall = time.perf_counter() - t0
+            got = {key: fa.LAUNCH_COUNTS[key] - before[key] for key in want}
+            selected = {key: fa.SELECTION_COUNTS[key] - sel[key] for key in ("flash", "dense")}
+            if not out.get("ok") or out.get("device") != torch.device(CARD).type \
+                    or len(out.get("summaries", [])) != n_rows:
+                raise SystemExit(f"{name} did not run on cuda: {str(out)[:500]}")
+            if got != want or selected != {"flash": S2S_ENC_LAYERS, "dense": 0}:
+                raise SystemExit(f"{name}: launches {got} (want {want}), selection {selected}")
+            if rep:
+                walls.append(wall)
+                emitted.append(count_emitted(state["token_chunks"], PAD_ID, EOS_ID))
+        p50 = statistics.median(walls)
+        report.append({"request": name, "rows": n_rows, "max_length": S2S_MAX_NEW,
+                       "num_beams": payload.get("num_beams", 1), "p50_ms": p50 * 1e3,
+                       "rows_per_s": n_rows / p50,
+                       "emitted_tokens": statistics.median(emitted),
+                       "emitted_tokens_per_s": statistics.median(emitted) / p50,
+                       "bench_tokens_per_s": n_rows * S2S_MAX_NEW / p50,
+                       "summary_0": out["summaries"][0][:80]})
+    launches = fa.LAUNCH_COUNTS["flash_attention"]
+    profile = profile_call(lambda: summarize(dict(requests[0][1]), ctx))
+
+    # A small f32 config: the op on the card against the same op on the CPU.
+    small = {"texts": random_texts(random.Random(SEED + 8), 12, 20, 200),
+             "model_config": SMALL_S2S_F32, "max_length": 24}
+    small_out = {}
+    for beams in (1, 3):
+        payload = dict(small, num_beams=beams)
+        card = summarize(dict(payload), ctx)
+        cpu = summarize(dict(payload), OpContext(runtime=TorchRuntime(device="cpu")))
+        small_out[f"beams{beams}"] = {"same_summaries": card["summaries"] == cpu["summaries"],
+                                      "devices": [card["device"], cpu["device"]]}
+    torch.cuda.synchronize()
+    emit({"phase": "summarize", "config": "Seq2SeqConfig defaults (d_model 256, 8 heads, "
+          "4 + 4 layers, d_ff 1024, vocab 260, bf16)", "weights_build_s": weights_s,
+          "requests": report, "launches": launches, "profile_256_rows_greedy": profile,
+          "small_f32_card_vs_cpu": small_out})
+    if not all(r["same_summaries"] for r in small_out.values()):
+        raise SystemExit(f"small f32 summaries differ between the card and the CPU: {small_out}")
+    return {"launches": launches}
+
+
+def write_t5_checkpoint(path, hf: dict, seed: int, dtype, device) -> None:
+    """config.json and pytorch_model.bin with HF names, drawn from a seeded
+    torch.Generator at HF T5's _init_weights standard deviations (shared
+    1.0; q (d_model d_kv)^-1/2; k, v d_model^-1/2; o (H d_kv)^-1/2; wi
+    d_model^-1/2; wo d_ff^-1/2; relative bias d_model^-1/2; norms 1)."""
+    d, kv, H, f = hf["d_model"], hf["d_kv"], hf["num_heads"], hf["d_ff"]
+    inner = H * kv
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+
+    def put(key, shape, std):
+        sd[key] = (torch.randn(shape, generator=gen, device=device) * std).to(dtype).cpu()
+
+    def ones(key, n):
+        sd[key] = torch.ones(n, dtype=dtype)
+
+    put("shared.weight", (hf["vocab_size"], d), 1.0)
+    gated = hf["feed_forward_proj"].startswith("gated")
+    for stack, n_layers, cross in (("encoder", hf["num_layers"], False),
+                                   ("decoder", hf["num_decoder_layers"], True)):
+        put(f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+            (hf["relative_attention_num_buckets"], H), d ** -0.5)
+        ones(f"{stack}.final_layer_norm.weight", d)
+        for i in range(n_layers):
+            p = f"{stack}.block.{i}.layer"
+            attns = [f"{p}.0.SelfAttention"] + ([f"{p}.1.EncDecAttention"] if cross else [])
+            for a in attns:
+                put(f"{a}.q.weight", (inner, d), (d * kv) ** -0.5)
+                put(f"{a}.k.weight", (inner, d), d ** -0.5)
+                put(f"{a}.v.weight", (inner, d), d ** -0.5)
+                put(f"{a}.o.weight", (d, inner), inner ** -0.5)
+            for j in range(3 if cross else 2):
+                ones(f"{p}.{j}.layer_norm.weight", d)
+            ff = f"{p}.{2 if cross else 1}.DenseReluDense"
+            for wi in (("wi_0", "wi_1") if gated else ("wi",)):
+                put(f"{ff}.{wi}.weight", (f, d), d ** -0.5)
+            put(f"{ff}.wo.weight", (d, f), f ** -0.5)
+    if not hf["tie_word_embeddings"]:
+        put("lm_head.weight", (hf["vocab_size"], d), d ** -0.5)
+    with open(f"{path}/config.json", "w") as fh:
+        json.dump(hf, fh)
+    torch.save(sd, f"{path}/pytorch_model.bin")
+
+
+class StagedIds:
+    """Stands in for a checkpoint's SentencePiece model at staging time: the
+    request's text "i" has the pieces ``rows[i]`` (the op's staging then
+    appends </s> and buckets as it does for real text)."""
+
+    def __init__(self, rows) -> None:
+        self.rows = rows
+
+    def EncodeAsIds(self, text):  # noqa: N802 — SentencePiece's name
+        return self.rows[int(text)]
+
+
+def stage_t5(op, ckpt, cfg, rows, num_beams) -> list:
+    """The op's own staging (stage_text_chunks with t5.encode_pad_batch) of
+    pre-drawn id rows: ``t5.hf_spm`` answers with the stand-in meanwhile."""
+    from agent_tpu_torch.models import t5
+
+    real = t5.hf_spm
+    t5.hf_spm = lambda path: StagedIds(rows)
+    try:
+        return op._stage_chunks([str(i) for i in range(len(rows))], cfg, num_beams, "t5", ckpt)
+    finally:
+        t5.hf_spm = real
+
+
+def t5_rows(n: int, vocab: int, lengths, seed: int) -> list:
+    """n rows of random piece ids in [2, vocab), one fewer than the drawn
+    length (staging appends </s>)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, vocab, size=int(L) - 1).tolist()
+            for L in rng.integers(lengths[0], lengths[1] + 1, size=n)]
+
+
+def t5_plain_kernel(fa, reverse: bool = False):
+    """The T5 attention through the kernel's plain version (the yardstick),
+    or with the relative position reversed (the planted fault)."""
+    def attend(q, k, v, mask, rel_bias, *, bidirectional, max_distance, scale):
+        table = fa.distance_bias_table(rel_bias, bidirectional=bidirectional,
+                                       max_distance=max_distance)
+        return fa.flash_attention_t5_reference(q, k, v, mask,
+                                               table.flip(-1) if reverse else table,
+                                               max_distance=max_distance, scale=scale)
+    return attend
+
+
+def teacher_forced(t5, fa, rt, params, cfg, ids, lengths, tgt) -> dict:
+    """Log-probabilities of decode_full on the encoder output of the kernel,
+    of the plain T5 attention and of the planted reversed position: the
+    largest difference of each pair over every position and token."""
+    mask = (torch.arange(ids.shape[1], device=ids.device)[None, :]
+            < lengths[:, None]).to(torch.int32)
+    logp = {}
+    with torch.inference_mode():
+        for name, kernel in (("kernel", rt.t5_attention_kernel()),
+                             ("plain", t5_plain_kernel(fa)),
+                             ("reversed", t5_plain_kernel(fa, reverse=True))):
+            enc = t5.encode(params, ids, mask, cfg, kernel=kernel)
+            logp[name] = torch.log_softmax(t5.decode_full(params, tgt, enc, mask, cfg), dim=-1)
+    return {"kernel_vs_plain": (logp["kernel"] - logp["plain"]).abs().max().item(),
+            "reversed_vs_plain": (logp["reversed"] - logp["plain"]).abs().max().item(),
+            "finite": bool(torch.isfinite(logp["kernel"]).all())}
+
+
+def t5_phase(fa, op, rt, ckpt, requests) -> dict:
+    """Phase 9: T5-large through the op's device phase. ``requests``:
+    (name, staged chunks, num_beams, rows). Returns the T5 kernel's
+    launches over the requests' runs."""
+    from agent_tpu_torch.models import t5
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    family = op._resolve_family(ckpt)
+    cfg = op._get_cfg({"model_path": ckpt}, family, ckpt)
+    if family != "t5" or (cfg.d_model, cfg.n_heads, cfg.n_enc_layers, cfg.n_dec_layers) \
+            != tuple(T5_LARGE[f] for f in ("d_model", "num_heads", "num_layers",
+                                            "num_decoder_layers")):
+        raise SystemExit(f"the op resolved {family} {cfg}")
+    before_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = rt.get_params(op.params_key(ckpt, family, cfg),
+                           lambda: op._build_model(ckpt, cfg, family, rt.device))
+    load_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.memory_allocated() - before_bytes
+    want = {key: 0 for key in fa.LAUNCH_COUNTS}
+    want["flash_attention_t5"] = cfg.n_enc_layers
+    report, outputs = [], {}
+    reset_counts(fa)
+    for name, chunks, beams, n_rows in requests:
+        walls, emitted = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(REPS + 1):
+            before, sel = dict(fa.LAUNCH_COUNTS), dict(fa.SELECTION_COUNTS)
+            t0 = time.perf_counter()
+            pending = op._decode_chunks(rt, chunks, ckpt, cfg, T5_MAX_NEW, beams, family=family)
+            toks = [(t.cpu(), n) for t, n in pending]
+            wall = time.perf_counter() - t0
+            got = {key: fa.LAUNCH_COUNTS[key] - before[key] for key in want}
+            selected = {key: fa.SELECTION_COUNTS[key] - sel[key]
+                        for key in ("t5_flash", "t5_dense")}
+            if got != want or selected != {"t5_flash": cfg.n_enc_layers, "t5_dense": 0}:
+                raise SystemExit(f"{name}: launches {got} (want {want}), selection {selected}")
+            if rep:
+                walls.append(wall)
+                emitted.append(count_emitted(toks, cfg.pad_id, cfg.eos_id))
+        outputs[name] = toks[0][0][:toks[0][1]]
+        p50 = statistics.median(walls)
+        report.append({"request": name, "rows": n_rows, "num_beams": beams,
+                       "src_len": int(chunks[0][0].shape[1]), "max_new": T5_MAX_NEW,
+                       "p50_ms": p50 * 1e3, "rows_per_s": n_rows / p50,
+                       "emitted_tokens": statistics.median(emitted),
+                       "emitted_tokens_per_s": statistics.median(emitted) / p50,
+                       "bench_tokens_per_s": n_rows * T5_MAX_NEW / p50,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "all_rows_finite_ids": bool(((outputs[name] >= 0)
+                                                    & (outputs[name] < cfg.vocab_size)).all())})
+    launches = fa.LAUNCH_COUNTS["flash_attention_t5"]
+    greedy_chunks = requests[0][1]
+    profile = profile_call(lambda: [t.cpu() for t, _ in op._decode_chunks(
+        rt, greedy_chunks, ckpt, cfg, T5_MAX_NEW, 1, family=family)])
+
+    # Teacher-forced log-probabilities on the greedy tokens: the kernel's
+    # encoder against the plain T5 attention's, and the planted reversed
+    # position, on the checkpoint as written and with both relative bias
+    # tables redrawn at T5_FAULT_BIAS_STD.
+    ids_np, lengths_np, n = greedy_chunks[0]
+    ids = rt.put_batch(ids_np.astype(np.int32))
+    lengths = rt.put_batch(lengths_np)
+    gen = outputs[requests[0][0]].to(rt.device, torch.int64)
+    tgt = torch.cat([torch.full((gen.shape[0], 1), cfg.decoder_start_id, device=rt.device,
+                                dtype=torch.int64), gen[:, :-1]], dim=1)
+    ids, lengths = ids[:n], lengths[:n]
+    as_written = teacher_forced(t5, fa, rt, params, cfg, ids, lengths, tgt)
+    g = torch.Generator(device=rt.device).manual_seed(SEED)
+    redrawn = {**params,
+               "enc": {**params["enc"], "rel_bias": torch.randn(
+                   params["enc"]["rel_bias"].shape, generator=g, device=rt.device)
+                   * T5_FAULT_BIAS_STD},
+               "dec": {**params["dec"], "rel_bias": torch.randn(
+                   params["dec"]["rel_bias"].shape, generator=g, device=rt.device)
+                   * T5_FAULT_BIAS_STD}}
+    strong_bias = teacher_forced(t5, fa, rt, redrawn, cfg, ids, lengths, tgt)
+    logp_tol = LOGP_TOL["bfloat16"]
+
+    # A small f32 T5 (gated-gelu, untied): the device phase on the card
+    # against the same on the CPU.
+    small_dir = f"{ckpt}_small_f32"
+    os.makedirs(small_dir, exist_ok=True)
+    write_t5_checkpoint(small_dir, SMALL_T5_F32, SEED + 9, torch.float32, "cpu")
+    small_cfg = op._get_cfg({"model_path": small_dir, "model_config": {"dtype": "float32"}},
+                            "t5", small_dir)
+    small_rows = t5_rows(12, SMALL_T5_F32["vocab_size"], (20, 60), SEED + 10)
+    small = {}
+    for beams in (1, 3):
+        chunks = stage_t5(op, small_dir, small_cfg, small_rows, beams)
+        toks = {}
+        for where, run_rt in (("cuda", rt), ("cpu", TorchRuntime(device="cpu"))):
+            (t, n_s), = op._decode_chunks(run_rt, chunks, small_dir, small_cfg, 16, beams,
+                                          family="t5")
+            toks[where] = t.cpu()[:n_s]
+        small[f"beams{beams}"] = bool(torch.equal(toks["cuda"], toks["cpu"]))
+    rt.evict_params(op.params_key(small_dir, "t5", small_cfg))
+    torch.cuda.synchronize()
+    emit({"phase": "t5_large", "config": T5_LARGE,
+          "weights": "random from a seeded generator at HF T5 init scales, bf16; not pretrained",
+          "load_s": load_s, "weights_bytes_on_card": weights_bytes, "requests": report,
+          "launches_per_encoder_pass": cfg.n_enc_layers, "launches": launches,
+          "profile_64_rows_greedy": profile, "logp_tolerance": logp_tol,
+          "teacher_forced_as_written": as_written,
+          "teacher_forced_bias_std_1": strong_bias,
+          "small_f32_card_vs_cpu_same_tokens": small})
+    if not (as_written["finite"] and as_written["kernel_vs_plain"] <= logp_tol
+            and strong_bias["kernel_vs_plain"] <= logp_tol
+            and strong_bias["reversed_vs_plain"] > logp_tol):
+        raise SystemExit("T5 log-probabilities disagree (or the planted fault went unnoticed)")
+    if not all(r["all_rows_finite_ids"] for r in report) or not all(small.values()):
+        raise SystemExit(f"T5 outputs out of range or card and CPU disagree: {small}")
+    return {"launches": launches}
+
+
+def t5_kernel_entry(fa, check, launches) -> dict:
+    """The kernels line's entry of the T5 kernel at phase 9's staged shape
+    and key lengths. Its library yardstick is scaled_dot_product_attention
+    with the relative bias and the padding mask materialised as one float
+    mask [B, H, L, L] (in the input dtype, as SDPA takes it)."""
+    q, k, v, mask, rel_bias, table, lengths = check["inputs"]
+    B, H, L, D = q.shape
+    maxd = T5_LARGE["relative_attention_max_distance"]
+    pos = torch.arange(L, device=q.device)
+    rel = (pos[None, :] - pos[:, None]).clamp(-maxd, maxd) + maxd
+    float_mask = (table[:, rel][None] + torch.where(mask > 0, 0.0, fa.NEG_INF)).to(q.dtype)
+    entry = kernel_entry(
+        "flash_attention_t5", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "agent_tpu/kernels/flash_attention.py:354", launches,
+        check["max_abs_err"], check["max_rel_err"],
+        cuda_ms(lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias, max_distance=maxd)),
+        cuda_ms(lambda: fa.flash_attention_t5_reference(q, k, v, mask, table,
+                                                        max_distance=maxd), iters=5),
+        4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size()
+        + table.numel() * 4 + rel_bias.numel() * 4,
+        4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=float_mask, scale=1.0)), q,
+        library_note="SDPA with the bias and padding mask as one float attn_mask, "
+                     "materialised outside the timing")
+    del float_mask
+    return entry
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1077,13 +1550,41 @@ def main(argv=None) -> int:
     train_case = (f"train/B{B}xL{L}", (B, cfg.n_heads, L, L, cfg.d_model // cfg.n_heads),
                   train_state["mask"][take].sum(axis=1).tolist(), cfg.compute_dtype)
 
+    # Phase 8's requests, and phase 9's ids staged with the op's bucketing
+    # into a checkpoint directory whose weights phase 9 writes.
+    from agent_tpu_torch.ops import map_summarize as summarize_op
+
+    summarize = load_ops(["map_summarize"])["map_summarize"]
+    s2s_cases = [("s2s_texts256", {"texts": [S2S_TEXT] * S2S_ROWS, "max_length": S2S_MAX_NEW},
+                  S2S_ROWS),
+                 ("s2s_small_f32", {"texts": random_texts(random.Random(SEED + 8), 12, 20, 200),
+                                    "model_config": SMALL_S2S_F32}, 12)]
+    t5_dir = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(t5_dir.name, "t5_large")
+    os.makedirs(ckpt)
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(T5_LARGE, fh)
+    t5_cfg = summarize_op._get_cfg({"model_path": ckpt}, "t5", ckpt)
+    rows = t5_rows(T5_ROWS, T5_LARGE["vocab_size"], T5_LENGTHS, SEED + 11)
+    t5_requests = [
+        ("t5_large_64_greedy", stage_t5(summarize_op, ckpt, t5_cfg, rows, 1), 1, T5_ROWS),
+        ("t5_large_8_beam4", stage_t5(summarize_op, ckpt, t5_cfg, rows[:T5_BEAM_ROWS],
+                                      T5_BEAMS), T5_BEAMS, T5_BEAM_ROWS)]
+    t5_ids, t5_lengths, _ = t5_requests[0][1][0]
+    t5_case = (f"t5_large/B{t5_ids.shape[0]}xL{t5_ids.shape[1]}",
+               (t5_ids.shape[0], t5_cfg.n_heads, t5_ids.shape[1], t5_ids.shape[1], t5_cfg.d_kv),
+               t5_lengths.tolist(), True, (t5_cfg.rel_buckets, t5_cfg.rel_max_distance),
+               t5_cfg.compute_dtype)
+
     # 3. kernel vs plain
     kernel_cases = staged_cases(
-        classify, requests + long_requests + [("small_f32", small_payload, 12)])
+        classify, requests + long_requests + [("small_f32", small_payload, 12)]
+    ) + staged_cases(summarize, s2s_cases)
     kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
     fold_check = check_fold_kernel(fa, ring_fold_case(
         next(c for c in kernel_cases if c[0].startswith("texts8_L4096/"))))
+    t5_check = check_t5_kernel(fa, t5_case)
 
     # 4. main path
     rt = TorchRuntime()
@@ -1144,8 +1645,22 @@ def main(argv=None) -> int:
         train_launches = train_phase(fa, train_op, classify, train_payload,
                                      (train_state, take), tmp)
 
+    # 8. summarize with the in-house seq2seq
+    s2s = summarize_phase(fa, summarize, rt)
+    rt.clear_params()
+
+    # 9. T5-large
+    t0 = time.perf_counter()
+    write_t5_checkpoint(ckpt, T5_LARGE, SEED, torch.bfloat16, CARD)
+    emit({"phase": "t5_checkpoint", "seconds": time.perf_counter() - t0,
+          "bytes": os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))})
+    t5_run = t5_phase(fa, summarize_op, rt, ckpt, t5_requests)
+    rt.clear_params()
+    t5_dir.cleanup()
+
     # 7. kernels: the serving kernel on the 256-row request's staged shape
-    # and key lengths, the training kernels on phase 6's first batch.
+    # and key lengths, the training kernels on phase 6's first batch, the T5
+    # kernel on phase 9's staged shape.
     q, k_, v, mask, lengths = kernel_check["inputs"]
     B, H, L, D = q.shape
     bool_mask = mask > 0
@@ -1158,9 +1673,11 @@ def main(argv=None) -> int:
         4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size(),
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_, v, attn_mask=bool_mask)), q)
+            q, k_, v, attn_mask=bool_mask)), q,
+        launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"]})
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
-                      fold_kernel_entry(fa, fold_check, fold_launches)]})
+                      fold_kernel_entry(fa, fold_check, fold_launches),
+                      t5_kernel_entry(fa, t5_check, t5_run["launches"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

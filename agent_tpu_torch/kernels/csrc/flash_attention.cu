@@ -1,26 +1,23 @@
 // Flash attention forward for Hopper (sm_90a), with a key-padding mask.
 //
-// Replaces the Pallas TPU kernels `_flash_kernel` (agent_tpu/kernels/
-// flash_attention.py:149-175, launched by `flash_attention` at :228) and,
-// as the WriteLse = true variant, `_flash_fwd_lse_kernel` (:598-626,
-// launched by `_flash_fwd_res` at :719), the training forward, which also
-// stores each query row's logsumexp lse = m + log(max(l, 1e-30)) in f32 as
-// the only softmax residual of the backward (flash_attention_bwd.cu). The
-// variant adds one store per query row; WriteLse = false compiles the
-// serving kernel as before. It
+// Replaces the Pallas TPU kernel `_flash_kernel` (agent_tpu/kernels/
+// flash_attention.py:149-175, launched by `flash_attention` at :228). It
 // computes softmax(Q K^T * D^-1/2, keys masked to NEG_INF) V with an online
 // softmax: running max m, denominator l and numerator acc in f32, P rounded
 // to the input type before P V, masked scores set to NEG_INF *and* their
 // probabilities multiplied by keep (so a fully masked tile adds exactly 0),
 // output acc / max(l, 1e-30) in the input type (a fully masked row is 0).
+// The training forward (WriteLse: also each query row's logsumexp lse = m +
+// log(max(l, 1e-30)) in f32, the only softmax residual of the backward in
+// flash_attention_bwd.cu) and the T5 forward (RelBias, below) run, in bf16,
+// on the TMA + wgmma kernel of flash_fwd_sm90.cuh, which says which Pallas
+// kernels they replace; in f32 on this file's FMA kernel.
 //
 // Bound on an H100 SXM at the classify path's shape (B 256, H 12, L 512,
 // D 64, bf16): 4*B*H*L^2*D = 2.06e11 FLOP over 989 TFLOP/s = 0.21 ms, and
 // Q, K, V read once plus O written once = 4*B*H*L*D*2 B = 0.81 GB over
 // 3.35 TB/s = 0.24 ms, so the bound is the bytes, 0.24 ms; the arithmetic
-// intensity (~255 FLOP/B) sits just under the card's ridge (~295). The
-// training shape (B 128, H 12, L 512, D 64) halves both: 0.10 ms of FLOP,
-// 0.12 ms of bytes (the lse adds 3 MB).
+// intensity (~255 FLOP/B) sits just under the card's ridge (~295).
 //
 // What the design does about it: the [L, L] score matrix never reaches
 // device memory. One block owns one (b, h, 64-row query tile) and loops
@@ -29,10 +26,11 @@
 // tiles of one head mostly hit the 50 MB L2). The bf16 kernel runs both
 // products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
 // accumulate), keeps the score tile in registers and reuses the QK^T
-// accumulator fragments directly as the P operand of P V. It does not yet
-// overlap tile loads with compute (no cp.async/TMA pipeline) nor use wgmma:
-// that is later work. The f32 kernel is a plain FMA loop (no f32 tensor
-// core path keeps f32 accuracy); it serves f32 models and the tests.
+// accumulator fragments directly as the P operand of P V. It does not
+// overlap tile loads with compute nor use wgmma: flash_fwd_sm90.cuh does,
+// and this kernel can move onto its main loop later. The f32 kernel is a
+// plain FMA loop (no f32 tensor core path keeps f32 accuracy); it serves
+// f32 models and the tests.
 //
 // Blocks run in no order, so the TPU kernel's sequential K-tile grid axis
 // becomes the loop inside the block, and the ragged edges (Lq, Lk not
@@ -56,26 +54,18 @@
 // about it: the tensor-core loop is the forward's, and the state crosses
 // device memory once in and once out per query row, in registers in between.
 //
-// The RelBias = true variant replaces `_flash_t5_kernel` (agent_tpu/kernels/
-// flash_attention.py:354-411, launched by `flash_attention_t5` at :467), the
-// T5 encoder's self-attention: unscaled scores (scale = 1) plus T5's bucketed
-// relative-position bias, s = q.k * scale + bias[h, bucket(k - q)], before
-// the mask. The bucket saturates beyond +-max_distance, so the wrapper hands
-// in a per-distance table, f32 [H, 2 * max_distance + 1], row h holding
-// bias[h, bucket(clamp(k - q, -maxd, maxd))] at index clamp(k - q) + maxd,
-// computed from the learned [num_buckets, H] table with the port's own
-// bucket function (no logf in the kernel, where an ulp at rel = 16, 32, 64
-// would flip a bucket). Each block copies its head's row into dynamic shared
-// memory (1 KB at max_distance 128) and looks it up per score element; the
-// [H, Lq, Lk] bias never exists in device memory. The scale and the bias are
-// applied as two rounded operations, as the plain version computes them.
-// Bound on an H100 SXM at the T5-large encoder's shape (B 64, H 16, L 512,
-// D 64, bf16): Q, K, V and O read or written once are 268 MB, 0.080 ms at
-// 3.35 TB/s, against 4*B*H*L^2*D = 6.9e10 FLOP, 0.069 ms at 989 TFLOP/s
-// with every key real, so the bytes bound it (~255 FLOP/B, as row 1). What
-// the design does about it: the tensor-core loop is the forward's, so each
-// tensor crosses device memory about once per query tile; the bias costs
-// one shared-memory read and one add per score.
+// The RelBias variant is T5's encoder self-attention: unscaled scores
+// (scale = 1) plus T5's bucketed relative-position bias, s = q.k * scale +
+// bias[h, bucket(k - q)], before the mask. The bucket saturates beyond
+// +-max_distance, so the wrapper hands in a per-distance table, f32 [H, 2 *
+// max_distance + 1], row h holding bias[h, bucket(clamp(k - q, -maxd,
+// maxd))] at index clamp(k - q) + maxd, computed from the learned
+// [num_buckets, H] table with the port's own bucket function (no logf in
+// the kernel, where an ulp at rel = 16, 32, 64 would flip a bucket). Each
+// block copies its head's row into dynamic shared memory (1 KB at
+// max_distance 128); the [H, Lq, Lk] bias never exists in device memory.
+// The scale and the bias are applied as two rounded operations, as the
+// plain version computes them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,8 +78,8 @@ namespace {
 constexpr float kNegInf = -1e9f;  // finite, as agent_tpu.models.layers.NEG_INF
 constexpr int kThreads = 128;
 // Largest max_distance of the RelBias table: 2 * 1024 + 1 floats (8 KB) of
-// dynamic shared memory stay, with the largest tile buffers (35 KB), under
-// the 48 KB a block gets without opting in.
+// dynamic shared memory stay, beside the f32 kernel's tile buffers, under
+// the 48 KB a block gets without opting in (the sm90 kernel opts in).
 constexpr int kMaxBiasDistance = 1024;
 
 // This lane's bias for relative position rel = key - query, from the head's
@@ -110,22 +100,27 @@ __device__ __forceinline__ float* stage_bias_row(const float* dist_bias, int h,
   return dyn_smem;
 }
 
-// ---- bf16: tensor-core kernel ----------------------------------------------
+}  // namespace
+
+#include "flash_fwd_sm90.cuh"
+
+namespace {
+
+// ---- bf16: mma.sync kernel (serving forward, ring hop) ------------------------
 
 constexpr int kBq = 64;  // query rows per block, 16 per warp
 constexpr int kBk = 64;  // keys per tile
 
-template <int D, bool WriteLse, bool CarryState, bool RelBias>
+template <int D, bool CarryState>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    const int32_t* __restrict__ mask,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   int H, int Lq, int Lk, int n_q_tiles, int mask_b_stride,
-                   float scale, float* __restrict__ st_m,
-                   float* __restrict__ st_l, float* __restrict__ st_acc,
-                   const float* __restrict__ dist_bias, int max_distance) {
+                   __nv_bfloat16* __restrict__ out, int H, int Lq, int Lk,
+                   int n_q_tiles, int mask_b_stride, float scale,
+                   float* __restrict__ st_m, float* __restrict__ st_l,
+                   float* __restrict__ st_acc) {
   constexpr int kStride = D + 8;  // smem row pitch: 16-byte pad, no conflicts
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 k_s[kBk * kStride];
@@ -142,8 +137,6 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* vh = v + static_cast<size_t>(bh) * Lk * D;
   const int32_t* mrow = mask + static_cast<size_t>(b) * mask_b_stride;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float* bias_s = nullptr;
-  if constexpr (RelBias) bias_s = stage_bias_row(dist_bias, bh % H, max_distance);
 
   // This warp's 16 query rows as A fragments, straight from device memory.
   uint32_t qf[D / 16][4];
@@ -219,18 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool keep = keep_s[nt * 8 + 2 * t + j] != 0.f;
-        if constexpr (RelBias) {
-          const int key = k0 + nt * 8 + 2 * t + j;
-          s[nt][j] = keep ? __fadd_rn(__fmul_rn(s[nt][j], scale),
-                                      rel_bias_at(bias_s, key - r0, max_distance))
-                          : kNegInf;
-          s[nt][2 + j] = keep ? __fadd_rn(__fmul_rn(s[nt][2 + j], scale),
-                                          rel_bias_at(bias_s, key - r1, max_distance))
-                              : kNegInf;
-        } else {
-          s[nt][j] = keep ? s[nt][j] * scale : kNegInf;
-          s[nt][2 + j] = keep ? s[nt][2 + j] * scale : kNegInf;
-        }
+        s[nt][j] = keep ? s[nt][j] * scale : kNegInf;
+        s[nt][2 + j] = keep ? s[nt][2 + j] * scale : kNegInf;
         mx[0] = fmaxf(mx[0], s[nt][j]);
         mx[1] = fmaxf(mx[1], s[nt][2 + j]);
       }
@@ -322,12 +305,6 @@ __global__ void __launch_bounds__(kThreads)
     if (r1 < Lq)
       *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(r1) * D + c) =
           pack_f32(acc[dt][2] / d1, acc[dt][3] / d1);
-  }
-  if constexpr (WriteLse) {
-    // m and l are the same in the 4 lanes that hold a row; one stores.
-    float* lh = lse + static_cast<size_t>(bh) * Lq;
-    if (t == 0 && r0 < Lq) lh[r0] = m[0] + logf(d0);
-    if (t == 0 && r1 < Lq) lh[r1] = m[1] + logf(d1);
   }
 }
 
@@ -468,18 +445,26 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* m = static_cast<const int32_t*>(mask);
-  const size_t smem = RelBias ? (2 * max_distance + 1) * sizeof(float) : 0;
   if (is_bf16) {
-    const int n_q = (Lq + kBq - 1) / kBq;
-    const dim3 grid(static_cast<unsigned>(n_q) * B * H);
-    const auto* qq = static_cast<const __nv_bfloat16*>(q);
-    const auto* kk = static_cast<const __nv_bfloat16*>(k);
-    const auto* vv = static_cast<const __nv_bfloat16*>(v);
-    auto* oo = static_cast<__nv_bfloat16*>(out);
-    switch (D) {
-      case 32: flash_fwd_bf16<32, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
-      case 64: flash_fwd_bf16<64, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
-      default: flash_fwd_bf16<128, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
+    if constexpr (WriteLse || RelBias) {
+      // The training forward and T5's: the TMA + wgmma kernel.
+      switch (D) {
+        case 32: return sm90::launch<32, WriteLse, RelBias>(q, k, v, m, out, lse, B, H, Lq, Lk, mask_b_stride, scale, st, dist_bias, max_distance);
+        case 64: return sm90::launch<64, WriteLse, RelBias>(q, k, v, m, out, lse, B, H, Lq, Lk, mask_b_stride, scale, st, dist_bias, max_distance);
+        default: return sm90::launch<128, WriteLse, RelBias>(q, k, v, m, out, lse, B, H, Lq, Lk, mask_b_stride, scale, st, dist_bias, max_distance);
+      }
+    } else {
+      const int n_q = (Lq + kBq - 1) / kBq;
+      const dim3 grid(static_cast<unsigned>(n_q) * B * H);
+      const auto* qq = static_cast<const __nv_bfloat16*>(q);
+      const auto* kk = static_cast<const __nv_bfloat16*>(k);
+      const auto* vv = static_cast<const __nv_bfloat16*>(v);
+      auto* oo = static_cast<__nv_bfloat16*>(out);
+      switch (D) {
+        case 32: flash_fwd_bf16<32, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+        case 64: flash_fwd_bf16<64, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+        default: flash_fwd_bf16<128, CarryState><<<grid, kThreads, 0, st>>>(qq, kk, vv, m, oo, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc); break;
+      }
     }
   } else {
     const int n_q = (Lq + kRowsF32 - 1) / kRowsF32;
@@ -488,6 +473,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
     const auto* kk = static_cast<const float*>(k);
     const auto* vv = static_cast<const float*>(v);
     auto* oo = static_cast<float*>(out);
+    const size_t smem = RelBias ? (2 * max_distance + 1) * sizeof(float) : 0;
     switch (D) {
       case 32: flash_fwd_f32<32, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
       case 64: flash_fwd_f32<64, WriteLse, CarryState, RelBias><<<grid, kThreads, smem, st>>>(qq, kk, vv, m, oo, lse, H, Lq, Lk, n_q, mask_b_stride, scale, st_m, st_l, st_acc, dist_bias, max_distance); break;
@@ -555,6 +541,7 @@ int flash_attention_fwd_t5(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_error_string(int err) {
+  if (err >= sm90::kEncodeError) return "cuTensorMapEncodeTiled failed (CUresult = code - 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,0 +1,672 @@
+// Flash attention forward for Hopper with TMA and wgmma (sm_90a): the bf16
+// training forward with lse and the T5 forward with relative-position bias.
+//
+// Part of flash_attention.cu's translation unit, included after its kNegInf,
+// kMaxBiasDistance and rel_bias_at. Template flash_fwd_sm90<D, WriteLse,
+// RelBias> for D in {32, 64, 128}:
+// - WriteLse replaces the Pallas kernel `_flash_fwd_lse_kernel`
+//   (agent_tpu/kernels/flash_attention.py:598, pallas_call :719): softmax
+//   attention with a key-padding mask that also stores each query row's
+//   lse = m + log(max(l, 1e-30)) in f32.
+// - RelBias replaces `_flash_t5_kernel` (agent_tpu/kernels/
+//   flash_attention.py:354, pallas_call :467): s = q.k * scale + bias[h,
+//   clamp(k - q, -maxd, maxd) + maxd] before the mask, from the per-distance
+//   table that flash_attention.cu describes.
+// Both compute what the mma.sync kernel computed for them: the same 64-key
+// tiles, the online softmax in f32 with the same running max and 1e-30
+// floor, masked scores NEG_INF with p multiplied by keep (a fully masked
+// row is exactly 0), P rounded to bf16 against the tile's running max. Only
+// the exponential differs: exp(x) is ex2.approx of x * log2(e) on the MUFU
+// (relative error ~2^-22, far below bf16's rounding of P).
+//
+// Bound on an H100 SXM (bytes at 3.35 TB/s): the training shape (B 128,
+// H 12, L 512, D 64) moves Q, K, V and O once, 403 MB, 0.121 ms; the
+// T5-large encoder's (B 64, H 16, L 512, D 64) 268 MB, 0.080 ms. Their
+// products (~255 FLOP per byte) sit just under the card's ridge, so the
+// kernel has to keep the loads in flight and the tensor cores fed at once.
+// What the design does about it:
+// - One block owns 128 query rows of one head: two warpgroups of 64 rows
+//   share every K/V tile, so K and V cross device memory once per 128 query
+//   rows (L2 serves the other query tiles of the head). Two blocks share a
+//   multiprocessor at D <= 64 (128 registers a thread), so one block's
+//   start and end run under the other's main loop; one at D 128.
+// - Thread 0 issues every load with TMA: Q once and K/V tiles into a ring
+//   of kStages stages, through 3-D tensor maps [B*H, L, D] whose hardware
+//   zero-fill ends each head at its own Lq or Lk. Full and empty mbarriers
+//   pace the ring; a stage is refilled kLag tiles after its use, when the
+//   other warpgroup has given it back too, so the refill rarely waits and
+//   the next tiles are always in flight. The key mask is read a tile ahead.
+// - S = Q K^T is wgmma m64n64k16 with Q from registers (loaded once) and K
+//   from shared memory (stored [keys, D], K-major); O += P V is wgmma
+//   m64nDk16 with P from registers (the S accumulators converted to bf16
+//   pairs) and V read transposed (MN-major) from shared memory. Each tile
+//   issues its S with the previous tile's P V and runs its softmax while P V
+//   is in flight. Tiles use the 128-byte swizzle (64-byte at D 32, whose
+//   rows are 64 bytes); a D 128 tile is two boxes of 64 columns.
+// - The T5 bias row lives in shared memory; a warpgroup whose 64 rows x 64
+//   keys all lie beyond +max_distance or below -max_distance adds the
+//   saturated entry, one value a head, instead of looking it up per score
+//   (t5_constant_bias_index in kernels/flash_attention.py is the same rule).
+// - The epilogue normalises O in registers, writes it swizzled into the
+//   warpgroup's Q tile (no longer read) and stores it with TMA, which clips
+//   rows past Lq; one lane per row stores lse.
+// Not yet: persistent blocks, a producer warp with the two warpgroups
+// taking turns on the tensor cores, and TMA reading Q/K/V straight from
+// the projections' [B, L, H*D] layout.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+namespace sm90 {
+
+constexpr int kRows = 64;        // query rows per warpgroup
+constexpr int kWarpgroups = 2;   // per block
+constexpr int kBlockRows = kRows * kWarpgroups;
+constexpr int kKeys = 64;        // keys per tile, BLOCK_K of the plain versions
+constexpr int kStages = 4;       // K/V ring depth
+// Tile it refills the stage of tile it - kLag, which both warpgroups gave
+// back by the end of tile it - kLag + 1, with tile it - kLag + kStages.
+constexpr int kLag = 2;
+static_assert(kLag >= 2 && kLag < kStages, "a refill waits for a stage given back a tile ago");
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDevices = 64;
+
+// Blocks a multiprocessor holds: two at D <= 64 (128 registers a thread),
+// one at D 128, whose O accumulators alone take 64.
+template <int D>
+constexpr int kCtas = D <= 64 ? 2 : 1;
+
+// Shared-memory geometry of one 64-row tile of D columns.
+template <int D>
+struct Tile {
+  static constexpr int kBox = D < 64 ? D : 64;      // columns per TMA box (one swizzled row)
+  static constexpr int kRowBytes = kBox * 2;        // 64 or 128
+  static constexpr int kBoxes = D / kBox;           // boxes along D
+  static constexpr int kBoxBytes = kRows * kRowBytes;
+  static constexpr int kBytes = kRows * D * 2;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
+
+  // Byte offset of (row, byte col) of one box as TMA's swizzle places it
+  // (the 16-byte chunk XORed with the row within the atom).
+  __device__ static __forceinline__ uint32_t swizzle(uint32_t row, uint32_t col_bytes) {
+    const uint32_t off = row * kRowBytes + col_bytes;
+    return off ^ (((off >> 7) & (kRowBytes == 128 ? 7u : 3u)) << 4);
+  }
+  // Byte offset of element (row, col) in the tile's boxes.
+  __device__ static __forceinline__ uint32_t offset(uint32_t row, int col) {
+    return (col / kBox) * kBoxBytes + swizzle(row, (col % kBox) * 2);
+  }
+};
+
+// ---- PTX wrappers -------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders the compiler's use of accumulator registers against the wgmma
+// issue and wait, which it cannot see through.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D[64xN] (+)= A[64x16] B[16xN], A from registers (the accumulator layout
+// in bf16 pairs), B from shared memory: K-major (TransB 0) or MN-major
+// (TransB 1, transposed).
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+  if constexpr (D == 32) wgmma_rs_m64n32<1>(o, a, desc_v, 1);
+  else if constexpr (D == 64) wgmma_rs_m64n64<1>(o, a, desc_v, 1);
+  else wgmma_rs_m64n128<1>(o, a, desc_v, 1);
+}
+
+// ---- the kernel -----------------------------------------------------------------
+
+template <int D, bool WriteLse, bool RelBias>
+__global__ void __launch_bounds__(kThreads, kCtas<D>)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_o,
+                   const int32_t* __restrict__ mask, float* __restrict__ lse, int H, int Lq,
+                   int Lk, int n_q_tiles, int mask_b_stride, float scale,
+                   const float* __restrict__ dist_bias, int max_distance) {
+  using T = Tile<D>;
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // Q, full[], empty[]
+  extern __shared__ __align__(16) uint8_t dyn[];
+  // The swizzle atoms need 1024-byte alignment: round the window up.
+  const uint32_t raw = smem_u32(dyn);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + kWarpgroups * T::kBytes;
+  const uint32_t v_s = k_s + kStages * T::kBytes;
+  float* bias_s = reinterpret_cast<float*>(dyn + (v_s + kStages * T::kBytes - raw));
+  const uint32_t q_bar = smem_u32(&bars[0]);
+  const uint32_t full0 = smem_u32(&bars[1]), empty0 = smem_u32(&bars[1 + kStages]);
+
+  const int bh = blockIdx.x / n_q_tiles;
+  const int q_blk = (blockIdx.x % n_q_tiles) * kBlockRows;
+  const int n_k = (Lk + kKeys - 1) / kKeys;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // Thread 0 issues every load. It sets up the barriers and at once asks for
+  // Q and the first kStages tiles; meanwhile the block stages T5's bias row.
+  const bool issuer = threadIdx.x == 0;
+  auto load_kv = [&](int it) {
+    const int s = it % kStages;
+    mbar_expect_tx(full0 + 8 * s, 2 * T::kBytes);
+    for (int c = 0; c < T::kBoxes; ++c) {
+      tma_load(k_s + s * T::kBytes + c * T::kBoxBytes, &map_k, full0 + 8 * s, c * T::kBox,
+               it * kKeys, bh);
+      tma_load(v_s + s * T::kBytes + c * T::kBoxBytes, &map_v, full0 + 8 * s, c * T::kBox,
+               it * kKeys, bh);
+    }
+  };
+  if (issuer) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_bar, kWarpgroups * T::kBytes);
+    for (int w = 0; w < kWarpgroups; ++w)
+      for (int c = 0; c < T::kBoxes; ++c)
+        tma_load(q_s + w * T::kBytes + c * T::kBoxBytes, &map_q, q_bar, c * T::kBox,
+                 q_blk + w * kRows, bh);
+    for (int it = 0; it < kStages && it < n_k; ++it) load_kv(it);  // the ring starts empty
+  }
+  if constexpr (RelBias) {
+    const int n = 2 * max_distance + 1;
+    const float* row = dist_bias + static_cast<size_t>(bh % H) * n;
+    for (int i = threadIdx.x; i < n; i += kThreads) bias_s[i] = row[i];
+  }
+  __syncthreads();
+  // At the start of tile it: the stage of tile it - kLag gets tile it - kLag
+  // + kStages, once both warpgroups have given it back.
+  auto refill = [&](int it) {
+    const int j = it - kLag;
+    if (issuer && j >= 0 && j + kStages < n_k) {
+      mbar_wait(empty0 + 8 * (j % kStages), (j / kStages) & 1);
+      load_kv(j + kStages);
+    }
+    __syncwarp();
+  };
+
+  // ---- two warpgroups of 64 query rows each ----
+  const int q_wg = q_blk + wg * kRows;
+  const int r0 = q_wg + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const uint32_t my_q = q_s + wg * T::kBytes;
+  uint8_t* my_q_ptr = dyn + (my_q - raw);
+  const int32_t* mrow = mask + static_cast<size_t>(bh / H) * mask_b_stride;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float sc[32];       // S, then P, of one tile: sc[4j + 2h + e] is row r_h, column 8j + 2t + e
+  uint32_t pa[4][4];  // bf16(P) as wgmma's register A fragments, 16 keys each
+
+  // The mask of keys k0 + lane and k0 + lane + 32, loaded a tile ahead of
+  // its use; then the tile's keep bits, shifted so that bit 8j + e is this
+  // lane's column 8j + 2t + e, and whether the tile keeps every key.
+  int32_t keep_raw[2];
+  auto keep_load = [&](int k0) {
+    const int ka = k0 + lane, kb = ka + 32;
+    keep_raw[0] = ka < Lk ? mrow[ka] : 0;
+    keep_raw[1] = kb < Lk ? mrow[kb] : 0;
+  };
+  auto keep_bits = [&](uint64_t& keep, bool& every) {
+    const uint32_t lo = __ballot_sync(0xffffffffu, keep_raw[0] > 0);
+    const uint32_t hi = __ballot_sync(0xffffffffu, keep_raw[1] > 0);
+    every = (lo & hi) == 0xffffffffu;
+    keep = (static_cast<uint64_t>(hi) << 32 | lo) >> (2 * t);
+  };
+  // Tile it's keep bits; the next tile's mask is loaded meanwhile.
+  auto next_keep = [&](int it, uint64_t& keep, bool& every) {
+    keep_bits(keep, every);
+    if (it + 1 < n_k) keep_load((it + 1) * kKeys);
+  };
+  // This warpgroup's Q rows as wgmma's register A fragments, one per 16
+  // columns: [0] row g, columns 2t, 2t + 1; [1] row g + 8; [2], [3] the
+  // same rows 8 columns on.
+  uint32_t qa[D / 16][4];
+  auto load_q = [&]() {
+    const uint32_t rw = warp * 16 + g;
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      const int c = 16 * kt + 2 * t;
+      qa[kt][0] = *reinterpret_cast<const uint32_t*>(my_q_ptr + T::offset(rw, c));
+      qa[kt][1] = *reinterpret_cast<const uint32_t*>(my_q_ptr + T::offset(rw + 8, c));
+      qa[kt][2] = *reinterpret_cast<const uint32_t*>(my_q_ptr + T::offset(rw, c + 8));
+      qa[kt][3] = *reinterpret_cast<const uint32_t*>(my_q_ptr + T::offset(rw + 8, c + 8));
+    }
+  };
+  // S = Q K^T of stage s, over D / 16 slices of 16 columns.
+  auto issue_s = [&](int s) {
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      const uint32_t col = (kt / (T::kBox / 16)) * T::kBoxBytes + (kt % (T::kBox / 16)) * 32;
+      const uint64_t desc_k =
+          smem_desc(k_s + s * T::kBytes + col, 16, T::kAtomBytes, T::kLayout);
+      wgmma_rs_m64n64<0>(sc, qa[kt], desc_k, kt > 0);
+    }
+    wgmma_commit();
+  };
+  // O += bf16(P) V of stage s.
+  auto issue_pv = [&](int s) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(o, pa[kk],
+                  smem_desc(v_s + s * T::kBytes + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                            T::kAtomBytes, T::kLayout));
+    wgmma_commit();
+  };
+  // Softmax of tile k0, whose q.k are in sc: the scores (scaled, biased,
+  // masked), their row maxima, p in place, the running (m, l) and the
+  // correction that O still needs.
+  auto softmax = [&](int k0, uint64_t keep, bool every, float (&corr)[2]) {
+    float mx[2];
+    auto fold = [&](auto masked, auto bias_of) {
+      constexpr bool kMasked = decltype(masked)::value;
+      if constexpr (RelBias) {
+        // s = q.k * scale + bias, two rounded operations as the plain
+        // version; masked scores NEG_INF.
+        mx[0] = m[0];
+        mx[1] = m[1];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float& x = sc[4 * j + 2 * h + e];
+              x = __fadd_rn(__fmul_rn(x, scale), bias_of(h, 8 * j + e));
+              if constexpr (kMasked) x = (keep >> (8 * j + e)) & 1 ? x : kNegInf;
+              mx[h] = fmaxf(mx[h], x);
+            }
+#pragma unroll
+        for (int off = 1; off < 4; off *= 2) {  // the 4 lanes holding a row
+          mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
+          mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
+        }
+      } else {
+        // The max of the kept q.k, scaled once: rounding is monotonic, so
+        // it is the max of the rounded scores; masked scores are NEG_INF,
+        // never above the running max.
+        float top[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float x = sc[4 * j + 2 * h + e];
+              top[h] = fmaxf(top[h], !kMasked || (keep >> (8 * j + e)) & 1 ? x : -INFINITY);
+            }
+#pragma unroll
+        for (int off = 1; off < 4; off *= 2) {
+          top[0] = fmaxf(top[0], __shfl_xor_sync(0xffffffffu, top[0], off));
+          top[1] = fmaxf(top[1], __shfl_xor_sync(0xffffffffu, top[1], off));
+        }
+        mx[0] = fmaxf(m[0], top[0] * scale);
+        mx[1] = fmaxf(m[1], top[1] * scale);
+      }
+      // p = exp(s - mx) = 2^(s log2 e - mx log2 e); masked p = 0.
+      const float mul = RelBias ? kLog2e : scale * kLog2e;
+      const float sub[2] = {mx[0] * kLog2e, mx[1] * kLog2e};
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& x = sc[4 * j + 2 * h + e];
+            x = ex2(fmaf(x, mul, -sub[h]));
+            if constexpr (kMasked) x = (keep >> (8 * j + e)) & 1 ? x : 0.f;
+            rs[h] += x;
+          }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        rs[0] += __shfl_xor_sync(0xffffffffu, rs[0], off);
+        rs[1] += __shfl_xor_sync(0xffffffffu, rs[1], off);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        corr[h] = ex2((m[h] - mx[h]) * kLog2e);
+        l[h] = l[h] * corr[h] + rs[h];
+        m[h] = mx[h];
+      }
+    };
+    auto with_bias = [&](auto bias_of) {
+      if (every) fold(std::false_type{}, bias_of);
+      else fold(std::true_type{}, bias_of);
+    };
+    if constexpr (RelBias) {
+      // The warpgroup's 64 x 64 tile: all beyond +-max_distance (one
+      // value), all within (no clamp), or both.
+      const int rel_lo = k0 - (q_wg + kRows - 1), rel_hi = k0 + kKeys - 1 - q_wg;
+      if (rel_lo >= max_distance || rel_hi <= -max_distance) {
+        const float c = bias_s[rel_lo >= max_distance ? 2 * max_distance : 0];
+        with_bias([c](int, int) { return c; });
+      } else if (rel_lo >= -max_distance && rel_hi <= max_distance) {
+        const float* row[2] = {bias_s + (k0 + 2 * t - r0 + max_distance),
+                               bias_s + (k0 + 2 * t - r1 + max_distance)};
+        with_bias([row](int h, int col) { return row[h][col]; });
+      } else {
+        const int rel[2] = {k0 + 2 * t - r0, k0 + 2 * t - r1};
+        with_bias([bias_s, rel, max_distance](int h, int col) {
+          return rel_bias_at(bias_s, rel[h] + col, max_distance);
+        });
+      }
+    } else {
+      with_bias([](int, int) { return 0.f; });
+    }
+  };
+  // keys 16kk..16kk+15 of P are the accumulators of column groups 2kk
+  // and 2kk + 1, exactly wgmma's register A fragment.
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_f32(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+
+  // Tile 0 alone; then each step issues S of tile it and P V of tile
+  // it - 1 together and runs tile it's softmax while P V is in flight.
+  uint64_t keep;
+  bool every;
+  float corr[2];
+  keep_load(0);
+  mbar_wait(q_bar, 0);
+  load_q();
+  next_keep(0, keep, every);
+  mbar_wait(full0, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0, keep, every, corr);  // O is still 0: nothing to correct
+  pack_p();
+  for (int it = 1; it < n_k; ++it) {
+    const int s = it % kStages, prev = (it - 1) % kStages;
+    refill(it);
+    next_keep(it, keep, every);
+    mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    fence_regs(o);
+    issue_s(s);  // its wgmma.fence also orders the writes of pa and o
+    issue_pv(prev);
+    wgmma_wait<1>();  // S is done, P V may still run
+    fence_regs(sc);
+    softmax(it * kKeys, keep, every, corr);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty0 + 8 * prev);
+    // The rescale by exp(m_old - m_new) after the previous P V is in O.
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 0] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    pack_p();
+  }
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv((n_k - 1) % kStages);
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  // Epilogue: O / max(l, 1e-30) in bf16, swizzled into this warpgroup's
+  // Q tile, stored by TMA (rows past Lq clipped).
+  const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(my_q_ptr + T::offset(warp * 16 + g + 8 * h, 8 * j + 2 * t)) =
+          pack_f32(o[4 * j + 2 * h] / den[h], o[4 * j + 2 * h + 1] / den[h]);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (tid == 0 && q_wg < Lq) {
+    for (int c = 0; c < T::kBoxes; ++c)
+      tma_store(&map_o, my_q + c * T::kBoxBytes, c * T::kBox, q_wg, bh);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+  if constexpr (WriteLse) {
+    // m and l are the same in the 4 lanes that hold a row; one stores.
+    float* lh = lse + static_cast<size_t>(bh) * Lq;
+    if (t == 0 && r0 < Lq) lh[r0] = m[0] + logf(den[0]);
+    if (t == 0 && r1 < Lq) lh[r1] = m[1] + logf(den[1]);
+  }
+}
+
+// ---- host side ------------------------------------------------------------------
+
+// Tensor-map encoding failures are returned as kEncodeError + CUresult, so
+// the caller can tell them from a cudaError_t.
+constexpr int kEncodeError = 100000;
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library links no libcuda.
+inline int encode_tiled_fn(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  static int error = 0;
+  if (cached == nullptr && error == 0) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) error = err;
+    else if (found != cudaDriverEntryPointSuccess || p == nullptr) error = cudaErrorSymbolNotFound;
+    else cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return error;
+}
+
+// bf16 [heads, rows, D] contiguous, boxes of 64 rows x Tile<D>::kBox columns.
+template <int D>
+int encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int heads, int rows) {
+  using T = Tile<D>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kBox), kRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
+template <int D>
+constexpr size_t smem_bytes(int bias_floats) {
+  return 1024 + static_cast<size_t>(kWarpgroups + 2 * kStages) * Tile<D>::kBytes +
+         static_cast<size_t>(bias_floats) * sizeof(float);
+}
+
+template <int D, bool WriteLse, bool RelBias>
+int launch(const void* q, const void* k, const void* v, const int32_t* mask, void* out,
+           float* lse, int B, int H, int Lq, int Lk, int mask_b_stride, float scale,
+           cudaStream_t stream, const float* dist_bias, int max_distance) {
+  EncodeTiledFn encode;
+  if (const int err = encode_tiled_fn(&encode)) return err;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, out};
+  const int rows[4] = {Lq, Lk, Lk, Lq};
+  for (int i = 0; i < 4; ++i)
+    if (const int err = encode_map<D>(encode, &maps[i], ptrs[i], B * H, rows[i])) return err;
+
+  auto kernel = flash_fwd_sm90<D, WriteLse, RelBias>;
+  // Above 48 KB only after opting in, once per device for this instantiation.
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev)) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    const size_t most = smem_bytes<D>(RelBias ? 2 * kMaxBiasDistance + 1 : 0);
+    if (const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most)))
+      return err;
+    opted_in[dev] = true;
+  }
+  const int n_q = (Lq + kBlockRows - 1) / kBlockRows;
+  const size_t smem = smem_bytes<D>(RelBias ? 2 * max_distance + 1 : 0);
+  kernel<<<static_cast<unsigned>(n_q) * B * H, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, H, Lq, Lk, n_q, mask_b_stride, scale,
+      dist_bias, max_distance);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+}  // namespace

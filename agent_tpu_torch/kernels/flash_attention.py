@@ -7,8 +7,10 @@ Counterpart of ``agent_tpu.kernels.flash_attention`` (``flash_attention``,
 ``flash_fold_supported``, ``flash_attention_t5``,
 ``make_flash_attention_t5``). The kernels are ``csrc/flash_attention.cu``
 (the forward, replacing the Pallas kernels ``_flash_kernel`` and, as its
-variants, ``_flash_fwd_lse_kernel``, the ring hop ``_flash_fold_kernel`` and
-T5's ``_flash_t5_kernel``) and ``csrc/flash_attention_bwd.cu``
+variant, the ring hop ``_flash_fold_kernel``, with mma.sync; its bf16
+training forward and T5 forward, replacing ``_flash_fwd_lse_kernel`` and
+``_flash_t5_kernel``, run on the TMA + wgmma kernel of
+``csrc/flash_fwd_sm90.cuh``) and ``csrc/flash_attention_bwd.cu``
 (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). They compute what
 the Pallas kernels compute: softmax(QKᵀ·D^-½ with a key-padding mask) V with
 an online softmax in f32, zero output for a fully masked row, for training
@@ -246,13 +248,37 @@ def flash_attention_t5_reference(
     :func:`flash_attention_reference`'s tile loop with s = QKᵀ·scale +
     bias[h, clamp(k − q) + max_distance] before the mask, T5's scale being
     1. Output in q's dtype, 0 for a row with no real key."""
-    q_pos = torch.arange(q.shape[2], device=q.device)
-
     def bias_tile(k0: int, k1: int) -> torch.Tensor:
-        rel = torch.arange(k0, k1, device=q.device)[None, :] - q_pos[:, None]
-        return dist_bias[:, rel.clamp(-max_distance, max_distance) + max_distance][None]
+        return t5_bias_tile(dist_bias, 0, q.shape[2], k0, k1, max_distance=max_distance)[None]
 
     return _fwd_tiles(q, k, v, key_keep(mask), block_k, float(scale), bias_tile)[0]
+
+
+def t5_bias_tile(dist_bias: torch.Tensor, q0: int, q1: int, k0: int, k1: int, *,
+                 max_distance: int) -> torch.Tensor:
+    """The bias of query rows [q0, q1) against keys [k0, k1): f32 ``[H, q1 −
+    q0, k1 − k0]``, ``dist_bias[h, clamp(k − q, ±max_distance) +
+    max_distance]``, as :func:`flash_attention_t5_reference` adds it."""
+    rel = (torch.arange(k0, k1, device=dist_bias.device)[None, :]
+           - torch.arange(q0, q1, device=dist_bias.device)[:, None])
+    return dist_bias[:, rel.clamp(-max_distance, max_distance) + max_distance]
+
+
+def t5_constant_bias_index(q0: int, k0: int, max_distance: int, rows: int = 64,
+                           keys: int = BLOCK_K) -> Optional[int]:
+    """The T5 kernel's constant-tile rule, in its own integer arithmetic:
+    when every relative position k − q of query rows [q0, q0 + rows) and
+    keys [k0, k0 + keys) lies at or beyond +max_distance (or at or below
+    −max_distance), the tile's bias is one entry of the per-distance row,
+    whose index this returns (2·max_distance, or 0); otherwise None. The
+    kernel (``csrc/flash_fwd_sm90.cuh``) applies it to each warpgroup's 64
+    rows and 64-key tile."""
+    rel_lo, rel_hi = k0 - (q0 + rows - 1), k0 + keys - 1 - q0
+    if rel_lo >= max_distance:
+        return 2 * max_distance
+    if rel_hi <= -max_distance:
+        return 0
+    return None
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   — CUDA present, an H100 SXM (compute capability (9, 0)),
               nvidia-smi's name and power limit.
 2. build    — nvcc builds every kernel of the paths from csrc/ (sm_90a),
-              all sources at once.
+              all sources at once; for each flash_fwd_sm90 instantiation
+              (the training forward and T5's), cuobjdump's SASS must hold
+              HGMMA (wgmma) and UTMALDG (TMA loads), printed beside ptxas'
+              registers, spills and shared memory.
 3. kernels vs plain — each kernel's wrapper on the card against its plain
               PyTorch version. The serving forward: at the shapes and key
               lengths that the requests of phases 4 and 5 stage (taken from
@@ -90,10 +93,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               the card as on the CPU. p50 ms, tokens/s, peak memory and
               device time by kind.
 7. kernels  — per kernel: launches on its path, error against plain,
-              kernel / plain / library times and the card's bound (the fold
+              kernel / plain / library times and the card's bound, and its
+              design (mma.sync, or TMA + wgmma); each kernel timed through
+              its launcher, its inputs built outside the timing (the fold
               at phase 5b's shard shape: launches over its timed requests;
-              the T5 kernel at phase 9's staged shape: launches over its
-              requests). Printed after phases 8 and 9.
+              the T5 kernel at phase 9's staged shape with its per-distance
+              table built once, launches over its requests, the entry
+              point's time beside it). Printed after phases 8 and 9.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -107,6 +113,7 @@ import math
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -505,9 +512,24 @@ def timed_requests(classify, ctx, fa, requests, launches: dict, k: int) -> list:
 
 
 # Device kernels by what they do, from their names (first match wins); the
-# forward's variants by their template flags, flash_fwd_*<D, WriteLse,
-# CarryState, RelBias> (demangled or mangled).
-FWD_VARIANT = re.compile(r"flash_fwd_\w+?(?:<\d+, (\w+), (\w+), (\w+)>|ILi\d+ELb(\d)ELb(\d)ELb(\d)E)")
+# forward's variants by their template flags, demangled or mangled:
+# flash_fwd_bf16<D, CarryState> (mma.sync), flash_fwd_sm90<D, WriteLse,
+# RelBias> (TMA + wgmma), flash_fwd_f32<D, WriteLse, CarryState, RelBias>.
+FWD_VARIANT = re.compile(r"flash_fwd_(bf16|sm90|f32)(?:<\d+((?:, \w+)+)>|ILi\d+E((?:Lb\dE)+))")
+FWD_FLAGS = {"bf16": ("carry",), "sm90": ("lse", "bias"), "f32": ("lse", "carry", "bias")}
+
+
+def fwd_variant(name: str):
+    """(kernel, {flag: bool}) of a forward kernel's name, or None."""
+    found = FWD_VARIANT.search(name)
+    if not found:
+        return None
+    kernel, demangled, mangled = found.groups()
+    values = ([f.strip() == "true" for f in demangled.split(",")[1:]] if demangled
+              else [bit == "1" for bit in re.findall(r"Lb(\d)E", mangled)])
+    return kernel, dict(zip(FWD_FLAGS[kernel], values))
+
+
 KERNEL_KINDS = (
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
@@ -522,11 +544,11 @@ KERNEL_KINDS = (
 
 
 def kernel_kind(name: str) -> str:
-    variant = FWD_VARIANT.search(name)
+    variant = fwd_variant(name)
     if variant:
-        flags = variant.groups()[:3] if variant.group(1) else variant.groups()[3:]
-        _, carry, bias = (f in ("true", "1") for f in flags)
-        return "flash_t5" if bias else "flash_fold" if carry else "flash_attention"
+        flags = variant[1]
+        return ("flash_t5" if flags.get("bias") else "flash_fold" if flags.get("carry")
+                else "flash_attention")
     return next((kind for kind, keys in KERNEL_KINDS if any(k in name for k in keys)),
                 "other")
 
@@ -554,7 +576,14 @@ def profile_call(fn) -> dict:
         by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     reads = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
+    forwards: dict = {}  # launches of each forward kernel, by name and flags
+    for e in events:
+        variant = fwd_variant(e.key)
+        if variant:
+            key = f"flash_fwd_{variant[0]}" + "".join(f" {f}" for f, on in variant[1].items() if on)
+            forwards[key] = forwards.get(key, 0) + e.count
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "flash_fwd_launches": forwards,
             "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
             "host_blocked_reads": sum(e.count for e in reads),
             "host_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
@@ -673,6 +702,8 @@ def train_phase(fa, train_op, classify, payload, first_batch, tmp) -> dict:
         raise SystemExit(f"step loss {loss.item()}")
     p50 = statistics.median(walls)
     step_profile = profile_call(lambda: step(model, opt, *batch))
+    if step_profile["flash_fwd_launches"] != {"flash_fwd_sm90 lse": n_layers}:
+        raise SystemExit(f"train step forwards: {step_profile['flash_fwd_launches']}")
 
     # One step's gradients: the kernels against the plain trainable
     # attention, against bf16's own spread (the plain attention with
@@ -760,13 +791,17 @@ def first_train_batch(payload) -> tuple:
     return state, take
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, max_rel_err, ms, plain_ms,
-                 n_bytes, flops, library_ms, q, **extra) -> dict:
+MMA_SYNC, SM90 = "mma.sync", "sm90: TMA + wgmma"  # the kernels' designs
+
+
+def kernel_entry(name, source, design, replaces, launches, max_abs_err, max_rel_err, ms,
+                 plain_ms, n_bytes, flops, library_ms, q, **extra) -> dict:
     """One entry of the kernels line; the bound is the larger of the bytes
     over the card's memory rate and the bf16 products over its peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+    return {"name": name, "route": "cuda", "source": source, "design": design,
+            "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -797,7 +832,7 @@ def train_kernel_entries(fa, check, launches) -> list:
     covers = "dq, dk and dv in one call"
     return [
         kernel_entry(
-            "flash_attention_fwd_lse", src + "flash_attention.cu",
+            "flash_attention_fwd_lse", src + "flash_fwd_sm90.cuh", SM90,
             "agent_tpu/kernels/flash_attention.py:598", launches["flash_attention_fwd_lse"],
             check["max_abs_err"]["fwd_lse"], check["max_rel_err"]["fwd_lse"],
             cuda_ms(lambda: fa._launch_fwd_lse(q, k, v, keep)),
@@ -806,14 +841,14 @@ def train_kernel_entries(fa, check, launches) -> list:
             cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask)), q),
         kernel_entry(
-            "flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
+            "flash_attention_bwd_dq", src + "flash_attention_bwd.cu", MMA_SYNC,
             "agent_tpu/kernels/flash_attention.py:629", launches["flash_attention_bwd_dq"],
             check["max_abs_err"]["dq"], check["max_rel_err"]["dq"],
             cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
             5 * tensor + 2 * rows + keep.numel() * 4, 6 * keys, sdpa_bwd_ms, q,
             plain_covers=covers, library_covers=covers),
         kernel_entry(
-            "flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
+            "flash_attention_bwd_dkv", src + "flash_attention_bwd.cu", MMA_SYNC,
             "agent_tpu/kernels/flash_attention.py:665", launches["flash_attention_bwd_dkv"],
             check["max_abs_err"]["dkv"], check["max_rel_err"]["dkv"],
             cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
@@ -1017,7 +1052,7 @@ def fold_kernel_entry(fa, check, launches) -> dict:
     work = [x.clone() for x in state]
     rows = B * H * Lq * 4
     return kernel_entry(
-        "flash_fold", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "flash_fold", "agent_tpu_torch/kernels/csrc/flash_attention.cu", MMA_SYNC,
         "agent_tpu/kernels/flash_attention.py:258", launches,
         check["max_abs_err"], check["max_rel_err"],
         cuda_ms(lambda: fa._launch_fold(q, k, v, keep, *work)),
@@ -1380,6 +1415,8 @@ def t5_phase(fa, op, rt, ckpt, requests) -> dict:
     greedy_chunks = requests[0][1]
     profile = profile_call(lambda: [t.cpu() for t, _ in op._decode_chunks(
         rt, greedy_chunks, ckpt, cfg, T5_MAX_NEW, 1, family=family)])
+    if profile["flash_fwd_launches"] != {"flash_fwd_sm90 bias": cfg.n_enc_layers}:
+        raise SystemExit(f"T5 request forwards: {profile['flash_fwd_launches']}")
 
     # Teacher-forced log-probabilities on the greedy tokens: the kernel's
     # encoder against the plain T5 attention's, and the planted reversed
@@ -1442,9 +1479,12 @@ def t5_phase(fa, op, rt, ckpt, requests) -> dict:
 
 def t5_kernel_entry(fa, check, launches) -> dict:
     """The kernels line's entry of the T5 kernel at phase 9's staged shape
-    and key lengths. Its library yardstick is scaled_dot_product_attention
-    with the relative bias and the padding mask materialised as one float
-    mask [B, H, L, L] (in the input dtype, as SDPA takes it)."""
+    and key lengths, timed through its launcher with the per-distance table
+    built once outside the timing (``entry_ms``: the entry point, which
+    builds the table and the int32 keep each call). Its library yardstick is
+    scaled_dot_product_attention with the relative bias and the padding
+    mask materialised as one float mask [B, H, L, L] (in the input dtype,
+    as SDPA takes it), also outside the timing."""
     q, k, v, mask, rel_bias, table, lengths = check["inputs"]
     B, H, L, D = q.shape
     maxd = T5_LARGE["relative_attention_max_distance"]
@@ -1452,10 +1492,10 @@ def t5_kernel_entry(fa, check, launches) -> dict:
     rel = (pos[None, :] - pos[:, None]).clamp(-maxd, maxd) + maxd
     float_mask = (table[:, rel][None] + torch.where(mask > 0, 0.0, fa.NEG_INF)).to(q.dtype)
     entry = kernel_entry(
-        "flash_attention_t5", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention_t5", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
         "agent_tpu/kernels/flash_attention.py:354", launches,
         check["max_abs_err"], check["max_rel_err"],
-        cuda_ms(lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias, max_distance=maxd)),
+        cuda_ms(lambda: fa._launch_t5(q, k, v, mask, table, maxd, 1.0)),
         cuda_ms(lambda: fa.flash_attention_t5_reference(q, k, v, mask, table,
                                                         max_distance=maxd), iters=5),
         4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size()
@@ -1464,9 +1504,70 @@ def t5_kernel_entry(fa, check, launches) -> dict:
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=float_mask, scale=1.0)), q,
         library_note="SDPA with the bias and padding mask as one float attn_mask, "
-                     "materialised outside the timing")
+                     "materialised outside the timing",
+        entry_ms=cuda_ms(lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias,
+                                                       max_distance=maxd)))
     del float_mask
     return entry
+
+
+def cuobjdump_path(build) -> str:
+    """cuobjdump beside nvcc, else the copy Triton's package carries."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    beside = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.exists(beside):
+        return beside
+    import triton
+
+    return os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                        "cuobjdump")
+
+
+SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")
+
+
+def sm90_build_report(build, so) -> dict:
+    """For each flash_fwd_sm90 instantiation in the library ``so``: which of
+    SM90_OPCODES its SASS holds (cuobjdump -sass), and ptxas' registers,
+    spilled bytes and static shared memory from the build log."""
+    sass = subprocess.run([cuobjdump_path(build), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    report, current = {}, None
+
+    def short(mangled):
+        kernel, flags = fwd_variant(mangled)
+        d = re.search(r"ILi(\d+)E", mangled).group(1)
+        return f"flash_fwd_{kernel}<{d}, " + ", ".join(
+            f"{f}={str(on).lower()}" for f, on in flags.items()) + ">"
+
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            variant = fwd_variant(fn.group(1))
+            current = None
+            if variant and variant[0] == "sm90":
+                current = report.setdefault(short(fn.group(1)), {op: False for op in SM90_OPCODES})
+        elif current is not None:
+            for op in SM90_OPCODES:
+                if re.search(rf"\b{op}\b", line):
+                    current[op] = True
+    log = (build.BUILD_DIR / "flash_attention.nvcc.log").read_text()
+    entry = None
+    for line in log.splitlines():
+        fn = re.search(r"Compiling entry function '(\S+)'", line)
+        if fn:
+            variant = fwd_variant(fn.group(1))
+            entry = report.get(short(fn.group(1))) if variant and variant[0] == "sm90" else None
+        elif entry is not None:
+            used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if used:
+                entry["registers"], entry["static_smem_bytes"] = map(int, used.groups())
+            if spill:
+                entry["spill_bytes"] = sum(map(int, spill.groups()))
+    return report
 
 
 def main(argv=None) -> int:
@@ -1509,9 +1610,12 @@ def main(argv=None) -> int:
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.split("info    : ")[-1] for ln in lines
                        if "registers" in ln or "spill" in ln]
+    sm90 = sm90_build_report(build, paths["flash_attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"so": p.name, "build_s": build.BUILD_SECONDS.get(n)}
-                      for n, p in paths.items()}, "ptxas": ptxas})
+                      for n, p in paths.items()}, "ptxas": ptxas, "sm90_sass": sm90})
+    if len(sm90) != 6 or not all(r["HGMMA"] and r["UTMALDG"] for r in sm90.values()):
+        raise SystemExit(f"the flash_fwd_sm90 instantiations lack wgmma or TMA: {sm90}")
 
     # The requests of phases 4 and 5; phase 3 holds the kernel against its
     # plain version at the shapes they stage.
@@ -1665,7 +1769,7 @@ def main(argv=None) -> int:
     B, H, L, D = q.shape
     bool_mask = mask > 0
     serving = kernel_entry(
-        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_attention.cu", MMA_SYNC,
         "agent_tpu/kernels/flash_attention.py:149", main_launches,
         kernel_check["max_abs_err"], kernel_check["max_rel_err"],
         cuda_ms(lambda: fa.flash_attention(q, k_, v, mask)),

@@ -160,3 +160,58 @@ def test_runtime_t5_kernel_is_the_entry():
     assert TorchRuntime(device="cpu").t5_attention_kernel() is fa.flash_attention_t5
     rt = TorchRuntime(devices=["cpu"] * 2, mesh_shape={"sp": 2})
     assert rt.t5_attention_kernel() is fa.flash_attention_t5
+
+
+# The T5 kernel's constant-tile rule (t5_constant_bias_index) at the shapes
+# chip_smoke runs: L 512 / max distance 128 (T5-large), 600 / 256
+# (buckets32_maxd256) and a causal table; (L, max_distance, bidirectional,
+# tile pairs the rule calls constant, of the (L / 64)^2 rounded up).
+RULE_CASES = {
+    "t5_large_L512_maxd128": (512, 128, True, 30),
+    "buckets32_maxd256_L600": (600, 256, True, 30),
+    "causal_L512_maxd128": (512, 128, False, 30),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RULE_CASES))
+def test_constant_tile_rule_holds_against_the_plain_bias_tiles(case):
+    """Every 64-row x 64-key tile that the rule calls constant has one bias
+    value a head in the plain version's tiles, the entry the rule names;
+    every other tile holds a relative position strictly inside
+    ±max_distance."""
+    L, maxd, bidir, want_constant = RULE_CASES[case]
+    H = 3
+    rel_bias = torch.from_numpy(np.random.default_rng(L + maxd).normal(size=(32, H))
+                                .astype(np.float32))
+    table = fa.distance_bias_table(rel_bias, bidirectional=bidir, max_distance=maxd)
+    constant = 0
+    for q0 in range(0, L, 64):
+        for k0 in range(0, L, fa.BLOCK_K):
+            tile = fa.t5_bias_tile(table, q0, min(q0 + 64, L), k0, min(k0 + fa.BLOCK_K, L),
+                                   max_distance=maxd)
+            idx = fa.t5_constant_bias_index(q0, k0, maxd)
+            if idx is None:
+                rel = np.arange(k0, k0 + fa.BLOCK_K)[None, :] - np.arange(q0, q0 + 64)[:, None]
+                assert np.abs(rel).min() < maxd
+                continue
+            constant += 1
+            assert idx in (0, 2 * maxd)
+            torch.testing.assert_close(tile, table[:, idx, None, None].expand_as(tile),
+                                       rtol=0, atol=0)
+    assert constant == want_constant
+
+
+def test_reference_adds_the_bias_tiles():
+    """flash_attention_t5_reference's bias is t5_bias_tile's: scores of zero
+    q and k leave softmax(bias) V, held against the dense bias."""
+    B, H, L, D, maxd = 1, 2, 150, 32, 16
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(rng.normal(size=(B, H, L, D)).astype(np.float32))
+    zero = torch.zeros_like(v)
+    mask = torch.ones(B, 1, 1, L, dtype=torch.int32)
+    table = fa.distance_bias_table(torch.from_numpy(rng.normal(size=(32, H)).astype(np.float32)),
+                                   bidirectional=True, max_distance=maxd)
+    got = fa.flash_attention_t5_reference(zero, zero, v, mask, table, max_distance=maxd)
+    bias = fa.t5_bias_tile(table, 0, L, 0, L, max_distance=maxd)
+    want = torch.softmax(bias, dim=-1)[None] @ v
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -11,7 +11,8 @@ variant, the ring hop ``_flash_fold_kernel``, with mma.sync; its bf16
 training forward and T5 forward, replacing ``_flash_fwd_lse_kernel`` and
 ``_flash_t5_kernel``, run on the TMA + wgmma kernel of
 ``csrc/flash_fwd_sm90.cuh``) and ``csrc/flash_attention_bwd.cu``
-(``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). They compute what
+(``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, whose bf16 kernels
+are the TMA + wgmma ones of ``csrc/flash_bwd_sm90.cuh``). They compute what
 the Pallas kernels compute: softmax(QKᵀ·D^-½ with a key-padding mask) V with
 an online softmax in f32, zero output for a fully masked row, for training
 the row logsumexp and the recompute backward of FlashAttention-2, for ring
@@ -283,7 +284,8 @@ def t5_constant_bias_index(q0: int, k0: int, max_distance: int, rows: int = 64,
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(dO ∘ O)`` in f32, ``[B, H, Lq, 1]``, from the
-    forward's rounded output (reference :759-761)."""
+    forward's rounded output (reference :759-761): the plain backward's; the
+    CUDA dQ kernel computes it itself."""
     return (do.float() * o.float()).sum(dim=-1, keepdim=True)
 
 
@@ -329,13 +331,14 @@ def flash_attention_bwd_reference(
 # ---- launchers -------------------------------------------------------------
 
 def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  keep: torch.Tensor, do=None, lse=None, delta=None,
+                  keep: torch.Tensor, do=None, lse=None, delta=None, o=None,
                   state=None, dist_bias=None, max_distance: int = 0) -> Tuple[int, ...]:
-    """Raise ``ValueError`` on anything ``kernel`` does not take: tensors on
-    another device than one CUDA device, dtypes, shapes, non-contiguous or
-    misaligned memory, sizes out of range. ``state`` is the fold's (m, l,
-    acc), ``dist_bias`` the T5 kernel's per-distance table for
-    ``max_distance``. Returns (B, H, Lq, Lk, D)."""
+    """Raise ``ValueError`` on anything ``kernel`` does not take: dtypes,
+    shapes, non-contiguous or misaligned memory, sizes out of range, and
+    tensors on another device than one CUDA device. ``o`` is the forward's
+    output (the dQ kernel's delta input), ``state`` the fold's (m, l, acc),
+    ``dist_bias`` the T5 kernel's per-distance table for ``max_distance``.
+    Returns (B, H, Lq, Lk, D)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     m, l, acc = state if state is not None else (None, None, None)
@@ -343,18 +346,17 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{kernel} kernel: max_distance {max_distance} not in "
                          f"[1, {MAX_BIAS_DISTANCE}]")
     f32_given = [x for x in (lse, delta, m, l, acc, dist_bias) if x is not None]
-    given = [x for x in (q, k, v, keep, do) if x is not None] + f32_given
-    if not (q.is_cuda and all(x.device == q.device for x in given)):
-        raise ValueError(f"{kernel} kernel: inputs must share one CUDA device")
-    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in (k, v, do)
+    given = [x for x in (q, k, v, keep, do, o) if x is not None] + f32_given
+    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in (k, v, do, o)
                                            if x is not None):
         raise ValueError(f"{kernel} kernel: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
                          f"not one of {KERNEL_DTYPES}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} kernel: d_head {D} not in {KERNEL_HEAD_DIMS}")
     want = {"k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D)), "do": (do, (B, H, Lq, D)),
-            "lse": (lse, (B, H, Lq, 1)), "delta": (delta, (B, H, Lq, 1)),
-            "m": (m, (B, H, Lq, 1)), "l": (l, (B, H, Lq, 1)), "acc": (acc, (B, H, Lq, D)),
+            "o": (o, (B, H, Lq, D)), "lse": (lse, (B, H, Lq, 1)),
+            "delta": (delta, (B, H, Lq, 1)), "m": (m, (B, H, Lq, 1)),
+            "l": (l, (B, H, Lq, 1)), "acc": (acc, (B, H, Lq, D)),
             "dist_bias": (dist_bias, (H, 2 * max_distance + 1))}
     for name, (x, shape) in want.items():
         if x is not None and tuple(x.shape) != shape:
@@ -372,6 +374,8 @@ def _check_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{kernel} kernel: inputs must be 16-byte aligned")
     if min(B, H, Lq, Lk) < 1 or B * H * (-(-max(Lq, Lk) // 32)) >= 2 ** 31:
         raise ValueError(f"{kernel} kernel: shape {tuple(q.shape)} out of range")
+    if not (q.is_cuda and all(x.device == q.device for x in given)):
+        raise ValueError(f"{kernel} kernel: inputs must share one CUDA device")
     return B, H, Lq, Lk, D
 
 
@@ -464,19 +468,21 @@ def _launch_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.
     return m, l, acc
 
 
-def _launch_bwd_dq(q, k, v, keep, do, lse, delta) -> torch.Tensor:
-    """Launch the dQ kernel: dq in q's dtype."""
-    B, H, Lq, Lk, D = _check_launch("flash_attention_bwd_dq", q, k, v, keep, do, lse,
-                                    delta)
+def _launch_bwd_dq(q, k, v, keep, do, o, lse) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dQ kernel: (dq in q's dtype, delta = rowsum(dO ∘ O) f32
+    ``[B, H, Lq, 1]``), delta computed by the kernel for the dK/dV kernel."""
+    B, H, Lq, Lk, D = _check_launch("flash_attention_bwd_dq", q, k, v, keep, do, lse, o=o)
     dq = torch.empty_like(q)
+    delta = torch.empty((B, H, Lq, 1), dtype=torch.float32, device=q.device)
     _invoke("flash_attention_bwd", "flash_attention_bwd_dq", q.device, q, k, v, keep,
-            do, lse, delta, dq, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
+            do, o, lse, delta, dq, B, H, Lq, Lk, D, *_dims(q, keep, Lk, D))
     LAUNCH_COUNTS["flash_attention_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def _launch_bwd_dkv(q, k, v, keep, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel: (dk, dv) in k's dtype."""
+    """Launch the dK/dV kernel: (dk, dv) in k's dtype; ``delta`` is the dQ
+    kernel's, launched before on the same stream."""
     B, H, Lq, Lk, D = _check_launch("flash_attention_bwd_dkv", q, k, v, keep, do, lse,
                                     delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -567,8 +573,9 @@ class FlashAttentionTrainable(torch.autograd.Function):
     ``apply(q, k, v, mask, plain)``: ``plain`` runs the plain versions
     (what CPU tensors take); otherwise the CUDA kernels. The forward saves
     (q, k, v, keep, o, lse), q/k/v as the contiguous copies the kernels
-    read; the backward computes ``delta`` in PyTorch, then dQ and dK/dV,
-    and returns no gradient for the mask."""
+    read; the CUDA backward runs the dQ kernel, which also computes
+    ``delta``, then the dK/dV kernel (the plain backward computes delta with
+    :func:`attention_delta`), and returns no gradient for the mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, plain: bool):
@@ -589,8 +596,7 @@ class FlashAttentionTrainable(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_reference(q, k, v, keep, o, lse, do)
         else:
             do = do.contiguous()
-            delta = attention_delta(o, do)
-            dq = _launch_bwd_dq(q, k, v, keep, do, lse, delta)
+            dq, delta = _launch_bwd_dq(q, k, v, keep, do, o, lse)
             dk, dv = _launch_bwd_dkv(q, k, v, keep, do, lse, delta)
         return dq, dk, dv, None, None
 

@@ -39,14 +39,27 @@ KV = Tuple[torch.Tensor, torch.Tensor]           # keys, values [B, H, L, E]
 Cache = Optional[Dict[str, torch.Tensor]]        # {"k", "v"} [B, H, Lmax, E]
 
 NEG_INF = -1e9  # additive mask value; finite so bf16 stays NaN-free
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# numpy's float types -> what the model computes in: float64 names run in
+# float32, as the reference's arrays do without jax_enable_x64.
+_FLOAT_DTYPES = {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float32}
 
 
 def compute_dtype(name: str) -> torch.dtype:
-    """A config's ``dtype`` name -> the torch dtype; ValueError otherwise."""
-    if name not in _DTYPES:
-        raise ValueError(f"unsupported dtype {name!r}; one of {sorted(_DTYPES)}")
-    return _DTYPES[name]
+    """A config's ``dtype`` name -> the torch dtype the model computes in.
+    The names are those the reference's ``jnp.dtype`` takes for a float
+    type: ``"bfloat16"`` and numpy's names of float16 (``"float16"``,
+    ``"half"``, ``"f2"``), float32 (``"float32"``, ``"single"``, ``"f4"``)
+    and float64 (``"float64"``, ``"double"``, ``"float"``), the last run as
+    float32. A name numpy does not know (``"bf16"``, ``"fp16"``) raises
+    numpy's ``TypeError``, as ``jnp.dtype`` does, and so does a type that is
+    no float."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    kind = np.dtype(name)
+    if kind not in _FLOAT_DTYPES:
+        raise TypeError(f"dtype {name!r} ({kind}) is not a float type")
+    return _FLOAT_DTYPES[kind]
 
 
 # ---- deterministic init (numpy, bit-identical to the JAX package) ----
@@ -188,11 +201,13 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Masked softmax(QKᵀ)V -> [B, H, Lq, D], the reference's dense path:
     QKᵀ accumulated in f32 and stored in the compute dtype, softmax
-    statistics (exp, sum, divide) in f32."""
+    statistics (exp, sum, divide) in f32. Masked scores take ``NEG_INF``
+    cast to the compute dtype, as the reference's ``jnp.asarray(NEG_INF,
+    q.dtype)``: in float16 that is -inf."""
     d = q.shape[-1]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = (scores / float(np.float32(np.sqrt(d)))).to(q.dtype)
-    scores = scores.masked_fill(~(mask > 0), NEG_INF)
+    scores = scores.masked_fill(~(mask > 0), torch.tensor(NEG_INF).to(q.dtype))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp((scores - m).float())
     probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)

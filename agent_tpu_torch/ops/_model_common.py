@@ -81,6 +81,43 @@ def config_from_payload(payload: Dict[str, Any], config_cls):
     return config_cls()
 
 
+VALID_QUANT = ("none", "int8", "w8a16")  # the reference's quant modes
+
+
+def validate_quant(value: str) -> str:
+    """A payload or env ``quant`` value, validated; ValueError otherwise."""
+    if value not in VALID_QUANT:
+        raise ValueError(f"quant must be one of {VALID_QUANT}, got {value!r}")
+    return value
+
+
+def resolve_quant(payload: Dict[str, Any], cfg) -> str:
+    """The serving ops' quant mode, as the reference's ``apply_quant_env``
+    resolves it: a ``quant`` key in the payload's ``model_config`` wins
+    (validated: ValueError, a caller error); else ``TPU_QUANT`` (validated:
+    RuntimeError, a worker's misconfiguration that fails the shard for a
+    retry); else the config's."""
+    overrides = payload.get("model_config")
+    if isinstance(overrides, dict) and "quant" in overrides:
+        return validate_quant(overrides["quant"])
+    env = os.environ.get("TPU_QUANT", "").strip().lower()
+    if env:
+        try:
+            return validate_quant(env)
+        except ValueError as exc:
+            raise RuntimeError(f"bad TPU_QUANT env: {exc}") from exc
+    return cfg.quant
+
+
+def check_quant_ported(payload: Dict[str, Any], cfg) -> None:
+    """ValueError (soft ``bad_input``) unless the resolved quant mode is
+    ``none``: the quantized modes are not ported yet."""
+    quant = resolve_quant(payload, cfg)
+    if quant != "none":
+        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
+                         "(only 'none')")
+
+
 def cfg_key(cfg) -> Tuple:
     """Hashable fingerprint of a frozen config dataclass, so distinct
     configs never share weights or forward functions."""
@@ -117,19 +154,27 @@ def iter_chunks(seqs: Sequence, max_chunk: int) -> Iterator[Sequence]:
 DENSE_CHUNK_TOKENS = 131_072
 
 
+def chunk_token_budget() -> int:
+    """The dense-path dispatch budget: ``TPU_CHUNK_TOKENS`` when set, else
+    ``DENSE_CHUNK_TOKENS`` (reference ``chunk_token_budget``)."""
+    env = os.environ.get("TPU_CHUNK_TOKENS", "").strip()
+    return int(env) if env else DENSE_CHUNK_TOKENS
+
+
 def split_padded_chunk(ids: np.ndarray, lengths: np.ndarray, n: int, dp: int,
                        d_head: int, dtype: torch.dtype) -> List[Tuple]:
     """Split one padded ``(ids [B, L], lengths [B], n_real)`` chunk into
-    dispatch slices of at most ``DENSE_CHUNK_TOKENS`` tokens when its
+    dispatch slices of at most :func:`chunk_token_budget` tokens when its
     attention takes the dense path; kernel-path chunks stay whole. Slices
     are the largest batch bucket within budget (so they divide B); slices
     holding only padding rows are dropped."""
     from agent_tpu_torch.kernels.flash_attention import selects_flash
 
     B, L = ids.shape
-    if selects_flash(L, d_head, dtype) or B * L <= DENSE_CHUNK_TOKENS:
+    budget = chunk_token_budget()
+    if selects_flash(L, d_head, dtype) or B * L <= budget:
         return [(ids, lengths, n)]
-    rows = max(1, DENSE_CHUNK_TOKENS // L)
+    rows = max(1, budget // L)
     cap = max(1, dp)
     while cap * 2 <= rows:
         cap *= 2

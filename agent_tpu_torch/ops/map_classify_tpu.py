@@ -49,19 +49,16 @@ MAX_BATCH = 8192
 
 def _get_cfg(payload: Dict[str, Any]):
     from agent_tpu_torch.models.encoder import EncoderConfig
-    from agent_tpu_torch.ops._model_common import config_from_payload
+    from agent_tpu_torch.ops._model_common import check_quant_ported, config_from_payload
 
     cfg = config_from_payload(payload, EncoderConfig)
-    quant = cfg.quant if cfg.quant != "none" else os.environ.get("TPU_QUANT", "").strip().lower()
-    if quant not in ("", "none"):
-        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
+    check_quant_ported(payload, cfg)
     if cfg.pp > 1:
         raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
                          "agent_tpu_torch yet")
     if cfg.moe_experts > 0:
         raise ValueError("moe_experts > 0 (MoE) is not supported by agent_tpu_torch yet")
-    cfg.compute_dtype  # noqa: B018 — raises ValueError on an unknown dtype
+    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
     return cfg
 
 

@@ -14,8 +14,9 @@ with the same op name, phases, payload and result contract.
   that is not a checkpoint directory serves the in-house seq2seq (seeded
   weights from the model id, or a ``.npz``), whose encoder attends through
   ``runtime.attention_fn()``.
-- ``SUMMARIZE_FORCE_CPU=1`` is the caller's explicit request for a CPU
-  runtime; it is off by default. A failure on the card raises and fails the
+- ``SUMMARIZE_FORCE_CPU`` set to one of the reference's truthy tokens
+  (``1``, ``true``, ``yes``, ``on``, ``y``) is the caller's explicit
+  request for a CPU runtime; it is off by default. A failure on the card raises and fails the
   request; it is never retried on the CPU.
 
 T5 text in and out needs the checkpoint's ``spiece.model`` and the
@@ -48,7 +49,7 @@ DEFAULT_MAX_LENGTH = 130
 # Decode rows per dispatch chunk; beams multiply the rows in flight, so
 # staging divides it by num_beams (the reference's budget).
 MAX_DECODE_ROWS = 8192
-_TRUTHY = ("1", "true", "yes", "on")
+_TRUTHY = ("1", "true", "yes", "on", "y")  # the reference's TRUTHY_TOKENS
 
 _cpu_runtime = None
 _cpu_runtime_lock = threading.Lock()
@@ -94,7 +95,7 @@ _CKPT_SERVING_OVERRIDES = ("dtype", "quant")
 
 
 def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
-    from agent_tpu_torch.ops._model_common import config_from_payload
+    from agent_tpu_torch.ops._model_common import check_quant_ported, config_from_payload
 
     if family == "t5":
         from agent_tpu_torch.models.t5 import T5Config
@@ -107,11 +108,8 @@ def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
         from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
 
         cfg = config_from_payload(payload, Seq2SeqConfig)
-    quant = cfg.quant if cfg.quant != "none" else os.environ.get("TPU_QUANT", "").strip().lower()
-    if quant not in ("", "none"):
-        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
-    cfg.compute_dtype  # noqa: B018 — raises ValueError on an unknown dtype
+    check_quant_ported(payload, cfg)
+    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
     return cfg
 
 

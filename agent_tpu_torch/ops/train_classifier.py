@@ -24,8 +24,10 @@ with AdamW at optax's defaults and the runtime's differentiable attention
 uses dense attention, as the reference's eval pass does. The op records
 every epoch's loss in ``ctx.tags["train"]``.
 
-Not ported yet, each rejected with a ``bad_input`` that names it:
-``source_uri`` CSV rows, ``quant`` other than ``none``, ``moe_experts`` > 0
+A ``quant`` mode in ``model_config`` trains float weights, as the
+reference's does (``TPU_QUANT`` is not read), and rides in the result's
+``model_config`` for serving. Not ported yet, each rejected with a
+``bad_input`` that names it: ``source_uri`` CSV rows, ``moe_experts`` > 0
 and ``pp`` > 1.
 """
 
@@ -91,16 +93,13 @@ def _get_cfg(payload: Dict[str, Any], n_labels: int):
     cfg = config_from_payload(payload, EncoderConfig)
     if "n_classes" not in (payload.get("model_config") or {}):
         cfg = dataclasses.replace(cfg, n_classes=max(2, n_labels))
-    if cfg.quant != "none":
-        raise ValueError(f"quant={cfg.quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
     if cfg.pp > 1:
         raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
                          "agent_tpu_torch yet")
     if cfg.moe_experts > 0:
         raise ValueError("moe_experts > 0 (MoE training) is not supported by "
                          "agent_tpu_torch yet")
-    cfg.compute_dtype  # noqa: B018 — raises ValueError on an unknown dtype
+    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
     return cfg
 
 

@@ -10,7 +10,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               nvidia-smi's name and power limit.
 2. build    — nvcc builds every kernel of the paths from csrc/ (sm_90a),
               all sources at once; for each flash_fwd_sm90 instantiation
-              (the training forward and T5's), cuobjdump's SASS must hold
+              (the training forward and T5's) and each flash_bwd_*_sm90
+              one (the bf16 dQ and dK/dV), cuobjdump's SASS must hold
               HGMMA (wgmma) and UTMALDG (TMA loads), printed beside ptxas'
               registers, spills and shared memory.
 3. kernels vs plain — each kernel's wrapper on the card against its plain
@@ -21,9 +22,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               must fail the same check; non-contiguous inputs must give the
               contiguous result, and the launcher must refuse what the
               kernel does not take. The training kernels (forward with lse,
-              dQ, dK/dV): o, lse, dq, dk and dv at phase 6's batch shape
-              and key lengths and at edge cases; a backward that drops the
-              first key tile and a dq with its scale 10 % off must fail.
+              dQ, which also computes delta = rowsum(dO * O), and dK/dV):
+              o, lse, delta, dq, dk and dv at phase 6's batch shape and key
+              lengths and at edge cases (ragged and Lq != Lk, Lq = 1, a row
+              with no key, a shared mask, d_head 32 and 128); a backward that
+              drops the first key tile, a dq with its scale 10 % off and a
+              backward with delta zeroed must fail.
               The ring's fold kernel: m, l and acc after two hops, the
               second from carried state, at the shard shape and key lengths
               of phase 5b and at edge cases (a wholly masked block, a row
@@ -65,7 +69,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               per layer per step and no dense attention; the artifact
               served by map_classify_tpu on cuda. Then the train step alone:
               p50 of 5 steps after 2 warm-ups, examples/s, peak memory,
-              device time by kind of kernel; one step's gradients with the
+              device time by kind of kernel (the profile must show the
+              TMA + wgmma forward, dQ and dK/dV kernels once per layer and no
+              other attention kernel); one step's gradients with the
               kernels against the plain trainable attention, leaf by leaf
               (the planted tile drop must fail); a small f32 model trained
               by the op on the card and on the CPU, losses compared.
@@ -350,22 +356,29 @@ TRAIN_EDGE_CASES = [
     ("shared_mask", (2, 2, 70, 70, 64), [33]),
     ("d32", (2, 4, 130, 130, 32), [130, 65]),
     ("d128", (2, 2, 200, 200, 128), [200, 17]),
+    # Lq past a 128-row block, Lk one key past a 128-key block whose last
+    # real key is 128; one query row; a mask the batch shares at d_head 128.
+    ("lq257_lk129", (2, 3, 257, 129, 64), [129, 100]),
+    ("lq1", (2, 3, 1, 77, 64), [77, 5]),
+    ("shared_mask_d128", (2, 4, 300, 300, 128), [250]),
 ]
+TRAIN_PARTS = ("o", "lse", "dq", "dk", "dv", "delta")
 
 
 def train_kernel_outputs(fa, q, k, v, keep, do):
-    """(o, lse, dq, dk, dv) from the three training kernels."""
+    """(o, lse, dq, dk, dv, delta) from the three training kernels, delta
+    as the dQ kernel computes it for the dK/dV kernel."""
     o, lse = fa._launch_fwd_lse(q, k, v, keep)
-    delta = fa.attention_delta(o, do)
-    dq = fa._launch_bwd_dq(q, k, v, keep, do, lse, delta)
-    return (o, lse, dq, *fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta))
+    dq, delta = fa._launch_bwd_dq(q, k, v, keep, do, o, lse)
+    return (o, lse, dq, *fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta), delta)
 
 
 def check_train_kernels(fa, main_case) -> dict:
     """Phase 3, training kernels: the forward with lse against its plain
     version, and dQ, dK/dV against the plain backward on the same inputs
     (the kernel forward's o and lse), under the serving check's
-    tolerances; lse (f32 either way) under f32's, on rows with a key."""
+    tolerances; lse (f32 either way) under f32's, on rows with a key, and
+    the dQ kernel's delta against attention_delta under f32's."""
     cases = [(n, s, ln, dt) for n, s, ln in TRAIN_EDGE_CASES
              for dt in (torch.bfloat16, torch.float32)] + [main_case]
     results, inputs = [], None
@@ -376,28 +389,32 @@ def check_train_kernels(fa, main_case) -> dict:
         got = train_kernel_outputs(fa, q, k, v, keep, do)
         o, lse = got[0], got[1]
         o_p, lse_p = fa.flash_attention_fwd_lse_reference(q, k, v, keep)
-        want = (o_p, lse_p, *fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, do))
+        delta = fa.attention_delta(o, do)
+        want = (o_p, lse_p, *fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, do), delta)
         live = (keep.sum(-1) > 0).expand(B)  # rows with a key (lse ≈ NEG_INF - 69 otherwise)
 
         def verdicts(outs):
             res = {}
-            for j, part in enumerate(("o", "lse", "dq", "dk", "dv")):
+            for j, part in enumerate(TRAIN_PARTS):
                 g, w = outs[j], want[j]
                 if part == "lse":
                     res[part] = compare(g[live], w[live], torch.float32)
                 else:
-                    res[part] = compare(g, w, dtype)
+                    res[part] = compare(g, w, torch.float32 if part == "delta" else dtype)
             return res
 
         res = verdicts(got)
         ok = all(r[0] for r in res.values())
         if len(lengths) == B and 0 in lengths:
             dead = torch.as_tensor(np.asarray(lengths) == 0, device=q.device)
-            ok = ok and all(bool((x[dead] == 0).all()) for x in got[2:])
+            ok = ok and all(bool((x[dead] == 0).all()) for x in got[2:5])
         faults = {
             "drop_first_tile": (o, lse, *fa.flash_attention_bwd_reference(
-                q, k, v, fa.key_keep(drop_first_tile(mask)), o, lse, do)),
-            "dq_scale_x1.1": (want[0], want[1], want[2] * 1.1, want[3], want[4]),
+                q, k, v, fa.key_keep(drop_first_tile(mask)), o, lse, do), delta),
+            "dq_scale_x1.1": (*want[:2], want[2] * 1.1, *want[3:]),
+            # The plain backward reads O only for delta: zero O, zero delta.
+            "delta_zeroed": (o, lse, *fa.flash_attention_bwd_reference(
+                q, k, v, keep, torch.zeros_like(o), lse, do), torch.zeros_like(delta)),
         }
         fault_res = {f: verdicts(outs) for f, outs in faults.items()}
         caught = all(not all(r[0] for r in fr.values()) for fr in fault_res.values())
@@ -412,9 +429,14 @@ def check_train_kernels(fa, main_case) -> dict:
     # The launchers refuse what the kernels do not take.
     q, k, v, keep, do, _ = inputs
     lse = torch.zeros(q.shape[:3] + (1,), device="cuda")
+    o = torch.zeros_like(q)
     refused = {}
     for why, fn in (("non_contiguous_q", lambda: fa._launch_fwd_lse(q.transpose(1, 2), k, v, keep)),
-                    ("lse_bf16", lambda: fa._launch_bwd_dq(q, k, v, keep, do, lse.bfloat16(), lse)),
+                    ("lse_bf16", lambda: fa._launch_bwd_dq(q, k, v, keep, do, o, lse.bfloat16())),
+                    ("delta_bf16", lambda: fa._launch_bwd_dkv(q, k, v, keep, do, lse, lse.bfloat16())),
+                    ("o_non_contiguous", lambda: fa._launch_bwd_dq(
+                        q, k, v, keep, do, o.transpose(2, 3).contiguous().transpose(2, 3), lse)),
+                    ("o_on_cpu", lambda: fa._launch_bwd_dq(q, k, v, keep, do, o.cpu(), lse)),
                     ("keep_on_cpu", lambda: fa._launch_bwd_dkv(q, k, v, keep.cpu(), do, lse, lse)),
                     ("keep_bool", lambda: fa._launch_fwd_lse(q, k, v, keep.bool()))):
         try:
@@ -433,10 +455,10 @@ def check_train_kernels(fa, main_case) -> dict:
     main = results[-1]
     return {"inputs": inputs,
             "max_abs_err": {"fwd_lse": max(main["max_abs_err"][p] for p in ("o", "lse")),
-                            "dq": main["max_abs_err"]["dq"],
+                            "dq": max(main["max_abs_err"][p] for p in ("dq", "delta")),
                             "dkv": max(main["max_abs_err"][p] for p in ("dk", "dv"))},
             "max_rel_err": {"fwd_lse": max(main["max_rel_err"][p] for p in ("o", "lse")),
-                            "dq": main["max_rel_err"]["dq"],
+                            "dq": max(main["max_rel_err"][p] for p in ("dq", "delta")),
                             "dkv": max(main["max_rel_err"][p] for p in ("dk", "dv"))}}
 
 
@@ -530,6 +552,25 @@ def fwd_variant(name: str):
     return kernel, dict(zip(FWD_FLAGS[kernel], values))
 
 
+# The backward's TMA + wgmma kernels, flash_bwd_dq_sm90<D> and
+# flash_bwd_dkv_sm90<D>, demangled or mangled: (which, D).
+BWD_VARIANT = re.compile(r"flash_bwd_(dq|dkv)_sm90(?:<(\d+)>|ILi(\d+)E)")
+
+
+def sm90_name(name: str):
+    """The readable name of a TMA + wgmma instantiation, forward or
+    backward, from its (mangled) name; None for any other kernel."""
+    variant = fwd_variant(name)
+    if variant and variant[0] == "sm90":
+        d = re.search(r"(?:ILi|<)(\d+)", name).group(1)
+        return f"flash_fwd_sm90<{d}, " + ", ".join(
+            f"{f}={str(on).lower()}" for f, on in variant[1].items()) + ">"
+    found = BWD_VARIANT.search(name)
+    if found:
+        return f"flash_bwd_{found.group(1)}_sm90<{found.group(2) or found.group(3)}>"
+    return None
+
+
 KERNEL_KINDS = (
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
@@ -577,13 +618,18 @@ def profile_call(fn) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     reads = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
     forwards: dict = {}  # launches of each forward kernel, by name and flags
+    backwards: dict = {}  # launches of the backward's TMA + wgmma kernels
     for e in events:
         variant = fwd_variant(e.key)
         if variant:
             key = f"flash_fwd_{variant[0]}" + "".join(f" {f}" for f, on in variant[1].items() if on)
             forwards[key] = forwards.get(key, 0) + e.count
+        found = BWD_VARIANT.search(e.key)
+        if found:
+            key = f"flash_bwd_{found.group(1)}_sm90"
+            backwards[key] = backwards.get(key, 0) + e.count
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "flash_fwd_launches": forwards,
+            "flash_fwd_launches": forwards, "flash_bwd_sm90_launches": backwards,
             "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
             "host_blocked_reads": sum(e.count for e in reads),
             "host_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
@@ -702,8 +748,11 @@ def train_phase(fa, train_op, classify, payload, first_batch, tmp) -> dict:
         raise SystemExit(f"step loss {loss.item()}")
     p50 = statistics.median(walls)
     step_profile = profile_call(lambda: step(model, opt, *batch))
-    if step_profile["flash_fwd_launches"] != {"flash_fwd_sm90 lse": n_layers}:
-        raise SystemExit(f"train step forwards: {step_profile['flash_fwd_launches']}")
+    if step_profile["flash_fwd_launches"] != {"flash_fwd_sm90 lse": n_layers} or \
+            step_profile["flash_bwd_sm90_launches"] != {"flash_bwd_dq_sm90": n_layers,
+                                                         "flash_bwd_dkv_sm90": n_layers}:
+        raise SystemExit(f"train step forwards: {step_profile['flash_fwd_launches']}, "
+                         f"backwards: {step_profile['flash_bwd_sm90_launches']}")
 
     # One step's gradients: the kernels against the plain trainable
     # attention, against bf16's own spread (the plain attention with
@@ -818,7 +867,7 @@ def train_kernel_entries(fa, check, launches) -> list:
     B, H, L, D = q.shape
     mask = keep[:, None, None, :] > 0
     o, lse = fa._launch_fwd_lse(q, k, v, keep)
-    delta = fa.attention_delta(o, do)
+    _, delta = fa._launch_bwd_dq(q, k, v, keep, do, o, lse)
     plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, do),
                            iters=3, warmup=1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -840,15 +889,16 @@ def train_kernel_entries(fa, check, launches) -> list:
             4 * tensor + rows + keep.numel() * 4, 4 * keys,
             cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask)), q),
+        # dQ reads Q, K, V, dO and O (for delta), writes dQ and delta.
         kernel_entry(
-            "flash_attention_bwd_dq", src + "flash_attention_bwd.cu", MMA_SYNC,
+            "flash_attention_bwd_dq", src + "flash_bwd_sm90.cuh", SM90,
             "agent_tpu/kernels/flash_attention.py:629", launches["flash_attention_bwd_dq"],
             check["max_abs_err"]["dq"], check["max_rel_err"]["dq"],
-            cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
-            5 * tensor + 2 * rows + keep.numel() * 4, 6 * keys, sdpa_bwd_ms, q,
+            cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, keep, do, o, lse)), plain_bwd_ms,
+            6 * tensor + 2 * rows + keep.numel() * 4, 6 * keys, sdpa_bwd_ms, q,
             plain_covers=covers, library_covers=covers),
         kernel_entry(
-            "flash_attention_bwd_dkv", src + "flash_attention_bwd.cu", MMA_SYNC,
+            "flash_attention_bwd_dkv", src + "flash_bwd_sm90.cuh", SM90,
             "agent_tpu/kernels/flash_attention.py:665", launches["flash_attention_bwd_dkv"],
             check["max_abs_err"]["dkv"], check["max_rel_err"]["dkv"],
             cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
@@ -1528,45 +1578,40 @@ def cuobjdump_path(build) -> str:
 SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")
 
 
-def sm90_build_report(build, so) -> dict:
-    """For each flash_fwd_sm90 instantiation in the library ``so``: which of
-    SM90_OPCODES its SASS holds (cuobjdump -sass), and ptxas' registers,
-    spilled bytes and static shared memory from the build log."""
-    sass = subprocess.run([cuobjdump_path(build), "-sass", str(so)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    report, current = {}, None
-
-    def short(mangled):
-        kernel, flags = fwd_variant(mangled)
-        d = re.search(r"ILi(\d+)E", mangled).group(1)
-        return f"flash_fwd_{kernel}<{d}, " + ", ".join(
-            f"{f}={str(on).lower()}" for f, on in flags.items()) + ">"
-
-    for line in sass.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            variant = fwd_variant(fn.group(1))
-            current = None
-            if variant and variant[0] == "sm90":
-                current = report.setdefault(short(fn.group(1)), {op: False for op in SM90_OPCODES})
-        elif current is not None:
-            for op in SM90_OPCODES:
-                if re.search(rf"\b{op}\b", line):
-                    current[op] = True
-    log = (build.BUILD_DIR / "flash_attention.nvcc.log").read_text()
-    entry = None
-    for line in log.splitlines():
-        fn = re.search(r"Compiling entry function '(\S+)'", line)
-        if fn:
-            variant = fwd_variant(fn.group(1))
-            entry = report.get(short(fn.group(1))) if variant and variant[0] == "sm90" else None
-        elif entry is not None:
-            used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if used:
-                entry["registers"], entry["static_smem_bytes"] = map(int, used.groups())
-            if spill:
-                entry["spill_bytes"] = sum(map(int, spill.groups()))
+def sm90_build_report(build, paths) -> dict:
+    """For each TMA + wgmma instantiation in the libraries ``paths`` (name
+    -> .so): the forward's flash_fwd_sm90 and the backward's
+    flash_bwd_{dq,dkv}_sm90. Which of SM90_OPCODES its SASS holds
+    (cuobjdump -sass), and ptxas' registers, spilled bytes and static shared
+    memory from the library's build log."""
+    report = {}
+    for lib, so in paths.items():
+        sass = subprocess.run([cuobjdump_path(build), "-sass", str(so)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        current = None
+        for line in sass.splitlines():
+            fn = re.search(r"Function : (\S+)", line)
+            if fn:
+                name = sm90_name(fn.group(1))
+                current = (report.setdefault(name, {op: False for op in SM90_OPCODES})
+                           if name else None)
+            elif current is not None:
+                for op in SM90_OPCODES:
+                    if re.search(rf"\b{op}\b", line):
+                        current[op] = True
+        entry = None
+        for line in (build.BUILD_DIR / f"{lib}.nvcc.log").read_text().splitlines():
+            fn = re.search(r"Compiling entry function '(\S+)'", line)
+            if fn:
+                name = sm90_name(fn.group(1))
+                entry = report.get(name) if name else None
+            elif entry is not None:
+                used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if used:
+                    entry["registers"], entry["static_smem_bytes"] = map(int, used.groups())
+                if spill:
+                    entry["spill_bytes"] = sum(map(int, spill.groups()))
     return report
 
 
@@ -1610,12 +1655,18 @@ def main(argv=None) -> int:
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.split("info    : ")[-1] for ln in lines
                        if "registers" in ln or "spill" in ln]
-    sm90 = sm90_build_report(build, paths["flash_attention"])
+    sm90 = sm90_build_report(build, paths)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"so": p.name, "build_s": build.BUILD_SECONDS.get(n)}
                       for n, p in paths.items()}, "ptxas": ptxas, "sm90_sass": sm90})
-    if len(sm90) != 6 or not all(r["HGMMA"] and r["UTMALDG"] for r in sm90.values()):
-        raise SystemExit(f"the flash_fwd_sm90 instantiations lack wgmma or TMA: {sm90}")
+    # Six forward instantiations (D 32, 64, 128 of the training forward and
+    # T5's) and six backward ones (dQ and dK/dV at each D), all on wgmma
+    # and TMA.
+    kinds = [n.split("<")[0] for n in sm90]
+    if kinds.count("flash_fwd_sm90") != 6 or kinds.count("flash_bwd_dq_sm90") != 3 \
+            or kinds.count("flash_bwd_dkv_sm90") != 3 \
+            or not all(r["HGMMA"] and r["UTMALDG"] for r in sm90.values()):
+        raise SystemExit(f"the TMA + wgmma instantiations lack wgmma or TMA: {sm90}")
 
     # The requests of phases 4 and 5; phase 3 holds the kernel against its
     # plain version at the shapes they stage.

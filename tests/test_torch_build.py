@@ -3,6 +3,7 @@ shared header or to the compiler flags must name a new library, so a stale
 one never runs the old kernel on the card; an unchanged tree must keep its
 name, so it is not rebuilt. Runs on the CPU on a copy of ``csrc/``."""
 
+import re
 import shutil
 
 import pytest
@@ -33,7 +34,37 @@ def _edit(path):
 
 def test_sources_present():
     assert NAMES == ["flash_attention", "flash_attention_bwd"]
-    assert "flash_fwd_sm90.cuh" in HEADERS and "mma_bf16.cuh" in HEADERS
+    assert {"flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh",
+            "mma_bf16.cuh"} <= set(HEADERS)
+
+
+def _includes(name):
+    return re.findall(r'^#include "([^"]+)"', (build.SRC_DIR / name).read_text(), re.M)
+
+
+def test_sm90_kernels_share_one_header_of_primitives():
+    """The forward's and the backward's TMA + wgmma kernels include one
+    header of primitives, each through its own source, and every primitive
+    is defined there alone."""
+    assert "sm90_common.cuh" in _includes("flash_fwd_sm90.cuh")
+    assert "sm90_common.cuh" in _includes("flash_bwd_sm90.cuh")
+    assert "flash_fwd_sm90.cuh" in _includes("flash_attention.cu")
+    assert "flash_bwd_sm90.cuh" in _includes("flash_attention_bwd.cu")
+    sources = {p.name: p.read_text() for p in build.SRC_DIR.glob("*.cu*")}
+    for primitive in ("mbar_wait", "tma_load", "tma_store", "smem_desc", "wgmma_rs_m64n64",
+                      "wgmma_ss_m64n64", "wgmma_pv", "fence_regs", "ex2", "encode_tiled_fn",
+                      "encode_map"):
+        defined = [n for n, text in sources.items()
+                   if re.search(rf"\b(?:void|int|float|uint64_t) {primitive}\(", text)]
+        assert defined == ["sm90_common.cuh"], (primitive, defined)
+
+
+def test_bf16_backward_has_no_mma_sync_kernel():
+    """The bf16 dQ and dK/dV are the TMA + wgmma kernels at every d_head;
+    only the f32 FMA kernels stay beside them."""
+    text = (build.SRC_DIR / "flash_attention_bwd.cu").read_text()
+    assert "flash_bwd_dq_bf16" not in text and "flash_bwd_dkv_bf16" not in text
+    assert "mma_16816" not in text and "launch_dq<" in text and "launch_dkv<" in text
 
 
 def test_unchanged_tree_keeps_its_libraries(tree):

@@ -185,10 +185,107 @@ def test_train_launchers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         fa._launch_fwd_lse(q, k, v, keep)
     with pytest.raises(ValueError, match="CUDA device"):
-        fa._launch_bwd_dq(q, k, v, keep, g, lse, lse)
+        fa._launch_bwd_dq(q, k, v, keep, g, q, lse)
     with pytest.raises(ValueError, match="CUDA device"):
         fa._launch_bwd_dkv(q, k, v, keep, g, lse, lse)
 
 
 def test_runtime_train_attention_fn():
     assert TorchRuntime(device="cpu").train_attention_fn() is fa.flash_attention_trainable
+
+
+def test_cuda_backward_takes_delta_from_the_dq_kernel(monkeypatch):
+    """The CUDA path of the trainable attention computes no delta in
+    PyTorch: the dQ launcher gets the forward's O and returns delta, which
+    goes to the dK/dV launcher as it is. The launchers are replaced by
+    stand-ins that return the plain backward's gradients (computed first,
+    the only call of attention_delta) on CPU tensors."""
+    q, k, v, g, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 20, 24, 32, [24, 9], seed=11))
+    keep = fa.key_keep(mask)
+    o, lse = fa.flash_attention_fwd_lse_reference(q, k, v, keep)
+    want = fa.flash_attention_bwd_reference(q, k, v, keep, o, lse, g)
+    delta = torch.full((2, 2, 20, 1), 7.0)
+    calls = {"attention_delta": 0, "dq": 0, "dkv": 0}
+
+    def counted_delta(*args):
+        calls["attention_delta"] += 1
+        return fa.attention_delta.__wrapped__(*args)
+
+    def dq(q_, k_, v_, keep_, do, o_, lse_):
+        calls["dq"] += 1
+        assert torch.equal(o_, o) and torch.equal(lse_, lse) and torch.equal(do, g)
+        return want[0], delta
+
+    def dkv(q_, k_, v_, keep_, do, lse_, delta_):
+        calls["dkv"] += 1
+        assert delta_ is delta
+        return want[1], want[2]
+
+    counted_delta.__wrapped__ = fa.attention_delta
+    monkeypatch.setattr(fa, "attention_delta", counted_delta)
+    monkeypatch.setattr(fa, "_launch_fwd_lse", lambda q_, k_, v_, keep_: (o, lse))
+    monkeypatch.setattr(fa, "_launch_bwd_dq", dq)
+    monkeypatch.setattr(fa, "_launch_bwd_dkv", dkv)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    fa.FlashAttentionTrainable.apply(tq, tk, tv, mask, False).backward(g)
+    assert calls == {"attention_delta": 0, "dq": 1, "dkv": 1}
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert torch.equal(got, w)
+
+
+def test_attention_delta_runs_only_in_the_plain_backward():
+    """At the source: the module calls attention_delta in the plain
+    backward and nowhere else."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(fa))
+    callers = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.ClassDef)):
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call) and getattr(node.func, "id", None) == \
+                        "attention_delta":
+                    callers.add(fn.name)
+    assert callers == {"flash_attention_bwd_reference"}
+
+
+def _bwd_args():
+    q, k, v, g, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 20, 24, 64, [24, 9], seed=12))
+    keep = fa.key_keep(mask)
+    lse = torch.zeros(2, 2, 20, 1)
+    return q, k, v, keep, g, torch.zeros_like(q), lse
+
+
+def _strided(x):
+    return x.transpose(2, 3).contiguous().transpose(2, 3)
+
+
+@pytest.mark.parametrize("why,match", [
+    ("dq_q_non_contiguous", "contiguous"), ("dq_o_non_contiguous", "contiguous"),
+    ("dkv_do_non_contiguous", "contiguous"), ("dq_lse_bf16", "float32"),
+    ("dkv_lse_bf16", "float32"), ("dkv_delta_bf16", "float32"), ("dq_o_other_dtype", "dtypes"),
+    ("dq_o_shape", "is not"), ("dkv_delta_shape", "is not"), ("dq_cpu", "CUDA device"),
+    ("dkv_cpu", "CUDA device"),
+])
+def test_bwd_launchers_refuse(why, match):
+    """Each argument check of the backward launchers raises ValueError on
+    its own (the device check comes last, so CPU tensors reach the others)."""
+    q, k, v, keep, g, o, lse = _bwd_args()
+    delta = torch.zeros_like(lse)
+    calls = {
+        "dq_q_non_contiguous": lambda: fa._launch_bwd_dq(_strided(q), k, v, keep, g, o, lse),
+        "dq_o_non_contiguous": lambda: fa._launch_bwd_dq(q, k, v, keep, g, _strided(o), lse),
+        "dkv_do_non_contiguous": lambda: fa._launch_bwd_dkv(q, k, v, keep, _strided(g), lse,
+                                                            delta),
+        "dq_lse_bf16": lambda: fa._launch_bwd_dq(q, k, v, keep, g, o, lse.bfloat16()),
+        "dkv_lse_bf16": lambda: fa._launch_bwd_dkv(q, k, v, keep, g, lse.bfloat16(), delta),
+        "dkv_delta_bf16": lambda: fa._launch_bwd_dkv(q, k, v, keep, g, lse, delta.bfloat16()),
+        "dq_o_other_dtype": lambda: fa._launch_bwd_dq(q, k, v, keep, g, o.bfloat16(), lse),
+        "dq_o_shape": lambda: fa._launch_bwd_dq(q, k, v, keep, g, o[:, :, :-1], lse),
+        "dkv_delta_shape": lambda: fa._launch_bwd_dkv(q, k, v, keep, g, lse, delta[:, :1]),
+        "dq_cpu": lambda: fa._launch_bwd_dq(q, k, v, keep, g, o, lse),
+        "dkv_cpu": lambda: fa._launch_bwd_dkv(q, k, v, keep, g, lse, delta),
+    }
+    with pytest.raises(ValueError, match=match):
+        calls[why]()

@@ -112,6 +112,24 @@ __device__ __forceinline__ void load_frags(uint32_t (&a)[D / 16][4], const uint8
   }
 }
 
+// The same fragments of rows r0 and r1 (= r0 + 8) of a row-major [rows, D]
+// bf16 matrix in device memory; rows at or past `rows` read as 0.
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
+                                            const __nv_bfloat16* base, int r0,
+                                            int r1, int rows, int t) {
+#pragma unroll
+  for (int kt = 0; kt < D / 16; ++kt) {
+    const int c = kt * 16 + 2 * t;
+    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(r0) * D + c);
+    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(r1) * D + c);
+    f[kt][0] = r0 < rows ? p0[0] : 0u;
+    f[kt][1] = r1 < rows ? p1[0] : 0u;
+    f[kt][2] = r0 < rows ? p0[4] : 0u;
+    f[kt][3] = r1 < rows ? p1[4] : 0u;
+  }
+}
+
 // Byte offset of columns 16 kt .. 16 kt + 15 in a tile (its box, and the
 // 32 bytes within the box's swizzled rows).
 template <int D>

@@ -1,31 +1,47 @@
-// Flash attention forward for Hopper with TMA and wgmma (sm_90a): the bf16
-// training forward with lse and the T5 forward with relative-position bias.
+// Flash attention forward for Hopper with TMA and wgmma (sm_90a): every
+// bf16 forward of the port, one template for the four Pallas bodies.
 //
 // Part of flash_attention.cu's translation unit, included after its kNegInf,
 // kMaxBiasDistance and rel_bias_at; the TMA, mbarrier and wgmma primitives
-// are sm90_common.cuh's. Template flash_fwd_sm90<D, WriteLse,
-// RelBias> for D in {32, 64, 128}:
-// - WriteLse replaces the Pallas kernel `_flash_fwd_lse_kernel`
-//   (agent_tpu/kernels/flash_attention.py:598, pallas_call :719): softmax
-//   attention with a key-padding mask that also stores each query row's
-//   lse = m + log(max(l, 1e-30)) in f32.
-// - RelBias replaces `_flash_t5_kernel` (agent_tpu/kernels/
-//   flash_attention.py:354, pallas_call :467): s = q.k * scale + bias[h,
-//   clamp(k - q, -maxd, maxd) + maxd] before the mask, from the per-distance
-//   table that flash_attention.cu describes.
-// Both compute what the mma.sync kernel computed for them: the same 64-key
-// tiles, the online softmax in f32 with the same running max and 1e-30
-// floor, masked scores NEG_INF with p multiplied by keep (a fully masked
-// row is exactly 0), P rounded to bf16 against the tile's running max. Only
-// the exponential differs: exp(x) is ex2.approx of x * log2(e) on the MUFU
-// (relative error ~2^-22, far below bf16's rounding of P).
+// are sm90_common.cuh's. Template flash_fwd_sm90<D, WriteLse, CarryState,
+// RelBias> for D in {32, 64, 128}, with at most one flag set:
+// - none: the serving forward, replacing the Pallas kernel `_flash_kernel`
+//   (agent_tpu/kernels/flash_attention.py:149, pallas_call :228): softmax
+//   attention with a key-padding mask, out = acc / max(l, 1e-30) in bf16.
+// - CarryState replaces the ring hop `_flash_fold_kernel` (:258,
+//   pallas_call :329): each query row starts from its carried f32 (m, l,
+//   acc) instead of (NEG_INF, 0, 0), folds the K/V block in with the same
+//   per-tile update, and writes (m, l, acc) back unnormalised, in place.
+// - WriteLse replaces the training forward `_flash_fwd_lse_kernel` (:598,
+//   pallas_call :719): the serving forward that also stores each query
+//   row's lse = m + log(max(l, 1e-30)) in f32.
+// - RelBias replaces `_flash_t5_kernel` (:354, pallas_call :467): s = q.k *
+//   scale + bias[h, clamp(k - q, -maxd, maxd) + maxd] before the mask, from
+//   the per-distance table that flash_attention.cu describes.
+// All compute what their plain versions in kernels/flash_attention.py
+// compute: 64-key tiles, the online softmax in f32 with the running max and
+// the 1e-30 floor, masked scores NEG_INF with p multiplied by keep (a fully
+// masked row is exactly 0, a wholly masked block leaves a carried state
+// bit for bit as it was: its p are 0 and its correction ex2(0) = 1), P
+// rounded to bf16 against the tile's running max. Only the exponential
+// differs: exp(x) is ex2.approx of x * log2(e) on the MUFU (relative error
+// ~2^-22, far below bf16's rounding of P); m stays in natural units and is
+// scaled by log2(e) only where it is used, so a carried m is written back
+// exactly as read when no key raises it.
 //
-// Bound on an H100 SXM (bytes at 3.35 TB/s): the training shape (B 128,
-// H 12, L 512, D 64) moves Q, K, V and O once, 403 MB, 0.121 ms; the
-// T5-large encoder's (B 64, H 16, L 512, D 64) 268 MB, 0.080 ms. Their
-// products (~255 FLOP per byte) sit just under the card's ridge, so the
-// kernel has to keep the loads in flight and the tensor cores fed at once.
-// What the design does about it:
+// Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), each input read once
+// and each output written once, products counted over the real keys:
+// - serving, the 256-row BERT-base request (B 256, H 12, L 512, D 64): Q, K,
+//   V and O, 805 MB, 0.240 ms; the products take less.
+// - training (B 128, H 12, L 512, D 64): 403 MB, 0.121 ms; T5-large's
+//   encoder (B 64, H 16, L 512, D 64): 268 MB, 0.080 ms.
+// - the ring hop at phase 5b's shard (B 8, H 4, Lq = Lk = 2048, D 128):
+//   5.4e10 FLOP over the real keys, 0.0545 ms, against 118.5 MB (Q, K, V in
+//   bf16, acc in and out in f32, m and l in and out), 0.035 ms: the
+//   products bound it.
+// The forwards' products (~255 FLOP per byte) sit just under the card's
+// ridge, so the kernel has to keep the loads in flight and the tensor cores
+// fed at once. What the design does about it:
 // - One block owns 128 query rows of one head: two warpgroups of 64 rows
 //   share every K/V tile, so K and V cross device memory once per 128 query
 //   rows (L2 serves the other query tiles of the head). Two blocks share a
@@ -51,6 +67,17 @@
 // - The epilogue normalises O in registers, writes it swizzled into the
 //   warpgroup's Q tile (no longer read) and stores it with TMA, which clips
 //   rows past Lq; one lane per row stores lse.
+// - The fold reads its rows' state into the O accumulators' fragment layout
+//   before the first tile (float2 loads, in flight under the Q wait and tile
+//   0's S) and corrects it by tile 0's exp(m_old - m_new) before tile 0's
+//   P V, as every later tile corrects O. It writes the state back from the
+//   same registers with float2 stores: a quad of lanes covers 32 contiguous
+//   bytes of a row, so every sector is written whole, and the f32 tile needs
+//   no staging in shared memory (64 KB more at D 128, beside the 161 KB the
+//   ring and Q take). The state is [B, H, Lq, 1|D] and contiguous, so row Lq
+//   of one head is row 0 of the next: every state load and store is guarded
+//   by row < Lq, so a block whose 128 rows run past Lq touches no other
+//   head's rows, and each block reads its own rows before it writes them.
 // Not yet: persistent blocks, a producer warp with the two warpgroups
 // taking turns on the tensor cores, and TMA reading Q/K/V straight from
 // the projections' [B, L, H*D] layout.
@@ -79,7 +106,7 @@ constexpr int kCtas = D <= 64 ? 2 : 1;
 
 // ---- the kernel -----------------------------------------------------------------
 
-template <int D, bool WriteLse, bool RelBias>
+template <int D, bool WriteLse, bool CarryState, bool RelBias>
 __global__ void __launch_bounds__(kThreads, kCtas<D>)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -87,7 +114,10 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
                    const __grid_constant__ CUtensorMap map_o,
                    const int32_t* __restrict__ mask, float* __restrict__ lse, int H, int Lq,
                    int Lk, int n_q_tiles, int mask_b_stride, float scale,
-                   const float* __restrict__ dist_bias, int max_distance) {
+                   const float* __restrict__ dist_bias, int max_distance,
+                   float* __restrict__ st_m, float* __restrict__ st_l,
+                   float* __restrict__ st_acc) {
+  static_assert(WriteLse + CarryState + RelBias <= 1, "one variant at a time");
   using T = Tile<D>;
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // Q, full[], empty[]
   extern __shared__ __align__(16) uint8_t dyn[];
@@ -159,10 +189,26 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
   uint8_t* my_q_ptr = dyn + (my_q - raw);
   const int32_t* mrow = mask + static_cast<size_t>(bh / H) * mask_b_stride;
 
-  float o[D / 2];
+  float o[D / 2];  // o[4j + 2h + e] is row r_h, column 8j + 2t + e
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  if constexpr (CarryState) {  // the carried state of this lane's rows below Lq
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      if (r >= Lq) continue;
+      const size_t row = static_cast<size_t>(bh) * Lq + r;
+      m[h] = st_m[row];
+      l[h] = st_l[row];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(st_acc + row * D + 8 * j + 2 * t);
+        o[4 * j + 2 * h] = a.x;
+        o[4 * j + 2 * h + 1] = a.y;
+      }
+    }
+  }
   float sc[32];       // S, then P, of one tile: sc[4j + 2h + e] is row r_h, column 8j + 2t + e
   uint32_t pa[4][4];  // bf16(P) as wgmma's register A fragments, 16 keys each
 
@@ -324,6 +370,16 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
       with_bias([](int, int) { return 0.f; });
     }
   };
+  // O by the correction of its rows.
+  auto rescale = [&](const float (&c)[2]) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 0] *= c[0];
+      o[4 * j + 1] *= c[0];
+      o[4 * j + 2] *= c[1];
+      o[4 * j + 3] *= c[1];
+    }
+  };
   // keys 16kk..16kk+15 of P are the accumulators of column groups 2kk
   // and 2kk + 1, exactly wgmma's register A fragment.
   auto pack_p = [&]() {
@@ -349,7 +405,10 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
   issue_s(0);
   wgmma_wait<0>();
   fence_regs(sc);
-  softmax(0, keep, every, corr);  // O is still 0: nothing to correct
+  softmax(0, keep, every, corr);
+  // A fresh O is 0; a carried one takes tile 0's correction before tile 0's
+  // P V, as later tiles correct O below.
+  if constexpr (CarryState) rescale(corr);
   pack_p();
   for (int it = 1; it < n_k; ++it) {
     const int s = it % kStages, prev = (it - 1) % kStages;
@@ -365,14 +424,7 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
     wgmma_wait<0>();
     fence_regs(o);
     mbar_arrive(empty0 + 8 * prev);
-    // The rescale by exp(m_old - m_new) after the previous P V is in O.
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j + 0] *= corr[0];
-      o[4 * j + 1] *= corr[0];
-      o[4 * j + 2] *= corr[1];
-      o[4 * j + 3] *= corr[1];
-    }
+    rescale(corr);  // by exp(m_old - m_new), once the previous P V is in O
     pack_p();
   }
   fence_regs(o);
@@ -380,6 +432,32 @@ __global__ void __launch_bounds__(kThreads, kCtas<D>)
   issue_pv((n_k - 1) % kStages);
   wgmma_wait<0>();
   fence_regs(o);
+
+  if constexpr (CarryState) {
+    // The state back in place, unnormalised; m and l from one lane of the
+    // four that hold a row, once all four have read them. The rows and
+    // pointers pass through an empty asm, so the stores' addresses are
+    // computed here: kept from the prologue, they would hold registers
+    // through the main loop.
+    __syncwarp();
+    int rows[2] = {r0, r1};
+    float *sm = st_m, *sl = st_l, *sa = st_acc;
+    asm volatile("" : "+r"(rows[0]), "+r"(rows[1]), "+l"(sm), "+l"(sl), "+l"(sa));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= Lq) continue;
+      const size_t row = static_cast<size_t>(bh) * Lq + rows[h];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(sa + row * D + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+      if (t == 0) {
+        sm[row] = m[h];
+        sl[row] = l[h];
+      }
+    }
+    return;
+  }
 
   // Epilogue: O / max(l, 1e-30) in bf16, swizzled into this warpgroup's
   // Q tile, stored by TMA (rows past Lq clipped).
@@ -414,19 +492,21 @@ constexpr size_t smem_bytes(int bias_floats) {
          static_cast<size_t>(bias_floats) * sizeof(float);
 }
 
-template <int D, bool WriteLse, bool RelBias>
+template <int D, bool WriteLse, bool CarryState, bool RelBias>
 int launch(const void* q, const void* k, const void* v, const int32_t* mask, void* out,
            float* lse, int B, int H, int Lq, int Lk, int mask_b_stride, float scale,
-           cudaStream_t stream, const float* dist_bias, int max_distance) {
+           cudaStream_t stream, const float* dist_bias, int max_distance, float* st_m,
+           float* st_l, float* st_acc) {
   EncodeTiledFn encode;
   if (const int err = encode_tiled_fn(&encode)) return err;
-  CUtensorMap maps[4];
+  CUtensorMap maps[4] = {};
   const void* ptrs[4] = {q, k, v, out};
   const int rows[4] = {Lq, Lk, Lk, Lq};
-  for (int i = 0; i < 4; ++i)
+  // The fold stores its f32 state without TMA: no output map.
+  for (int i = 0; i < (CarryState ? 3 : 4); ++i)
     if (const int err = encode_map<D>(encode, &maps[i], ptrs[i], B * H, rows[i])) return err;
 
-  auto kernel = flash_fwd_sm90<D, WriteLse, RelBias>;
+  auto kernel = flash_fwd_sm90<D, WriteLse, CarryState, RelBias>;
   // Above 48 KB only after opting in, once per device for this instantiation.
   static bool opted_in[kMaxDevices] = {};
   int dev = 0;
@@ -443,7 +523,7 @@ int launch(const void* q, const void* k, const void* v, const int32_t* mask, voi
   const size_t smem = smem_bytes<D>(RelBias ? 2 * max_distance + 1 : 0);
   kernel<<<static_cast<unsigned>(n_q) * B * H, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], mask, lse, H, Lq, Lk, n_q, mask_b_stride, scale,
-      dist_bias, max_distance);
+      dist_bias, max_distance, st_m, st_l, st_acc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,16 +3,14 @@
 // flash_bwd_sm90.cuh (dQ and dK/dV). Shared-memory tile geometry under
 // TMA's swizzle, mbarriers, TMA loads and stores, wgmma descriptors and
 // instructions (A from registers or from shared memory), the register
-// fences around them, ex2, and the host's tensor-map encoder. Nothing here
-// depends on the including source.
+// fences around them, ex2, bf16 packing, and the host's tensor-map encoder.
+// Nothing here depends on the including source.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "mma_bf16.cuh"  // pack_f32
 
 namespace {
 namespace sm90 {
@@ -126,6 +124,13 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Two f32 as one bf16 pair, lo in the low half: a wgmma register A
+// fragment's element pair, or two adjacent bf16 of a tile.
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D[64xN] (+)= A[64x16] B[16xN], A from registers (the accumulator layout

@@ -6,13 +6,13 @@ Counterpart of ``agent_tpu.kernels.flash_attention`` (``flash_attention``,
 ``make_flash_attention``, ``make_flash_attention_trainable``, ``flash_fold``,
 ``flash_fold_supported``, ``flash_attention_t5``,
 ``make_flash_attention_t5``). The kernels are ``csrc/flash_attention.cu``
-(the forward, replacing the Pallas kernels ``_flash_kernel`` and, as its
-variant, the ring hop ``_flash_fold_kernel``, with mma.sync; its bf16
-training forward and T5 forward, replacing ``_flash_fwd_lse_kernel`` and
-``_flash_t5_kernel``, run on the TMA + wgmma kernel of
-``csrc/flash_fwd_sm90.cuh``) and ``csrc/flash_attention_bwd.cu``
-(``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, whose bf16 kernels
-are the TMA + wgmma ones of ``csrc/flash_bwd_sm90.cuh``). They compute what
+(the forwards' entry points, replacing the Pallas kernels ``_flash_kernel``,
+the ring hop ``_flash_fold_kernel``, ``_flash_fwd_lse_kernel`` and
+``_flash_t5_kernel``: in bf16 all four are variants of the TMA + wgmma
+kernel of ``csrc/flash_fwd_sm90.cuh``, in f32 of the file's FMA kernel) and
+``csrc/flash_attention_bwd.cu`` (``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``, whose bf16 kernels are the TMA + wgmma ones of
+``csrc/flash_bwd_sm90.cuh``). They compute what
 the Pallas kernels compute: softmax(QKᵀ·D^-½ with a key-padding mask) V with
 an online softmax in f32, zero output for a fully masked row, for training
 the row logsumexp and the recompute backward of FlashAttention-2, for ring

@@ -9,15 +9,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   — CUDA present, an H100 SXM (compute capability (9, 0)),
               nvidia-smi's name and power limit.
 2. build    — nvcc builds every kernel of the paths from csrc/ (sm_90a),
-              all sources at once; for each flash_fwd_sm90 instantiation
-              (the training forward and T5's) and each flash_bwd_*_sm90
-              one (the bf16 dQ and dK/dV), cuobjdump's SASS must hold
+              all sources at once; for each of the 12 flash_fwd_sm90
+              instantiations (serving, training with lse, the ring's fold
+              and T5's, at d_head 32, 64 and 128) and the 6 flash_bwd_*_sm90
+              ones (the bf16 dQ and dK/dV), cuobjdump's SASS must hold
               HGMMA (wgmma) and UTMALDG (TMA loads), printed beside ptxas'
-              registers, spills and shared memory.
+              registers, spills and shared memory; no kernel may hold HMMA
+              (mma.sync) and none may be the old flash_fwd_bf16.
 3. kernels vs plain — each kernel's wrapper on the card against its plain
               PyTorch version. The serving forward: at the shapes and key
               lengths that the requests of phases 4 and 5 stage (taken from
-              the op's own stage phase), and at edge cases; two planted
+              the op's own stage phase), and at edge cases (among them Lq
+              257 with Lk 129 around the 128-row block, Lq 1, a shared
+              mask at d_head 128); two planted
               faults (the first key tile dropped, the score scale 10 % off)
               must fail the same check; non-contiguous inputs must give the
               contiguous result, and the launcher must refuse what the
@@ -30,10 +34,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               backward with delta zeroed must fail.
               The ring's fold kernel: m, l and acc after two hops, the
               second from carried state, at the shard shape and key lengths
-              of phase 5b and at edge cases (a wholly masked block, a row
-              with no key anywhere, ragged Lq != Lk, d_head 32 and 64,
-              f32); a fold that ignores the carried state and one that
-              drops the first key tile must fail; the launcher must refuse
+              of phase 5b and at edge cases (a wholly masked block after a
+              real one, bit-exact, at d_head 64 and 128, a row with no key
+              anywhere, ragged Lq != Lk, Lq 257 with Lk 129, Lq 1, d_head
+              32 and 64, a shared mask at d_head 128, a second block whose
+              first tile raises every row's max, f32); a fold that ignores
+              the carried state, one that drops the first key tile and one
+              that skips tile 0's correction of the carried acc must fail;
+              the launcher must refuse
               f16, misshapen, non-contiguous and CPU state. The T5 kernel:
               at phase 9's staged shape and key lengths and at edge cases
               (causal, ragged Lq != Lk, a row with no key, d_head 32 and
@@ -45,14 +53,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
               rows, 256 rows of ~500 bytes, one 100-id input. Every request
-              must run on cuda and launch the flash kernel once per layer.
+              must run on cuda and launch the flash kernel once per layer;
+              the 256-row request's profile must show the TMA + wgmma
+              forward once per layer and no other attention kernel (as
+              must phases 5, 5b and 8's, the fold's variant on the ring).
               The 64-row request is re-run asking for every class, with the
               kernel and with the plain attention swapped in, and the
               log-probabilities compared; the planted tile drop must fail
               that comparison. A small f32 model is checked against the
               same op on the CPU.
 5. long context — d_model 512, 4 heads (d_head 128), max_len 4096: 8 rows
-              of 3000-4096 bytes.
+              of 3000-4096 bytes; p50 and one profiled request.
 5b. ring    — the same request on an sp = 2 mesh whose two shards share the
               card (TorchRuntime(devices=["cuda:0"] * 2, mesh_shape={"sp":
               2})): ring attention in every layer, n_layers x sp^2 fold
@@ -100,7 +111,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               device time by kind.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
-              design (mma.sync, or TMA + wgmma); each kernel timed through
+              design (all TMA + wgmma); each kernel timed through
               its launcher, its inputs built outside the timing (the fold
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
@@ -276,6 +287,11 @@ EDGE_CASES = [
     ("dead_row", (3, 4, 48, 48, 64), [48, 0, 30]),
     ("ragged", (2, 3, 77, 131, 32), [131, 64]),
     ("one_tile", (2, 2, 16, 16, 128), [16, 9]),
+    # Lq past a 128-row block, Lk one key past a 128-key block whose last
+    # real key is 128; one query row; a mask the batch shares at d_head 128.
+    ("lq257_lk129", (2, 3, 257, 129, 64), [129, 100]),
+    ("lq1", (2, 3, 1, 77, 64), [77, 5]),
+    ("shared_mask_d128", (2, 4, 300, 300, 128), [250]),
 ]
 
 
@@ -535,10 +551,10 @@ def timed_requests(classify, ctx, fa, requests, launches: dict, k: int) -> list:
 
 # Device kernels by what they do, from their names (first match wins); the
 # forward's variants by their template flags, demangled or mangled:
-# flash_fwd_bf16<D, CarryState> (mma.sync), flash_fwd_sm90<D, WriteLse,
-# RelBias> (TMA + wgmma), flash_fwd_f32<D, WriteLse, CarryState, RelBias>.
-FWD_VARIANT = re.compile(r"flash_fwd_(bf16|sm90|f32)(?:<\d+((?:, \w+)+)>|ILi\d+E((?:Lb\dE)+))")
-FWD_FLAGS = {"bf16": ("carry",), "sm90": ("lse", "bias"), "f32": ("lse", "carry", "bias")}
+# flash_fwd_sm90<D, WriteLse, CarryState, RelBias> (TMA + wgmma, every bf16
+# forward) and flash_fwd_f32<D, WriteLse, CarryState, RelBias> (FMA).
+FWD_VARIANT = re.compile(r"flash_fwd_(sm90|f32)(?:<\d+((?:, \w+)+)>|ILi\d+E((?:Lb\dE)+))")
+FWD_FLAGS = ("lse", "carry", "bias")
 
 
 def fwd_variant(name: str):
@@ -549,7 +565,7 @@ def fwd_variant(name: str):
     kernel, demangled, mangled = found.groups()
     values = ([f.strip() == "true" for f in demangled.split(",")[1:]] if demangled
               else [bit == "1" for bit in re.findall(r"Lb(\d)E", mangled)])
-    return kernel, dict(zip(FWD_FLAGS[kernel], values))
+    return kernel, dict(zip(FWD_FLAGS, values))
 
 
 # The backward's TMA + wgmma kernels, flash_bwd_dq_sm90<D> and
@@ -594,22 +610,43 @@ def kernel_kind(name: str) -> str:
                 "other")
 
 
+PROFILE_ATTEMPTS = 3
+
+
 def profile_call(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, summed device
     time of its kernels (so 1 - device/wall is the device's idle share,
     kernels being serialised on one stream), device time by kind of
     kernel, the kernels that took the most, and the host's time blocked
     reading a device value (``aten::_local_scalar_dense``: ``bool(t)``,
-    ``t.item()``, which wait for the stream), with their count."""
+    ``t.item()``, which wait for the stream), with their count.
+
+    The profiler has been seen to drop a batch of kernel records from a
+    call on an H100, flash kernels among them (the seq2seq request's and
+    the train step's profiles), whichever forward kernel ran. So a call
+    whose trace holds fewer flash kernels than the launch counters counted
+    during it is profiled again, up to PROFILE_ATTEMPTS times
+    (``profile_attempts``); a call that never matches fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    from agent_tpu_torch.kernels import flash_attention as fa
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        before = sum(fa.LAUNCH_COUNTS.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = sum(fa.LAUNCH_COUNTS.values()) - before
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        traced = sum(e.count for e in events if "flash_fwd" in e.key or "flash_bwd" in e.key)
+        if traced == launched:
+            break
+    else:
+        raise SystemExit(f"the profile traced {traced} flash kernels of {launched} launched, "
+                         f"{PROFILE_ATTEMPTS} times")
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     by_kind: dict = {}
     for e in events:
@@ -628,7 +665,7 @@ def profile_call(fn) -> dict:
         if found:
             key = f"flash_bwd_{found.group(1)}_sm90"
             backwards[key] = backwards.get(key, 0) + e.count
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "profile_attempts": attempt,
             "flash_fwd_launches": forwards, "flash_bwd_sm90_launches": backwards,
             "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
             "host_blocked_reads": sum(e.count for e in reads),
@@ -636,6 +673,14 @@ def profile_call(fn) -> dict:
             "device_ms_by_kind": by_kind,
             "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                             for e in top]}
+
+
+def check_forwards(profile: dict, want: dict, what: str) -> None:
+    """Fail unless the profiled call's forward attention kernels are exactly
+    ``want`` (launches by kernel and set flags, as profile_call keys them):
+    on a bf16 path, flash_fwd_sm90 alone."""
+    if profile["flash_fwd_launches"] != want:
+        raise SystemExit(f"{what} forwards: {profile['flash_fwd_launches']} (want {want})")
 
 
 def keyword_rows(n: int, seed: int, lo: int = 0, hi: int = 0):
@@ -840,7 +885,7 @@ def first_train_batch(payload) -> tuple:
     return state, take
 
 
-MMA_SYNC, SM90 = "mma.sync", "sm90: TMA + wgmma"  # the kernels' designs
+SM90 = "sm90: TMA + wgmma"  # every kernel's design
 
 
 def kernel_entry(name, source, design, replaces, launches, max_abs_err, max_rel_err, ms,
@@ -910,11 +955,33 @@ def train_kernel_entries(fa, check, launches) -> list:
 FOLD_EDGE_CASES = [
     # name, (B, H, Lq, Lk, D), key lengths of the first block, of the second
     ("masked_after_real", (2, 4, 128, 192, 64), [192, 100], [0, 0]),
+    ("masked_after_real_d128", (2, 4, 128, 192, 128), [192, 100], [0, 0]),
     ("dead_row", (3, 4, 96, 96, 64), [96, 0, 40], [50, 0, 96]),
     ("ragged_lq_ne_lk", (2, 3, 77, 131, 32), [131, 64], [100, 7]),
     ("d32", (2, 4, 160, 160, 32), [160, 33], [70, 160]),
     ("d64", (2, 4, 130, 200, 64), [200, 1], [150, 199]),
+    # Around the kernel's 128-row block: Lq 257 (a third block of one row,
+    # whose rows past Lq must not touch the next head's state), Lq 1; a
+    # mask the batch shares at d_head 128.
+    ("lq257_lk129", (2, 3, 257, 129, 64), [129, 100], [129, 60]),
+    ("lq1", (2, 3, 1, 77, 64), [77, 5], [40, 77]),
+    ("shared_mask_d128", (2, 4, 300, 300, 128), [250], [120]),
+    # The second block's keys scaled (FOLD_KEY_SCALE): its first tile's
+    # scores exceed every row's carried max, so tile 0's correction of the
+    # carried acc matters on every row.
+    ("carry_raised", (2, 4, 130, 150, 64), [150, 90], [150, 70]),
 ]
+FOLD_KEY_SCALE = {"carry_raised": 4.0}
+
+
+def carry_not_corrected(fa, q, k, v, keep, m, l, acc):
+    """Planted fault: the plain fold with tile 0's correction of the carried
+    acc skipped, as a kernel that starts O from the carry but runs tile 0
+    as if O were still 0 would compute."""
+    t = fa.BLOCK_K
+    m0, l0, pv = fa.flash_fold_reference(q, k[:, :, :t], v[:, :, :t], keep[:, :t], m, l,
+                                         torch.zeros_like(acc))
+    return fa.flash_fold_reference(q, k[:, :, t:], v[:, :, t:], keep[:, t:], m0, l0, acc + pv)
 
 
 def ring_fold_case(long_case) -> tuple:
@@ -937,6 +1004,7 @@ def check_fold_kernel(fa, main_case) -> dict:
     for i, (name, (B, H, Lq, Lk, D), len0, len1, dtype) in enumerate(cases):
         q, k0, v0, mask0 = attn_inputs(B, H, Lq, Lk, D, dtype, len0, seed=200 + i)
         _, k1, v1, mask1 = attn_inputs(B, H, Lq, Lk, D, dtype, len1, seed=300 + i)
+        k1 = k1 * FOLD_KEY_SCALE.get(name, 1.0)  # a power of 2: exact in bf16
         keep0, keep1 = fa.key_keep(mask0), fa.key_keep(mask1)
         start = fa.initial_state(q)
         prev = fa.flash_fold_reference(q, k0, v0, keep0, *start)
@@ -949,15 +1017,16 @@ def check_fold_kernel(fa, main_case) -> dict:
 
         res = verdict(hop1, prev) + verdict(hop2, want)
         ok = all(r[0] for r in res)
-        if name == "masked_after_real":  # the state passes through unchanged
+        if name.startswith("masked_after_real"):  # the state passes through unchanged
             ok = ok and all(torch.equal(g, w) for g, w in zip(hop2, prev))
         if name == "dead_row":  # row 1 has no key in either block
             ok = ok and bool((hop2[0][1] == fa.NEG_INF).all() and (hop2[1][1] == 0).all()
                              and (hop2[2][1] == 0).all())
         faults = {"state_reset": fa.flash_fold_reference(q, k1, v1, keep1, *start)}
-        if max(len1) > 0:  # a wholly masked block has no tile to drop
+        if max(len1) > 0:  # a wholly masked block has no tile to drop or correct by
             faults["drop_first_tile"] = fa.flash_fold_reference(
                 q, k1, v1, fa.key_keep(drop_first_tile(mask1)), *prev)
+            faults["carry_not_corrected"] = carry_not_corrected(fa, q, k1, v1, keep1, *prev)
         fault_res = {f: verdict(out, want) for f, out in faults.items()}
         caught = all(not all(r[0] for r in fr) for fr in fault_res.values())
         results.append({
@@ -1080,6 +1149,7 @@ def ring_phase(fa, classify, rt, long_payload, one_card, small_payload, k) -> in
                       "vs_one_card": wide_vs_one_card},
           "small_f32_vs_cpu": {"launches": small_launches, "selection": small_selection,
                                **small_vs_cpu}})
+    check_forwards(profile, {"flash_fwd_sm90 carry": LONG_LAYERS * SP * SP}, "ring request")
     if not (vs_one_card["ok"] and vs_plain["ok"] and wide_vs_one_card["ok"]
             and small_vs_cpu["ok"]) or fault_vs_plain["ok"]:
         raise SystemExit("ring results disagree (or the planted fault went unnoticed)")
@@ -1102,7 +1172,7 @@ def fold_kernel_entry(fa, check, launches) -> dict:
     work = [x.clone() for x in state]
     rows = B * H * Lq * 4
     return kernel_entry(
-        "flash_fold", "agent_tpu_torch/kernels/csrc/flash_attention.cu", MMA_SYNC,
+        "flash_fold", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
         "agent_tpu/kernels/flash_attention.py:258", launches,
         check["max_abs_err"], check["max_rel_err"],
         cuda_ms(lambda: fa._launch_fold(q, k, v, keep, *work)),
@@ -1149,6 +1219,8 @@ def ring_cards_phase(fa, classify, n, long_payload, k) -> None:
     torch.cuda.synchronize()
     emit({"phase": "ring_cards", "config": LONG_CTX, "sp": n, "one_card_requests": report,
           "logp_tolerance": LOGP_TOL, **result})
+    check_forwards(result["cards"]["profile_one_request"],
+                   {"flash_fwd_sm90 carry": LONG_LAYERS * n * n}, "ring request across cards")
     if not all(r["vs_one_card"]["ok"] for r in result.values()):
         raise SystemExit("the ring across cards disagrees with the one-card run")
 
@@ -1298,6 +1370,7 @@ def summarize_phase(fa, summarize, rt) -> dict:
           "4 + 4 layers, d_ff 1024, vocab 260, bf16)", "weights_build_s": weights_s,
           "requests": report, "launches": launches, "profile_256_rows_greedy": profile,
           "small_f32_card_vs_cpu": small_out})
+    check_forwards(profile, {"flash_fwd_sm90": S2S_ENC_LAYERS}, "summarize request")
     if not all(r["same_summaries"] for r in small_out.values()):
         raise SystemExit(f"small f32 summaries differ between the card and the CPU: {small_out}")
     return {"launches": launches}
@@ -1465,8 +1538,7 @@ def t5_phase(fa, op, rt, ckpt, requests) -> dict:
     greedy_chunks = requests[0][1]
     profile = profile_call(lambda: [t.cpu() for t, _ in op._decode_chunks(
         rt, greedy_chunks, ckpt, cfg, T5_MAX_NEW, 1, family=family)])
-    if profile["flash_fwd_launches"] != {"flash_fwd_sm90 bias": cfg.n_enc_layers}:
-        raise SystemExit(f"T5 request forwards: {profile['flash_fwd_launches']}")
+    check_forwards(profile, {"flash_fwd_sm90 bias": cfg.n_enc_layers}, "T5 request")
 
     # Teacher-forced log-probabilities on the greedy tokens: the kernel's
     # encoder against the plain T5 attention's, and the planted reversed
@@ -1578,24 +1650,32 @@ def cuobjdump_path(build) -> str:
 SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")
 
 
-def sm90_build_report(build, paths) -> dict:
+def sm90_build_report(build, paths) -> tuple:
     """For each TMA + wgmma instantiation in the libraries ``paths`` (name
     -> .so): the forward's flash_fwd_sm90 and the backward's
     flash_bwd_{dq,dkv}_sm90. Which of SM90_OPCODES its SASS holds
     (cuobjdump -sass), and ptxas' registers, spilled bytes and static shared
-    memory from the library's build log."""
-    report = {}
+    memory from the library's build log. Also the (mangled) names of every
+    kernel whose SASS holds HMMA (mma.sync) or that is the old mma.sync
+    forward flash_fwd_bf16: none may be left."""
+    report, mma_sync = {}, set()
     for lib, so in paths.items():
         sass = subprocess.run([cuobjdump_path(build), "-sass", str(so)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        current = None
+        current, function = None, None
         for line in sass.splitlines():
             fn = re.search(r"Function : (\S+)", line)
             if fn:
-                name = sm90_name(fn.group(1))
+                function = fn.group(1)
+                if "flash_fwd_bf16" in function:
+                    mma_sync.add(function)
+                name = sm90_name(function)
                 current = (report.setdefault(name, {op: False for op in SM90_OPCODES})
                            if name else None)
-            elif current is not None:
+                continue
+            if function and re.search(r"\bHMMA\b", line):
+                mma_sync.add(function)
+            if current is not None:
                 for op in SM90_OPCODES:
                     if re.search(rf"\b{op}\b", line):
                         current[op] = True
@@ -1612,7 +1692,7 @@ def sm90_build_report(build, paths) -> dict:
                     entry["registers"], entry["static_smem_bytes"] = map(int, used.groups())
                 if spill:
                     entry["spill_bytes"] = sum(map(int, spill.groups()))
-    return report
+    return report, sorted(mma_sync)
 
 
 def main(argv=None) -> int:
@@ -1655,18 +1735,20 @@ def main(argv=None) -> int:
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.split("info    : ")[-1] for ln in lines
                        if "registers" in ln or "spill" in ln]
-    sm90 = sm90_build_report(build, paths)
+    sm90, mma_sync = sm90_build_report(build, paths)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"so": p.name, "build_s": build.BUILD_SECONDS.get(n)}
-                      for n, p in paths.items()}, "ptxas": ptxas, "sm90_sass": sm90})
-    # Six forward instantiations (D 32, 64, 128 of the training forward and
-    # T5's) and six backward ones (dQ and dK/dV at each D), all on wgmma
-    # and TMA.
+                      for n, p in paths.items()}, "ptxas": ptxas, "sm90_sass": sm90,
+          "mma_sync_kernels": mma_sync})
+    # Twelve forward instantiations (D 32, 64, 128 of the serving forward,
+    # the training forward, the fold and T5's) and six backward ones (dQ and
+    # dK/dV at each D), all on wgmma and TMA; no mma.sync anywhere.
     kinds = [n.split("<")[0] for n in sm90]
-    if kinds.count("flash_fwd_sm90") != 6 or kinds.count("flash_bwd_dq_sm90") != 3 \
-            or kinds.count("flash_bwd_dkv_sm90") != 3 \
+    if kinds.count("flash_fwd_sm90") != 12 or kinds.count("flash_bwd_dq_sm90") != 3 \
+            or kinds.count("flash_bwd_dkv_sm90") != 3 or mma_sync \
             or not all(r["HGMMA"] and r["UTMALDG"] for r in sm90.values()):
-        raise SystemExit(f"the TMA + wgmma instantiations lack wgmma or TMA: {sm90}")
+        raise SystemExit(f"the TMA + wgmma instantiations lack wgmma or TMA, or mma.sync "
+                         f"kernels remain: {sm90}, {mma_sync}")
 
     # The requests of phases 4 and 5; phase 3 holds the kernel against its
     # plain version at the shapes they stage.
@@ -1778,6 +1860,7 @@ def main(argv=None) -> int:
           "rows_per_s_all": total_rows / sum(r["p50_ms"] / 1e3 for r in report),
           "logp_tolerance": LOGP_TOL, "vs_plain_attention": vs_plain,
           "planted_tile_drop_vs_plain": fault_vs_plain, "small_f32_vs_cpu": vs_cpu})
+    check_forwards(profile, {"flash_fwd_sm90": BERT_BASE["n_layers"]}, "256-row request")
     if not vs_plain["ok"] or fault_vs_plain["ok"] or not vs_cpu["ok"]:
         raise SystemExit("op results disagree (or the planted fault went unnoticed)")
 
@@ -1787,9 +1870,12 @@ def main(argv=None) -> int:
     reset_counts(fa)
     long_report = timed_requests(classify, ctx, fa, long_requests,
                                  {"flash_attention": LONG_LAYERS}, k)
+    long_launches, long_selection = fa.LAUNCH_COUNTS["flash_attention"], dict(fa.SELECTION_COUNTS)
+    long_profile = profile_call(lambda: classify(dict(long_payload), ctx))
     emit({"phase": "long_context", "config": LONG_CTX, "requests": long_report,
-          "launches": fa.LAUNCH_COUNTS["flash_attention"],
-          "selection": dict(fa.SELECTION_COUNTS)})
+          "launches": long_launches, "selection": long_selection,
+          "profile_one_request": long_profile})
+    check_forwards(long_profile, {"flash_fwd_sm90": LONG_LAYERS}, "long-context request")
 
     # 5b. ring
     fold_launches = ring_phase(fa, classify, rt, long_payload, long_report, small_payload, k)
@@ -1820,7 +1906,7 @@ def main(argv=None) -> int:
     B, H, L, D = q.shape
     bool_mask = mask > 0
     serving = kernel_entry(
-        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_attention.cu", MMA_SYNC,
+        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
         "agent_tpu/kernels/flash_attention.py:149", main_launches,
         kernel_check["max_abs_err"], kernel_check["max_rel_err"],
         cuda_ms(lambda: fa.flash_attention(q, k_, v, mask)),

@@ -34,8 +34,7 @@ def _edit(path):
 
 def test_sources_present():
     assert NAMES == ["flash_attention", "flash_attention_bwd"]
-    assert {"flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh",
-            "mma_bf16.cuh"} <= set(HEADERS)
+    assert HEADERS == ["flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh", "sm90_common.cuh"]
 
 
 def _includes(name):
@@ -52,11 +51,44 @@ def test_sm90_kernels_share_one_header_of_primitives():
     assert "flash_bwd_sm90.cuh" in _includes("flash_attention_bwd.cu")
     sources = {p.name: p.read_text() for p in build.SRC_DIR.glob("*.cu*")}
     for primitive in ("mbar_wait", "tma_load", "tma_store", "smem_desc", "wgmma_rs_m64n64",
-                      "wgmma_ss_m64n64", "wgmma_pv", "fence_regs", "ex2", "encode_tiled_fn",
-                      "encode_map"):
+                      "wgmma_ss_m64n64", "wgmma_pv", "fence_regs", "ex2", "pack_f32",
+                      "encode_tiled_fn", "encode_map"):
         defined = [n for n, text in sources.items()
-                   if re.search(rf"\b(?:void|int|float|uint64_t) {primitive}\(", text)]
+                   if re.search(rf"\b(?:void|int|float|uint32_t|uint64_t) {primitive}\(", text)]
         assert defined == ["sm90_common.cuh"], (primitive, defined)
+
+
+def _sources() -> dict:
+    return {p.name: p.read_text() for p in build.SRC_DIR.glob("*.cu*")}
+
+
+def test_no_mma_sync_forward_is_left():
+    """Every bf16 forward (serving, training, the ring's fold, T5) is the TMA
+    + wgmma kernel: the mma.sync forward and its tensor-core helper are gone
+    from every source, and launch_fwd's bf16 branch calls sm90::launch
+    alone."""
+    for name, text in _sources().items():
+        assert "flash_fwd_bf16" not in text and "mma_16816" not in text, name
+        assert "mma.sync" not in text, name
+    text = (build.SRC_DIR / "flash_attention.cu").read_text()
+    body = text[text.index("int launch_fwd("):]
+    bf16 = body[body.index("if (is_bf16) {"):body.index("} else {")]
+    calls = re.findall(r"(\w+(?:::\w+)*)\s*<[^<>]*>\s*\(", bf16)
+    assert calls and set(calls) == {"sm90::launch"}, calls
+    assert "<<<" not in bf16
+
+
+def test_sm90_forward_carries_state_as_a_template_flag():
+    """The ring's fold is flash_fwd_sm90's CarryState instantiation, its
+    launcher has the same flags, and flash_attention_fold reaches it."""
+    text = (build.SRC_DIR / "flash_fwd_sm90.cuh").read_text()
+    assert re.search(r"template <int D, bool WriteLse, bool CarryState, bool RelBias>\s*"
+                     r"__global__ void __launch_bounds__\([^)]*\)\s*flash_fwd_sm90\(", text)
+    assert re.search(r"template <int D, bool WriteLse, bool CarryState, bool RelBias>\s*"
+                     r"int launch\(", text)
+    assert "flash_fwd_sm90<D, WriteLse, CarryState, RelBias>" in text
+    fold = (build.SRC_DIR / "flash_attention.cu").read_text()
+    assert "launch_fwd<false, true>" in fold[fold.index("int flash_attention_fold("):]
 
 
 def test_bf16_backward_has_no_mma_sync_kernel():

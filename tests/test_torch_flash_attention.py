@@ -58,6 +58,12 @@ CASES = {
                              block=512, plain_block=32),
     "d_head_64": dict(shape=dict(D=64, Lk=24, pad_tail=2, seed=6), block=512,
                       plain_block=64),
+    # The CUDA kernel's 128-row block boundaries: Lq 257 (a third block of
+    # one row) against Lk 129 (a third 64-key tile of one key), and one
+    # query row. The reference's Pallas kernel takes both as one tile.
+    "lq257_lk129": dict(shape=dict(Lq=257, Lk=129, pad_tail=29, seed=11), block=512,
+                        plain_block=64),
+    "lq1": dict(shape=dict(Lq=1, Lk=77, pad_tail=72, seed=12), block=512, plain_block=64),
 }
 
 

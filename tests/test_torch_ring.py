@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from agent_tpu.config import DeviceConfig
 from agent_tpu.kernels.flash_attention import flash_fold as pallas_fold
 from agent_tpu.models import encoder as jax_encoder
@@ -135,6 +136,58 @@ def test_fold_dead_row_stays_empty_across_hops(dtype):
     assert (m[1] == -1e9).all() and (l[1] == 0).all() and (acc[1] == 0).all()
     out = acc / np.maximum(l, 1e-30)
     assert np.isfinite(out).all() and (out[1] == 0).all()
+
+
+# The CUDA fold's 128-row block boundaries, hop by hop: (Lq, Lk, key lengths
+# of the first block, of the second). The reference's Pallas fold refuses
+# an Lq that its block does not divide, so the two hops, normalised, are
+# held against its dense attention over both blocks' keys.
+TWO_HOPS = {"lq257_lk129": (257, 129, [129, 100], [129, 60]), "lq1": (1, 77, [77, 5], [40, 77])}
+
+
+@DTYPES
+@pytest.mark.parametrize("case", sorted(TWO_HOPS))
+def test_two_hop_fold_matches_dense_over_both_blocks(case, dtype):
+    lq, lk, *lengths = TWO_HOPS[case]
+    rng = np.random.default_rng(20 + sorted(TWO_HOPS).index(case))
+    q = _rand(rng, 2, 3, lq, 64)
+    blocks = [(_rand(rng, 2, 3, lk, 64), _rand(rng, 2, 3, lk, 64), _mask(n, lk)) for n in lengths]
+    tq = _torch(q, dtype)
+    m, l, acc = fa.initial_state(tq)
+    for k, v, mask in blocks:
+        m, l, acc = fa.flash_fold_reference(tq, _torch(k, dtype), _torch(v, dtype),
+                                            fa.key_keep(_torch(mask, torch.int32)), m, l, acc)
+    got = (acc / torch.clamp_min(l, 1e-30)).numpy()
+    jd = JAX_DTYPE[dtype]
+    k, v, mask = (np.concatenate(parts, axis=-1 if i == 2 else 2)
+                  for i, parts in enumerate(zip(*blocks)))
+    want = jax_layers.dot_product_attention(*(jnp.asarray(x).astype(jd) for x in (q, k, v)),
+                                            jnp.asarray(mask))
+    np.testing.assert_allclose(got, _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@DTYPES
+def test_planted_carry_not_corrected_differs_from_the_fold(dtype):
+    """chip_smoke's planted fault for the fold kernel (tile 0's correction
+    of the carried acc skipped) must fail the check that the kernel passes:
+    from a carried state, with a second block whose keys (scaled by 4) raise
+    every row's max in its first tile, the plain fold matches the Pallas
+    fold and the fault's acc does not."""
+    rng = np.random.default_rng(30)
+    q, state = _carried(rng, dtype)
+    k, v = 4 * _rand(rng, B, H, LK, D), _rand(rng, B, H, LK, D)
+    mask = _mask([LK, 100])
+    got, want = _fold_both(q, k, v, mask, state, dtype)
+    tol = TOL[dtype]
+    for name, g, w in zip("m l acc".split(), got, want):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=name)
+    assert (want[0] > state[0]).all()  # tile 0 raised every row's max
+    fault = chip_smoke.carry_not_corrected(
+        fa, _torch(q, dtype), _torch(k, dtype), _torch(v, dtype),
+        fa.key_keep(_torch(mask, torch.int32)), *(_torch(x) for x in state))
+    np.testing.assert_allclose(_np(fault[0]), want[0], rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(fault[1]), want[1], rtol=tol, atol=tol)
+    assert not np.allclose(_np(fault[2]), want[2], rtol=tol, atol=tol)
 
 
 def test_flash_fold_routes_cpu_tensors_to_plain_version():

@@ -1,0 +1,289 @@
+"""Pipelined drain — counterpart of ``agent_tpu.agent.pipeline``: host-side
+double buffering around the device loop.
+
+The serial loop pays, per task, lease RTT -> CSV read + tokenize/pad ->
+device compute -> serialize + result RTT on one thread, so the device idles
+while the host stages and posts. This runner overlaps them:
+
+- **staging pool** (``data/staging.py``): a feeder thread owns the lease
+  loop and N autotuned workers run op ``stage`` phases (pure host) into a
+  bounded queue of depth ``pipeline_depth`` — the backpressure that keeps
+  staging about one shard ahead of the device;
+- **device (calling) thread**: pops staged work and runs the op's
+  ``execute`` phase; every device dispatch stays on this one thread. With
+  ``FEED_DOUBLE_BUFFER`` (default on) it first *pre-feeds* the next staged
+  item: ``runtime.put_batch`` queues its host-to-device copies, and the op's
+  own ``put_batch`` later passes the placed tensors through;
+- **poster thread**: runs ``finalize`` and posts the result over its own
+  session. The model ops' execute queues their result's copy to the host
+  and records an event after it (``runtime.HostCopy``), so finalize waits
+  for that shard's copy alone, not for the next shard the device thread has
+  already queued. The bounded post queue caps how many such shards are in
+  flight.
+
+Ops advertise phases as attributes on their registered handler
+(``fn.stage/.execute/.finalize``); ops without them run whole on the device
+thread, so the pipeline is safe for every op. Results may post out of task
+order; the protocol keys them by ``job_id``. The reference's serving hooks
+(``serve_admit``/``serve_pump``) and spans are not ported yet.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from agent_tpu_torch.utils.errors import structured_error
+from agent_tpu_torch.utils.logging import log
+
+
+@dataclass
+class _Item:
+    """One leased task moving through the pipeline."""
+
+    lease_id: str
+    job_id: str
+    epoch: Any
+    op: str
+    payload: Dict[str, Any]
+    ctx: Any
+    t_start: float
+    fn: Any = None
+    staged: Any = None            # op state between stage and execute
+    executed: Any = None          # op state between execute and finalize
+    result: Any = None            # terminal result (skips later phases)
+    status: str = "succeeded"
+    error: Any = None
+    monolithic: bool = False      # op has no phase hooks
+
+
+_STOP = object()
+
+# How long a shutting-down device thread keeps waiting for the poster to free
+# a post-queue slot before giving up (wedged-poster escape; see _put_post).
+SHUTDOWN_GRACE_SEC = 30.0
+
+
+class PipelineRunner:
+    """Owns the staging pool and the poster thread around the caller's
+    device loop. ``run()`` blocks until ``agent.running`` flips false, then
+    drains both queues so no staged task is dropped."""
+
+    def __init__(self, agent, depth: int = 2) -> None:
+        from agent_tpu_torch.data.staging import StagingPool
+
+        self.agent = agent
+        self.depth = max(1, depth)
+        self.staged_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        # Bounded like staged_q: every queued item holds a shard's device
+        # result, so this bound caps the device memory in flight.
+        self.post_q: "queue.Queue" = queue.Queue(maxsize=self.depth + 1)
+        self.pool = StagingPool(agent, self.staged_q, self._stage_one, _STOP,
+                                base_depth=self.depth)
+        self.double_buffer = agent.config.agent.feed_double_buffer
+        agent.staged_depth_fn = self.pool.backlog
+        self.tasks_posted = 0
+        self._peeked: Any = None
+        self._poster = threading.Thread(target=self._post_loop, name="agent-poster",
+                                        daemon=True)
+
+    # ---- staging (the pool's worker threads) ----
+
+    def _stage_one(self, lease_id: str, task: Any) -> Optional[_Item]:
+        agent = self.agent
+        t0 = time.perf_counter()
+        job_id, op, payload, epoch, fn, resolve_error = agent.resolve_task(task)
+        if resolve_error is not None:
+            if job_id is None:
+                return None
+            return _Item(lease_id, job_id, epoch, op, {}, None, t0,
+                         status="failed", error=resolve_error)
+        attempt = task.get("attempt") if isinstance(task, dict) else None
+        item = _Item(lease_id, job_id, epoch, op, payload,
+                     agent.op_context(job_id, lease_id=lease_id, attempt=attempt), t0, fn=fn)
+        stage = getattr(fn, "stage", None)
+        if stage is None:
+            item.monolithic = True
+            return item
+        try:
+            phase, value = stage(payload, item.ctx)
+        except Exception as exc:  # noqa: BLE001 — same contract as run_task
+            item.status = "failed"
+            item.error = structured_error(exc)
+            agent.rate.log("exec", "stage raised", op=op, type=type(exc).__name__)
+            return item
+        agent.m_phase.observe(time.perf_counter() - t0, exemplar={"trace_id": job_id},
+                              op=op, phase="stage")
+        if phase == "done":
+            item.result = value
+        else:
+            item.staged = value
+        return item
+
+    # ---- device (calling) thread ----
+
+    def _put_post(self, item: Any) -> bool:
+        """Blocking put into the bounded post queue (the backpressure that
+        caps in-flight shards). Escapes: a dead poster, or a shutdown whose
+        poster has stopped draining for SHUTDOWN_GRACE_SEC."""
+        waited = 0.0
+        while True:
+            try:
+                self.post_q.put(item, timeout=0.5)
+                self.agent.m_queue.set(self.post_q.qsize(), queue="post")
+                return True
+            except queue.Full:
+                if not self._poster.is_alive():
+                    return False  # the lease TTL re-queues the task
+                if self.agent.running:
+                    waited = 0.0
+                    continue
+                waited += 0.5
+                if waited >= SHUTDOWN_GRACE_SEC:
+                    return False
+
+    def _prefeed(self, item: Any) -> None:
+        """Queue the NEXT item's host-to-device copies before the current
+        item's execute. Only the staged-chunk layout ``state["chunks"] =
+        [(ids, lengths, n), ...]`` of numpy arrays is pre-fed; anything else
+        is left alone. Purely an optimization: it never fails an item."""
+        runtime = self.agent.runtime
+        if (runtime is None or item.monolithic or item.staged is None
+                or item.result is not None or item.status == "failed"):
+            return
+        state = item.staged
+        chunks = state.get("chunks") if isinstance(state, dict) else None
+        if not isinstance(chunks, list):
+            return
+        try:
+            fed = []
+            for chunk in chunks:
+                if (isinstance(chunk, (tuple, list)) and len(chunk) == 3
+                        and isinstance(chunk[0], np.ndarray)
+                        and isinstance(chunk[1], np.ndarray)):
+                    fed.append((runtime.put_batch(chunk[0]), runtime.put_batch(chunk[1]),
+                                chunk[2]))
+                else:
+                    fed.append(chunk)
+            state["chunks"] = fed
+        except Exception:  # noqa: BLE001 — the op puts the batch itself anyway
+            pass
+
+    def _execute_loop(self) -> None:
+        agent = self.agent
+        pending: Any = None
+        try:
+            while True:
+                if pending is not None:
+                    item, pending = pending, None
+                else:
+                    # Time blocked here is device idle; time inside the op
+                    # dispatch is device busy.
+                    t_wait = time.perf_counter()
+                    item = self.staged_q.get()
+                    agent.m_device_idle.inc(time.perf_counter() - t_wait)
+                if item is _STOP:
+                    break
+                self._execute_item(item)
+                pending, self._peeked = self._peeked, None
+        finally:
+            self._put_post(_STOP)
+
+    def _execute_item(self, item: Any) -> None:
+        agent = self.agent
+        agent.m_queue.set(self.staged_q.qsize(), queue="staged")
+        if item.result is not None or item.status == "failed":
+            self._put_post(item)
+            return
+        if self.double_buffer:
+            # Peek ahead: take the next staged item (if any) and queue its
+            # copies now; the loop consumes it next, so it is never lost.
+            try:
+                peeked = self.staged_q.get_nowait()
+            except queue.Empty:
+                peeked = None
+            if peeked is not None and peeked is not _STOP:
+                self._prefeed(peeked)
+            self._peeked = peeked
+        t_exec = time.perf_counter()
+        try:
+            if item.monolithic:
+                item.result = item.fn(item.payload, item.ctx)
+            else:
+                item.executed = item.fn.execute(item.staged, item.ctx)
+        except Exception as exc:  # noqa: BLE001 — op error -> failed
+            item.status = "failed"
+            item.error = structured_error(exc)
+            agent.rate.log("exec", "op raised", op=item.op, type=type(exc).__name__)
+        dt = time.perf_counter() - t_exec
+        agent.note_device_time(item.op, dt)
+        agent.m_phase.observe(dt, exemplar={"trace_id": item.job_id}, op=item.op,
+                              phase="execute")
+        self._put_post(item)
+
+    # ---- poster thread ----
+
+    def _post_loop(self) -> None:
+        from agent_tpu_torch.agent.app import _default_session
+
+        agent = self.agent
+        factory = agent.post_session_factory
+        session = factory() if factory is not None else _default_session()
+        while True:
+            item = self.post_q.get()
+            if item is _STOP:
+                # One last redelivery pass past the backoff window.
+                agent.flush_spool(session=session, force=True)
+                break
+            agent.m_queue.set(self.post_q.qsize(), queue="post")
+            t_fin = time.perf_counter()
+            try:
+                if item.executed is not None:
+                    item.result = item.fn.finalize(item.executed, item.ctx)
+            except Exception as exc:  # noqa: BLE001
+                item.status = "failed"
+                item.error = structured_error(exc)
+                item.result = None
+            finalize_s = time.perf_counter() - t_fin
+            agent.m_phase.observe(finalize_s, exemplar={"trace_id": item.job_id},
+                                  op=item.op, phase="finalize")
+            if item.ctx is not None:
+                timings = item.ctx.tags.setdefault("timings", {})
+                timings["finalize_ms"] = round(finalize_s * 1000.0, 3)
+                # stage/execute/finalize were measured by the runner's
+                # threads; queue and fetch come from the op's own timings.
+                agent.record_phase_timings(item.op, timings, keys=("queue_ms", "fetch_ms"))
+            agent.finish_result(item.result, item.ctx,
+                                (time.perf_counter() - item.t_start) * 1000.0)
+            agent.post_result(item.lease_id, item.job_id, item.epoch, item.status,
+                              result=item.result, error=item.error, session=session,
+                              op=item.op)
+            agent.flush_spool(session=session)
+            self.tasks_posted += 1
+            agent.tasks_done += 1
+            agent.m_tasks.inc(op=item.op, status=item.status)
+            agent.note_progress(queues={"staged_q": self.staged_q.qsize(),
+                                        "post_q": self.post_q.qsize()})
+
+    # ---- lifecycle ----
+
+    def run(self) -> None:
+        log("pipelined drain up", depth=self.depth, stage_workers=self.pool.max_workers,
+            autotune=self.pool.autotune, double_buffer=self.double_buffer)
+        self.pool.start()
+        self._poster.start()
+        try:
+            self._execute_loop()  # device work stays on the caller's thread
+        finally:
+            self.agent.running = False
+            self.pool.join(timeout=30)
+            # Tasks still queued for staging are handed back when draining.
+            self.pool.release_pending()
+            self._poster.join(timeout=30)
+            self.agent.push_metrics()
+        log("pipelined drain stopped", tasks_posted=self.tasks_posted)

@@ -1,0 +1,169 @@
+"""Typed configuration of the port's agent — the part of ``agent_tpu.config``
+that the agent loop reads, with the same environment variable names and
+defaults, read once in ``Config.from_env()`` and never at import.
+
+``AgentConfig`` holds the control-plane knobs (controller, timeouts, idle
+sleep and backoff, ``TASKS``, ``MAX_TASKS``, labels, the pipeline, the
+binary wire, retry and the result spool); ``SizingConfig`` the host-sizing
+knobs of ``sizing.profile``. The reference's ``DeviceConfig`` knobs and its
+``CONTROLLER_URLS`` failover list are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
+
+DEFAULT_CONTROLLER_URL = "http://10.11.12.54:8080"  # the reference's default
+TRUTHY_TOKENS = ("1", "true", "yes", "on", "y")
+
+
+def env_str(name: str, default: str) -> str:
+    v = os.environ.get(name)
+    return v if v is not None and v != "" else default
+
+
+def env_int(name: str, default: int) -> int:
+    """Forgiving int parse: a bad value falls back to the default."""
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(float(v))
+    except (TypeError, ValueError):
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return default
+
+
+def env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() in TRUTHY_TOKENS
+
+
+def parse_labels(raw: str) -> Dict[str, Any]:
+    """``"k=v,k2=v2,flag"`` -> ``{"k": "v", "k2": "v2", "flag": True}``."""
+    labels: Dict[str, Any] = {}
+    for tok in (raw or "").split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if "=" in tok:
+            k, _, v = tok.partition("=")
+            k, v = k.strip(), v.strip()
+            if k:
+                labels[k] = v
+        else:
+            labels[tok] = True
+    return labels
+
+
+def parse_tasks(raw: str) -> Tuple[str, ...]:
+    """TASKS env -> ordered de-duplicated op names; the ``*``/``all``/``none``
+    sentinels stay verbatim for the registry gate to resolve."""
+    seen = []
+    for tok in (raw or "").split(","):
+        tok = tok.strip()
+        if tok and tok not in seen:
+            seen.append(tok)
+    return tuple(seen)
+
+
+@dataclass(frozen=True)
+class AgentConfig:
+    """Control-plane configuration."""
+
+    controller_url: str = DEFAULT_CONTROLLER_URL
+    agent_name: str = field(default_factory=socket.gethostname)
+    http_timeout_sec: float = 10.0
+    idle_sleep_sec: float = 0.25
+    max_tasks: int = 1
+    lease_timeout_ms: int = 3000
+    error_log_every_sec: float = 10.0
+    error_backoff_sec: float = 1.0
+    tasks: Tuple[str, ...] = ("echo", "map_classify_tpu")
+    labels: Dict[str, Any] = field(default_factory=dict)
+    # Staged-task queue depth between the staging pool and the device loop;
+    # 0 = the serial loop.
+    pipeline_depth: int = 2                   # PIPELINE_DEPTH
+    stage_workers: int = 0                    # STAGE_WORKERS (0 = auto)
+    stage_autotune: bool = True               # STAGE_AUTOTUNE
+    feed_double_buffer: bool = True           # FEED_DOUBLE_BUFFER
+    wire_binary: bool = True                  # WIRE_BINARY (offer "b1")
+    retry_base_sec: float = 0.5               # RETRY_BASE_SEC
+    retry_max_sec: float = 30.0               # RETRY_MAX_SEC
+    retry_deadline_sec: float = 0.0           # RETRY_DEADLINE_SEC (0 = none)
+    result_spool_path: str = ""               # RESULT_SPOOL_PATH ("" = memory)
+    result_spool_max: int = 512               # RESULT_SPOOL_MAX
+
+    @staticmethod
+    def from_env() -> "AgentConfig":
+        return AgentConfig(
+            controller_url=env_str("CONTROLLER_URL", DEFAULT_CONTROLLER_URL).rstrip("/"),
+            agent_name=env_str("AGENT_NAME", socket.gethostname()),
+            http_timeout_sec=env_float("HTTP_TIMEOUT_SEC", 10.0),
+            idle_sleep_sec=env_float("IDLE_SLEEP_SEC", 0.25),
+            max_tasks=max(1, env_int("MAX_TASKS", 1)),
+            lease_timeout_ms=env_int("LEASE_TIMEOUT_MS", 3000),
+            error_log_every_sec=env_float("ERROR_LOG_EVERY_SEC", 10.0),
+            error_backoff_sec=env_float("ERROR_BACKOFF_SEC", 1.0),
+            tasks=parse_tasks(env_str("TASKS", "echo,map_classify_tpu")),
+            labels=parse_labels(os.environ.get("AGENT_LABELS", "")),
+            pipeline_depth=max(0, env_int("PIPELINE_DEPTH", 2)),
+            stage_workers=max(0, env_int("STAGE_WORKERS", 0)),
+            stage_autotune=env_bool("STAGE_AUTOTUNE", True),
+            feed_double_buffer=env_bool("FEED_DOUBLE_BUFFER", True),
+            wire_binary=env_bool("WIRE_BINARY", True),
+            retry_base_sec=env_float("RETRY_BASE_SEC", 0.5),
+            retry_max_sec=env_float("RETRY_MAX_SEC", 30.0),
+            retry_deadline_sec=env_float("RETRY_DEADLINE_SEC", 0.0),
+            result_spool_path=env_str("RESULT_SPOOL_PATH", ""),
+            result_spool_max=max(1, env_int("RESULT_SPOOL_MAX", 512)),
+        )
+
+
+@dataclass(frozen=True)
+class SizingConfig:
+    """Host-sizing knobs of ``sizing.profile.detect_cpu``."""
+
+    cpu_reserved_cores_floor: int = 1
+    cpu_reserved_cores_cap: int = 4
+    cpu_pipeline_factor: float = 4.0
+    cpu_min_workers: int = 1
+    cpu_soft_cap_multiplier: int = 8
+    cpu_per_worker_bytes: int = 32 * 1024 * 1024
+
+    @staticmethod
+    def from_env() -> "SizingConfig":
+        return SizingConfig(
+            cpu_reserved_cores_floor=env_int("CPU_RESERVED_CORES_FLOOR", 1),
+            cpu_reserved_cores_cap=env_int("CPU_RESERVED_CORES_CAP", 4),
+            cpu_pipeline_factor=env_float("CPU_PIPELINE_FACTOR", 4.0),
+            cpu_min_workers=env_int("CPU_MIN_WORKERS", 1),
+            cpu_soft_cap_multiplier=env_int("CPU_SOFT_CAP_MULTIPLIER", 8),
+            cpu_per_worker_bytes=env_int("CPU_PER_WORKER_BYTES", 32 * 1024 * 1024),
+        )
+
+
+@dataclass(frozen=True)
+class Config:
+    """The agent's whole configuration."""
+
+    agent: AgentConfig = field(default_factory=AgentConfig)
+    sizing: SizingConfig = field(default_factory=SizingConfig)
+
+    @staticmethod
+    def from_env() -> "Config":
+        return Config(agent=AgentConfig.from_env(), sizing=SizingConfig.from_env())

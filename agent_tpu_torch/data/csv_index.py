@@ -1,0 +1,211 @@
+"""Quote-aware byte-offset row index for CSV files — the port's copy of
+``agent_tpu.data.csv_index``, with the same error contract.
+
+Design: one linear scan per file builds ``offsets[i]`` = byte offset of the
+start of row ``i`` (row 0 is the header), honoring RFC-4180 quoting so newlines
+inside quoted fields do not split rows. Shards then become ``file.seek`` +
+one bounded read — O(shard bytes) regardless of position, which is what lets
+the host side keep the card fed.
+
+The scan itself prefers the native C++ scanner (``agent_tpu_torch.data.native``),
+falling back to the numpy chunked scanner transparently.
+"""
+
+from __future__ import annotations
+
+import csv
+import io
+import os
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+_CHUNK = 1 << 20  # 1 MiB scan chunks
+
+# Default rows per shard — the single definition every shard-addressed op
+# shares.
+DEFAULT_SHARD_SIZE = 100
+
+
+def _scan_row_offsets_py(path: str) -> np.ndarray:
+    """Vectorized quote-aware scan → int64 array of row-start offsets.
+
+    Per chunk: numpy finds every quote and newline position at once; the
+    number of quotes *before* each newline (``searchsorted``) plus the
+    carried-in quote parity decides which newlines are row boundaries —
+    a '"' inside a quoted field has odd parity and is skipped.
+    """
+    parts: List[np.ndarray] = [np.zeros(1, dtype=np.int64)]
+    quote_parity = 0  # quotes seen so far, mod 2, carried across chunks
+    pos = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(_CHUNK)
+            if not chunk:
+                break
+            arr = np.frombuffer(chunk, dtype=np.uint8)
+            q_idx = np.flatnonzero(arr == 0x22)  # '"'
+            n_idx = np.flatnonzero(arr == 0x0A)  # '\n'
+            if n_idx.size:
+                quotes_before = np.searchsorted(q_idx, n_idx, side="left")
+                outside = ((quotes_before + quote_parity) % 2) == 0
+                parts.append(n_idx[outside].astype(np.int64) + pos + 1)
+            quote_parity = (quote_parity + q_idx.size) % 2
+            pos += len(chunk)
+    offsets = np.concatenate(parts)
+    # Drop a trailing offset pointing at EOF (file ends with newline).
+    if len(offsets) > 1 and offsets[-1] >= pos:
+        offsets = offsets[:-1]
+    return offsets
+
+
+def _scan_row_offsets(path: str) -> np.ndarray:
+    try:
+        from agent_tpu_torch.data.native import scan_row_offsets_native
+
+        out = scan_row_offsets_native(path)
+        if out is not None:
+            return out
+    except Exception:  # noqa: BLE001 — native path is best-effort by design
+        pass
+    return _scan_row_offsets_py(path)
+
+
+@dataclass(frozen=True)
+class _Key:
+    path: str
+    size: int
+    mtime_ns: int
+
+
+class CsvIndex:
+    """Per-file row index with process-wide caching.
+
+    The cache is keyed by (path, size, mtime) so a rewritten file re-indexes.
+    """
+
+    _cache: Dict[_Key, "CsvIndex"] = {}
+    _lock = threading.Lock()
+
+    def __init__(self, path: str, offsets: np.ndarray, size: int) -> None:
+        self.path = path
+        self.offsets = offsets  # row-start byte offsets; row 0 = header
+        self.size = size
+
+    @classmethod
+    def for_file(cls, path: str) -> "CsvIndex":
+        st = os.stat(path)
+        key = _Key(os.path.abspath(path), st.st_size, st.st_mtime_ns)
+        with cls._lock:
+            idx = cls._cache.get(key)
+        if idx is not None:
+            return idx
+        offsets = _scan_row_offsets(path)
+        idx = cls(path, offsets, st.st_size)
+        with cls._lock:
+            if len(cls._cache) > 64:  # bound memory; files are re-indexable
+                cls._cache.clear()
+            cls._cache[key] = idx
+        return idx
+
+    @property
+    def n_data_rows(self) -> int:
+        """Rows excluding the header line."""
+        return max(0, len(self.offsets) - 1)
+
+    def header(self) -> List[str]:
+        raw = self._read_range(0, 1)
+        return next(csv.reader(io.StringIO(raw)), [])
+
+    def _read_range(self, start_row: int, n_rows: int) -> str:
+        """Read the raw bytes spanning rows [start_row, start_row + n_rows)."""
+        if n_rows <= 0 or start_row >= len(self.offsets):
+            return ""
+        begin = int(self.offsets[start_row])
+        end_idx = start_row + n_rows
+        end = int(self.offsets[end_idx]) if end_idx < len(self.offsets) else self.size
+        with open(self.path, "rb") as f:
+            f.seek(begin)
+            return f.read(end - begin).decode("utf-8", errors="replace")
+
+    def read_dict_rows(self, start_row: int, shard_size: int) -> List[Dict[str, str]]:
+        """Data rows [start_row, start_row+shard_size) as dicts (header keys).
+
+        ``start_row`` counts data rows from 0 (``csv.DictReader`` semantics).
+        """
+        start_row = max(0, start_row)
+        n = min(shard_size, self.n_data_rows - start_row)
+        if n <= 0:
+            return []
+        header = self.header()
+        body = self._read_range(start_row + 1, n)  # +1: skip header row
+        reader = csv.reader(io.StringIO(body))
+        return [dict(zip(header, row)) for row in reader]
+
+
+def read_shard(path: str, start_row: int, shard_size: int) -> List[Dict[str, str]]:
+    return CsvIndex.for_file(path).read_dict_rows(start_row, shard_size)
+
+
+def resolve_shard_payload(payload: Dict) -> Tuple[str, int, int]:
+    """Validate the shared CSV-shard payload keys → (path, start_row,
+    shard_size); raises ValueError on bad input.
+
+    One definition of the shard-addressing contract for every op that accepts
+    it (``read_csv_shard`` and the drain mode of the model ops).
+    """
+    source_uri = payload.get("source_uri")
+    if not isinstance(source_uri, str) or not source_uri:
+        raise ValueError("source_uri is required and must be a non-empty string")
+    start_row = payload.get("start_row", 0)
+    if isinstance(start_row, bool) or not isinstance(start_row, int) or start_row < 0:
+        raise ValueError("start_row must be a non-negative int")
+    shard_size = payload.get("shard_size", DEFAULT_SHARD_SIZE)
+    if isinstance(shard_size, bool) or not isinstance(shard_size, int) or shard_size <= 0:
+        raise ValueError("shard_size must be a positive int")
+    path = source_uri[len("file://"):] if source_uri.startswith("file://") else source_uri
+    return path, start_row, shard_size
+
+
+def count_rows(path: str) -> int:
+    return CsvIndex.for_file(path).n_data_rows
+
+
+def read_shard_column(
+    payload: Dict, field_payload_key: str, default_field: str
+) -> List[str]:
+    """Shard-addressed payload → one column of the shard, for drain-mode ops
+    (classify, summarize, and risk_accumulate must treat the same CSV
+    identically).
+
+    ``field_payload_key`` names the payload key that selects the column
+    (``"text_field"`` for the text ops, ``"field"`` for risk_accumulate).
+
+    Error contract: malformed payload keys raise ValueError (deterministic
+    caller error → soft ``bad_input``); shard-level integrity problems (empty
+    shard, missing column) raise RuntimeError and I/O problems raise OSError —
+    both must surface as *failed* task results so the controller retries and
+    then visibly fails, never as soft results that drop the shard's rows.
+    """
+    field = payload.get(field_payload_key, default_field)
+    if not isinstance(field, str) or not field:
+        raise ValueError(f"{field_payload_key} must be a non-empty string")
+    path, start_row, shard_size = resolve_shard_payload(payload)
+    rows = read_shard(path, start_row, shard_size)
+    if not rows:
+        raise RuntimeError(
+            f"shard [{start_row}, {start_row + shard_size}) of {path!r} is empty"
+        )
+    missing = sum(1 for r in rows if field not in r)
+    if missing:
+        raise RuntimeError(
+            f"column {field!r} missing from {missing} rows of {path!r}"
+        )
+    return [r[field] for r in rows]
+
+
+def read_shard_texts(payload: Dict, default_field: str = "text") -> List[str]:
+    """The text-op flavor of :func:`read_shard_column` (``text_field`` key)."""
+    return read_shard_column(payload, "text_field", default_field)

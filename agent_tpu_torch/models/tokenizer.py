@@ -1,16 +1,18 @@
-"""Byte tokenization and bucketed padding for the classify and summarize
-paths.
+"""Tokenization and bucketed padding for the classify and summarize paths
+and ``map_tokenize``.
 
 A copy of the part of ``agent_tpu.models.tokenizer`` that the ported ops
-use: the byte vocabulary's specials, ``ByteTokenizer``, the length buckets,
-the fused byte-tokenize-and-pad (``byte_encode_pad``, with BOS/EOS and its
-``raw_uint8`` wire) and ``pad_batch`` for pre-tokenized ids. The
-wordpiece/BPE tokenizers are not part of the port yet.
+use: the byte vocabulary's specials, ``ByteTokenizer``, the wordpiece
+tokenizer over a local vocab file (loading and encoding), the length
+buckets, the fused byte-tokenize-and-pad (``byte_encode_pad``, with BOS/EOS
+and its ``raw_uint8`` wire), ``pad_batch`` for pre-tokenized ids and the
+``get_tokenizer`` factory. The BPE tokenizer is not part of the port yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,6 +21,7 @@ BOS_ID = 1
 EOS_ID = 2
 UNK_ID = 3
 N_SPECIAL = 4  # <pad>, <bos>, <eos>, <unk>; byte b has id b + N_SPECIAL
+SPECIAL_TOKENS = ("<pad>", "<bos>", "<eos>", "<unk>")
 
 # Powers of two and their midpoints, so a row pads by at most ~1.5x.
 DEFAULT_BUCKETS = (
@@ -44,6 +47,88 @@ class ByteTokenizer:
     def decode(self, ids: Sequence[int]) -> str:
         raw = bytes(i - N_SPECIAL for i in ids if i >= N_SPECIAL)
         return raw.decode("utf-8", errors="replace")
+
+
+_WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
+
+
+class WordPieceTokenizer:
+    """Greedy longest-match wordpiece (BERT-style ``##`` continuations) over
+    a vocab file: one token per line, id = line number."""
+
+    pad_id, bos_id, eos_id, unk_id = PAD_ID, BOS_ID, EOS_ID, UNK_ID
+
+    def __init__(self, vocab: Dict[str, int], lowercase: bool = True,
+                 max_word_chars: int = 64) -> None:
+        self.vocab = vocab
+        self.lowercase = lowercase
+        self.max_word_chars = max_word_chars
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @classmethod
+    def from_file(cls, path: str, lowercase: bool = True) -> "WordPieceTokenizer":
+        vocab: Dict[str, int] = {}
+        with open(path, "r", encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        return cls(vocab=vocab, lowercase=lowercase)
+
+    def _encode_word(self, word: str) -> List[int]:
+        if len(word) > self.max_word_chars:
+            return [self.unk_id]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            piece_id = None
+            while end > start:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                pid = self.vocab.get(piece)
+                if pid is not None:
+                    piece_id = pid
+                    break
+                end -= 1
+            if piece_id is None:
+                return [self.unk_id]
+            ids.append(piece_id)
+            start = end
+        return ids
+
+    def encode(self, text: str, add_bos: bool = False, add_eos: bool = False) -> List[int]:
+        if self.lowercase:
+            text = text.lower()
+        ids: List[int] = []
+        if add_bos:
+            ids.append(self.bos_id)
+        for w in _WORD_RE.findall(text):
+            ids.extend(self._encode_word(w))
+        if add_eos:
+            ids.append(self.eos_id)
+        return ids
+
+
+def get_tokenizer(kind: str = "byte", vocab_path: Optional[str] = None):
+    """``byte`` (default) or ``wordpiece`` (needs a vocab.txt path); ``bpe``
+    is refused until the port has the BPE tokenizer. ValueError for a bad
+    kind or a missing path; OSError when the vocab does not open."""
+    if kind == "byte":
+        return ByteTokenizer()
+    if kind == "wordpiece":
+        if vocab_path:
+            return WordPieceTokenizer.from_file(vocab_path)
+        raise ValueError("wordpiece tokenizer requires vocab_path")
+    if kind == "bpe":
+        if vocab_path:
+            raise ValueError("the bpe tokenizer is not supported by agent_tpu_torch yet")
+        raise ValueError(
+            "bpe tokenizer requires vocab_path (dir with vocab.json + merges.txt)"
+        )
+    raise ValueError(f"unknown tokenizer kind {kind!r}")
 
 
 def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:

@@ -23,10 +23,21 @@ OPS_LOAD_ERRORS: List[Tuple[str, str]] = []
 
 # Op name -> submodule of agent_tpu_torch.ops (the ops ported so far).
 OP_TO_MODULE: Dict[str, str] = {
+    "echo": "echo",
+    "map_tokenize": "map_tokenize",
+    "read_csv_shard": "csv_shard",
+    "trigger_sap": "trigger_sap",
+    "trigger_oracle": "trigger_oracle",
+    "risk_accumulate": "risk_accumulate",
     "map_classify_tpu": "map_classify_tpu",
     "map_summarize": "map_summarize",
     "train_classifier": "train_classifier",
 }
+
+# The ops that need a device runtime: an agent serving any of them builds
+# the runtime at start (and fails there without CUDA); an agent of the other
+# ops, which run on the host, never builds one.
+DEVICE_OPS = frozenset({"map_classify_tpu", "map_summarize", "train_classifier"})
 
 _imported: Dict[str, bool] = {}
 _lock = threading.Lock()

@@ -2,22 +2,29 @@
 ``agent_tpu.ops.map_classify_tpu`` with the same op name, phases, payload
 and result contract.
 
-- Payload: ``input`` (flat token ids), ``text`` or ``texts``, plus
+- Payload: ``input`` (flat token ids), ``text`` or ``texts``, or CSV shard
+  addressing (``source_uri`` + ``start_row``/``shard_size`` + optional
+  ``text_field``, read with ``data.csv_index.read_shard_texts``), plus
   ``topk`` (default 5), ``model_path``, ``model_config``, ``result_format``
   (``rows`` | ``columnar``), ``output_uri`` / ``start_row`` and
   ``allow_fallback``.
 - Result: ``{ok, op, model_path, device, n_rows, elapsed_ms, topk}`` (plus
-  ``results`` per row for ``texts``, or ``indices``/``scores`` columns, or
-  an ``output_path`` receipt); caller errors come back as soft
-  ``bad_input`` results.
+  ``results`` per row for ``texts``, or ``indices``/``scores`` columns —
+  as a ``b1`` blob when the agent negotiated the binary wire — or an
+  ``output_path`` receipt); caller errors come back as soft ``bad_input``
+  results. A shard that cannot be read, or lacks its column, raises, so the
+  task fails and the controller retries it.
 - ``allow_fallback`` is accepted and has no effect: unlike the reference,
   the port never retries a request on the CPU. A failure on the card (a
   kernel that does not build or launch, a lost device) raises and fails the
   request; the CPU runs only when the caller's runtime is a CPU one.
 
 Rows batch into bucketed shapes, and the forward for each (model, batch,
-length, k, config) is built once per runtime. Top-k runs on the device and
-the host fetches one packed ``[B, k, 2]`` array per request.
+length, k, config) is built once per runtime. Top-k runs on the device;
+execute queues the copy of one packed ``[B, k, 2]`` array per request to
+the host (``runtime.HostCopy``), and finalize waits for that copy alone, so
+in the agent's pipeline the poster thread does not wait for the next
+shard's forward.
 
 On a runtime whose mesh has ``sp`` > 1 every layer attends through ring
 attention (``runtime.attention_fn()``). Nothing else changes: an sp mesh
@@ -26,8 +33,8 @@ belongs to the runtime, whose attention function is fixed, so its keys
 need no mesh.
 
 Not ported yet, each rejected with a ``bad_input`` that names it:
-``source_uri`` CSV addressing, HF-checkpoint ``model_path`` (BERT family),
-``quant`` other than ``none``, ``pp`` > 1 and ``moe_experts`` > 0.
+HF-checkpoint ``model_path`` (BERT family), ``quant`` other than ``none``,
+``pp`` > 1 and ``moe_experts`` > 0.
 """
 
 from __future__ import annotations
@@ -65,7 +72,9 @@ def _get_cfg(payload: Dict[str, Any]):
 def _collect_sequences(payload: Dict[str, Any], cfg) -> Tuple[List, str, bool]:
     """Payload -> (items, kind, was_single_input); kind ``"ids"`` (token-id
     lists) or ``"texts"``. Precedence: ``input``, then ``texts``, then
-    ``text``."""
+    ``text``, then ``source_uri``. A malformed shard address raises
+    ValueError (a soft ``bad_input``); an unreadable shard raises
+    RuntimeError or OSError (the task fails)."""
     if "input" in payload:
         raw = payload["input"]
         if not isinstance(raw, list) or not raw:
@@ -85,15 +94,19 @@ def _collect_sequences(payload: Dict[str, Any], cfg) -> Tuple[List, str, bool]:
         texts = [payload["text"]]
         single = True
     if texts is None and "source_uri" in payload:
-        raise ValueError("source_uri CSV shard addressing is not supported by "
-                         "agent_tpu_torch yet")
+        from agent_tpu_torch.data.csv_index import read_shard_texts
+
+        texts = read_shard_texts(payload)
     if texts is not None:
         if not isinstance(texts, list) or not texts or not all(
             isinstance(t, str) for t in texts
         ):
             raise ValueError("texts must be a non-empty list of strings")
         return texts, "texts", single
-    raise ValueError("payload requires 'input' (token ids) or 'text'/'texts'")
+    raise ValueError(
+        "payload requires 'input' (token ids), 'text'/'texts', or "
+        "'source_uri' CSV shard addressing"
+    )
 
 
 def _stage_chunks(items: List, kind: str, cfg) -> List[Tuple]:
@@ -154,10 +167,12 @@ def _make_forward(L: int, k: int, attn_fn):
 
 
 def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
-    """Device phase -> the pending device result, fetched by finalize: one
-    ``(packed, n)`` entry, or ``("cat", packed, layout)`` when several
-    dispatch chunks were concatenated on the device."""
+    """Device phase -> the pending result, its copy to the host queued
+    (``HostCopy``) and waited for by finalize: one ``(packed, n)`` entry, or
+    ``("cat", packed, layout)`` when several dispatch chunks were
+    concatenated on the device."""
     from agent_tpu_torch.ops._model_common import cfg_key
+    from agent_tpu_torch.runtime.runtime import HostCopy
 
     model = runtime.get_params(
         f"{model_id}#encoder#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}",
@@ -172,14 +187,12 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
                 ("map_classify_tpu", model_id, B, L, k, cfg_key(cfg)),
                 lambda L=L: _make_forward(L, k, attn_fn),
             )
-            if ids.dtype == np.uint16:
-                ids = ids.astype(np.int32)  # torch's uint16 support is thin
             pending.append((fn(model, runtime.put_batch(ids),
                                runtime.put_batch(lengths)), n))
         if len(pending) > 1:
             packed = torch.cat([p for p, _ in pending], dim=0)
-            pending = [("cat", packed, [(p.shape[0], n) for p, n in pending])]
-    return pending
+            return [("cat", HostCopy(packed), [(p.shape[0], n) for p, n in pending])]
+    return [(HostCopy(packed), n) for packed, n in pending]
 
 
 def _fetch_pending(pending) -> Tuple[np.ndarray, np.ndarray]:
@@ -188,7 +201,7 @@ def _fetch_pending(pending) -> Tuple[np.ndarray, np.ndarray]:
     first = pending[0]
     if isinstance(first[0], str):  # ("cat", packed, layout)
         _, packed, layout = first
-        arr = packed.cpu().numpy()
+        arr = packed.numpy()
         parts, off = [], 0
         for B, n in layout:
             parts.append(arr[off:off + n])
@@ -196,7 +209,7 @@ def _fetch_pending(pending) -> Tuple[np.ndarray, np.ndarray]:
         arr = np.concatenate(parts)
     else:
         packed, n = first
-        arr = packed.cpu().numpy()[:n]
+        arr = packed.numpy()[:n]
     vals = np.ascontiguousarray(arr[..., 0])
     idx = np.ascontiguousarray(arr[..., 1]).view(np.int32)
     return vals, idx
@@ -326,6 +339,16 @@ def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, A
         return out
 
     if result_format == "columnar":
+        if ctx is not None and hasattr(ctx, "tags") and ctx.tags.get("wire") == "b1":
+            # The negotiated binary wire: the [N, k] columns ship as raw
+            # arrays (indices width-shrunk, scores as the rounded f32 bit
+            # patterns) and decode to exactly the JSON path's lists.
+            from agent_tpu_torch.data import wire
+
+            return wire.attach_result_columns(out, {
+                "indices": np.ascontiguousarray(idx),
+                "scores": np.round(np.asarray(vals), 6),
+            })
         out["indices"] = np.asarray(idx).tolist()
         out["scores"] = np.round(np.asarray(vals), 6).tolist()
         return out

@@ -1,13 +1,17 @@
 """Summarization on the card — counterpart of ``agent_tpu.ops.map_summarize``
 with the same op name, phases, payload and result contract.
 
-- Payload: ``text`` or ``texts``, plus ``max_length`` (default 130),
-  ``num_beams`` (1-16, default 1 = greedy), ``length_penalty``,
-  ``early_stopping``, ``min_length``, ``model_path``, ``model_config``,
-  ``output_uri`` / ``start_row``.
+- Payload: ``text`` or ``texts``, or CSV shard addressing (``source_uri``
+  + ``start_row``/``shard_size`` + optional ``text_field``, read with
+  ``data.csv_index.read_shard_texts``; a blank cell gets an empty summary),
+  plus ``max_length`` (default 130), ``num_beams`` (1-16, default 1 =
+  greedy), ``length_penalty``, ``early_stopping``, ``min_length``,
+  ``model_path``, ``model_config``, ``output_uri`` / ``start_row``.
 - Result: ``{ok, op, device, model, num_beams, elapsed_ms, summary}`` (plus
-  ``summaries`` for ``texts``, or an ``output_path`` receipt); caller errors
-  come back as soft ``bad_input`` results with the reference's messages.
+  ``summaries`` for ``texts`` and shards — a ``b1`` blob when the agent
+  negotiated the binary wire — or an ``output_path`` receipt); caller
+  errors come back as soft ``bad_input`` results with the reference's
+  messages. A shard that cannot be read raises, so the task fails.
 - Families, resolved from ``model_path`` as the reference does: a local HF
   T5 checkpoint directory serves T5 (the encoder's self-attention through
   the CUDA T5 kernel, ``runtime.t5_attention_kernel()``); anything else
@@ -25,9 +29,8 @@ error without them); the device phase (:func:`_decode_chunks`) works on
 staged ids alone.
 
 Not ported yet, each rejected with a ``bad_input`` that names it: a BART
-checkpoint directory, ``quant`` other than ``none``, ``source_uri`` CSV
-addressing, and a mesh with ``dp`` or ``tp``. Summaries go out as JSON
-lists (the binary ``b1`` wire is not ported).
+checkpoint directory, ``quant`` other than ``none``, and a mesh with ``dp``
+or ``tp``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
@@ -172,7 +174,7 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
                    early_stopping: bool = False, min_length: int = 0,
                    family: str = "seq2seq") -> List[Tuple[torch.Tensor, int]]:
     """Device phase: decode staged ``(ids, lengths, n)`` chunks -> pending
-    ``[(tokens on the device [B, max_new], n), ...]``, fetched by finalize."""
+    ``[(tokens on the device [B, max_new], n), ...]``."""
     from agent_tpu_torch.models import seq2seq, t5
 
     model = runtime.get_params(params_key(model_id, family, cfg),
@@ -181,8 +183,6 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
     with torch.inference_mode():
         for ids, lengths, n in chunks:
             L = ids.shape[1]
-            if ids.dtype == np.uint16:
-                ids = ids.astype(np.int32)  # torch's uint16 support is thin
             ids_t = runtime.put_batch(ids)
             n_t = runtime.put_batch(lengths)
             mask = (torch.arange(L, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
@@ -219,11 +219,22 @@ def stage(payload: Any, ctx: Optional[object] = None):
     if not isinstance(payload, dict):
         return "done", bad_input("payload must be a dict")
     texts = payload.get("texts")
+    single = texts is None and "source_uri" not in payload
+    empty_rows: List[int] = []  # drain-mode blank cells -> empty summaries
     if texts is None and "source_uri" in payload:
-        return "done", bad_input("source_uri CSV shard addressing is not supported by "
-                                 "agent_tpu_torch yet")
-    single = texts is None
-    if single:
+        from agent_tpu_torch.data.csv_index import read_shard_texts
+
+        try:
+            texts = read_shard_texts(payload)
+        except ValueError as exc:
+            return "done", bad_input(str(exc))
+        # A blank cell gets an empty summary (set after generation) instead
+        # of failing the shard or emitting model output for no input; the
+        # payload 'texts' path keeps its strict non-empty contract.
+        empty_rows = [i for i, t in enumerate(texts) if not t]
+        if empty_rows:
+            texts = [t or " " for t in texts]
+    elif single:
         text = payload.get("text")
         if not isinstance(text, str) or not text:
             return "done", bad_input("payload requires a non-empty 'text' string")
@@ -278,6 +289,7 @@ def stage(payload: Any, ctx: Optional[object] = None):
         "t0": t0,
         "chunks": _stage_chunks(texts, cfg, num_beams, family, model_id),
         "single": single,
+        "empty_rows": empty_rows,
         "max_new": min(max_new, cfg.max_tgt_len),
         "num_beams": num_beams,
         "length_penalty": float(length_penalty),
@@ -325,11 +337,15 @@ def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, An
         from agent_tpu_torch.runtime.runtime import get_runtime
 
         runtime = get_runtime()
-    state["token_chunks"] = _decode_chunks(
+    from agent_tpu_torch.runtime.runtime import HostCopy
+
+    # The tokens' copies to the host are queued here; finalize waits for
+    # them alone (HostCopy), not for the work queued after them.
+    state["token_chunks"] = [(HostCopy(toks), n) for toks, n in _decode_chunks(
         runtime, state["chunks"], state["model_id"], state["cfg"], state["max_new"],
         state["num_beams"], length_penalty=state["length_penalty"],
         early_stopping=state["early_stopping"], min_length=state["min_length"],
-        family=state["family"])
+        family=state["family"])]
     state["device"] = runtime.platform
     state["t_device"] = time.perf_counter()
     return state
@@ -341,7 +357,7 @@ def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, A
     from agent_tpu_torch.ops._model_common import stamp_rows, write_output_shard
 
     t_f = time.perf_counter()
-    token_chunks = [toks.cpu().numpy()[:n] for toks, n in state["token_chunks"]]
+    token_chunks = [toks.numpy()[:n] for toks, n in state["token_chunks"]]
     fetch_ms = (time.perf_counter() - t_f) * 1000.0
     summaries: List[str] = []
     if state["family"] == "t5":
@@ -363,6 +379,8 @@ def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, A
         tok = ByteTokenizer()
         for toks in token_chunks:
             summaries.extend(tok.decode([t for t in row if t > 0]) for row in toks)
+    for i in state["empty_rows"]:
+        summaries[i] = ""  # no input -> no summary, not model noise
 
     if ctx is not None and hasattr(ctx, "tags"):
         ctx.tags.setdefault("timings", {}).update(
@@ -388,6 +406,13 @@ def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, A
         return out
     out["summary"] = summaries[0]
     if not state["single"]:
+        if ctx is not None and hasattr(ctx, "tags") and ctx.tags.get("wire") == "b1":
+            # The negotiated binary wire: the summaries column ships
+            # length-prefixed (and deflated when that is smaller) and decodes
+            # to the identical list.
+            from agent_tpu_torch.data import wire
+
+            return wire.attach_result_columns(out, {"summaries": summaries})
         out["summaries"] = summaries
     return out
 

@@ -1,0 +1,228 @@
+"""Reduction op: count/sum/mean/min/max over numeric values — counterpart
+of ``agent_tpu.ops.risk_accumulate``.
+
+Payload: a numeric ``values`` list, an ``items`` list of dicts with a
+``field`` selector (default ``"risk"``), CSV shard addressing
+(``source_uri`` + ``field``: the map stage of a map-reduce drain), or
+``partials`` (prior results merged: the reduce stage). The result carries
+``{count, sum, mean, min, max, compute_time_ms}``.
+
+When the context has a runtime and the shard holds at least
+``device_threshold`` (default 4,096) values, the statistics run on the
+runtime's device (``parallel.collectives.mesh_reduce_stats``, the result
+marked ``device: "mesh"`` as the reference marks it); smaller payloads, and
+agents of host ops only, keep the host path.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Dict, List, Optional
+
+from agent_tpu_torch.ops import register_op
+from agent_tpu_torch.utils.errors import bad_input
+
+# Below this many values the host reduce wins; above it the device path is
+# worth the transfer (the reference's threshold, not measured on a card).
+DEVICE_THRESHOLD = 4096
+
+
+def _merge_partials(payload: Dict[str, Any], t0: float) -> Dict[str, Any]:
+    """Merge per-shard stat partials — the reduce stage of a map-reduce drain.
+
+    ``partials`` is a list of prior risk_accumulate results (count/sum/min/
+    max); the controller materializes them from the shard jobs' results when
+    a reduce job submitted with ``collect_partials`` leases.
+    """
+    partials = payload["partials"]
+    if not isinstance(partials, list):
+        raise ValueError("partials must be a list of stat dicts")
+    count = 0
+    total = 0.0
+    mn: Optional[float] = None
+    mx: Optional[float] = None
+    nan_in = False
+    for i, p in enumerate(partials):
+        if isinstance(p, dict) and p.get("ok") is False:
+            # A soft-failed shard slipped through as a SUCCEEDED dep — its
+            # rows are missing, so the reduce must FAIL visibly (RuntimeError
+            # → failed result) and surface the shard's own error, not a
+            # schema complaint about the error dict.
+            raise RuntimeError(
+                f"partial #{i} is a failed shard result: {p.get('error')!r}"
+            )
+        c = p.get("count") if isinstance(p, dict) else None
+        if isinstance(c, bool) or not isinstance(c, int) or c < 0:
+            raise ValueError(
+                "each partial needs a non-negative integer 'count' (+sum/min/max)"
+            )
+        if c == 0:
+            continue
+        for key in ("sum", "min", "max"):
+            v = p.get(key)
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(f"each non-empty partial needs numeric {key!r}")
+        count += c
+        s, lo, hi = float(p["sum"]), float(p["min"]), float(p["max"])
+        # A NaN-poisoned shard partial (the map stage emits min=max=sum=NaN
+        # for NaN-carrying shards) must poison the MERGE order-independently
+        # too: Python min/max keep or drop NaN depending on argument order
+        # (min(nan, x) = nan, min(x, nan) = x), so a flag — not the bare
+        # min/max chain — carries the poison.
+        nan_in = nan_in or math.isnan(s) or math.isnan(lo) or math.isnan(hi)
+        total += s
+        mn = lo if mn is None else min(mn, lo)
+        mx = hi if mx is None else max(mx, hi)
+    if nan_in:
+        total = mn = mx = float("nan")
+    if count == 0:
+        out = _zero_result(t0)
+        out["n_partials"] = len(partials)  # same schema as non-empty merges
+        return out
+    return {
+        "ok": True,
+        "count": count,
+        "sum": total,
+        "mean": total / count,
+        "min": mn,
+        "max": mx,
+        "n_partials": len(partials),
+        "compute_time_ms": (time.perf_counter() - t0) * 1000.0,
+    }
+
+
+def _extract_values(payload: Dict[str, Any]) -> List[float]:
+    if "source_uri" in payload:
+        # CSV shard addressing: stats over a numeric column of the shard —
+        # risk_accumulate as the *map* stage of a map-reduce drain. Shared
+        # shard-reading contract with the text ops (read_shard_column):
+        # RuntimeError/OSError propagate → the shard FAILS and retries.
+        from agent_tpu_torch.data.csv_index import read_shard_column
+
+        raw_values = read_shard_column(payload, "field", "risk")
+        out = []
+        for raw in raw_values:
+            try:
+                out.append(float(raw))
+            except ValueError as exc:
+                raise RuntimeError(
+                    f"non-numeric value {raw!r} in shard column "
+                    f"{payload.get('field', 'risk')!r}"
+                ) from exc
+        return out
+    if "values" in payload:
+        values = payload["values"]
+        if not isinstance(values, list):
+            raise ValueError("values must be a list of numbers")
+        out = []
+        for v in values:
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError("values must be numeric")
+            out.append(float(v))
+        return out
+    if "items" in payload:
+        items = payload["items"]
+        if not isinstance(items, list):
+            raise ValueError("items must be a list of dicts")
+        fieldname = payload.get("field", "risk")
+        out = []
+        for it in items:
+            if not isinstance(it, dict):
+                raise ValueError("items must be dicts")
+            v = it.get(fieldname)
+            if v is None:
+                continue
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(f"field {fieldname!r} must be numeric")
+            out.append(float(v))
+        return out
+    raise ValueError("payload requires 'values' or 'items'")
+
+
+def _zero_result(t0: float) -> Dict[str, Any]:
+    return {
+        "ok": True,
+        "count": 0,
+        "sum": 0.0,
+        "mean": 0.0,
+        "min": None,
+        "max": None,
+        "compute_time_ms": (time.perf_counter() - t0) * 1000.0,
+    }
+
+
+@register_op("risk_accumulate")
+def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
+    t0 = time.perf_counter()
+    if not isinstance(payload, dict):
+        return bad_input("payload must be a dict")
+    # Validate the threshold before any early return so a malformed payload is
+    # rejected consistently, not only when the device path would consult it.
+    threshold = payload.get("device_threshold", DEVICE_THRESHOLD)
+    if isinstance(threshold, bool) or not isinstance(threshold, (int, float)) or threshold <= 0:
+        return bad_input("device_threshold must be a positive number")
+
+    if "partials" in payload:
+        try:
+            return _merge_partials(payload, t0)
+        except ValueError as exc:
+            return bad_input(str(exc))
+
+    try:
+        values = _extract_values(payload)
+    except ValueError as exc:
+        return bad_input(str(exc))
+    # Usage rows: the map path counts its shard's values; the partials merge
+    # above does not — the shard tasks that produced them counted those rows.
+    from agent_tpu_torch.ops._model_common import stamp_rows
+
+    stamp_rows(ctx, len(values))
+    if not values:
+        return _zero_result(t0)
+
+    use_device = (
+        ctx is not None
+        and getattr(ctx, "runtime", None) is not None
+        and len(values) >= threshold
+    )
+    if use_device:
+        from agent_tpu_torch.parallel.collectives import mesh_reduce_stats
+
+        try:
+            stats = mesh_reduce_stats(ctx.runtime, values)
+        except ValueError as exc:  # a dp mesh, not ported yet
+            return bad_input(str(exc))
+        stats.update(
+            ok=True,
+            device="mesh",
+            compute_time_ms=(time.perf_counter() - t0) * 1000.0,
+        )
+        return stats
+
+    try:
+        total = math.fsum(values)
+    except ValueError:
+        # fsum RAISES on mixed infinities ("-inf + inf in fsum") where IEEE
+        # arithmetic — and the device path — yields NaN; a valid payload
+        # must not crash the op.
+        total = float("nan")
+    # A NaN input poisons min/max as well as the sum: Python ``min``/``max``
+    # are order-dependent under NaN (min([nan, 1]) = nan, min([1, nan]) = 1),
+    # and the device path canonicalizes the same way. (An inf + -inf sum is
+    # NaN too, but min/max stay well-defined there — the gate is on the
+    # inputs, not the total.)
+    nan_in = any(math.isnan(v) for v in values)
+    mn, mx = (
+        (float("nan"), float("nan")) if nan_in
+        else (min(values), max(values))
+    )
+    return {
+        "ok": True,
+        "count": len(values),
+        "sum": total,
+        "mean": total / len(values),
+        "min": mn,
+        "max": mx,
+        "compute_time_ms": (time.perf_counter() - t0) * 1000.0,
+    }

@@ -2,7 +2,9 @@
 counterpart of ``agent_tpu.ops.train_classifier`` with the same op name,
 payload, validation, soft errors and result keys.
 
-- Payload: ``texts`` + ``labels`` lists; ``output_path`` (required, ends
+- Payload: ``texts`` + ``labels`` lists, or CSV rows (``source_uri`` +
+  optional ``start_row``/``shard_size``, whole file by default, and
+  ``text_field``/``label_field``, read in one parse); ``output_path`` (required, ends
   in ``.npz``); ``model_config`` (EncoderConfig overrides; ``n_classes``
   defaults to the number of distinct labels); ``epochs`` (3),
   ``batch_size`` (64), ``learning_rate`` (1e-3), ``eval_fraction`` (0.2),
@@ -27,8 +29,7 @@ every epoch's loss in ``ctx.tags["train"]``.
 A ``quant`` mode in ``model_config`` trains float weights, as the
 reference's does (``TPU_QUANT`` is not read), and rides in the result's
 ``model_config`` for serving. Not ported yet, each rejected with a
-``bad_input`` that names it: ``source_uri`` CSV rows, ``moe_experts`` > 0
-and ``pp`` > 1.
+``bad_input`` that names it: ``moe_experts`` > 0 and ``pp`` > 1.
 """
 
 from __future__ import annotations
@@ -65,10 +66,32 @@ def _collect_rows(payload: Dict[str, Any]) -> Tuple[List[str], List[Any]]:
         ):
             raise ValueError("texts and labels must be equal-length non-empty lists")
         return texts, labels
-    if "source_uri" in payload:
-        raise ValueError("source_uri CSV training rows are not supported by "
-                         "agent_tpu_torch yet")
-    raise ValueError("payload requires 'texts'+'labels' or 'source_uri' CSV addressing")
+    if "source_uri" not in payload:
+        raise ValueError("payload requires 'texts'+'labels' or 'source_uri' CSV addressing")
+    from agent_tpu_torch.data.csv_index import count_rows, read_shard, resolve_shard_payload
+
+    text_field = payload.get("text_field", "text")
+    label_field = payload.get("label_field", "label")
+    for key, val in (("text_field", text_field), ("label_field", label_field)):
+        if not isinstance(val, str) or not val:
+            raise ValueError(f"{key} must be a non-empty string")
+    p = dict(payload)
+    if "shard_size" not in p:
+        # Training defaults to the whole file, not the 100-row shard default.
+        path, start, _ = resolve_shard_payload({**p, "shard_size": 1})
+        p["shard_size"] = max(1, count_rows(path) - start)
+    path, start, size = resolve_shard_payload(p)
+    # One parse serves both columns. Integrity problems raise RuntimeError,
+    # so the task fails and retries, never a soft result that trains on
+    # nothing.
+    rows = read_shard(path, start, size)
+    if not rows:
+        raise RuntimeError(f"shard [{start}, {start + size}) of {path!r} is empty")
+    for field in (text_field, label_field):
+        missing = sum(1 for r in rows if field not in r)
+        if missing:
+            raise RuntimeError(f"column {field!r} missing from {missing} rows of {path!r}")
+    return [r[text_field] for r in rows], [r[label_field] for r in rows]
 
 
 def _map_labels(raw: List[Any]) -> Tuple[np.ndarray, Optional[List[str]]]:

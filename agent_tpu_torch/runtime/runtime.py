@@ -214,10 +214,17 @@ class TorchRuntime:
         what is cached is the forward bound to its model and shape)."""
         return self.cache.get_or_build(key, build)
 
-    def put_batch(self, arr: np.ndarray) -> torch.Tensor:
-        """Host batch -> device. On CUDA the copy goes through pinned memory
-        with ``non_blocking=True``; PyTorch's pinned-memory allocator keeps
-        the staging buffer alive until the stream has read it."""
+    def put_batch(self, arr) -> torch.Tensor:
+        """Host batch (numpy) -> device. A tensor already on this runtime's
+        device passes through (the agent's pipeline pre-feeds staged
+        chunks), and uint16 ids widen to int32 (torch's uint16 support is
+        thin). On CUDA the copy goes through pinned memory with
+        ``non_blocking=True``; PyTorch's pinned-memory allocator keeps the
+        staging buffer alive until the stream has read it."""
+        if isinstance(arr, torch.Tensor) and arr.device == self.device:
+            return arr
+        if arr.dtype == np.uint16:
+            arr = arr.astype(np.int32)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cpu":
             return t
@@ -238,6 +245,30 @@ class TorchRuntime:
             out["hbm_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
             out["hbm_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
         return out
+
+
+class HostCopy:
+    """A device result on its way to the host. On CUDA the constructor
+    queues a ``non_blocking`` copy into pinned memory on the current stream
+    and records an event after it; ``numpy()`` waits on that event alone.
+    So a thread that finalizes shard i waits for shard i's copy, not for the
+    work the device thread has queued behind it (``Tensor.cpu()`` would
+    synchronize the whole stream). On the CPU it holds the tensor."""
+
+    def __init__(self, t: torch.Tensor) -> None:
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+            t = host
+        self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 # Process-wide singleton, built lazily.

@@ -48,7 +48,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               128, f32, 32 buckets with max distance 256); the relative
               position reversed and the bias of head h + 1 must fail; the
               launcher must refuse CPU, f16 and misshapen inputs. The
-              serving kernel's cases include phase 8's staged shapes.
+              serving kernel's cases include phase 8's staged shapes and
+              the first shards of phase 10 (B 8192, L 48, d_head 64 and
+              the seq2seq's 32).
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -109,6 +111,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               small f32 T5 (gated-gelu, untied) gives the same tokens on
               the card as on the CPU. p50 ms, tokens/s, peak memory and
               device time by kind.
+10. drain   — the port as a swarm worker: a stand-in controller in this
+              script (the protocol of agent_tpu/agent/app.py on
+              127.0.0.1) shards bench.py's 65,536-row CSV into 8 classify
+              shards of 8,192 rows at BERT-base width; the port's Agent,
+              in this process with its default urllib session and the
+              pipelined runner (PIPELINE_DEPTH 2), drains them after one
+              warm-up shard of each op. Every result ok on cuda with no
+              fallback, each shard posted once over the b1 wire, n_rows
+              summing to 65,536, row 1 launched n_layers times a dispatch
+              chunk, and the decoded indices and scores equal to the same
+              shards run serially through the op, bit for bit; wall,
+              rows/s, both against the serial run, the staging pool's
+              workers and the p50 of each phase (per-shard fetch_ms beside
+              device_ms). One more shard profiled (the device's idle
+              share); one risk_accumulate shard of 65,536 values on the
+              card against the host path; a mixed drain of 2 summarize
+              shards (the default seq2seq, 32 tokens) and 2 classify
+              shards, summaries equal to the op's. Then
+              `python -m agent_tpu_torch.agent.app` in a process of its
+              own (TASKS=echo,read_csv_shard,map_classify_tpu, BERT-base
+              cut to 2 layers) drains one echo, one read_csv_shard and two
+              256-row shards and must exit 0 on SIGTERM, and 2 with
+              TASKS=none.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -116,7 +141,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8 and 9.
+              point's time beside it). Printed after phases 8, 9 and 10;
+              row 1's launches by path include phase 10's drain.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -135,7 +161,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -187,6 +215,17 @@ T5_LENGTHS = (384, 512)  # ids a row, EOS included: all in the 512 bucket
 # both tables redrawn at this standard deviation, of the order of the
 # scores, it must fail the comparison.
 T5_FAULT_BIAS_STD = 1.0
+# Phase 10: bench.py's drain (DRAIN_ROWS, DRAIN_SHARD_SIZE and its rows,
+# bench.py:92-94, :892-896): a 65,536-row CSV in shards of 8,192 through the
+# port's agent at BERT-base width, then two 8,192-row summarize shards
+# (DRAIN_SUMMARIZE_SHARD) with the default seq2seq, 32 new tokens.
+DRAIN_ROWS, DRAIN_SHARD = 65_536, 8192
+DRAIN_S2S_SHARDS = 2
+DRAIN_RISK_VALUES = 65_536
+DRAIN_TIMEOUT_S = 600
+# The entry point's own process: two 256-row classify shards at BERT-base
+# width with the depth cut to 2 (its weights are built anew in that process).
+ENTRY_SHARD, ENTRY_LAYERS = 256, 2
 
 # Kernel vs plain: the reference's elementwise tolerances
 # (tests/test_flash_attention.py:30, :94), and a bound on the largest error
@@ -1300,7 +1339,8 @@ def check_t5_kernel(fa, main_case) -> dict:
 
 def count_emitted(token_chunks, pad_id: int, eos_id: int) -> int:
     """Generated tokens of the real rows, EOS and padding excluded."""
-    return sum(int(((t[:n] != pad_id) & (t[:n] != eos_id)).sum()) for t, n in token_chunks)
+    rows = [t.numpy()[:n] for t, n in token_chunks]
+    return sum(int(((r != pad_id) & (r != eos_id)).sum()) for r in rows)
 
 
 def summarize_phase(fa, summarize, rt) -> dict:
@@ -1633,6 +1673,391 @@ def t5_kernel_entry(fa, check, launches) -> dict:
     return entry
 
 
+class StandInController:
+    """A controller for phase 10, kept in this script because chip_smoke
+    imports nothing of agent_tpu. It speaks the protocol of
+    agent_tpu/agent/app.py:3-11 on 127.0.0.1:
+
+    - ``POST /v1/leases``: up to ``max_tasks`` pending jobs whose op the
+      agent offers, each at a bumped ``job_epoch``; 204 when there is none
+      (and for the metrics-only poll); ``wire: "b1"`` when the lease offers
+      it;
+    - ``POST /v1/results``: accepted only with the lease's id and the
+      job's current ``job_epoch``; a ``b1`` result is decoded with the
+      port's ``data/wire.py`` (held byte for byte to the reference's by
+      tests/test_torch_wire.py); ``released`` puts the job back.
+
+    Every post is counted per job, so a shard reported twice shows."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.jobs: dict = {}
+        self.posts: dict = {}
+        self.stale = 0
+        self.b1_leases = 0
+        self._n = 0
+        ctrl = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — http.server's name
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                if self.path == "/v1/leases":
+                    out = ctrl.lease(body)
+                elif self.path == "/v1/results":
+                    out = ctrl.report(body)
+                else:
+                    out = {"error": "no such route"}
+                data = b"" if out is None else json.dumps(out).encode()
+                self.send_response(204 if out is None else 200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+    def submit(self, op: str, payload: dict) -> str:
+        with self.lock:
+            self._n += 1
+            job_id = f"job-{self._n:05d}"
+            self.jobs[job_id] = {"op": op, "payload": payload, "epoch": 0, "state": "pending",
+                                 "lease": None, "status": None, "result": None}
+        return job_id
+
+    def submit_csv(self, path: str, op: str, start: int, rows: int, shard: int,
+                   extra: dict) -> list:
+        """Shard rows [start, start + rows) of the CSV into ``op`` tasks."""
+        return [self.submit(op, dict(extra, source_uri=path, start_row=s,
+                                     shard_size=min(shard, start + rows - s)))
+                for s in range(start, start + rows, shard)]
+
+    def drained(self) -> bool:
+        with self.lock:
+            return all(j["state"] == "done" for j in self.jobs.values())
+
+    def lease(self, body: dict):
+        caps = body.get("capabilities") or {}
+        ops = set(caps.get("ops") or [])
+        with self.lock:
+            picked = [j for j, job in self.jobs.items()
+                      if job["state"] == "pending" and job["op"] in ops]
+            picked = picked[:int(body.get("max_tasks") or 0)]
+            if not picked:
+                return None
+            self._n += 1
+            lease_id = f"lease-{self._n:05d}"
+            tasks = []
+            for j in picked:
+                job = self.jobs[j]
+                job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id)
+                tasks.append({"id": j, "op": job["op"], "payload": job["payload"],
+                              "job_epoch": job["epoch"], "attempt": job["epoch"]})
+            out = {"lease_id": lease_id, "tasks": tasks}
+            if "b1" in (caps.get("wire_formats") or []):
+                out["wire"] = "b1"
+                self.b1_leases += 1
+            return out
+
+    def report(self, body: dict) -> dict:
+        from agent_tpu_torch.data import wire
+
+        job_id = body.get("job_id")
+        with self.lock:
+            self.posts[job_id] = self.posts.get(job_id, 0) + 1
+            job = self.jobs.get(job_id)
+            if job is None or job["state"] != "leased" or body.get("lease_id") != job["lease"] \
+                    or body.get("job_epoch") != job["epoch"]:
+                self.stale += 1
+                return {"accepted": False, "reason": "stale or unknown"}
+            if body.get("status") == "released":
+                job["state"] = "pending"
+                return {"accepted": True, "released": True}
+            result = body.get("result")
+            job["b1"] = wire.is_binary_result(result)
+            if job["b1"]:
+                result = wire.decode_result(result)
+            job.update(state="done", status=body.get("status"), result=result,
+                       error=body.get("error"))
+            return {"accepted": True}
+
+    def outcome(self, job_ids: list) -> list:
+        """The accepted results of ``job_ids``; fails unless each succeeded,
+        was posted exactly once and came over the b1 wire."""
+        out = []
+        for j in job_ids:
+            job = self.jobs[j]
+            if job["status"] != "succeeded" or self.posts.get(j) != 1:
+                raise SystemExit(f"{j} ({job['op']}): status {job['status']}, posted "
+                                 f"{self.posts.get(j)} times, error {job['error']}")
+            out.append(job)
+        return out
+
+
+def pipelined_drain(agent, ctrl, profile: bool = False):
+    """Run the agent's pipelined runner on this (the device) thread until the
+    stand-in controller has every result -> (wall seconds to that moment,
+    the profile of the run when asked)."""
+    from agent_tpu_torch.agent.pipeline import PipelineRunner
+
+    done = {}
+
+    def run():
+        agent.running = True
+        t0 = time.perf_counter()
+
+        def watch():
+            while not ctrl.drained() and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
+                time.sleep(0.002)
+            done["wall"] = time.perf_counter() - t0
+            agent.running = False
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        PipelineRunner(agent, depth=agent.config.agent.pipeline_depth).run()
+        watcher.join(timeout=30)
+
+    prof = profile_call(run) if profile else run()
+    if not ctrl.drained():
+        raise SystemExit(f"the drain did not finish in {DRAIN_TIMEOUT_S} s")
+    return done["wall"], prof
+
+
+def serial_shards(fn, rt, payloads) -> tuple:
+    """The shards run one after another through the op's phases (stage ->
+    execute -> finalize, the JSON result path) -> (results, wall seconds)."""
+    from agent_tpu_torch.runtime.context import OpContext
+
+    outs, t0 = [], time.perf_counter()
+    for payload in payloads:
+        ctx = OpContext(runtime=rt)
+        phase, state = fn.stage(dict(payload), ctx)
+        if phase != "staged":
+            raise SystemExit(f"a serial shard did not stage: {str(state)[:300]}")
+        outs.append(fn.finalize(fn.execute(state, ctx), ctx))
+    return outs, time.perf_counter() - t0
+
+
+def p50_phases(results: list) -> dict:
+    """The median of each phase's milliseconds over the shards' timings."""
+    keys = ("stage_ms", "queue_ms", "device_ms", "fetch_ms", "finalize_ms")
+    return {k: statistics.median(r["timings"][k] for r in results) for k in keys}
+
+
+def drain_payloads(path: str) -> tuple:
+    """Phase 10's classify and summarize shard payloads."""
+    classify = {"text_field": "text", "result_format": "columnar", "allow_fallback": False,
+                "model_config": BERT_BASE, "topk": 5}
+    summarize = {"text_field": "text", "max_length": S2S_MAX_NEW, "allow_fallback": False}
+    shards = [dict(classify, source_uri=path, start_row=s, shard_size=DRAIN_SHARD)
+              for s in range(0, DRAIN_ROWS, DRAIN_SHARD)]
+    s2s = [dict(summarize, source_uri=path, start_row=s * DRAIN_SHARD, shard_size=DRAIN_SHARD)
+           for s in range(DRAIN_S2S_SHARDS)]
+    return classify, summarize, shards, s2s
+
+
+def write_drain_csv(path: str) -> None:
+    """bench.py's drain rows (bench.py:892-896)."""
+    with open(path, "w") as f:
+        f.write("id,text,risk\n")
+        for i in range(DRAIN_ROWS):
+            f.write(f'{i},"drain record {i} with a payload of text",{i % 89}\n')
+
+
+def drain_phase(fa, rt, path: str) -> dict:
+    """Phase 10: the port as a swarm worker. The port's Agent, in this
+    process with its default urllib session and the pipelined runner
+    (PIPELINE_DEPTH 2), drains the stand-in controller's jobs: one warm-up
+    shard of each op, then 8 classify shards (the counts set to 0 just
+    before, read just after), one profiled shard, one risk_accumulate shard
+    of 65,536 values, and a mixed drain of 2 summarize and 2 classify
+    shards. The same shards run serially through the ops on the same card
+    for the bit-for-bit comparison and the ratio of rows/s."""
+    from agent_tpu_torch.agent.app import Agent
+    from agent_tpu_torch.config import AgentConfig, Config
+    from agent_tpu_torch.data.staging import default_workers
+    from agent_tpu_torch.ops import load_ops
+
+    ops = load_ops(["map_classify_tpu", "map_summarize", "risk_accumulate"])
+    classify_extra, s2s_extra, shards, s2s_shards = drain_payloads(path)
+    device = torch.device(CARD).type
+    n_layers = BERT_BASE["n_layers"]
+    chunks = [len(ops["map_classify_tpu"].stage(dict(p))[1]["chunks"]) for p in shards]
+    with StandInController() as ctrl:
+        agent = Agent(Config(agent=AgentConfig(
+            controller_url=ctrl.url, agent_name="chip-smoke-drain",
+            tasks=("map_classify_tpu", "map_summarize", "risk_accumulate"),
+            idle_sleep_sec=0.005, pipeline_depth=2)), runtime=rt)
+        if type(agent.session).__name__ != "UrllibSession":
+            raise SystemExit("the agent's default session is not the urllib one")
+
+        # Warm-up: builds both models' weights; not timed.
+        t0 = time.perf_counter()
+        warm = ctrl.submit_csv(path, "map_classify_tpu", 0, DRAIN_SHARD, DRAIN_SHARD,
+                               classify_extra)
+        warm += ctrl.submit_csv(path, "map_summarize", 0, DRAIN_SHARD, DRAIN_SHARD, s2s_extra)
+        pipelined_drain(agent, ctrl)
+        ctrl.outcome(warm)
+        warm_s = time.perf_counter() - t0
+
+        # The classify drain: the slice's main path.
+        ids = [ctrl.submit("map_classify_tpu", p) for p in shards]
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        wall, _ = pipelined_drain(agent, ctrl)
+        launches = fa.LAUNCH_COUNTS["flash_attention"]
+        others = {k: v for k, v in fa.LAUNCH_COUNTS.items() if k != "flash_attention" and v}
+        dense = fa.SELECTION_COUNTS["dense"]
+        jobs = ctrl.outcome(ids)
+        results = [j["result"] for j in jobs]
+        workers = {"max": agent.config.agent.stage_workers or default_workers(),
+                   "picked": agent.obs.gauge("stage_pool_workers").value(),
+                   "prefetch_depth": agent.obs.gauge("stage_prefetch_depth").value()}
+        bad = [r for r in results if not r.get("ok") or r.get("device") != device
+               or "fallback" in r]
+        if bad or not all(j["b1"] for j in jobs):
+            raise SystemExit(f"drain results not ok on {device} over b1: {str(bad)[:500]}")
+        if sum(r["n_rows"] for r in results) != DRAIN_ROWS:
+            raise SystemExit(f"the shards' n_rows sum to {sum(r['n_rows'] for r in results)}")
+        if launches != n_layers * sum(chunks) or others or dense:
+            raise SystemExit(f"row 1 launched {launches} times (want {n_layers} x "
+                             f"{sum(chunks)} dispatch chunks), others {others}, dense {dense}")
+
+        # The same shards serially through the op, on the same card.
+        serial, serial_wall = serial_shards(ops["map_classify_tpu"], rt, shards)
+        for r, want in zip(results, serial):
+            if r["indices"] != want["indices"] or r["scores"] != want["scores"]:
+                raise SystemExit("the drain's decoded columns differ from the serial op's")
+
+        # One more shard, profiled: the device's idle share over the drain.
+        one = [ctrl.submit("map_classify_tpu", shards[0])]
+        _, profile = pipelined_drain(agent, ctrl, profile=True)
+        ctrl.outcome(one)
+        check_forwards(profile, {"flash_fwd_sm90": n_layers * chunks[0]}, "profiled shard")
+
+        # risk_accumulate: its device path on the card against the host path.
+        rng = np.random.default_rng(SEED + 10)
+        values = (rng.standard_normal(DRAIN_RISK_VALUES) * 1e3).tolist()
+        values[:3] = [1.4e-45, -3e-39, 5e-40]
+        risk_id = ctrl.submit("risk_accumulate", {"values": values})
+        pipelined_drain(agent, ctrl)
+        (risk_job,) = ctrl.outcome([risk_id])
+        risk, host = risk_job["result"], ops["risk_accumulate"]({"values": values})
+        bound = DRAIN_RISK_VALUES * 2.0 ** -24 * math.fsum(abs(v) for v in values)
+        risk_ok = (risk.get("device") == "mesh" and risk["count"] == DRAIN_RISK_VALUES
+                   and risk["min"] == float(np.float32(host["min"]))
+                   and risk["max"] == float(np.float32(host["max"]))
+                   and abs(risk["sum"] - host["sum"]) <= bound)
+        if not risk_ok:
+            raise SystemExit(f"risk_accumulate on the card {risk} against the host {host}")
+
+        # The mixed drain: 2 summarize and 2 classify shards in one drain.
+        mixed_s2s = [ctrl.submit("map_summarize", p) for p in s2s_shards]
+        mixed_cls = [ctrl.submit("map_classify_tpu", p) for p in shards[:2]]
+        mixed_wall, _ = pipelined_drain(agent, ctrl)
+        s2s_jobs = ctrl.outcome(mixed_s2s)
+        cls_jobs = ctrl.outcome(mixed_cls)
+        s2s_serial, s2s_serial_wall = serial_shards(ops["map_summarize"], rt, s2s_shards)
+        for job, want in zip(s2s_jobs, s2s_serial):
+            r = job["result"]
+            if not job["b1"] or r.get("device") != device or r["summaries"] != want["summaries"]:
+                raise SystemExit("the mixed drain's summaries differ from the serial op's")
+        for job, want in zip(cls_jobs, serial):
+            if job["result"]["indices"] != want["indices"] \
+                    or job["result"]["scores"] != want["scores"]:
+                raise SystemExit("the mixed drain's classify columns differ from the serial op's")
+        stale = ctrl.stale
+    if stale:
+        raise SystemExit(f"{stale} results came with a stale epoch or lease")
+    mixed_rows = DRAIN_S2S_SHARDS * DRAIN_SHARD + 2 * DRAIN_SHARD
+    report = {
+        "phase": "drain", "config": BERT_BASE, "rows": DRAIN_ROWS, "shard_rows": DRAIN_SHARD,
+        "warmup_s": warm_s, "wall_s": wall, "rows_per_s": DRAIN_ROWS / wall,
+        "serial_wall_s": serial_wall, "serial_rows_per_s": DRAIN_ROWS / serial_wall,
+        "drain_over_serial": serial_wall / wall, "stage_workers": workers,
+        "p50_phase_ms": p50_phases(results),
+        "per_shard_ms": [{k: r["timings"][k] for k in ("device_ms", "fetch_ms")}
+                         for r in results],
+        "launches": launches, "dispatch_chunks": chunks,
+        "profiled_shard": {k: profile[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                                  "device_ms_by_kind", "profile_attempts")},
+        "risk": {k: risk[k] for k in ("count", "sum", "min", "max", "device")},
+        "risk_vs_host": {"sum_diff": abs(risk["sum"] - host["sum"]), "sum_bound": bound},
+        "mixed": {"wall_s": mixed_wall, "rows": mixed_rows, "rows_per_s": mixed_rows / mixed_wall,
+                  "summarize_serial_wall_s": s2s_serial_wall,
+                  "p50_phase_ms_summarize": p50_phases([j["result"] for j in s2s_jobs])},
+        "b1_leases": ctrl.b1_leases,
+    }
+    emit(report)
+    return report
+
+
+def entry_point_phase(path: str) -> dict:
+    """Phase 10, the entry point: ``python -m agent_tpu_torch.agent.app`` in
+    a process of its own against the stand-in controller with
+    TASKS=echo,read_csv_shard,map_classify_tpu drains one echo, one
+    read_csv_shard and two 256-row classify shards, then SIGTERM must end it
+    with exit code 0; with TASKS=none it must exit 2 at once."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    extra = {"text_field": "text", "result_format": "columnar", "allow_fallback": False,
+             "model_config": dict(BERT_BASE, n_layers=ENTRY_LAYERS), "topk": 5}
+    torch.cuda.empty_cache()  # leave the card's memory to the other process
+    with StandInController() as ctrl, tempfile.TemporaryFile("w+") as log:
+        ids = [ctrl.submit("echo", {"hello": "card"}),
+               ctrl.submit("read_csv_shard", {"source_uri": path, "shard_size": 5})]
+        ids += ctrl.submit_csv(path, "map_classify_tpu", 0, 2 * ENTRY_SHARD, ENTRY_SHARD, extra)
+        env = dict(os.environ, CONTROLLER_URL=ctrl.url, AGENT_NAME="chip-smoke-entry",
+                   TASKS="echo,read_csv_shard,map_classify_tpu", IDLE_SLEEP_SEC="0.05",
+                   PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while not ctrl.drained() and proc.poll() is None \
+                    and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
+                time.sleep(0.05)
+            drained_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        out = log.read()
+        jobs = ctrl.outcome(ids) if ctrl.drained() else []
+    none = subprocess.run([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
+                          env=dict(env, TASKS="none"), capture_output=True, text=True,
+                          timeout=300)
+    report = {"phase": "entry_point", "drained_s": drained_s, "exit_code": rc,
+              "exit_code_tasks_none": none.returncode, "log_tail": out[-1500:]}
+    emit(report)
+    cls = [j["result"] for j in jobs if j["op"] == "map_classify_tpu"]
+    if rc != 0 or none.returncode != 2 or len(jobs) != 4 \
+            or [r.get("device") for r in cls] != [torch.device(CARD).type] * 2 \
+            or [r["n_rows"] for r in cls] != [ENTRY_SHARD] * 2:
+        raise SystemExit(f"the entry point failed: exit {rc}, TASKS=none exit "
+                         f"{none.returncode}, {len(jobs)} of 4 jobs, log {out[-2000:]}")
+    return report
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -1813,10 +2238,18 @@ def main(argv=None) -> int:
                t5_lengths.tolist(), True, (t5_cfg.rel_buckets, t5_cfg.rel_max_distance),
                t5_cfg.compute_dtype)
 
+    # Phase 10's CSV and shards; phase 3 holds the serving kernel against its
+    # plain version at the shapes their first shards stage.
+    drain_dir = tempfile.TemporaryDirectory()
+    drain_csv = os.path.join(drain_dir.name, "drain.csv")
+    write_drain_csv(drain_csv)
+    _, _, drain_shards, drain_s2s = drain_payloads(drain_csv)
+
     # 3. kernel vs plain
     kernel_cases = staged_cases(
-        classify, requests + long_requests + [("small_f32", small_payload, 12)]
-    ) + staged_cases(summarize, s2s_cases)
+        classify, requests + long_requests + [("small_f32", small_payload, 12),
+                                              ("drain_shard", drain_shards[0], DRAIN_SHARD)]
+    ) + staged_cases(summarize, s2s_cases + [("drain_s2s_shard", drain_s2s[0], DRAIN_SHARD)])
     kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
     fold_check = check_fold_kernel(fa, ring_fold_case(
@@ -1899,6 +2332,12 @@ def main(argv=None) -> int:
     rt.clear_params()
     t5_dir.cleanup()
 
+    # 10. the agent's drain, then its entry point in a process of its own
+    drain = drain_phase(fa, rt, drain_csv)
+    rt.clear_params()
+    entry_point_phase(drain_csv)
+    drain_dir.cleanup()
+
     # 7. kernels: the serving kernel on the 256-row request's staged shape
     # and key lengths, the training kernels on phase 6's first batch, the T5
     # kernel on phase 9's staged shape.
@@ -1915,7 +2354,8 @@ def main(argv=None) -> int:
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v, attn_mask=bool_mask)), q,
-        launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"]})
+        launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"],
+                          "agent_drain_map_classify_tpu": drain["launches"]})
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
                       fold_kernel_entry(fa, fold_check, fold_launches),
                       t5_kernel_entry(fa, t5_check, t5_run["launches"])]})

@@ -138,7 +138,7 @@ def test_oversize_batch_chunks(classify, monkeypatch):
     ({"input": [-1]}, "out of range"),
     ({}, "payload requires"),
     ({"texts": ["x"], "result_format": "nope"}, "result_format"),
-    ({"source_uri": "data.csv", "start_row": 0}, "source_uri"),
+    ({"source_uri": "", "start_row": 0}, "source_uri"),  # a malformed shard address
     ({"text": "x", "model_config": {"quant": "int8"}}, "quant"),
     ({"text": "x", "model_config": {"pp": 2}}, "pp"),
     ({"text": "x", "model_config": {"moe_experts": 4}}, "moe_experts"),
@@ -210,3 +210,69 @@ def test_forward_cache_and_kernel_path(classify, torch_rt):
     # d_head 32: every layer took the kernel path, none the dense one.
     assert fa.SELECTION_COUNTS["flash"] == before_sel["flash"] + 2 * SMALL["n_layers"]
     assert fa.SELECTION_COUNTS["dense"] == before_sel["dense"]
+
+
+# ---- CSV shard addressing (source_uri) ----
+
+
+@pytest.fixture(scope="module")
+def shard_csv(tmp_path_factory):
+    path = tmp_path_factory.mktemp("classify_csv") / "rows.csv"
+    lines = ["id,text,note"] + [f'{i},"row {i}: {TEXTS[i % len(TEXTS)]}, ""q""",n{i}'
+                                for i in range(40)]
+    lines.append('40,"a quoted\nnewline row",n40')
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"start_row": 7, "shard_size": 20, "result_format": "columnar"},
+    {"start_row": 35, "shard_size": 100, "text_field": "note"},
+], ids=["default", "columnar_middle", "tail_note_field"])
+def test_source_uri_matches_jax(classify, jax_classify, shard_csv, extra):
+    # f32: what is under test is which rows the shard reads; the bf16
+    # numerics are held by test_rows_match_jax.
+    payload = dict(extra, source_uri=shard_csv, model_config=dict(SMALL, dtype="float32"),
+                   topk=4)
+    got, want = classify(payload), jax_classify(payload)
+    assert got["ok"] and want["ok"] and got["n_rows"] == want["n_rows"]
+    if "indices" in want:
+        _assert_topk_agree(got["indices"], got["scores"], want["indices"], want["scores"])
+    else:
+        assert len(got["results"]) == len(want["results"])
+        _assert_topk_agree(*_rows(got), *_rows(want))
+
+
+@pytest.mark.parametrize("extra,exc", [
+    ({"text_field": ""}, None),
+    ({"shard_size": 0}, None),
+    ({"text_field": "missing"}, RuntimeError),
+    ({"start_row": 100}, RuntimeError),
+    ({"source_uri": "/nonexistent/rows.csv"}, OSError),
+], ids=["empty_text_field", "zero_shard_size", "no_column", "past_end", "no_file"])
+def test_source_uri_errors_like_jax(classify, jax_classify, shard_csv, extra, exc):
+    """A malformed address or field is a soft ``bad_input`` with the
+    reference's message; a shard that cannot be read raises, as the
+    reference's does, so the task fails and is retried."""
+    payload = dict({"source_uri": shard_csv, "model_config": SMALL}, **extra)
+    if exc is None:
+        got, want = classify(payload), jax_classify(payload)
+        assert got["ok"] is False and got["error"] == want["error"]
+        return
+    with pytest.raises(exc):
+        jax_classify(payload)
+    with pytest.raises(exc):
+        classify(payload)
+
+
+def test_b1_columns_decode_to_the_json_lists(classify, torch_rt, shard_csv):
+    from agent_tpu.data import wire as jax_wire
+
+    payload = {"source_uri": shard_csv, "model_config": SMALL, "topk": 3,
+               "result_format": "columnar"}
+    out = classify(payload, OpContext(runtime=torch_rt, tags={"wire": "b1"}))
+    assert "indices" not in out and "__bin__" in out
+    plain = classify(payload)
+    decoded = jax_wire.decode_result(out)
+    assert decoded["indices"] == plain["indices"] and decoded["scores"] == plain["scores"]

@@ -19,7 +19,7 @@ from agent_tpu_torch.kernels import flash_attention as fa
 from agent_tpu_torch.ops import load_ops
 from agent_tpu_torch.ops import map_summarize as op
 from agent_tpu_torch.runtime.context import OpContext
-from agent_tpu_torch.runtime.runtime import TorchRuntime
+from agent_tpu_torch.runtime.runtime import HostCopy, TorchRuntime
 
 from tests.test_torch_t5 import HF_TINY, hf_state_dict
 
@@ -102,7 +102,9 @@ def test_bad_input_matches_jax(summarize, jax_summarize, payload):
 
 
 @pytest.mark.parametrize("payload,needle", [
-    ({"source_uri": "data.csv", "start_row": 0}, "source_uri"),
+    # source_uri is served now (its parity cases are below); a malformed
+    # shard address stays a soft error.
+    ({"source_uri": "", "start_row": 0}, "source_uri"),
     ({"text": "x", "model_config": {"quant": "int8"}}, "quant"),
     # float16 was refused until the port took the reference's dtype names;
     # it serves now, through dense attention (the kernels take bf16/f32).
@@ -191,7 +193,7 @@ def test_phases_defer_the_fetch(summarize, torch_rt):
     phase, state = op.stage(payload, ctx)
     assert phase == "staged"
     state = op.execute(state, ctx)
-    assert all(isinstance(t, torch.Tensor) for t, _ in state["token_chunks"])
+    assert all(isinstance(t, HostCopy) for t, _ in state["token_chunks"])
     out = op.finalize(state, ctx)
     assert out["ok"] and len(out["summaries"]) == 2
     assert set(ctx.tags["timings"]) == {"stage_ms", "queue_ms", "device_ms", "fetch_ms"}
@@ -260,3 +262,61 @@ def test_t5_text_without_sentencepiece_raises_the_gate(summarize, t5_dir):
 
 def test_not_a_dict_is_soft():
     assert load_ops(["map_summarize"])["map_summarize"]("not a dict")["ok"] is False
+
+
+# ---- CSV shard addressing (source_uri) ----
+
+
+@pytest.fixture(scope="module")
+def summarize_csv(tmp_path_factory):
+    """Rows with a blank cell (row 2) and a quoted newline (row 5)."""
+    path = tmp_path_factory.mktemp("summarize_csv") / "docs.csv"
+    cells = [f'"{t}"' for t in TEXTS] + ['"two\nlines"', "plain doc"]
+    cells.insert(2, "")
+    lines = ["id,text,title"] + [f"{i},{c},t{i}" for i, c in enumerate(cells)]
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"start_row": 1, "shard_size": 3},
+    {"text_field": "title", "num_beams": 2},
+], ids=["blank_cell", "middle", "title_field_beam2"])
+def test_source_uri_matches_jax(summarize, jax_summarize, summarize_csv, extra):
+    payload = dict(extra, source_uri=summarize_csv, model_config=SMALL, max_length=8)
+    got, want = summarize(payload), jax_summarize(payload)
+    assert got["ok"] and want["ok"]
+    assert got["summaries"] == want["summaries"] and got["summary"] == want["summary"]
+    if not extra:
+        assert got["summaries"][2] == ""  # the blank cell: an empty summary
+        assert all(got["summaries"][i] for i in (0, 1, 3))
+
+
+@pytest.mark.parametrize("extra,exc", [
+    ({"text_field": ""}, None),
+    ({"start_row": "1"}, None),
+    ({"text_field": "missing"}, RuntimeError),
+    ({"start_row": 50}, RuntimeError),
+    ({"source_uri": "/nonexistent/docs.csv"}, OSError),
+], ids=["empty_text_field", "str_start_row", "no_column", "past_end", "no_file"])
+def test_source_uri_errors_like_jax(summarize, jax_summarize, summarize_csv, extra, exc):
+    payload = dict({"source_uri": summarize_csv, "model_config": SMALL}, **extra)
+    if exc is None:
+        got, want = summarize(payload), jax_summarize(payload)
+        assert got["ok"] is False and got == want
+        return
+    with pytest.raises(exc):
+        jax_summarize(payload)
+    with pytest.raises(exc):
+        summarize(payload)
+
+
+def test_b1_summaries_decode_to_the_json_list(summarize, torch_rt, summarize_csv):
+    from agent_tpu.data import wire as jax_wire
+
+    payload = {"source_uri": summarize_csv, "model_config": SMALL, "max_length": 6}
+    ctx = OpContext(runtime=torch_rt, tags={"wire": "b1"})
+    out = summarize(payload, ctx)
+    assert "summaries" not in out and "__bin__" in out
+    assert jax_wire.decode_result(out)["summaries"] == summarize(payload)["summaries"]

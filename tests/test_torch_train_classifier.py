@@ -194,7 +194,7 @@ TINY = {"d_model": 32, "n_heads": 2, "n_layers": 1, "d_ff": 64, "max_len": 16}
 # behaviour: quant trains float weights and rides in model_config, float16
 # trains through dense attention. Those cases (needle None) train now.
 @pytest.mark.parametrize("extra,needle", [
-    ({"source_uri": "train.csv"}, "source_uri"),
+    ({"source_uri": ""}, "source_uri"),  # served now; a malformed address is soft
     (dict(TINY_TRAIN, model_config=dict(TINY, quant="int8")), None),
     ({"texts": ["a"], "labels": [0], "model_config": {"moe_experts": 4}}, "moe_experts"),
     ({"texts": ["a"], "labels": [0], "model_config": {"pp": 2}}, "pp"),
@@ -211,3 +211,60 @@ def test_not_ported_yet_is_soft(train, port_rt, tmp_path, extra, needle):
         assert out["model_config"]["dtype"] == extra["model_config"].get("dtype", "bfloat16")
     else:
         assert out["ok"] is False and needle in out["error"], out
+
+
+# ---- CSV rows (source_uri) ----
+
+
+@pytest.fixture(scope="module")
+def train_csv(tmp_path_factory):
+    """The keyword rows as a CSV with string labels, and one extra column."""
+    texts, labels = _rows(80, seed=5)
+    path = tmp_path_factory.mktemp("train_csv") / "train.csv"
+    names = {0: "finance", 1: "iot"}
+    lines = ["body,topic,extra"] + [f'"{t}",{names[y]},x' for t, y in zip(texts, labels)]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"start_row": 10},
+    {"start_row": 5, "shard_size": 60},
+], ids=["whole_file", "from_row_10", "shard_60"])
+def test_source_uri_trains_like_jax(train, port_rt, jax_ctx, train_csv, tmp_path, extra):
+    payload = dict(PAYLOAD, epochs=3, source_uri=train_csv, text_field="body",
+                   label_field="topic", **extra)
+    got = train(dict(payload, output_path=str(tmp_path / "p.npz")), OpContext(runtime=port_rt))
+    want = jax_get_op("train_classifier")(dict(payload, output_path=str(tmp_path / "j.npz")),
+                                           jax_ctx)
+    assert got["ok"] and want["ok"], (got, want)
+    for key in ("n_train", "n_eval", "n_steps", "label_names"):
+        assert got[key] == want[key], key
+    assert got["label_names"] == ["finance", "iot"]
+    np.testing.assert_allclose(got["last_epoch_loss"], want["last_epoch_loss"], rtol=REL_TOL)
+
+
+@pytest.mark.parametrize("extra,exc", [
+    ({"text_field": ""}, None),
+    ({"label_field": 3}, None),
+    ({"start_row": -1}, None),
+    ({"text_field": "missing"}, RuntimeError),
+    ({"start_row": 500, "shard_size": 5}, RuntimeError),
+    ({"source_uri": "/nonexistent/train.csv"}, OSError),
+], ids=["empty_text_field", "int_label_field", "neg_start", "no_column", "past_end",
+        "no_file"])
+def test_source_uri_errors_like_jax(train, port_rt, jax_ctx, train_csv, tmp_path, extra, exc):
+    payload = dict(PAYLOAD, source_uri=train_csv, text_field="body", label_field="topic",
+                   output_path=str(tmp_path / "x.npz"))
+    payload.update(extra)
+    if exc is None:  # a malformed address or field: soft, with the reference's message
+        got = train(dict(payload), OpContext(runtime=port_rt))
+        want = jax_get_op("train_classifier")(dict(payload), jax_ctx)
+        assert got["ok"] is False and got["error"] == want["error"]
+        return
+    with pytest.raises(exc) as want:
+        jax_get_op("train_classifier")(dict(payload), jax_ctx)
+    with pytest.raises(exc) as got:
+        train(dict(payload), OpContext(runtime=port_rt))
+    assert type(got.value) is type(want.value)

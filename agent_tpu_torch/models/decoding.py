@@ -20,7 +20,7 @@ unspecified).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,15 +75,20 @@ def greedy_scan(
     eos_id: int,
     pad_id: int = 0,
     min_length: int = 0,
+    forced_first_id: Optional[int] = None,
+    forced_last_id: Optional[int] = None,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode -> (tokens [B, T] int32, lengths [B]).
 
     Rows emit ``pad_id`` after their EOS; ``min_length`` bans EOS while the
-    sequence is shorter. The loop stops once every row has emitted EOS; the
-    untouched tail is already ``pad_id``, what the remaining steps would
-    have written. ``device`` is where the tokens live (the caches' device).
-    The reference's forced first/last ids serve BART, which is not ported."""
+    sequence is shorter. ``forced_first_id`` (BART's
+    ``forced_bos_token_id``) replaces the argmax at step 0, and
+    ``forced_last_id`` (``forced_eos_token_id``) at the last step, when set;
+    a forced last token wins over ``min_length``, HF's processor order. The
+    loop stops once every row has emitted EOS; the untouched tail is already
+    ``pad_id``, what the remaining steps would have written. ``device`` is
+    where the tokens live (the caches' device)."""
     tok = torch.full((batch,), start_id, dtype=torch.int32, device=device)
     done = torch.zeros((batch,), dtype=torch.bool, device=device)
     toks = torch.full((batch, max_new_tokens), pad_id, dtype=torch.int32, device=device)
@@ -93,6 +98,10 @@ def greedy_scan(
         logits, caches = step_fn(tok, step, caches)
         logits = _ban_eos_before(logits, step, min_length, eos_id)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if forced_first_id is not None and step == 0:
+            nxt = torch.full_like(nxt, forced_first_id)
+        if forced_last_id is not None and step == max_new_tokens - 1:
+            nxt = torch.full_like(nxt, forced_last_id)
         nxt = torch.where(done, pad_id, nxt)
         done = done | (nxt == eos_id)
         toks[:, step] = nxt
@@ -132,6 +141,8 @@ def beam_scan(
     length_penalty: float = 1.0,
     early_stopping: bool = False,
     min_length: int = 0,
+    forced_first_id: Optional[int] = None,
+    forced_last_id: Optional[int] = None,
     cache_reorder: str = "delta",
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,8 +156,10 @@ def beam_scan(
     ``early_stopping`` is set or the best running beam can no longer beat
     the worst banked one. After the loop, the running beams of rows that
     never closed bank at full length; each row emits its best hypothesis.
-    ``num_beams=1`` emits greedy's tokens. The reference's forced first/last
-    ids serve BART, which is not ported.
+    ``num_beams=1`` emits greedy's tokens. A forced first (last) id replaces
+    the whole log-probability row at step 0 (the last step) with 0 for that
+    id and ``NEG_INF`` elsewhere, after the ``min_length`` ban (HF's
+    processor order, so a forced EOS wins).
 
     ``cache_reorder``: ``"delta"`` (default) skips the cache gather on steps
     where every beam extends its own parent; ``"gather"`` always gathers.
@@ -171,6 +184,15 @@ def beam_scan(
     arange_k = torch.arange(K, **i32)[None, :]
     rank_lt_k = torch.arange(K2, device=device)[None, :] < K
 
+    def forced_row(token: Optional[int]) -> Optional[torch.Tensor]:
+        if token is None:
+            return None
+        row = torch.full((V,), NEG_INF, **f32)
+        row[token] = 0.0
+        return row
+
+    forced_first, forced_last = forced_row(forced_first_id), forced_row(forced_last_id)
+
     def pow_lp(n: int) -> torch.Tensor:
         """n ** length_penalty in f32, as the reference computes it, as a
         device tensor (CUDA divides by a host scalar through its
@@ -183,6 +205,10 @@ def beam_scan(
         logits, caches = step_fn(tok, step, caches)              # [B·K, V]
         logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
         logp = _ban_eos_before(logp, step, min_length, eos_id)
+        if forced_first is not None and step == 0:
+            logp = forced_first.expand(B, K, V)
+        if forced_last is not None and step == T - 1:
+            logp = forced_last.expand(B, K, V)
         flat = (scores[:, :, None] + logp).view(B, K * V)
         cand_scores, idx = _top_k(flat, K2)                      # [B, 2K]
         cand_beam = idx // V                                     # parent beam

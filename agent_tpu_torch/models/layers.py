@@ -130,6 +130,43 @@ def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def unflatten(flat: Dict[str, Any]) -> Params:
+    """``{"layers.0.attn.q.w": x, ...}`` -> nested dicts, with a node whose
+    keys are all integers as a list (the inverse of :func:`flatten`)."""
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = root
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def place_tree(tree: Any, dtype: torch.dtype, device=None, _f32: bool = False) -> Any:
+    """A nested dict/list of arrays or tensors -> the same tree of
+    contiguous tensors on ``device``: the leaves under a key that starts
+    with ``ln`` (layer norms) or is ``final_logits_bias`` in f32, as the
+    reference reads them, every other leaf in ``dtype`` (the reference's
+    cast at use, done once)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, dtype, device,
+                              _f32 or k.startswith("ln") or k == "final_logits_bias")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_tree(v, dtype, device, _f32) for v in tree]
+    return torch.as_tensor(tree).to(device=device, dtype=torch.float32 if _f32 else dtype) \
+        .contiguous()
+
+
 def assign_from_npz(flat: Dict[str, np.ndarray], path: str) -> Dict[str, np.ndarray]:
     """Overlay a flat ``.npz`` checkpoint (dotted keys) onto ``flat``;
     leaves absent from the file keep their initialised values."""

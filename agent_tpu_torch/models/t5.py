@@ -440,22 +440,12 @@ def is_hf_t5_dir(path: str) -> bool:
 
 def load_hf_dir(path: str, device=None, **config_overrides) -> Tuple[T5Config, Params]:
     """(config, params on ``device``) from a local HF T5 checkpoint
-    directory: ``model.safetensors`` when ``safetensors`` imports, else
-    ``pytorch_model.bin`` (read with ``weights_only=True``)."""
+    directory: ``model.safetensors`` (the port's own reader), else
+    ``pytorch_model.bin`` (:func:`~agent_tpu_torch.models.safetensors_io.load_hf_weights`)."""
+    from agent_tpu_torch.models.safetensors_io import load_hf_weights
+
     cfg = T5Config.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
-    st_path = os.path.join(path, "model.safetensors")
-    bin_path = os.path.join(path, "pytorch_model.bin")
-    if os.path.exists(st_path):
-        try:
-            from safetensors.torch import load_file
-        except ImportError:
-            pass
-        else:
-            return cfg, from_state_dict(load_file(st_path), cfg, device)
-    if not os.path.exists(bin_path):
-        raise FileNotFoundError(f"no model.safetensors or pytorch_model.bin under {path}")
-    raw = torch.load(bin_path, map_location="cpu", weights_only=True, mmap=True)
-    return cfg, from_state_dict(raw, cfg, device)
+    return cfg, from_state_dict(load_hf_weights(path), cfg, device)
 
 
 # ---- tokenizer (gated on sentencepiece) ----

@@ -6,7 +6,7 @@ use: the byte vocabulary's specials, ``ByteTokenizer``, the wordpiece
 tokenizer over a local vocab file (loading and encoding), the length
 buckets, the fused byte-tokenize-and-pad (``byte_encode_pad``, with BOS/EOS
 and its ``raw_uint8`` wire), ``pad_batch`` for pre-tokenized ids and the
-``get_tokenizer`` factory. The BPE tokenizer is not part of the port yet.
+``get_tokenizer`` factory, whose ``bpe`` kind is :mod:`agent_tpu_torch.models.bpe`.
 """
 
 from __future__ import annotations
@@ -113,9 +113,10 @@ class WordPieceTokenizer:
 
 
 def get_tokenizer(kind: str = "byte", vocab_path: Optional[str] = None):
-    """``byte`` (default) or ``wordpiece`` (needs a vocab.txt path); ``bpe``
-    is refused until the port has the BPE tokenizer. ValueError for a bad
-    kind or a missing path; OSError when the vocab does not open."""
+    """``byte`` (default), ``wordpiece`` (needs a vocab.txt path) or ``bpe``
+    (GPT-2/BART byte-level BPE; needs a directory holding vocab.json +
+    merges.txt, e.g. an HF checkpoint directory). ValueError for a bad kind
+    or a missing path; OSError when the vocab does not open."""
     if kind == "byte":
         return ByteTokenizer()
     if kind == "wordpiece":
@@ -124,7 +125,9 @@ def get_tokenizer(kind: str = "byte", vocab_path: Optional[str] = None):
         raise ValueError("wordpiece tokenizer requires vocab_path")
     if kind == "bpe":
         if vocab_path:
-            raise ValueError("the bpe tokenizer is not supported by agent_tpu_torch yet")
+            from agent_tpu_torch.models.bpe import ByteLevelBPE
+
+            return ByteLevelBPE.from_dir(vocab_path)
         raise ValueError(
             "bpe tokenizer requires vocab_path (dir with vocab.json + merges.txt)"
         )

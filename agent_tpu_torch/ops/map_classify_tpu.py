@@ -26,15 +26,24 @@ the host (``runtime.HostCopy``), and finalize waits for that copy alone, so
 in the agent's pipeline the poster thread does not wait for the next
 shard's forward.
 
-On a runtime whose mesh has ``sp`` > 1 every layer attends through ring
-attention (``runtime.attention_fn()``). Nothing else changes: an sp mesh
-has dp = 1, so staging is the one-device staging, and the forward cache
-belongs to the runtime, whose attention function is fixed, so its keys
-need no mesh.
+Families, resolved from ``model_path`` as the reference does: a local HF
+checkpoint directory (``config.json``) serves the pretrained BERT family
+(:mod:`agent_tpu_torch.models.bert`: weights from ``model.safetensors`` or
+``pytorch_model.bin``, text through the checkpoint's ``vocab.txt``, and
+``model_config`` may override only ``dtype``, ``num_labels`` and
+``quant``); anything else serves the in-house encoder (seeded weights from
+the model id, or a ``.npz``). A checkpoint whose ``config.json`` does not
+read, or is not BERT's, raises: a retryable integrity failure, not bad
+input.
 
-Not ported yet, each rejected with a ``bad_input`` that names it:
-HF-checkpoint ``model_path`` (BERT family), ``quant`` other than ``none``,
-``pp`` > 1 and ``moe_experts`` > 0.
+On a runtime whose mesh has ``sp`` > 1 every layer of either family attends
+through ring attention (``runtime.attention_fn()``). Nothing else changes:
+an sp mesh has dp = 1, so staging is the one-device staging, and the
+forward cache belongs to the runtime, whose attention function is fixed, so
+its keys need no mesh.
+
+Not ported yet, each rejected with a ``bad_input`` that names it: ``quant``
+other than ``none`` (either family), ``pp`` > 1 and ``moe_experts`` > 0.
 """
 
 from __future__ import annotations
@@ -65,6 +74,33 @@ def _get_cfg(payload: Dict[str, Any]):
                          "agent_tpu_torch yet")
     if cfg.moe_experts > 0:
         raise ValueError("moe_experts > 0 (MoE) is not supported by agent_tpu_torch yet")
+    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
+    return cfg
+
+
+def _resolve_family(model_id: str) -> str:
+    """``"bert"`` for a local HF checkpoint directory, else ``"encoder"``."""
+    from agent_tpu_torch.models import bert
+
+    return "bert" if bert.is_hf_dir(model_id) else "encoder"
+
+
+# The model_config fields a payload may override for a checkpoint: serving
+# controls only (the structural fields are the checkpoint's).
+_BERT_SERVING_OVERRIDES = ("dtype", "num_labels", "quant")
+
+
+def _get_bert_cfg(model_id: str, payload: Dict[str, Any]):
+    """BertConfig from the checkpoint's config.json with the payload's
+    serving overrides (``_BERT_SERVING_OVERRIDES``)."""
+    from agent_tpu_torch.models.bert import BertConfig
+    from agent_tpu_torch.ops._model_common import check_quant_ported
+
+    overrides = payload.get("model_config")
+    allowed = ({k: v for k, v in overrides.items() if k in _BERT_SERVING_OVERRIDES}
+               if isinstance(overrides, dict) else {})
+    cfg = BertConfig.from_hf_json(os.path.join(model_id, "config.json"), **allowed)
+    check_quant_ported(payload, cfg)
     cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
     return cfg
 
@@ -109,10 +145,20 @@ def _collect_sequences(payload: Dict[str, Any], cfg) -> Tuple[List, str, bool]:
     )
 
 
-def _stage_chunks(items: List, kind: str, cfg) -> List[Tuple]:
+def _dims(cfg) -> Tuple[int, int, int, int]:
+    """(d_model, d_ff, n_layers, n_heads) of either family's config."""
+    if hasattr(cfg, "hidden_size"):
+        return cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.num_heads
+    return cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_heads
+
+
+def _stage_chunks(items: List, kind: str, cfg, family: str = "encoder",
+                  model_id: str = "") -> List[Tuple]:
     """Pure host: tokenize and pad ``items`` into dispatch chunks
     ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]`` (one device, so
-    batch buckets are powers of two)."""
+    batch buckets are powers of two). Texts go through the fused byte path
+    for the in-house encoder and the checkpoint's wordpiece vocab
+    (``[CLS] pieces [SEP]``) for BERT."""
     from agent_tpu_torch.models.tokenizer import pad_batch
     from agent_tpu_torch.ops._model_common import (
         batch_buckets,
@@ -122,10 +168,21 @@ def _stage_chunks(items: List, kind: str, cfg) -> List[Tuple]:
         stage_text_chunks,
     )
 
-    d_head, dtype = cfg.d_model // cfg.n_heads, cfg.compute_dtype
+    d_model, _, _, n_heads = _dims(cfg)
+    d_head, dtype = d_model // n_heads, cfg.compute_dtype
     if kind == "texts":
+        encode_pad = None
+        if family == "bert":
+            from agent_tpu_torch.models import bert
+
+            tok = bert.hf_wordpiece(model_id)
+
+            def encode_pad(chunk, lb, bb):
+                return bert.encode_pad_batch(tok, chunk, cfg.max_len, bb, lb)
+
         return stage_text_chunks(1, items, max_len=cfg.max_len, vocab_size=cfg.vocab_size,
-                                 max_batch=MAX_BATCH, d_head=d_head, dtype=dtype)
+                                 max_batch=MAX_BATCH, d_head=d_head, dtype=dtype,
+                                 encode_pad=encode_pad)
     buckets = length_buckets_for(cfg.max_len)
     bbuckets = batch_buckets(1, MAX_BATCH)
     chunks: List[Tuple] = []
@@ -137,7 +194,16 @@ def _stage_chunks(items: List, kind: str, cfg) -> List[Tuple]:
     return chunks
 
 
-def _build_model(model_id: str, cfg):
+def _build_model(model_id: str, cfg, family: str = "encoder", device=None):
+    """The served weights: BERT's parameter tree on ``device``, or an
+    :class:`~agent_tpu_torch.models.encoder.Encoder` (which the runtime
+    moves there)."""
+    if family == "bert":
+        from agent_tpu_torch.models import bert
+
+        # The staged config's overrides, so the head matches num_labels.
+        return bert.load_hf_dir(model_id, device=device, dtype=cfg.dtype,
+                                num_labels=cfg.num_labels)[1]
     from agent_tpu_torch.models import encoder
 
     if model_id.endswith(".npz") and os.path.exists(model_id):
@@ -147,11 +213,13 @@ def _build_model(model_id: str, cfg):
     return encoder.from_jax_params(flat, cfg)
 
 
-def _make_forward(L: int, k: int, attn_fn):
+def _make_forward(L: int, k: int, attn_fn, family: str = "encoder", cfg=None):
     """The forward for one (batch, length, k) shape: rebuild ids and mask
-    from the wire on the device, run the encoder, and pack the top-k values
-    and indices (int32 bit patterns as f32) into one ``[B, k, 2]`` tensor,
-    so the host fetches one array."""
+    from the wire on the device, run the model (the in-house encoder, or
+    BERT's forward over its parameter tree), and pack the top-k values and
+    indices (int32 bit patterns as f32) into one ``[B, k, 2]`` tensor, so
+    the host fetches one array."""
+    from agent_tpu_torch.models import bert
     from agent_tpu_torch.models.encoder import topk_probs
     from agent_tpu_torch.models.tokenizer import N_SPECIAL
 
@@ -160,13 +228,16 @@ def _make_forward(L: int, k: int, attn_fn):
         ids = wire.to(torch.int32)
         if wire.dtype == torch.uint8:
             ids = (ids + N_SPECIAL) * mask  # raw-byte wire (stage_text_chunks)
-        vals, idx = topk_probs(model(ids, mask, attn_fn), k)
+        logits = (bert.forward(model, ids, mask, cfg, attn_fn) if family == "bert"
+                  else model(ids, mask, attn_fn))
+        vals, idx = topk_probs(logits, k)
         return torch.stack([vals, idx.to(torch.int32).view(torch.float32)], dim=-1)
 
     return run_fwd
 
 
-def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
+def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int,
+                    family: str = "encoder"):
     """Device phase -> the pending result, its copy to the host queued
     (``HostCopy``) and waited for by finalize: one ``(packed, n)`` entry, or
     ``("cat", packed, layout)`` when several dispatch chunks were
@@ -175,8 +246,8 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
     from agent_tpu_torch.runtime.runtime import HostCopy
 
     model = runtime.get_params(
-        f"{model_id}#encoder#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}",
-        lambda: _build_model(model_id, cfg),
+        f"{model_id}#{family}#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}",
+        lambda: _build_model(model_id, cfg, family, runtime.device),
     )
     attn_fn = runtime.attention_fn()
     pending: List[Tuple[Any, int]] = []
@@ -184,8 +255,8 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int):
         for ids, lengths, n in chunks:
             B, L = ids.shape
             fn = runtime.compiled(
-                ("map_classify_tpu", model_id, B, L, k, cfg_key(cfg)),
-                lambda L=L: _make_forward(L, k, attn_fn),
+                ("map_classify_tpu", model_id, family, B, L, k, cfg_key(cfg)),
+                lambda L=L: _make_forward(L, k, attn_fn, family, cfg),
             )
             pending.append((fn(model, runtime.put_batch(ids),
                                runtime.put_batch(lengths)), n))
@@ -215,10 +286,6 @@ def _fetch_pending(pending) -> Tuple[np.ndarray, np.ndarray]:
     return vals, idx
 
 
-def _is_hf_dir(path: str) -> bool:
-    return os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json"))
-
-
 def stage(payload: Any, ctx: Optional[object] = None):
     """Host-only phase: ``("done", result)`` for an immediate soft result,
     else ``("staged", state)`` for :func:`execute`. Touches no device."""
@@ -238,11 +305,12 @@ def stage(payload: Any, ctx: Optional[object] = None):
     if result_format not in ("rows", "columnar"):
         return "done", bad_input("result_format must be 'rows' or 'columnar'")
     model_id = resolve_model_id(payload, "TPU_MODEL_PATH", DEFAULT_MODEL_ID)
+    family = _resolve_family(model_id)
     try:
-        if _is_hf_dir(model_id):
-            raise ValueError("HF-checkpoint model_path (the BERT family) is not "
-                             "supported by agent_tpu_torch yet")
-        cfg = _get_cfg(payload)
+        # A checkpoint's integrity problems (config.json unreadable, not
+        # BERT's, lacking a field) raise past this handler on purpose: the
+        # shard fails for a retry instead of being dropped as bad input.
+        cfg = _get_bert_cfg(model_id, payload) if family == "bert" else _get_cfg(payload)
         items, kind, single = _collect_sequences(payload, cfg)
         output_dir = validate_output_uri(payload)
         start_row = validate_start_row(payload)
@@ -251,11 +319,12 @@ def stage(payload: Any, ctx: Optional[object] = None):
 
     state = {
         "t0": t0,
-        "chunks": _stage_chunks(items, kind, cfg),
+        "chunks": _stage_chunks(items, kind, cfg, family, model_id),
         "n_rows": len(items),
         "cfg": cfg,
         "k": min(topk, cfg.n_classes),
         "model_id": model_id,
+        "family": family,
         "result_format": result_format,
         "single": single,
         "output_dir": output_dir,
@@ -270,10 +339,11 @@ def _stamp_flops(state: Dict[str, Any], ctx: Optional[object]) -> None:
     from agent_tpu_torch.ops._model_common import encoder_fwd_flops, stamp_device_flops
 
     cfg = state["cfg"]
+    d_model, d_ff, n_layers, _ = _dims(cfg)
     total, biggest = 0.0, (0, "?")
     for ids, _, _ in state["chunks"]:
         B, L = ids.shape
-        total += encoder_fwd_flops(B, L, cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_classes)
+        total += encoder_fwd_flops(B, L, d_model, d_ff, n_layers, cfg.n_classes)
         if B * L > biggest[0]:
             biggest = (B * L, f"B{B}xL{L}")
     stamp_device_flops(ctx, total, biggest[1])
@@ -293,7 +363,7 @@ def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, An
         runtime = get_runtime()
     state.update(
         pending_dev=_execute_chunks(runtime, state["chunks"], state["model_id"],
-                                    state["cfg"], state["k"]),
+                                    state["cfg"], state["k"], state["family"]),
         device=runtime.platform,
         t_device=time.perf_counter(),
     )

@@ -13,11 +13,17 @@ with the same op name, phases, payload and result contract.
   errors come back as soft ``bad_input`` results with the reference's
   messages. A shard that cannot be read raises, so the task fails.
 - Families, resolved from ``model_path`` as the reference does: a local HF
-  T5 checkpoint directory serves T5 (the encoder's self-attention through
-  the CUDA T5 kernel, ``runtime.t5_attention_kernel()``); anything else
-  that is not a checkpoint directory serves the in-house seq2seq (seeded
-  weights from the model id, or a ``.npz``), whose encoder attends through
-  ``runtime.attention_fn()``.
+  BART checkpoint directory serves BART (:mod:`agent_tpu_torch.models.bart`,
+  the reference's summarize model: text through the checkpoint's byte-level
+  BPE, the encoder through ``runtime.attention_fn()``, generation with the
+  checkpoint's forced first and last ids); a local HF T5 one serves T5 (the
+  encoder's self-attention through the CUDA T5 kernel,
+  ``runtime.t5_attention_kernel()``); anything else that is not a
+  checkpoint directory serves the in-house seq2seq (seeded weights from the
+  model id, or a ``.npz``), whose encoder attends through
+  ``runtime.attention_fn()``. For a checkpoint, ``model_config`` may
+  override only ``dtype`` and ``quant``; ``BART_MODEL`` names the default
+  ``model_path``.
 - ``SUMMARIZE_FORCE_CPU`` set to one of the reference's truthy tokens
   (``1``, ``true``, ``yes``, ``on``, ``y``) is the caller's explicit
   request for a CPU runtime; it is off by default. A failure on the card raises and fails the
@@ -28,9 +34,8 @@ T5 text in and out needs the checkpoint's ``spiece.model`` and the
 error without them); the device phase (:func:`_decode_chunks`) works on
 staged ids alone.
 
-Not ported yet, each rejected with a ``bad_input`` that names it: a BART
-checkpoint directory, ``quant`` other than ``none``, and a mesh with ``dp``
-or ``tp``.
+Not ported yet, each rejected with a ``bad_input`` that names it: ``quant``
+other than ``none`` (every family), and a mesh with ``dp`` or ``tp``.
 """
 
 from __future__ import annotations
@@ -99,13 +104,16 @@ _CKPT_SERVING_OVERRIDES = ("dtype", "quant")
 def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
     from agent_tpu_torch.ops._model_common import check_quant_ported, config_from_payload
 
-    if family == "t5":
-        from agent_tpu_torch.models.t5 import T5Config
+    if family in ("bart", "t5"):
+        if family == "bart":
+            from agent_tpu_torch.models.bart import BartConfig as config_cls
+        else:
+            from agent_tpu_torch.models.t5 import T5Config as config_cls
 
         overrides = payload.get("model_config")
         allowed = ({k: v for k, v in overrides.items() if k in _CKPT_SERVING_OVERRIDES}
                    if isinstance(overrides, dict) else {})
-        cfg = T5Config.from_hf_json(os.path.join(model_id, "config.json"), **allowed)
+        cfg = config_cls.from_hf_json(os.path.join(model_id, "config.json"), **allowed)
     else:
         from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
 
@@ -129,12 +137,21 @@ def _mesh_shape(ctx) -> Dict[str, int]:
 def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
                   model_id: str) -> List[Tuple]:
     """Tokenize and pad into dispatch chunks: the byte tokenizer with BOS and
-    EOS for the in-house seq2seq, the checkpoint's SentencePiece model
-    (``pieces </s>``) for T5."""
+    EOS for the in-house seq2seq, the checkpoint's byte-level BPE (``<s>
+    pieces </s>``) for BART, its SentencePiece model (``pieces </s>``) for
+    T5."""
     from agent_tpu_torch.ops._model_common import stage_text_chunks
 
     encode_pad = None
-    if family == "t5":
+    if family == "bart":
+        from agent_tpu_torch.models import bart
+
+        tok = bart.hf_bpe(model_id)
+
+        def encode_pad(chunk, lb, bb):
+            return bart.encode_pad_batch(tok, chunk, cfg, bb, lb)
+
+    elif family == "t5":
         from agent_tpu_torch.models import t5
 
         sp = t5.hf_spm(model_id)  # gated: actionable error without sentencepiece
@@ -148,6 +165,10 @@ def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
 
 
 def _build_model(model_id: str, cfg, family: str, device):
+    if family == "bart":
+        from agent_tpu_torch.models import bart
+
+        return bart.load_hf_dir(model_id, device=device, dtype=cfg.dtype)[1]
     if family == "t5":
         from agent_tpu_torch.models import t5
 
@@ -175,7 +196,7 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
                    family: str = "seq2seq") -> List[Tuple[torch.Tensor, int]]:
     """Device phase: decode staged ``(ids, lengths, n)`` chunks -> pending
     ``[(tokens on the device [B, max_new], n), ...]``."""
-    from agent_tpu_torch.models import seq2seq, t5
+    from agent_tpu_torch.models import bart, seq2seq, t5
 
     model = runtime.get_params(params_key(model_id, family, cfg),
                                lambda: _build_model(model_id, cfg, family, runtime.device))
@@ -186,7 +207,12 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
             ids_t = runtime.put_batch(ids)
             n_t = runtime.put_batch(lengths)
             mask = (torch.arange(L, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
-            if family == "t5":
+            if family == "bart":
+                toks, _ = bart.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
+                                        length_penalty=length_penalty,
+                                        early_stopping=early_stopping, min_length=min_length,
+                                        attn_fn=runtime.attention_fn())
+            elif family == "t5":
                 toks, _ = t5.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
                                       length_penalty=length_penalty,
                                       early_stopping=early_stopping, min_length=min_length,
@@ -274,9 +300,6 @@ def stage(payload: Any, ctx: Optional[object] = None):
     family = _resolve_family(model_id)
     force_cpu = os.environ.get("SUMMARIZE_FORCE_CPU", "").strip().lower() in _TRUTHY
     try:
-        if family == "bart":
-            raise ValueError("a BART checkpoint directory (model_path) is not supported "
-                             "by agent_tpu_torch yet")
         cfg = _get_cfg(payload, family, model_id)
         mesh = {} if force_cpu else _mesh_shape(ctx)
         if mesh.get("dp", 1) > 1 or mesh.get("tp", 1) > 1:
@@ -360,7 +383,20 @@ def finalize(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, A
     token_chunks = [toks.numpy()[:n] for toks, n in state["token_chunks"]]
     fetch_ms = (time.perf_counter() - t_f) * 1000.0
     summaries: List[str] = []
-    if state["family"] == "t5":
+    if state["family"] == "bart":
+        from agent_tpu_torch.models import bart
+
+        cfg = state["cfg"]
+        tok = bart.hf_bpe(state["model_id"])
+        # The id set transformers' skip_special_tokens drops, <unk> included.
+        skip = {cfg.pad_id, cfg.bos_id, cfg.eos_id, cfg.decoder_start_id}
+        unk = tok.vocab.get("<unk>")
+        if unk is not None:
+            skip.add(unk)
+        for toks in token_chunks:
+            summaries.extend(tok.decode([t for t in row if int(t) not in skip]).strip()
+                             for row in toks)
+    elif state["family"] == "t5":
         from agent_tpu_torch.models import t5
 
         cfg = state["cfg"]

@@ -5,10 +5,11 @@
 - ``mode: "chars"``: fixed-size character windows (default
   ``chunk_size`` 1024), with the reference wire's aliases (``tokens``,
   ``count``, ``total_chars``, ``n_chars`` / ``items_count``).
-- ``mode: "tokens"`` (the default): the byte tokenizer, or ``tokenizer:
-  "wordpiece"`` with a local ``vocab_path``, chunking the token stream into
-  windows of ``chunk_size`` ids. ``tokenizer: "bpe"`` is refused until the
-  port has the BPE tokenizer.
+- ``mode: "tokens"`` (the default): the byte tokenizer, ``tokenizer:
+  "wordpiece"`` with a local ``vocab_path`` (a vocab.txt), or ``tokenizer:
+  "bpe"`` with a local ``vocab_path`` directory (vocab.json + merges.txt,
+  e.g. an HF BART checkpoint's; ids equal the reference's), chunking the
+  token stream into windows of ``chunk_size`` ids.
 - Validation errors come back as ``{"ok": False, "error": ...}``.
 """
 
@@ -77,7 +78,12 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
         tok = get_tokenizer(payload.get("tokenizer", "byte"), payload.get("vocab_path"))
     except (ValueError, OSError) as exc:
         return bad_input(str(exc))
-    encoded = [tok.encode(t) for t in items]
+    try:
+        encoded = [tok.encode(t) for t in items]
+    except KeyError as exc:
+        # An inconsistent vocab/merges pair is caller input, not a crash.
+        return bad_input(f"vocab is missing token {exc} (inconsistent "
+                         "vocab.json/merges.txt?)")
     per_item = [_chunks(ids, chunk_size) for ids in encoded]
     flat = [c for cs in per_item for c in cs]
     return {

@@ -50,7 +50,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               launcher must refuse CPU, f16 and misshapen inputs. The
               serving kernel's cases include phase 8's staged shapes and
               the first shards of phase 10 (B 8192, L 48, d_head 64 and
-              the seq2seq's 32).
+              the seq2seq's 32), and phases 11 and 12's staged requests
+              (BERT-base's, and the BART encoder's B 64, H 16, L 1024); the
+              fold's include phase 11's sp = 2 shard.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -134,6 +136,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               cut to 2 layers) drains one echo, one read_csv_shard and two
               256-row shards and must exit 0 on SIGTERM, and 2 with
               TASKS=none.
+11. bert    — a checkpoint directory with bert-base-uncased's published
+              config.json (a two-label head, as fine-tuned checkpoints ship
+              it), a synthetic 30,522-line vocab.txt and random weights from
+              a seeded generator (std 0.02, f32; not pretrained), served by
+              map_classify_tpu through the registry with model_path: 256
+              texts of 20-120 words, one text cut at 512 wordpieces and one
+              8,192-row shard of phase 10's CSV. Row 1 once per layer a
+              dispatch chunk, and the profile's forward the TMA + wgmma
+              kernel alone; every class against the plain attention on the
+              card; the 256-row request on an sp = 2 ring on the one card
+              (the fold in every hop: n_layers x 4 launches) against one
+              device; the same weights as model.safetensors alone, read by
+              the port's reader, give the same results. p50 ms, rows/s, the
+              idle share and device ms by kind of kernel.
+12. bart    — a checkpoint directory with facebook/bart-large-cnn's
+              published config.json, a synthetic byte-level vocab.json and
+              merges.txt (the 256 byte symbols, 4,000 merges) and random
+              weights from a seeded generator (std 0.02, bf16): map_summarize
+              through the op's phases with model_path, 64 rows of 600-1000
+              BPE tokens with 32 new tokens greedy, then 8 rows with 4 beams
+              and min_length 8. Row 1 once per encoder layer a request;
+              every row starts with the forced bos, every row that reaches
+              the last step ends in the forced eos, none has an EOS before
+              min_length; teacher-forced log-probabilities of the first 8
+              rows on the kernel's encoder output against the plain
+              attention's (bf16); those rows' greedy tokens in f32 with the
+              kernel equal to the plain attention's. p50 ms, emitted
+              tokens/s and the idle share.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -141,8 +171,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8, 9 and 10;
-              row 1's launches by path include phase 10's drain.
+              point's time beside it). Printed after phases 8-12; row 1's
+              launches by path include phases 10, 11 and 12, and its entry
+              holds a second one at phase 12's encoder shape; the fold's
+              launches by path include phase 11's ring.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -260,6 +292,33 @@ GRAD_REL_L2_FLOOR = 1e-2
 # JAX package on one CPU within the same 1e-3 after the same 40 steps.
 TRAIN_F32_REL_TOL = 1e-3
 
+# Phase 11: google-bert/bert-base-uncased's published config.json, with a
+# two-label head as a fine-tuned checkpoint ships it (num_labels, id2label).
+BERT_BASE_UNCASED = {"model_type": "bert", "architectures": ["BertForSequenceClassification"],
+                     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
+                     "num_attention_heads": 12, "intermediate_size": 3072,
+                     "max_position_embeddings": 512, "type_vocab_size": 2,
+                     "layer_norm_eps": 1e-12, "hidden_act": "gelu", "initializer_range": 0.02,
+                     "pad_token_id": 0, "num_labels": 2,
+                     "id2label": {"0": "LABEL_0", "1": "LABEL_1"}}
+BERT_ROWS, BERT_WORDS, BERT_LONG_PIECES = 256, (20, 120), 512
+BERT_SP = 2
+# Phase 12: facebook/bart-large-cnn's published config.json (the fields the
+# model reads, and its generation defaults).
+BART_LARGE_CNN = {"model_type": "bart", "architectures": ["BartForConditionalGeneration"],
+                  "vocab_size": 50264, "d_model": 1024, "encoder_layers": 12,
+                  "decoder_layers": 12, "encoder_attention_heads": 16,
+                  "decoder_attention_heads": 16, "encoder_ffn_dim": 4096,
+                  "decoder_ffn_dim": 4096, "max_position_embeddings": 1024,
+                  "activation_function": "gelu", "init_std": 0.02, "scale_embedding": False,
+                  "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+                  "decoder_start_token_id": 2, "forced_bos_token_id": 0,
+                  "forced_eos_token_id": 2, "num_beams": 4, "length_penalty": 2.0,
+                  "min_length": 56, "max_length": 142}
+BART_ROWS, BART_BEAM_ROWS, BART_MAX_NEW, BART_BEAMS, BART_MIN_LENGTH = 64, 8, 32, 4, 8
+BART_TOKENS, BART_MERGES = (600, 1000), 4000
+BART_CHECK_ROWS = 8  # rows whose f32 tokens are compared, kernel vs plain
+
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 
@@ -343,9 +402,11 @@ def staged_cases(classify, requests) -> list:
         if phase != "staged":
             raise SystemExit(f"{name} did not stage: {state}")
         cfg = state["cfg"]
+        heads = getattr(cfg, "n_heads", None) or cfg.num_heads  # BERT's names
+        width = getattr(cfg, "d_model", None) or cfg.hidden_size
         for ids, lengths, _ in state["chunks"]:
             B, L = ids.shape
-            cases.append((f"{name}/B{B}xL{L}", (B, cfg.n_heads, L, L, cfg.d_model // cfg.n_heads),
+            cases.append((f"{name}/B{B}xL{L}", (B, heads, L, L, width // heads),
                           lengths, cfg.compute_dtype))
     return cases
 
@@ -372,8 +433,8 @@ def check_kernels(fa, main_cases) -> dict:
         results.append({"case": name, "dtype": str(dtype).split(".")[-1],
                         "shape": [B, H, Lq, Lk, D], "max_abs_err": err, "max_rel_err": rel,
                         "fault_rel_err": fault_rel, "ok": ok, "faults_caught": caught})
-        if name.startswith("texts256/"):
-            inputs["main"] = (q, k, v, mask, lengths)
+        if name.startswith(("texts256/", "bart_greedy/")):
+            inputs[name.split("/")[0]] = (q, k, v, mask, lengths)
     # Strided inputs give the contiguous result; the launcher refuses what
     # the kernel does not take.
     q, k, v, mask = attn_inputs(2, 4, 32, 32, 64, torch.bfloat16, [32, 20])
@@ -400,7 +461,8 @@ def check_kernels(fa, main_cases) -> dict:
                          f"{strided_equal}, refused {refused}")
     main = [r for r in results if "/" in r["case"]]
     return {"max_abs_err": max(r["max_abs_err"] for r in main),
-            "max_rel_err": max(r["max_rel_err"] for r in main), "inputs": inputs["main"]}
+            "max_rel_err": max(r["max_rel_err"] for r in main), "inputs": inputs["texts256"],
+            "inputs_bart": inputs.get("bart_greedy")}
 
 
 TRAIN_EDGE_CASES = [
@@ -524,7 +586,7 @@ def random_texts(rng: random.Random, n: int, lo: int, hi: int):
 
 
 def check_result(out: dict, n_rows: int, k: int) -> None:
-    if not out.get("ok") or out.get("device") != "cuda" or "fallback" in out:
+    if not out.get("ok") or out.get("device") != torch.device(CARD).type or "fallback" in out:
         raise SystemExit(f"request did not run on cuda: {str(out)[:500]}")
     if out["n_rows"] != n_rows:
         raise SystemExit(f"n_rows {out['n_rows']} != {n_rows}")
@@ -629,7 +691,7 @@ def sm90_name(name: str):
 KERNEL_KINDS = (
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
-    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma")),
     ("layer_norm", ("layer_norm", "GammaBeta")),
     ("optimizer", ("multi_tensor_apply",)),
     ("embedding_index", ("embedding", "index", "scatter", "gather")),
@@ -650,6 +712,19 @@ def kernel_kind(name: str) -> str:
 
 
 PROFILE_ATTEMPTS = 3
+# Spin kernels each profiled session launches before the call (about 40 ms
+# of device time), so that the leading records the profiler loses are
+# theirs and not the call's; see profile_call.
+PROFILE_PREFIX, PROFILE_PREFIX_CYCLES = 1024, 80_000
+PREFIX_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def call_events(averages) -> tuple:
+    """The device events of a profiled session's ``key_averages()``, split
+    into the call's and the prefix's spin kernels (which it never launches)."""
+    events = [e for e in averages if e.device_type.name == "CUDA"]
+    return ([e for e in events if PREFIX_KERNEL not in e.key],
+            sum(e.count for e in events if PREFIX_KERNEL in e.key))
 
 
 def profile_call(fn) -> dict:
@@ -660,12 +735,18 @@ def profile_call(fn) -> dict:
     reading a device value (``aten::_local_scalar_dense``: ``bool(t)``,
     ``t.item()``, which wait for the stream), with their count.
 
-    The profiler has been seen to drop a batch of kernel records from a
-    call on an H100, flash kernels among them (the seq2seq request's and
-    the train step's profiles), whichever forward kernel ran. So a call
-    whose trace holds fewer flash kernels than the launch counters counted
-    during it is profiled again, up to PROFILE_ATTEMPTS times
-    (``profile_attempts``); a call that never matches fails."""
+    On an H100 (torch 2.11, CUDA 12.8) the profiler loses the first device
+    records of a session, whichever kernels they are: none early in the
+    process, more the longer it has lived, a few dozen in some sessions,
+    and under a busy host the call's first flash kernel. Sleeping on the
+    host inside the session does not help; device work first does. So
+    each session first launches PROFILE_PREFIX spin
+    kernels and waits for them; their records absorb the loss, and they are
+    left out of every number (``prefix_records_lost`` says how many of
+    theirs went). A call whose trace still holds fewer flash kernels than
+    the launch counters counted during it is profiled again, up to
+    PROFILE_ATTEMPTS times (``profile_attempts``); a call that never
+    matches fails."""
     from torch.profiler import ProfilerActivity, profile
 
     from agent_tpu_torch.kernels import flash_attention as fa
@@ -674,18 +755,22 @@ def profile_call(fn) -> dict:
         torch.cuda.synchronize()
         before = sum(fa.LAUNCH_COUNTS.values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PREFIX):
+                torch.cuda._sleep(PROFILE_PREFIX_CYCLES)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         launched = sum(fa.LAUNCH_COUNTS.values()) - before
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        events, prefix_traced = call_events(prof.key_averages())
         traced = sum(e.count for e in events if "flash_fwd" in e.key or "flash_bwd" in e.key)
         if traced == launched:
             break
     else:
         raise SystemExit(f"the profile traced {traced} flash kernels of {launched} launched, "
-                         f"{PROFILE_ATTEMPTS} times")
+                         f"{PROFILE_ATTEMPTS} times (prefix records lost in the last: "
+                         f"{PROFILE_PREFIX - prefix_traced})")
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     by_kind: dict = {}
     for e in events:
@@ -705,6 +790,7 @@ def profile_call(fn) -> dict:
             key = f"flash_bwd_{found.group(1)}_sm90"
             backwards[key] = backwards.get(key, 0) + e.count
     return {"wall_ms": wall_ms, "device_ms": device_ms, "profile_attempts": attempt,
+            "prefix_records_lost": PROFILE_PREFIX - prefix_traced,
             "flash_fwd_launches": forwards, "flash_bwd_sm90_launches": backwards,
             "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
             "host_blocked_reads": sum(e.count for e in reads),
@@ -1032,13 +1118,14 @@ def ring_fold_case(long_case) -> tuple:
     return (f"ring_shard/{name}", (B, H, lq, lq, D), *blocks, dtype)
 
 
-def check_fold_kernel(fa, main_case) -> dict:
+def check_fold_kernel(fa, main_case, extra_cases=()) -> dict:
     """Phase 3, the fold kernel: two hops, the first from the initial state,
     the second from the state the plain version carried out of the first;
     m, l and acc of each against the plain version under the serving
-    check's tolerances (those of the input dtype)."""
+    check's tolerances (those of the input dtype). ``main_case`` is the one
+    the kernels line times; ``extra_cases`` are other paths' shard shapes."""
     cases = [(n, s, l0, l1, dt) for n, s, l0, l1 in FOLD_EDGE_CASES
-             for dt in (torch.bfloat16, torch.float32)] + [main_case]
+             for dt in (torch.bfloat16, torch.float32)] + [main_case, *extra_cases]
     results, inputs = [], None
     for i, (name, (B, H, Lq, Lk, D), len0, len1, dtype) in enumerate(cases):
         q, k0, v0, mask0 = attn_inputs(B, H, Lq, Lk, D, dtype, len0, seed=200 + i)
@@ -1075,7 +1162,7 @@ def check_fold_kernel(fa, main_case) -> dict:
             "max_rel_err": max(r[2] for r in res),
             "fault_max_rel_err": {f: max(r[2] for r in fr) for f, fr in fault_res.items()},
             "ok": ok, "faults_caught": caught})
-        if name.startswith("ring_shard/"):
+        if name == main_case[0]:
             inputs = (q, k1, v1, keep1, prev, len1)
     # The launcher refuses state it does not take.
     q, k, v, keep, (m, l, acc), _ = inputs
@@ -1098,9 +1185,9 @@ def check_fold_kernel(fa, main_case) -> dict:
     bad = [r for r in results if not (r["ok"] and r["faults_caught"])]
     if bad or not all(refused.values()):
         raise SystemExit(f"fold kernel check failed: {bad}, refused {refused}")
-    main = results[-1]
-    return {"inputs": inputs, "max_abs_err": max(main["max_abs_err"].values()),
-            "max_rel_err": main["max_rel_err"]}
+    main = [r for r in results if r["case"].startswith("ring_shard/")]
+    return {"inputs": inputs, "max_abs_err": max(max(r["max_abs_err"].values()) for r in main),
+            "max_rel_err": max(r["max_rel_err"] for r in main)}
 
 
 def shared_runtime(base, attn=None, **kwargs):
@@ -1109,7 +1196,7 @@ def shared_runtime(base, attn=None, **kwargs):
     it instead of its own attention function."""
     from agent_tpu_torch.runtime.runtime import TorchRuntime
 
-    rt = TorchRuntime(**kwargs)
+    rt = TorchRuntime(**(kwargs or {"device": CARD}))
     rt._params = base._params
     if attn is not None:
         rt.attention_fn = lambda: attn
@@ -1199,7 +1286,7 @@ def ring_phase(fa, classify, rt, long_payload, one_card, small_payload, k) -> in
     return launches
 
 
-def fold_kernel_entry(fa, check, launches) -> dict:
+def fold_kernel_entry(fa, check, launches, **extra) -> dict:
     """The kernels line's entry of the fold kernel at its main case (phase
     5b's second hop of shard 0). The kernel updates the state in place, so
     repeated launches fold the same block again: the same work each time.
@@ -1219,7 +1306,7 @@ def fold_kernel_entry(fa, check, launches) -> dict:
         B * H * (Lq + 2 * Lk) * D * q.element_size() + 2 * (B * H * Lq * D * 4 + 2 * rows)
         + keep.numel() * 4,
         4 * H * Lq * D * float(np.sum(lengths)),  # products with real keys only
-        None, q, library_note="no single PyTorch call returns the carried (m, l, acc)")
+        None, q, library_note="no single PyTorch call returns the carried (m, l, acc)", **extra)
 
 
 def ring_cards_phase(fa, classify, n, long_payload, k) -> None:
@@ -1458,6 +1545,157 @@ def write_t5_checkpoint(path, hf: dict, seed: int, dtype, device) -> None:
     with open(f"{path}/config.json", "w") as fh:
         json.dump(hf, fh)
     torch.save(sd, f"{path}/pytorch_model.bin")
+
+
+def seeded_normal(gen, device, dtype, std):
+    """``normal(shape)``: a tensor of that shape drawn from ``gen`` at
+    standard deviation ``std``, in ``dtype`` on the CPU."""
+    def normal(shape, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * std + mean).to(dtype).cpu()
+    return normal
+
+
+def bert_state_dict(hf: dict, seed: int, dtype, device="cpu", std: float = 0.02) -> dict:
+    """A BertForSequenceClassification state dict with HF names (``bert.``
+    prefix, [out, in] linear weights, the position_ids buffer), every weight
+    and bias drawn at standard deviation ``std`` (BERT's initializer_range)
+    from a seeded generator, layer norm scales around 1."""
+    d, f = hf["hidden_size"], hf["intermediate_size"]
+    normal = seeded_normal(torch.Generator(device=device).manual_seed(seed), device, dtype, std)
+    sd = {}
+
+    def linear(name, n_out, n_in):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = normal((n_out, n_in)), normal((n_out,))
+
+    def norm(name):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = normal((d,), 1.0), normal((d,))
+
+    e = "bert.embeddings"
+    sd[f"{e}.word_embeddings.weight"] = normal((hf["vocab_size"], d))
+    sd[f"{e}.position_embeddings.weight"] = normal((hf["max_position_embeddings"], d))
+    sd[f"{e}.token_type_embeddings.weight"] = normal((hf["type_vocab_size"], d))
+    sd[f"{e}.position_ids"] = torch.arange(hf["max_position_embeddings"])[None]
+    norm(f"{e}.LayerNorm")
+    for i in range(hf["num_hidden_layers"]):
+        p = f"bert.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{p}.attention.self.{name}", d, d)
+        linear(f"{p}.attention.output.dense", d, d)
+        norm(f"{p}.attention.output.LayerNorm")
+        linear(f"{p}.intermediate.dense", f, d)
+        linear(f"{p}.output.dense", d, f)
+        norm(f"{p}.output.LayerNorm")
+    linear("bert.pooler.dense", d, d)
+    if hf.get("num_labels"):
+        linear("classifier", hf["num_labels"], d)
+    return sd
+
+
+def bart_state_dict(hf: dict, seed: int, dtype, device="cpu", std: float = 0.02) -> dict:
+    """A BartForConditionalGeneration state dict with HF names (``model.``
+    prefix, [out, in] linear weights, learned positions with HF's offset of
+    2 rows, final_logits_bias), every weight and bias drawn at standard
+    deviation ``std`` (BART's init_std) from a seeded generator, layer norm
+    scales around 1."""
+    d, f = hf["d_model"], hf["encoder_ffn_dim"]
+    normal = seeded_normal(torch.Generator(device=device).manual_seed(seed), device, dtype, std)
+    sd = {"model.shared.weight": normal((hf["vocab_size"], d))}
+
+    def linear(name, n_out, n_in):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = normal((n_out, n_in)), normal((n_out,))
+
+    def norm(name):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = normal((d,), 1.0), normal((d,))
+
+    for stack in ("encoder", "decoder"):
+        s = f"model.{stack}"
+        sd[f"{s}.embed_positions.weight"] = normal((hf["max_position_embeddings"] + 2, d))
+        norm(f"{s}.layernorm_embedding")
+        for i in range(hf[f"{stack}_layers"]):
+            p = f"{s}.layers.{i}"
+            attns = ["self_attn"] + (["encoder_attn"] if stack == "decoder" else [])
+            for a in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    linear(f"{p}.{a}.{proj}", d, d)
+                norm(f"{p}.{a}_layer_norm")
+            linear(f"{p}.fc1", f, d)
+            linear(f"{p}.fc2", d, f)
+            norm(f"{p}.final_layer_norm")
+    sd["final_logits_bias"] = normal((1, hf["vocab_size"]))
+    return sd
+
+
+def write_hf_checkpoint(path, hf: dict, sd: dict, safetensors: bool = False) -> None:
+    """config.json and the weights under ``path``: pytorch_model.bin
+    (torch.save), or with ``safetensors`` model.safetensors (the port's
+    writer)."""
+    from agent_tpu_torch.models import safetensors_io
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    if safetensors:
+        safetensors_io.save_file(sd, os.path.join(path, "model.safetensors"),
+                                 {"format": "pt"})
+    else:
+        torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+
+
+def synthetic_words(n: int, seed: int) -> list:
+    """n distinct lower-case words of 2-9 letters, from a seeded generator."""
+    rng = random.Random(seed)
+    words, seen = [], set()
+    while len(words) < n:
+        w = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(rng.randint(2, 9)))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def write_wordpiece_vocab(path, vocab_size: int, seed: int, extra=()) -> list:
+    """vocab.txt of ``vocab_size`` lines: BERT's special tokens, the
+    printable ASCII characters and their ``##`` forms, ``extra`` tokens,
+    then generated words. Returns the words."""
+    chars = [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+    head = list(BERT_SPECIALS) + chars + ["##" + c for c in chars] + list(extra)
+    words = synthetic_words(vocab_size - len(head), seed)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(head + words) + "\n")
+    return words
+
+
+BART_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")
+
+
+def write_bpe_vocab(path, n_merges: int, seed: int) -> list:
+    """vocab.json and merges.txt of a byte-level BPE: BART's four special
+    tokens, the 256 byte symbols, then merges that build generated words
+    left to right, each bare and after a space (GPT-2's "Ġ"), until
+    ``n_merges``. Returns the words whose merges are all present."""
+    from agent_tpu_torch.models.bpe import bytes_to_unicode
+
+    byte_syms = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(list(BART_SPECIALS) + byte_syms)}
+    merges, words = [], []
+    for word in synthetic_words(n_merges, seed):
+        for form in (word, "\u0120" + word):
+            for j in range(1, len(form)):
+                pair = (form[:j], form[j])
+                if form[:j + 1] not in vocab:
+                    vocab[form[:j + 1]] = len(vocab)
+                    merges.append(pair)
+        if len(merges) > n_merges:
+            break
+        words.append(word)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump(vocab, fh, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return words
 
 
 class StagedIds:
@@ -2058,6 +2296,267 @@ def entry_point_phase(path: str) -> dict:
     return report
 
 
+def bert_texts(words: list, n: int, lo: int, hi: int, seed: int) -> list:
+    """n rows of lo..hi words: the vocab's words, some capitalised, with
+    accented, hyphenated, numeric and CJK words and punctuation mixed in."""
+    rng = random.Random(seed)
+    extras = ["Café", "naïve", "2024", "e-mail", "don't", "中文", "U.S.", "résumé"]
+    rows = []
+    for _ in range(n):
+        picked = [rng.choice(extras) if rng.random() < 0.05 else rng.choice(words)
+                  for _ in range(rng.randint(lo, hi))]
+        rows.append(" ".join(w.capitalize() if rng.random() < 0.1 else w for w in picked) + ".")
+    return rows
+
+
+def bert_requests(ckpt: str, csv_path: str, words: list) -> list:
+    """Phase 11's requests: 256 texts of 20-120 words, one text cut at 512
+    wordpieces, and one 8,192-row shard of phase 10's CSV."""
+    base = {"model_path": ckpt, "topk": BERT_BASE_UNCASED["num_labels"], "allow_fallback": False}
+    return [
+        ("bert_texts256", dict(base, texts=bert_texts(words, BERT_ROWS, *BERT_WORDS, SEED + 12)),
+         BERT_ROWS),
+        ("bert_text512", dict(base, text=bert_texts(words, 1, 2 * BERT_LONG_PIECES,
+                                                    2 * BERT_LONG_PIECES, SEED + 13)[0]), 1),
+        ("bert_drain_shard", dict(base, source_uri=csv_path, text_field="text", start_row=0,
+                                  shard_size=DRAIN_SHARD), DRAIN_SHARD),
+    ]
+
+
+def bert_phase(fa, classify, rt, ckpt, requests) -> dict:
+    """Phase 11: a BERT checkpoint directory (bert-base-uncased's config,
+    seeded weights) served by map_classify_tpu through the registry. Row 1
+    once per layer a dispatch chunk; every class against the plain
+    attention on the card; the 256-row request on an sp = 2 ring on the one
+    card (the fold kernel in every hop) against one device; and the same
+    checkpoint read from model.safetensors by the port's own reader. Returns
+    the launches of row 1 and of the fold over the timed requests."""
+    from agent_tpu_torch.models import safetensors_io
+    from agent_tpu_torch.runtime.context import OpContext
+
+    n_layers, k = BERT_BASE_UNCASED["num_hidden_layers"], BERT_BASE_UNCASED["num_labels"]
+    ctx = OpContext(runtime=rt)
+    first = requests[0][1]
+    t0 = time.perf_counter()
+    classify(dict(first, texts=first["texts"][:1]), ctx)  # reads the checkpoint once
+    load_s = time.perf_counter() - t0
+    reset_counts(fa)
+    report = timed_requests(classify, ctx, fa, requests, {"flash_attention": n_layers}, k)
+    launches = fa.LAUNCH_COUNTS["flash_attention"]
+    profile = profile_call(lambda: classify(dict(first), ctx))
+
+    # Every class (topk = num_labels): the kernel against the plain attention.
+    kernel_out = classify(dict(first), ctx)
+    plain_out = classify(dict(first), OpContext(runtime=shared_runtime(
+        rt, fa.flash_attention_reference)))
+    vs_plain = op_agreement(kernel_out, plain_out, LOGP_TOL["bfloat16"])
+
+    # The 256-row request on an sp ring whose shards share the card.
+    ring_ctx = OpContext(runtime=shared_runtime(rt, devices=[CARD] * BERT_SP,
+                                                mesh_shape={"sp": BERT_SP}))
+    classify(dict(first), ring_ctx)  # warm-up
+    reset_counts(fa)
+    ring_report = timed_requests(classify, ring_ctx, fa,
+                                 [(f"bert_texts256_sp{BERT_SP}", first, BERT_ROWS)],
+                                 {"flash_fold": n_layers * BERT_SP ** 2}, k)
+    fold_launches = fa.LAUNCH_COUNTS["flash_fold"]
+    vs_one_card = op_agreement(classify(dict(first), ring_ctx), kernel_out,
+                               LOGP_TOL["bfloat16"])
+
+    # The same weights as model.safetensors alone, read by the port's reader.
+    st_dir = f"{ckpt}_safetensors"
+    os.makedirs(st_dir, exist_ok=True)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(ckpt, name), st_dir)
+    safetensors_io.save_file(torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                                        weights_only=True),
+                             os.path.join(st_dir, "model.safetensors"), {"format": "pt"})
+    t0 = time.perf_counter()
+    st_out = classify(dict(first, model_path=st_dir), ctx)
+    st_s = time.perf_counter() - t0
+    st_same = st_out["results"] == kernel_out["results"]
+    torch.cuda.synchronize()
+    emit({"phase": "bert", "config": BERT_BASE_UNCASED,
+          "weights": "random from a seeded generator at std 0.02, f32; not pretrained",
+          "load_s": load_s, "requests": report, "launches": launches,
+          "launches_per_dispatch_chunk": n_layers, "profile_256_rows": profile,
+          "logp_tolerance": LOGP_TOL["bfloat16"], "vs_plain_attention": vs_plain,
+          "sp": {"sp": BERT_SP, "requests": ring_report, "fold_launches": fold_launches,
+                 "vs_one_card": vs_one_card},
+          "safetensors": {"first_request_s": st_s, "results_equal_to_bin": st_same}})
+    check_forwards(profile, {"flash_fwd_sm90": n_layers}, "BERT request")
+    if not (vs_plain["ok"] and vs_one_card["ok"] and st_same):
+        raise SystemExit("BERT results disagree: kernel vs plain, sp vs one card, or the "
+                         "safetensors copy")
+    return {"launches": launches, "fold_launches": fold_launches}
+
+
+def bart_texts(tok, words: list, n: int, lengths, seed: int) -> list:
+    """n texts of lengths[0]..lengths[1] BPE tokens with <s> and </s>: the
+    vocab's words, cut at the drawn length in tokens."""
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        pieces = rng.randint(*lengths) - 2
+        text = " ".join(rng.choice(words) for _ in range(pieces))
+        out.append(tok.decode(tok.encode(text)[:pieces]))
+    return out
+
+
+def bart_requests(ckpt: str, texts: list) -> list:
+    """Phase 12's requests: 64 rows greedy, and 8 rows with 4 beams and
+    min_length 8, 32 new tokens each."""
+    base = {"model_path": ckpt, "max_length": BART_MAX_NEW}
+    return [("bart_greedy", dict(base, texts=texts), BART_ROWS),
+            ("bart_beam4", dict(base, texts=texts[:BART_BEAM_ROWS], num_beams=BART_BEAMS,
+                                min_length=BART_MIN_LENGTH), BART_BEAM_ROWS)]
+
+
+def summarize_tokens(summarize, payload: dict, ctx) -> tuple:
+    """The op's phases on ``payload`` -> (result, tokens of the real rows)."""
+    _, state = summarize.stage(dict(payload), ctx)
+    state = summarize.execute(state, ctx)
+    out = summarize.finalize(state, ctx)
+    return out, np.concatenate([t.numpy()[:n] for t, n in state["token_chunks"]])
+
+
+def forced_ids_report(toks: np.ndarray, cfg, min_length: int) -> dict:
+    """Rows whose first token is not the forced bos, rows that reached the
+    last step without ending in the forced eos, and rows with an EOS before
+    min_length (HF counting: the decoder start included)."""
+    T = toks.shape[1]
+    early_eos = (toks[:, :T - 1] == cfg.eos_id).any(axis=1)
+    reached = ~early_eos
+    return {"rows": int(toks.shape[0]),
+            "first_not_forced_bos": int((toks[:, 0] != cfg.forced_bos_id).sum()),
+            "reached_last_step": int(reached.sum()),
+            "reached_without_forced_eos": int((toks[reached, T - 1] != cfg.forced_eos_id).sum()),
+            "eos_before_min_length": int((toks[:, :max(0, min_length - 1)] == cfg.eos_id)
+                                         .any(axis=1).sum())}
+
+
+def bart_phase(fa, summarize, rt, ckpt, requests) -> dict:
+    """Phase 12: a BART checkpoint directory (bart-large-cnn's config,
+    seeded weights) served by map_summarize through the op's phases. Row 1
+    once per encoder layer a request, the forced first and last ids, the
+    encoder's teacher-forced log-probabilities against the plain attention
+    in bf16, and the first rows' greedy tokens in f32 with the kernel
+    against the plain attention. Returns row 1's launches over the timed
+    requests."""
+    from agent_tpu_torch.models import bart
+    from agent_tpu_torch.models.layers import dot_product_attention
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.runtime.context import OpContext
+
+    cfg = op._get_cfg({"model_path": ckpt}, "bart", ckpt)
+    n_enc = cfg.n_enc_layers
+    ctx = OpContext(runtime=rt)
+    greedy = requests[0][1]
+    t0 = time.perf_counter()
+    summarize(dict(greedy, texts=greedy["texts"][:1]), ctx)  # reads the checkpoint once
+    load_s = time.perf_counter() - t0
+    want = {key: 0 for key in fa.LAUNCH_COUNTS}
+    want["flash_attention"] = n_enc
+    report, outputs = [], {}
+    reset_counts(fa)
+    for name, payload, n_rows in requests:
+        walls, emitted = [], []
+        for rep in range(REPS + 1):
+            before, sel = dict(fa.LAUNCH_COUNTS), dict(fa.SELECTION_COUNTS)
+            t0 = time.perf_counter()
+            out, toks = summarize_tokens(summarize, payload, ctx)
+            wall = time.perf_counter() - t0
+            got = {key: fa.LAUNCH_COUNTS[key] - before[key] for key in want}
+            selected = {key: fa.SELECTION_COUNTS[key] - sel[key] for key in ("flash", "dense")}
+            if not out.get("ok") or out.get("device") != torch.device(CARD).type \
+                    or len(out.get("summaries", [])) != n_rows:
+                raise SystemExit(f"{name} did not run on cuda: {str(out)[:500]}")
+            if got != want or selected != {"flash": n_enc, "dense": 0}:
+                raise SystemExit(f"{name}: launches {got} (want {want}), selection {selected}")
+            if rep:
+                walls.append(wall)
+                emitted.append(int(((toks != cfg.pad_id) & (toks != cfg.eos_id)).sum()))
+        outputs[name] = toks
+        p50 = statistics.median(walls)
+        report.append({"request": name, "rows": n_rows, "num_beams": payload.get("num_beams", 1),
+                       "min_length": payload.get("min_length", 0), "max_new": BART_MAX_NEW,
+                       "p50_ms": p50 * 1e3, "rows_per_s": n_rows / p50,
+                       "emitted_tokens": statistics.median(emitted),
+                       "emitted_tokens_per_s": statistics.median(emitted) / p50,
+                       "forced_ids": forced_ids_report(toks, cfg, payload.get("min_length", 0)),
+                       "summary_0": out["summaries"][0][:80]})
+    launches = fa.LAUNCH_COUNTS["flash_attention"]
+    profile = profile_call(lambda: summarize(dict(greedy), ctx))
+
+    # Teacher-forced log-probabilities of the first rows' greedy tokens, on
+    # the kernel's encoder output against the plain attention's (the
+    # decoder dense in both, as generate runs it).
+    params = rt.get_params(op.params_key(ckpt, "bart", cfg),
+                           lambda: op._build_model(ckpt, cfg, "bart", rt.device))
+    (ids_np, lengths_np, _), = op._stage_chunks(greedy["texts"][:BART_CHECK_ROWS], cfg, 1,
+                                                "bart", ckpt)
+    ids = rt.put_batch(ids_np.astype(np.int32))
+    mask = (torch.arange(ids.shape[1], device=ids.device)[None, :]
+            < rt.put_batch(lengths_np)[:, None]).to(torch.int32)
+    gen = torch.as_tensor(outputs["bart_greedy"][:BART_CHECK_ROWS], device=ids.device)
+    tgt = torch.cat([torch.full_like(gen[:, :1], cfg.decoder_start_id), gen[:, :-1]], dim=1)
+    logp = {}
+    with torch.inference_mode():
+        for which, attn in (("kernel", fa.flash_attention), ("plain", fa.flash_attention_reference)):
+            enc = bart.encode(params, ids, mask, cfg, attn_fn=attn)
+            logp[which] = torch.log_softmax(bart.decode_full(
+                params, tgt, enc, mask, cfg, attn_fn=dot_product_attention), dim=-1)
+    teacher = {"kernel_vs_plain": (logp["kernel"] - logp["plain"]).abs().max().item(),
+               "finite": bool(torch.isfinite(logp["kernel"]).all())}
+
+    # The first rows' greedy tokens in f32: the kernel against the plain
+    # attention (both on the card), and the bf16 run's agreement with them.
+    check = dict(greedy, texts=greedy["texts"][:BART_CHECK_ROWS],
+                 model_config={"dtype": "float32"})
+    _, f32_kernel = summarize_tokens(summarize, check, ctx)
+    _, f32_plain = summarize_tokens(summarize, check, OpContext(runtime=shared_runtime(
+        rt, fa.flash_attention_reference)))
+    f32 = {"kernel_equals_plain": bool(np.array_equal(f32_kernel, f32_plain)),
+           "bf16_tokens_equal_to_f32_plain": float(np.mean(
+               outputs["bart_greedy"][:BART_CHECK_ROWS] == f32_plain))}
+    torch.cuda.synchronize()
+    emit({"phase": "bart", "config": BART_LARGE_CNN,
+          "weights": "random from a seeded generator at std 0.02, bf16; not pretrained",
+          "load_s": load_s, "requests": report, "launches": launches,
+          "launches_per_encoder_pass": n_enc, "profile_64_rows_greedy": profile,
+          "logp_tolerance": LOGP_TOL["bfloat16"], "teacher_forced": teacher,
+          "f32_first_rows": f32})
+    check_forwards(profile, {"flash_fwd_sm90": n_enc}, "BART request")
+    forced = [r["forced_ids"] for r in report]
+    if any(f["first_not_forced_bos"] or f["reached_without_forced_eos"]
+           or f["eos_before_min_length"] for f in forced) \
+            or not any(f["reached_last_step"] for f in forced):
+        raise SystemExit(f"forced ids or min_length not honoured: {forced}")
+    if not (teacher["finite"] and teacher["kernel_vs_plain"] <= LOGP_TOL["bfloat16"]
+            and f32["kernel_equals_plain"]):
+        raise SystemExit(f"BART kernel and plain attention disagree: {teacher}, {f32}")
+    return {"launches": launches}
+
+
+def bart_shape_entry(fa, check, launches) -> dict:
+    """Row 1 at phase 12's encoder shape (B 64, H 16, L 1024, D 64 with the
+    staged key lengths): kernel, plain and SDPA's forward times beside the
+    bound, as a kernels-line entry of its own."""
+    q, k, v, mask, lengths = check["inputs_bart"]
+    B, H, L, D = q.shape
+    bool_mask = mask > 0
+    return kernel_entry(
+        "flash_attention", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
+        "agent_tpu/kernels/flash_attention.py:149", launches,
+        check["max_abs_err"], check["max_rel_err"],
+        cuda_ms(lambda: fa.flash_attention(q, k, v, mask)),
+        cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask), iters=5),
+        4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size(),
+        4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bool_mask)), q)
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -2245,15 +2744,33 @@ def main(argv=None) -> int:
     write_drain_csv(drain_csv)
     _, _, drain_shards, drain_s2s = drain_payloads(drain_csv)
 
+    # Phases 11 and 12's checkpoint directories: config.json and the vocab
+    # now (their requests stage for phase 3), the weights when each runs.
+    from agent_tpu_torch.models import bart as bart_model
+
+    hf_dir = tempfile.TemporaryDirectory()
+    bert_ckpt, bart_ckpt = (os.path.join(hf_dir.name, n) for n in ("bert", "bart"))
+    for path, hf in ((bert_ckpt, BERT_BASE_UNCASED), (bart_ckpt, BART_LARGE_CNN)):
+        os.makedirs(path)
+        with open(os.path.join(path, "config.json"), "w") as fh:
+            json.dump(hf, fh)
+    bert_reqs = bert_requests(bert_ckpt, drain_csv, write_wordpiece_vocab(
+        bert_ckpt, BERT_BASE_UNCASED["vocab_size"], SEED + 14))
+    bart_words = write_bpe_vocab(bart_ckpt, BART_MERGES, SEED + 15)
+    bart_reqs = bart_requests(bart_ckpt, bart_texts(bart_model.hf_bpe(bart_ckpt), bart_words,
+                                                    BART_ROWS, BART_TOKENS, SEED + 16))
+
     # 3. kernel vs plain
     kernel_cases = staged_cases(
         classify, requests + long_requests + [("small_f32", small_payload, 12),
                                               ("drain_shard", drain_shards[0], DRAIN_SHARD)]
-    ) + staged_cases(summarize, s2s_cases + [("drain_s2s_shard", drain_s2s[0], DRAIN_SHARD)])
+    ) + staged_cases(summarize, s2s_cases + [("drain_s2s_shard", drain_s2s[0], DRAIN_SHARD)]) \
+        + staged_cases(classify, bert_reqs) + staged_cases(summarize, bart_reqs)
     kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
     fold_check = check_fold_kernel(fa, ring_fold_case(
-        next(c for c in kernel_cases if c[0].startswith("texts8_L4096/"))))
+        next(c for c in kernel_cases if c[0].startswith("texts8_L4096/"))), [ring_fold_case(
+            next(c for c in kernel_cases if c[0].startswith("bert_texts256/")))])
     t5_check = check_t5_kernel(fa, t5_case)
 
     # 4. main path
@@ -2336,7 +2853,26 @@ def main(argv=None) -> int:
     drain = drain_phase(fa, rt, drain_csv)
     rt.clear_params()
     entry_point_phase(drain_csv)
+
+    # 11. a BERT checkpoint through map_classify_tpu
+    t0 = time.perf_counter()
+    write_hf_checkpoint(bert_ckpt, BERT_BASE_UNCASED,
+                        bert_state_dict(BERT_BASE_UNCASED, SEED, torch.float32, CARD))
+    emit({"phase": "bert_checkpoint", "seconds": time.perf_counter() - t0,
+          "bytes": os.path.getsize(os.path.join(bert_ckpt, "pytorch_model.bin"))})
+    bert_run = bert_phase(fa, classify, rt, bert_ckpt, bert_reqs)
+    rt.clear_params()
     drain_dir.cleanup()
+
+    # 12. a BART checkpoint through map_summarize
+    t0 = time.perf_counter()
+    write_hf_checkpoint(bart_ckpt, BART_LARGE_CNN,
+                        bart_state_dict(BART_LARGE_CNN, SEED, torch.bfloat16, CARD))
+    emit({"phase": "bart_checkpoint", "seconds": time.perf_counter() - t0,
+          "bytes": os.path.getsize(os.path.join(bart_ckpt, "pytorch_model.bin"))})
+    bart_run = bart_phase(fa, summarize, rt, bart_ckpt, bart_reqs)
+    rt.clear_params()
+    hf_dir.cleanup()
 
     # 7. kernels: the serving kernel on the 256-row request's staged shape
     # and key lengths, the training kernels on phase 6's first batch, the T5
@@ -2355,9 +2891,14 @@ def main(argv=None) -> int:
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v, attn_mask=bool_mask)), q,
         launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"],
-                          "agent_drain_map_classify_tpu": drain["launches"]})
+                          "agent_drain_map_classify_tpu": drain["launches"],
+                          "map_classify_tpu_bert": bert_run["launches"],
+                          "map_summarize_bart": bart_run["launches"]},
+        at_bart_encoder_shape=bart_shape_entry(fa, kernel_check, bart_run["launches"]))
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
-                      fold_kernel_entry(fa, fold_check, fold_launches),
+                      fold_kernel_entry(fa, fold_check, fold_launches, launches_by_path={
+                          "map_classify_tpu": fold_launches,
+                          "map_classify_tpu_bert_sp2": bert_run["fold_launches"]}),
                       t5_kernel_entry(fa, t5_check, t5_run["launches"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

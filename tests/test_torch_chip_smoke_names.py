@@ -88,3 +88,50 @@ def test_kernel_names_parse(name, want_variant, want_sm90, want_kind):
                                   "flash_fwd_bf16<64, true>"])
 def test_other_kernels_are_no_sm90_instantiation(name):
     assert chip_smoke.fwd_variant(name) is None and chip_smoke.sm90_name(name) is None
+
+
+# Phase 12's decoder steps run cuBLAS's batched GEMV (one query row against
+# the cached keys) and phase 11's the GEMMs: both are matmuls in the split.
+@pytest.mark.parametrize("name", [
+    "std::enable_if<true, void>::type internal::gemvx::kernel<int, int, float, float, "
+    "float, float, false, true, true, false, 7, false, cublasGemvParamsEx<int, "
+    "cublasGemvTensorStridedBatched<float const>>>",
+    "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN"])
+def test_cublas_kernels_are_matmuls(name):
+    assert chip_smoke.kernel_kind(name) == "matmul"
+
+
+@pytest.mark.parametrize("number,name", [("11", "bert"), ("12", "bart")])
+def test_the_checkpoint_phases_are_documented_and_emitted(number, name):
+    """Phases 11 and 12 are in the script's phase list and each prints its
+    checkpoint line and its result line."""
+    import inspect
+
+    assert f"\n{number}. {name}" in chip_smoke.__doc__
+    source = inspect.getsource(chip_smoke)
+    for phase in (name, f"{name}_checkpoint"):
+        assert f'"phase": "{phase}"' in source, phase
+    assert callable(getattr(chip_smoke, f"{name}_phase"))
+
+
+def _event(key, device, count=1, us=10.0):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(key=key, count=count, self_device_time_total=us,
+                           device_type=SimpleNamespace(name=device))
+
+
+@pytest.mark.parametrize("spins", [0, 3, chip_smoke.PROFILE_PREFIX])
+def test_profile_prefix_is_left_out_of_the_call(spins):
+    """The spin kernels a profiled session launches before the call are
+    counted apart and never enter the call's device events."""
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    call = [_event(_forward("sm90", 64, (False, False, False), True), "CUDA", 12),
+            _event("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN", "CUDA", 48),
+            _event("Memcpy HtoD (Pinned -> Device)", "CUDA", 2)]
+    averages = [_event("aten::_local_scalar_dense", "CPU"), *call]
+    if spins:
+        averages.insert(1, _event(spin, "CUDA", spins))
+    events, traced = chip_smoke.call_events(averages)
+    assert events == call and traced == spins
+    assert all(chip_smoke.PREFIX_KERNEL not in e.key for e in events)

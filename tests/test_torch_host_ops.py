@@ -154,9 +154,20 @@ def test_host_ops_in_a_context_without_runtime(port_ops, rows_csv, vocab, op, i)
 
 
 def test_bpe_with_a_vocab_is_refused_softly(port_ops, tmp_path):
-    out = port_ops["map_tokenize"]({"text": "x", "tokenizer": "bpe",
-                                    "vocab_path": str(tmp_path)})
-    assert out["ok"] is False and "not supported" in out["error"]
+    """``tokenizer: "bpe"`` with a vocab directory is served now (it was
+    refused until the port had the BPE tokenizer): the reference's result
+    for a real vocab, and its soft error for a directory with no vocab
+    (tests/test_torch_bpe.py holds the ids to the reference's on a Unicode
+    corpus)."""
+    import chip_smoke
+
+    chip_smoke.write_bpe_vocab(str(tmp_path), 300, 2)
+    for payload in ({"text": "Hello, wörld ٣² 😀", "tokenizer": "bpe",
+                     "vocab_path": str(tmp_path)},
+                    {"text": "x", "tokenizer": "bpe", "vocab_path": str(tmp_path / "none")}):
+        got, want = _both(port_ops, "map_tokenize", payload)
+        assert _same(got, want), (got, want)
+    assert got["ok"] is False
 
 
 class _Recorder(BaseHTTPRequestHandler):

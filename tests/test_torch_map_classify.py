@@ -149,10 +149,30 @@ def test_bad_input_is_soft(classify, payload, needle):
     assert out["ok"] is False and needle in out["error"], out
 
 
-def test_hf_checkpoint_model_path_is_soft(classify, tmp_path):
+def test_hf_checkpoint_model_path_is_soft(classify, jax_classify, tmp_path):
+    """An HF checkpoint directory serves the BERT family now (it was refused
+    until the port had it; tests/test_torch_bert.py holds it to the
+    reference): a config.json without BERT's fields fails the request as the
+    reference's does, and a whole checkpoint gives the reference's top-k."""
+    import chip_smoke
+
     (tmp_path / "config.json").write_text("{}")
-    out = classify({"text": "x", "model_path": str(tmp_path)})
-    assert out["ok"] is False and "HF-checkpoint" in out["error"]
+    with pytest.raises(KeyError) as got:
+        classify({"text": "x", "model_path": str(tmp_path)})
+    with pytest.raises(KeyError) as want:
+        jax_classify({"text": "x", "model_path": str(tmp_path)})
+    assert str(got.value) == str(want.value)
+    hf = dict(chip_smoke.BERT_BASE_UNCASED, vocab_size=300, hidden_size=64,
+              num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
+              max_position_embeddings=32)
+    chip_smoke.write_hf_checkpoint(str(tmp_path), hf,
+                                   chip_smoke.bert_state_dict(hf, 1, torch.float32, std=0.2))
+    chip_smoke.write_wordpiece_vocab(str(tmp_path), hf["vocab_size"], 2)
+    payload = {"texts": ["a b c", "hello world"], "model_path": str(tmp_path), "topk": 2,
+               "model_config": {"dtype": "float32"}}
+    got, want = _rows(classify(payload)), _rows(jax_classify(payload))
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], atol=2e-5)
 
 
 def test_not_a_dict_is_soft():

@@ -124,10 +124,32 @@ def test_quant_env_is_soft(summarize, monkeypatch):
     assert out["ok"] is False and "quant" in out["error"]
 
 
-def test_bart_checkpoint_is_soft(summarize, tmp_path):
+def test_bart_checkpoint_is_soft(summarize, jax_summarize, tmp_path):
+    """A BART checkpoint directory is served now (it was refused until the
+    port had BART; tests/test_torch_bart.py holds it to the reference): a
+    config.json without BART's fields fails the request as the reference's
+    does, a quantized mode stays a soft refusal, and a whole checkpoint gives
+    the reference's summaries."""
+    import chip_smoke
+
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "bart"}))
-    out = summarize({"text": "x", "model_path": str(tmp_path)})
-    assert out["ok"] is False and "BART" in out["error"]
+    with pytest.raises(KeyError) as got:
+        summarize({"text": "x", "model_path": str(tmp_path)})
+    with pytest.raises(KeyError) as want:
+        jax_summarize({"text": "x", "model_path": str(tmp_path)})
+    assert str(got.value) == str(want.value)
+    words = chip_smoke.write_bpe_vocab(str(tmp_path), 200, 3)
+    hf = dict(chip_smoke.BART_LARGE_CNN, vocab_size=len(json.load(open(
+        tmp_path / "vocab.json"))), d_model=64, encoder_layers=1, decoder_layers=1,
+        encoder_attention_heads=2, decoder_attention_heads=2, encoder_ffn_dim=64,
+        decoder_ffn_dim=64, max_position_embeddings=32)
+    chip_smoke.write_hf_checkpoint(str(tmp_path), hf,
+                                   chip_smoke.bart_state_dict(hf, 2, torch.float32, std=0.3))
+    payload = {"texts": [" ".join(words[:5]), words[6]], "model_path": str(tmp_path),
+               "max_length": 6, "model_config": {"dtype": "float32"}}
+    assert summarize(payload)["summaries"] == jax_summarize(payload)["summaries"]
+    out = summarize(dict(payload, model_config={"quant": "w8a16"}))
+    assert out["ok"] is False and "quant" in out["error"]
 
 
 def test_other_checkpoint_dir_raises_as_the_reference_does(summarize, tmp_path):

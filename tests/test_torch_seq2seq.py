@@ -189,6 +189,47 @@ def test_beam_scan_matches_jax_on_scripted_logits(seed, lp, early, min_length):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+# BART's forced ids: (forced_first_id, forced_last_id); EOS forced first
+# ends every row at step 0, and a forced last id other than EOS is written
+# where a row ran out.
+FORCED = [(3, None), (None, EOS), (3, EOS), (EOS, 4)]
+
+
+@pytest.mark.parametrize("min_length", [0, 4])
+@pytest.mark.parametrize("forced", FORCED, ids=lambda f: f"first{f[0]}-last{f[1]}")
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_scan_forced_ids_match_jax_on_scripted_logits(seed, forced, min_length):
+    B, T = 4, 10
+    table = _scripted_table(seed, T, B)
+    kw = dict(start_id=START, eos_id=EOS, pad_id=PAD, min_length=min_length,
+              forced_first_id=forced[0], forced_last_id=forced[1])
+    want = jax_decoding.greedy_scan(_jax_step(table, 1), None, B, T, **kw)
+    got = decoding.greedy_scan(_torch_step(table, 1), None, B, T, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    if forced[0] is not None:
+        assert (got[0][:, 0] == forced[0]).all()
+
+
+@pytest.mark.parametrize("lp,early,min_length", [(1.0, False, 0), (2.0, True, 0),
+                                                 (-1.0, False, 4)])
+@pytest.mark.parametrize("forced", FORCED, ids=lambda f: f"first{f[0]}-last{f[1]}")
+@pytest.mark.parametrize("seed", [0, 1])
+def test_beam_scan_forced_ids_match_jax_on_scripted_logits(seed, forced, lp, early,
+                                                           min_length):
+    """The forced rows replace the whole log-probability row after the
+    min_length ban, so a forced EOS wins over min_length."""
+    B, K, T = 3, 3, 9
+    table = _scripted_table(10 + seed, T, B)
+    kw = dict(num_beams=K, start_id=START, eos_id=EOS, pad_id=PAD, length_penalty=lp,
+              early_stopping=early, min_length=min_length, forced_first_id=forced[0],
+              forced_last_id=forced[1])
+    want = jax_decoding.beam_scan(_jax_step(table, K), {"c": jnp.zeros(B * K)}, B, V, T, **kw)
+    got = decoding.beam_scan(_torch_step(table, K), {"c": torch.zeros(B * K)}, B, V, T, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_beam_scan_reorders_caches_with_the_beams(seed):
     """The logits depend on a cache that sums each beam's tokens, so a cache

@@ -133,6 +133,10 @@ class Agent:
             "dropped_overflow/expired)", ("outcome",))
         self.m_spool_depth = self.obs.gauge(
             "result_spool_depth", "Completed results awaiting redelivery")
+        self.m_serve_occupancy = self.obs.gauge(
+            "serve_batch_occupancy",
+            "Continuous-batching running batch: requests currently seated "
+            "(0 when no serving work is in flight)")
         self.spool = ResultSpool(capacity=a.result_spool_max, path=a.result_spool_path or None)
         self._retry_policy = RetryPolicy(base_sec=a.retry_base_sec, max_sec=a.retry_max_sec)
         self._lease_retry = RetryPolicy(base_sec=a.error_backoff_sec,
@@ -421,7 +425,7 @@ class Agent:
         }
         if self.wire_format:
             tags["wire"] = self.wire_format
-        return OpContext(runtime=self.runtime, tags=tags)
+        return OpContext(runtime=self.runtime, tags=tags, config=self.config)
 
     def resolve_task(self, task: Any) -> Tuple[Optional[str], str, Dict[str, Any], Any,
                                                Optional[OpFn], Optional[Dict[str, Any]]]:

@@ -24,8 +24,16 @@ while the host stages and posts. This runner overlaps them:
 Ops advertise phases as attributes on their registered handler
 (``fn.stage/.execute/.finalize``); ops without them run whole on the device
 thread, so the pipeline is safe for every op. Results may post out of task
-order; the protocol keys them by ``job_id``. The reference's serving hooks
-(``serve_admit``/``serve_pump``) and spans are not ported yet.
+order; the protocol keys them by ``job_id``.
+
+Continuous serving: an op with serving hooks (``serve_admit``,
+``serve_pump``, ``serve_done``, ``serve_collect``: ``serve_summarize``,
+``serve_decode``) is admitted to its decode engine instead of executed
+whole, and the device loop interleaves one engine step a pass with the
+other staged work. While decode is in flight the loop never blocks on the
+staged queue; several jobs sharing one engine get one pump a pass; and
+in-flight serving work keeps pumping through shutdown until it has posted.
+The reference's spans and flight recorder are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +68,10 @@ class _Item:
     status: str = "succeeded"
     error: Any = None
     monolithic: bool = False      # op has no phase hooks
+    # Continuous serving: the engine handle while this item's requests ride
+    # the running batch, and the admit instant its execute time counts from.
+    serve_handle: Any = None
+    t_serve0: float = 0.0
 
 
 _STOP = object()
@@ -174,31 +186,108 @@ class PipelineRunner:
         except Exception:  # noqa: BLE001 — the op puts the batch itself anyway
             pass
 
+    def _serve_admit(self, item: Any, serving: list) -> None:
+        """Join a serving item's requests to its continuous decode engine:
+        the prefill runs now, on this (the device) thread; the decode steps
+        run in :meth:`_serve_pump_once`, between everything else the loop
+        does."""
+        agent = self.agent
+        t0 = time.perf_counter()
+        item.t_serve0 = t0
+        try:
+            item.serve_handle = item.fn.serve_admit(item.staged, item.ctx)
+        except Exception as exc:  # noqa: BLE001 — op error -> failed
+            item.status = "failed"
+            item.error = structured_error(exc)
+            agent.rate.log("exec", "serve admit raised", op=item.op, type=type(exc).__name__)
+            self._put_post(item)
+            return
+        # The prefill is device time; the decode steps bill per pump.
+        agent.note_device_time(item.op, time.perf_counter() - t0)
+        serving.append(item)
+
+    def _serve_pump_once(self, serving: list) -> None:
+        """One step of every distinct engine with items in flight (jobs
+        sharing an engine advance together on one pump), then post the
+        items whose requests have all finished."""
+        agent = self.agent
+        engines: Dict[int, Any] = {}
+        for item in serving:
+            engines.setdefault(id(item.serve_handle["engine"]), item)
+        t0 = time.perf_counter()
+        occupancy = 0
+        for item in engines.values():
+            occupancy = max(occupancy, item.fn.serve_pump(item.serve_handle))
+        if engines:
+            # One dispatch advanced every item on it: attributed once.
+            agent.note_device_time(next(iter(engines.values())).op, time.perf_counter() - t0)
+            agent.m_serve_occupancy.set(occupancy)
+        for item in [it for it in serving if it.fn.serve_done(it.serve_handle)]:
+            serving.remove(item)
+            try:
+                item.executed = item.fn.serve_collect(item.serve_handle)
+            except Exception as exc:  # noqa: BLE001
+                item.status = "failed"
+                item.error = structured_error(exc)
+            item.serve_handle = None
+            agent.m_phase.observe(time.perf_counter() - item.t_serve0,
+                                  exemplar={"trace_id": item.job_id}, op=item.op,
+                                  phase="execute")
+            self._put_post(item)
+        if not serving:
+            agent.m_serve_occupancy.set(0)
+
     def _execute_loop(self) -> None:
         agent = self.agent
         pending: Any = None
+        # Serving items riding a decode engine: the loop runs one engine
+        # step a pass beside the other staged work, so decode keeps
+        # stepping while shards stage and new serving jobs join between
+        # steps.
+        serving: list = []
+        stopping = False
         try:
             while True:
+                item = None
                 if pending is not None:
                     item, pending = pending, None
-                else:
-                    # Time blocked here is device idle; time inside the op
-                    # dispatch is device busy.
-                    t_wait = time.perf_counter()
-                    item = self.staged_q.get()
-                    agent.m_device_idle.inc(time.perf_counter() - t_wait)
+                elif not stopping:
+                    if serving:
+                        # Decode in flight: never block on the queue; an
+                        # empty poll makes this pass pure decode.
+                        try:
+                            item = self.staged_q.get_nowait()
+                        except queue.Empty:
+                            item = None
+                    else:
+                        # Time blocked here is device idle; time inside the
+                        # op dispatch is device busy.
+                        t_wait = time.perf_counter()
+                        item = self.staged_q.get()
+                        agent.m_device_idle.inc(time.perf_counter() - t_wait)
                 if item is _STOP:
+                    # Keep pumping until the serving work in flight has
+                    # posted: a leased request answers even through shutdown.
+                    stopping = True
+                    item = None
+                if item is not None:
+                    self._execute_item(item, serving)
+                    pending, self._peeked = self._peeked, None
+                if serving:
+                    self._serve_pump_once(serving)
+                if stopping and not serving and pending is None:
                     break
-                self._execute_item(item)
-                pending, self._peeked = self._peeked, None
         finally:
             self._put_post(_STOP)
 
-    def _execute_item(self, item: Any) -> None:
+    def _execute_item(self, item: Any, serving: list) -> None:
         agent = self.agent
         agent.m_queue.set(self.staged_q.qsize(), queue="staged")
         if item.result is not None or item.status == "failed":
             self._put_post(item)
+            return
+        if getattr(item.fn, "serve_admit", None) is not None and not item.monolithic:
+            self._serve_admit(item, serving)
             return
         if self.double_buffer:
             # Peek ahead: take the next staged item (if any) and queue its

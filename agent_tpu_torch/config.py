@@ -5,8 +5,12 @@ defaults, read once in ``Config.from_env()`` and never at import.
 ``AgentConfig`` holds the control-plane knobs (controller, timeouts, idle
 sleep and backoff, ``TASKS``, ``MAX_TASKS``, labels, the pipeline, the
 binary wire, retry and the result spool); ``SizingConfig`` the host-sizing
-knobs of ``sizing.profile``. The reference's ``DeviceConfig`` knobs and its
-``CONTROLLER_URLS`` failover list are not ported yet.
+knobs of ``sizing.profile``; ``ServeConfig`` the serving knobs
+(``SERVE_*``, ``KV_*``, ``PREFIX_CACHE_*``), of which the agent's serving
+ops read the decode engine's and the prefix cache's and carry the
+controller's front-door fields as plain data. The reference's
+``DeviceConfig`` knobs and its ``CONTROLLER_URLS`` failover list are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -158,12 +162,80 @@ class SizingConfig:
 
 
 @dataclass(frozen=True)
+class ServeConfig:
+    """Online-serving knobs, the reference's ``ServeConfig`` with the same
+    environment names, defaults and clamps. The agent side reads
+    ``decode_slots`` (running-batch capacity in requests of the continuous
+    decode engine), ``decode_micro_steps`` (decode iterations issued back
+    to back between joins and exits), the KV layout (``"paged"``: per-layer
+    pools of ``kv_block_size``-token blocks, ``kv_pool_blocks`` of them, 0 =
+    as many as the dense layout holds; ``"dense"``: a full-length cache per
+    row) and the prefix cache's bounds. The front door's fields (batching,
+    admission, buckets, the request log) belong to the controller and are
+    carried as plain data."""
+
+    enabled: bool = True                   # SERVE_ENABLED
+    max_wait_ms: float = 25.0              # SERVE_MAX_WAIT_MS
+    max_batch: int = 16                    # SERVE_MAX_BATCH
+    max_pending: int = 1024                # SERVE_MAX_PENDING
+    priority: int = 8                      # SERVE_PRIORITY
+    len_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024)  # SERVE_LEN_BUCKETS
+    decode_slots: int = 8                  # SERVE_DECODE_SLOTS
+    decode_micro_steps: int = 1            # SERVE_MICRO_STEPS
+    wait_timeout_sec: float = 60.0         # SERVE_WAIT_TIMEOUT_SEC
+    kv_layout: str = "paged"               # SERVE_KV_LAYOUT
+    kv_block_size: int = 16                # KV_BLOCK_SIZE
+    kv_pool_blocks: int = 0                # KV_POOL_BLOCKS
+    prefix_cache_enabled: bool = True      # PREFIX_CACHE_ENABLED
+    prefix_cache_entries: int = 512        # PREFIX_CACHE_ENTRIES
+    prefix_cache_mb: float = 256.0         # PREFIX_CACHE_MB
+    disaggregated: bool = False            # SERVE_DISAGG
+    reqlog_sample: float = 1.0             # SERVE_REQLOG_SAMPLE
+    reqlog_capacity: int = 2048            # SERVE_REQLOG_CAPACITY
+
+    @staticmethod
+    def from_env() -> "ServeConfig":
+        buckets = []
+        for tok in env_str("SERVE_LEN_BUCKETS", "").split(","):
+            tok = tok.strip()
+            if tok:
+                try:
+                    buckets.append(int(tok))
+                except ValueError:
+                    pass
+        buckets = tuple(sorted(b for b in buckets if b > 0))
+        return ServeConfig(
+            enabled=env_bool("SERVE_ENABLED", True),
+            max_wait_ms=max(0.0, env_float("SERVE_MAX_WAIT_MS", 25.0)),
+            max_batch=max(1, env_int("SERVE_MAX_BATCH", 16)),
+            max_pending=max(0, env_int("SERVE_MAX_PENDING", 1024)),
+            priority=min(9, max(0, env_int("SERVE_PRIORITY", 8))),
+            len_buckets=buckets or ServeConfig.len_buckets,
+            decode_slots=max(1, env_int("SERVE_DECODE_SLOTS", 8)),
+            decode_micro_steps=max(1, env_int("SERVE_MICRO_STEPS", 1)),
+            wait_timeout_sec=max(0.1, env_float("SERVE_WAIT_TIMEOUT_SEC", 60.0)),
+            kv_layout=("dense" if env_str("SERVE_KV_LAYOUT", "paged").strip().lower()
+                       == "dense" else "paged"),
+            kv_block_size=max(1, env_int("KV_BLOCK_SIZE", 16)),
+            kv_pool_blocks=max(0, env_int("KV_POOL_BLOCKS", 0)),
+            prefix_cache_enabled=env_bool("PREFIX_CACHE_ENABLED", True),
+            prefix_cache_entries=max(0, env_int("PREFIX_CACHE_ENTRIES", 512)),
+            prefix_cache_mb=max(0.0, env_float("PREFIX_CACHE_MB", 256.0)),
+            disaggregated=env_bool("SERVE_DISAGG", False),
+            reqlog_sample=min(1.0, max(0.0, env_float("SERVE_REQLOG_SAMPLE", 1.0))),
+            reqlog_capacity=max(1, env_int("SERVE_REQLOG_CAPACITY", 2048)),
+        )
+
+
+@dataclass(frozen=True)
 class Config:
     """The agent's whole configuration."""
 
     agent: AgentConfig = field(default_factory=AgentConfig)
     sizing: SizingConfig = field(default_factory=SizingConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     @staticmethod
     def from_env() -> "Config":
-        return Config(agent=AgentConfig.from_env(), sizing=SizingConfig.from_env())
+        return Config(agent=AgentConfig.from_env(), sizing=SizingConfig.from_env(),
+                      serve=ServeConfig.from_env())

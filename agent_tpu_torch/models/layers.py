@@ -324,21 +324,84 @@ class Attention(nn.Module):
                 self._proj_in(self.wv, x_kv, self.dtype))
 
     def attend(self, x_q: torch.Tensor, mask: torch.Tensor, kv: KV,
-               cache: Cache = None, cache_index: int = 0) -> torch.Tensor:
+               cache: Cache = None, cache_index=0,
+               block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Attention of the queries of ``x_q`` [B, Lq, d] over ``kv`` with
-        dense attention (the reference's ``attention``, scalar-position
-        cache branch). With ``cache`` (``k``/``v`` [B, H, Lmax, E]) the new
-        rows ``kv`` are written into it IN PLACE at ``cache_index`` and the
-        queries attend over the whole cache, as the reference's
-        ``dynamic_update_slice`` decode does; ``mask`` [B|1, 1, Lq|1, Lk]
-        hides what is not yet written."""
+        dense attention (the reference's ``attention``). ``mask`` [B|1, 1,
+        Lq|1, Lk] hides what is not yet written. With ``cache`` the new rows
+        ``kv`` are written into it IN PLACE and the queries attend over the
+        cache:
+
+        - ``cache_index`` an int: ``k``/``v`` [B, H, Lmax, E], written at
+          that position (the scan decode's ``dynamic_update_slice``);
+        - ``cache_index`` a [B] tensor: one step (Lq 1), each row written at
+          its own position (the continuous engine's slots); a position past
+          the cache (a row frozen at the engine's last position) writes
+          nothing, as the reference's one-hot select;
+        - with ``block_table`` [B, MAXB] as well: ``k``/``v`` are a paged pool
+          [NB, H, BS, E] (:func:`paged_write_view`)."""
         q = self._proj_in(self.wq, x_q, self.dtype)
         k, v = kv
         if cache is not None:
-            cache["k"][:, :, cache_index:cache_index + k.shape[2]] = k
-            cache["v"][:, :, cache_index:cache_index + v.shape[2]] = v
-            k, v = cache["k"], cache["v"]
+            if block_table is not None:
+                k, v = paged_write_view(cache, k, v, cache_index, block_table, mask.shape[-1])
+            elif isinstance(cache_index, torch.Tensor):
+                k, v = rows_write(cache, k, v, cache_index)
+            else:
+                cache["k"][:, :, cache_index:cache_index + k.shape[2]] = k
+                cache["v"][:, :, cache_index:cache_index + v.shape[2]] = v
+                k, v = cache["k"], cache["v"]
         return self._proj_out(self.wo, dot_product_attention(q, k, v, mask), self.dtype)
+
+
+def rows_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+               pos: torch.Tensor) -> KV:
+    """Write one step's keys and values ``k``/``v`` [B, H, 1, E] into the
+    dense ``cache`` [B, H, Lmax, E] in place, row b at ``pos[b]`` -> the
+    cache's keys and values. A row whose position is past the cache keeps
+    its content (the reference drops that write)."""
+    lmax = cache["k"].shape[2]
+    rows = torch.arange(k.shape[0], device=k.device)
+    pos = pos.long()
+    col = pos.clamp(max=lmax - 1)
+    past = (pos >= lmax)[:, None, None]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        # c[rows, :, col] is [B, H, E]: the indexed dimensions go first.
+        c[rows, :, col] = torch.where(past, c[rows, :, col], new[:, :, 0])
+    return cache["k"], cache["v"]
+
+
+def paged_write_view(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, table: torch.Tensor, lk: int) -> KV:
+    """The paged KV pool (reference ``layers.attention``'s ``block_table``
+    branch): ``cache["k"]``/``["v"]`` are pools [NB, H, BS, E] shared by
+    every row, and row b's position p lives in pool block ``table[b, p //
+    BS]`` at offset ``p % BS``. Writes one step's ``k``/``v`` [B, H, 1, E]
+    in place at ``pos`` [B] and returns each row's dense-shape view [B, H,
+    lk, E] (the row's blocks gathered, sliced to the mask's ``lk``), so the
+    attention's shapes are the dense layout's. Pool block 0 is the trash
+    block: unallocated and released entries point there, and a position past
+    the table's coverage writes there too, so a frozen row can never write
+    into a block handed to a live row. Positions that are not yet written
+    hold stale values; the mask hides them, and ``exp(NEG_INF - m)`` in f32
+    is exactly 0."""
+    bsz, maxb = table.shape
+    bs = cache["k"].shape[2]
+    pos = pos.long()
+    ji = pos // bs
+    blk = torch.where(ji < maxb, table.gather(1, ji.clamp(max=maxb - 1)[:, None])[:, 0],
+                      torch.zeros_like(ji))
+    off = pos % bs
+    views = []
+    for name, new in (("k", k), ("v", v)):
+        pool = cache[name]
+        # Duplicate (blk, off) pairs only occur at the trash block.
+        pool[blk, :, off] = new[:, :, 0]
+        x = pool[table]                                   # [B, MAXB, H, BS, E]
+        x = x.permute(0, 2, 1, 3, 4).reshape(bsz, pool.shape[1], maxb * bs, pool.shape[3])
+        views.append(x[:, :, :lk].contiguous())
+    return views[0], views[1]
 
 
 class FFN(nn.Module):
@@ -385,12 +448,14 @@ class DecoderBlock(nn.Module):
         self.xattn = Attention(d_model, n_heads, dtype, device)
 
     def forward(self, x: torch.Tensor, self_mask: torch.Tensor, enc_kv: KV,
-                enc_mask: torch.Tensor, cache: Cache = None,
-                cache_index: int = 0) -> torch.Tensor:
+                enc_mask: torch.Tensor, cache: Cache = None, cache_index=0,
+                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x`` [B, Lq, d]; ``enc_kv`` = ``self.xattn.kv(enc_out)``, which
-        is the same every decode step, so callers compute it once."""
+        is the same every decode step, so callers compute it once.
+        ``cache_index`` and ``block_table`` as :meth:`Attention.attend`."""
         h = self.ln1(x)
-        x = x + self.attn.attend(h, self_mask, self.attn.kv(h), cache, cache_index)
+        x = x + self.attn.attend(h, self_mask, self.attn.kv(h), cache, cache_index,
+                                 block_table)
         h = self.ln_x(x)
         x = x + self.xattn.attend(h, enc_mask, enc_kv)
         return x + self.ffn(self.ln2(x))

@@ -12,12 +12,18 @@ the reference's decoder has. The cross-attention keys and values of the
 encoder output are the same at every step, so they are computed once per
 generation (the reference recomputes them inside its decode loop; the
 values are the same).
+
+For the continuous-batching engine (``decoding.ContinuousBatcher``) the
+decode step also takes a [B] vector of per-row positions and a paged KV
+pool (:func:`make_positional_step`, :func:`make_cache_factory`,
+:func:`make_paged_cache_factory`); there the cross-attention keys and
+values are computed once per request, when it joins the running batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,18 +145,40 @@ def cross_kv(model: Seq2Seq, enc_out: torch.Tensor) -> List[layers.KV]:
     return [tuple(t.contiguous() for t in block.xattn.kv(enc_out)) for block in model.dec]
 
 
-def _decode_step(model: Seq2Seq, tok: torch.Tensor, step: int, enc_kv: List[layers.KV],
-                 enc_mask: torch.Tensor, caches: list) -> Tuple[torch.Tensor, list]:
-    """One decoder step at scalar position ``step`` over the KV caches
-    (written in place) -> (logits [B, V] f32, caches)."""
+def _decode_step(model: Seq2Seq, tok: torch.Tensor, step, enc_kv: List[layers.KV],
+                 enc_mask: torch.Tensor, caches) -> Tuple[torch.Tensor, Any]:
+    """One decoder step over the KV caches (written in place) -> (logits
+    [B, V] f32, caches).
+
+    ``step`` is the scalar position of every row (the scan decode), or a
+    [B] tensor of per-row positions (the continuous engine's slots, each at
+    its own depth: per-row position embedding, causal mask and cache
+    write). ``caches`` is the dense per-layer list (:func:`empty_cache`) or
+    the paged ``{"table": [B, MAXB], "layers": [{"k", "v"}: [NB, H, BS,
+    E]]}`` (:func:`make_paged_cache_factory`), which needs the vector
+    ``step``."""
     cfg = model.cfg
     dtype = cfg.compute_dtype
-    x = model.embed[tok.long()][:, None, :] + model.pos[step:step + 1].to(dtype)[None]
+    paged = isinstance(caches, dict) and "table" in caches
+    vector = isinstance(step, torch.Tensor)
+    if paged and not vector:
+        raise ValueError("paged KV caches require per-row vector positions (the "
+                         "continuous-batching step); scan decode uses dense caches")
+    table = caches["table"] if paged else None
+    layer_caches = caches["layers"] if paged else caches
+    x = model.embed[tok.long()][:, None, :]
     positions = torch.arange(cfg.max_tgt_len, device=x.device)
-    self_mask = (positions <= step).to(torch.int32)[None, None, None, :]
+    if vector:
+        # A row frozen past the table's end reads its last row, as the
+        # reference's clamped gather; its output is discarded.
+        x = x + model.pos[step.long().clamp(max=model.pos.shape[0] - 1)].to(dtype)[:, None, :]
+        self_mask = (positions[None, :] <= step[:, None]).to(torch.int32)[:, None, None, :]
+    else:
+        x = x + model.pos[step:step + 1].to(dtype)[None]
+        self_mask = (positions <= step).to(torch.int32)[None, None, None, :]
     enc_attn_mask = enc_mask[:, None, None, :]
-    for block, kv, cache in zip(model.dec, enc_kv, caches):
-        x = block(x, self_mask, kv, enc_attn_mask, cache, step)
+    for block, kv, cache in zip(model.dec, enc_kv, layer_caches):
+        x = block(x, self_mask, kv, enc_attn_mask, cache, step, table)
     x = model.ln_dec(x)[:, 0]
     return torch.matmul(x.to(dtype), model.embed.t()).float(), caches
 
@@ -161,18 +189,8 @@ def greedy_generate(model: Seq2Seq, src_ids: torch.Tensor, src_mask: torch.Tenso
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy decode -> (tokens [B, max_new_tokens], lengths [B]); tokens
     after EOS are PAD."""
-    from agent_tpu_torch.models.decoding import greedy_scan
-
-    B = src_ids.shape[0]
-    enc_out = encode(model, src_ids, src_mask, attn_fn)
-    enc_kv = cross_kv(model, enc_out)
-
-    def step_fn(tok, step, caches):
-        return _decode_step(model, tok, step, enc_kv, src_mask, caches)
-
-    return greedy_scan(step_fn, empty_cache(model.cfg, B, enc_out.device), B,
-                       max_new_tokens, start_id=BOS_ID, eos_id=EOS_ID, pad_id=PAD_ID,
-                       min_length=min_length, device=enc_out.device)
+    return greedy_generate_from_encoded(model, encode(model, src_ids, src_mask, attn_fn),
+                                        src_mask, max_new_tokens, min_length)
 
 
 def beam_generate(model: Seq2Seq, src_ids: torch.Tensor, src_mask: torch.Tensor,
@@ -198,3 +216,86 @@ def beam_generate(model: Seq2Seq, src_ids: torch.Tensor, src_mask: torch.Tensor,
                      eos_id=EOS_ID, pad_id=PAD_ID, length_penalty=length_penalty,
                      early_stopping=early_stopping, min_length=min_length,
                      cache_reorder=cache_reorder, device=enc_out.device)
+
+
+def greedy_generate_from_encoded(model: Seq2Seq, enc_out: torch.Tensor, src_mask: torch.Tensor,
+                                 max_new_tokens: int, min_length: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy decode from an encoder output computed elsewhere (the decode
+    half of ``summarize_encode`` -> ``summarize_decode``): ``enc_out`` [B,
+    Ls, d] in any float type, cast to the compute dtype. ``greedy_generate``
+    is :func:`encode` followed by this."""
+    from agent_tpu_torch.models.decoding import greedy_scan
+
+    B = enc_out.shape[0]
+    enc_kv = cross_kv(model, enc_out.to(model.cfg.compute_dtype))
+
+    def step_fn(tok, step, caches):
+        return _decode_step(model, tok, step, enc_kv, src_mask, caches)
+
+    return greedy_scan(step_fn, empty_cache(model.cfg, B, enc_out.device), B,
+                       max_new_tokens, start_id=BOS_ID, eos_id=EOS_ID, pad_id=PAD_ID,
+                       min_length=min_length, device=enc_out.device)
+
+
+class PositionalStep:
+    """The continuous engine's step (``decoding.PositionalStepFn``):
+    ``(tok [R], pos [R], caches, enc_kv, enc_mask [R, Ls]) -> (logits [R,
+    V] f32, caches)``, with the encoder state an argument because each slot
+    joins with its own. :meth:`encoder_state` turns joining rows' encoder
+    output [n, Ls, d] (f32 from the prefill) into that state: each decoder
+    layer's cross-attention keys and values [n, H, Ls, E], computed once
+    when the request joins (the reference projects its stored encoder
+    output again every step; the values are the same)."""
+
+    def __init__(self, model: Seq2Seq) -> None:
+        self.model = model
+
+    def encoder_state(self, enc_rows: torch.Tensor) -> List[layers.KV]:
+        return cross_kv(self.model, enc_rows.to(self.model.cfg.compute_dtype))
+
+    def __call__(self, tok, pos_rows, caches, enc_kv, enc_mask):
+        return _decode_step(self.model, tok, pos_rows, enc_kv, enc_mask, caches)
+
+
+def make_positional_step(model: Seq2Seq) -> PositionalStep:
+    return PositionalStep(model)
+
+
+def make_cache_factory(cfg: Seq2SeqConfig, device=None):
+    """``rows -> empty dense KV caches`` for the continuous engine."""
+
+    def factory(rows: int) -> List[Dict[str, torch.Tensor]]:
+        return empty_cache(cfg, rows, device)
+
+    return factory
+
+
+def make_paged_cache_factory(cfg: Seq2SeqConfig, block_size: int = 16, pool_blocks: int = 0,
+                             device=None):
+    """``rows -> paged KV caches`` for the continuous engine: per decoder
+    layer one pool of ``pool_blocks`` blocks [NB, H, block_size, E] shared
+    by every row, and a block table [rows, ceil(max_tgt_len / block_size)]
+    from a row's logical block to its pool block. Pool block 0 is the trash
+    block, so ``pool_blocks`` counts one block no row can hold; 0 sizes the
+    pool to the dense layout's memory (``rows * MAXB + 1``)."""
+    bs = int(block_size)
+    if bs < 1:
+        raise ValueError("block_size must be >= 1")
+    maxb = -(-cfg.max_tgt_len // bs)
+    d_head = cfg.d_model // cfg.n_heads
+
+    def factory(rows: int) -> dict:
+        nb = int(pool_blocks) or rows * maxb + 1
+        if nb < maxb + 1:
+            raise ValueError(f"pool_blocks={nb} cannot seat one max-length row "
+                             f"({maxb} blocks + trash)")
+        shape = (nb, cfg.n_heads, bs, d_head)
+        return {
+            "table": torch.zeros((rows, maxb), dtype=torch.int64, device=device),
+            "layers": [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+                       for _ in range(cfg.n_dec_layers)],
+        }
+
+    return factory

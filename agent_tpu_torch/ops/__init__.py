@@ -21,7 +21,7 @@ OpFn = Callable[..., Dict[str, Any]]
 OPS_REGISTRY: Dict[str, OpFn] = {}
 OPS_LOAD_ERRORS: List[Tuple[str, str]] = []
 
-# Op name -> submodule of agent_tpu_torch.ops (the ops ported so far).
+# Op name -> submodule of agent_tpu_torch.ops: every op name the reference registers.
 OP_TO_MODULE: Dict[str, str] = {
     "echo": "echo",
     "map_tokenize": "map_tokenize",
@@ -32,12 +32,21 @@ OP_TO_MODULE: Dict[str, str] = {
     "map_classify_tpu": "map_classify_tpu",
     "map_summarize": "map_summarize",
     "train_classifier": "train_classifier",
+    "serve_classify": "serve_infer",
+    "serve_summarize": "serve_infer",
+    "serve_prefill": "serve_infer",
+    "serve_decode": "serve_infer",
+    "summarize_encode": "summarize_mpmd",
+    "summarize_decode": "summarize_mpmd",
 }
 
 # The ops that need a device runtime: an agent serving any of them builds
 # the runtime at start (and fails there without CUDA); an agent of the other
-# ops, which run on the host, never builds one.
-DEVICE_OPS = frozenset({"map_classify_tpu", "map_summarize", "train_classifier"})
+# ops, which run on the host, never builds one. serve_classify reaches the
+# runtime through map_classify_tpu.
+DEVICE_OPS = frozenset({"map_classify_tpu", "map_summarize", "train_classifier",
+                        "serve_classify", "serve_summarize", "serve_prefill", "serve_decode",
+                        "summarize_encode", "summarize_decode"})
 
 _imported: Dict[str, bool] = {}
 _lock = threading.Lock()

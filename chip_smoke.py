@@ -51,8 +51,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               serving kernel's cases include phase 8's staged shapes and
               the first shards of phase 10 (B 8192, L 48, d_head 64 and
               the seq2seq's 32), and phases 11 and 12's staged requests
-              (BERT-base's, and the BART encoder's B 64, H 16, L 1024); the
-              fold's include phase 11's sp = 2 shard.
+              (BERT-base's, and the BART encoder's B 64, H 16, L 1024), and
+              phase 13's serving prefills (d_head 32: one admit batch B 8
+              and the whole stream B 240 at L 64, the agent's jobs, the
+              disaggregated mix's buckets); the fold's include phase 11's
+              sp = 2 shard.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id): one text, 64 mixed-length
@@ -164,6 +167,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               attention's (bf16); those rows' greedy tokens in f32 with the
               kernel equal to the plain attention's. p50 ms, emitted
               tokens/s and the idle share.
+13. serving — continuous batching (models/decoding.ContinuousBatcher) at
+              the seq2seq defaults (bf16, the default model id's weights):
+              bench.py's serving stream (240 requests of 64 ids, 90 % with a
+              budget of 4 tokens and 10 % of 130, seed 5) prefilled as one
+              batch (row 1 once per encoder layer), then decoded by the
+              static path (arrival-order batches of 8 through
+              greedy_generate / beam_generate, each to its longest budget)
+              and by one persistent paged engine with 8 slots: tok/s of the
+              requested tokens, the speedup, steps, mean occupancy, KV
+              blocks at the end and a profiled stretch of 50 engine steps,
+              greedy and with 4 beams; greedy again at 64 slots. A small f32
+              model (SMALL_S2S_F32): 32 requests joining one every 8 steps
+              into 4 slots give each request's solo greedy_generate /
+              beam_generate tokens (dense and paged), the CPU engine's tokens,
+              and other tokens with the trash-block repoint planted away.
+              serve_summarize jobs of 8-32 requests through the port's
+              pipelined agent against the stand-in controller (one shared
+              engine; row 1 4 times a job) equal to the op run serially; TTFT
+              p50/p95 and the occupancy gauge. bench.py's disaggregated mix
+              (32 requests over 4 documents, every 4th a one-off) as
+              serve_prefill (b1 results) -> serve_decode through the agent
+              after a warm round: prefix hit rate >= 0.5, row 1 4 times a
+              prefill with a miss and never in a decode, results equal to
+              the colocated op. summarize_encode -> summarize_decode on 64
+              rows equal to map_summarize's greedy summaries (row 1 4 times,
+              then 0). serve_classify at BERT-base width (run after phase 4,
+              while its weights are on the card): row 1 12 times, answers
+              equal to map_classify_tpu's.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -171,10 +202,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-12; row 1's
-              launches by path include phases 10, 11 and 12, and its entry
-              holds a second one at phase 12's encoder shape; the fold's
-              launches by path include phase 11's ring.
+              point's time beside it). Printed after phases 8-13; row 1's
+              launches by path include phases 10-13, and its entry holds
+              two more: at phase 12's encoder shape and at phase 13's
+              stream prefill (B 240, H 8, L 64, D 32); the fold's launches
+              by path include phase 11's ring.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -183,6 +215,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -318,6 +351,23 @@ BART_LARGE_CNN = {"model_type": "bart", "architectures": ["BartForConditionalGen
 BART_ROWS, BART_BEAM_ROWS, BART_MAX_NEW, BART_BEAMS, BART_MIN_LENGTH = 64, 8, 32, 4, 8
 BART_TOKENS, BART_MERGES = (600, 1000), 4000
 BART_CHECK_ROWS = 8  # rows whose f32 tokens are compared, kernel vs plain
+# Phase 13: bench.py's serving leg (bench.py:1376-1392, _bench_serving_beam):
+# 240 requests of 64 source ids, a budget of T // 32 tokens with probability
+# 0.9 and T (max_tgt_len 130) otherwise, seed 5, 8 slots, greedy and 4
+# beams, micro_steps 1; greedy again at 64 slots. Then the agent's jobs of
+# 8-32 requests, and the disaggregated mix (SERVE_DISAGG_REQUESTS over
+# SERVE_DISAGG_DOCS) with ServeConfig's buckets and batch cap.
+SERVE_REQUESTS, SERVE_SRC, SERVE_SLOTS, SERVE_WIDE_SLOTS, SERVE_BEAMS = 240, 64, 8, 64, 4
+SERVE_SHORT_FRAC, SERVE_SEED = 0.9, 5
+SERVE_WARM = 8  # requests of each side's warm-up pass
+SERVE_PROFILE_STEPS = 50
+SERVE_EXACT_REQUESTS = 32
+SERVE_EXACT_EVERY = 8  # steps between arrivals: slots sit empty, blocks are reused
+SERVE_AGENT_JOBS = (8, 16, 24, 32)
+DISAGG_REQUESTS, DISAGG_DOCS = 32, 4
+SERVE_LEN_BUCKETS, SERVE_MAX_BATCH = (64, 128, 256, 512, 1024), 16
+MPMD_ROWS = 64
+SERVE_MODEL: dict = {}  # Seq2SeqConfig overrides of phase 13 (none: the defaults)
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
@@ -433,7 +483,7 @@ def check_kernels(fa, main_cases) -> dict:
         results.append({"case": name, "dtype": str(dtype).split(".")[-1],
                         "shape": [B, H, Lq, Lk, D], "max_abs_err": err, "max_rel_err": rel,
                         "fault_rel_err": fault_rel, "ok": ok, "faults_caught": caught})
-        if name.startswith(("texts256/", "bart_greedy/")):
+        if name.startswith(("texts256/", "bart_greedy/", "serve_stream240/")):
             inputs[name.split("/")[0]] = (q, k, v, mask, lengths)
     # Strided inputs give the contiguous result; the launcher refuses what
     # the kernel does not take.
@@ -461,8 +511,9 @@ def check_kernels(fa, main_cases) -> dict:
                          f"{strided_equal}, refused {refused}")
     main = [r for r in results if "/" in r["case"]]
     return {"max_abs_err": max(r["max_abs_err"] for r in main),
-            "max_rel_err": max(r["max_rel_err"] for r in main), "inputs": inputs["texts256"],
-            "inputs_bart": inputs.get("bart_greedy")}
+            "max_rel_err": max(r["max_rel_err"] for r in main), "inputs": inputs.get("texts256"),
+            "inputs_bart": inputs.get("bart_greedy"),
+            "inputs_serving": inputs.get("serve_stream240")}
 
 
 TRAIN_EDGE_CASES = [
@@ -789,15 +840,22 @@ def profile_call(fn) -> dict:
         if found:
             key = f"flash_bwd_{found.group(1)}_sm90"
             backwards[key] = backwards.get(key, 0) + e.count
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "profile_attempts": attempt,
-            "prefix_records_lost": PROFILE_PREFIX - prefix_traced,
-            "flash_fwd_launches": forwards, "flash_bwd_sm90_launches": backwards,
-            "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
-            "host_blocked_reads": sum(e.count for e in reads),
-            "host_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
-            "device_ms_by_kind": by_kind,
-            "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
-                            for e in top]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "profile_attempts": attempt,
+           "kernels_launched": sum(e.count for e in events),
+           "prefix_records_lost": PROFILE_PREFIX - prefix_traced,
+           "flash_fwd_launches": forwards, "flash_bwd_sm90_launches": backwards,
+           "idle_share": 1 - device_ms / wall_ms if wall_ms else None,
+           "host_blocked_reads": sum(e.count for e in reads),
+           "host_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
+           "device_ms_by_kind": by_kind,
+           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]}
+    # The profiler's event objects refer to one another (parents, children),
+    # so a session leaves cyclic garbage that only a full collection frees;
+    # left to a later phase, that collection paused phase 10's serial pass
+    # for seconds inside its timing on the H100's host. Free it here.
+    del prof, events, top, reads
+    gc.collect()
+    return out
 
 
 def check_forwards(profile: dict, want: dict, what: str) -> None:
@@ -2153,9 +2211,11 @@ def drain_phase(fa, rt, path: str) -> dict:
         ctrl.outcome(warm)
         warm_s = time.perf_counter() - t0
 
-        # The classify drain: the slice's main path.
+        # The classify drain: the slice's main path. Each timed pass starts
+        # with a full collection, so none lands inside it.
         ids = [ctrl.submit("map_classify_tpu", p) for p in shards]
         torch.cuda.synchronize()
+        gc.collect()
         reset_counts(fa)
         wall, _ = pipelined_drain(agent, ctrl)
         launches = fa.LAUNCH_COUNTS["flash_attention"]
@@ -2177,6 +2237,7 @@ def drain_phase(fa, rt, path: str) -> dict:
                              f"{sum(chunks)} dispatch chunks), others {others}, dense {dense}")
 
         # The same shards serially through the op, on the same card.
+        gc.collect()
         serial, serial_wall = serial_shards(ops["map_classify_tpu"], rt, shards)
         for r, want in zip(results, serial):
             if r["indices"] != want["indices"] or r["scores"] != want["scores"]:
@@ -2538,11 +2599,12 @@ def bart_phase(fa, summarize, rt, ckpt, requests) -> dict:
     return {"launches": launches}
 
 
-def bart_shape_entry(fa, check, launches) -> dict:
-    """Row 1 at phase 12's encoder shape (B 64, H 16, L 1024, D 64 with the
-    staged key lengths): kernel, plain and SDPA's forward times beside the
-    bound, as a kernels-line entry of its own."""
-    q, k, v, mask, lengths = check["inputs_bart"]
+def shape_entry(fa, check, inputs: str, launches) -> dict:
+    """Row 1 at another staged shape (``check[inputs]``: phase 12's BART
+    encoder, B 64, H 16, L 1024, D 64, or phase 13's serving prefill, B 240,
+    H 8, L 64, D 32, with their key lengths): kernel, plain and SDPA's
+    forward times beside the bound, as a kernels-line entry of its own."""
+    q, k, v, mask, lengths = check[inputs]
     B, H, L, D = q.shape
     bool_mask = mask > 0
     return kernel_entry(
@@ -2555,6 +2617,489 @@ def bart_shape_entry(fa, check, launches) -> dict:
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=bool_mask)), q)
+
+
+def serve_cfg():
+    from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
+
+    return Seq2SeqConfig(**SERVE_MODEL)
+
+
+def with_model(payload: dict) -> dict:
+    """``payload`` with phase 13's model_config when it overrides any."""
+    return dict(payload, model_config=SERVE_MODEL) if SERVE_MODEL else payload
+
+
+def serving_stream(cfg) -> tuple:
+    """bench.py's serving stream (_bench_serving_beam): per request a token
+    budget, T // 32 with probability SERVE_SHORT_FRAC else T, then the
+    source ids, all from one generator seeded SERVE_SEED."""
+    rng = np.random.default_rng(SERVE_SEED)
+    n = SERVE_REQUESTS
+    T = cfg.max_tgt_len
+    short = max(2, T // 32)
+    limits = [short if rng.random() < SERVE_SHORT_FRAC else T for _ in range(n)]
+    ids = rng.integers(4, cfg.vocab_size, (n, SERVE_SRC)).astype(np.int32)
+    return ids, np.ones((n, SERVE_SRC), np.int32), limits
+
+
+def new_engine(model, slots: int, num_beams: int, paged: bool = True, cls=None, enc_len=None):
+    """A continuous engine on ``model``'s device with ServeConfig's default
+    KV layout (paged, 16-token blocks, the pool at dense parity)."""
+    from agent_tpu_torch.models import decoding, seq2seq
+    from agent_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, PAD_ID
+
+    cfg, dev = model.cfg, model.embed.device
+    factory = (seq2seq.make_paged_cache_factory(cfg, block_size=16, device=dev) if paged
+               else seq2seq.make_cache_factory(cfg, device=dev))
+    return (cls or decoding.ContinuousBatcher)(
+        seq2seq.make_positional_step(model), factory, slots=slots, vocab_size=cfg.vocab_size,
+        max_tokens=cfg.max_tgt_len, enc_len=enc_len or SERVE_SRC, d_model=cfg.d_model,
+        start_id=BOS_ID, eos_id=EOS_ID, pad_id=PAD_ID, num_beams=num_beams)
+
+
+def engine_vs_static(model, attn_fn, stream, enc_all, num_beams: int, slots: int,
+                     profile: bool) -> dict:
+    """bench.py's comparison on the card: the static path decodes
+    arrival-order batches of ``slots`` requests through greedy_generate /
+    beam_generate, each batch run to its longest budget; one persistent
+    paged engine runs the same stream with per-slot limits. Both count the
+    requested tokens (the engine's steps per request). Each side is warmed
+    on the first SERVE_WARM requests; ``profile`` adds one profiled stretch
+    of SERVE_PROFILE_STEPS engine steps in a third pass."""
+    from agent_tpu_torch.models import seq2seq
+
+    ids, mask, limits = stream
+    ids_t, mask_t = torch.from_numpy(ids).to(CARD), torch.from_numpy(mask).to(CARD)
+
+    def static_pass(n):
+        steps = 0
+        with torch.inference_mode():
+            for s in range(0, n, slots):
+                b = slice(s, min(s + slots, n))
+                mx = max(limits[b])
+                if num_beams == 1:
+                    toks, _ = seq2seq.greedy_generate(model, ids_t[b], mask_t[b], mx,
+                                                      attn_fn=attn_fn)
+                else:
+                    toks, _ = seq2seq.beam_generate(model, ids_t[b], mask_t[b], mx,
+                                                    num_beams=num_beams, attn_fn=attn_fn)
+                toks.cpu()
+                steps += mx
+        return steps
+
+    engine = new_engine(model, slots, num_beams)
+
+    def engine_pass(n):
+        tickets = [engine.admit(enc_all[i], mask[i], limits[i], data=i) for i in range(n)]
+        while engine.has_work():
+            engine.step()
+        return tickets
+
+    static_pass(SERVE_WARM)
+    engine_pass(SERVE_WARM)
+    torch.cuda.synchronize()
+    gc.collect()  # no full collection inside either timed pass (see profile_call)
+    t0 = time.perf_counter()
+    static_steps = static_pass(len(limits))
+    static_wall = time.perf_counter() - t0
+    steps0, occ0 = engine.steps_run, engine.occupancy_sum
+    gc.collect()
+    t0 = time.perf_counter()
+    tickets = engine_pass(len(limits))
+    cont_wall = time.perf_counter() - t0
+    engine_steps = engine.steps_run - steps0
+    tokens = sum(t.steps for t in tickets)
+    out = {"requests": len(limits), "num_beams": num_beams, "slots": slots, "micro_steps": 1,
+           "kv_layout": "paged", "limit_short": min(limits), "limit_long": max(limits),
+           "tokens": tokens, "static_wall_s": static_wall, "continuous_wall_s": cont_wall,
+           "static_tok_per_s": tokens / static_wall, "continuous_tok_per_s": tokens / cont_wall,
+           "speedup_vs_static": static_wall / cont_wall, "static_steps": static_steps,
+           "engine_steps": engine_steps,
+           "mean_occupancy": (engine.occupancy_sum - occ0) / max(1, engine_steps),
+           "max_occupancy": engine.max_occupancy,
+           "kv_blocks_total": engine.kv_blocks_total, "kv_blocks_free": engine.kv_blocks_free,
+           "ttft_steps_p50": statistics.median(t.join_step - steps0 + 1 for t in tickets)}
+    if engine.kv_blocks_free != engine.kv_blocks_total or len(tickets) != len(limits) \
+            or any(t.steps > t.limit or t.tokens is None for t in tickets):
+        raise SystemExit(f"the engine's pass is inconsistent: {out}")
+    if profile:
+        # A third pass, profiled for SERVE_PROFILE_STEPS steps once the batch
+        # is full, then dropped.
+        t0 = time.perf_counter()
+        for i in range(len(limits)):
+            engine.admit(enc_all[i], mask[i], limits[i])
+        for _ in range(10):
+            engine.step()
+        prof = profile_call(lambda: [engine.step() for _ in range(SERVE_PROFILE_STEPS)])
+        out["profile_50_steps"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "kernels_launched", "host_blocked_reads",
+            "host_blocked_ms", "device_ms_by_kind", "top_kernels", "profile_attempts")}
+        out["profiled_pass_s"] = time.perf_counter() - t0
+    return out
+
+
+class NoTrashRepoint:
+    """Planted fault, mixed into the engine: a released slot's blocks go back
+    to the free list but its rows still point at them."""
+
+    def _release_blocks(self, slot):
+        ids = self._slot_blocks.pop(slot, None)
+        if ids is not None:
+            self._free_blocks.extend(ids)
+
+
+def sparse_arrivals(engine, rows, masks, limits, every: int = SERVE_EXACT_EVERY) -> list:
+    """One request admitted every ``every`` steps, so slots sit empty while
+    blocks they released serve later requests -> each request's tokens."""
+    tickets, i, ticks = [], 0, 0
+    while i < len(limits) or engine.has_work():
+        if i < len(limits) and ticks % every == 0:
+            tickets.append(engine.admit(rows[i], masks[i], limits[i]))
+            i += 1
+        engine.step()
+        ticks += 1
+    return [t.tokens[:t.limit].tolist() for t in tickets]
+
+
+def serving_exactness() -> dict:
+    """The engine's tokens on the card, on a small f32 model (SMALL_S2S_F32):
+    SERVE_EXACT_REQUESTS requests joining one every SERVE_EXACT_EVERY steps
+    into 4 slots (slots sit empty between arrivals), each equal to a solo
+    greedy_generate / beam_generate of it with its own budget, dense and
+    paged; the paged engine on the card equal to the same engine on the
+    CPU; and the engine with the trash-block repoint skipped must give other
+    tokens."""
+    from agent_tpu_torch.models import decoding, seq2seq
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    cfg = seq2seq.Seq2SeqConfig(**SMALL_S2S_F32)
+    flat = seq2seq.init_params(cfg, "serving-exact")
+    card, cpu = (seq2seq.from_jax_params(flat, cfg, device=d) for d in (CARD, "cpu"))
+    attn_fn = TorchRuntime(device=CARD).attention_fn()
+    rng = np.random.default_rng(SEED + 13)
+    n, src = SERVE_EXACT_REQUESTS, 32
+    ids = rng.integers(4, cfg.vocab_size, (n, src)).astype(np.int32)
+    lengths = rng.integers(8, src + 1, n)
+    masks = (np.arange(src)[None, :] < lengths[:, None]).astype(np.int32)
+    limits = [int(x) for x in rng.integers(2, cfg.max_tgt_len, n)]
+    report, failures = {}, []
+    with torch.inference_mode():
+        # One row at a time, the shape each solo decode encodes.
+        rows = [seq2seq.encode(card, torch.from_numpy(ids[i:i + 1]).to(CARD),
+                               torch.from_numpy(masks[i:i + 1]).to(CARD), attn_fn)
+                .float().cpu().numpy()[0] for i in range(n)]
+        for beams in (1, SERVE_BEAMS):
+            solo = []
+            for i in range(n):
+                args = (card, torch.from_numpy(ids[i:i + 1]).to(CARD),
+                        torch.from_numpy(masks[i:i + 1]).to(CARD), limits[i])
+                toks, _ = (seq2seq.greedy_generate(*args, attn_fn=attn_fn) if beams == 1 else
+                           seq2seq.beam_generate(*args, num_beams=beams, attn_fn=attn_fn))
+                solo.append(toks.cpu().numpy()[0].tolist())
+            got = {layout: sparse_arrivals(new_engine(card, 4, beams, layout == "paged",
+                                                      enc_len=src), rows, masks, limits)
+                   for layout in ("dense", "paged")}
+            got["cpu_paged"] = sparse_arrivals(new_engine(cpu, 4, beams, enc_len=src),
+                                               rows, masks, limits)
+            for name, toks in got.items():
+                want = solo if name != "cpu_paged" else got["paged"]
+                same = sum(a == b for a, b in zip(toks, want))
+                report[f"beams{beams}_{name}_equal"] = same
+                if same != n:
+                    failures.append(f"beams {beams} {name}: {same} of {n} equal")
+            if beams == 1:
+                class Faulty(NoTrashRepoint, decoding.ContinuousBatcher):
+                    pass
+
+                fault = sparse_arrivals(new_engine(card, 4, 1, cls=Faulty, enc_len=src),
+                                        rows, masks, limits)
+                changed = sum(a != b for a, b in zip(fault, got["paged"]))
+                report["planted_no_trash_repoint_changed"] = changed
+                if not changed:
+                    failures.append("the planted trash-block fault changed no request")
+    report["requests"] = n
+    report["lengths"] = {"limits": [min(limits), max(limits)], "tokens_solo_distinct": len(
+        {t for row in solo for t in row})}
+    if failures:
+        raise SystemExit(f"serving exactness on the card failed: {failures} {report}")
+    return report
+
+
+def serve_batches(texts: list, limits: list, max_batch: int = 64) -> list:
+    """The front door's batching (agent_tpu/controller/serving.py): requests
+    grouped by length bucket (ServeConfig.len_buckets, on the text's bytes),
+    max_batch a job -> serve_summarize payloads (greedy)."""
+    by_bucket: dict = {}
+    for i, (text, limit) in enumerate(zip(texts, limits)):
+        n = len(text.encode("utf-8"))
+        bucket = next((b for b in SERVE_LEN_BUCKETS if n <= b), SERVE_LEN_BUCKETS[-1])
+        by_bucket.setdefault(bucket, []).append({"req_id": f"q{i:04d}", "text": text,
+                                                 "max_length": limit})
+    return [with_model({"requests": reqs[s:s + max_batch], "bucket": bucket})
+            for bucket, reqs in by_bucket.items() for s in range(0, len(reqs), max_batch)]
+
+
+def agent_jobs() -> list:
+    """The serve_summarize jobs of the agent's run: SERVE_AGENT_JOBS
+    requests of 20-60 bytes (one length bucket), budgets drawn as the
+    stream's (90 % T // 32, else T)."""
+    rng = random.Random(SEED + 17)
+    long_ = serve_cfg().max_tgt_len
+    short = max(2, long_ // 32)
+    jobs = []
+    for j, n in enumerate(SERVE_AGENT_JOBS):
+        texts = random_texts(rng, n, 20, 60)
+        limits = [short if rng.random() < SERVE_SHORT_FRAC else long_ for _ in texts]
+        for job in serve_batches(texts, limits):
+            for r in job["requests"]:
+                r["req_id"] = f"j{j}-{r['req_id']}"
+            jobs.append(job)
+    return jobs
+
+
+def disagg_jobs(round_idx: int) -> list:
+    """bench.py's disaggregated mix (bench.py:1383-1392, :1592-1606): of
+    DISAGG_REQUESTS requests every 4th a one-off, the rest one of
+    DISAGG_DOCS shared documents, 4 tokens each, batched as the front door
+    batches them (SERVE_MAX_BATCH a job)."""
+    docs = [f"shared context document {d} " + "with common preamble content " * 8
+            for d in range(DISAGG_DOCS)]
+    texts = [f"one-off request r{round_idx} i{i} " + "tail words " * 18 if i % 4 == 0
+             else docs[i % DISAGG_DOCS] for i in range(DISAGG_REQUESTS)]
+    return serve_batches(texts, [4] * DISAGG_REQUESTS, max_batch=SERVE_MAX_BATCH)
+
+
+def serving_cases(serve) -> list:
+    """Row 1's shapes and key lengths on the serving path, as the serve
+    stage pads them: one admit batch (B 8) and the whole stream (B 240) of
+    the bench stream at L 64, the agent's jobs and the disaggregated
+    measured round's buckets."""
+    cfg = serve_cfg()
+    H, D, dtype = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.compute_dtype
+    cases = [(f"serve_admit8/B8xL{SERVE_SRC}", (8, H, SERVE_SRC, SERVE_SRC, D),
+              [SERVE_SRC] * 8, dtype),
+             (f"serve_stream240/B{SERVE_REQUESTS}xL{SERVE_SRC}",
+              (SERVE_REQUESTS, H, SERVE_SRC, SERVE_SRC, D), [SERVE_SRC] * SERVE_REQUESTS, dtype)]
+    for name, jobs in (("serve_agent", agent_jobs()), ("serve_disagg", disagg_jobs(1))):
+        for job in jobs:
+            phase, state = serve.stage(dict(job))
+            if phase != "staged":
+                raise SystemExit(f"{name} did not stage: {state}")
+            B, L = state["ids"].shape
+            cases.append((f"{name}/B{B}xL{L}", (B, H, L, L, D), state["lengths"].tolist(),
+                          dtype))
+    return cases
+
+
+def per_request(results: list) -> list:
+    return [{k: r[k] for k in ("req_id", "summary", "tokens", "steps")}
+            for out in results for r in out["results"]]
+
+
+def serving_agent(fa, rt) -> dict:
+    """serve_summarize jobs of 8-32 requests through the port's pipelined
+    agent against the stand-in controller, sharing one engine, against the
+    same payloads run serially through the op; then bench.py's
+    disaggregated mix as serve_prefill -> serve_decode over b1 after a warm
+    round, against the colocated op; and summarize_encode ->
+    summarize_decode against map_summarize. Row 1's launches are counted
+    for each."""
+    from agent_tpu_torch.agent.app import Agent
+    from agent_tpu_torch.config import AgentConfig, Config
+    from agent_tpu_torch.ops import load_ops, serve_infer
+    from agent_tpu_torch.runtime.context import OpContext
+
+    ops = load_ops(["serve_summarize", "serve_prefill", "serve_decode", "summarize_encode",
+                    "summarize_decode", "map_summarize"])
+    device = torch.device(CARD).type
+    n_enc = serve_cfg().n_enc_layers
+    serve_infer.reset_engines()
+    jobs = agent_jobs()
+    report = {}
+    with StandInController() as ctrl:
+        agent = Agent(Config(agent=AgentConfig(
+            controller_url=ctrl.url, agent_name="chip-smoke-serving",
+            tasks=("serve_summarize", "serve_prefill", "serve_decode"), max_tasks=4,
+            idle_sleep_sec=0.005, pipeline_depth=2)), runtime=rt)
+        ctx = OpContext(runtime=rt, config=agent.config)
+        now = time.time()
+        for job in jobs:
+            for r in job["requests"]:
+                r["arrived_wall"] = now
+        ids = [ctrl.submit("serve_summarize", job) for job in jobs]
+        occupancy, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                occupancy.append(agent.m_serve_occupancy.value())
+                time.sleep(0.002)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        reset_counts(fa)
+        sampler.start()
+        wall, _ = pipelined_drain(agent, ctrl)
+        stop.set()
+        sampler.join(timeout=10)
+        launches = fa.LAUNCH_COUNTS["flash_attention"]
+        results = [j["result"] for j in ctrl.outcome(ids)]
+        engines = len(serve_infer._ENGINES)
+        bad = [r for r in results if not r.get("ok") or r.get("device") != device]
+        serial = [ops["serve_summarize"](dict(job), ctx) for job in jobs]
+        ttft = sorted(r["ttft_ms"] for out in results for r in out["results"])
+        tokens = sum(r["steps"] for out in results for r in out["results"])
+        report["agent"] = {
+            "jobs": [len(job["requests"]) for job in jobs], "wall_s": wall,
+            "tok_per_s": tokens / wall, "tokens": tokens, "engines": engines,
+            "ttft_ms_p50": statistics.median(ttft), "ttft_ms_p95": ttft[int(0.95 * len(ttft))],
+            "occupancy_gauge_max": max(occupancy or [0.0]),
+            "occupancy_gauge_end": agent.m_serve_occupancy.value(),
+            "occupancy_by_job": [r["occupancy"] for r in results],
+            "launches": launches, "launches_want": n_enc * len(jobs)}
+        if bad or engines != 1 or per_request(results) != per_request(serial) \
+                or launches != n_enc * len(jobs):
+            raise SystemExit(f"serving through the agent failed: {report['agent']} "
+                             f"{str(bad)[:300]}")
+
+        # bench.py's disaggregated mix: the warm round through the op, the
+        # measured round through the agent.
+        for job in disagg_jobs(0):
+            if not ops["serve_prefill"](dict(job), ctx)["ok"]:
+                raise SystemExit("a warm serve_prefill failed")
+        measured = disagg_jobs(1)
+        now = time.time()
+        for job in measured:
+            for r in job["requests"]:
+                r["arrived_wall"] = now
+        reset_counts(fa)
+        pre_ids = [ctrl.submit("serve_prefill", job) for job in measured]
+        prefill_wall, _ = pipelined_drain(agent, ctrl)
+        prefill_launches = fa.LAUNCH_COUNTS["flash_attention"]
+        prefills = ctrl.outcome(pre_ids)
+        pre = [j["result"] for j in prefills]
+        hits = sum(r["prefix_cache"]["hits"] for r in pre)
+        misses = sum(r["prefix_cache"]["misses"] for r in pre)
+        want_prefill = n_enc * sum(1 for r in pre if r["prefix_cache"]["misses"])
+        t0 = time.perf_counter()
+        handoffs = [dict(r, enc_rows=np.asarray(r["enc_rows"]).tolist(),
+                         lengths=np.asarray(r["lengths"]).tolist()) for r in pre]
+        handoff_s = time.perf_counter() - t0
+        reset_counts(fa)
+        dec_ids = [ctrl.submit("serve_decode", dict(job, encoded=h))
+                   for job, h in zip(measured, handoffs)]
+        decode_wall, _ = pipelined_drain(agent, ctrl)
+        decode_launches = fa.LAUNCH_COUNTS["flash_attention"]
+        decoded = [j["result"] for j in ctrl.outcome(dec_ids)]
+        colocated = [ops["serve_summarize"](dict(job), ctx) for job in measured]
+        ttft = sorted(r["ttft_ms"] for out in decoded for r in out["results"])
+        report["disagg"] = {
+            "jobs": [[len(j["requests"]), j["bucket"]] for j in measured],
+            "prefill_b1": [j["b1"] for j in prefills], "hit_rate": hits / (hits + misses),
+            "hits": hits, "misses": misses, "prefill_launches": prefill_launches,
+            "prefill_launches_want": want_prefill, "decode_launches": decode_launches,
+            "ttft_ms_p50": statistics.median(ttft), "ttft_ms_p95": ttft[int(0.95 * len(ttft))],
+            "prefill_drain_s": prefill_wall, "handoff_tolist_s": handoff_s,
+            "decode_drain_s": decode_wall,
+            "equal_to_colocated": per_request(decoded) == per_request(colocated)}
+        if not all(j["b1"] for j in prefills) or hits / (hits + misses) < 0.5 \
+                or prefill_launches != want_prefill or decode_launches \
+                or not report["disagg"]["equal_to_colocated"] \
+                or any(r.get("device") != device for r in pre + decoded):
+            raise SystemExit(f"the disaggregated chain failed: {report['disagg']}")
+        if ctrl.stale:
+            raise SystemExit(f"{ctrl.stale} serving results came with a stale epoch or lease")
+
+    # summarize_encode -> summarize_decode against map_summarize, greedy.
+    texts = random_texts(random.Random(SEED + 18), MPMD_ROWS, 20, 60)
+    counts = {}
+    reset_counts(fa)
+    enc = ops["summarize_encode"](with_model({"texts": texts}), ctx)
+    counts["encode"] = fa.LAUNCH_COUNTS["flash_attention"]
+    reset_counts(fa)
+    dec = ops["summarize_decode"](with_model({"encoded": enc, "max_length": S2S_MAX_NEW}), ctx)
+    counts["decode"] = fa.LAUNCH_COUNTS["flash_attention"]
+    whole = ops["map_summarize"](with_model({"texts": texts, "max_length": S2S_MAX_NEW}), ctx)
+    report["mpmd"] = {"rows": MPMD_ROWS, "launches": counts,
+                      "equal_to_map_summarize": dec.get("summaries") == whole["summaries"],
+                      "devices": [enc.get("device"), dec.get("device")]}
+    if not report["mpmd"]["equal_to_map_summarize"] or counts != {"encode": n_enc,
+                                                                   "decode": 0}:
+        raise SystemExit(f"summarize_encode -> summarize_decode failed: {report['mpmd']}")
+    return report
+
+
+def serve_classify_check(fa, ctx, texts: list, k: int) -> dict:
+    """serve_classify at BERT-base width (run while phase 4's weights are on
+    the card): one batch of requests, row 1 once per layer, each answer
+    equal to map_classify_tpu's columnar result for the same texts."""
+    from agent_tpu_torch.ops import load_ops
+
+    ops = load_ops(["serve_classify", "map_classify_tpu"])
+    payload = {"requests": [{"req_id": f"c{i}", "text": t} for i, t in enumerate(texts)],
+               "model_config": BERT_BASE, "topk": k}
+    reset_counts(fa)
+    out = ops["serve_classify"](payload, ctx)
+    launches = fa.LAUNCH_COUNTS["flash_attention"]
+    want = ops["map_classify_tpu"]({"texts": texts, "model_config": BERT_BASE, "topk": k,
+                                    "result_format": "columnar", "allow_fallback": False}, ctx)
+    same = [r["indices"] for r in out["results"]] == want["indices"] \
+        and [r["scores"] for r in out["results"]] == want["scores"]
+    report = {"requests": len(texts), "launches": launches,
+              "launches_want": BERT_BASE["n_layers"], "equal_to_map_classify": same,
+              "device": out.get("device")}
+    emit(dict({"phase": "serve_classify", "config": BERT_BASE}, **report))
+    if not same or launches != BERT_BASE["n_layers"] \
+            or out.get("device") != torch.device(CARD).type:
+        raise SystemExit(f"serve_classify failed: {report}")
+    return report
+
+
+def serving_phase(fa, rt, classify_check: dict) -> dict:
+    """Phase 13: continuous-batching serving on the card (see the module
+    docstring)."""
+    from agent_tpu_torch.models import seq2seq
+    from agent_tpu_torch.ops import map_summarize as summarize_op
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    t0 = time.perf_counter()
+    cfg = serve_cfg()
+    # The default model's weights, placed where the serving ops look for
+    # them, so the ops below reuse them.
+    model = rt.get_params(summarize_op.params_key(summarize_op.DEFAULT_MODEL_ID, "seq2seq", cfg),
+                          lambda: summarize_op._build_model(summarize_op.DEFAULT_MODEL_ID, cfg,
+                                                            "seq2seq", rt.device))
+    attn_fn = TorchRuntime(device=CARD).attention_fn()
+    stream = serving_stream(cfg)
+    reset_counts(fa)
+    with torch.inference_mode():
+        enc_all = seq2seq.encode(model, torch.from_numpy(stream[0]).to(CARD),
+                                 torch.from_numpy(stream[1]).to(CARD), attn_fn
+                                 ).float().cpu().numpy()
+    prefill_launches = fa.LAUNCH_COUNTS["flash_attention"]
+    if prefill_launches != cfg.n_enc_layers:
+        raise SystemExit(f"the stream's prefill launched row 1 {prefill_launches} times")
+    seconds = {}
+    legs = []
+    for beams, slots, profile in ((1, SERVE_SLOTS, True), (SERVE_BEAMS, SERVE_SLOTS, True),
+                                  (1, SERVE_WIDE_SLOTS, False)):
+        t1 = time.perf_counter()
+        legs.append(engine_vs_static(model, attn_fn, stream, enc_all, beams, slots, profile))
+        seconds[f"beams{beams}_slots{slots}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    exact = serving_exactness()
+    seconds["exactness"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    agent = serving_agent(fa, rt)
+    seconds["agent_disagg_mpmd"] = time.perf_counter() - t1
+    report = {"phase": "serving", "config": SERVE_MODEL or "Seq2SeqConfig defaults (d_model "
+              "256, 8 heads, 4 + 4 layers, d_ff 1024, vocab 260, max_tgt_len 130, bf16)",
+              "stream": {"requests": SERVE_REQUESTS, "src": SERVE_SRC, "seed": SERVE_SEED,
+                         "short_frac": SERVE_SHORT_FRAC},
+              "stream_prefill_launches": prefill_launches, "engine_vs_static": legs,
+              "exactness_f32": exact, **agent, "serve_classify": classify_check,
+              "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    emit(report)
+    return report
 
 
 def cuobjdump_path(build) -> str:
@@ -2765,7 +3310,8 @@ def main(argv=None) -> int:
         classify, requests + long_requests + [("small_f32", small_payload, 12),
                                               ("drain_shard", drain_shards[0], DRAIN_SHARD)]
     ) + staged_cases(summarize, s2s_cases + [("drain_s2s_shard", drain_s2s[0], DRAIN_SHARD)]) \
-        + staged_cases(classify, bert_reqs) + staged_cases(summarize, bart_reqs)
+        + staged_cases(classify, bert_reqs) + staged_cases(summarize, bart_reqs) \
+        + serving_cases(load_ops(["serve_summarize"])["serve_summarize"])
     kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
     fold_check = check_fold_kernel(fa, ring_fold_case(
@@ -2813,6 +3359,9 @@ def main(argv=None) -> int:
     check_forwards(profile, {"flash_fwd_sm90": BERT_BASE["n_layers"]}, "256-row request")
     if not vs_plain["ok"] or fault_vs_plain["ok"] or not vs_cpu["ok"]:
         raise SystemExit("op results disagree (or the planted fault went unnoticed)")
+    # Phase 13's serve_classify, while the BERT-base weights are on the card.
+    classify_check = serve_classify_check(fa, ctx, random_texts(random.Random(SEED + 19), 8,
+                                                                10, 200), k)
 
     # 5. long context
     rt.clear_params()
@@ -2874,6 +3423,10 @@ def main(argv=None) -> int:
     rt.clear_params()
     hf_dir.cleanup()
 
+    # 13. continuous-batching serving
+    serving = serving_phase(fa, rt, classify_check)
+    rt.clear_params()
+
     # 7. kernels: the serving kernel on the 256-row request's staged shape
     # and key lengths, the training kernels on phase 6's first batch, the T5
     # kernel on phase 9's staged shape.
@@ -2893,8 +3446,17 @@ def main(argv=None) -> int:
         launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"],
                           "agent_drain_map_classify_tpu": drain["launches"],
                           "map_classify_tpu_bert": bert_run["launches"],
-                          "map_summarize_bart": bart_run["launches"]},
-        at_bart_encoder_shape=bart_shape_entry(fa, kernel_check, bart_run["launches"]))
+                          "map_summarize_bart": bart_run["launches"],
+                          "serve_classify": classify_check["launches"],
+                          "serve_summarize_stream_prefill": serving["stream_prefill_launches"],
+                          "serve_summarize_agent": serving["agent"]["launches"],
+                          "serve_prefill_disagg": serving["disagg"]["prefill_launches"],
+                          "serve_decode_disagg": serving["disagg"]["decode_launches"],
+                          "summarize_encode": serving["mpmd"]["launches"]["encode"],
+                          "summarize_decode": serving["mpmd"]["launches"]["decode"]},
+        at_bart_encoder_shape=shape_entry(fa, kernel_check, "inputs_bart", bart_run["launches"]),
+        at_serving_prefill_shape=shape_entry(fa, kernel_check, "inputs_serving",
+                                             serving["stream_prefill_launches"]))
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
                       fold_kernel_entry(fa, fold_check, fold_launches, launches_by_path={
                           "map_classify_tpu": fold_launches,

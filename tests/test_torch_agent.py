@@ -11,7 +11,12 @@ negotiation, the ``UnknownOp`` result, malformed-task salvage, a 503 on a
 result post spooled and redelivered exactly once, ``request_drain``
 releasing the unstarted remainder of a lease, a host-ops-only agent that
 never builds a runtime, a device-op agent that fails at start without CUDA,
-and the entry point's exit codes."""
+and the entry point's exit codes. Serving: ``serve_summarize`` jobs that
+the reference controller's ``/v1/infer`` front door coalesced are served
+by the port's agent (serial loop, and the pipelined runner's continuous
+loop with several jobs sharing one decode engine) with the reference
+agent's answers, and a job whose decode is in flight when the agent stops
+still posts its answers."""
 
 import os
 import signal
@@ -28,12 +33,16 @@ from agent_tpu.agent.app import Agent as JaxAgent
 from agent_tpu.chaos import LoopbackSession
 from agent_tpu.config import AgentConfig as JaxAgentConfig
 from agent_tpu.config import Config as JaxConfig
+from agent_tpu.config import FlowConfig
+from agent_tpu.config import ServeConfig as JaxServeConfig
 from agent_tpu.controller import Controller, ControllerServer
+from agent_tpu.ops.serve_infer import reset_engines as jax_reset_engines
 from agent_tpu.runtime.runtime import get_runtime as jax_get_runtime
 from agent_tpu_torch.agent import app
 from agent_tpu_torch.agent.app import Agent
 from agent_tpu_torch.agent.pipeline import PipelineRunner
 from agent_tpu_torch.config import AgentConfig, Config
+from agent_tpu_torch.ops import serve_infer
 from agent_tpu_torch.runtime.runtime import TorchRuntime
 from tests.test_torch_map_classify import _assert_topk_agree
 
@@ -377,3 +386,152 @@ def test_entry_point_drains_and_exits_on_sigterm(drain_csv, tmp_path):
     assert proc.returncode == 0, out
     assert "drain requested" in out and "agent drained" in out
     assert set(controller.results()) == set(jobs)
+
+
+# ---- serving through the reference controller's front door ----
+
+SERVE_S2S = {"d_model": 32, "n_heads": 4, "n_enc_layers": 1, "n_dec_layers": 1, "d_ff": 64,
+             "max_src_len": 64, "max_tgt_len": 20, "dtype": "float32"}
+# One length bucket (< 64 bytes), so every batch job shares one engine.
+SERVE_REQUESTS = [(f"serve request {i} " + "w" * (i % 5), 2 + (5 * i) % 17)
+                  for i in range(12)]
+
+
+def _serve_controller(max_batch=4):
+    return Controller(serve=JaxServeConfig(max_wait_ms=0.0, max_batch=max_batch),
+                      flow=FlowConfig(cache_enabled=False))
+
+
+def _submit_serving(controller, requests, num_beams):
+    rids = [controller.submit_infer("summarize", text, params={
+        "model_config": SERVE_S2S, "max_length": limit, "num_beams": num_beams})
+        for text, limit in requests]
+    controller._serve_pump()  # the batch jobs exist before any agent leases
+    return rids
+
+
+def _serve_answers(controller, rids):
+    controller._serve_pump()
+    snaps = [controller.infer_snapshot(rid) for rid in rids]
+    assert all(s["state"] == "done" for s in snaps), snaps
+    return [{k: s["result"][k] for k in ("summary", "tokens", "steps")} for s in snaps]
+
+
+def _reference_serving(requests, num_beams):
+    jax_reset_engines()
+    controller = _serve_controller()
+    rids = _submit_serving(controller, requests, num_beams)
+    cfg = JaxConfig(agent=JaxAgentConfig(controller_url=LOCAL, agent_name="ref",
+                                         tasks=("serve_summarize",), idle_sleep_sec=0.01,
+                                         max_tasks=4))
+    agent = JaxAgent(config=cfg, session=LoopbackSession(controller),
+                     runtime=jax_get_runtime())
+    agent._profile = {"tier": "test"}
+    _serial_drain(agent, controller)
+    return _serve_answers(controller, rids)
+
+
+def _serving_agent(controller, torch_rt, max_tasks=4):
+    serve_infer.reset_engines()
+    agent = Agent(_config(LOCAL, tasks=("serve_summarize",), max_tasks=max_tasks),
+                  session=LoopbackSession(controller), runtime=torch_rt)
+    agent._profile = {"tier": "test"}
+    agent.post_session_factory = lambda: LoopbackSession(controller)
+    return agent
+
+
+@pytest.mark.parametrize("num_beams", [1, 2], ids=["greedy", "beam2"])
+@pytest.mark.parametrize("loop", ["serial", "pipelined"])
+def test_serving_jobs_answer_as_the_reference_agent(torch_rt, loop, num_beams):
+    want = _reference_serving(SERVE_REQUESTS, num_beams)
+    controller = _serve_controller()
+    rids = _submit_serving(controller, SERVE_REQUESTS, num_beams)
+    assert len(controller.serve_door.job_ids()) == 3
+    agent = _serving_agent(controller, torch_rt)
+    if loop == "serial":
+        _serial_drain(agent, controller)
+    else:
+        _pipelined_drain(agent, controller)
+        assert len(serve_infer._ENGINES) == 1  # the three jobs shared one engine
+        assert agent.m_serve_occupancy.value() == 0
+    assert _serve_answers(controller, rids) == want
+    assert controller.counts().get("failed", 0) == 0
+    assert agent.m_tasks.value(op="serve_summarize", status="succeeded") == 3
+
+
+def test_in_flight_decode_posts_after_the_agent_stops(torch_rt):
+    """The agent stops right after admitting the one job: the runner keeps
+    stepping the engine through the stop and the job posts every answer."""
+    requests = SERVE_REQUESTS[:8]
+    want = _reference_serving(requests, 1)
+    controller = _serve_controller(max_batch=8)
+    rids = _submit_serving(controller, requests, 1)
+    agent = _serving_agent(controller, torch_rt, max_tasks=1)
+    fn = agent.handlers["serve_summarize"]
+    seen = {}
+
+    def op(payload, ctx=None):
+        return fn(payload, ctx)
+
+    for hook in ("stage", "execute", "finalize", "serve_pump", "serve_done", "serve_collect"):
+        setattr(op, hook, getattr(fn, hook))
+
+    def admit(state, ctx=None):
+        handle = fn.serve_admit(state, ctx)
+        seen["live"] = handle["engine"].occupancy
+        agent.running = False  # the stop arrives with decode in flight
+        return handle
+
+    op.serve_admit = admit
+    agent.handlers["serve_summarize"] = op
+    runner = threading.Thread(target=PipelineRunner(agent, depth=2).run, daemon=True)
+    runner.start()
+    runner.join(timeout=60)
+    assert not runner.is_alive()
+    assert seen["live"] == len(requests)
+    assert controller.drained() and controller.counts().get("failed", 0) == 0
+    assert _serve_answers(controller, rids) == want
+
+
+@pytest.mark.parametrize("op", ["serve_classify", "serve_summarize", "serve_prefill",
+                                "serve_decode", "summarize_encode", "summarize_decode"])
+def test_serving_op_agent_fails_at_start_without_cuda(monkeypatch, op):
+    """Each serving op reaches the runtime, so an agent serving it builds
+    one on cuda:0 when it starts."""
+    from agent_tpu_torch.runtime import runtime as rt_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(rt_mod, "_runtime", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Agent(_config(LOCAL, tasks=("echo", op)))
+
+
+def test_two_engines_each_step_once_a_pass(torch_rt):
+    """Greedy and beam jobs in one drain ride two engines; the continuous
+    loop steps each engine once a pass (its steps equal its pumps), and
+    every answer is the reference agent's."""
+    greedy, beam = SERVE_REQUESTS[:6], SERVE_REQUESTS[6:]
+    want = _reference_serving(greedy, 1) + _reference_serving(beam, 2)
+    controller = _serve_controller()
+    rids = _submit_serving(controller, greedy, 1) + _submit_serving(controller, beam, 2)
+    agent = _serving_agent(controller, torch_rt)
+    fn = agent.handlers["serve_summarize"]
+    pumps = {}
+
+    def op(payload, ctx=None):
+        return fn(payload, ctx)
+
+    for hook in ("stage", "execute", "finalize", "serve_admit", "serve_done", "serve_collect"):
+        setattr(op, hook, getattr(fn, hook))
+
+    def pump(handle):
+        pumps[id(handle["engine"])] = pumps.get(id(handle["engine"]), 0) + 1
+        return fn.serve_pump(handle)
+
+    op.serve_pump = pump
+    agent.handlers["serve_summarize"] = op
+    _pipelined_drain(agent, controller)
+    engines = list(serve_infer._ENGINES.values())
+    assert len(engines) == 2
+    assert sorted(pumps.values()) == sorted(e.steps_run for e in engines)
+    assert _serve_answers(controller, rids) == want

@@ -32,8 +32,10 @@ Differences: the default session is ``urllib`` (``utils.http``), so the
 agent runs where ``requests`` is not installed. An agent whose ``TASKS``
 include a device op (``ops.DEVICE_OPS``) builds the runtime when it
 starts — on ``cuda:0``, failing there without CUDA — and an agent of host
-ops only never builds one. Not ported yet: spans and the flight recorder, usage
-stamping, the health/MFU and memory gauges, profile captures, SLO alert
+ops only never builds one. A result carries the op's ``usage`` block (rows,
+``cache_hit_rows``). Not ported yet: spans and the flight recorder, the
+agent's own usage stamps (device and host seconds, chips, FLOPs), the
+health/MFU and memory gauges, profile captures, SLO alert
 dumps, the ``CONTROLLER_URLS`` failover list, the partition map and
 multi-host slices.
 
@@ -454,13 +456,17 @@ class Agent:
 
     @staticmethod
     def finish_result(result: Any, ctx: Any, duration_ms: float) -> None:
-        """Stamp the loop's fields into an op's result dict."""
+        """Stamp the loop's fields into an op's result dict: the op's
+        ``usage`` block too, which the reference controller's showback
+        ledger bills."""
         if isinstance(result, dict):
             result.setdefault("duration_ms", duration_ms)
             if ctx is not None:
                 if ctx.tags.get("timings"):
                     result.setdefault("timings", ctx.tags["timings"])
                 result.setdefault("trace", ctx.tags.get("trace"))
+                if ctx.tags.get("usage"):
+                    result.setdefault("usage", ctx.tags["usage"])
 
     def run_task(self, lease_id: str, task: Any) -> None:
         """Execute one leased task inline and report its result. A raised

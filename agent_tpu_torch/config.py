@@ -8,7 +8,8 @@ binary wire, retry and the result spool); ``SizingConfig`` the host-sizing
 knobs of ``sizing.profile``; ``ServeConfig`` the serving knobs
 (``SERVE_*``, ``KV_*``, ``PREFIX_CACHE_*``), of which the agent's serving
 ops read the decode engine's and the prefix cache's and carry the
-controller's front-door fields as plain data. The reference's
+controller's front-door fields as plain data; ``DeviceConfig`` the one
+device knob ported so far, ``TPU_QUANT``. The reference's other
 ``DeviceConfig`` knobs and its ``CONTROLLER_URLS`` failover list are not
 ported yet.
 """
@@ -228,14 +229,31 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class DeviceConfig:
+    """The device knobs (the reference's ``DeviceConfig``, cut to what the
+    port reads)."""
+
+    # The fleet's default quantized mode (TPU_QUANT): "" when unset. The
+    # ops resolve each task's mode themselves (payload, then TPU_QUANT, then
+    # the model config; ops._model_common.resolve_quant); this read-once
+    # copy is what the lease telemetry reports (runtime.describe).
+    quant: str = ""
+
+    @staticmethod
+    def from_env() -> "DeviceConfig":
+        return DeviceConfig(quant=env_str("TPU_QUANT", "").strip().lower())
+
+
+@dataclass(frozen=True)
 class Config:
     """The agent's whole configuration."""
 
     agent: AgentConfig = field(default_factory=AgentConfig)
     sizing: SizingConfig = field(default_factory=SizingConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
 
     @staticmethod
     def from_env() -> "Config":
         return Config(agent=AgentConfig.from_env(), sizing=SizingConfig.from_env(),
-                      serve=ServeConfig.from_env())
+                      serve=ServeConfig.from_env(), device=DeviceConfig.from_env())

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from agent_tpu_torch.models import layers
+from agent_tpu_torch.models import layers, quant
 from agent_tpu_torch.models.layers import AttnFn, Params
 
 _LN_EPS = 1e-5  # BART's LayerNorm eps
@@ -58,8 +58,8 @@ class BartConfig:
     forced_eos_id: Optional[int] = 2  # HF BART forces EOS at max length
     scale_embedding: bool = False
     dtype: str = "bfloat16"
-    # The reference's int8 serving modes; this port serves "none" only and
-    # map_summarize rejects the others.
+    # "int8" (W8A8) or "w8a16" (weight only): self and cross q/k/v/o, fc1
+    # and fc2 (models.quant); the tied lm head stays float.
     quant: str = "none"
 
     # The uniform serving-config view map_summarize reads off any family.
@@ -129,8 +129,7 @@ def _ln(p: Params, x: torch.Tensor) -> torch.Tensor:
     return layers.layer_norm(x, p["scale"], p["bias"], _LN_EPS)
 
 
-def _dense(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return layers.dense(x, p["w"], p["b"], dtype)
+_dense = layers.dense_leaf
 
 
 def _embed(params: Params, branch: str, ids: torch.Tensor, pos0: int,
@@ -302,7 +301,8 @@ def _attn_from(sd: Dict[str, torch.Tensor], prefix: str) -> Params:
 def from_state_dict(sd: Dict[str, Any], cfg: BartConfig, device=None) -> Params:
     """HF BART state dict (``BartModel`` or ``BartForConditionalGeneration``
     naming, the ``model.`` prefix stripped; numpy arrays or tensors) -> the
-    port's tree on ``device``."""
+    port's tree on ``device``, quantized on the host from f32 for a
+    quantized ``cfg.quant``."""
     sd = {(k[6:] if k.startswith("model.") else k): torch.as_tensor(v) for k, v in sd.items()}
 
     def branch(name: str, n_layers: int, cross: bool) -> Params:
@@ -328,14 +328,17 @@ def from_state_dict(sd: Dict[str, Any], cfg: BartConfig, device=None) -> Params:
         "enc": branch("encoder", cfg.n_enc_layers, cross=False),
         "dec": branch("decoder", cfg.n_dec_layers, cross=True),
     }
-    return layers.place_tree(tree, cfg.compute_dtype, device)
+    return layers.place_tree(quant.quantize_tree(tree, "bart", cfg.quant), cfg.compute_dtype,
+                             device)
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: BartConfig, device=None) -> Params:
     """The port's tree from the reference's BART parameter tree flattened to
     dotted keys (``embed``, ``final_logits_bias``, ``enc.layers.0.self.q.w``,
-    ...)."""
-    return layers.place_tree(layers.unflatten(flat), cfg.compute_dtype, device)
+    ...; quantized leaves too), quantized on the host for a quantized
+    ``cfg.quant``."""
+    tree = quant.quantize_tree(layers.unflatten(flat), "bart", cfg.quant)
+    return layers.place_tree(tree, cfg.compute_dtype, device)
 
 
 def is_hf_bart_dir(path: str) -> bool:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from agent_tpu_torch.models import layers
+from agent_tpu_torch.models import layers, quant
 from agent_tpu_torch.models.layers import AttnFn, Params
 
 
@@ -51,8 +51,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     num_labels: int = 1000
     dtype: str = "bfloat16"
-    # The reference's int8 serving modes; this port serves "none" only and
-    # map_classify_tpu rejects the others.
+    # "int8" (W8A8) or "w8a16" (weight only): every layer's q/k/v/o and FFN
+    # matmuls (models.quant); embeddings, norms, pooler and head stay float.
     quant: str = "none"
 
     # The uniform serving-config view the classify op reads off any family.
@@ -106,8 +106,7 @@ def _ln(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return layers.layer_norm(x, p["scale"], p["bias"], eps)
 
 
-def _dense(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return layers.dense(x, p["w"], p["b"], dtype)
+_dense = layers.dense_leaf
 
 
 def forward(params: Params, ids: torch.Tensor, mask: torch.Tensor, cfg: BertConfig,
@@ -156,7 +155,8 @@ def from_state_dict(sd: Dict[str, Any], cfg: BertConfig, head_seed: str = "bert-
     naming, the ``bert.`` prefix stripped; numpy arrays or tensors) -> the
     port's tree on ``device``. The checkpoint's classifier is used only when
     its rows equal ``cfg.num_labels``; otherwise the head is the seeded one
-    of ``head_seed``, equal to the reference's (same id, same weights)."""
+    of ``head_seed``, equal to the reference's (same id, same weights).
+    A quantized ``cfg.quant`` quantizes the tree's f32 values on the host."""
     sd = {(k[5:] if k.startswith("bert.") else k): torch.as_tensor(v) for k, v in sd.items()}
     tree: Params = {
         "embed": {
@@ -193,14 +193,18 @@ def from_state_dict(sd: Dict[str, Any], cfg: BertConfig, head_seed: str = "bert-
     else:
         tree["head"] = layers.init_dense(layers.seed_from(head_seed), cfg.hidden_size,
                                          cfg.num_labels)
-    return layers.place_tree(tree, cfg.compute_dtype, device)
+    return layers.place_tree(quant.quantize_tree(tree, "bert", cfg.quant), cfg.compute_dtype,
+                             device)
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: BertConfig, device=None) -> Params:
     """The port's tree from the reference's BERT parameter tree flattened to
     dotted keys (``layers.flatten`` of ``agent_tpu.models.bert`` params:
-    ``embed.word``, ``layers.0.attn.q.w``, ``head.b``, ...)."""
-    return layers.place_tree(layers.unflatten(flat), cfg.compute_dtype, device)
+    ``embed.word``, ``layers.0.attn.q.w``, ``head.b``, ...; quantized leaves
+    ``layers.0.attn.q.w_q`` too), quantized on the host for a quantized
+    ``cfg.quant``."""
+    tree = quant.quantize_tree(layers.unflatten(flat), "bert", cfg.quant)
+    return layers.place_tree(tree, cfg.compute_dtype, device)
 
 
 def is_hf_dir(path: str) -> bool:

@@ -6,6 +6,11 @@ builds, :func:`init_params`) or loaded from a flat ``.npz`` checkpoint
 (:func:`load_npz`); :func:`from_jax_params` turns either into an
 :class:`Encoder` module, for serving or (``trainable=True``) for training,
 and :meth:`Encoder.to_flat_numpy` turns a module back into the flat arrays.
+
+``moe_experts`` > 0 gives every block the Switch MoE FFN
+(:mod:`agent_tpu_torch.models.moe`) in place of the dense one; ``quant``
+``int8`` or ``w8a16`` serves the blocks' matmuls quantized
+(:mod:`agent_tpu_torch.models.quant`). The two compose.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from agent_tpu_torch.models import layers, prng
+from agent_tpu_torch.models import layers, moe, prng, quant
 from agent_tpu_torch.models.layers import AttnFn
 
 @dataclass(frozen=True)
@@ -33,11 +38,14 @@ class EncoderConfig:
     max_len: int = 2048
     n_classes: int = 1000
     dtype: str = "bfloat16"
-    # Serving strategies of the reference; this port serves only the
-    # defaults (quant "none", pp 1, no MoE) and rejects the others.
+    # "int8" (W8A8) or "w8a16" (weight only) serves the blocks' matmuls
+    # quantized (models.quant).
     quant: str = "none"
+    # pp > 1 (the reference's pipeline over a pp mesh axis) is not ported.
     pp: int = 1
+    # moe_experts > 0 replaces each block's FFN with the Switch MoE layer.
     moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -46,16 +54,22 @@ class EncoderConfig:
 
 def init_params(cfg: EncoderConfig, model_id: str = "classify-default") -> Dict[str, np.ndarray]:
     """Deterministic weights for ``model_id`` as flat dotted keys (float32
-    numpy), equal leaf for leaf to ``agent_tpu.models.encoder.init_params``."""
+    numpy), equal leaf for leaf to ``agent_tpu.models.encoder.init_params``:
+    with ``moe_experts`` > 0 each block's ``ffn`` is a ``moe`` subtree drawn
+    from the block's key folded with 0x40E."""
     key = layers.seed_from(model_id)
     ks = prng.split(key, cfg.n_layers + 3)
+    blocks = [layers.init_block(ks[i + 1], cfg.d_model, cfg.n_heads, cfg.d_ff)
+              for i in range(cfg.n_layers)]
+    mcfg = moe.moe_cfg_of(cfg)
+    if mcfg is not None:
+        for i, blk in enumerate(blocks):
+            del blk["ffn"]
+            blk["moe"] = moe.init_moe_ffn(prng.fold_in(ks[i + 1], 0x40E), mcfg)
     tree = {
         "embed": prng.normal(ks[0], (cfg.vocab_size, cfg.d_model)) * np.float32(0.02),
         "pos": layers.sinusoidal_positions(cfg.max_len, cfg.d_model),
-        "blocks": [
-            layers.init_block(ks[i + 1], cfg.d_model, cfg.n_heads, cfg.d_ff)
-            for i in range(cfg.n_layers)
-        ],
+        "blocks": blocks,
         "ln_f": layers.init_layer_norm(cfg.d_model),
         "head": layers.init_dense(ks[-1], cfg.d_model, cfg.n_classes),
     }
@@ -86,37 +100,54 @@ class Encoder(nn.Module):
             self.pos = pos
         else:
             self.register_buffer("pos", pos.data)
+        mcfg = moe.moe_cfg_of(cfg)
         self.blocks = nn.ModuleList(
-            layers.EncoderBlock(cfg.d_model, cfg.n_heads, cfg.d_ff, dtype, device, trainable)
+            layers.EncoderBlock(cfg.d_model, cfg.n_heads, cfg.d_ff, dtype, device, trainable,
+                                mcfg)
             for _ in range(cfg.n_layers))
         self.ln_f = layers.LayerNorm(cfg.d_model, device, trainable)
         self.head = layers.Dense(cfg.d_model, cfg.n_classes, dtype, device, trainable)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 attn_fn: AttnFn = layers.dot_product_attention,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, with_aux: bool = False):
         """ids, mask [B, L] int (mask 1 = real token) -> logits [B, n_classes] f32.
 
         ``remat=True`` recomputes each block's activations in the backward
         instead of storing them (``torch.utils.checkpoint``, the reference's
-        ``jax.checkpoint`` per block): less memory for one more forward."""
+        ``jax.checkpoint`` per block): less memory for one more forward.
+        ``with_aux=True`` returns (logits, the blocks' mean Switch aux loss,
+        0 for a dense model)."""
         dtype = self.cfg.compute_dtype
         L = ids.shape[1]
         x = self.embed.to(dtype)[ids.long()] + self.pos[:L].to(dtype)[None]
         attn_mask = layers.pad_mask_to_attn(mask)
+        moe = with_aux and self.cfg.moe_experts > 0
+        aux_total = 0.0
         for block in self.blocks:
             if remat:
-                x = checkpoint(block, x, attn_mask, attn_fn, use_reentrant=False)
+                out = checkpoint(block, x, attn_mask, attn_fn, moe, use_reentrant=False)
             else:
-                x = block(x, attn_mask, attn_fn)
+                out = block(x, attn_mask, attn_fn, with_aux=moe)
+            if moe:
+                x, aux = out
+                aux_total = aux_total + aux
+            else:
+                x = out
         x = self.ln_f(x)
         denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
         pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
-        return self.head(pooled.to(dtype)).float()
+        logits = self.head(pooled.to(dtype)).float()
+        if with_aux:
+            aux = aux_total / max(1, self.cfg.n_layers) if moe else logits.new_zeros(())
+            return logits, aux
+        return logits
 
     def to_flat_numpy(self) -> Dict[str, np.ndarray]:
-        """The inverse of :func:`from_jax_params`: dotted key -> f32 array."""
-        return {k: v.detach().float().cpu().numpy() for k, v in self.state_dict().items()}
+        """The inverse of :func:`from_jax_params`: dotted key -> array (f32,
+        a quantized model's int8 tables as int8)."""
+        return {k: (v.detach().float() if v.is_floating_point() else v.detach()).cpu().numpy()
+                for k, v in self.state_dict().items()}
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: EncoderConfig,
@@ -124,9 +155,14 @@ def from_jax_params(flat: Dict[str, np.ndarray], cfg: EncoderConfig,
                     trainable: bool = False) -> Encoder:
     """An :class:`Encoder` holding ``flat`` — the dotted-key layout of
     ``assign_from_npz`` (``init_params``, ``load_npz``, or a flattened JAX
-    param tree) — in the serving form (cast to the compute dtype where the
-    reference casts) or the training form (f32)."""
+    param tree, quantized or not) — in the serving form (cast to the
+    compute dtype where the reference casts) or the training form (f32).
+    A serving model of a quantized ``cfg.quant`` quantizes the f32 ``flat``
+    on the host first; a training model trains float weights."""
     model = Encoder(cfg, device=device, trainable=trainable)
+    flat, mode = quant.quantize_flat(flat, "encoder", "none" if trainable else cfg.quant)
+    if mode is not None:
+        quant.quantize_(model, mode)
     state = {k: torch.tensor(np.asarray(v)) for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
     return model.train(trainable)

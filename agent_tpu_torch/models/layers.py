@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from agent_tpu_torch.models import prng
+from agent_tpu_torch.models import prng, quant
 
 Params = Dict[str, Any]
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -60,6 +60,16 @@ def compute_dtype(name: str) -> torch.dtype:
     if kind not in _FLOAT_DTYPES:
         raise TypeError(f"dtype {name!r} ({kind}) is not a float type")
     return _FLOAT_DTYPES[kind]
+
+
+def config_dtype(name: str) -> torch.dtype:
+    """:func:`compute_dtype` as the model ops resolve a config's ``dtype``.
+    The reference takes any name ``jnp.dtype`` knows and fails later, where
+    it casts ``NEG_INF`` to the compute dtype: an integer type too narrow for
+    -1e9 raises numpy's OverflowError there, which this raises first."""
+    if name != "bfloat16" and np.dtype(name).kind in "iu":
+        np.array(int(NEG_INF), dtype=np.dtype(name))  # OverflowError when too narrow
+    return compute_dtype(name)
 
 
 # ---- deterministic init (numpy, bit-identical to the JAX package) ----
@@ -151,15 +161,21 @@ def unflatten(flat: Dict[str, Any]) -> Params:
     return lists(root)
 
 
+_F32_KEYS = ("final_logits_bias", "rel_bias")
+
+
 def place_tree(tree: Any, dtype: torch.dtype, device=None, _f32: bool = False) -> Any:
     """A nested dict/list of arrays or tensors -> the same tree of
     contiguous tensors on ``device``: the leaves under a key that starts
-    with ``ln`` (layer norms) or is ``final_logits_bias`` in f32, as the
-    reference reads them, every other leaf in ``dtype`` (the reference's
-    cast at use, done once)."""
+    with ``ln`` (layer norms) or is ``final_logits_bias`` or ``rel_bias`` in
+    f32, as the reference reads them, a quantized leaf's arrays as they are
+    (int8 table, f32 scale and bias), every other leaf in ``dtype`` (the
+    reference's cast at use, done once)."""
+    if quant.leaf_mode(tree) is not None:  # the table keeps its gemm_layout strides
+        return {k: torch.as_tensor(v).to(device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: place_tree(v, dtype, device,
-                              _f32 or k.startswith("ln") or k == "final_logits_bias")
+                              _f32 or k.startswith("ln") or k in _F32_KEYS)
                 for k, v in tree.items()}
     if isinstance(tree, list):
         return [place_tree(v, dtype, device, _f32) for v in tree]
@@ -230,6 +246,14 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.matmul(x.to(dtype), w.to(dtype)) + b.to(dtype)
 
 
+def dense_leaf(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A dense leaf of a parameter tree: ``{"w", "b"}``, or a quantized one
+    (``models.quant``'s leaf convention)."""
+    if quant.leaf_mode(p) is not None:
+        return quant.dense(p, x, dtype)
+    return dense(x, p["w"], p["b"], dtype)
+
+
 def dot_product_attention(
     q: torch.Tensor,     # [B, H, Lq, D]
     k: torch.Tensor,     # [B, H, Lk, D]
@@ -240,7 +264,10 @@ def dot_product_attention(
     QKᵀ accumulated in f32 and stored in the compute dtype, softmax
     statistics (exp, sum, divide) in f32. Masked scores take ``NEG_INF``
     cast to the compute dtype, as the reference's ``jnp.asarray(NEG_INF,
-    q.dtype)``: in float16 that is -inf."""
+    q.dtype)``: in float16 that is -inf. No key at all raises the
+    reference's ValueError (``jnp``'s max over an empty axis)."""
+    if k.shape[-2] == 0:
+        raise ValueError("zero-size array to reduction operation max which has no identity")
     d = q.shape[-1]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = (scores / float(np.float32(np.sqrt(d)))).to(q.dtype)
@@ -298,15 +325,19 @@ class Attention(nn.Module):
         self.wo = make_weight((n_heads, e, d_model), dtype, device, trainable)
 
     @staticmethod
-    def _proj_in(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def _proj_in(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """x [B, L, d] @ w [d, H, E] -> [B, H, L, E]."""
+        if isinstance(w, quant.QuantLeaf):
+            return quant.proj_in(w.p, x, dtype)
         d, h, e = w.shape
         y = torch.matmul(x.to(dtype), w.reshape(d, h * e).to(dtype))
         return y.view(x.shape[0], x.shape[1], h, e).transpose(1, 2)
 
     @staticmethod
-    def _proj_out(w: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def _proj_out(w, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """o [B, H, L, E] @ w [H, E, d] -> [B, L, d]."""
+        if isinstance(w, quant.QuantLeaf):
+            return quant.proj_out(w.p, o, dtype)
         h, e, d = w.shape
         b, _, length, _ = o.shape
         return torch.matmul(o.transpose(1, 2).reshape(b, length, h * e),
@@ -417,19 +448,37 @@ class FFN(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN transformer block: x + Attn(LN(x)); x + FFN(LN(x))."""
+    """Pre-LN transformer block: x + Attn(LN(x)); x + FFN(LN(x)). With a
+    ``moe_cfg`` (``models.moe.MoeConfig``) the FFN sublayer is the Switch
+    MoE layer ``moe`` instead of ``ffn``."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype: torch.dtype,
-                 device=None, trainable: bool = False) -> None:
+                 device=None, trainable: bool = False, moe_cfg=None) -> None:
         super().__init__()
         self.ln1 = LayerNorm(d_model, device, trainable)
         self.attn = Attention(d_model, n_heads, dtype, device, trainable)
         self.ln2 = LayerNorm(d_model, device, trainable)
-        self.ffn = FFN(d_model, d_ff, dtype, device, trainable)
+        if moe_cfg is None:
+            self.ffn = FFN(d_model, d_ff, dtype, device, trainable)
+        else:
+            from agent_tpu_torch.models.moe import MoeFFN
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+            self.moe = MoeFFN(moe_cfg, device, trainable)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn,
+                with_aux: bool = False):
+        """-> x, or with ``with_aux`` (x, the block's Switch aux loss, None
+        for a dense block)."""
         x = x + self.attn(self.ln1(x), mask, attn_fn)
-        return x + self.ffn(self.ln2(x))
+        h = self.ln2(x)
+        aux = None
+        if hasattr(self, "moe"):
+            B, L, d = h.shape
+            y, aux = self.moe(h.to(self.attn.dtype).reshape(B * L, d))
+            x = x + y.reshape(B, L, d).to(x.dtype)
+        else:
+            x = x + self.ffn(h)
+        return (x, aux) if with_aux else x
 
 
 class DecoderBlock(nn.Module):

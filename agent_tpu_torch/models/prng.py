@@ -7,7 +7,8 @@ What is reproduced is exactly what ``layers.seed_from``, ``_dense_init`` and
 
 - ``PRNGKey(seed)`` is the uint32 pair ``[seed >> 32, seed & 0xFFFFFFFF]``
   (``[0, seed]`` for a 32-bit seed);
-- ``split(key, n)[i]`` is ``threefry2x32(key, (0, i))``;
+- ``split(key, n)[i]`` is ``threefry2x32(key, (0, i))``, and
+  ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
 - the 32 random bits at flat index ``i`` of a shape are ``hi ^ lo`` of
   ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
 - ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
@@ -19,7 +20,9 @@ What is reproduced is exactly what ``layers.seed_from``, ``_dense_init`` and
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Tuple
 
 import numpy as np
 
@@ -60,14 +63,50 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([a, b], axis=1)
 
 
-def random_bits(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
-    """32 random bits per element of ``shape`` (uint32)."""
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: ``threefry2x32(key, (0, data))``."""
+    a, b = threefry2x32(key, np.zeros(1, np.uint32), np.array([data], np.uint32))
+    return np.array([a[0], b[0]], dtype=np.uint32)
+
+
+# Arrays of at least twice this many elements are drawn in chunks of this
+# size on a thread per core: every element depends on its flat index alone,
+# and numpy's loops release the interpreter lock, so the chunks run in
+# parallel and give the same bits (a BERT-base MoE draws 453M normals). A
+# chunk's temporaries (1 MiB each) stay in a core's cache: 1.4-1.6x faster
+# than chunks of 2M elements on 8 cores.
+PARALLEL_CHUNK = 1 << 18
+
+
+def _flat(shape: Tuple[int, ...], fn: Callable[[int, int], np.ndarray],
+          dtype) -> np.ndarray:
+    """``fn(start, stop)`` over the flat indices of ``shape``, in parallel
+    chunks when the array is large."""
     n = int(np.prod(shape, dtype=np.int64))
-    idx = np.arange(n, dtype=np.uint64)
+    if n < 2 * PARALLEL_CHUNK:
+        return fn(0, n).reshape(shape)
+    out = np.empty(n, dtype)
+
+    def fill(start: int) -> None:
+        stop = min(start + PARALLEL_CHUNK, n)
+        out[start:stop] = fn(start, stop)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(fill, range(0, n, PARALLEL_CHUNK)))
+    return out.reshape(shape)
+
+
+def _bits(key: np.ndarray, start: int, stop: int) -> np.ndarray:
+    idx = np.arange(start, stop, dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     a, b = threefry2x32(key, hi, lo)
-    return (a ^ b).reshape(shape)
+    return a ^ b
+
+
+def random_bits(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """32 random bits per element of ``shape`` (uint32)."""
+    return _flat(shape, lambda start, stop: _bits(key, start, stop), np.uint32)
 
 
 _F32 = np.float32
@@ -160,10 +199,7 @@ def erfinv_f32(x: np.ndarray) -> np.ndarray:
     return p * x
 
 
-def uniform(key: np.ndarray, shape: Tuple[int, ...], minval: float,
-            maxval: float) -> np.ndarray:
-    """float32 uniform on ``[minval, maxval)`` from the top 23 bits."""
-    bits = random_bits(key, shape)
+def _uniform(bits: np.ndarray, minval: float, maxval: float) -> np.ndarray:
     one = np.array(1.0, np.float32).view(np.uint32)
     floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
     lo, hi = np.float32(minval), np.float32(maxval)
@@ -171,8 +207,19 @@ def uniform(key: np.ndarray, shape: Tuple[int, ...], minval: float,
     return np.maximum(lo, (floats * span + lo).astype(np.float32))
 
 
+def uniform(key: np.ndarray, shape: Tuple[int, ...], minval: float,
+            maxval: float) -> np.ndarray:
+    """float32 uniform on ``[minval, maxval)`` from the top 23 bits."""
+    return _flat(shape, lambda start, stop: _uniform(_bits(key, start, stop), minval, maxval),
+                 np.float32)
+
+
 def normal(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
     """float32 standard normals, as ``jax.random.normal(key, shape)``."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
-    u = uniform(key, shape, lo, 1.0)
-    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+    def draw(start: int, stop: int) -> np.ndarray:
+        u = _uniform(_bits(key, start, stop), lo, 1.0)
+        return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+    return _flat(shape, draw, np.float32)

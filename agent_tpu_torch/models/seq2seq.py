@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from agent_tpu_torch.models import layers, prng
+from agent_tpu_torch.models import layers, prng, quant
 from agent_tpu_torch.models.layers import AttnFn
 from agent_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, PAD_ID
 
@@ -46,8 +46,8 @@ class Seq2SeqConfig:
     max_src_len: int = 1024
     max_tgt_len: int = 130
     dtype: str = "bfloat16"
-    # The reference's int8 serving modes; this port serves "none" only and
-    # map_summarize rejects the others.
+    # "int8" (W8A8) or "w8a16" (weight only): every block's matmuls, in the
+    # encoder and in every decode step (models.quant).
     quant: str = "none"
 
     @property
@@ -109,9 +109,13 @@ class Seq2Seq(nn.Module):
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: Seq2SeqConfig,
                     device: Optional[torch.device] = None) -> Seq2Seq:
     """A :class:`Seq2Seq` holding ``flat`` — the dotted-key layout of
-    ``init_params``/``load_npz`` or a flattened JAX param tree — cast to the
-    compute dtype where the reference casts at use."""
+    ``init_params``/``load_npz`` or a flattened JAX param tree, quantized or
+    not — cast to the compute dtype where the reference casts at use. A
+    quantized ``cfg.quant`` quantizes the f32 ``flat`` on the host first."""
     model = Seq2Seq(cfg, device=device)
+    flat, mode = quant.quantize_flat(flat, "seq2seq", cfg.quant)
+    if mode is not None:
+        quant.quantize_(model, mode)
     model.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in flat.items()},
                           strict=True)
     return model.eval()

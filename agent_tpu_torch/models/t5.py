@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from agent_tpu_torch.models import layers, quant
 from agent_tpu_torch.models.layers import NEG_INF, Params, compute_dtype
 
 @dataclass(frozen=True)
@@ -62,8 +63,9 @@ class T5Config:
     decoder_start_id: int = 0   # T5 starts decode from pad
     layer_norm_eps: float = 1e-6
     dtype: str = "bfloat16"
-    # The reference's int8 serving modes; this port serves "none" only and
-    # map_summarize rejects the others.
+    # "int8" (W8A8) or "w8a16" (weight only): attention, cross attention
+    # and FFN matrices (models.quant); embeddings, norms, relative bias
+    # tables and the lm head stay float.
     quant: str = "none"
     # The uniform serving-config view map_summarize reads off any family.
     max_src_len: int = 1024
@@ -124,8 +126,11 @@ def _rms(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (w * (x32 * torch.rsqrt(var + eps))).to(x.dtype)
 
 
-def _dense(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Bias-free linear (T5 has no biases anywhere); w is HF's [out, in]."""
+def _dense(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Bias-free linear (T5 has no biases anywhere); w is HF's [out, in],
+    or a quantized leaf of that layout."""
+    if quant.leaf_mode(w) is not None:
+        return quant.linear(w, x, dtype)
     return F.linear(x.to(dtype), w)
 
 
@@ -382,11 +387,15 @@ def from_state_dict(sd: Dict[str, Any], cfg: T5Config, device=None) -> Params:
     """HF T5 state dict (``T5Model`` / ``T5ForConditionalGeneration``
     naming; numpy arrays or tensors, any float dtype) -> the port's
     parameter tree on ``device``: linear weights and the embedding in the
-    compute dtype, norms and relative bias tables in f32."""
-    dtype = cfg.compute_dtype
+    compute dtype, norms and relative bias tables in f32. A quantized
+    ``cfg.quant`` reads the tree to f32 on the host, quantizes its matrices
+    (``quant.quantize_t5``) and then places it."""
+    quantized = cfg.quant in quant.QUANTIZED_MODES
+    dtype = torch.float32 if quantized else cfg.compute_dtype
+    where = "cpu" if quantized else device
 
     def get(key: str, as_dtype: torch.dtype = dtype) -> torch.Tensor:
-        return torch.as_tensor(sd[key]).to(device=device, dtype=as_dtype)
+        return torch.as_tensor(sd[key]).to(device=where, dtype=as_dtype)
 
     def attn_from(prefix: str) -> Params:
         return {n: get(f"{prefix}.{n}.weight") for n in ("q", "k", "v", "o")}
@@ -424,6 +433,9 @@ def from_state_dict(sd: Dict[str, Any], cfg: T5Config, device=None) -> Params:
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = get("lm_head.weight")
+    if quantized:
+        return layers.place_tree(quant.quantize_tree(params, "t5", cfg.quant),
+                                 cfg.compute_dtype, device)
     return params
 
 

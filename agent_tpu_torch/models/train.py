@@ -24,6 +24,9 @@ from agent_tpu_torch.models.layers import AttnFn
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
 ADAMW_WEIGHT_DECAY = 1e-4
+# Switch Transformer's load-balance coefficient (the reference's): an MoE
+# router trained without the aux term collapses onto one expert.
+MOE_AUX_WEIGHT = 0.01
 
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
@@ -40,10 +43,14 @@ def adamw(lr: float) -> OptimizerFactory:
 def cross_entropy_loss(model, ids: torch.Tensor, mask: torch.Tensor,
                        labels: torch.Tensor, remat: bool = False,
                        attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """Mean NLL of ``labels`` under the f32 log-softmax of the logits."""
-    logits = model(ids, mask, attn_fn or layers.dot_product_attention, remat)
+    """Mean NLL of ``labels`` under the f32 log-softmax of the logits; an
+    MoE model adds ``MOE_AUX_WEIGHT`` times its Switch aux loss."""
+    moe = getattr(model.cfg, "moe_experts", 0) > 0
+    logits, aux = model(ids, mask, attn_fn or layers.dot_product_attention, remat,
+                        with_aux=True)
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(1, labels.long()[:, None])[:, 0].mean()
+    loss = -logp.gather(1, labels.long()[:, None])[:, 0].mean()
+    return loss + MOE_AUX_WEIGHT * aux if moe else loss
 
 
 def make_train_step(cfg, optimizer: Optional[OptimizerFactory] = None,
@@ -61,11 +68,9 @@ def make_train_step(cfg, optimizer: Optional[OptimizerFactory] = None,
 
     ``attn_fn`` must be differentiable: ``runtime.train_attention_fn()``
     (the flash kernels in both directions) or dense attention (default).
-    ``remat=True`` recomputes each block in the backward. MoE configs (the
-    reference adds the Switch aux loss) wait for ``models/moe.py``.
+    ``remat=True`` recomputes each block in the backward. An MoE config
+    trains with the Switch aux loss (:func:`cross_entropy_loss`).
     """
-    if getattr(cfg, "moe_experts", 0) > 0:
-        raise NotImplementedError("MoE training is not ported to agent_tpu_torch yet")
     optimizer = optimizer or adamw(1e-3)
 
     def init_state(model) -> torch.optim.Optimizer:

@@ -1,15 +1,20 @@
 """Shared plumbing of the model-backed ops — the part of
 ``agent_tpu.ops._model_common`` that ``map_classify_tpu`` and
-``map_summarize`` use: model-id and config resolution, config-aware cache
-keys, batch and length buckets, host staging of texts into padded chunks,
-the result sink, and the analytic-FLOPs and rows stamps.
+``map_summarize`` use: model-id and config resolution (the quant mode
+included: :func:`apply_quant_env`), config-aware cache keys, batch and
+length buckets, host staging of texts into padded chunks, the result sink,
+and the analytic-FLOPs and rows stamps.
+
+The reference's ``maybe_quantize_params`` has no twin here: each family's
+loader quantizes its f32 tree on the host when ``cfg.quant`` asks for it
+(``models.quant.quantize_tree``), before the weights reach the card.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import fields
+from dataclasses import fields, replace
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -81,22 +86,14 @@ def config_from_payload(payload: Dict[str, Any], config_cls):
     return config_cls()
 
 
-VALID_QUANT = ("none", "int8", "w8a16")  # the reference's quant modes
-
-
-def validate_quant(value: str) -> str:
-    """A payload or env ``quant`` value, validated; ValueError otherwise."""
-    if value not in VALID_QUANT:
-        raise ValueError(f"quant must be one of {VALID_QUANT}, got {value!r}")
-    return value
-
-
 def resolve_quant(payload: Dict[str, Any], cfg) -> str:
     """The serving ops' quant mode, as the reference's ``apply_quant_env``
     resolves it: a ``quant`` key in the payload's ``model_config`` wins
     (validated: ValueError, a caller error); else ``TPU_QUANT`` (validated:
     RuntimeError, a worker's misconfiguration that fails the shard for a
     retry); else the config's."""
+    from agent_tpu_torch.models.quant import validate_quant
+
     overrides = payload.get("model_config")
     if isinstance(overrides, dict) and "quant" in overrides:
         return validate_quant(overrides["quant"])
@@ -109,13 +106,10 @@ def resolve_quant(payload: Dict[str, Any], cfg) -> str:
     return cfg.quant
 
 
-def check_quant_ported(payload: Dict[str, Any], cfg) -> None:
-    """ValueError (soft ``bad_input``) unless the resolved quant mode is
-    ``none``: the quantized modes are not ported yet."""
-    quant = resolve_quant(payload, cfg)
-    if quant != "none":
-        raise ValueError(f"quant={quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
+def apply_quant_env(payload: Dict[str, Any], cfg):
+    """``cfg`` with the quant mode :func:`resolve_quant` gives (the
+    reference's ``apply_quant_env``)."""
+    return replace(cfg, quant=resolve_quant(payload, cfg))
 
 
 def cfg_key(cfg) -> Tuple:

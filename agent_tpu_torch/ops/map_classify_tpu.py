@@ -42,8 +42,13 @@ an sp mesh has dp = 1, so staging is the one-device staging, and the
 forward cache belongs to the runtime, whose attention function is fixed, so
 its keys need no mesh.
 
-Not ported yet, each rejected with a ``bad_input`` that names it: ``quant``
-other than ``none`` (either family), ``pp`` > 1 and ``moe_experts`` > 0.
+Strategies of the reference's ``model_config``: ``quant`` (``int8`` W8A8
+or ``w8a16`` weight only; from the payload, else ``TPU_QUANT``, else the
+config) serves either family's block matmuls quantized
+(:mod:`agent_tpu_torch.models.quant`, the tables made on the host from the
+f32 weights); ``moe_experts`` > 0 gives the in-house encoder Switch MoE FFNs
+(:mod:`agent_tpu_torch.models.moe`), quantized too when ``quant`` asks.
+``pp`` > 1 is not ported and is rejected with a ``bad_input`` that names it.
 """
 
 from __future__ import annotations
@@ -65,16 +70,14 @@ MAX_BATCH = 8192
 
 def _get_cfg(payload: Dict[str, Any]):
     from agent_tpu_torch.models.encoder import EncoderConfig
-    from agent_tpu_torch.ops._model_common import check_quant_ported, config_from_payload
+    from agent_tpu_torch.models.layers import config_dtype
+    from agent_tpu_torch.ops._model_common import apply_quant_env, config_from_payload
 
-    cfg = config_from_payload(payload, EncoderConfig)
-    check_quant_ported(payload, cfg)
+    cfg = apply_quant_env(payload, config_from_payload(payload, EncoderConfig))
     if cfg.pp > 1:
         raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
                          "agent_tpu_torch yet")
-    if cfg.moe_experts > 0:
-        raise ValueError("moe_experts > 0 (MoE) is not supported by agent_tpu_torch yet")
-    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
+    config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
 
 
@@ -94,14 +97,15 @@ def _get_bert_cfg(model_id: str, payload: Dict[str, Any]):
     """BertConfig from the checkpoint's config.json with the payload's
     serving overrides (``_BERT_SERVING_OVERRIDES``)."""
     from agent_tpu_torch.models.bert import BertConfig
-    from agent_tpu_torch.ops._model_common import check_quant_ported
+    from agent_tpu_torch.models.layers import config_dtype
+    from agent_tpu_torch.ops._model_common import apply_quant_env
 
     overrides = payload.get("model_config")
     allowed = ({k: v for k, v in overrides.items() if k in _BERT_SERVING_OVERRIDES}
                if isinstance(overrides, dict) else {})
-    cfg = BertConfig.from_hf_json(os.path.join(model_id, "config.json"), **allowed)
-    check_quant_ported(payload, cfg)
-    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
+    cfg = apply_quant_env(payload, BertConfig.from_hf_json(
+        os.path.join(model_id, "config.json"), **allowed))
+    config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
 
 
@@ -203,7 +207,7 @@ def _build_model(model_id: str, cfg, family: str = "encoder", device=None):
 
         # The staged config's overrides, so the head matches num_labels.
         return bert.load_hf_dir(model_id, device=device, dtype=cfg.dtype,
-                                num_labels=cfg.num_labels)[1]
+                                num_labels=cfg.num_labels, quant=cfg.quant)[1]
     from agent_tpu_torch.models import encoder
 
     if model_id.endswith(".npz") and os.path.exists(model_id):
@@ -211,6 +215,14 @@ def _build_model(model_id: str, cfg, family: str = "encoder", device=None):
     else:
         flat = encoder.init_params(cfg, model_id=model_id)
     return encoder.from_jax_params(flat, cfg)
+
+
+def params_key(model_id: str, family: str, cfg) -> str:
+    """The runtime's weights-store key of a model: distinct configs (a quant
+    mode included) never share weights."""
+    from agent_tpu_torch.ops._model_common import cfg_key
+
+    return f"{model_id}#{family}#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}"
 
 
 def _make_forward(L: int, k: int, attn_fn, family: str = "encoder", cfg=None):
@@ -245,10 +257,8 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int,
     from agent_tpu_torch.ops._model_common import cfg_key
     from agent_tpu_torch.runtime.runtime import HostCopy
 
-    model = runtime.get_params(
-        f"{model_id}#{family}#{hash(cfg_key(cfg)) & 0xFFFFFFFF:08x}",
-        lambda: _build_model(model_id, cfg, family, runtime.device),
-    )
+    model = runtime.get_params(params_key(model_id, family, cfg),
+                               lambda: _build_model(model_id, cfg, family, runtime.device))
     attn_fn = runtime.attention_fn()
     pending: List[Tuple[Any, int]] = []
     with torch.inference_mode():

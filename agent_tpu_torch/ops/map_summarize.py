@@ -34,8 +34,11 @@ T5 text in and out needs the checkpoint's ``spiece.model`` and the
 error without them); the device phase (:func:`_decode_chunks`) works on
 staged ids alone.
 
-Not ported yet, each rejected with a ``bad_input`` that names it: ``quant``
-other than ``none`` (every family), and a mesh with ``dp`` or ``tp``.
+``quant`` (``int8`` W8A8 or ``w8a16`` weight only; from the payload, else
+``TPU_QUANT``, else the config) serves every family's block matmuls
+quantized, in the encoder and in every decode step
+(:mod:`agent_tpu_torch.models.quant`). A mesh with ``dp`` or ``tp`` is not
+ported and is rejected with a ``bad_input`` that names it.
 """
 
 from __future__ import annotations
@@ -102,7 +105,8 @@ _CKPT_SERVING_OVERRIDES = ("dtype", "quant")
 
 
 def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
-    from agent_tpu_torch.ops._model_common import check_quant_ported, config_from_payload
+    from agent_tpu_torch.models.layers import config_dtype
+    from agent_tpu_torch.ops._model_common import apply_quant_env, config_from_payload
 
     if family in ("bart", "t5"):
         if family == "bart":
@@ -118,8 +122,8 @@ def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
         from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
 
         cfg = config_from_payload(payload, Seq2SeqConfig)
-    check_quant_ported(payload, cfg)
-    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
+    cfg = apply_quant_env(payload, cfg)
+    config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
 
 
@@ -168,11 +172,11 @@ def _build_model(model_id: str, cfg, family: str, device):
     if family == "bart":
         from agent_tpu_torch.models import bart
 
-        return bart.load_hf_dir(model_id, device=device, dtype=cfg.dtype)[1]
+        return bart.load_hf_dir(model_id, device=device, dtype=cfg.dtype, quant=cfg.quant)[1]
     if family == "t5":
         from agent_tpu_torch.models import t5
 
-        return t5.load_hf_dir(model_id, device=device, dtype=cfg.dtype)[1]
+        return t5.load_hf_dir(model_id, device=device, dtype=cfg.dtype, quant=cfg.quant)[1]
     from agent_tpu_torch.models import seq2seq
 
     if model_id.endswith(".npz") and os.path.exists(model_id):

@@ -28,9 +28,10 @@ join), ``serve_pump`` (one engine step), ``serve_done``, ``serve_collect``.
 The monolithic call pumps to completion inline. The weights are
 ``map_summarize``'s, under the same key, so serving and the batch op share
 one copy on the card. These ops serve the in-house seq2seq family only: a
-checkpoint directory stays on ``map_summarize``, and a quant mode other than
-``none`` is refused (not ported yet). A failure on the card raises and fails
-the request; nothing retries on the CPU.
+checkpoint directory stays on ``map_summarize``. ``model_config {"quant":
+"int8" | "w8a16"}`` serves the seq2seq quantized (its weights, key and
+prefix-cache entries are the quantized model's own). A failure on the card
+raises and fails the request; nothing retries on the CPU.
 """
 
 from __future__ import annotations
@@ -186,11 +187,10 @@ def _resolve(payload: Dict[str, Any]):
     if bert.is_hf_dir(model_id):
         raise ValueError("serve_summarize serves the in-house seq2seq family; checkpoint "
                          "directories stay on the batch map_summarize path")
-    cfg = config_from_payload(payload, Seq2SeqConfig)
-    if cfg.quant != "none":
-        raise ValueError(f"quant={cfg.quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
-    return model_id, cfg
+    # The quant mode is the payload's model_config alone (no TPU_QUANT), as
+    # the reference's serving ops resolve it; a mode other than int8/w8a16
+    # serves float weights.
+    return model_id, config_from_payload(payload, Seq2SeqConfig)
 
 
 def _runtime(ctx):

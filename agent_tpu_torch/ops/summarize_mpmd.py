@@ -16,7 +16,8 @@ Activations travel as JSON floats; an f32 -> JSON -> f32 round trip is
 exact, so the decode stage resumes from the encoder's very rows. The
 encoder attends through the runtime's attention function (the flash kernel
 on the card); the decode is ``seq2seq.greedy_generate_from_encoded``. These
-ops serve the in-house seq2seq family.
+ops serve the in-house seq2seq family, quantized when ``model_config``
+asks.
 """
 
 from __future__ import annotations
@@ -38,11 +39,10 @@ def _resolve(payload: Dict[str, Any]):
     from agent_tpu_torch.ops._model_common import config_from_payload, resolve_model_id
 
     model_id = resolve_model_id(payload, "BART_MODEL", "summarize-default")
-    cfg = config_from_payload(payload, Seq2SeqConfig)
-    if cfg.quant != "none":
-        raise ValueError(f"quant={cfg.quant!r} is not supported by agent_tpu_torch yet "
-                         "(only 'none')")
-    return model_id, cfg
+    # The quant mode is the payload's model_config alone (no TPU_QUANT), as
+    # the reference's serving ops resolve it; a mode other than int8/w8a16
+    # serves float weights.
+    return model_id, config_from_payload(payload, Seq2SeqConfig)
 
 
 def _get_params(runtime, model_id: str, cfg):

@@ -28,8 +28,11 @@ every epoch's loss in ``ctx.tags["train"]``.
 
 A ``quant`` mode in ``model_config`` trains float weights, as the
 reference's does (``TPU_QUANT`` is not read), and rides in the result's
-``model_config`` for serving. Not ported yet, each rejected with a
-``bad_input`` that names it: ``moe_experts`` > 0 and ``pp`` > 1.
+``model_config`` for serving. ``moe_experts`` > 0 trains the Switch MoE
+encoder with the aux loss (``models.train.MOE_AUX_WEIGHT``), and its
+artifact holds the experts and routers; MoE with a quant mode is rejected,
+as the reference rejects it. ``pp`` > 1 is not ported and is rejected with a
+``bad_input`` that names it.
 """
 
 from __future__ import annotations
@@ -111,6 +114,7 @@ def _map_labels(raw: List[Any]) -> Tuple[np.ndarray, Optional[List[str]]]:
 def _get_cfg(payload: Dict[str, Any], n_labels: int):
     """The model config; ValueError for what the port does not train yet."""
     from agent_tpu_torch.models.encoder import EncoderConfig
+    from agent_tpu_torch.models.layers import config_dtype
     from agent_tpu_torch.ops._model_common import config_from_payload
 
     cfg = config_from_payload(payload, EncoderConfig)
@@ -119,10 +123,9 @@ def _get_cfg(payload: Dict[str, Any], n_labels: int):
     if cfg.pp > 1:
         raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
                          "agent_tpu_torch yet")
-    if cfg.moe_experts > 0:
-        raise ValueError("moe_experts > 0 (MoE training) is not supported by "
-                         "agent_tpu_torch yet")
-    cfg.compute_dtype  # noqa: B018 — TypeError on an unknown dtype name, as the reference
+    if cfg.moe_experts > 0 and cfg.quant != "none":
+        raise ValueError(f"MoE training does not support quant={cfg.quant}")
+    config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
 
 

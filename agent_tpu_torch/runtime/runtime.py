@@ -128,7 +128,10 @@ class TorchRuntime:
     and staged batches live on the mesh's first device."""
 
     def __init__(self, device=None, devices: Optional[Sequence] = None,
-                 mesh_shape: Optional[Dict[str, int]] = None) -> None:
+                 mesh_shape: Optional[Dict[str, int]] = None, config=None) -> None:
+        from agent_tpu_torch.config import DeviceConfig
+
+        self.config = config or DeviceConfig()
         self.devices = _mesh_devices(device, devices, mesh_shape)
         self.mesh = build_mesh(self.devices, mesh_shape)
         unported = {n: s for n, s in self.mesh.shape.items()
@@ -237,6 +240,9 @@ class TorchRuntime:
             "device": str(self.device),
             "mesh": self.mesh.shape,
             "mesh_devices": [str(d) for d in self.devices],
+            # The fleet's default quant mode (TPU_QUANT); each task resolves
+            # its own (ops._model_common.resolve_quant).
+            "quant_default": self.config.quant or "none",
             "executable_cache": self.cache.stats(),
             "models_resident": sorted(self._params.keys()),
         }
@@ -297,7 +303,10 @@ def get_runtime() -> TorchRuntime:
     global _runtime
     with _runtime_lock:
         if _runtime is None:
-            _runtime = TorchRuntime(mesh_shape=mesh_shape_from_env() or None)
+            from agent_tpu_torch.config import DeviceConfig
+
+            _runtime = TorchRuntime(mesh_shape=mesh_shape_from_env() or None,
+                                    config=DeviceConfig.from_env())
         return _runtime
 
 

@@ -195,6 +195,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               then 0). serve_classify at BERT-base width (run after phase 4,
               while its weights are on the card): row 1 12 times, answers
               equal to map_classify_tpu's.
+14. quant and MoE — quantized serving (models/quant.py: int8 W8A8
+              through torch._int_mm, w8a16 weight only) and the Switch MoE
+              encoder (models/moe.py), each seeded encoder drawn once on the
+              host and placed in all its modes (place_seeded). BERT-base
+              classify (bench.py's bert_base_int8 leg: 256 rows of 480
+              bytes) in bf16, int8 and w8a16 in turns: rows/s, the ratio to
+              bf16, top-1 agreement with bf16 over 5,120 rows of bench.py's
+              keyword texts, held to the f32 control's agreement less 0.02,
+              the resident weight bytes, row 1 n_layers times a request in
+              every mode; one int8 request of one 8-byte text ([1, 16]
+              staged: _int_mm's 16-row case), its top-1 equal to bf16's. The
+              MoE encoder at BERT-base width and depth with 8 experts: the
+              256-row request in bf16 and int8 (agreement held as above),
+              and the train step at phase 6's batch (128 x L 512), 3 timed
+              steps with rows 4-6 each 12 times a step, the aux loss before
+              and after; a small f32 MoE on the card against the CPU
+              (logits, aux loss, every gradient, 3 steps' losses within
+              1e-4). Phase 8's
+              requests in w8a16 against bf16, and greedy token agreement on
+              1,024 rows of random ids with the f32 control; phase 9's T5-large
+              greedy request (row 3 24 times a request) and 8 rows of phase
+              12's BART greedy request, each in w8a16 against bf16; phase
+              13's stream through a paged engine of 8 slots in bf16 and
+              w8a16; the small f32 model in int8 and w8a16 through the engine
+              (4 slots: 4-row W8A8 decode steps), the card's tokens equal to
+              the CPU engine's.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -203,7 +229,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
               point's time beside it). Printed after phases 8-13; row 1's
-              launches by path include phases 10-13, and its entry holds
+              launches by path include phases 10-14, and its entry holds
               two more: at phase 12's encoder shape and at phase 13's
               stream prefill (B 240, H 8, L 64, D 32); the fold's launches
               by path include phase 11's ring.
@@ -368,6 +394,33 @@ DISAGG_REQUESTS, DISAGG_DOCS = 32, 4
 SERVE_LEN_BUCKETS, SERVE_MAX_BATCH = (64, 128, 256, 512, 1024), 16
 MPMD_ROWS = 64
 SERVE_MODEL: dict = {}  # Seq2SeqConfig overrides of phase 13 (none: the defaults)
+
+# Phase 14: quantized serving and the Switch MoE encoder. bench.py's
+# bert_base_int8 leg (BERT_CONFIG, text_len 480; top-1 agreement with bf16
+# over AGREEMENT_ROWS rows of its keyword texts, sent in requests of
+# AGREEMENT_CHUNK rows to bound the W8A8 activations' f32 copies) and its
+# moe leg (8 experts at BERT-base width), the MoE trained at phase 6's batch
+# (128 x L 512) for MOE_TRAIN_STEPS timed steps; summarize_w8a16's requests
+# (phase 8's), decode agreement on DECODE_AGREEMENT_ROWS rows of random ids
+# against bf16 with the f32 control; T5-large and BART w8a16 greedy on phase
+# 9 and 12's checkpoints; the continuous engine on phase 13's stream.
+QUANT_MODES = ("int8", "w8a16")
+QUANT_ROWS, QUANT_TEXT_LEN = 256, 480
+AGREEMENT_ROWS, AGREEMENT_CHUNK = 5120, 512
+AGREEMENT_WORDS = ["alpha", "risk", "ledger", "breach", "routine", "audit", "wire", "flag",
+                   "normal", "urgent", "invoice", "metric"]
+W8A8_SMALL_TEXT = "tiny row"  # one row of 8 bytes: a staged [1, 16] -> 16 rows of _int_mm
+MOE_EXPERTS, MOE_TRAIN_STEPS = 8, 3
+# A quantized mode's top-1 agreement with bf16 may fall this far below the
+# f32 control's (the same weights and rows in f32 against bf16).
+AGREEMENT_SLACK = 0.02
+# The MoE's card-vs-CPU check at f32: phase 6's small training config with
+# 4 experts, 16 rows of L 64 (two routing groups of 512 tokens).
+MOE_F32 = dict(SMALL_TRAIN_F32, moe_experts=4)
+MOE_F32_ROWS, MOE_F32_STEPS, MOE_F32_REL_TOL = 16, 3, 1e-4
+DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC = 1024, 64
+QUANT_REPS = 3  # timed repetitions of each phase-14 request, after one warm-up
+BART_QUANT_ROWS = 8
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
@@ -1086,7 +1139,7 @@ def kernel_entry(name, source, design, replaces, launches, max_abs_err, max_rel_
             "dtype": str(q.dtype).split(".")[-1], **extra}
 
 
-def train_kernel_entries(fa, check, launches) -> list:
+def train_kernel_entries(fa, check, launches, by_path=None) -> list:
     """The kernels line's entries of the three training kernels, timed at
     phase 6's first batch. Their library yardsticks are
     scaled_dot_product_attention's forward and its backward (which
@@ -1107,6 +1160,10 @@ def train_kernel_entries(fa, check, launches) -> list:
     keys = float(np.sum(lengths)) * H * L * D  # per product of 2 FLOP: real keys only
     src = "agent_tpu_torch/kernels/csrc/"
     covers = "dq, dk and dv in one call"
+
+    def paths(kernel):
+        return {"launches_by_path": {p: n[kernel] for p, n in by_path.items()}} if by_path else {}
+
     return [
         kernel_entry(
             "flash_attention_fwd_lse", src + "flash_fwd_sm90.cuh", SM90,
@@ -1116,7 +1173,7 @@ def train_kernel_entries(fa, check, launches) -> list:
             cuda_ms(lambda: fa.flash_attention_fwd_lse_reference(q, k, v, keep), iters=5),
             4 * tensor + rows + keep.numel() * 4, 4 * keys,
             cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask)), q),
+                q, k, v, attn_mask=mask)), q, **paths("flash_attention_fwd_lse")),
         # dQ reads Q, K, V, dO and O (for delta), writes dQ and delta.
         kernel_entry(
             "flash_attention_bwd_dq", src + "flash_bwd_sm90.cuh", SM90,
@@ -1124,14 +1181,14 @@ def train_kernel_entries(fa, check, launches) -> list:
             check["max_abs_err"]["dq"], check["max_rel_err"]["dq"],
             cuda_ms(lambda: fa._launch_bwd_dq(q, k, v, keep, do, o, lse)), plain_bwd_ms,
             6 * tensor + 2 * rows + keep.numel() * 4, 6 * keys, sdpa_bwd_ms, q,
-            plain_covers=covers, library_covers=covers),
+            plain_covers=covers, library_covers=covers, **paths("flash_attention_bwd_dq")),
         kernel_entry(
             "flash_attention_bwd_dkv", src + "flash_bwd_sm90.cuh", SM90,
             "agent_tpu/kernels/flash_attention.py:665", launches["flash_attention_bwd_dkv"],
             check["max_abs_err"]["dkv"], check["max_rel_err"]["dkv"],
             cuda_ms(lambda: fa._launch_bwd_dkv(q, k, v, keep, do, lse, delta)), plain_bwd_ms,
             6 * tensor + 2 * rows + keep.numel() * 4, 8 * keys, sdpa_bwd_ms, q,
-            plain_covers=covers, library_covers=covers),
+            plain_covers=covers, library_covers=covers, **paths("flash_attention_bwd_dkv")),
     ]
 
 
@@ -1935,7 +1992,7 @@ def t5_phase(fa, op, rt, ckpt, requests) -> dict:
     return {"launches": launches}
 
 
-def t5_kernel_entry(fa, check, launches) -> dict:
+def t5_kernel_entry(fa, check, launches, **extra) -> dict:
     """The kernels line's entry of the T5 kernel at phase 9's staged shape
     and key lengths, timed through its launcher with the per-distance table
     built once outside the timing (``entry_ms``: the entry point, which
@@ -1964,7 +2021,7 @@ def t5_kernel_entry(fa, check, launches) -> dict:
         library_note="SDPA with the bias and padding mask as one float attn_mask, "
                      "materialised outside the timing",
         entry_ms=cuda_ms(lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias,
-                                                       max_distance=maxd)))
+                                                       max_distance=maxd)), **extra)
     del float_mask
     return entry
 
@@ -3102,6 +3159,600 @@ def serving_phase(fa, rt, classify_check: dict) -> dict:
     return report
 
 
+def place_seeded(rt, configs: dict, flat) -> None:
+    """The classify op's seeded encoder in each of ``configs``' modes put on
+    ``rt`` under the op's weights key, from one f32 draw ``flat`` of the
+    op's default model id: the op's own build (``from_jax_params``, which
+    quantizes a mode's tables from f32), without drawing again for each
+    mode (a BERT-base MoE draws 453M normals on the host). The op's
+    requests then find them resident (``held_resident`` checks it)."""
+    from agent_tpu_torch.models import encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    for conf in configs.values():
+        cfg = encoder.EncoderConfig(**conf)
+        rt.get_params(classify_op.params_key(classify_op.DEFAULT_MODEL_ID, "encoder", cfg),
+                      lambda cfg=cfg: encoder.from_jax_params(flat, cfg))
+
+
+def held_resident(rt, configs: dict) -> None:
+    """Fails when the op built weights of its own beside ``place_seeded``'s."""
+    from agent_tpu_torch.models import encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    placed = {classify_op.params_key(classify_op.DEFAULT_MODEL_ID, "encoder",
+                                     encoder.EncoderConfig(**conf)) for conf in configs.values()}
+    resident_now = set(rt.describe()["models_resident"])
+    if resident_now != placed:
+        raise SystemExit(f"the op built weights of its own: {sorted(resident_now - placed)}")
+
+
+def agreement_floor(control: float) -> float:
+    """The least top-1 agreement with bf16 a quantized mode may show: the
+    f32 control's agreement with bf16 (the compute dtype's own noise on
+    the same weights and rows) less AGREEMENT_SLACK."""
+    return control - AGREEMENT_SLACK
+
+
+def interleaved(runs: dict, reps: int, check) -> dict:
+    """``runs``: mode -> a callable of one request. Each mode warmed once,
+    then timed ``reps`` times in turns (the order reversed every round, so
+    no mode always runs after another); ``check(mode, result)`` holds each
+    timed result -> mode -> (p50 seconds, last result)."""
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    gc.collect()
+    walls, last = {m: [] for m in runs}, {}
+    order = list(runs)
+    for rep in range(reps):
+        for mode in (order if rep % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            out = runs[mode]()
+            walls[mode].append(time.perf_counter() - t0)
+            check(mode, out)
+            last[mode] = out
+    return {m: (statistics.median(w), last[m]) for m, w in walls.items()}
+
+
+def resident_bytes(weights) -> int:
+    """Bytes of every parameter and buffer (a module) or leaf (a tree)."""
+    if isinstance(weights, torch.nn.Module):
+        return sum(t.numel() * t.element_size()
+                   for t in list(weights.parameters()) + list(weights.buffers()))
+    if isinstance(weights, dict):
+        return sum(resident_bytes(v) for v in weights.values())
+    if isinstance(weights, list):
+        return sum(resident_bytes(v) for v in weights)
+    return weights.numel() * weights.element_size() if isinstance(weights, torch.Tensor) else 0
+
+
+def resident(rt, key: str):
+    """The weights an op call left on the runtime under ``key``."""
+    def missing():
+        raise SystemExit(f"{key} is not resident")
+
+    return rt.get_params(key, missing)
+
+
+def ok_rows(rows: int):
+    """A check for ``interleaved``: a summarize result of ``rows`` summaries."""
+    def check(mode, out):
+        if not out.get("ok") or out.get("device") != torch.device(CARD).type \
+                or len(out["summaries"]) != rows:
+            raise SystemExit(f"{mode}: {str(out)[:300]}")
+    return check
+
+
+def launch_delta(fa, fn, want: dict):
+    """``fn()``, holding the kernels it launched to ``want`` (the others 0)."""
+    before = dict(fa.LAUNCH_COUNTS)
+    out = fn()
+    got = {key: fa.LAUNCH_COUNTS[key] - before[key] for key in fa.LAUNCH_COUNTS}
+    if got != {key: want.get(key, 0) for key in got}:
+        raise SystemExit(f"kernel launches {got}, want {want}")
+    return out
+
+
+def quant_classify(fa, classify, ctx, rt) -> dict:
+    """Phase 14, classify: BERT-base in bf16, int8 and w8a16 (bench.py's
+    bert_base_int8 leg), drawn once (``place_seeded``): rows/s of the
+    256-row request in turns, each mode's ratio to bf16, top-1 agreement
+    with bf16 over AGREEMENT_ROWS rows held to ``agreement_floor`` of the
+    f32 control's, the resident weight bytes, row 1's launches (n_layers a
+    request in every mode); then one int8 request of one 8-byte text, whose
+    staged [1, 16] gives _int_mm 16 rows, held to bf16's top-1."""
+    from agent_tpu_torch.models import encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    n_layers = BERT_BASE["n_layers"]
+    texts = random_texts(random.Random(SEED + 20), QUANT_ROWS, QUANT_TEXT_LEN, QUANT_TEXT_LEN)
+    words = np.random.default_rng(7)
+    agree = [" ".join(words.choice(AGREEMENT_WORDS, size=60).tolist()) + f" case {i}"
+             for i in range(AGREEMENT_ROWS)]
+    modes = ("none",) + QUANT_MODES
+    configs = {m: dict(BERT_BASE, quant=m) for m in modes}
+    configs["float32"] = dict(BERT_BASE, dtype="float32")  # the agreement's control
+    place_seeded(rt, configs, encoder.init_params(encoder.EncoderConfig(**BERT_BASE),
+                                                  classify_op.DEFAULT_MODEL_ID))
+    launches = {m: 0 for m in modes}
+
+    def request(mode):
+        payload = {"texts": texts, "topk": 5, "model_config": configs[mode],
+                   "allow_fallback": False}
+        out = launch_delta(fa, lambda: classify(payload, ctx), {"flash_attention": n_layers})
+        launches[mode] += n_layers
+        return out
+
+    reset_counts(fa)
+    timed = interleaved({m: (lambda m=m: request(m)) for m in modes}, QUANT_REPS,
+                        lambda m, out: check_result(out, QUANT_ROWS, 5))
+    report = {}
+    top1 = {}
+    for mode in configs:
+        picks = []
+        for s in range(0, AGREEMENT_ROWS, AGREEMENT_CHUNK):
+            out = classify({"texts": agree[s:s + AGREEMENT_CHUNK], "topk": 1,
+                            "result_format": "columnar", "model_config": configs[mode]}, ctx)
+            picks.append(np.asarray(out["indices"])[:, 0])
+        top1[mode] = np.concatenate(picks)
+    for mode in modes:
+        model = resident(rt, classify_op.params_key(
+            classify_op.DEFAULT_MODEL_ID, "encoder", encoder.EncoderConfig(**configs[mode])))
+        p50 = timed[mode][0]
+        report[mode] = {"p50_ms": p50 * 1e3, "rows_per_s": QUANT_ROWS / p50,
+                        "resident_weight_bytes": resident_bytes(model),
+                        "row1_launches": launches[mode]}
+    control = float(np.mean(top1["float32"] == top1["none"]))
+    report["top1_agreement_control_f32_vs_bf16"] = control
+    report["top1_agreement_floor"] = agreement_floor(control)
+    for mode in QUANT_MODES:
+        report[mode]["rows_per_s_vs_bf16"] = report[mode]["rows_per_s"] / \
+            report["none"]["rows_per_s"]
+        report[mode]["top1_agreement_vs_bf16"] = float(np.mean(top1[mode] == top1["none"]))
+    if len(set(launches.values())) != 1:
+        raise SystemExit(f"row 1's launches differ between the modes: {launches}")
+
+    small = {"texts": [W8A8_SMALL_TEXT], "topk": 5, "allow_fallback": False}
+    _, state = classify.stage(dict(small, model_config=configs["int8"]), ctx)
+    rows = int(np.prod(state["chunks"][0][0].shape))
+    outs = {m: launch_delta(fa, lambda m=m: classify(dict(small, model_config=configs[m]), ctx),
+                            {"flash_attention": n_layers}) for m in ("none", "int8")}
+    for out in outs.values():
+        check_result(out, 1, 5)
+    if rows > 16:
+        raise SystemExit(f"the small int8 request staged {rows} rows, not 16 or fewer")
+    report["int8_small_request"] = {"text": W8A8_SMALL_TEXT, "int_mm_rows": rows,
+                                    "top1": outs["int8"]["results"][0]["topk"][0]["index"],
+                                    "top1_bf16": outs["none"]["results"][0]["topk"][0]["index"]}
+    report["agreement_rows"] = AGREEMENT_ROWS
+    held_resident(rt, configs)
+    low = {m: report[m]["top1_agreement_vs_bf16"] for m in QUANT_MODES
+           if report[m]["top1_agreement_vs_bf16"] < report["top1_agreement_floor"]}
+    small_out = report["int8_small_request"]
+    if low or small_out["top1"] != small_out["top1_bf16"]:
+        raise SystemExit(f"quantized classify disagrees with bf16 beyond the f32 control "
+                         f"{low} or on the 16-row request: {report}")
+    return report
+
+
+def moe_phase(fa, classify, ctx, rt, train_batch) -> dict:
+    """Phase 14, MoE: BERT-base with MOE_EXPERTS experts (bench.py's moe
+    leg), drawn once (``place_seeded``): the 256-row classify request in
+    bf16 and int8 in turns (row 1 n_layers times a request), int8's top-1
+    agreement with bf16 held to ``agreement_floor`` of the f32 control's;
+    then the train step at phase 6's first batch (batch 128, L 512): one
+    warm-up and MOE_TRAIN_STEPS timed steps, rows 4-6 each n_layers times a
+    step, the Switch aux loss before and after them."""
+    from agent_tpu_torch.models import encoder, train
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    n_layers = BERT_BASE["n_layers"]
+    texts = random_texts(random.Random(SEED + 21), QUANT_ROWS, QUANT_TEXT_LEN, QUANT_TEXT_LEN)
+    moe_base = dict(BERT_BASE, moe_experts=MOE_EXPERTS)
+    configs = {m: dict(moe_base, quant=m) for m in ("none", "int8")}
+    control = dict(configs, float32=dict(moe_base, dtype="float32"))
+    launches = {m: 0 for m in configs}
+    t0 = time.perf_counter()
+    flat = encoder.init_params(encoder.EncoderConfig(**moe_base), classify_op.DEFAULT_MODEL_ID)
+    weights_draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    place_seeded(rt, control, flat)
+    weights_place_s = time.perf_counter() - t0
+
+    def request(mode):
+        payload = {"texts": texts, "topk": 5, "model_config": configs[mode],
+                   "allow_fallback": False}
+        out = launch_delta(fa, lambda: classify(payload, ctx), {"flash_attention": n_layers})
+        launches[mode] += n_layers
+        return out
+
+    reset_counts(fa)
+    timed = interleaved({m: (lambda m=m: request(m)) for m in configs}, QUANT_REPS,
+                        lambda m, out: check_result(out, QUANT_ROWS, 5))
+    f32_out = classify({"texts": texts, "topk": 5, "model_config": control["float32"],
+                        "allow_fallback": False}, ctx)
+    check_result(f32_out, QUANT_ROWS, 5)
+    held_resident(rt, control)
+    report = {"experts": MOE_EXPERTS, "n_layers": n_layers, "weights_draw_s": weights_draw_s,
+              "weights_place_s": weights_place_s}
+    for mode in configs:
+        model = resident(rt, classify_op.params_key(
+            classify_op.DEFAULT_MODEL_ID, "encoder", encoder.EncoderConfig(**configs[mode])))
+        p50 = timed[mode][0]
+        report[f"classify_{mode}"] = {"p50_ms": p50 * 1e3, "rows_per_s": QUANT_ROWS / p50,
+                                      "resident_weight_bytes": resident_bytes(model),
+                                      "row1_launches": launches[mode]}
+    top1 = {m: np.asarray([r["topk"][0]["index"] for r in out["results"]])
+            for m, out in (("none", timed["none"][1]), ("int8", timed["int8"][1]),
+                           ("float32", f32_out))}
+    agree = float(np.mean(top1["int8"] == top1["none"]))
+    control_agree = float(np.mean(top1["float32"] == top1["none"]))
+    report["classify_int8"]["top1_agreement_vs_bf16"] = agree
+    report["top1_agreement_control_f32_vs_bf16"] = control_agree
+    report["top1_agreement_floor"] = agreement_floor(control_agree)
+    if agree < report["top1_agreement_floor"]:
+        raise SystemExit(f"the int8 MoE disagrees with bf16 beyond the f32 control: {report}")
+    rt.clear_params()
+
+    cfg = encoder.EncoderConfig(**moe_base)
+    state, take = train_batch
+    ids, mask, labels = (torch.from_numpy(np.ascontiguousarray(state[k][take])).to(CARD)
+                         for k in ("ids", "mask", "labels"))
+    model = encoder.from_jax_params(flat, cfg, device=CARD, trainable=True)
+    del flat
+    attn_fn = rt.train_attention_fn()
+    with torch.no_grad():
+        aux_before = float(model(ids, mask, attn_fn, with_aux=True)[1])
+    init, step = train.make_train_step(cfg, train.adamw(1e-3), attn_fn=attn_fn)
+    opt = init(model)
+    model, opt, loss = step(model, opt, ids, mask, labels)
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    walls = []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, ids, mask, labels)
+        losses.append(float(loss))  # reading the loss waits for the step
+        walls.append(time.perf_counter() - t0)
+    train_launches = {key: fa.LAUNCH_COUNTS[key] for key in TRAIN_KERNELS}
+    want = {key: n_layers * MOE_TRAIN_STEPS for key in TRAIN_KERNELS}
+    if train_launches != want or fa.LAUNCH_COUNTS["flash_attention"]:
+        raise SystemExit(f"MoE train launches {dict(fa.LAUNCH_COUNTS)}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = model(ids, mask, attn_fn, with_aux=True)
+    p50 = statistics.median(walls)
+    report["train"] = {"batch": int(ids.shape[0]), "seq_len": int(ids.shape[1]),
+                       "steps": MOE_TRAIN_STEPS, "step_p50_ms": p50 * 1e3,
+                       "examples_per_s": ids.shape[0] / p50, "losses": losses,
+                       "aux_loss_before": aux_before, "aux_loss": float(aux),
+                       "peak_bytes": peak, "launches": train_launches}
+    if not all(math.isfinite(x) for x in losses + [aux_before, float(aux)]):
+        raise SystemExit(f"MoE training gave a non-finite loss: {report['train']}")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def moe_exactness_f32(rt) -> dict:
+    """Phase 14, MoE exactness: the small f32 MoE encoder (MOE_F32: 4
+    experts, groups of 512 tokens at capacity 1.25, so tokens are dropped)
+    on the card against the CPU, from the same weights and MOE_F32_ROWS
+    padded rows: the logits, the Switch aux loss, the training loss and
+    every leaf's gradient of one step (relative L2), then the losses of
+    MOE_F32_STEPS AdamW steps, each within MOE_F32_REL_TOL. The card runs
+    the training kernels (rows 4-6, f32), the CPU their plain version; both
+    run ``moe.Route``'s backward."""
+    from agent_tpu_torch.models import encoder, train
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    cfg = encoder.EncoderConfig(**MOE_F32)
+    flat = encoder.init_params(cfg, "moe-exact")
+    rng = np.random.default_rng(SEED + 24)
+    B, L = MOE_F32_ROWS, cfg.max_len
+    lengths = rng.integers(L // 4, L + 1, B)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = rng.integers(4, cfg.vocab_size, (B, L)).astype(np.int32) * mask
+    labels = rng.integers(0, cfg.n_classes, B).astype(np.int32)
+    sides = {}
+    for side, where, run_rt in (("card", CARD, rt), ("cpu", "cpu", TorchRuntime(device="cpu"))):
+        attn_fn = run_rt.train_attention_fn()
+        model = encoder.from_jax_params(flat, cfg, device=where, trainable=True)
+        batch = [torch.from_numpy(a).to(where) for a in (ids, mask, labels)]
+        with torch.enable_grad():
+            logits, aux = model(batch[0], batch[1], attn_fn, with_aux=True)
+            loss = train.cross_entropy_loss(model, *batch, attn_fn=attn_fn)
+            loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        init, step = train.make_train_step(cfg, train.adamw(1e-2), attn_fn=attn_fn)
+        opt = init(model)
+        losses = [float(step(model, opt, *batch)[2]) for _ in range(MOE_F32_STEPS)]
+        sides[side] = {"logits": logits.detach().cpu(), "aux": aux.detach().cpu(),
+                       "loss": loss.detach().cpu(), "grads": grads,
+                       "losses": torch.tensor(losses)}
+    card, cpu = sides["card"], sides["cpu"]
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    if set(card["grads"]) != set(cpu["grads"]):
+        raise SystemExit(f"MoE gradients on different leaves: "
+                         f"{sorted(set(card['grads']) ^ set(cpu['grads']))}")
+    report = {"rows": B, "seq_len": L, "tolerance": MOE_F32_REL_TOL,
+              **{k: rel(card[k], cpu[k]) for k in ("logits", "aux", "loss", "losses")},
+              "grads_max_rel_l2": max(rel(card["grads"][k], cpu["grads"][k])
+                                      for k in cpu["grads"]),
+              "router_grad_rel_l2": max(rel(card["grads"][k], cpu["grads"][k])
+                                        for k in cpu["grads"] if ".router." in k),
+              "aux_card_cpu": [float(card["aux"]), float(cpu["aux"])],
+              "losses_card": card["losses"].tolist(), "losses_cpu": cpu["losses"].tolist()}
+    worst = max(v for k, v in report.items() if k in (
+        "logits", "aux", "loss", "losses", "grads_max_rel_l2"))
+    if not worst <= MOE_F32_REL_TOL:
+        raise SystemExit(f"the f32 MoE on the card disagrees with the CPU: {report}")
+    return report
+
+
+def summarize_w8a16(fa, summarize, ctx, rt) -> dict:
+    """Phase 14, seq2seq: phase 8's requests (256 rows greedy, 64 rows with 4
+    beams, 32 new tokens) in bf16 and w8a16 in turns, emitted tokens/s and
+    the ratio; token agreement with bf16 of greedy decodes of
+    DECODE_AGREEMENT_ROWS rows of random ids, and of the f32 decode of the
+    same weights (bench.py's control: the model's own noise)."""
+    from dataclasses import replace
+
+    from agent_tpu_torch.models import seq2seq
+    from agent_tpu_torch.models.tokenizer import EOS_ID, PAD_ID
+    from agent_tpu_torch.ops import map_summarize as summarize_op
+
+    report = {}
+    launches = {"none": 0, "w8a16": 0}
+    reset_counts(fa)
+    for name, payload, rows in (
+            ("texts256_greedy", {"texts": [S2S_TEXT] * S2S_ROWS, "max_length": S2S_MAX_NEW},
+             S2S_ROWS),
+            ("texts64_beam4", {"texts": [S2S_TEXT] * S2S_BEAM_ROWS, "max_length": S2S_MAX_NEW,
+                               "num_beams": S2S_BEAMS}, S2S_BEAM_ROWS)):
+        emitted = {}
+
+        def request(mode, payload=payload):
+            def run():
+                _, state = summarize.stage(dict(payload, model_config={"quant": mode}), ctx)
+                out = summarize.finalize(summarize.execute(state, ctx), ctx)
+                emitted[mode] = count_emitted(state["token_chunks"], PAD_ID, EOS_ID)
+                return out
+            out = launch_delta(fa, run, {"flash_attention": S2S_ENC_LAYERS})
+            launches[mode] += S2S_ENC_LAYERS
+            return out
+
+        timed = interleaved({m: (lambda m=m: request(m)) for m in ("none", "w8a16")},
+                            QUANT_REPS, ok_rows(rows))
+        entry = {m: {"p50_ms": timed[m][0] * 1e3, "emitted_tokens": emitted[m],
+                     "emitted_tokens_per_s": emitted[m] / timed[m][0],
+                     "bench_tokens_per_s": rows * S2S_MAX_NEW / timed[m][0]}
+                 for m in timed}
+        entry["w8a16_vs_bf16"] = timed["none"][0] / timed["w8a16"][0]
+        report[name] = entry
+
+    cfg = seq2seq.Seq2SeqConfig()
+    report["launches"] = launches
+    models = {m: resident(rt, summarize_op.params_key(summarize_op.DEFAULT_MODEL_ID, "seq2seq",
+                                                      replace(cfg, quant=m)))
+              for m in ("none", "w8a16")}
+    models["float32"] = seq2seq.from_jax_params(
+        seq2seq.init_params(cfg, summarize_op.DEFAULT_MODEL_ID),
+        replace(cfg, dtype="float32"), device=CARD)
+    attn_fn = rt.attention_fn()
+    rng = np.random.default_rng(11)
+    ids = rng.integers(4, cfg.vocab_size, (DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC))
+    toks = {m: [] for m in models}
+    with torch.inference_mode():
+        for s in range(0, DECODE_AGREEMENT_ROWS, 256):
+            src = torch.from_numpy(ids[s:s + 256].astype(np.int32)).to(CARD)
+            mask = torch.ones_like(src)
+            for m, model in models.items():
+                toks[m].append(seq2seq.greedy_generate(model, src, mask, S2S_MAX_NEW,
+                                                       attn_fn=attn_fn)[0].cpu().numpy())
+    toks = {m: np.concatenate(t) for m, t in toks.items()}
+    report["decode_agreement"] = {
+        "rows": DECODE_AGREEMENT_ROWS, "max_new": S2S_MAX_NEW, "num_beams": 1,
+        "token_w8a16_vs_bf16": float(np.mean(toks["w8a16"] == toks["none"])),
+        "sequence_w8a16_vs_bf16": float(np.mean((toks["w8a16"] == toks["none"]).all(axis=1))),
+        "token_control_f32_vs_bf16": float(np.mean(toks["float32"] == toks["none"]))}
+    del models
+    rt.clear_params()
+    return report
+
+
+def t5_w8a16(fa, op, rt, ckpt, requests) -> dict:
+    """Phase 14, T5-large: phase 9's greedy request (64 rows, 32 new tokens)
+    through the op's device phase in w8a16 and bf16 in turns, row 3 once per
+    encoder layer a request, token agreement and the resident bytes."""
+
+    name, chunks, beams, n_rows = requests[0]
+    models, toks, launches = {}, {}, {m: 0 for m in ("w8a16", "none")}
+    for mode in launches:
+        cfg = op._get_cfg({"model_path": ckpt, "model_config": {"quant": mode}}, "t5", ckpt)
+        t0 = time.perf_counter()
+        models[mode] = (cfg, rt.get_params(op.params_key(ckpt, "t5", cfg),
+                                           lambda cfg=cfg: op._build_model(ckpt, cfg, "t5",
+                                                                           rt.device)),
+                        time.perf_counter() - t0)
+
+    def request(mode):
+        cfg = models[mode][0]
+        pending = launch_delta(fa, lambda: op._decode_chunks(rt, chunks, ckpt, cfg, T5_MAX_NEW,
+                                                             beams, family="t5"),
+                               {"flash_attention_t5": cfg.n_enc_layers})
+        launches[mode] += cfg.n_enc_layers
+        toks[mode] = np.concatenate([t.cpu().numpy()[:n] for t, n in pending])
+        return toks[mode]
+
+    reset_counts(fa)
+    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, 2, lambda m, out: None)
+    report = {"request": name, "rows": n_rows, "max_new": T5_MAX_NEW, "launches": launches,
+              "token_agreement_vs_bf16": float(np.mean(toks["w8a16"] == toks["none"]))}
+    for mode, (cfg, params, load_s) in models.items():
+        report[mode] = {"p50_ms": timed[mode][0] * 1e3, "load_s": load_s,
+                        "bench_tokens_per_s": n_rows * T5_MAX_NEW / timed[mode][0],
+                        "resident_weight_bytes": resident_bytes(params)}
+    report["w8a16_vs_bf16"] = timed["none"][0] / timed["w8a16"][0]
+    rt.clear_params()
+    return report
+
+
+def bart_w8a16(fa, summarize, ctx, rt, ckpt, requests) -> dict:
+    """Phase 14, BART: the first BART_QUANT_ROWS rows of phase 12's greedy
+    request through the op in w8a16 and bf16 in turns (row 1 once per
+    encoder layer a request), token agreement."""
+    _, payload, _ = requests[0]
+    payload = dict(payload, texts=payload["texts"][:BART_QUANT_ROWS])
+    toks, launches = {}, {"w8a16": 0, "none": 0}
+    layers = BART_LARGE_CNN["encoder_layers"]
+
+    def request(mode):
+        out, toks[mode] = launch_delta(fa, lambda: summarize_tokens(
+            summarize, dict(payload, model_config={"quant": mode}), ctx),
+            {"flash_attention": layers})
+        launches[mode] += layers
+        return out
+
+    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, 2,
+                        ok_rows(BART_QUANT_ROWS))
+    report = {"rows": BART_QUANT_ROWS, "max_new": BART_MAX_NEW, "launches": launches,
+              "token_agreement_vs_bf16": float(np.mean(toks["w8a16"] == toks["none"])),
+              "w8a16_vs_bf16": timed["none"][0] / timed["w8a16"][0]}
+    for mode in timed:
+        report[mode] = {"p50_ms": timed[mode][0] * 1e3}
+    rt.clear_params()
+    return report
+
+
+def engine_w8a16(fa, rt) -> dict:
+    """Phase 14, serving: phase 13's stream decoded by a paged engine with
+    SERVE_SLOTS slots, greedy, on the bf16 and the w8a16 seq2seq (each
+    prefilled by its own encoder: row 1 once per encoder layer), in turns;
+    tok/s and the ratio, and the requested tokens' agreement."""
+    from dataclasses import replace
+
+    from agent_tpu_torch.models import seq2seq
+    from agent_tpu_torch.ops import map_summarize as summarize_op
+
+    cfg = serve_cfg()
+    ids, mask, limits = serving_stream(cfg)
+    attn_fn = rt.attention_fn()
+    sides, tokens = {}, {}
+    reset_counts(fa)
+    for mode in ("none", "w8a16"):
+        mcfg = replace(cfg, quant=mode)
+        model = rt.get_params(summarize_op.params_key(summarize_op.DEFAULT_MODEL_ID, "seq2seq",
+                                                      mcfg),
+                              lambda mcfg=mcfg: summarize_op._build_model(
+                                  summarize_op.DEFAULT_MODEL_ID, mcfg, "seq2seq", rt.device))
+        with torch.inference_mode():
+            enc = launch_delta(fa, lambda model=model: seq2seq.encode(
+                model, torch.from_numpy(ids).to(CARD), torch.from_numpy(mask).to(CARD),
+                attn_fn).float().cpu().numpy(), {"flash_attention": cfg.n_enc_layers})
+        sides[mode] = (new_engine(model, SERVE_SLOTS, 1), enc)
+
+    def engine_pass(mode, n=len(limits)):
+        engine, enc = sides[mode]
+        tickets = [engine.admit(enc[i], mask[i], limits[i]) for i in range(n)]
+        while engine.has_work():
+            engine.step()
+        tokens[mode] = [t.tokens[:t.limit].tolist() for t in tickets]
+        return sum(t.steps for t in tickets)
+
+    for mode in sides:
+        engine_pass(mode, SERVE_WARM)
+    timed = interleaved({m: (lambda m=m: engine_pass(m)) for m in sides}, 2, lambda m, out: None)
+    n_tok = timed["none"][1]
+    same = sum(a == b for a, b in zip(tokens["w8a16"], tokens["none"]))
+    report = {"requests": len(limits), "slots": SERVE_SLOTS, "num_beams": 1, "tokens": n_tok,
+              "requests_equal_vs_bf16": same,
+              "prefill_launches": fa.LAUNCH_COUNTS["flash_attention"],
+              **{f"{m}_tok_per_s": timed[m][1] / timed[m][0] for m in sides},
+              "w8a16_vs_bf16": timed["none"][0] / timed["w8a16"][0]}
+    del sides
+    rt.clear_params()
+    return report
+
+
+def quant_engine_exactness() -> dict:
+    """Phase 14, exactness: the small f32 model (SMALL_S2S_F32) in int8 and
+    w8a16, SERVE_EXACT_REQUESTS requests joining one every SERVE_EXACT_EVERY
+    steps into 4 slots (so the W8A8 decode steps give _int_mm 4 rows):
+    the paged engine's tokens on the card equal to the same engine's on the
+    CPU, both from the card's prefill rows."""
+    from dataclasses import replace
+
+    from agent_tpu_torch.models import seq2seq
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    base = seq2seq.Seq2SeqConfig(**SMALL_S2S_F32)
+    flat = seq2seq.init_params(base, "serving-exact")
+    attn_fn = TorchRuntime(device=CARD).attention_fn()
+    rng = np.random.default_rng(SEED + 23)
+    n, src = SERVE_EXACT_REQUESTS, 32
+    ids = rng.integers(4, base.vocab_size, (n, src)).astype(np.int32)
+    lengths = rng.integers(8, src + 1, n)
+    masks = (np.arange(src)[None, :] < lengths[:, None]).astype(np.int32)
+    limits = [int(x) for x in rng.integers(2, base.max_tgt_len, n)]
+    report = {}
+    for mode in QUANT_MODES:
+        cfg = replace(base, quant=mode)
+        card, cpu = (seq2seq.from_jax_params(flat, cfg, device=d) for d in (CARD, "cpu"))
+        with torch.inference_mode():
+            rows = seq2seq.encode(card, torch.from_numpy(ids).to(CARD),
+                                  torch.from_numpy(masks).to(CARD), attn_fn).float().cpu().numpy()
+            got = {d: sparse_arrivals(new_engine(m, 4, 1, enc_len=src), rows, masks, limits)
+                   for d, m in (("card", card), ("cpu", cpu))}
+        same = sum(a == b for a, b in zip(got["card"], got["cpu"]))
+        report[mode] = {"requests": n, "card_equal_cpu": same}
+        if same != n:
+            raise SystemExit(f"{mode}: the card's engine gave {n - same} requests other tokens "
+                             f"than the CPU's: {report}")
+    return report
+
+
+def quant_moe_phase(fa, rt, smi, train_batch, t5_ckpt, t5_requests, bart_ckpt,
+                    bart_reqs) -> dict:
+    """Phase 14: quantized serving and the Switch MoE encoder (see the
+    module docstring)."""
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.ops import map_summarize as summarize_op
+    from agent_tpu_torch.runtime.context import OpContext
+
+    ops = load_ops(["map_classify_tpu", "map_summarize"])
+    classify, summarize = ops["map_classify_tpu"], ops["map_summarize"]
+    ctx = OpContext(runtime=rt)
+    seconds, report = {}, {"phase": "quant_moe", "nvidia_smi": smi}
+    for name, fn in (
+            ("classify", lambda: quant_classify(fa, classify, ctx, rt)),
+            ("moe", lambda: moe_phase(fa, classify, ctx, rt, train_batch)),
+            ("moe_exactness_f32", lambda: moe_exactness_f32(rt)),
+            ("summarize_seq2seq", lambda: summarize_w8a16(fa, summarize, ctx, rt)),
+            ("summarize_t5_large", lambda: t5_w8a16(fa, summarize_op, rt, t5_ckpt,
+                                                    t5_requests)),
+            ("summarize_bart", lambda: bart_w8a16(fa, summarize, ctx, rt, bart_ckpt,
+                                                  bart_reqs)),
+            ("engine", lambda: engine_w8a16(fa, rt)),
+            ("engine_exactness_f32", quant_engine_exactness)):
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        report[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        rt.clear_params()
+    report["seconds_by_part"] = seconds
+    emit(report)
+    return report
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -3396,7 +4047,6 @@ def main(argv=None) -> int:
           "bytes": os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))})
     t5_run = t5_phase(fa, summarize_op, rt, ckpt, t5_requests)
     rt.clear_params()
-    t5_dir.cleanup()
 
     # 10. the agent's drain, then its entry point in a process of its own
     drain = drain_phase(fa, rt, drain_csv)
@@ -3421,11 +4071,17 @@ def main(argv=None) -> int:
           "bytes": os.path.getsize(os.path.join(bart_ckpt, "pytorch_model.bin"))})
     bart_run = bart_phase(fa, summarize, rt, bart_ckpt, bart_reqs)
     rt.clear_params()
-    hf_dir.cleanup()
 
     # 13. continuous-batching serving
     serving = serving_phase(fa, rt, classify_check)
     rt.clear_params()
+
+    # 14. quantized serving and the Switch MoE encoder (phases 9 and 12's
+    # checkpoints, then removed)
+    qm = quant_moe_phase(fa, rt, smi, (train_state, take), ckpt, t5_requests, bart_ckpt,
+                         bart_reqs)
+    t5_dir.cleanup()
+    hf_dir.cleanup()
 
     # 7. kernels: the serving kernel on the 256-row request's staged shape
     # and key lengths, the training kernels on phase 6's first batch, the T5
@@ -3453,15 +4109,28 @@ def main(argv=None) -> int:
                           "serve_prefill_disagg": serving["disagg"]["prefill_launches"],
                           "serve_decode_disagg": serving["disagg"]["decode_launches"],
                           "summarize_encode": serving["mpmd"]["launches"]["encode"],
-                          "summarize_decode": serving["mpmd"]["launches"]["decode"]},
+                          "summarize_decode": serving["mpmd"]["launches"]["decode"],
+                          **{f"map_classify_tpu_{'bf16' if m == 'none' else m}":
+                             qm["classify"][m]["row1_launches"] for m in ("none",) + QUANT_MODES},
+                          "map_classify_tpu_moe_bf16": qm["moe"]["classify_none"]["row1_launches"],
+                          "map_classify_tpu_moe_int8": qm["moe"]["classify_int8"]["row1_launches"],
+                          "map_summarize_w8a16": qm["summarize_seq2seq"]["launches"]["w8a16"],
+                          "map_summarize_bart_w8a16": qm["summarize_bart"]["launches"]["w8a16"],
+                          "serve_engine_prefill_bf16_w8a16":
+                              qm["engine"]["prefill_launches"]},
         at_bart_encoder_shape=shape_entry(fa, kernel_check, "inputs_bart", bart_run["launches"]),
         at_serving_prefill_shape=shape_entry(fa, kernel_check, "inputs_serving",
                                              serving["stream_prefill_launches"]))
-    emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches),
+    moe_train = qm["moe"]["train"]["launches"]
+    emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches, {
+                          "train_classifier": train_launches, "moe_train_step": moe_train}),
                       fold_kernel_entry(fa, fold_check, fold_launches, launches_by_path={
                           "map_classify_tpu": fold_launches,
                           "map_classify_tpu_bert_sp2": bert_run["fold_launches"]}),
-                      t5_kernel_entry(fa, t5_check, t5_run["launches"])]})
+                      t5_kernel_entry(fa, t5_check, t5_run["launches"], launches_by_path={
+                          "map_summarize_t5_large": t5_run["launches"],
+                          **{f"map_summarize_t5_large_{'bf16' if m == 'none' else m}": n
+                             for m, n in qm["summarize_t5_large"]["launches"].items()}})]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

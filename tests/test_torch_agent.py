@@ -535,3 +535,70 @@ def test_two_engines_each_step_once_a_pass(torch_rt):
     assert len(engines) == 2
     assert sorted(pumps.values()) == sorted(e.steps_run for e in engines)
     assert _serve_answers(controller, rids) == want
+
+
+# ---- the usage block ----
+
+USAGE_REQUESTS = [("usage request one", 4), ("usage request two", 5)] * 2
+
+
+def _usage_drain(agent_factory, drain_csv, loop):
+    """A read_csv_shard job and two serve_summarize jobs (the second's two
+    requests repeat the first's, so they hit the prefix cache) drained by
+    the agent ``agent_factory(controller)`` builds -> {job: usage}."""
+    controller = _serve_controller(max_batch=2)
+    csv_job = controller.submit("read_csv_shard", {"source_uri": drain_csv, "start_row": 10,
+                                                    "shard_size": 25})
+    controller.submit_infer("summarize", USAGE_REQUESTS[0][0], params={
+        "model_config": SERVE_S2S, "max_length": USAGE_REQUESTS[0][1]})
+    controller.submit_infer("summarize", USAGE_REQUESTS[1][0], params={
+        "model_config": SERVE_S2S, "max_length": USAGE_REQUESTS[1][1]})
+    controller._serve_pump()
+    agent = agent_factory(controller)
+    if loop == "serial":
+        _serial_drain(agent, controller)
+    else:
+        _pipelined_drain(agent, controller)
+    rids = [controller.submit_infer("summarize", text, params={
+        "model_config": SERVE_S2S, "max_length": limit}) for text, limit in USAGE_REQUESTS[2:]]
+    controller._serve_pump()
+    if loop == "serial":
+        _serial_drain(agent, controller)
+    else:
+        agent.running = True
+        _pipelined_drain(agent, controller)
+    _serve_answers(controller, rids)
+    results = controller.results()
+    serve_jobs = [j for j, r in results.items() if r.get("op") == "serve_summarize"]
+    return results[csv_job].get("usage"), sorted(
+        (results[j].get("usage") or {} for j in serve_jobs),
+        key=lambda u: u.get("cache_hit_rows", 0.0))
+
+
+@pytest.mark.parametrize("loop", ["serial", "pipelined"])
+def test_results_carry_the_op_usage_as_the_reference_agent(torch_rt, drain_csv, loop):
+    """The port's agent forwards the op's usage block (rows, and the serving
+    ops' cache_hit_rows) into every result, as the reference's agent does in
+    both loops, so the reference controller's showback ledger bills it."""
+    def reference(controller):
+        jax_reset_engines()
+        cfg = JaxConfig(agent=JaxAgentConfig(
+            controller_url=LOCAL, agent_name="ref", tasks=("read_csv_shard", "serve_summarize"),
+            idle_sleep_sec=0.01, max_tasks=4))
+        agent = JaxAgent(config=cfg, session=LoopbackSession(controller),
+                         runtime=jax_get_runtime())
+        agent._profile = {"tier": "test"}
+        return agent
+
+    def port(controller):
+        agent = _serving_agent(controller, torch_rt)
+        agent.handlers = {**agent.handlers, **app.load_ops(["read_csv_shard"])}
+        return agent
+
+    want_csv, want_serve = _usage_drain(reference, drain_csv, "serial")
+    got_csv, got_serve = _usage_drain(port, drain_csv, loop)
+    assert got_csv["rows"] == want_csv["rows"] == 25.0
+    keys = ("rows", "cache_hit_rows")
+    assert [{k: u.get(k) for k in keys} for u in got_serve] == \
+        [{k: u.get(k) for k in keys} for u in want_serve]
+    assert got_serve[-1]["cache_hit_rows"] == 2.0

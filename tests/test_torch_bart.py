@@ -226,7 +226,7 @@ SUMMARIZE_CASES = {
     "beam4": {"max_length": 8, "num_beams": 4, "length_penalty": 2.0},
     "beam3_min": {"max_length": 8, "num_beams": 3, "min_length": 5, "early_stopping": True},
     "single": {"max_length": 6, "single": True},
-    "quant": {"max_length": 6, "model_config": {"quant": "int8"}},
+    "quant": {"max_length": 6, "model_config": {"dtype": "float32", "quant": "int8"}},
 }
 
 
@@ -241,9 +241,6 @@ def test_summarize_op_matches_the_reference(text_ckpt, summarize, name):
     else:
         payload["texts"] = texts
     got = summarize(payload)
-    if name == "quant":  # the quantized modes are not ported: a soft refusal
-        assert got["ok"] is False and "quant" in got["error"]
-        return
     want = jax_get_op("map_summarize")(dict(payload), JaxOpContext(runtime=jax_get_runtime()))
     assert got["ok"] and want["ok"] and got["device"] == "cpu"
     assert got["summary"] == want["summary"]

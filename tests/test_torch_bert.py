@@ -248,14 +248,25 @@ def test_sp2_ring_matches_the_jax_ring(ckpt, classify):
 
 
 @pytest.mark.parametrize("how", ["payload", "env"])
-def test_quantized_bert_is_refused_softly(ckpt, classify, monkeypatch, how):
-    payload = dict(_payloads(ckpt)["text"])
+def test_quantized_bert_is_refused_softly(ckpt, classify, jax_classify, monkeypatch, how):
+    """Refused until the port had quantized serving: a quant mode from the
+    payload (int8) or from TPU_QUANT (w8a16) now serves the checkpoint
+    quantized, with the reference's top-k. W8A8 rounds every activation to
+    int8: where the port's flash attention sums in another order than the
+    reference's dense attention, a value at a rounding boundary takes the
+    next code, which moves that row's scores by up to about 1e-3 here; the
+    int8 case's scores are held within 5e-3, w8a16's within f32's 2e-5."""
+    payload = dict(_payloads(ckpt)["texts"])
     if how == "payload":
-        payload["model_config"] = {"quant": "int8"}
+        payload["model_config"] = {"dtype": "float32", "quant": "int8"}
     else:
         monkeypatch.setenv("TPU_QUANT", "w8a16")
-    out = classify(payload)
-    assert out["ok"] is False and "quant" in out["error"]
+    got, want = classify(payload), jax_classify(payload)
+    assert got["ok"] and want["ok"]
+    (gi, gs), (wi, ws) = _columns(got), _columns(want)
+    assert gi == wi
+    np.testing.assert_allclose(gs, ws, atol=5e-3 if how == "payload" else TOL["float32"],
+                               rtol=0)
 
 
 def test_structural_overrides_are_ignored_for_a_checkpoint(ckpt, classify, jax_classify):

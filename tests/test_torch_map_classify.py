@@ -139,11 +139,16 @@ def test_oversize_batch_chunks(classify, monkeypatch):
     ({}, "payload requires"),
     ({"texts": ["x"], "result_format": "nope"}, "result_format"),
     ({"source_uri": "", "start_row": 0}, "source_uri"),  # a malformed shard address
-    ({"text": "x", "model_config": {"quant": "int8"}}, "quant"),
+    # quant int8 and moe_experts serve now (tests/test_torch_quant.py,
+    # test_torch_moe.py); an unknown mode and MoE over pp stay soft errors.
+    ({"text": "x", "model_config": {"quant": "int4"}}, "quant"),
     ({"text": "x", "model_config": {"pp": 2}}, "pp"),
-    ({"text": "x", "model_config": {"moe_experts": 4}}, "moe_experts"),
+    ({"text": "x", "model_config": {"moe_experts": 4, "pp": 2}}, "pp"),
     ({"text": "x", "start_row": -1}, "start_row"),
-])
+], ids=["payload0-topk", "payload1-topk", "payload2-texts", "payload3-input",
+        "payload4-numeric", "payload5-out of range", "payload6-out of range",
+        "payload7-payload requires", "payload8-result_format", "payload9-source_uri",
+        "payload10-quant", "payload11-pp", "payload12-moe_experts", "payload13-start_row"])
 def test_bad_input_is_soft(classify, payload, needle):
     out = classify(payload)
     assert out["ok"] is False and needle in out["error"], out

@@ -105,7 +105,9 @@ def test_bad_input_matches_jax(summarize, jax_summarize, payload):
     # source_uri is served now (its parity cases are below); a malformed
     # shard address stays a soft error.
     ({"source_uri": "", "start_row": 0}, "source_uri"),
-    ({"text": "x", "model_config": {"quant": "int8"}}, "quant"),
+    # quant int8 serves now (tests/test_torch_quant.py); an unknown mode
+    # stays a soft error, as in the reference.
+    ({"text": "x", "model_config": {"quant": "int4"}}, "quant"),
     # float16 was refused until the port took the reference's dtype names;
     # it serves now, through dense attention (the kernels take bf16/f32).
     ({"text": "x", "model_config": dict(SMALL, dtype="float16"), "max_length": 4}, None),
@@ -118,18 +120,22 @@ def test_unported_features_are_soft(summarize, payload, needle):
         assert out["ok"] is False and needle in out["error"], out
 
 
-def test_quant_env_is_soft(summarize, monkeypatch):
+def test_quant_env_is_soft(summarize, jax_summarize, monkeypatch):
+    """Refused until the port had quantized serving: TPU_QUANT=w8a16 now
+    serves the seq2seq weight-only quantized, with the reference's
+    summaries."""
     monkeypatch.setenv("TPU_QUANT", "w8a16")
-    out = summarize({"text": "x", "model_config": SMALL})
-    assert out["ok"] is False and "quant" in out["error"]
+    payload = {"texts": TEXTS, "model_config": SMALL, "max_length": 8}
+    got, want = summarize(payload), jax_summarize(payload)
+    assert got["ok"] and got["summaries"] == want["summaries"]
 
 
 def test_bart_checkpoint_is_soft(summarize, jax_summarize, tmp_path):
     """A BART checkpoint directory is served now (it was refused until the
     port had BART; tests/test_torch_bart.py holds it to the reference): a
     config.json without BART's fields fails the request as the reference's
-    does, a quantized mode stays a soft refusal, and a whole checkpoint gives
-    the reference's summaries."""
+    does, and a whole checkpoint gives the reference's summaries, quantized
+    (w8a16) too."""
     import chip_smoke
 
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "bart"}))
@@ -148,8 +154,8 @@ def test_bart_checkpoint_is_soft(summarize, jax_summarize, tmp_path):
     payload = {"texts": [" ".join(words[:5]), words[6]], "model_path": str(tmp_path),
                "max_length": 6, "model_config": {"dtype": "float32"}}
     assert summarize(payload)["summaries"] == jax_summarize(payload)["summaries"]
-    out = summarize(dict(payload, model_config={"quant": "w8a16"}))
-    assert out["ok"] is False and "quant" in out["error"]
+    quantized = dict(payload, model_config={"dtype": "float32", "quant": "w8a16"})
+    assert summarize(quantized)["summaries"] == jax_summarize(quantized)["summaries"]
 
 
 def test_other_checkpoint_dir_raises_as_the_reference_does(summarize, tmp_path):

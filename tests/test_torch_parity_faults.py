@@ -6,7 +6,9 @@ the same type.
 
 1. ``model_config.dtype`` names: those ``jnp.dtype`` takes for a float type
    serve and train (float16 through dense attention, float64 as float32, as
-   JAX computes it without x64); names it does not know raise its TypeError.
+   JAX computes it without x64); names it does not know raise its TypeError;
+   ``int8`` raises the OverflowError of the reference's cast of -1e9 to it.
+   A ``max_len`` of 0 raises the reference's ValueError (a max over no key).
 2. A ``quant`` key in the payload wins over ``TPU_QUANT``.
 3. A bad ``TPU_QUANT`` raises RuntimeError (the shard fails and is retried).
 4. ``train_classifier`` with ``int8``/``w8a16`` and no MoE trains float
@@ -86,12 +88,12 @@ def _both(op, payload, port_ops, port_ctx, jax_ctx):
     return got, want
 
 
-def _assert_same_outcome(got, want, same_message=True):
+def _assert_same_outcome(got, want):
     assert got[0] == want[0], (got, want)
     if got[0] == "raised":
         assert type(got[1]) is type(want[1]), (got, want)
         assert str(got[1]) == str(want[1])
-    elif got[0] == "soft" and same_message:
+    elif got[0] == "soft":
         assert got[1] == want[1]
 
 
@@ -102,7 +104,7 @@ def _scores(result):
 # ---- 1. dtype names ------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["bfloat16", "float32", "float16", "half", "bf16", "fp16",
-                                  "float64"])
+                                  "float64", "int8"])
 @pytest.mark.parametrize("op", OPS)
 def test_dtype_names_match_reference(op, name, port_ops, port_ctx, jax_ctx, tmp_path):
     got, want = _both(op, _payload(op, {"dtype": name}, tmp_path), port_ops, port_ctx, jax_ctx)
@@ -111,6 +113,16 @@ def test_dtype_names_match_reference(op, name, port_ops, port_ctx, jax_ctx, tmp_
         np.testing.assert_allclose(_scores(got[1]), _scores(want[1]), atol=SCORE_TOL[name])
     if got[0] == "served" and op == "train_classifier":
         assert got[1]["model_config"]["dtype"] == want[1]["model_config"]["dtype"] == name
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_max_len_zero_raises_as_the_reference(op, port_ops, port_ctx, jax_ctx, tmp_path):
+    """Classify and train raise the reference's ValueError; summarize's
+    config has no max_len and serves."""
+    got, want = _both(op, _payload(op, {"max_len": 0, "dtype": "float32"}, tmp_path),
+                      port_ops, port_ctx, jax_ctx)
+    _assert_same_outcome(got, want)
+    assert got[0] == ("served" if op == "map_summarize" else "raised")
 
 
 @pytest.mark.parametrize("name,want", [
@@ -207,8 +219,7 @@ def test_train_quant_without_moe_trains(quant, port_ops, port_ctx, jax_ctx, tmp_
 def test_train_quant_with_moe_is_refused(quant, port_ops, port_ctx, jax_ctx, tmp_path):
     payload = _payload("train_classifier", {"quant": quant, "moe_experts": 2}, tmp_path)
     got, want = _both("train_classifier", payload, port_ops, port_ctx, jax_ctx)
-    # MoE is not ported, so the port's message names MoE; the outcome is the same.
-    _assert_same_outcome(got, want, same_message=False)
+    _assert_same_outcome(got, want)
     assert got[0] == "soft"
 
 

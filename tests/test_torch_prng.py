@@ -54,6 +54,20 @@ def test_normal_within_one_ulp_of_jax(shape):
     assert _ulps(got, want).max() <= 1
 
 
+@pytest.mark.parametrize("draw", ["bits", "normal"])
+def test_parallel_draw_matches_jax(draw):
+    """An array drawn in parallel chunks (over 2 * PARALLEL_CHUNK elements)
+    gives the same bits as JAX's one draw."""
+    shape = (2 * prng.PARALLEL_CHUNK // 1000 + 7, 1000)
+    key = jax.random.PRNGKey(31)
+    if draw == "bits":
+        np.testing.assert_array_equal(prng.random_bits(np.asarray(key), shape),
+                                      np.asarray(jax.random.bits(key, shape)))
+    else:
+        got = prng.normal(np.asarray(key), shape)
+        assert _ulps(got, np.asarray(jax.random.normal(key, shape))).max() <= 1
+
+
 def test_init_params_match_jax_leaf_for_leaf():
     cfg_j = jax_encoder.EncoderConfig()
     cfg_t = encoder.EncoderConfig()

@@ -371,14 +371,24 @@ def test_mpmd_soft_errors_match_the_reference(ops, jax_ops, torch_rt, op, payloa
     assert got["ok"] is False and got == want
 
 
-def test_quantized_serving_is_refused(ops, torch_rt):
-    for op in ("serve_summarize", "serve_prefill", "serve_decode"):
-        out = ops[op](_payload(model_config=dict(TINY_S2S, quant="int8")), _ctx(torch_rt))
-        assert out["ok"] is False and "quant" in out["error"]
-    out = ops["summarize_encode"]({"texts": ["x"], "model_config": dict(TINY_S2S,
-                                                                        quant="w8a16")},
-                                  _ctx(torch_rt))
-    assert out["ok"] is False and "quant" in out["error"]
+def test_quantized_serving_is_refused(ops, jax_ops, torch_rt):
+    """Refused until the port had quantized serving: now int8 serves through
+    serve_summarize and the prefill -> decode split, and w8a16 through the
+    MPMD chain, each equal to the reference's ops (f32 tokens)."""
+    int8 = _payload(model_config=dict(TINY_S2S, quant="int8"))
+    got = ops["serve_summarize"](dict(int8), _ctx(torch_rt))
+    want = jax_ops["serve_summarize"](dict(int8), _jax_ctx())
+    assert got["ok"] and [r["summary"] for r in got["results"]] == \
+        [r["summary"] for r in want["results"]]
+    pre = ops["serve_prefill"](dict(int8), _ctx(torch_rt))
+    dec = ops["serve_decode"](dict(int8, encoded=pre), _ctx(torch_rt))
+    assert [r["summary"] for r in dec["results"]] == [r["summary"] for r in got["results"]]
+    payload = {"texts": TEXTS, "model_config": dict(TINY_S2S, quant="w8a16")}
+    enc = ops["summarize_encode"](payload, _ctx(torch_rt))
+    jax_enc = jax_ops["summarize_encode"](payload, _jax_ctx())
+    decode = {"model_config": payload["model_config"], "max_length": 8}
+    assert ops["summarize_decode"](dict(decode, encoded=enc), _ctx(torch_rt))["summaries"] \
+        == jax_ops["summarize_decode"](dict(decode, encoded=jax_enc), _jax_ctx())["summaries"]
 
 
 # ---- the disaggregated chain through the reference's controller ----

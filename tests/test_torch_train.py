@@ -175,5 +175,18 @@ def test_step_trains_without_grad_mode(jax_params, mode):
 
 
 def test_moe_training_not_ported():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        train.make_train_step(encoder.EncoderConfig(**dict(CFG, moe_experts=4)))
+    """MoE training was refused until the port had models/moe.py: now a
+    step of an MoE model adds MOE_AUX_WEIGHT times the Switch aux loss to
+    the cross entropy (tests/test_torch_moe.py holds it to the reference)."""
+    cfg = encoder.EncoderConfig(**dict(CFG, moe_experts=4))
+    ids, mask, labels = (torch.from_numpy(x) for x in _batch(6))
+    model = encoder.from_jax_params(encoder.init_params(cfg, "moe-step"), cfg, trainable=True)
+    with torch.no_grad():
+        logits, aux = model(ids, mask, with_aux=True)
+        nll = torch.nn.functional.cross_entropy(logits, labels.long())
+        loss = train.cross_entropy_loss(model, ids, mask, labels)
+    assert float(aux) > 0
+    torch.testing.assert_close(loss, nll + train.MOE_AUX_WEIGHT * aux)
+    init, step = train.make_train_step(cfg, train.adamw(LR))
+    _, _, stepped = step(model, init(model), ids, mask, labels)
+    torch.testing.assert_close(stepped, loss)

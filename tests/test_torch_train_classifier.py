@@ -196,7 +196,9 @@ TINY = {"d_model": 32, "n_heads": 2, "n_layers": 1, "d_ff": 64, "max_len": 16}
 @pytest.mark.parametrize("extra,needle", [
     ({"source_uri": ""}, "source_uri"),  # served now; a malformed address is soft
     (dict(TINY_TRAIN, model_config=dict(TINY, quant="int8")), None),
-    ({"texts": ["a"], "labels": [0], "model_config": {"moe_experts": 4}}, "moe_experts"),
+    # MoE trains now (tests/test_torch_moe.py); MoE with quant stays refused.
+    ({"texts": ["a"], "labels": [0], "model_config": {"moe_experts": 4, "quant": "int8"}},
+     "MoE training"),
     ({"texts": ["a"], "labels": [0], "model_config": {"pp": 2}}, "pp"),
     (dict(TINY_TRAIN, model_config=dict(TINY, dtype="float16")), None),
     ("not a dict", "dict"),

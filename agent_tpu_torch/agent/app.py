@@ -28,16 +28,31 @@ Behaviour kept from the reference:
   remainder of the lease, flush the spool and the final metrics, exit 0;
 - exit code 2 when ``TASKS`` resolves to no ops or names an unknown one.
 
+Telemetry, as the reference's: the runner's own phase measurements become
+spans (``stage``, ``queue``, ``execute``, ``post``, ``result.redeliver``)
+parented to the controller's lease span; they ride ``POST /v1/results``
+and the lease ``metrics`` channel, and are requeued when a post fails. Each
+execute feeds ``device_busy_seconds_total{op}``, the rolling
+``device_duty_cycle``, ``device_flops_total{op,shape}`` and
+``device_mfu{op}`` (the ops' analytic FLOPs over busy seconds over the
+card's peak, ``obs.health``), and stamps the result's ``usage`` block with
+the same ``device_s``, ``chips``, ``flops`` and the host's ``host_s``.
+``device_hbm_bytes{device,kind}`` reads every card the runtime owns
+(``obs.profile``). A flight recorder (``obs.recorder``) keeps the last
+events; ``SIGUSR1`` dumps it, as does a fatal error and an ``slo_page``
+alert on a lease (once per episode). ``PROFILE_DIR`` writes a
+``torch.profiler`` Chrome trace of the first ``PROFILE_TASKS`` tasks'
+execute; a ``profile_capture`` alert wraps the next matching execute in
+one, and its completion record rides the lease metrics
+(``profile_captures``). ``CONTROLLER_URLS`` is the failover list: a
+transport error rotates to the next controller.
+
 Differences: the default session is ``urllib`` (``utils.http``), so the
 agent runs where ``requests`` is not installed. An agent whose ``TASKS``
 include a device op (``ops.DEVICE_OPS``) builds the runtime when it
 starts — on ``cuda:0``, failing there without CUDA — and an agent of host
-ops only never builds one. A result carries the op's ``usage`` block (rows,
-``cache_hit_rows``). Not ported yet: spans and the flight recorder, the
-agent's own usage stamps (device and host seconds, chips, FLOPs), the
-health/MFU and memory gauges, profile captures, SLO alert
-dumps, the ``CONTROLLER_URLS`` failover list, the partition map and
-multi-host slices.
+ops only never builds one. Not ported yet: the partition map and
+multi-host slices (ROADMAP Queue 1 items 2 and 3).
 
 Run it as ``python -m agent_tpu_torch.agent.app`` with ``CONTROLLER_URL``
 and ``TASKS`` set.
@@ -45,6 +60,7 @@ and ``TASKS`` set.
 
 from __future__ import annotations
 
+import os
 import signal
 import sys
 import time
@@ -53,7 +69,13 @@ from typing import Any, Dict, List, Optional, Tuple
 from agent_tpu_torch.agent.spool import ResultSpool
 from agent_tpu_torch.config import Config
 from agent_tpu_torch.data import wire
+from agent_tpu_torch.obs import trace as obs_trace
+from agent_tpu_torch.obs.health import RollingWindow, resolve_peak_flops
 from agent_tpu_torch.obs.metrics import MetricsRegistry
+from agent_tpu_torch.obs.profile import KINDS, device_memory_stats
+from agent_tpu_torch.obs.recorder import FlightRecorder, default_dump_path
+from agent_tpu_torch.obs.trace import SpanBuffer, TraceContext, make_span, new_span_id, use_context
+from agent_tpu_torch.obs.usage import stamp_usage
 from agent_tpu_torch.ops import DEVICE_OPS, OpFn, load_ops
 from agent_tpu_torch.utils.errors import structured_error
 from agent_tpu_torch.utils.logging import RateLimiter, log
@@ -70,6 +92,9 @@ PHASE_KEYS = (
 )
 
 STATUS_TRANSPORT_ERROR = 0  # "could not reach the controller at all"
+
+# The rolling duty cycle's window: "is the device busy right now".
+DUTY_WINDOW_SEC = 60.0
 
 
 def collect_host_metrics() -> Dict[str, Any]:
@@ -89,6 +114,15 @@ def _default_session():
     from agent_tpu_torch.utils.http import UrllibSession
 
     return UrllibSession()
+
+
+def _profiler_active() -> bool:
+    """A torch.profiler session is already recording in this process (the
+    agent never nests one inside another)."""
+    import torch
+
+    enabled = getattr(torch._C._autograd, "_profiler_enabled", None)
+    return bool(enabled()) if enabled is not None else False
 
 
 class Agent:
@@ -111,6 +145,9 @@ class Agent:
         a = self.config.agent
         self.rate = RateLimiter(a.error_log_every_sec)
         self.obs = MetricsRegistry()  # its snapshot rides every lease
+        self.recorder = FlightRecorder()
+        # Closed spans wait here for the next result post or lease.
+        self.tracer = SpanBuffer()
         self.m_tasks = self.obs.counter(
             "tasks_total", "Tasks completed by op and status", ("op", "status"))
         self.m_phase = self.obs.histogram(
@@ -126,6 +163,27 @@ class Agent:
         self.m_device_busy = self.obs.counter(
             "device_busy_seconds_total",
             "Device-thread seconds dispatching op execute phases, per op", ("op",))
+        self.m_duty = self.obs.gauge(
+            "device_duty_cycle",
+            "Rolling duty cycle: device-busy seconds inside the last "
+            f"{int(DUTY_WINDOW_SEC)}s window / window span")
+        self.m_flops = self.obs.counter(
+            "device_flops_total",
+            "Analytic model FLOPs dispatched, per op and shape bucket "
+            "(matmul terms only — the ops' own estimate)", ("op", "shape"))
+        self.m_mfu = self.obs.gauge(
+            "device_mfu",
+            "Model FLOPs utilization per op: analytic FLOPs / device-busy "
+            "seconds / peak dense-bf16 FLOP/s (absent when the peak is "
+            "unknown — PEAK_TFLOPS overrides)", ("op",))
+        self.m_hbm = self.obs.gauge(
+            "device_hbm_bytes",
+            "Per-card device memory (allocator used/peak, card total), across "
+            "every card the runtime owns (absent on the CPU)", ("device", "kind"))
+        self.m_failover = self.obs.counter(
+            "controller_failovers_total",
+            "Active-controller rotations after transport errors "
+            "(CONTROLLER_URLS failover list)")
         self.m_post_fail = self.obs.counter(
             "result_post_failures_total",
             "Result posts that failed (then spooled, or dropped if permanent)", ("op",))
@@ -147,12 +205,22 @@ class Agent:
         self._spool_next_try = 0.0
         self.m_spool_depth.set(len(self.spool))  # disk-loaded backlog
         self._progress = {"t": time.monotonic(), "n": 0}
+        # The failover candidates, primary first; a transport error rotates
+        # the active index (sticky on success), for the lease loop and the
+        # poster alike.
+        urls = list(a.controller_urls) or [a.controller_url]
+        if a.controller_url not in urls:
+            urls.insert(0, a.controller_url)
+        self._controller_urls = urls
+        self._url_index = 0
         # Unknown or disabled op names fail here, not mid-lease.
         self.handlers: Dict[str, OpFn] = load_ops(list(a.tasks))
         if runtime is None and DEVICE_OPS & set(self.handlers):
             from agent_tpu_torch.runtime.runtime import get_runtime
 
-            runtime = get_runtime()  # cuda:0, or a RuntimeError without CUDA
+            # cuda:0 (or CHIP_SLICE's card), a CPU runtime for TPU_DISABLED,
+            # else a RuntimeError without CUDA.
+            runtime = get_runtime(self.config.device)
         self.runtime = runtime
         self._profile: Optional[Dict[str, Any]] = None
         self.tasks_done = 0
@@ -167,19 +235,57 @@ class Agent:
         self.lease_batch_hint: Optional[int] = None
         # Poster-thread session factory; None = a fresh default session.
         self.post_session_factory: Optional[Any] = None
+        # Utilization: the rolling duty window and each op's busy seconds
+        # and FLOPs for the MFU gauge; the device thread alone touches them.
+        self._duty = RollingWindow(DUTY_WINDOW_SEC)
+        self._busy_by_op: Dict[str, float] = {}
+        self._flops_by_op: Dict[str, float] = {}
+        self._peak_flops: Optional[float] = None
+        self._usage_chips: Optional[float] = None
+        # SLO page alerts: the objectives whose page episode this agent has
+        # dumped its recorder for (once an episode; a cleared one re-arms).
+        self._page_dumped: set = set()
+        self.slo_dump_paths: List[str] = []
+        # Profile captures: requests from lease alerts, waiting for their
+        # op's next execute, and completion records waiting for a lease.
+        self._pending_captures: List[Dict[str, Any]] = []
+        self._captures_seen: set = set()
+        self._capture_done: List[Dict[str, Any]] = []
+        self.profiled_tasks = 0  # PROFILE_DIR traces written
 
     # ---- controller I/O ----
+
+    def active_controller_url(self) -> str:
+        """The controller currently targeted (rotates on transport errors)."""
+        urls = self._controller_urls
+        return urls[self._url_index % len(urls)]
+
+    def _note_transport_error(self, url: str) -> None:
+        """Rotate to the next failover candidate. Only the thread whose URL
+        is still the active one advances it, so concurrent errors rotate
+        once; a success leaves the index where it landed."""
+        urls = self._controller_urls
+        if len(urls) < 2:
+            return
+        if urls[self._url_index % len(urls)] == url:
+            self._url_index = (self._url_index + 1) % len(urls)
+            self.m_failover.inc()
+            self.recorder.record("controller_failover", failed=url,
+                                 active=urls[self._url_index])
+            log("controller unreachable — failing over", failed=url,
+                active=urls[self._url_index])
 
     def _post_json(self, path: str, body: Dict[str, Any],
                    session: Any = None) -> Tuple[int, Any]:
         """POST JSON -> (status, parsed body). Status 0 = transport error;
         a body that is not JSON comes back as text. ``session`` overrides
         the agent's (the poster thread brings its own)."""
-        url = f"{self.config.agent.controller_url}{path}"
+        base = self.active_controller_url()
         try:
             resp = (session or self.session).post(
-                url, json=body, timeout=self.config.agent.http_timeout_sec)
+                f"{base}{path}", json=body, timeout=self.config.agent.http_timeout_sec)
         except Exception as exc:  # noqa: BLE001 — any transport failure
+            self._note_transport_error(base)
             return STATUS_TRANSPORT_ERROR, repr(exc)
         if resp.status_code == 204:
             return 204, None
@@ -193,7 +299,7 @@ class Agent:
         if self._profile is None:
             from agent_tpu_torch.sizing.profile import build_worker_profile
 
-            self._profile = build_worker_profile(self.config.sizing)
+            self._profile = build_worker_profile(self.config.sizing, self.config.device)
         return self._profile
 
     def _staged_depth(self) -> int:
@@ -206,21 +312,108 @@ class Agent:
 
     def capabilities(self) -> Dict[str, Any]:
         """The lease ``capabilities``: ops, the staged backlog, the binary
-        wire offer and, once a runtime exists, its platform and size."""
+        wire offer, the chip slice and, once a runtime exists, its platform
+        and size."""
         caps: Dict[str, Any] = {"ops": sorted(self.handlers), "queue_depth": self._staged_depth()}
         if self.config.agent.wire_binary:
             caps["wire_formats"] = list(wire.FORMATS)
+        if self.config.device.chip_slice:
+            caps["chip_slice"] = self.config.device.chip_slice
         if self.runtime is not None:
             caps["device_kind"] = self.runtime.platform
             caps["mesh_devices"] = self.runtime.n_devices
         return caps
 
-    def note_device_time(self, op: str, seconds: float) -> None:
-        """Device-thread seconds spent dispatching one op's execute."""
-        self.m_device_busy.inc(max(0.0, seconds), op=op)
+    def note_device_time(self, op: str, seconds: float,
+                         tags: Optional[Dict[str, Any]] = None) -> None:
+        """After every execute on the device thread: the busy counter, the
+        rolling duty cycle, the FLOPs counter and MFU gauge from the op's
+        ``ctx.tags["device_attr"]``, and the task's usage stamp, whose
+        ``device_s`` is the very float the busy counter adds (``tags`` None:
+        no stamp, as for a serving step shared by several jobs)."""
+        seconds = max(0.0, seconds)
+        self.m_device_busy.inc(seconds, op=op)
+        self._duty.add(seconds)
+        self.m_duty.set(round(self._duty.fraction(), 4))
+        self._busy_by_op[op] = self._busy_by_op.get(op, 0.0) + seconds
+        task_flops = 0.0
+        attr = (tags or {}).get("device_attr")
+        if isinstance(attr, dict):
+            flops = attr.get("flops")
+            if isinstance(flops, (int, float)) and flops > 0:
+                task_flops = float(flops)
+                self.m_flops.inc(task_flops, op=op, shape=str(attr.get("shape", "?")))
+                self._flops_by_op[op] = self._flops_by_op.get(op, 0.0) + task_flops
+        if self._usage_chips is None:
+            # A device second spans every card of the mesh; 1 without a runtime.
+            self._usage_chips = float(self.runtime.n_devices) if self.runtime is not None \
+                else 1.0
+        stamp_usage(tags, device_s=seconds, chips=self._usage_chips, flops=task_flops or None)
+        if self._peak_flops is None:
+            self._peak_flops = resolve_peak_flops(self.runtime)
+        busy = self._busy_by_op[op]
+        flops_total = self._flops_by_op.get(op, 0.0)
+        if self._peak_flops and busy > 0 and flops_total > 0:
+            self.m_mfu.set(round(flops_total / busy / self._peak_flops, 6), op=op)
+
+    def note_alerts(self, alerts: Any) -> None:
+        """React to the alerts on a granted lease: a ``profile_capture``
+        arms one capture of the next matching execute (deduped by id); an
+        objective entering ``page`` dumps this agent's flight recorder,
+        once per objective per episode (one that clears re-arms)."""
+        active: set = set()
+        for a in alerts or []:
+            if not isinstance(a, dict):
+                continue
+            if a.get("kind") == "profile_capture":
+                cid = a.get("capture_id")
+                if isinstance(cid, str) and cid and cid not in self._captures_seen:
+                    self._captures_seen.add(cid)
+                    self._pending_captures.append({"capture_id": cid, "op": a.get("op"),
+                                                   "duration_ms": a.get("duration_ms")})
+                continue
+            if a.get("state") != "page":
+                continue
+            objective = a.get("objective")
+            if not objective:
+                continue
+            active.add(objective)
+            if objective in self._page_dumped:
+                continue
+            self._page_dumped.add(objective)
+            bits = "-".join(f"{k}{a[k]}" for k in ("tier", "tenant", "op") if a.get(k)) or "all"
+            path = default_dump_path(
+                f"agent-{self.config.agent.agent_name}-slo-{objective}-{bits}")
+            self.recorder.record("slo_page", objective=objective, path=path,
+                                 **{k: a[k] for k in ("tier", "tenant", "op") if a.get(k)})
+            try:
+                n = self.recorder.dump(path)
+                self.slo_dump_paths.append(path)
+                log("slo page — agent flight recorder dumped", objective=objective,
+                    path=path, events=n)
+            except OSError:
+                pass  # a failing dump must not stop the drain
+        self._page_dumped &= active
+
+    def _refresh_hbm_gauges(self) -> None:
+        """``device_hbm_bytes{device,kind}`` over every card the runtime
+        owns, refreshed at snapshot time; a CPU runtime exports nothing."""
+        if self.runtime is None:
+            return
+        try:
+            for entry in device_memory_stats(self.runtime.devices):
+                for kind in KINDS:
+                    if kind in entry:
+                        self.m_hbm.set(entry[kind], device=entry["device"], kind=kind)
+        except Exception:  # noqa: BLE001 — telemetry must never kill a lease
+            pass
 
     def _metrics(self) -> Dict[str, Any]:
         m = collect_host_metrics()
+        # The duty decays while idle: a quiet agent reads 0, not its last
+        # busy moment.
+        self.m_duty.set(round(self._duty.fraction(), 4))
+        self._refresh_hbm_gauges()
         if self.runtime is not None:
             try:
                 m["device"] = self.runtime.describe()
@@ -229,34 +422,100 @@ class Agent:
         m["obs"] = self.obs.snapshot()
         return m
 
-    def push_metrics(self) -> bool:
+    def _piggyback(self, metrics: Dict[str, Any]) -> Tuple[list, list]:
+        """Move the pending spans and capture completions into a lease's
+        ``metrics``; the caller requeues them when the post fails."""
+        spans = self.tracer.drain()
+        if spans:
+            metrics["spans"] = spans
+        captures, self._capture_done = self._capture_done, []
+        if captures:
+            metrics["profile_captures"] = captures
+        return spans, captures
+
+    def _requeue(self, spans: list, captures: list) -> None:
+        if spans:
+            self.tracer.requeue(spans)
+        if captures:
+            self._capture_done = captures + self._capture_done
+
+    def push_metrics(self, session: Any = None) -> bool:
         """Metrics-only lease poll (``max_tasks=0``) after the last result,
-        so the final counters reach the fleet view; best-effort."""
-        a = self.config.agent
-        body: Dict[str, Any] = {
-            "agent": a.agent_name,
-            "capabilities": {"ops": [], "queue_depth": self._staged_depth()},
-            "max_tasks": 0,
-            "labels": a.labels,
-            "metrics": self._metrics(),
-        }
-        if self.draining:
-            body["draining"] = True  # the retiring agent's half of the handshake
-        status, _ = self._post_json("/v1/leases", body)
+        so the final counters, spans and capture records reach the
+        controller; best-effort."""
+        spans: list = []
+        captures: list = []
+        try:
+            a = self.config.agent
+            metrics = self._metrics()
+            spans, captures = self._piggyback(metrics)
+            body: Dict[str, Any] = {
+                "agent": a.agent_name,
+                "capabilities": {"ops": [], "queue_depth": self._staged_depth()},
+                "max_tasks": 0,
+                "labels": a.labels,
+                "metrics": metrics,
+            }
+            if self.draining:
+                body["draining"] = True  # the retiring agent's half of the handshake
+            status, _ = self._post_json("/v1/leases", body, session=session)
+        except Exception:  # noqa: BLE001 — a flush must never fail a drain
+            status = STATUS_TRANSPORT_ERROR
+        if status not in (200, 204):
+            self._requeue(spans, captures)
         return status in (200, 204)
 
     def record_phase_timings(self, op: str, timings: Optional[Dict[str, Any]],
-                             keys: Optional[Tuple[str, ...]] = None) -> None:
+                             keys: Optional[Tuple[str, ...]] = None,
+                             trace_id: Optional[str] = None) -> None:
         """ctx.tags["timings"] (milliseconds) -> ``task_phase_seconds``.
         ``keys`` restricts which timing keys count: the pipelined runner
         measures stage/execute/finalize itself and takes only queue/fetch
-        from the op's timings."""
+        from the op's timings. ``trace_id`` (the job id) rides as the
+        exemplar."""
+        exemplar = {"trace_id": trace_id} if trace_id and obs_trace.enabled() else None
         for key, phase in PHASE_KEYS:
             if keys is not None and key not in keys:
                 continue
             v = (timings or {}).get(key)
             if isinstance(v, (int, float)) and not isinstance(v, bool):
-                self.m_phase.observe(float(v) / 1000.0, op=op, phase=phase)
+                self.m_phase.observe(float(v) / 1000.0, exemplar=exemplar, op=op, phase=phase)
+
+    # ---- spans ----
+
+    @staticmethod
+    def task_trace(task: Any) -> Tuple[Optional[str], Optional[str]]:
+        """``(trace_id, parent_span_id)`` from the controller's trace
+        context on the task; ``(None, None)`` without one (the agent then
+        records no span for it)."""
+        if isinstance(task, dict) and isinstance(task.get("trace"), dict):
+            t = task["trace"]
+            tid, sid = t.get("trace_id"), t.get("span_id")
+            if isinstance(tid, str) and tid:
+                return tid, sid if isinstance(sid, str) and sid else None
+        return None, None
+
+    def _process_name(self) -> str:
+        return f"agent:{self.config.agent.agent_name}"
+
+    def trace_span(self, name: str, trace_id: Optional[str], parent_span_id: Optional[str],
+                   start_mono: float, duration_s: float, span_id: Optional[str] = None,
+                   **attributes: Any) -> None:
+        """Buffer one closed span; nothing without a trace id or with
+        tracing off."""
+        if not trace_id or not obs_trace.enabled():
+            return
+        self.tracer.add(make_span(
+            name, trace_id, parent_span_id, start_mono=start_mono, duration_s=duration_s,
+            span_id=span_id, process=self._process_name(),
+            attributes={k: v for k, v in attributes.items() if v is not None}))
+
+    def trace_context(self, trace_id: Optional[str], job_id: str,
+                      exec_span_id: str) -> TraceContext:
+        """The ambient context set around an op's execute."""
+        return TraceContext(trace_id=trace_id or job_id, parent_span_id=exec_span_id,
+                            tracer=self.tracer, registry=self.obs,
+                            process=self._process_name())
 
     def note_progress(self, queues: Optional[Dict[str, int]] = None) -> None:
         """Rate-limited progress summary (tasks/s over the window, queue
@@ -279,6 +538,8 @@ class Agent:
         when idle. Raises RuntimeError on transport/protocol errors so the
         caller backs off."""
         a = self.config.agent
+        metrics = self._metrics()
+        spans, captures = self._piggyback(metrics)
         hint = self.lease_batch_hint
         max_tasks = a.max_tasks if hint is None else max(a.max_tasks, int(hint))
         status, body = self._post_json("/v1/leases", {
@@ -288,8 +549,10 @@ class Agent:
             "timeout_ms": a.lease_timeout_ms,
             "labels": a.labels,
             "worker_profile": self.worker_profile(),
-            "metrics": self._metrics(),
+            "metrics": metrics,
         })
+        if status not in (200, 204):
+            self._requeue(spans, captures)
         if status == STATUS_TRANSPORT_ERROR:
             self.m_lease.inc(outcome="error")
             raise RuntimeError(f"lease transport error: {body}")
@@ -311,45 +574,63 @@ class Agent:
         # here follows a controller that changed its mind.
         fmt = body.get("wire")
         self.wire_format = fmt if fmt in wire.FORMATS else None
+        self.note_alerts(body.get("alerts"))
         self.m_lease.inc(outcome="tasks")
+        self.recorder.record("lease", lease_id=lease_id, n_tasks=len(tasks),
+                             job_ids=[t.get("id") for t in tasks if isinstance(t, dict)])
         return lease_id, tasks
 
     def post_result(self, lease_id: str, job_id: str, job_epoch: Any, status: str,
                     result: Any = None, error: Any = None, session: Any = None,
                     op: str = "?") -> bool:
-        """Post one result; a transient failure spools it for redelivery, a
-        permanent one (the controller rejected the request itself) is
-        counted and dropped."""
-        http_status, body = self._post_json("/v1/results", {
+        """Post one result, with the pending spans; a transient failure
+        spools it for redelivery and requeues the spans, a permanent one
+        (the controller rejected the request itself) is counted and
+        dropped."""
+        body = {
             "lease_id": lease_id,
             "job_id": job_id,
             "job_epoch": job_epoch,
             "status": status,
             "result": result,
             "error": error,
-        }, session=session)
+        }
+        # The spans ride the post but never the spool: a failed batch is
+        # requeued and ships with the next post or lease.
+        spans = self.tracer.drain()
+        if spans:
+            body["spans"] = spans
+        http_status, resp = self._post_json("/v1/results", body, session=session)
         if http_status in (200, 204):
             return True
+        self._requeue(spans, [])
         self.m_post_fail.inc(op=op)
         failure_class = classify_http(http_status)
+        self.recorder.record("result_post_failed", job_id=job_id, op=op, lease_id=lease_id,
+                             status=http_status, **{"class": failure_class})
         self.rate.log("result", "post failed", status=http_status,
-                      failure_class=failure_class, body=str(body)[:200])
+                      failure_class=failure_class, body=str(resp)[:200])
         if failure_class == PERMANENT:
             return False
         evicted = self.spool.put(lease_id, job_id, job_epoch, status,
                                  result=result, error=error, op=op)
         if evicted is not None:
             self.m_redeliveries.inc(outcome="dropped_overflow")
+            self.recorder.record("spool_overflow", job_id=evicted.get("job_id"),
+                                 op=evicted.get("op"))
         self.m_spool_depth.set(len(self.spool))
         return False
 
-    def release_job(self, lease_id: str, job_id: str, job_epoch: Any, op: str = "?") -> bool:
+    def release_job(self, lease_id: str, job_id: str, job_epoch: Any, op: str = "?",
+                    session: Any = None) -> bool:
         """Hand one unstarted leased task back (``status="released"``): the
         job is leasable again at once, without burning an attempt."""
         self.m_tasks.inc(op=op, status="released")
-        return self.post_result(lease_id, job_id, job_epoch, "released", op=op)
+        self.recorder.record("task_released", job_id=job_id, op=op, lease_id=lease_id)
+        return self.post_result(lease_id, job_id, job_epoch, "released", op=op,
+                                session=session)
 
-    def release_task(self, lease_id: str, task: Any) -> bool:
+    def release_task(self, lease_id: str, task: Any, session: Any = None) -> bool:
         """:meth:`release_job` from a raw task dict."""
         if not isinstance(task, dict):
             return False
@@ -357,7 +638,7 @@ class Agent:
         if not isinstance(job_id, str) or not job_id:
             return False
         op = task.get("op") if isinstance(task.get("op"), str) else "?"
-        return self.release_job(lease_id, job_id, task.get("job_epoch"), op=op)
+        return self.release_job(lease_id, job_id, task.get("job_epoch"), op=op, session=session)
 
     def flush_spool(self, session: Any = None, force: bool = False) -> int:
         """Redeliver spooled results, oldest first, honouring the backoff
@@ -373,26 +654,165 @@ class Agent:
         delivered = 0
         while len(self.spool):
             if deadline > 0 and self.spool.age_of_head() >= deadline:
-                self.spool.pop_head()
+                entry = self.spool.pop_head()
                 self.m_redeliveries.inc(outcome="expired")
+                self.recorder.record("spool_expired", job_id=(entry or {}).get("job_id"),
+                                     op=(entry or {}).get("op"))
                 continue
             entry = self.spool.head()
+            t_try = time.perf_counter()
             status, _ = self._post_json("/v1/results", ResultSpool.wire_body(entry),
                                         session=session)
             if status in (200, 204):
                 self.spool.pop_head()
                 delivered += 1
                 self.m_redeliveries.inc(outcome="delivered")
+                self.recorder.record("result_redelivered", job_id=entry.get("job_id"),
+                                     op=entry.get("op"))
+                self._trace_redelivery(entry, t_try, "delivered")
                 self._spool_retry.reset()
                 self._spool_next_try = 0.0
             elif classify_http(status) == PERMANENT:
                 self.spool.pop_head()
                 self.m_redeliveries.inc(outcome="dropped_permanent")
+                self.recorder.record("spool_dropped_permanent", job_id=entry.get("job_id"),
+                                     op=entry.get("op"), status=status)
+                self._trace_redelivery(entry, t_try, "dropped_permanent")
             else:
                 self._spool_next_try = time.monotonic() + self._spool_retry.next_backoff()
                 break
         self.m_spool_depth.set(len(self.spool))
         return delivered
+
+    def _trace_redelivery(self, entry: Dict[str, Any], t_start: float, outcome: str) -> None:
+        """A span for one spool redelivery, parented to the job's lease span
+        when the spooled result carried the trace context."""
+        job_id = entry.get("job_id")
+        if not isinstance(job_id, str) or not job_id:
+            return
+        parent = None
+        res = entry.get("result")
+        if isinstance(res, dict) and isinstance(res.get("trace"), dict):
+            sid = res["trace"].get("span_id")
+            parent = sid if isinstance(sid, str) and sid else None
+        self.trace_span("result.redeliver", job_id, parent, start_mono=t_start,
+                        duration_s=time.perf_counter() - t_start, op=entry.get("op"),
+                        outcome=outcome)
+
+    # ---- profile captures ----
+
+    def _take_capture(self, op: str) -> Optional[Dict[str, Any]]:
+        """Pop the first pending capture for ``op`` (one without an op takes
+        the next task of any op)."""
+        for i, cap in enumerate(self._pending_captures):
+            want = cap.get("op")
+            if not want or want == op:
+                return self._pending_captures.pop(i)
+        return None
+
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.runtime is not None and self.runtime.platform == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _profiled(self, op: str, thunk: Any, trace_path: str) -> Tuple[Any, Optional[str]]:
+        """``thunk()`` inside a torch.profiler session whose Chrome trace is
+        written to ``trace_path`` -> ``(result, None)``, or ``(result,
+        reason)`` when the profiler did not start or the trace was not
+        written: diagnostics never fail the task they observe, and the op's
+        own exception is never masked by the profiler's."""
+        from torch.profiler import record_function
+
+        try:
+            if _profiler_active():
+                raise RuntimeError("a torch.profiler session is already recording")
+            prof = self._profiler()
+            prof.start()
+        except Exception as exc:  # noqa: BLE001
+            return thunk(), f"profiler did not start: {exc}"[:300]
+        try:
+            with record_function(f"op:{op}"):
+                out = thunk()
+        finally:
+            try:
+                prof.stop()
+            except Exception:  # noqa: BLE001 — the export below reports it
+                pass
+        try:
+            prof.export_chrome_trace(trace_path)
+        except Exception as exc:  # noqa: BLE001
+            return out, f"trace export failed: {exc}"[:300]
+        return out, None
+
+    def _captured_call(self, op: str, thunk: Any, cap: Dict[str, Any]) -> Any:
+        """One on-demand capture: this execute under torch.profiler, its
+        Chrome trace (``trace.json``) in a per-capture artifact directory
+        (``$PROFILE_CAPTURE_DIR/capture-<id>``, else a temp dir), and the
+        completion record queued for the next lease's metrics. A capture
+        that cannot be taken gives an ``error`` record and the plain
+        result."""
+        import tempfile
+
+        cid = cap.get("capture_id")
+        record: Dict[str, Any] = {"capture_id": cid, "agent": self.config.agent.agent_name,
+                                  "op": op, "status": "done"}
+        try:
+            base = os.environ.get("PROFILE_CAPTURE_DIR", "").strip()
+            if base:
+                artifact = os.path.join(base, f"capture-{cid}")
+                os.makedirs(artifact, exist_ok=True)
+            else:
+                artifact = tempfile.mkdtemp(prefix=f"agent_tpu_torch_capture_{cid}_")
+        except OSError as exc:
+            record.update(status="error", error=str(exc)[:300])
+            self._capture_done.append(record)
+            return thunk()
+        t0 = time.perf_counter()
+        try:
+            out, reason = self._profiled(op, thunk, os.path.join(artifact, "trace.json"))
+            if reason:
+                record.update(status="error", error=reason)
+            return out
+        except Exception:
+            record["status"] = "op_failed"  # the op raised; its trace is kept
+            raise
+        finally:
+            dt_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            n_files = sum(len(files) for _, _, files in os.walk(artifact))
+            record.update(artifact=artifact, actual_duration_ms=dt_ms,
+                          summary={"op": op, "n_trace_files": n_files, "duration_ms": dt_ms})
+            self._capture_done.append(record)
+            self.recorder.record("profile_capture", capture_id=cid, op=op, artifact=artifact,
+                                 status=record["status"])
+            log("deep capture complete", op=op, artifact=artifact, capture_id=cid)
+
+    def profiled_call(self, op: str, thunk: Any) -> Any:
+        """Run ``thunk`` (an op's execute): under a pending capture for this
+        op, or, with ``PROFILE_DIR`` set, under torch.profiler for the first
+        ``PROFILE_TASKS`` tasks (one Chrome trace each), else plainly. Shared
+        by the serial loop and the pipeline's device thread."""
+        if self._pending_captures:
+            cap = self._take_capture(op)
+            if cap is not None:
+                return self._captured_call(op, thunk, cap)
+        dev = self.config.device
+        if dev.profile_dir and self.profiled_tasks < dev.profile_tasks:
+            self.profiled_tasks += 1
+            path = os.path.join(dev.profile_dir, f"trace-{self.config.agent.agent_name}-"
+                                                 f"{os.getpid()}-{self.profiled_tasks}-{op}.json")
+            try:
+                os.makedirs(dev.profile_dir, exist_ok=True)
+            except OSError as exc:
+                self.rate.log("profile", "PROFILE_DIR not writable", error=str(exc))
+                return thunk()
+            out, reason = self._profiled(op, thunk, path)
+            if reason:
+                self.rate.log("profile", "no trace", path=path, reason=reason)
+            return out
+        return thunk()
 
     # ---- task execution ----
 
@@ -416,15 +836,22 @@ class Agent:
             raise ValueError("task payload must be a dict")
         return job_id, op, payload, epoch
 
-    def op_context(self, job_id: str, lease_id: Optional[str] = None, attempt: Any = None):
-        """The task's ``OpContext``: the runtime, the trace triple the result
-        carries, and the negotiated wire format finalize reads."""
+    def task_context(self, task: Dict[str, Any], job_id: str, lease_id: str):
+        """The task's ``OpContext``: the runtime, the trace tags the result
+        carries (the attempt; ``span_id``, the controller's lease span, and
+        ``tenant`` when the controller stamped them on the task), and the
+        negotiated wire format finalize reads."""
         from agent_tpu_torch.runtime.context import OpContext
 
-        tags: Dict[str, Any] = {
-            "job_id": job_id,
-            "trace": {"job_id": job_id, "attempt": attempt, "lease_id": lease_id},
-        }
+        trace: Dict[str, Any] = {"job_id": job_id, "attempt": task.get("attempt"),
+                                 "lease_id": lease_id}
+        tenant = task.get("tenant")
+        if isinstance(tenant, str) and tenant:
+            trace["tenant"] = tenant
+        _, span_parent = self.task_trace(task)
+        if span_parent:
+            trace["span_id"] = span_parent
+        tags: Dict[str, Any] = {"job_id": job_id, "trace": trace}
         if self.wire_format:
             tags["wire"] = self.wire_format
         return OpContext(runtime=self.runtime, tags=tags, config=self.config)
@@ -456,9 +883,8 @@ class Agent:
 
     @staticmethod
     def finish_result(result: Any, ctx: Any, duration_ms: float) -> None:
-        """Stamp the loop's fields into an op's result dict: the op's
-        ``usage`` block too, which the reference controller's showback
-        ledger bills."""
+        """Stamp the loop's fields into an op's result dict: the ``usage``
+        block too, which the reference controller's showback ledger bills."""
         if isinstance(result, dict):
             result.setdefault("duration_ms", duration_ms)
             if ctx is not None:
@@ -474,25 +900,50 @@ class Agent:
         agent never dies on an op error."""
         t0 = time.perf_counter()
         job_id, op, payload, epoch, fn, resolve_error = self.resolve_task(task)
+        attempt = task.get("attempt") if isinstance(task, dict) else None
+        trace_id, span_parent = self.task_trace(task)
         if resolve_error is not None:
             if job_id is not None:
                 self.m_tasks.inc(op=op, status="failed")
+                self.recorder.record("task", job_id=job_id, op=op, status="failed",
+                                     lease_id=lease_id, attempt=attempt,
+                                     error_type=resolve_error.get("type"))
                 self.post_result(lease_id, job_id, epoch, "failed", error=resolve_error, op=op)
             return
-        ctx = self.op_context(job_id, lease_id=lease_id, attempt=task.get("attempt"))
+        ctx = self.task_context(task, job_id, lease_id)
+        # Minted before the call, so spans recorded inside the op can parent
+        # to the execute span.
+        exec_span_id = new_span_id()
         t_exec0 = time.perf_counter()
+        # The serial loop's "stage": resolving the task before the call.
+        self.trace_span("stage", trace_id, span_parent, start_mono=t0,
+                        duration_s=t_exec0 - t0, op=op)
+        stamp_usage(ctx.tags, host_s=t_exec0 - t0)
         try:
-            result, status, error = fn(payload, ctx), "succeeded", None
+            with use_context(self.trace_context(trace_id, job_id, exec_span_id)):
+                result = self.profiled_call(op, lambda: fn(payload, ctx))
+            status, error = "succeeded", None
         except Exception as exc:  # noqa: BLE001 — every op error -> failed result
             result, status, error = None, "failed", structured_error(exc)
             self.rate.log("exec", "op raised", op=op, type=type(exc).__name__)
         t_done = time.perf_counter()
-        self.note_device_time(op, t_done - t_exec0)
-        self.finish_result(result, ctx, (t_done - t0) * 1000.0)
+        self.trace_span("execute", trace_id, span_parent, span_id=exec_span_id,
+                        start_mono=t_exec0, duration_s=t_done - t_exec0, op=op, status=status)
+        self.note_device_time(op, t_done - t_exec0, ctx.tags)
+        duration_ms = (t_done - t0) * 1000.0
+        self.finish_result(result, ctx, duration_ms)
+        t_post0 = time.perf_counter()
         self.post_result(lease_id, job_id, epoch, status, result=result, error=error, op=op)
+        # Recorded after the post (a span cannot ship itself): it rides the
+        # next post or the final metrics flush.
+        self.trace_span("post", trace_id, span_parent, start_mono=t_post0,
+                        duration_s=time.perf_counter() - t_post0, op=op, status=status)
         self.tasks_done += 1
         self.m_tasks.inc(op=op, status=status)
-        self.record_phase_timings(op, ctx.tags.get("timings"))
+        self.record_phase_timings(op, ctx.tags.get("timings"), trace_id=job_id)
+        self.recorder.record("task", job_id=job_id, op=op, status=status, lease_id=lease_id,
+                             attempt=attempt, duration_ms=round(duration_ms, 3),
+                             error_type=(error or {}).get("type") if error else None)
         self.note_progress()
 
     # ---- main loop ----
@@ -560,16 +1011,32 @@ def main(argv: Optional[List[str]] = None) -> int:
         # An unknown or disabled op name: the same start failure as no TASKS.
         print(f"[agent-tpu-torch] bad TASKS: {exc}", flush=True)
         return 2
-    except RuntimeError as exc:
-        # A device op without a CUDA device: the port never runs it on the CPU.
+    except (RuntimeError, ValueError) as exc:
+        # A device op without a CUDA device (the port never runs it on the
+        # CPU unasked), or a device knob the port refuses.
         print(f"[agent-tpu-torch] cannot start: {exc}", flush=True)
         return 1
     signal.signal(signal.SIGINT, agent.shutdown)
     signal.signal(signal.SIGTERM, agent.shutdown)
-    log("agent up", agent=config.agent.agent_name, controller=config.agent.controller_url,
+    # SIGUSR1 dumps the flight recorder on demand; a fatal error dumps it
+    # before the process dies.
+    from agent_tpu_torch.obs.recorder import install_sigusr1_dump
+
+    dump_path = default_dump_path(f"agent-{config.agent.agent_name}")
+    if install_sigusr1_dump(agent.recorder, dump_path):
+        log("flight recorder armed", signal="SIGUSR1", path=dump_path)
+    log("agent up", agent=config.agent.agent_name, controller=agent.active_controller_url(),
         ops=sorted(agent.handlers),
         device=None if agent.runtime is None else str(agent.runtime.device))
-    agent.run()
+    try:
+        agent.run()
+    except BaseException:
+        try:
+            n = agent.recorder.dump(dump_path)
+            log("fatal error — flight recorder dumped", path=dump_path, events=n)
+        except OSError:
+            pass
+        raise
     log("agent drained", tasks_done=agent.tasks_done)
     return 0
 

@@ -33,7 +33,16 @@ whole, and the device loop interleaves one engine step a pass with the
 other staged work. While decode is in flight the loop never blocks on the
 staged queue; several jobs sharing one engine get one pump a pass; and
 in-flight serving work keeps pumping through shutdown until it has posted.
-The reference's spans and flight recorder are not ported yet.
+
+Spans come from the runner's own clocks, no second one: ``stage`` (a pool
+worker), ``queue`` (staged until the device thread took it), ``execute``
+(the device thread's dispatch, or a serving item's admit to its last
+step) and ``post`` (finalize and the result post), each parented to the
+controller's lease span; the execute runs under ``use_context`` and
+``agent.profiled_call``. Every execute feeds ``agent.note_device_time``
+with the task's tags (its usage stamp); an engine step shared by several
+serving jobs is charged once, to the first job's op, with no stamp. The
+flight recorder gets each phase transition and error.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from agent_tpu_torch.obs.trace import new_span_id, use_context
+from agent_tpu_torch.obs.usage import stamp_usage
 from agent_tpu_torch.utils.errors import structured_error
 from agent_tpu_torch.utils.logging import log
 
@@ -68,6 +79,11 @@ class _Item:
     status: str = "succeeded"
     error: Any = None
     monolithic: bool = False      # op has no phase hooks
+    # The task's trace context (the lease span is the phases' parent) and
+    # the end of staging, where the queue span starts.
+    trace_id: Any = None
+    span_parent: Any = None
+    t_staged: float = 0.0
     # Continuous serving: the engine handle while this item's requests ride
     # the running batch, and the admit instant its execute time counts from.
     serve_handle: Any = None
@@ -110,17 +126,20 @@ class PipelineRunner:
         agent = self.agent
         t0 = time.perf_counter()
         job_id, op, payload, epoch, fn, resolve_error = agent.resolve_task(task)
+        attempt = task.get("attempt") if isinstance(task, dict) else None
+        trace_id, span_parent = agent.task_trace(task)
         if resolve_error is not None:
             if job_id is None:
                 return None
-            return _Item(lease_id, job_id, epoch, op, {}, None, t0,
-                         status="failed", error=resolve_error)
-        attempt = task.get("attempt") if isinstance(task, dict) else None
+            return _Item(lease_id, job_id, epoch, op, {}, None, t0, status="failed",
+                         error=resolve_error, trace_id=trace_id, span_parent=span_parent)
         item = _Item(lease_id, job_id, epoch, op, payload,
-                     agent.op_context(job_id, lease_id=lease_id, attempt=attempt), t0, fn=fn)
+                     agent.task_context(task, job_id, lease_id), t0, fn=fn,
+                     trace_id=trace_id, span_parent=span_parent)
         stage = getattr(fn, "stage", None)
         if stage is None:
             item.monolithic = True
+            item.t_staged = time.perf_counter()
             return item
         try:
             phase, value = stage(payload, item.ctx)
@@ -128,9 +147,18 @@ class PipelineRunner:
             item.status = "failed"
             item.error = structured_error(exc)
             agent.rate.log("exec", "stage raised", op=op, type=type(exc).__name__)
+            agent.recorder.record("error", phase="stage", job_id=job_id, op=op,
+                                  lease_id=lease_id, attempt=attempt,
+                                  type=type(exc).__name__, message=str(exc)[:200])
             return item
-        agent.m_phase.observe(time.perf_counter() - t0, exemplar={"trace_id": job_id},
+        item.t_staged = time.perf_counter()
+        agent.m_phase.observe(item.t_staged - t0, exemplar={"trace_id": job_id},
                               op=op, phase="stage")
+        stamp_usage(item.ctx.tags, host_s=item.t_staged - t0)
+        agent.trace_span("stage", trace_id, span_parent, start_mono=t0,
+                         duration_s=item.t_staged - t0, op=op)
+        agent.recorder.record("phase", phase="staged", job_id=job_id, op=op,
+                              lease_id=lease_id, attempt=attempt)
         if phase == "done":
             item.result = value
         else:
@@ -200,10 +228,17 @@ class PipelineRunner:
             item.status = "failed"
             item.error = structured_error(exc)
             agent.rate.log("exec", "serve admit raised", op=item.op, type=type(exc).__name__)
+            agent.recorder.record("error", phase="execute", job_id=item.job_id, op=item.op,
+                                  lease_id=item.lease_id, type=type(exc).__name__,
+                                  message=str(exc)[:200])
             self._put_post(item)
             return
-        # The prefill is device time; the decode steps bill per pump.
-        agent.note_device_time(item.op, time.perf_counter() - t0)
+        # The prefill is this job's device time; the decode steps bill per
+        # pump.
+        agent.note_device_time(item.op, time.perf_counter() - t0,
+                               item.ctx.tags if item.ctx is not None else None)
+        agent.recorder.record("phase", phase="serve_admitted", job_id=item.job_id, op=item.op,
+                              lease_id=item.lease_id)
         serving.append(item)
 
     def _serve_pump_once(self, serving: list) -> None:
@@ -219,8 +254,10 @@ class PipelineRunner:
         for item in engines.values():
             occupancy = max(occupancy, item.fn.serve_pump(item.serve_handle))
         if engines:
-            # One dispatch advanced every item on it: attributed once.
-            agent.note_device_time(next(iter(engines.values())).op, time.perf_counter() - t0)
+            # One dispatch advanced every item on it: charged once, to the
+            # first item's op, with no job's usage stamp.
+            agent.note_device_time(next(iter(engines.values())).op, time.perf_counter() - t0,
+                                   None)
             agent.m_serve_occupancy.set(occupancy)
         for item in [it for it in serving if it.fn.serve_done(it.serve_handle)]:
             serving.remove(item)
@@ -229,10 +266,18 @@ class PipelineRunner:
             except Exception as exc:  # noqa: BLE001
                 item.status = "failed"
                 item.error = structured_error(exc)
+                agent.recorder.record("error", phase="execute", job_id=item.job_id,
+                                      op=item.op, lease_id=item.lease_id,
+                                      type=type(exc).__name__, message=str(exc)[:200])
             item.serve_handle = None
-            agent.m_phase.observe(time.perf_counter() - item.t_serve0,
-                                  exemplar={"trace_id": item.job_id}, op=item.op,
+            dt = time.perf_counter() - item.t_serve0
+            agent.m_phase.observe(dt, exemplar={"trace_id": item.job_id}, op=item.op,
                                   phase="execute")
+            agent.trace_span("execute", item.trace_id, item.span_parent,
+                             start_mono=item.t_serve0, duration_s=dt, op=item.op,
+                             status=item.status)
+            agent.recorder.record("phase", phase="executed", job_id=item.job_id, op=item.op,
+                                  lease_id=item.lease_id, status=item.status)
             self._put_post(item)
         if not serving:
             agent.m_serve_occupancy.set(0)
@@ -300,19 +345,35 @@ class PipelineRunner:
                 self._prefeed(peeked)
             self._peeked = peeked
         t_exec = time.perf_counter()
+        if item.t_staged:
+            # Staged until this thread took it: the backpressure gap.
+            agent.trace_span("queue", item.trace_id, item.span_parent,
+                             start_mono=item.t_staged, duration_s=t_exec - item.t_staged,
+                             op=item.op)
+        exec_span_id = new_span_id()
         try:
-            if item.monolithic:
-                item.result = item.fn(item.payload, item.ctx)
-            else:
-                item.executed = item.fn.execute(item.staged, item.ctx)
+            with use_context(agent.trace_context(item.trace_id, item.job_id, exec_span_id)):
+                if item.monolithic:
+                    item.result = agent.profiled_call(
+                        item.op, lambda i=item: i.fn(i.payload, i.ctx))
+                else:
+                    item.executed = agent.profiled_call(
+                        item.op, lambda i=item: i.fn.execute(i.staged, i.ctx))
         except Exception as exc:  # noqa: BLE001 — op error -> failed
             item.status = "failed"
             item.error = structured_error(exc)
             agent.rate.log("exec", "op raised", op=item.op, type=type(exc).__name__)
+            agent.recorder.record("error", phase="execute", job_id=item.job_id, op=item.op,
+                                  lease_id=item.lease_id, type=type(exc).__name__,
+                                  message=str(exc)[:200])
         dt = time.perf_counter() - t_exec
-        agent.note_device_time(item.op, dt)
+        agent.note_device_time(item.op, dt, item.ctx.tags if item.ctx is not None else None)
         agent.m_phase.observe(dt, exemplar={"trace_id": item.job_id}, op=item.op,
                               phase="execute")
+        agent.trace_span("execute", item.trace_id, item.span_parent, span_id=exec_span_id,
+                         start_mono=t_exec, duration_s=dt, op=item.op, status=item.status)
+        agent.recorder.record("phase", phase="executed", job_id=item.job_id, op=item.op,
+                              lease_id=item.lease_id, status=item.status)
         self._put_post(item)
 
     # ---- poster thread ----
@@ -338,24 +399,38 @@ class PipelineRunner:
                 item.status = "failed"
                 item.error = structured_error(exc)
                 item.result = None
+                agent.recorder.record("error", phase="finalize", job_id=item.job_id,
+                                      op=item.op, lease_id=item.lease_id,
+                                      type=type(exc).__name__, message=str(exc)[:200])
             finalize_s = time.perf_counter() - t_fin
             agent.m_phase.observe(finalize_s, exemplar={"trace_id": item.job_id},
                                   op=item.op, phase="finalize")
             if item.ctx is not None:
+                # The poster's host seconds join the stage's.
+                stamp_usage(item.ctx.tags, host_s=finalize_s)
                 timings = item.ctx.tags.setdefault("timings", {})
                 timings["finalize_ms"] = round(finalize_s * 1000.0, 3)
                 # stage/execute/finalize were measured by the runner's
                 # threads; queue and fetch come from the op's own timings.
-                agent.record_phase_timings(item.op, timings, keys=("queue_ms", "fetch_ms"))
-            agent.finish_result(item.result, item.ctx,
-                                (time.perf_counter() - item.t_start) * 1000.0)
+                agent.record_phase_timings(item.op, timings, keys=("queue_ms", "fetch_ms"),
+                                           trace_id=item.job_id)
+            duration_ms = (time.perf_counter() - item.t_start) * 1000.0
+            agent.finish_result(item.result, item.ctx, duration_ms)
             agent.post_result(item.lease_id, item.job_id, item.epoch, item.status,
                               result=item.result, error=item.error, session=session,
                               op=item.op)
+            # Finalize (with the device-to-host wait) and the post as one
+            # span; it ships with the next post or the final flush.
+            agent.trace_span("post", item.trace_id, item.span_parent, start_mono=t_fin,
+                             duration_s=time.perf_counter() - t_fin, op=item.op,
+                             status=item.status, finalize_ms=round(finalize_s * 1e3, 3))
             agent.flush_spool(session=session)
             self.tasks_posted += 1
             agent.tasks_done += 1
             agent.m_tasks.inc(op=item.op, status=item.status)
+            agent.recorder.record("phase", phase="posted", job_id=item.job_id, op=item.op,
+                                  lease_id=item.lease_id, status=item.status,
+                                  duration_ms=round(duration_ms, 3))
             agent.note_progress(queues={"staged_q": self.staged_q.qsize(),
                                         "post_q": self.post_q.qsize()})
 

@@ -2,16 +2,21 @@
 that the agent loop reads, with the same environment variable names and
 defaults, read once in ``Config.from_env()`` and never at import.
 
-``AgentConfig`` holds the control-plane knobs (controller, timeouts, idle
-sleep and backoff, ``TASKS``, ``MAX_TASKS``, labels, the pipeline, the
-binary wire, retry and the result spool); ``SizingConfig`` the host-sizing
-knobs of ``sizing.profile``; ``ServeConfig`` the serving knobs
-(``SERVE_*``, ``KV_*``, ``PREFIX_CACHE_*``), of which the agent's serving
-ops read the decode engine's and the prefix cache's and carry the
-controller's front-door fields as plain data; ``DeviceConfig`` the one
-device knob ported so far, ``TPU_QUANT``. The reference's other
-``DeviceConfig`` knobs and its ``CONTROLLER_URLS`` failover list are not
-ported yet.
+``AgentConfig`` holds the control-plane knobs (the controller and its
+``CONTROLLER_URLS`` failover list, timeouts, idle sleep and backoff,
+``TASKS``, ``MAX_TASKS``, labels, the pipeline, the binary wire, retry and
+the result spool); ``SizingConfig`` the host-sizing knobs of
+``sizing.profile``; ``ServeConfig`` the serving knobs (``SERVE_*``,
+``KV_*``, ``PREFIX_CACHE_*``), of which the agent's serving ops read the
+decode engine's and the prefix cache's and carry the controller's
+front-door fields as plain data; ``DeviceConfig`` the device knobs
+(``TPU_QUANT``, ``TPU_DISABLED``, ``PALLAS_ATTN``, ``CHIP_SLICE``,
+``PROFILE_DIR``, ``PROFILE_TASKS``). ``FLIGHT_RECORDER_DIR``,
+``PROFILE_CAPTURE_DIR``, ``TRACE_ENABLED`` and ``PEAK_TFLOPS`` are read
+where the reference reads them: in ``obs.recorder``, the agent's capture,
+``obs.trace`` and ``obs.health``. Not here: the partition map
+(``CONTROLLER_PARTITION_MAP``) and the multi-host knobs, which wait for
+the control plane and several processes.
 """
 
 from __future__ import annotations
@@ -91,6 +96,9 @@ class AgentConfig:
     """Control-plane configuration."""
 
     controller_url: str = DEFAULT_CONTROLLER_URL
+    # CONTROLLER_URLS: the failover candidates, primary first; a transport
+    # error rotates the agent to the next one.
+    controller_urls: Tuple[str, ...] = ()
     agent_name: str = field(default_factory=socket.gethostname)
     http_timeout_sec: float = 10.0
     idle_sleep_sec: float = 0.25
@@ -115,8 +123,14 @@ class AgentConfig:
 
     @staticmethod
     def from_env() -> "AgentConfig":
+        urls = tuple(u.strip().rstrip("/") for u in env_str("CONTROLLER_URLS", "").split(",")
+                     if u.strip())
         return AgentConfig(
-            controller_url=env_str("CONTROLLER_URL", DEFAULT_CONTROLLER_URL).rstrip("/"),
+            # CONTROLLER_URLS alone is enough (its head is the primary);
+            # CONTROLLER_URL wins when both are set.
+            controller_url=env_str("CONTROLLER_URL",
+                                   urls[0] if urls else DEFAULT_CONTROLLER_URL).rstrip("/"),
+            controller_urls=urls,
             agent_name=env_str("AGENT_NAME", socket.gethostname()),
             http_timeout_sec=env_float("HTTP_TIMEOUT_SEC", 10.0),
             idle_sleep_sec=env_float("IDLE_SLEEP_SEC", 0.25),
@@ -238,10 +252,28 @@ class DeviceConfig:
     # the model config; ops._model_common.resolve_quant); this read-once
     # copy is what the lease telemetry reports (runtime.describe).
     quant: str = ""
+    # TPU_DISABLED=1: the operator asks for a CPU runtime (the accelerator
+    # is never touched).
+    tpu_disabled: bool = False
+    # PALLAS_ATTN=0 asks for attention without the hand-written kernels;
+    # the port has no such path on the card, so a CUDA runtime refuses it.
+    pallas_attn: bool = True
+    # CHIP_SLICE "start:count": the slice of the host's cards this agent
+    # owns ("" = from the first card).
+    chip_slice: str = ""
+    # PROFILE_DIR: a torch.profiler trace of each of the first
+    # PROFILE_TASKS tasks' execute is written there ("" disables).
+    profile_dir: str = ""
+    profile_tasks: int = 1
 
     @staticmethod
     def from_env() -> "DeviceConfig":
-        return DeviceConfig(quant=env_str("TPU_QUANT", "").strip().lower())
+        return DeviceConfig(quant=env_str("TPU_QUANT", "").strip().lower(),
+                            tpu_disabled=env_bool("TPU_DISABLED", False),
+                            pallas_attn=env_bool("PALLAS_ATTN", True),
+                            chip_slice=env_str("CHIP_SLICE", "").strip(),
+                            profile_dir=env_str("PROFILE_DIR", ""),
+                            profile_tasks=env_int("PROFILE_TASKS", 1))
 
 
 @dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Observability: the agent's metrics registry."""
+"""Observability: the agent's metrics registry, spans, flight recorder,
+usage stamps, utilization accounting and device memory telemetry."""

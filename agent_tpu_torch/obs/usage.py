@@ -1,7 +1,11 @@
-"""Usage stamping — the part of ``agent_tpu.obs.usage`` the serving ops
-use: :func:`stamp_usage`, which accumulates a task's usage fields into
-``ctx.tags["usage"]`` (the reference's ledger and showback lines are not
-ported yet)."""
+"""Usage stamping — the agent-side part of ``agent_tpu.obs.usage``:
+:func:`stamp_usage` accumulates a task's usage fields into
+``ctx.tags["usage"]``, which the result carries as its ``usage`` block for
+the reference controller's ``UsageLedger`` to bill. The agent stamps
+``device_s`` (the same seconds that feed ``device_busy_seconds_total``),
+``chips``, ``flops`` (from the op's ``device_attr``) and ``host_s`` (stage
+and finalize); the ops stamp ``rows`` and the serving ops
+``cache_hit_rows``. The ledger itself is the controller's."""
 
 from __future__ import annotations
 

@@ -106,7 +106,7 @@ def make_ring_attention(mesh, use_flash_fold: Optional[bool] = None):
     dp, tp = shape.get("dp", 1), shape.get("tp", 1)
     if mesh.size != sp:
         raise ValueError(f"ring attention over {shape}: only sp is ported (ROADMAP "
-                         "Queue 1 item 13)")
+                         "Queue 1 item 2)")
     devices = list(mesh.devices.reshape(-1))
 
     def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

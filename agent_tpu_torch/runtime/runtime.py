@@ -11,7 +11,14 @@ covers the given ``devices``, or, without them, the first cards of that
 many; a device listed more than once holds several shards (one card running
 an ``sp`` ring: ``devices=["cuda:0"] * 2``). Of the axes only ``sp`` is
 ported: ``attention_fn`` is then ring attention. ``dp`` and ``tp`` wait for
-ROADMAP Queue 1 item 13 and are refused.
+ROADMAP Queue 1 item 2 and are refused.
+
+The device knobs of ``DeviceConfig`` apply when no device is given:
+``TPU_DISABLED=1`` is the operator's request for a CPU runtime;
+``CHIP_SLICE="start:1"`` takes ``cuda:start`` (a slice of several cards is
+refused with dp and tp); and ``PALLAS_ATTN=0`` is refused on a CUDA
+runtime, which has no attention path without the hand-written kernels (on
+the CPU the plain versions always run, so it changes nothing there).
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.runtime.mesh import AXES, build_mesh, check_sizes
+from agent_tpu_torch.utils.logging import log
+
+# Where the port refuses what needs several cards in one runtime.
+NOT_PORTED = "ROADMAP Queue 1 item 2"
 
 
 class BuildOnceCache:
@@ -123,6 +134,41 @@ def _mesh_devices(device, devices: Optional[Sequence],
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def parse_chip_slice(spec: str) -> Tuple[int, int]:
+    """``"start:count"`` -> ``(start, count)``, validated as the reference
+    does: two ints, start >= 0, count >= 1."""
+    parts = spec.split(":")
+    if len(parts) != 2:
+        raise ValueError(f"CHIP_SLICE must be 'start:count', got {spec!r}")
+    try:
+        start, count = int(parts[0]), int(parts[1])
+    except ValueError as exc:
+        raise ValueError(f"CHIP_SLICE must be 'start:count' ints, got {spec!r}") from exc
+    if start < 0 or count < 1:
+        raise ValueError(f"CHIP_SLICE needs start >= 0 and count >= 1, got {spec!r}")
+    return start, count
+
+
+def _configured_device(config) -> Optional[str]:
+    """The device the config's knobs pick when the caller names none:
+    ``"cpu"`` for ``TPU_DISABLED``, ``cuda:start`` for a one-card
+    ``CHIP_SLICE``, else None (the first card)."""
+    if config.tpu_disabled:
+        log("TPU_DISABLED set: the runtime runs on the CPU")
+        return "cpu"
+    if not config.chip_slice:
+        return None
+    start, count = parse_chip_slice(config.chip_slice)
+    if count > 1:
+        raise ValueError(f"CHIP_SLICE {config.chip_slice!r}: a runtime over several cards "
+                         f"is not ported yet ({NOT_PORTED})")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if start >= visible:
+        raise ValueError(f"CHIP_SLICE {config.chip_slice!r} wants card {start} but only "
+                         f"{visible} are visible")
+    return f"cuda:{start}"
+
+
 class TorchRuntime:
     """A device mesh, a forward-function cache and a weights store. Weights
     and staged batches live on the mesh's first device."""
@@ -132,6 +178,8 @@ class TorchRuntime:
         from agent_tpu_torch.config import DeviceConfig
 
         self.config = config or DeviceConfig()
+        if device is None and devices is None:
+            device = _configured_device(self.config)
         self.devices = _mesh_devices(device, devices, mesh_shape)
         self.mesh = build_mesh(self.devices, mesh_shape)
         unported = {n: s for n, s in self.mesh.shape.items()
@@ -139,9 +187,14 @@ class TorchRuntime:
         if unported:
             raise ValueError(
                 f"TorchRuntime: mesh axes {unported} are not ported yet (only sp; "
-                "dp, tp and other axes are ROADMAP Queue 1 item 13)")
+                f"dp, tp and other axes are {NOT_PORTED})")
         self.device = self.devices[0]
         self.platform = self.device.type  # "cuda" | "cpu"
+        if self.platform == "cuda" and not self.config.pallas_attn:
+            raise RuntimeError(
+                "TorchRuntime: PALLAS_ATTN=0 asks for attention without the kernels, and "
+                "the port has no such path on the card; unset it, or ask for the CPU "
+                "(TPU_DISABLED=1)")
         self.cache = BuildOnceCache()
         self._params = BuildOnceCache()  # model id -> module on the device
 
@@ -246,10 +299,24 @@ class TorchRuntime:
             "executable_cache": self.cache.stats(),
             "models_resident": sorted(self._params.keys()),
         }
+        if self.config.chip_slice:
+            out["chip_slice"] = self.config.chip_slice
         if self.device.type == "cuda":
             out["device_kind"] = torch.cuda.get_device_name(self.device)
-            out["hbm_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
-            out["hbm_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        # Memory across every card the runtime owns (a card an sp ring lists
+        # twice counts once); absent on the CPU.
+        from agent_tpu_torch.obs.profile import hbm_totals
+
+        try:
+            hbm = hbm_totals(self.devices)
+        except Exception:  # noqa: BLE001 — telemetry must never raise
+            hbm = None
+        if hbm:
+            for kind, key in (("used", "hbm_bytes_in_use"), ("limit", "hbm_bytes_limit"),
+                              ("peak", "hbm_peak_bytes")):
+                if kind in hbm:
+                    out[key] = hbm[kind]
+            out["hbm_per_device"] = hbm["per_device"]
         return out
 
 
@@ -298,15 +365,16 @@ def mesh_shape_from_env() -> Dict[str, int]:
     return shape
 
 
-def get_runtime() -> TorchRuntime:
-    """The process-wide runtime, on ``MESH_SHAPE``'s mesh when it is set."""
+def get_runtime(config=None) -> TorchRuntime:
+    """The process-wide runtime, on ``MESH_SHAPE``'s mesh when it is set,
+    with ``config`` (else ``DeviceConfig.from_env()``)."""
     global _runtime
     with _runtime_lock:
         if _runtime is None:
             from agent_tpu_torch.config import DeviceConfig
 
             _runtime = TorchRuntime(mesh_shape=mesh_shape_from_env() or None,
-                                    config=DeviceConfig.from_env())
+                                    config=config or DeviceConfig.from_env())
         return _runtime
 
 

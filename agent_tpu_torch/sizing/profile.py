@@ -1,9 +1,13 @@
 """Worker profile assembly — the port's counterpart of
 ``agent_tpu.sizing.profile``: the ``cpu`` block (cores reserved for the OS,
 worker counts, the in-flight target) and the ``gpu`` block (``nvidia-smi``'s
-inventory). There is no ``tpu`` block: the port claims no TPU, so the
-reference controller's ``tpu.suggested_shard_rows`` hint is absent and a
-CSV job submitted without a shard size gets the controller's default.
+inventory). There is no ``tpu`` block: the port claims no TPU, and the
+reference controller reads ``suggested_shard_rows`` only from a ``tpu``
+block, so the hint is absent and a CSV job submitted without a shard size
+gets the controller's default. A hint for the card waits for the port's
+control plane, which can read it from the ``gpu`` block (ROADMAP Queue 1
+item 3). With ``TPU_DISABLED=1`` the ``gpu`` block says ``disabled: true``
+and offers no workers, as the reference's ``tpu`` block does.
 
 Every probe degrades to a conservative answer when its dependency is
 missing (psutil, nvidia-smi), so the agent boots anywhere.
@@ -16,7 +20,7 @@ import shutil
 import subprocess
 from typing import Any, Dict, List, Optional
 
-from agent_tpu_torch.config import SizingConfig
+from agent_tpu_torch.config import DeviceConfig, SizingConfig
 
 # Hard limits advertised to the controller with every lease (the reference's
 # wire contract numbers).
@@ -114,10 +118,14 @@ def detect_gpu() -> Dict[str, Any]:
     return {"gpu_present": True, "gpus": gpus, "max_gpu_workers": len(gpus)}
 
 
-def build_worker_profile(sizing: Optional[SizingConfig] = None) -> Dict[str, Any]:
+def build_worker_profile(sizing: Optional[SizingConfig] = None,
+                         device: Optional[DeviceConfig] = None) -> Dict[str, Any]:
     """The worker profile shipped with every lease request."""
     cpu = detect_cpu(sizing)
-    gpu = detect_gpu()
+    if device is not None and device.tpu_disabled:
+        gpu = {"gpu_present": False, "gpus": [], "max_gpu_workers": 0, "disabled": True}
+    else:
+        gpu = detect_gpu()
     return {
         "schema": "worker_profile/v2",
         "tier": "gpu" if gpu["gpu_present"] else "cpu",

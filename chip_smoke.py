@@ -137,8 +137,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               `python -m agent_tpu_torch.agent.app` in a process of its
               own (TASKS=echo,read_csv_shard,map_classify_tpu, BERT-base
               cut to 2 layers) drains one echo, one read_csv_shard and two
-              256-row shards and must exit 0 on SIGTERM, and 2 with
-              TASKS=none.
+              256-row shards; SIGUSR1 must dump its flight recorder (with
+              the lease events) into FLIGHT_RECORDER_DIR, and it must exit 0
+              on SIGTERM, and 2 with TASKS=none. Phase 15 runs between the
+              drains and the entry point.
+15. telemetry — the agent's spans, usage stamps, gauges, captures, flight
+              recorder and failover list on phase 10's stand-in controller
+              (which mints the reference controller's trace context on
+              every task and collects the spans, capture records and obs
+              snapshots), its 8 shards and the BERT-base weights on the
+              card, through the pipelined agent (PIPELINE_DEPTH 2). The
+              shards drain with TRACE_ENABLED=0 (no span may be shipped),
+              then traced with PROFILE_DIR set (PROFILE_TASKS 1) and a
+              profile_capture alert for map_classify_tpu on the first
+              lease. Every shard's trace assembles with the port's
+              trace.assemble into one complete tree, stage, queue, execute
+              and post once each under the stand-in's lease span, and the
+              Chrome export of all spans validates; Σ usage.device_s equals
+              the device_busy_seconds_total the agent shipped within 1 %,
+              chips is 1, Σ usage.flops equals Σ encoder_fwd_flops of the
+              staged shapes and every host_s is > 0; device_mfu (printed
+              beside the peak used, the card's name and power limit) and
+              device_duty_cycle lie in (0, 1]; device_hbm_bytes{device="0"}
+              has used, peak and limit, the limit within 1 % of
+              mem_get_info's total; the PROFILE_DIR trace and the capture's
+              artifact (its completion record reached the stand-in) each
+              hold a flash_fwd_sm90 kernel event (traced printed beside
+              launched, not required equal). One more shard whose lease
+              carries an slo_page alert: one recorder dump, holding the lease
+              and posted events of the traced shards. One shard through an
+              agent whose CONTROLLER_URLS lists a dead local port first: one
+              failover and its recorder event. Every result equals phase
+              10's serial run bit for bit; rows/s traced over untraced is
+              printed, not gated.
 11. bert    — a checkpoint directory with bert-base-uncased's published
               config.json (a two-label head, as fine-tuned checkpoints ship
               it), a synthetic 30,522-line vocab.txt and random weights from
@@ -228,8 +259,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-13; row 1's
-              launches by path include phases 10-14, and its entry holds
+              point's time beside it). Printed after phases 8-15; row 1's
+              launches by path include phases 10-15, and its entry holds
               two more: at phase 12's encoder shape and at phase 13's
               stream prefill (B 240, H 8, L 64, D 32); the fold's launches
               by path include phase 11's ring.
@@ -2027,20 +2058,29 @@ def t5_kernel_entry(fa, check, launches, **extra) -> dict:
 
 
 class StandInController:
-    """A controller for phase 10, kept in this script because chip_smoke
-    imports nothing of agent_tpu. It speaks the protocol of
+    """A controller for phases 10, 13 and 15, kept in this script because
+    chip_smoke imports nothing of agent_tpu. It speaks the protocol of
     agent_tpu/agent/app.py:3-11 on 127.0.0.1:
 
     - ``POST /v1/leases``: up to ``max_tasks`` pending jobs whose op the
-      agent offers, each at a bumped ``job_epoch``; 204 when there is none
-      (and for the metrics-only poll); ``wire: "b1"`` when the lease offers
-      it;
+      agent offers, each at a bumped ``job_epoch``, with the reference
+      controller's trace context (``trace: {trace_id: job id, span_id: the
+      lease span}``, agent_tpu/controller/core.py:235-242); 204 when there
+      is none (and for the metrics-only poll); ``wire: "b1"`` when the
+      lease offers it; the next queued ``alerts`` list (``queue_alerts``:
+      ``slo_page`` and ``profile_capture`` in the reference's shapes,
+      core.py:2780-2789) on a granted lease. The ``metrics`` channel's
+      ``spans`` and ``profile_captures`` are collected, and its ``obs``
+      snapshot kept per agent;
     - ``POST /v1/results``: accepted only with the lease's id and the
       job's current ``job_epoch``; a ``b1`` result is decoded with the
       port's ``data/wire.py`` (held byte for byte to the reference's by
-      tests/test_torch_wire.py); ``released`` puts the job back.
+      tests/test_torch_wire.py); ``released`` puts the job back. The body's
+      ``spans`` are collected whether or not the result is accepted.
 
-    Every post is counted per job, so a shard reported twice shows."""
+    Each job's trace holds the stand-in's own ``submit`` root and one
+    ``lease`` span per lease, closed by the result. Every post is counted
+    per job, so a shard reported twice shows."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -2049,6 +2089,11 @@ class StandInController:
         self.stale = 0
         self.b1_leases = 0
         self._n = 0
+        self.spans: dict = {}  # trace id -> {span id: span}
+        self.spans_shipped = 0  # spans the agents sent
+        self.captures: list = []  # profile_captures completion records
+        self.agent_obs: dict = {}  # agent name -> its last obs snapshot
+        self._alerts: list = []  # alert lists for the next granted leases
         ctrl = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -2085,13 +2130,43 @@ class StandInController:
         self.httpd.server_close()
         self.thread.join(timeout=10)
 
+    def _open_span(self, job_id: str, name: str, parent) -> str:
+        from agent_tpu_torch.obs.trace import make_span
+
+        span = make_span(name, job_id, parent, process="controller")
+        span["duration_ms"] = None  # open until the result closes it
+        self.spans.setdefault(job_id, {})[span["span_id"]] = span
+        return span["span_id"]
+
+    def _close_span(self, job_id: str, span_id, **attributes) -> None:
+        span = self.spans.get(job_id, {}).get(span_id)
+        if span is not None and span["duration_ms"] is None:
+            span["duration_ms"] = round((time.monotonic() - span["start_mono"]) * 1e3, 3)
+            span["attributes"].update(attributes)
+
+    def _ingest(self, spans) -> None:
+        for span in spans or []:
+            self.spans_shipped += 1
+            self.spans.setdefault(span["trace_id"], {})[span["span_id"]] = span
+
     def submit(self, op: str, payload: dict) -> str:
         with self.lock:
             self._n += 1
             job_id = f"job-{self._n:05d}"
             self.jobs[job_id] = {"op": op, "payload": payload, "epoch": 0, "state": "pending",
-                                 "lease": None, "status": None, "result": None}
+                                 "lease": None, "status": None, "result": None,
+                                 "root": self._open_span(job_id, "submit", None),
+                                 "lease_span": None}
         return job_id
+
+    def queue_alerts(self, alerts: list) -> None:
+        """Hand ``alerts`` out with the next granted lease."""
+        with self.lock:
+            self._alerts.append(alerts)
+
+    def trace(self, job_id: str) -> list:
+        with self.lock:
+            return [dict(s) for s in self.spans.get(job_id, {}).values()]
 
     def submit_csv(self, path: str, op: str, start: int, rows: int, shard: int,
                    extra: dict) -> list:
@@ -2107,7 +2182,12 @@ class StandInController:
     def lease(self, body: dict):
         caps = body.get("capabilities") or {}
         ops = set(caps.get("ops") or [])
+        metrics = body.get("metrics") or {}
         with self.lock:
+            self._ingest(metrics.get("spans"))
+            self.captures += metrics.get("profile_captures") or []
+            if body.get("agent") and "obs" in metrics:
+                self.agent_obs[body["agent"]] = metrics["obs"]
             picked = [j for j, job in self.jobs.items()
                       if job["state"] == "pending" and job["op"] in ops]
             picked = picked[:int(body.get("max_tasks") or 0)]
@@ -2118,10 +2198,14 @@ class StandInController:
             tasks = []
             for j in picked:
                 job = self.jobs[j]
-                job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id)
+                job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id,
+                           lease_span=self._open_span(j, "lease", job["root"]))
                 tasks.append({"id": j, "op": job["op"], "payload": job["payload"],
-                              "job_epoch": job["epoch"], "attempt": job["epoch"]})
+                              "job_epoch": job["epoch"], "attempt": job["epoch"],
+                              "trace": {"trace_id": j, "span_id": job["lease_span"]}})
             out = {"lease_id": lease_id, "tasks": tasks}
+            if self._alerts:
+                out["alerts"] = self._alerts.pop(0)
             if "b1" in (caps.get("wire_formats") or []):
                 out["wire"] = "b1"
                 self.b1_leases += 1
@@ -2132,15 +2216,18 @@ class StandInController:
 
         job_id = body.get("job_id")
         with self.lock:
+            self._ingest(body.get("spans"))
             self.posts[job_id] = self.posts.get(job_id, 0) + 1
             job = self.jobs.get(job_id)
             if job is None or job["state"] != "leased" or body.get("lease_id") != job["lease"] \
                     or body.get("job_epoch") != job["epoch"]:
                 self.stale += 1
                 return {"accepted": False, "reason": "stale or unknown"}
+            self._close_span(job_id, job["lease_span"], outcome=body.get("status"))
             if body.get("status") == "released":
                 job["state"] = "pending"
                 return {"accepted": True, "released": True}
+            self._close_span(job_id, job["root"])
             result = body.get("result")
             job["b1"] = wire.is_binary_result(result)
             if job["b1"]:
@@ -2250,7 +2337,8 @@ def drain_phase(fa, rt, path: str) -> dict:
     classify_extra, s2s_extra, shards, s2s_shards = drain_payloads(path)
     device = torch.device(CARD).type
     n_layers = BERT_BASE["n_layers"]
-    chunks = [len(ops["map_classify_tpu"].stage(dict(p))[1]["chunks"]) for p in shards]
+    staged = [ops["map_classify_tpu"].stage(dict(p))[1] for p in shards]
+    chunks = [len(state["chunks"]) for state in staged]
     with StandInController() as ctrl:
         agent = Agent(Config(agent=AgentConfig(
             controller_url=ctrl.url, agent_name="chip-smoke-drain",
@@ -2337,27 +2425,242 @@ def drain_phase(fa, rt, path: str) -> dict:
             if job["result"]["indices"] != want["indices"] \
                     or job["result"]["scores"] != want["scores"]:
                 raise SystemExit("the mixed drain's classify columns differ from the serial op's")
-        stale = ctrl.stale
-    if stale:
-        raise SystemExit(f"{stale} results came with a stale epoch or lease")
-    mixed_rows = DRAIN_S2S_SHARDS * DRAIN_SHARD + 2 * DRAIN_SHARD
+        if ctrl.stale:
+            raise SystemExit(f"{ctrl.stale} results came with a stale epoch or lease")
+        mixed_rows = DRAIN_S2S_SHARDS * DRAIN_SHARD + 2 * DRAIN_SHARD
+        report = {
+            "phase": "drain", "config": BERT_BASE, "rows": DRAIN_ROWS, "shard_rows": DRAIN_SHARD,
+            "warmup_s": warm_s, "wall_s": wall, "rows_per_s": DRAIN_ROWS / wall,
+            "serial_wall_s": serial_wall, "serial_rows_per_s": DRAIN_ROWS / serial_wall,
+            "drain_over_serial": serial_wall / wall, "stage_workers": workers,
+            "p50_phase_ms": p50_phases(results),
+            "per_shard_ms": [{k: r["timings"][k] for k in ("device_ms", "fetch_ms")}
+                             for r in results],
+            "launches": launches, "dispatch_chunks": chunks,
+            "profiled_shard": {k: profile[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                                      "device_ms_by_kind", "profile_attempts")},
+            "risk": {k: risk[k] for k in ("count", "sum", "min", "max", "device")},
+            "risk_vs_host": {"sum_diff": abs(risk["sum"] - host["sum"]), "sum_bound": bound},
+            "mixed": {"wall_s": mixed_wall, "rows": mixed_rows,
+                      "rows_per_s": mixed_rows / mixed_wall,
+                      "summarize_serial_wall_s": s2s_serial_wall,
+                      "p50_phase_ms_summarize": p50_phases([j["result"] for j in s2s_jobs])},
+            "b1_leases": ctrl.b1_leases,
+        }
+        emit(report)
+        # 15. the agent's telemetry, on the same stand-in and weights.
+        report["telemetry"] = telemetry_phase(fa, rt, ctrl, shards, serial, staged)
+        if ctrl.stale:
+            raise SystemExit(f"{ctrl.stale} results came with a stale epoch or lease")
+    return report
+
+
+TELEMETRY_AGENT = "chip-smoke-telemetry"
+CAPTURE_ID = "cap-chip-smoke"
+DEAD_CONTROLLER = "http://127.0.0.1:9"  # a local port nothing listens on
+
+
+def obs_values(snapshot, name: str, **labels) -> list:
+    """The values of a metrics snapshot family's series whose labels
+    include ``labels``."""
+    family = (snapshot or {}).get(name) or {}
+    return [s["value"] for s in family.get("series", [])
+            if all(s["labels"].get(k) == v for k, v in labels.items())]
+
+
+def trace_kernels(path: str, name: str) -> int:
+    """Kernel events of a torch.profiler Chrome trace whose name holds
+    ``name``."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and name in str(e.get("name")))
+
+
+def check_span_trees(ctrl, job_ids: list) -> tuple:
+    """Every job's trace, assembled by the port's ``trace.assemble``, must be
+    complete, with stage, queue, execute and post once each, parented to
+    the stand-in's lease span and closed -> (all spans, spans per job)."""
+    from agent_tpu_torch.obs import trace as obs_trace
+
+    every, problems = [], []
+    for job_id in job_ids:
+        spans = ctrl.trace(job_id)
+        every += spans
+        tree = obs_trace.assemble(job_id, spans)
+        (lease,) = [s for s in spans if s["name"] == "lease"]
+        for phase in ("stage", "queue", "execute", "post"):
+            got = [s for s in spans if s["name"] == phase]
+            if len(got) != 1 or got[0]["parent_span_id"] != lease["span_id"] \
+                    or got[0]["duration_ms"] is None:
+                problems.append(f"{job_id} {phase}: {got}")
+        if not tree["complete"] or tree["orphans"]:
+            problems.append(f"{job_id}: {obs_trace.phase_breakdown(tree)}, orphans "
+                            f"{tree['orphans']}, open {tree['open_spans']}")
+    bad = obs_trace.validate_chrome_trace(obs_trace.to_chrome_trace(every))
+    if problems or bad:
+        raise SystemExit(f"span trees: {problems[:4]}, chrome trace: {bad[:4]}")
+    return every, len(every) / len(job_ids)
+
+
+def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> dict:
+    """Phase 15: the agent's telemetry on phase 10's stand-in controller,
+    shards and resident BERT-base weights, through the pipelined runner
+    (PIPELINE_DEPTH 2). The 8 shards drain once with TRACE_ENABLED=0 (no
+    span may be shipped) and once traced, with PROFILE_DIR set
+    (PROFILE_TASKS 1) and a profile_capture alert on the first lease: each
+    shard's spans assemble into a complete tree, Σ usage.device_s equals
+    the busy counter the agent shipped within 1 %, Σ usage.flops the
+    staged shapes' encoder_fwd_flops, device_mfu and device_duty_cycle lie
+    in (0, 1], device_hbm_bytes' limit is the card's total within 1 %, and
+    both Chrome traces hold row 1's kernel (on the card). Then one shard
+    whose lease carries an slo_page alert (the recorder's dump must hold the
+    traced shards' lease and posted events), and one shard through an agent
+    whose CONTROLLER_URLS lists a dead local port first (one failover).
+    Every result equals phase 10's serial run bit for bit."""
+    from agent_tpu_torch.agent.app import Agent
+    from agent_tpu_torch.config import AgentConfig, Config, DeviceConfig
+    from agent_tpu_torch.obs import trace as obs_trace
+    from agent_tpu_torch.obs.health import resolve_peak_flops
+    from agent_tpu_torch.ops._model_common import encoder_fwd_flops
+
+    t_phase = time.perf_counter()
+    op, n_layers = "map_classify_tpu", BERT_BASE["n_layers"]
+    on_card = torch.device(CARD).type == "cuda"
+    smi = nvidia_smi_line() if on_card else "not a card"
+
+    def agent(name: str, device=None, **kw):
+        kw.setdefault("controller_url", ctrl.url)
+        return Agent(Config(agent=AgentConfig(agent_name=name, tasks=(op,), idle_sleep_sec=0.005,
+                                              pipeline_depth=2, **kw),
+                            device=device or DeviceConfig()), runtime=rt)
+
+    def drain(worker, payloads: list, want: list) -> tuple:
+        ids = [ctrl.submit(op, p) for p in payloads]
+        if on_card:
+            torch.cuda.synchronize()
+        gc.collect()
+        wall, _ = pipelined_drain(worker, ctrl)
+        results = [job["result"] for job in ctrl.outcome(ids)]
+        for r, w in zip(results, want):
+            if r["indices"] != w["indices"] or r["scores"] != w["scores"]:
+                raise SystemExit(f"{worker.config.agent.agent_name}: the decoded columns "
+                                 "differ from phase 10's serial run")
+        return ids, results, wall
+
+    env_keys = ("TRACE_ENABLED", "PROFILE_CAPTURE_DIR", "FLIGHT_RECORDER_DIR")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    tmp = tempfile.TemporaryDirectory()
+    prof_dir, rec_dir = os.path.join(tmp.name, "profile"), os.path.join(tmp.name, "recorder")
+    os.makedirs(rec_dir)
+    os.environ["PROFILE_CAPTURE_DIR"] = os.path.join(tmp.name, "captures")
+    os.environ["FLIGHT_RECORDER_DIR"] = rec_dir
+    try:
+        # Tracing off.
+        os.environ["TRACE_ENABLED"] = "0"
+        obs_trace.set_enabled(None)
+        shipped = ctrl.spans_shipped
+        _, _, wall_off = drain(agent("chip-smoke-trace-off"), shards, serial)
+        if ctrl.spans_shipped != shipped:
+            raise SystemExit(f"TRACE_ENABLED=0 shipped {ctrl.spans_shipped - shipped} spans")
+
+        # Tracing on (the default), PROFILE_DIR, and a capture on the first
+        # lease (the staging pool may lease every shard at once): the
+        # capture takes the first execute, PROFILE_DIR the next.
+        del os.environ["TRACE_ENABLED"]
+        obs_trace.set_enabled(None)
+        on = agent(TELEMETRY_AGENT, DeviceConfig(profile_dir=prof_dir, profile_tasks=1))
+        ctrl.queue_alerts([{"kind": "profile_capture", "capture_id": CAPTURE_ID, "op": op,
+                            "duration_ms": None}])
+        reset_counts(fa)
+        ids, results, wall_on = drain(on, shards, serial)
+        launches = fa.LAUNCH_COUNTS["flash_attention"]
+        obs = ctrl.agent_obs[TELEMETRY_AGENT]  # its final flush
+        spans, spans_per_job = check_span_trees(ctrl, ids)
+
+        # Usage against the agent's own counters and the staged shapes.
+        busy = sum(obs_values(obs, "device_busy_seconds_total", op=op))
+        device_s = sum(r["usage"]["device_s"] for r in results)
+        flops = sum(r["usage"]["flops"] for r in results)
+        staged_flops = sum(encoder_fwd_flops(ids_.shape[0], ids_.shape[1], st["cfg"].d_model,
+                                             st["cfg"].d_ff, n_layers, st["cfg"].n_classes)
+                           for st in staged for ids_, _, _ in st["chunks"])
+        chips = sorted({r["usage"]["chips"] for r in results})
+        host_s = [r["usage"]["host_s"] for r in results]
+        if not busy > 0 or abs(device_s - busy) > 0.01 * busy or flops != staged_flops \
+                or chips != [1.0] or min(host_s) <= 0:
+            raise SystemExit(f"usage: device_s {device_s} against busy {busy}, flops {flops} "
+                             f"against {staged_flops}, chips {chips}, host_s {host_s}")
+
+        # Gauges.
+        peak = resolve_peak_flops(rt)
+        mfu = obs_values(obs, "device_mfu", op=op)
+        duty = obs_values(obs, "device_duty_cycle")
+        if len(mfu) != 1 or not 0 < mfu[0] <= 1 or len(duty) != 1 or not 0 < duty[0] <= 1:
+            raise SystemExit(f"device_mfu {mfu} (peak {peak}), device_duty_cycle {duty}")
+        hbm = {kind: obs_values(obs, "device_hbm_bytes", device=str(rt.device.index), kind=kind)
+               for kind in ("used", "peak", "limit")}
+        total = torch.cuda.mem_get_info(rt.device)[1] if on_card else None
+        if on_card and (any(len(v) != 1 for v in hbm.values())
+                        or abs(hbm["limit"][0] - total) > 0.01 * total):
+            raise SystemExit(f"device_hbm_bytes {hbm} against the card's {total} bytes")
+
+        # Captures: the PROFILE_DIR trace and the on-demand one.
+        traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+        records = [c for c in ctrl.captures if c.get("capture_id") == CAPTURE_ID]
+        artifact = records[0].get("artifact") if len(records) == 1 else None
+        if len(traces) != 1 or artifact is None or records[0]["status"] != "done" \
+                or not os.path.isfile(os.path.join(artifact, "trace.json")):
+            raise SystemExit(f"captures: PROFILE_DIR holds {traces}, the stand-in got {records}")
+        kernels = {"profile_dir": trace_kernels(os.path.join(prof_dir, traces[0]),
+                                                "flash_fwd_sm90"),
+                   "capture": trace_kernels(os.path.join(artifact, "trace.json"),
+                                            "flash_fwd_sm90")}
+        if on_card and min(kernels.values()) < 1:
+            raise SystemExit(f"row 1 missing from the agent's captures: {kernels}")
+
+        # An slo_page alert: the recorder's dump of the traced shards.
+        ctrl.queue_alerts([{"objective": "interactive", "state": "page", "tier": 8, "op": op}])
+        drain(on, shards[:1], serial[:1])
+        if len(on.slo_dump_paths) != 1 or not on.slo_dump_paths[0].startswith(rec_dir):
+            raise SystemExit(f"slo_page dumps: {on.slo_dump_paths}")
+        with open(on.slo_dump_paths[0]) as fh:
+            dumped = [json.loads(line) for line in fh]
+        leased = {j for e in dumped if e["kind"] == "lease" for j in e["job_ids"]}
+        posted = {e["job_id"] for e in dumped if e["kind"] == "phase" and e["phase"] == "posted"}
+        if not set(ids) <= leased & posted:
+            raise SystemExit(f"the slo_page dump lacks {sorted(set(ids) - (leased & posted))}")
+
+        # CONTROLLER_URLS with a dead local port first.
+        fo = agent("chip-smoke-failover", controller_url=DEAD_CONTROLLER,
+                   controller_urls=(DEAD_CONTROLLER, ctrl.url), error_backoff_sec=0.05)
+        drain(fo, shards[1:2], serial[1:2])
+        failovers = [e for e in fo.recorder.events() if e["kind"] == "controller_failover"]
+        if fo.m_failover.value() != 1 or len(failovers) != 1 \
+                or fo.active_controller_url() != ctrl.url:
+            raise SystemExit(f"failover: {fo.m_failover.value()} rotations, {failovers}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs_trace.set_enabled(None)
+        tmp.cleanup()
     report = {
-        "phase": "drain", "config": BERT_BASE, "rows": DRAIN_ROWS, "shard_rows": DRAIN_SHARD,
-        "warmup_s": warm_s, "wall_s": wall, "rows_per_s": DRAIN_ROWS / wall,
-        "serial_wall_s": serial_wall, "serial_rows_per_s": DRAIN_ROWS / serial_wall,
-        "drain_over_serial": serial_wall / wall, "stage_workers": workers,
-        "p50_phase_ms": p50_phases(results),
-        "per_shard_ms": [{k: r["timings"][k] for k in ("device_ms", "fetch_ms")}
-                         for r in results],
-        "launches": launches, "dispatch_chunks": chunks,
-        "profiled_shard": {k: profile[k] for k in ("wall_ms", "device_ms", "idle_share",
-                                                  "device_ms_by_kind", "profile_attempts")},
-        "risk": {k: risk[k] for k in ("count", "sum", "min", "max", "device")},
-        "risk_vs_host": {"sum_diff": abs(risk["sum"] - host["sum"]), "sum_bound": bound},
-        "mixed": {"wall_s": mixed_wall, "rows": mixed_rows, "rows_per_s": mixed_rows / mixed_wall,
-                  "summarize_serial_wall_s": s2s_serial_wall,
-                  "p50_phase_ms_summarize": p50_phases([j["result"] for j in s2s_jobs])},
-        "b1_leases": ctrl.b1_leases,
+        "phase": "telemetry", "config": BERT_BASE, "rows": DRAIN_ROWS, "nvidia_smi": smi,
+        "seconds": time.perf_counter() - t_phase,
+        "rows_per_s_tracing_off": DRAIN_ROWS / wall_off,
+        "rows_per_s_tracing_on": DRAIN_ROWS / wall_on, "on_over_off": wall_off / wall_on,
+        "spans": len(spans), "spans_per_job": spans_per_job,
+        "usage": {"device_s": device_s, "busy_counter_s": busy, "flops": flops,
+                  "staged_flops": staged_flops, "chips": chips, "host_s_min": min(host_s)},
+        "device_mfu": mfu[0], "peak_tflops": None if peak is None else peak / 1e12,
+        "card": torch.cuda.get_device_name(rt.device) if on_card else "cpu",
+        "device_duty_cycle": duty[0], "device_hbm_bytes": hbm, "card_total_bytes": total,
+        "launches": launches, "launched_per_shard": sorted({n_layers * len(st["chunks"])
+                                                            for st in staged}),
+        "flash_fwd_sm90_traced": kernels, "slo_dump_events": len(dumped),
+        "failover": failovers[0],
     }
     emit(report)
     return report
@@ -2367,21 +2670,23 @@ def entry_point_phase(path: str) -> dict:
     """Phase 10, the entry point: ``python -m agent_tpu_torch.agent.app`` in
     a process of its own against the stand-in controller with
     TASKS=echo,read_csv_shard,map_classify_tpu drains one echo, one
-    read_csv_shard and two 256-row classify shards, then SIGTERM must end it
-    with exit code 0; with TASKS=none it must exit 2 at once."""
+    read_csv_shard and two 256-row classify shards, then SIGUSR1 must dump
+    its flight recorder (holding the lease events) and SIGTERM end it with
+    exit code 0; with TASKS=none it must exit 2 at once."""
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
     extra = {"text_field": "text", "result_format": "columnar", "allow_fallback": False,
              "model_config": dict(BERT_BASE, n_layers=ENTRY_LAYERS), "topk": 5}
     torch.cuda.empty_cache()  # leave the card's memory to the other process
-    with StandInController() as ctrl, tempfile.TemporaryFile("w+") as log:
+    with StandInController() as ctrl, tempfile.TemporaryFile("w+") as log, \
+            tempfile.TemporaryDirectory() as rec_dir:
         ids = [ctrl.submit("echo", {"hello": "card"}),
                ctrl.submit("read_csv_shard", {"source_uri": path, "shard_size": 5})]
         ids += ctrl.submit_csv(path, "map_classify_tpu", 0, 2 * ENTRY_SHARD, ENTRY_SHARD, extra)
         env = dict(os.environ, CONTROLLER_URL=ctrl.url, AGENT_NAME="chip-smoke-entry",
                    TASKS="echo,read_csv_shard,map_classify_tpu", IDLE_SLEEP_SEC="0.05",
-                   PYTHONPATH=root)
+                   FLIGHT_RECORDER_DIR=rec_dir, PYTHONPATH=root)
         t0 = time.perf_counter()
         proc = subprocess.Popen([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
                                 env=env, stdout=log, stderr=subprocess.STDOUT)
@@ -2390,6 +2695,17 @@ def entry_point_phase(path: str) -> dict:
                     and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
                 time.sleep(0.05)
             drained_s = time.perf_counter() - t0
+            dump = os.path.join(rec_dir, f"agent_tpu_torch_flight_agent-chip-smoke-entry_"
+                                         f"{proc.pid}.jsonl")
+            proc.send_signal(signal.SIGUSR1)
+            t_dump = time.perf_counter()
+            while not os.path.exists(dump) and proc.poll() is None \
+                    and time.perf_counter() - t_dump < 60:
+                time.sleep(0.05)
+            dumped = []
+            if os.path.exists(dump):
+                with open(dump) as fh:
+                    dumped = [json.loads(line) for line in fh]
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
         finally:
@@ -2402,15 +2718,18 @@ def entry_point_phase(path: str) -> dict:
     none = subprocess.run([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
                           env=dict(env, TASKS="none"), capture_output=True, text=True,
                           timeout=300)
+    leases = sum(1 for e in dumped if e["kind"] == "lease")
     report = {"phase": "entry_point", "drained_s": drained_s, "exit_code": rc,
-              "exit_code_tasks_none": none.returncode, "log_tail": out[-1500:]}
+              "exit_code_tasks_none": none.returncode, "sigusr1_dump_events": len(dumped),
+              "sigusr1_dump_leases": leases, "log_tail": out[-1500:]}
     emit(report)
     cls = [j["result"] for j in jobs if j["op"] == "map_classify_tpu"]
-    if rc != 0 or none.returncode != 2 or len(jobs) != 4 \
+    if rc != 0 or none.returncode != 2 or len(jobs) != 4 or not leases \
             or [r.get("device") for r in cls] != [torch.device(CARD).type] * 2 \
             or [r["n_rows"] for r in cls] != [ENTRY_SHARD] * 2:
         raise SystemExit(f"the entry point failed: exit {rc}, TASKS=none exit "
-                         f"{none.returncode}, {len(jobs)} of 4 jobs, log {out[-2000:]}")
+                         f"{none.returncode}, {len(jobs)} of 4 jobs, {leases} leases in the "
+                         f"SIGUSR1 dump, log {out[-2000:]}")
     return report
 
 
@@ -4101,6 +4420,7 @@ def main(argv=None) -> int:
             q, k_, v, attn_mask=bool_mask)), q,
         launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"],
                           "agent_drain_map_classify_tpu": drain["launches"],
+                          "agent_telemetry_map_classify_tpu": drain["telemetry"]["launches"],
                           "map_classify_tpu_bert": bert_run["launches"],
                           "map_summarize_bart": bart_run["launches"],
                           "serve_classify": classify_check["launches"],

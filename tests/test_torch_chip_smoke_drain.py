@@ -4,7 +4,9 @@ risk_accumulate shards through the pipelined runner, the shards' results
 agree bit for bit with the ops run serially, and the serving kernel's
 wrapper is reached n_layers times per dispatch chunk. On the CPU the
 wrapper runs its plain version and counts nothing, so the rehearsal counts
-calls of the attention function instead (the card's run counts launches)."""
+calls of the attention function instead (the card's run counts launches).
+Phase 10 ends with phase 15 (the telemetry), whose MFU gauge needs a peak:
+PEAK_TFLOPS on the CPU."""
 
 import pytest
 import torch
@@ -24,6 +26,7 @@ def rehearsal(monkeypatch, tmp_path):
                         ("S2S_MAX_NEW", 3), ("DRAIN_TIMEOUT_S", 120)):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setenv("PEAK_TFLOPS", "1")
     plain = fa.make_flash_attention
 
     def counting(mesh=None):
@@ -58,7 +61,10 @@ def test_drain_phase_rehearsal(rehearsal, capsys):
     assert report["b1_leases"] >= 5 and report["risk"]["device"] == "mesh"
     assert set(report["p50_phase_ms"]) == {"stage_ms", "queue_ms", "device_ms", "fetch_ms",
                                            "finalize_ms"}
-    assert '"phase": "drain"' in capsys.readouterr().out
+    assert report["telemetry"]["launches"] == TINY["n_layers"] * 3
+    out = capsys.readouterr().out
+    assert '"phase": "drain"' in out and out.index('"phase": "drain"') < out.index(
+        '"phase": "telemetry"')
 
 
 def test_stand_in_controller_fences_epochs_and_counts_posts(rehearsal):

@@ -85,7 +85,7 @@ def test_runtime_without_sp_keeps_the_flash_path():
                                    None])
 def test_runtime_refuses_axes_not_ported(shape):
     n = 4 if shape and len(shape) == 2 else 2
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(ValueError, match="item 2"):
         TorchRuntime(devices=["cpu"] * n, mesh_shape=shape)
 
 

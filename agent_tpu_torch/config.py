@@ -11,7 +11,7 @@ the result spool); ``SizingConfig`` the host-sizing knobs of
 decode engine's and the prefix cache's and carry the controller's
 front-door fields as plain data; ``DeviceConfig`` the device knobs
 (``TPU_QUANT``, ``TPU_DISABLED``, ``PALLAS_ATTN``, ``CHIP_SLICE``,
-``PROFILE_DIR``, ``PROFILE_TASKS``). ``FLIGHT_RECORDER_DIR``,
+``MESH_SHAPE``, ``PROFILE_DIR``, ``PROFILE_TASKS``). ``FLIGHT_RECORDER_DIR``,
 ``PROFILE_CAPTURE_DIR``, ``TRACE_ENABLED`` and ``PEAK_TFLOPS`` are read
 where the reference reads them: in ``obs.recorder``, the agent's capture,
 ``obs.trace`` and ``obs.health``. Not here: the partition map
@@ -242,6 +242,22 @@ class ServeConfig:
         )
 
 
+def parse_mesh_shape(text: str) -> Dict[str, int]:
+    """``"dp=2,tp=2"`` (comma-separated ``axis=size``) -> ``{"dp": 2, "tp":
+    2}``, as the reference's ``DeviceConfig.from_env`` parses ``MESH_SHAPE``:
+    a size that is not an int is skipped, and a bare name means size 1."""
+    shape: Dict[str, int] = {}
+    for tok in text.split(","):
+        name, eq, size = (part.strip() for part in tok.partition("="))
+        if not name:
+            continue
+        try:
+            shape[name] = int(size) if eq else 1
+        except ValueError:
+            pass
+    return shape
+
+
 @dataclass(frozen=True)
 class DeviceConfig:
     """The device knobs (the reference's ``DeviceConfig``, cut to what the
@@ -261,6 +277,9 @@ class DeviceConfig:
     # CHIP_SLICE "start:count": the slice of the host's cards this agent
     # owns ("" = from the first card).
     chip_slice: str = ""
+    # MESH_SHAPE "dp=2,tp=2" (axes dp, tp, sp, pp, ep): the runtime's mesh
+    # over its devices ({} = every device on dp).
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
     # PROFILE_DIR: a torch.profiler trace of each of the first
     # PROFILE_TASKS tasks' execute is written there ("" disables).
     profile_dir: str = ""
@@ -272,6 +291,7 @@ class DeviceConfig:
                             tpu_disabled=env_bool("TPU_DISABLED", False),
                             pallas_attn=env_bool("PALLAS_ATTN", True),
                             chip_slice=env_str("CHIP_SLICE", "").strip(),
+                            mesh_shape=parse_mesh_shape(env_str("MESH_SHAPE", "")),
                             profile_dir=env_str("PROFILE_DIR", ""),
                             profile_tasks=env_int("PROFILE_TASKS", 1))
 

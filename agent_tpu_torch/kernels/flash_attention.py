@@ -73,10 +73,14 @@ MAX_BIAS_DISTANCE = 1024
 # training, "dense" / "dense_train" = dot-product attention; "ring" /
 # "ring_dense" = ring attention over sp (parallel/ring.py) / the shapes it
 # sends to dot-product attention; "t5_flash" / "t5_dense" = the T5 kernel
-# path / the shapes it hands back to the T5 encoder's dense path.
+# path / the shapes it hands back to the T5 encoder's dense path;
+# "unsharded" = a call on a dp/tp mesh whose batch or heads do not divide
+# the mesh (or a sharded model's attention whose heads replicate), run by
+# the kernel path whole on the group's first device, where the reference
+# runs dense attention.
 SELECTION_COUNTS: Dict[str, int] = {"flash": 0, "dense": 0, "flash_train": 0,
                                     "dense_train": 0, "ring": 0, "ring_dense": 0,
-                                    "t5_flash": 0, "t5_dense": 0}
+                                    "t5_flash": 0, "t5_dense": 0, "unsharded": 0}
 # CUDA kernel launches, counted where each kernel is launched and nowhere
 # else: a run proves it went through the kernels by reading this.
 LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0, "flash_attention_fwd_lse": 0,
@@ -629,23 +633,79 @@ def flash_attention_trainable_reference(q: torch.Tensor, k: torch.Tensor,
     return FlashAttentionTrainable.apply(q, k, v, mask, True)
 
 
+def shardable(batch: int, n_heads: int, dp: int, tp: int) -> bool:
+    """The reference's ``_wrapper_shardable``: batch over dp, heads over tp."""
+    return batch % dp == 0 and n_heads % tp == 0
+
+
+def mesh_attention(fn_for: Callable[[int, int], Callable], mesh, fallback: Callable):
+    """An ``attn_fn`` over a dp/tp mesh (the reference's ``shard_map``
+    wrappers): q, k, v [B, H, L, D] and the mask are cut into dp row blocks
+    and tp head blocks, shard (i, j) runs ``fn_for(i, j)`` on its device
+    (its mesh position at sp 0), and the outputs are put back together on
+    q's device. Extra positional arguments (T5's bias table ``[buckets,
+    H]``) are cut over heads on their last dim. A shape whose batch or heads
+    do not divide runs ``fallback`` whole on q's device, counted under
+    ``SELECTION_COUNTS["unsharded"]``. The function's ``shard(i, j)`` gives
+    shard (i, j)'s own function, for a model that already runs per shard."""
+    shape = mesh.shape
+    dp, tp = shape.get("dp", 1), shape.get("tp", 1)
+
+    def attn(q, k, v, mask, *rest, **kw):
+        B, H = q.shape[:2]
+        if not shardable(B, H, dp, tp):
+            SELECTION_COUNTS["unsharded"] += 1
+            return fallback(q, k, v, mask, *rest, **kw)
+        if mask.shape[0] == 1 and B > 1:
+            mask = mask.expand(B, *mask.shape[1:])
+        b, h = B // dp, H // tp
+        rows = []
+        for i in range(dp):
+            outs = []
+            for j in range(tp):
+                dev = mesh.device_at(dp=i, tp=j)
+
+                def put(t):
+                    return t.to(dev, non_blocking=True).contiguous()
+
+                hs = slice(j * h, (j + 1) * h)
+                bs = slice(i * b, (i + 1) * b)
+                o = fn_for(i, j)(put(q[bs, hs]), put(k[bs, hs]), put(v[bs, hs]), put(mask[bs]),
+                                 *(put(r[..., hs]) for r in rest), **kw)
+                if o is None:  # T5: a shape the kernel hands back
+                    return None
+                outs.append(o.to(q.device, non_blocking=True))
+            rows.append(torch.cat(outs, dim=1))
+        return torch.cat(rows, dim=0)
+
+    attn.shard = fn_for
+    return attn
+
+
+def _on_mesh(fn: Callable, mesh) -> Callable:
+    """``fn`` itself without a dp/tp mesh, else launched once per shard."""
+    if mesh is None or mesh.shape.get("dp", 1) * mesh.shape.get("tp", 1) == 1:
+        return fn
+    return mesh_attention(lambda i, j: fn, mesh, fn)
+
+
 def make_flash_attention(mesh=None):
-    """The attention function for a mesh without ``sp``: :func:`flash_attention`
-    itself. The reference wraps its kernel in ``shard_map`` for dp/tp
-    meshes; the port's meshes have neither axis yet (``TorchRuntime``
-    refuses them), so the kernel runs whole on the mesh's first device."""
-    return flash_attention
+    """The attention function of a mesh without ``sp``: :func:`flash_attention`
+    itself on one device; on a dp/tp mesh the kernel launched once per
+    shard on the shard's device, with its batch rows and heads
+    (:func:`mesh_attention`)."""
+    return _on_mesh(flash_attention, mesh)
 
 
 def make_flash_attention_trainable(mesh=None):
-    """The differentiable attention function for a mesh without ``sp``:
-    :func:`flash_attention_trainable` itself."""
-    return flash_attention_trainable
+    """The differentiable attention function of a mesh without ``sp``:
+    :func:`flash_attention_trainable` itself, or per dp/tp shard."""
+    return _on_mesh(flash_attention_trainable, mesh)
 
 
 def make_flash_attention_t5(mesh=None):
-    """The T5 attention function for any of the port's meshes:
-    :func:`flash_attention_t5` itself, run whole on the mesh's first device.
-    The reference shards it over dp and tp, which the port's meshes do not
-    have; over ``sp`` the reference runs it unsharded too (no ring for T5)."""
-    return flash_attention_t5
+    """The T5 attention function: :func:`flash_attention_t5` itself, or on
+    a dp/tp mesh per shard (batch over dp, heads and the bias table's head
+    columns over tp), as the reference's T5 wrapper. Over ``sp`` the
+    reference runs it unsharded too (no ring for T5)."""
+    return _on_mesh(flash_attention_t5, mesh)

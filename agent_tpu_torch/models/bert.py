@@ -17,6 +17,13 @@ the reference's flattened tree), dense weights ``[in, out]`` as the
 reference holds them, on one device: matmul weights, biases and embeddings
 in the compute dtype (the reference's cast at use, done once), layer norm
 parameters in f32. No network access: checkpoints load from local disk.
+
+Over a mesh the weights are a :class:`ShardedBert`: one tree per (dp, tp)
+shard, split by ``parallel.shardings.bert_specs``. The forward is one code
+path for both (:func:`forward_shards`): each tp shard attends with its
+heads and computes its columns of the intermediate layer and the pooler,
+and the row-parallel output projections and head sum over the shards,
+their biases added once.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import os
 import threading
 import unicodedata
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,33 +116,141 @@ def _ln(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 _dense = layers.dense_leaf
 
 
-def forward(params: Params, ids: torch.Tensor, mask: torch.Tensor, cfg: BertConfig,
+def forward(params, ids: torch.Tensor, mask: torch.Tensor, cfg: BertConfig,
             attn_fn: AttnFn = layers.dot_product_attention) -> torch.Tensor:
     """ids, mask [B, L] int (mask 1 = real token) -> sequence-classification
     logits [B, num_labels] f32: embeddings (word + learned position + token
-    type 0) -> post-LN stack -> tanh pooler over [CLS] -> head."""
-    dtype = cfg.compute_dtype
-    B, L = ids.shape
-    emb = params["embed"]
-    x = emb["word"][ids.long()] + emb["pos"][:L][None] + emb["type"][0][None, None]
-    x = _ln(emb["ln"], x, cfg.layer_norm_eps)
-    attn_mask = layers.pad_mask_to_attn(mask)
+    type 0) -> post-LN stack -> tanh pooler over [CLS] -> head. ``params``
+    is one device's tree or a :class:`ShardedBert`."""
+    if isinstance(params, ShardedBert):
+        return params.forward(ids, mask, attn_fn)
+    return forward_shards([params], [ids], [mask], cfg, [attn_fn])
+
+
+def forward_shards(trees: List[Params], ids: List[torch.Tensor], masks: List[torch.Tensor],
+                   cfg: BertConfig, attn_fns: List[AttnFn],
+                   split: Optional[Dict[str, bool]] = None) -> torch.Tensor:
+    """:func:`forward` over the tp shards of one dp replica: ``trees[j]``,
+    ``ids[j]``, ``masks[j]`` and ``attn_fns[j]`` on shard j's device ->
+    the logits on shard 0's. ``split`` says which parts are split over the
+    shards (``"embed"``, ``"attn"``, ``"ffn"``, ``"pooler"``); a part that
+    is not runs whole on shard 0. One shard is the one-device forward."""
+    from agent_tpu_torch.parallel import collectives
+
+    split = split or {}
+    dtype, eps = cfg.compute_dtype, cfg.layer_norm_eps
+    B, L = ids[0].shape
     d_head = cfg.hidden_size // cfg.num_heads
+    one = len(trees) == 1
+    emb = [t["embed"] for t in trees]
+    if one or split.get("embed"):
+        rows = emb[0]["word"].shape[0]
+        words = collectives.all_reduce_sum(
+            [layers.vocab_lookup(e["word"], i, j * rows, dtype) if not one
+             else e["word"][i.long()] for j, (e, i) in enumerate(zip(emb, ids))])
+    else:
+        words = layers.on_first(lambda: emb[0]["word"][ids[0].long()], ids)
+    xs = [_ln(e["ln"], w + e["pos"][:L][None] + e["type"][0][None, None], eps)
+          for e, w in zip(emb, words)]
+    attn_masks = [layers.pad_mask_to_attn(m) for m in masks]
 
     def heads(t: torch.Tensor) -> torch.Tensor:
-        return t.view(B, L, cfg.num_heads, d_head).transpose(1, 2)
+        return t.view(B, L, -1, d_head).transpose(1, 2)
 
-    for blk in params["layers"]:
-        a = blk["attn"]
-        ctx = attn_fn(heads(_dense(a["q"], x, dtype)), heads(_dense(a["k"], x, dtype)),
-                      heads(_dense(a["v"], x, dtype)), attn_mask)
-        ctx = ctx.transpose(1, 2).reshape(B, L, cfg.hidden_size)
-        x = _ln(a["ln"], x + _dense(a["o"], ctx, dtype), cfg.layer_norm_eps)
-        f = blk["ffn"]
-        h = F.gelu(_dense(f["i"], x, dtype).float(), approximate="none").to(dtype)
-        x = _ln(f["ln"], x + _dense(f["o"], h, dtype), cfg.layer_norm_eps)
-    pooled = torch.tanh(_dense(params["pooler"], x[:, 0], dtype).float()).to(dtype)
-    return _dense(params["head"], pooled, dtype).float()
+    def context(a: Params, x: torch.Tensor, m: torch.Tensor, f: AttnFn) -> torch.Tensor:
+        c = f(heads(_dense(a["q"], x, dtype)), heads(_dense(a["k"], x, dtype)),
+              heads(_dense(a["v"], x, dtype)), m)
+        return c.transpose(1, 2).reshape(B, L, -1)
+
+    def intermediate(f: Params, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(_dense(f["i"], x, dtype).float(), approximate="none").to(dtype)
+
+    for blks in zip(*[t["layers"] for t in trees]):
+        a = [b["attn"] for b in blks]
+        if one or split.get("attn"):
+            o = layers.row_parallel([p["o"] for p in a],
+                                    [context(p, x, m, f)
+                                     for p, x, m, f in zip(a, xs, attn_masks, attn_fns)], dtype)
+        else:
+            from agent_tpu_torch.kernels.flash_attention import SELECTION_COUNTS
+
+            SELECTION_COUNTS["unsharded"] += 1
+            o = layers.on_first(lambda: _dense(a[0]["o"], context(a[0], xs[0], attn_masks[0],
+                                                                   attn_fns[0]), dtype), xs)
+        xs = [_ln(p["ln"], x + y, eps) for p, x, y in zip(a, xs, o)]
+        f = [b["ffn"] for b in blks]
+        if one or split.get("ffn"):
+            o = layers.row_parallel([p["o"] for p in f],
+                                    [intermediate(p, x) for p, x in zip(f, xs)], dtype)
+        else:
+            o = layers.on_first(lambda: _dense(f[0]["o"], intermediate(f[0], xs[0]), dtype), xs)
+        xs = [_ln(p["ln"], x + y, eps) for p, x, y in zip(f, xs, o)]
+    if one or split.get("pooler"):
+        pooled = [torch.tanh(_dense(t["pooler"], x[:, 0], dtype).float()).to(dtype)
+                  for t, x in zip(trees, xs)]
+        return layers.row_parallel([t["head"] for t in trees], pooled, dtype)[0].float()
+    pooled = torch.tanh(_dense(trees[0]["pooler"], xs[0][:, 0], dtype).float()).to(dtype)
+    return _dense(trees[0]["head"], pooled, dtype).float()
+
+
+class ShardedBert:
+    """BERT's weights over a mesh's ``dp`` and ``tp`` axes: shard (i, j) is
+    the tree of tp piece j on the mesh's device (dp=i, tp=j) (dp replicas
+    on one device share it). ``bert_specs`` splits q/k/v, the intermediate
+    layer and the pooler by columns (their biases too), the two output
+    projections and the head by rows (their biases replicated, added once),
+    and the word embedding by vocabulary rows; a leaf whose dims do not
+    divide replicates, and its part runs whole on shard 0."""
+
+    def __init__(self, flat: Dict[str, np.ndarray], cfg: BertConfig, specs: Dict[str, tuple],
+                 mesh) -> None:
+        from agent_tpu_torch.parallel.shardings import REPLICATED, slice_of, weight_split
+
+        self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self.shape = shape = mesh.shape
+        self.dp, self.tp = shape.get("dp", 1), shape.get("tp", 1)
+        self.split = {part: weight_split(specs, key, shape) for part, key in (
+            ("embed", "embed.word"), ("attn", "layers.0.attn.q"), ("ffn", "layers.0.ffn.i"),
+            ("pooler", "pooler"))}
+        self.trees: Dict[tuple, Params] = {}
+        for i in range(self.dp):
+            for j in range(self.tp):
+                key = self._key(i, j)
+                if key not in self.trees:
+                    held = {n: _dense_copy(slice_of(v, specs.get(n, REPLICATED), shape,
+                                                    {"tp": j}))
+                            for n, v in flat.items()}
+                    self.trees[key] = layers.place_tree(layers.unflatten(held),
+                                                        cfg.compute_dtype, key[0])
+
+    def _key(self, i: int, j: int) -> tuple:
+        return (self.mesh.device_at(dp=i, tp=j), j)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        """``forward`` over the mesh: the rows split over dp, each replica
+        through :func:`forward_shards`; logits on ids' device."""
+        from agent_tpu_torch.parallel import collectives
+
+        leaders = [self.mesh.device_at(dp=i) for i in range(self.dp)]
+        fn_of = getattr(attn_fn, "shard", None)
+        out = []
+        for i, (ids_i, mask_i) in enumerate(zip(collectives.scatter_rows(ids, leaders),
+                                                collectives.scatter_rows(mask, leaders))):
+            devs = [self.mesh.device_at(dp=i, tp=j) for j in range(self.tp)]
+            logits = forward_shards(
+                [self.trees[self._key(i, j)] for j in range(self.tp)],
+                collectives.broadcast(ids_i, devs), collectives.broadcast(mask_i, devs),
+                self.cfg, [fn_of(i, j) if fn_of else attn_fn for j in range(self.tp)],
+                self.split)
+            out.append(logits.to(ids.device, non_blocking=True))
+        return torch.cat(out)
+
+
+def _dense_copy(arr: np.ndarray) -> np.ndarray:
+    """A dense copy of a (sliced) host array in its own dim order, so a
+    quantized table keeps its ``gemm_layout``."""
+    order = np.argsort([-st for st in arr.strides], kind="stable")
+    return np.ascontiguousarray(arr.transpose(order)).transpose(np.argsort(order))
 
 
 # ---- weight import ----
@@ -157,6 +272,12 @@ def from_state_dict(sd: Dict[str, Any], cfg: BertConfig, head_seed: str = "bert-
     its rows equal ``cfg.num_labels``; otherwise the head is the seeded one
     of ``head_seed``, equal to the reference's (same id, same weights).
     A quantized ``cfg.quant`` quantizes the tree's f32 values on the host."""
+    return layers.place_tree(host_tree(sd, cfg, head_seed), cfg.compute_dtype, device)
+
+
+def host_tree(sd: Dict[str, Any], cfg: BertConfig, head_seed: str = "bert-head") -> Params:
+    """:func:`from_state_dict`'s tree on the host (quantized for a
+    quantized ``cfg.quant``), before placement."""
     sd = {(k[5:] if k.startswith("bert.") else k): torch.as_tensor(v) for k, v in sd.items()}
     tree: Params = {
         "embed": {
@@ -193,8 +314,7 @@ def from_state_dict(sd: Dict[str, Any], cfg: BertConfig, head_seed: str = "bert-
     else:
         tree["head"] = layers.init_dense(layers.seed_from(head_seed), cfg.hidden_size,
                                          cfg.num_labels)
-    return layers.place_tree(quant.quantize_tree(tree, "bert", cfg.quant), cfg.compute_dtype,
-                             device)
+    return quant.quantize_tree(tree, "bert", cfg.quant)
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: BertConfig, device=None) -> Params:
@@ -220,6 +340,17 @@ def load_hf_dir(path: str, device=None, **config_overrides) -> Tuple[BertConfig,
 
     cfg = BertConfig.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
     return cfg, from_state_dict(load_hf_weights(path), cfg, head_seed=path, device=device)
+
+
+def load_hf_flat(path: str, **config_overrides) -> Tuple[BertConfig, Dict[str, np.ndarray]]:
+    """(config, the host tree of :func:`load_hf_dir` as flat dotted-key
+    arrays, floats in f32): what a mesh places (:class:`ShardedBert`)."""
+    from agent_tpu_torch.models.safetensors_io import load_hf_weights
+
+    cfg = BertConfig.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
+    tree = host_tree(load_hf_weights(path), cfg, head_seed=path)
+    return cfg, layers.flatten(tree, leaf=lambda v: layers.leaf_numpy(v)
+                               if isinstance(v, torch.Tensor) else np.asarray(v))
 
 
 # ---- tokenizer ----

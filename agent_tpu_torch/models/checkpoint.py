@@ -16,7 +16,6 @@ from typing import Any, List, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 
 def _key_order(key: str) -> tuple:
@@ -27,9 +26,9 @@ def _key_order(key: str) -> tuple:
 
 def flatten_params(params: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """Param tree (nested dicts/lists of arrays or tensors) or an encoder
-    module -> ``[('blocks.0.attn.wq', leaf), ...]`` in the reference's
-    deterministic order."""
-    if isinstance(params, nn.Module):
+    (a module, or sharded over a mesh) -> ``[('blocks.0.attn.wq', leaf),
+    ...]`` in the reference's deterministic order."""
+    if hasattr(params, "to_flat_numpy"):
         flat = params.to_flat_numpy()
         return [(k, flat[k]) for k in sorted(flat, key=_key_order)]
     out: List[Tuple[str, Any]] = []

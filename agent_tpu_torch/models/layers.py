@@ -24,7 +24,7 @@ Layer norm parameters are f32 in both forms.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -128,15 +128,16 @@ def init_block(key: np.ndarray, d_model: int, n_heads: int, d_ff: int,
     return p
 
 
-def flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dicts/lists of arrays -> ``{"blocks.0.attn.wq": array, ...}``."""
+def flatten(tree: Params, prefix: str = "", leaf: Callable = np.asarray) -> Dict[str, np.ndarray]:
+    """Nested dicts/lists of arrays -> ``{"blocks.0.attn.wq": array, ...}``,
+    each leaf through ``leaf``."""
     out: Dict[str, np.ndarray] = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         if isinstance(v, (dict, list)):
-            out.update(flatten(v, f"{prefix}{k}."))
+            out.update(flatten(v, f"{prefix}{k}.", leaf))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v)
+            out[f"{prefix}{k}"] = leaf(v)
     return out
 
 
@@ -343,11 +344,22 @@ class Attention(nn.Module):
         return torch.matmul(o.transpose(1, 2).reshape(b, length, h * e),
                             w.reshape(h * e, d).to(dtype))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+    def heads(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        """The attention output of every head this module holds, [B, H, L, E]."""
         q = self._proj_in(self.wq, x, self.dtype)
         k = self._proj_in(self.wk, x, self.dtype)
         v = self._proj_in(self.wv, x, self.dtype)
-        return self._proj_out(self.wo, attn_fn(q, k, v, mask), self.dtype)
+        return attn_fn(q, k, v, mask)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        return self._proj_out(self.wo, self.heads(x, mask, attn_fn), self.dtype)
+
+    def out_leaf(self) -> Params:
+        """``wo`` as a row-parallel leaf with a ``[H·E, d]`` weight."""
+        if isinstance(self.wo, quant.QuantLeaf):
+            return quant.as_2d(self.wo.p, 2)
+        h, e, d = self.wo.shape
+        return {"w": self.wo.reshape(h * e, d)}
 
     def kv(self, x_kv: torch.Tensor) -> KV:
         """The keys and values of ``x_kv`` [B, Lk, d] as [B, H, Lk, E]."""
@@ -442,9 +454,18 @@ class FFN(nn.Module):
         self.wi = Dense(d_model, d_ff, dtype, device, trainable)
         self.wo = Dense(d_ff, d_model, dtype, device, trainable)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu's default is the tanh form.
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        return F.gelu(self.wi(x), approximate="tanh")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.wo(self.hidden(x))
+
+    def out_leaf(self) -> Params:
+        """``wo`` as a row-parallel leaf: ``{"w", "b"}`` or its quantized dict."""
+        if isinstance(self.wo, quant.QuantLeaf):
+            return self.wo.p
+        return {"w": self.wo.w, "b": self.wo.b}
 
 
 class EncoderBlock(nn.Module):
@@ -465,20 +486,136 @@ class EncoderBlock(nn.Module):
 
             self.moe = MoeFFN(moe_cfg, device, trainable)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn,
-                with_aux: bool = False):
-        """-> x, or with ``with_aux`` (x, the block's Switch aux loss, None
-        for a dense block)."""
-        x = x + self.attn(self.ln1(x), mask, attn_fn)
-        h = self.ln2(x)
-        aux = None
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
+        """:func:`encoder_block_tp` with this block as its one shard. An MoE
+        block's experts run in the encoder (``ShardedEncoder``), which routes
+        across its replicas."""
         if hasattr(self, "moe"):
-            B, L, d = h.shape
-            y, aux = self.moe(h.to(self.attn.dtype).reshape(B * L, d))
-            x = x + y.reshape(B, L, d).to(x.dtype)
+            raise ValueError("an MoE block runs inside its encoder")
+        return encoder_block_tp([self], [x], [mask], [attn_fn], False, False)[0]
+
+
+def leaf_numpy(t: torch.Tensor) -> np.ndarray:
+    """A weight read back to the host: floats as f32, int8 tables as int8."""
+    return (t.detach().float() if t.is_floating_point() else t.detach()).cpu().numpy()
+
+
+def place_pieces(model: nn.Module, pieces: Dict[str, Any], device) -> nn.Module:
+    """Give ``model``, built on the ``meta`` device, the leaves ``pieces``
+    (dotted key -> host array) on ``device``: each takes its meta tensor's
+    dtype, dim order (a quantized table keeps its ``gemm_layout``) and
+    gradient flag, at the piece's shape. A shard of a model holds its
+    pieces this way; the leaves it does not hold stay on ``meta``."""
+    for name, arr in pieces.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        old = owner._parameters.get(leaf)
+        if old is None:
+            old = owner._buffers[leaf]
+        order = sorted(range(old.dim()), key=lambda d: -old.stride(d))
+        shape = np.shape(arr)
+        t = torch.empty([shape[d] for d in order], dtype=old.dtype, device=device)
+        t = t.permute(*np.argsort(order).tolist())
+        t.copy_(torch.from_numpy(np.asarray(arr)))
+        if leaf in owner._parameters:
+            owner._parameters[leaf] = nn.Parameter(t, requires_grad=old.requires_grad)
         else:
-            x = x + self.ffn(h)
-        return (x, aux) if with_aux else x
+            owner._buffers[leaf] = t
+    return model
+
+
+# ---- tensor parallelism: one block's tp shards in one process ----
+#
+# Shard j of a block holds heads j·H/tp .. (j+1)·H/tp of q/k/v and the same
+# rows of wo, and columns j·F/tp .. of the FFN's wi (with its bias) and the
+# same rows of its wo. The residual stream is replicated: every shard holds
+# the whole [B, L, d] activation, and the functions below take and return
+# one tensor per shard. A block sums across its shards twice (after
+# attention's and after the FFN's output projection), in shard order
+# (parallel.collectives).
+
+def add_bias(y: torch.Tensor, b: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    return y if b is None else y + b.to(dtype)
+
+
+def row_parallel(leaves: Sequence[Params], xs: Sequence[torch.Tensor],
+                 dtype: torch.dtype) -> List[torch.Tensor]:
+    """Σ_j xs[j] @ leaves[j]["w"] over the shards, then the replicated
+    bias once: the full product on every shard. A quantized leaf (its table
+    viewed ``[K_j, N]``) goes through :func:`quant.row_parallel`."""
+    if quant.leaf_mode(leaves[0]) is not None:
+        return quant.row_parallel(list(leaves), list(xs), dtype)
+    from agent_tpu_torch.parallel import collectives
+
+    totals = collectives.all_reduce_sum([torch.matmul(x.to(dtype), p["w"].to(dtype))
+                                         for p, x in zip(leaves, xs)])
+    return [add_bias(t, p.get("b"), dtype) for t, p in zip(totals, leaves)]
+
+
+def on_first(fn: Callable[[], torch.Tensor], like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A replicated sublayer (dims that do not divide tp): computed once on
+    the first shard, its result on every shard's device."""
+    from agent_tpu_torch.parallel import collectives
+
+    return collectives.broadcast(fn(), [x.device for x in like])
+
+
+def attention_tp(attns: Sequence[Attention], hs: Sequence[torch.Tensor],
+                 masks: Sequence[torch.Tensor], attn_fns: Sequence[AttnFn],
+                 split: bool) -> List[torch.Tensor]:
+    """Self-attention over the shards: each attends with its heads on its
+    device, and the row-parallel output projection sums. With ``split``
+    False (heads replicated) the first shard computes it whole, its kernel
+    unsharded (``SELECTION_COUNTS["unsharded"]``)."""
+    if not split:
+        if len(attns) > 1:
+            from agent_tpu_torch.kernels.flash_attention import SELECTION_COUNTS
+
+            SELECTION_COUNTS["unsharded"] += 1
+        return on_first(lambda: attns[0](hs[0], masks[0], attn_fns[0]), hs)
+    outs = [a.heads(h, m, f) for a, h, m, f in zip(attns, hs, masks, attn_fns)]
+    b, _, length, _ = outs[0].shape
+    flat = [o.transpose(1, 2).reshape(b, length, -1) for o in outs]
+    return row_parallel([a.out_leaf() for a in attns], flat, attns[0].dtype)
+
+
+def ffn_tp(ffns: Sequence[FFN], hs: Sequence[torch.Tensor], split: bool) -> List[torch.Tensor]:
+    """The FFN over the shards: column-parallel ``wi``, row-parallel ``wo``
+    (its bias added once); with ``split`` False the first shard's whole."""
+    if not split:
+        return on_first(lambda: ffns[0](hs[0]), hs)
+    return row_parallel([f.out_leaf() for f in ffns], [f.hidden(h) for f, h in zip(ffns, hs)],
+                        ffns[0].wo.dtype)
+
+
+def encoder_block_tp(blocks: Sequence["EncoderBlock"], xs: Sequence[torch.Tensor],
+                     masks: Sequence[torch.Tensor], attn_fns: Sequence[AttnFn],
+                     attn_split: bool, ffn_split: bool) -> List[torch.Tensor]:
+    """:meth:`EncoderBlock.forward` over its tp shards, one residual stream
+    per shard. An MoE block returns after attention (the caller runs the
+    experts)."""
+    a = attention_tp([b.attn for b in blocks], [b.ln1(x) for b, x in zip(blocks, xs)],
+                     masks, attn_fns, attn_split)
+    xs = [x + y for x, y in zip(xs, a)]
+    if hasattr(blocks[0], "moe"):
+        return xs
+    f = ffn_tp([b.ffn for b in blocks], [b.ln2(x) for b, x in zip(blocks, xs)], ffn_split)
+    return [x + y for x, y in zip(xs, f)]
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, first: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Rows of a vocab-split embedding: ``table`` holds ids ``first ..
+    first + len(table)``; an id outside that range reads a zero row, so the
+    sum over the shards is the whole lookup (exact: x + 0 = x). The zero row
+    is ``F.embedding``'s padding index, which its backward skips: pointed at
+    one real row instead, the ids of every other shard (most of a batch)
+    made the gradient's scatter-add serialise on it."""
+    rows = table.shape[0]
+    local = ids.long() - first
+    local = torch.where((local >= 0) & (local < rows), local, rows)
+    padded = torch.cat([table.to(dtype), table.new_zeros((1, table.shape[1]), dtype=dtype)])
+    return F.embedding(local, padded, padding_idx=rows)
 
 
 class DecoderBlock(nn.Module):

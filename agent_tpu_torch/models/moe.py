@@ -26,7 +26,7 @@ the reference's arrays through the port's ``prng``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,10 +124,23 @@ class MoeFFN(nn.Module):
             return quant.moe_expert(w.p, x, self.dtype)
         return torch.bmm(x, w.to(self.dtype))
 
+    def expert_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN of every expert this module holds: x [E, N, d] -> [E, N, d]."""
+        return self._experts(self.wo, F.gelu(self._experts(self.wi, x), approximate="tanh"))
+
     def forward(self, x: torch.Tensor, group_size: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [T, d] -> (y [T, d] in x's dtype, aux f32 scalar). ``y`` is
         zero for a dropped token (callers add the residual)."""
+        return self.dispatch(x, group_size, [self])
+
+    def dispatch(self, x: torch.Tensor, group_size: int, experts: List["MoeFFN"]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward` with the experts held by ``experts``, the ep
+        shards in order (each holds E/ep consecutive experts, on its own
+        device): routing, capacity and drops are decided here, on this
+        module's replicated router, before any slot leaves; each shard
+        computes its experts' slots and sends them back."""
         cfg, dtype = self.cfg, self.dtype
         T, d = x.shape
         E = cfg.n_experts
@@ -158,8 +171,7 @@ class MoeFFN(nn.Module):
         token.scatter_(0, slot, torch.arange(n_g * group, device=x.device))
         token = token[:n_slots]
         expert_in = Route.apply(x.to(dtype), token, slot).view(E, n_g * C, d)
-        h = F.gelu(self._experts(self.wi, expert_in), approximate="tanh")
-        out = self._experts(self.wo, h).reshape(n_slots, d)
+        out = run_experts(experts, expert_in).reshape(n_slots, d)
         y = gate.reshape(-1, 1).to(dtype) * Route.apply(out, slot, token)
         y = y[:T]
 
@@ -172,6 +184,23 @@ class MoeFFN(nn.Module):
         mean_prob = (probs * valid).sum(dim=1) / vcount
         aux = ((fraction * mean_prob).sum(dim=-1) * E).mean()
         return y.to(x.dtype), aux
+
+
+def run_experts(experts: List[MoeFFN], expert_in: torch.Tensor) -> torch.Tensor:
+    """Expert-major slots [E, N, d] through the ep shards: shard k takes the
+    slots of its E/ep experts on its device, and the outputs come back to
+    ``expert_in``'s device in expert order."""
+    if len(experts) == 1:
+        return experts[0].expert_ffn(expert_in)
+    outs = [m.expert_ffn(part.to(_device(m), non_blocking=True))
+            .to(expert_in.device, non_blocking=True)
+            for m, part in zip(experts, expert_in.chunk(len(experts)))]
+    return torch.cat(outs)
+
+
+def _device(m: MoeFFN) -> torch.device:
+    """The device of the experts ``m`` holds."""
+    return m.wi.w_scale.device if isinstance(m.wi, quant.QuantLeaf) else m.wi.device
 
 
 class MoeBlock(nn.Module):

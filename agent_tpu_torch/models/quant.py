@@ -40,7 +40,7 @@ result. Nothing falls back to a float product.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -255,12 +255,20 @@ def quantize_flat(flat: Dict[str, Any], family: str, mode: str) -> Tuple[Dict[st
 
 # ---- activation quantization (device) ----
 
-def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def act_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's abs-max over the last axis, keepdim, in x's dtype."""
+    return torch.maximum(x.amax(dim=-1, keepdim=True), -x.amin(dim=-1, keepdim=True))
+
+
+def quantize_act(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric int8 over the last axis -> (x_q int8, scale f32 keepdim).
-    The abs-max is taken in x's dtype (exact in any float type), then f32;
-    one f32 copy of x is made and rounded in place (at BERT-base width the
-    FFN's activation is gigabytes)."""
-    amax = torch.maximum(x.amax(dim=-1, keepdim=True), -x.amin(dim=-1, keepdim=True))
+    The abs-max (``amax``, else :func:`act_amax` of x) is taken in x's dtype
+    (exact in any float type), then f32; one f32 copy of x is made and
+    rounded in place (at BERT-base width the FFN's activation is
+    gigabytes)."""
+    if amax is None:
+        amax = act_amax(x)
     scale = amax.float().clamp_min(EPS) / QMAX
     y = x.to(torch.float32, copy=True).div_(scale).round_().clamp_(-QMAX, QMAX)
     return y.to(torch.int8), scale
@@ -359,6 +367,50 @@ def moe_expert(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                             for i in range(t.shape[0])])
     y = torch.bmm(x.to(dtype), t.to(dtype)).float() * p["w_scale"][:, None, :]
     return y.to(dtype)
+
+
+def row_parallel(ps: List[Params], xs: List[torch.Tensor], dtype: torch.dtype,
+                 bias: bool = True) -> List[torch.Tensor]:
+    """A row-parallel quantized product over the tp shards: shard j holds
+    ``ps[j]`` (its table as ``[K_j, N]``, the replicated ``w_scale`` [N] and
+    ``b``) and the input ``xs[j]`` [..., K_j] -> the full product, one per
+    shard. W8A8 quantizes each row with the abs-max over **every** shard
+    (an ``all_reduce_max`` first, as GSPMD quantizes the whole activation)
+    and sums the int32 partials, so the result is the one-device product
+    exactly; w8a16 sums the partial products in the compute dtype. The bias
+    is added once, after the sum."""
+    from agent_tpu_torch.parallel import collectives
+
+    lead = xs[0].shape[:-1]
+    if "w_q" in ps[0]:
+        flat = [x.reshape(-1, x.shape[-1]) for x in xs]
+        amax = collectives.all_reduce_max([act_amax(x) for x in flat])
+        coded = [quantize_act(x, a) for x, a in zip(flat, amax)]
+        acc = collectives.all_reduce_sum([int_mm(xq, p["w_q"]) for (xq, _), p in zip(coded, ps)])
+        out = []
+        for (_, sx), y, p in zip(coded, acc, ps):
+            y = y.float() * (sx * p["w_scale"].reshape(1, -1))
+            if bias and "b" in p:
+                y = y + p["b"]
+            out.append(y.to(dtype).reshape(*lead, -1))
+        return out
+    total = collectives.all_reduce_sum([torch.matmul(x.to(dtype), p["w8"].to(dtype))
+                                        for x, p in zip(xs, ps)])
+    out = []
+    for y, p in zip(total, ps):
+        y = y.float() * p["w_scale"].reshape(-1)
+        if bias and "b" in p:
+            y = y + p["b"]
+        out.append(y.to(dtype))
+    return out
+
+
+def as_2d(p: Params, k_dims: int) -> Params:
+    """A quantized leaf's dict with its table viewed as ``[K, N]``, the
+    first ``k_dims`` axes folded into K."""
+    t = _table(p)
+    k = int(np.prod(t.shape[:k_dims]))
+    return dict(p, **{TABLE_KEY[leaf_mode(p)]: t.reshape(k, -1)})
 
 
 # ---- the module families' leaves ----

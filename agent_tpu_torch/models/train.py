@@ -1,9 +1,14 @@
 """Training step for the encoder classifier — counterpart of
-``agent_tpu.models.train`` (``cross_entropy_loss``, ``make_train_step``) on
-one device.
+``agent_tpu.models.train`` (``cross_entropy_loss``, ``make_train_step``).
 
 The model is an :class:`~agent_tpu_torch.models.encoder.Encoder` in its
-training form (f32 master parameters, cast to the compute dtype at use).
+training form (f32 master parameters, cast to the compute dtype at use), or
+a :class:`~agent_tpu_torch.models.encoder.ShardedEncoder` over a dp/tp
+mesh: the loss is the mean over the whole batch (the logits of every dp
+replica), dp replicas on one device share their weights and so sum their
+gradients, and after the backward ``sync_grads`` sums each replicated
+leaf's gradient over its copies, so the update equals the one-device
+update up to f32 summation order. AdamW runs on each shard's own pieces.
 The optimizer is ``optax.adamw(lr)`` with optax's defaults: betas (0.9,
 0.999), eps 1e-8 and weight decay 1e-4 (not torch's 1e-2) on every leaf,
 which ``torch.optim.AdamW`` with those arguments computes: both take
@@ -82,6 +87,8 @@ def make_train_step(cfg, optimizer: Optional[OptimizerFactory] = None,
             opt.zero_grad(set_to_none=True)
             loss = cross_entropy_loss(model, ids, mask, labels, remat, attn_fn)
             loss.backward()
+            if hasattr(model, "sync_grads"):
+                model.sync_grads()
             opt.step()
         return model, opt, loss.detach()
 

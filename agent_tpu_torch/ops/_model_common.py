@@ -69,6 +69,50 @@ def stamp_rows(ctx, rows: Any) -> None:
     usage["rows"] = usage.get("rows", 0.0) + float(rows)
 
 
+def resolve_runtime(ctx):
+    """The runtime the op will execute on (the context's, built if it has
+    none, else the process singleton), or None when no device is there: a
+    host-side read of its mesh for the guards and the staging divisor."""
+    try:
+        if ctx is not None and getattr(ctx, "require_runtime", None):
+            return ctx.require_runtime()
+        from agent_tpu_torch.runtime.runtime import get_runtime
+
+        return get_runtime()
+    except Exception:  # noqa: BLE001 — no device: one-device staging
+        return None
+
+
+def refuse_decoder_mesh(ctx, force_cpu: bool = False) -> None:
+    """ValueError (a soft ``bad_input``) when the op would run on a mesh
+    with dp or tp above 1 — the context's runtime's, else the one
+    ``MESH_SHAPE`` asks for: the decoder families (seq2seq, T5, BART) do not
+    shard yet (ROADMAP Queue 1 item 2b)."""
+    from agent_tpu_torch.config import DeviceConfig
+    from agent_tpu_torch.runtime.runtime import NOT_PORTED
+
+    runtime = getattr(ctx, "runtime", None) if ctx is not None else None
+    mesh = {} if force_cpu else (dict(runtime.mesh.shape) if runtime is not None
+                                 else DeviceConfig.from_env().mesh_shape)
+    if mesh.get("dp", 1) > 1 or mesh.get("tp", 1) > 1:
+        raise ValueError(f"a mesh with dp or tp ({mesh}) is not supported by the decoder "
+                         f"families of agent_tpu_torch yet ({NOT_PORTED})")
+
+
+def stage_divisor(rt, cfg, family: str) -> int:
+    """What every staged batch must divide by (the reference's staging
+    divisor): dp; on a pp mesh pp · dp (the pipeline's microbatches of each
+    replica); for a pp taken from ``model_config`` every device (the dp ×
+    pp mesh derived from them). 1 without a runtime."""
+    if rt is None:
+        return 1
+    if family == "encoder" and rt.axis_size("pp") > 1:
+        return rt.axis_size("pp") * rt.axis_size("dp")
+    if family == "encoder" and cfg.pp > 1:
+        return rt.n_devices
+    return rt.axis_size("dp")
+
+
 def resolve_model_id(payload: Dict[str, Any], env_var: str, default: str) -> str:
     """payload ``model_path`` -> env var -> default."""
     mp = payload.get("model_path")

@@ -36,11 +36,18 @@ the model id, or a ``.npz``). A checkpoint whose ``config.json`` does not
 read, or is not BERT's, raises: a retryable integrity failure, not bad
 input.
 
-On a runtime whose mesh has ``sp`` > 1 every layer of either family attends
-through ring attention (``runtime.attention_fn()``). Nothing else changes:
-an sp mesh has dp = 1, so staging is the one-device staging, and the
-forward cache belongs to the runtime, whose attention function is fixed, so
-its keys need no mesh.
+On a mesh (``runtime.sharded``: dp, tp, pp or ep above 1) the weights are
+placed by the family's specs (``runtime.get_params(specs=)``: a
+``ShardedEncoder``, ``PipelinedEncoder`` or ``ShardedBert``), batches
+stage to a multiple of dp (of pp · dp on a pp mesh, of every device for a
+``model_config`` pp), and each shard launches the attention kernel with its
+rows and heads. A ``pp`` axis, or ``model_config {"pp": N}`` over a dp × pp
+mesh of the runtime's devices, sends the encoder through the GPipe
+pipeline, with the reference's guards (soft ``bad_input``): a depth that
+pp does not divide, MoE with pp, and a pp that does not divide the
+devices. With ``sp`` > 1 every layer attends through ring attention, in
+each (dp, tp) group. The forward cache belongs to the runtime, whose mesh
+and attention function are fixed, so its keys need no mesh.
 
 Strategies of the reference's ``model_config``: ``quant`` (``int8`` W8A8
 or ``w8a16`` weight only; from the payload, else ``TPU_QUANT``, else the
@@ -48,7 +55,6 @@ config) serves either family's block matmuls quantized
 (:mod:`agent_tpu_torch.models.quant`, the tables made on the host from the
 f32 weights); ``moe_experts`` > 0 gives the in-house encoder Switch MoE FFNs
 (:mod:`agent_tpu_torch.models.moe`), quantized too when ``quant`` asks.
-``pp`` > 1 is not ported and is rejected with a ``bad_input`` that names it.
 """
 
 from __future__ import annotations
@@ -74,9 +80,6 @@ def _get_cfg(payload: Dict[str, Any]):
     from agent_tpu_torch.ops._model_common import apply_quant_env, config_from_payload
 
     cfg = apply_quant_env(payload, config_from_payload(payload, EncoderConfig))
-    if cfg.pp > 1:
-        raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
-                         "agent_tpu_torch yet")
     config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
 
@@ -156,13 +159,30 @@ def _dims(cfg) -> Tuple[int, int, int, int]:
     return cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.n_heads
 
 
+def _check_pp(cfg, rt) -> None:
+    """The reference's guards on the pipeline (ValueError, a soft
+    ``bad_input``): the effective pp is the mesh's pp axis, else the
+    config's."""
+    mesh_pp = rt.axis_size("pp") if rt is not None else 1
+    pp = mesh_pp if mesh_pp > 1 else cfg.pp
+    if pp <= 1:
+        return
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp={pp}")
+    if cfg.moe_experts > 0:
+        raise ValueError("pp and moe_experts cannot combine in one config")
+    n_dev = rt.n_devices if rt is not None else 1
+    if mesh_pp <= 1 and n_dev % pp:
+        raise ValueError(f"pp={pp} does not divide the {n_dev}-device mesh")
+
+
 def _stage_chunks(items: List, kind: str, cfg, family: str = "encoder",
-                  model_id: str = "") -> List[Tuple]:
+                  model_id: str = "", dp: int = 1) -> List[Tuple]:
     """Pure host: tokenize and pad ``items`` into dispatch chunks
-    ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]`` (one device, so
-    batch buckets are powers of two). Texts go through the fused byte path
-    for the in-house encoder and the checkpoint's wordpiece vocab
-    (``[CLS] pieces [SEP]``) for BERT."""
+    ``[(ids[B, L], lengths[B] int32, n_real_rows), ...]``, batch buckets
+    ``dp``, 2·dp, .... Texts go through the fused byte path for the
+    in-house encoder and the checkpoint's wordpiece vocab (``[CLS] pieces
+    [SEP]``) for BERT."""
     from agent_tpu_torch.models.tokenizer import pad_batch
     from agent_tpu_torch.ops._model_common import (
         batch_buckets,
@@ -184,17 +204,17 @@ def _stage_chunks(items: List, kind: str, cfg, family: str = "encoder",
             def encode_pad(chunk, lb, bb):
                 return bert.encode_pad_batch(tok, chunk, cfg.max_len, bb, lb)
 
-        return stage_text_chunks(1, items, max_len=cfg.max_len, vocab_size=cfg.vocab_size,
+        return stage_text_chunks(dp, items, max_len=cfg.max_len, vocab_size=cfg.vocab_size,
                                  max_batch=MAX_BATCH, d_head=d_head, dtype=dtype,
                                  encode_pad=encode_pad)
     buckets = length_buckets_for(cfg.max_len)
-    bbuckets = batch_buckets(1, MAX_BATCH)
+    bbuckets = batch_buckets(dp, MAX_BATCH)
     chunks: List[Tuple] = []
     for chunk in iter_chunks(items, bbuckets[-1]):
         ids, _ = pad_batch(chunk, buckets=buckets, batch_buckets=bbuckets)
         lengths = np.zeros(ids.shape[0], dtype=np.int32)
         lengths[: len(chunk)] = [min(len(s), ids.shape[1]) for s in chunk]
-        chunks.extend(split_padded_chunk(ids, lengths, len(chunk), 1, d_head, dtype))
+        chunks.extend(split_padded_chunk(ids, lengths, len(chunk), dp, d_head, dtype))
     return chunks
 
 
@@ -210,11 +230,59 @@ def _build_model(model_id: str, cfg, family: str = "encoder", device=None):
                                 num_labels=cfg.num_labels, quant=cfg.quant)[1]
     from agent_tpu_torch.models import encoder
 
+    return encoder.from_jax_params(_host_flat(model_id, cfg, family), cfg)
+
+
+def _host_flat(model_id: str, cfg, family: str):
+    """The served weights on the host as flat dotted-key arrays, quantized
+    for a quantized ``cfg.quant``: what a mesh places."""
+    if family == "bert":
+        from agent_tpu_torch.models import bert
+
+        return bert.load_hf_flat(model_id, dtype=cfg.dtype, num_labels=cfg.num_labels,
+                                 quant=cfg.quant)[1]
+    from agent_tpu_torch.models import encoder, quant
+
     if model_id.endswith(".npz") and os.path.exists(model_id):
         flat = encoder.load_npz(model_id, cfg)
     else:
         flat = encoder.init_params(cfg, model_id=model_id)
-    return encoder.from_jax_params(flat, cfg)
+    return quant.quantize_flat(flat, "encoder", cfg.quant)[0]
+
+
+def _get_model(runtime, model_id: str, cfg, family: str, host=None):
+    """The served model on the runtime: placed over its mesh by the
+    family's specs when it has one (from ``host()``'s flat arrays when
+    given, else :func:`_host_flat`'s), else on its device."""
+    key = params_key(model_id, family, cfg)
+    pp_route = family == "encoder" and runtime.axis_size("pp") <= 1 and cfg.pp > 1
+    if not (runtime.sharded or pp_route):
+        return runtime.get_params(key, lambda: _build_model(model_id, cfg, family,
+                                                            runtime.device))
+    from agent_tpu_torch.parallel import shardings
+
+    if family == "bert":
+        from agent_tpu_torch.models.bert import ShardedBert
+
+        def place(flat, specs, mesh):
+            return ShardedBert(flat, cfg, specs, mesh)
+    elif pp_route:
+        from agent_tpu_torch.parallel.pipeline import PipelinedEncoder
+        from agent_tpu_torch.runtime.mesh import build_mesh
+
+        # The reference's derived mesh: the same devices as dp × pp.
+        pp_mesh = build_mesh(runtime.devices, {"dp": runtime.n_devices // cfg.pp,
+                                               "pp": cfg.pp})
+
+        def place(flat, specs, mesh):
+            return PipelinedEncoder(flat, cfg, pp_mesh)
+    else:
+        from agent_tpu_torch.models import encoder
+
+        def place(flat, specs, mesh):
+            return encoder.place(flat, specs, mesh, cfg)
+    return runtime.get_params(key, host or (lambda: _host_flat(model_id, cfg, family)),
+                              specs=shardings.FAMILY_SPECS[family](cfg), place=place)
 
 
 def params_key(model_id: str, family: str, cfg) -> str:
@@ -257,8 +325,7 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int,
     from agent_tpu_torch.ops._model_common import cfg_key
     from agent_tpu_torch.runtime.runtime import HostCopy
 
-    model = runtime.get_params(params_key(model_id, family, cfg),
-                               lambda: _build_model(model_id, cfg, family, runtime.device))
+    model = _get_model(runtime, model_id, cfg, family)
     attn_fn = runtime.attention_fn()
     pending: List[Tuple[Any, int]] = []
     with torch.inference_mode():
@@ -301,6 +368,8 @@ def stage(payload: Any, ctx: Optional[object] = None):
     else ``("staged", state)`` for :func:`execute`. Touches no device."""
     from agent_tpu_torch.ops._model_common import (
         resolve_model_id,
+        resolve_runtime,
+        stage_divisor,
         validate_output_uri,
         validate_start_row,
     )
@@ -316,11 +385,14 @@ def stage(payload: Any, ctx: Optional[object] = None):
         return "done", bad_input("result_format must be 'rows' or 'columnar'")
     model_id = resolve_model_id(payload, "TPU_MODEL_PATH", DEFAULT_MODEL_ID)
     family = _resolve_family(model_id)
+    rt = resolve_runtime(ctx)  # one resolution serves the guards and the staging
     try:
         # A checkpoint's integrity problems (config.json unreadable, not
         # BERT's, lacking a field) raise past this handler on purpose: the
         # shard fails for a retry instead of being dropped as bad input.
         cfg = _get_bert_cfg(model_id, payload) if family == "bert" else _get_cfg(payload)
+        if family == "encoder":
+            _check_pp(cfg, rt)
         items, kind, single = _collect_sequences(payload, cfg)
         output_dir = validate_output_uri(payload)
         start_row = validate_start_row(payload)
@@ -329,7 +401,8 @@ def stage(payload: Any, ctx: Optional[object] = None):
 
     state = {
         "t0": t0,
-        "chunks": _stage_chunks(items, kind, cfg, family, model_id),
+        "chunks": _stage_chunks(items, kind, cfg, family, model_id,
+                                stage_divisor(rt, cfg, family)),
         "n_rows": len(items),
         "cfg": cfg,
         "k": min(topk, cfg.n_classes),

@@ -38,7 +38,8 @@ staged ids alone.
 ``TPU_QUANT``, else the config) serves every family's block matmuls
 quantized, in the encoder and in every decode step
 (:mod:`agent_tpu_torch.models.quant`). A mesh with ``dp`` or ``tp`` is not
-ported and is rejected with a ``bad_input`` that names it.
+ported for the decoder families (ROADMAP Queue 1 item 2b) and is rejected
+with a ``bad_input`` that names it.
 """
 
 from __future__ import annotations
@@ -125,17 +126,6 @@ def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
     cfg = apply_quant_env(payload, cfg)
     config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
     return cfg
-
-
-def _mesh_shape(ctx) -> Dict[str, int]:
-    """The mesh the op will run on: the context's runtime's, else the one
-    ``MESH_SHAPE`` asks ``get_runtime()`` for."""
-    runtime = getattr(ctx, "runtime", None)
-    if runtime is not None:
-        return dict(runtime.mesh.shape)
-    from agent_tpu_torch.runtime.runtime import mesh_shape_from_env
-
-    return mesh_shape_from_env()
 
 
 def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
@@ -240,6 +230,7 @@ def stage(payload: Any, ctx: Optional[object] = None):
     """Host-only phase: validation and tokenize+pad. Returns ``("done",
     result)`` for soft errors or ``("staged", state)``."""
     from agent_tpu_torch.ops._model_common import (
+        refuse_decoder_mesh,
         resolve_model_id,
         validate_output_uri,
         validate_start_row,
@@ -305,10 +296,7 @@ def stage(payload: Any, ctx: Optional[object] = None):
     force_cpu = os.environ.get("SUMMARIZE_FORCE_CPU", "").strip().lower() in _TRUTHY
     try:
         cfg = _get_cfg(payload, family, model_id)
-        mesh = {} if force_cpu else _mesh_shape(ctx)
-        if mesh.get("dp", 1) > 1 or mesh.get("tp", 1) > 1:
-            raise ValueError(f"a mesh with dp or tp ({mesh}) is not supported by "
-                             "agent_tpu_torch yet")
+        refuse_decoder_mesh(ctx, force_cpu)
     except ValueError as exc:
         return "done", bad_input(str(exc))
 

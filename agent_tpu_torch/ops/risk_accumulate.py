@@ -9,7 +9,8 @@ Payload: a numeric ``values`` list, an ``items`` list of dicts with a
 
 When the context has a runtime and the shard holds at least
 ``device_threshold`` (default 4,096) values, the statistics run on the
-runtime's device (``parallel.collectives.mesh_reduce_stats``, the result
+runtime's devices, each dp shard reducing its slice
+(``parallel.collectives.mesh_reduce_stats``, the result
 marked ``device: "mesh"`` as the reference marks it); smaller payloads, and
 agents of host ops only, keep the host path.
 """
@@ -189,10 +190,7 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     if use_device:
         from agent_tpu_torch.parallel.collectives import mesh_reduce_stats
 
-        try:
-            stats = mesh_reduce_stats(ctx.runtime, values)
-        except ValueError as exc:  # a dp mesh, not ported yet
-            return bad_input(str(exc))
+        stats = mesh_reduce_stats(ctx.runtime, values)
         stats.update(
             ok=True,
             device="mesh",

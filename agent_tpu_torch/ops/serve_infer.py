@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
+from agent_tpu_torch.ops._model_common import refuse_decoder_mesh
 from agent_tpu_torch.utils.errors import bad_input
 
 # Process-wide engine store, keyed by runtime and model/config/shape
@@ -222,6 +223,7 @@ def stage(payload: Any, ctx: Optional[object] = None):
     try:
         reqs = _validate_requests(payload)
         model_id, cfg = _resolve(payload)
+        refuse_decoder_mesh(ctx)
     except ValueError as exc:
         return "done", bad_input(str(exc))
 

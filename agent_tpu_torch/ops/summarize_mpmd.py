@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
+from agent_tpu_torch.ops._model_common import refuse_decoder_mesh
 from agent_tpu_torch.utils.errors import bad_input
 
 DEFAULT_MAX_LENGTH = 130
@@ -90,6 +91,7 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     try:
         texts, empty_rows = _collect_texts(payload)
         model_id, cfg = _resolve(payload)
+        refuse_decoder_mesh(ctx)
     except ValueError as exc:
         return bad_input(str(exc))
 
@@ -161,6 +163,7 @@ def run_decode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
         return bad_input("max_length must be a positive int")
     try:
         model_id, cfg = _resolve(payload)
+        refuse_decoder_mesh(ctx)
     except ValueError as exc:
         return bad_input(str(exc))
     max_new = min(max_new, cfg.max_tgt_len)

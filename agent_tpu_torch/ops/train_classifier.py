@@ -31,8 +31,13 @@ reference's does (``TPU_QUANT`` is not read), and rides in the result's
 ``model_config`` for serving. ``moe_experts`` > 0 trains the Switch MoE
 encoder with the aux loss (``models.train.MOE_AUX_WEIGHT``), and its
 artifact holds the experts and routers; MoE with a quant mode is rejected,
-as the reference rejects it. ``pp`` > 1 is not ported and is rejected with a
-``bad_input`` that names it.
+as the reference rejects it, and so is ``pp`` > 1.
+
+On a mesh with dp, tp or ep above 1 the model is a ``ShardedEncoder``
+placed by the encoder's specs (sanitized, as the reference places its
+training weights): batches round up to a dp multiple, each shard launches
+the flash training kernels with its rows and heads, and the ``.npz`` is the
+gathered flat layout, which a one-device runtime serves.
 """
 
 from __future__ import annotations
@@ -121,8 +126,7 @@ def _get_cfg(payload: Dict[str, Any], n_labels: int):
     if "n_classes" not in (payload.get("model_config") or {}):
         cfg = dataclasses.replace(cfg, n_classes=max(2, n_labels))
     if cfg.pp > 1:
-        raise ValueError("pp > 1 (pipeline parallelism) is not supported by "
-                         "agent_tpu_torch yet")
+        raise ValueError("train_classifier does not support pp configs")
     if cfg.moe_experts > 0 and cfg.quant != "none":
         raise ValueError(f"MoE training does not support quant={cfg.quant}")
     config_dtype(cfg.dtype)  # the reference's error on a dtype it cannot serve
@@ -236,8 +240,16 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     B = -(-state["batch_size"] // dp) * dp  # round up to a dp multiple
     rng = np.random.default_rng(state["seed"])
 
-    model = encoder.from_jax_params(_init_params(state), cfg, device=runtime.device,
-                                    trainable=True)
+    if runtime.sharded:
+        from agent_tpu_torch.parallel import shardings
+
+        flat = _init_params(state)
+        specs = shardings.placement_specs(runtime.mesh.shape, flat,
+                                          shardings.encoder_specs(cfg))
+        model = encoder.ShardedEncoder(flat, cfg, specs, runtime.mesh, trainable=True)
+    else:
+        model = encoder.from_jax_params(_init_params(state), cfg, device=runtime.device,
+                                        trainable=True)
     init_state, step = train.make_train_step(
         cfg, train.adamw(state["lr"]), attn_fn=runtime.train_attention_fn())
     opt = init_state(model)

@@ -17,6 +17,11 @@ between two cards, which PyTorch orders against the current streams of
 both, and no copy at all when the two shards share one device (one card
 running the ring, or the CPU in the tests).
 
+On a mesh with dp or tp the ring runs in each (dp, tp) group over the
+group's sp devices, with the group's batch rows and heads; a batch or head
+count the mesh cannot split runs the flash kernel whole instead
+(``SELECTION_COUNTS["unsharded"]``), never the plain attention.
+
 Each hop's fold is :func:`~agent_tpu_torch.kernels.flash_attention.flash_fold`
 (the CUDA fold kernel on the card, its plain version on the CPU) for the
 shapes it takes, or the reference's einsum fold (``use_flash_fold=False``,
@@ -94,37 +99,46 @@ def make_ring_attention(mesh, use_flash_fold: Optional[bool] = None):
     """``attn_fn`` running ring attention over ``mesh``'s ``sp`` axis; with
     ``sp == 1`` exactly :func:`dot_product_attention`, as in the reference.
 
+    On a mesh with dp or tp as well the ring runs inside each (dp, tp)
+    group, over that group's sp devices, with the group's batch rows and
+    heads (the reference's ``P("dp", "tp", "sp", None)``); the function's
+    ``shard(i, j)`` is group (i, j)'s own ring, for a model that runs per
+    shard. A batch or head count that does not split runs
+    :func:`~agent_tpu_torch.kernels.flash_attention.flash_attention` whole,
+    counted under ``SELECTION_COUNTS["unsharded"]``.
+
     ``use_flash_fold``: None (the default) or True folds each hop with
     ``flash_fold`` for the shapes it takes (d_head 32/64/128, bf16 or f32),
     the kernel on the card; False, and every other shape, with the einsum
-    fold. Each call adds one to ``SELECTION_COUNTS["ring"]``, or to
+    fold. Each ring adds one to ``SELECTION_COUNTS["ring"]``, or to
     ``["ring_dense"]`` when its shapes go to dense attention."""
     shape = mesh.shape
     sp = shape.get("sp", 1)
     if sp <= 1:
         return dot_product_attention
-    dp, tp = shape.get("dp", 1), shape.get("tp", 1)
-    if mesh.size != sp:
-        raise ValueError(f"ring attention over {shape}: only sp is ported (ROADMAP "
-                         "Queue 1 item 2)")
-    devices = list(mesh.devices.reshape(-1))
 
-    def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
-        B, H, Lq, _ = q.shape
-        Lk = k.shape[2]
-        ring_ok = (
-            is_key_padding_mask(mask, B, Lk)
-            and B % dp == 0
-            and H % tp == 0
-            and Lq % sp == 0
-            and Lk % sp == 0
-        )
-        fa.SELECTION_COUNTS["ring" if ring_ok else "ring_dense"] += 1
-        if not ring_ok:
-            return dot_product_attention(q, k, v, mask)
-        kernel = use_flash_fold is not False and fa.flash_fold_supported(q, k)
-        return ring_attention_blocks(q, k, v, materialize_key_padding_mask(mask, B, Lk),
-                                     devices, fa.flash_fold if kernel else einsum_fold)
+    def ring_over(devices: Sequence[torch.device]):
+        def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+            B, Lq, Lk = q.shape[0], q.shape[2], k.shape[2]
+            ring_ok = is_key_padding_mask(mask, B, Lk) and Lq % sp == 0 and Lk % sp == 0
+            fa.SELECTION_COUNTS["ring" if ring_ok else "ring_dense"] += 1
+            if not ring_ok:
+                return dot_product_attention(q, k, v, mask)
+            kernel = use_flash_fold is not False and fa.flash_fold_supported(q, k)
+            return ring_attention_blocks(q, k, v, materialize_key_padding_mask(mask, B, Lk),
+                                         devices, fa.flash_fold if kernel else einsum_fold)
 
-    return ring_attention
+        return ring_attention
+
+    rings = {(i, j): ring_over([mesh.device_at(dp=i, tp=j, sp=s) for s in range(sp)])
+             for i in range(shape.get("dp", 1)) for j in range(shape.get("tp", 1))}
+    if len(rings) == 1:
+        fn = rings[0, 0]
+        fn.shard = lambda i, j: fn
+        return fn
+
+    def shard(i: int, j: int):
+        return rings[i, j]
+
+    return fa.mesh_attention(shard, mesh, fa.flash_attention)

@@ -7,6 +7,9 @@ Axis vocabulary (the reference's):
 - ``tp`` — tensor/model parallelism: heads and MLP hidden sharded.
 - ``sp`` — sequence/context parallelism: the sequence axis of ring
   attention (:mod:`agent_tpu_torch.parallel.ring`).
+- ``pp`` and ``ep`` — pipeline stages (:mod:`agent_tpu_torch.parallel.pipeline`)
+  and MoE experts (:mod:`agent_tpu_torch.models.moe`); like any other name
+  they are appended innermost, in the order the shape gives them.
 
 :class:`MeshSpec` resolves a possibly partial shape over a device count
 exactly as the reference does (``dp`` absorbs what the other axes leave).
@@ -19,12 +22,14 @@ reference's ``ppermute`` moves them inside one program.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 AXES: Tuple[str, ...] = ("dp", "tp", "sp")
+# The axes some path of the port reads; TorchRuntime refuses any other.
+PORTED_AXES: Tuple[str, ...] = AXES + ("pp", "ep")
 
 
 def check_sizes(shape: Dict[str, int]) -> None:
@@ -96,6 +101,21 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def device_at(self, **coords: int) -> torch.device:
+        """The device at the given axis coordinates (an absent axis is 0)."""
+        return self.devices[tuple(coords.get(n, 0) for n in self.axis_names)]
+
+
+def axis_groups(mesh: Mesh, axis: str) -> List[List[torch.device]]:
+    """The devices along ``axis``, one list per coordinate of the other axes
+    (in the mesh's order): the groups a collective over ``axis`` joins. A
+    mesh without the axis gives one-device groups."""
+    if axis not in mesh.axis_names:
+        return [[d] for d in mesh.devices.reshape(-1)]
+    k = mesh.axis_names.index(axis)
+    grid = np.moveaxis(mesh.devices, k, -1)
+    return [list(row) for row in grid.reshape(-1, grid.shape[-1])]
 
 
 def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None) -> Mesh:

@@ -6,35 +6,38 @@ given it takes ``cuda:0`` and raises when CUDA is absent: the port never
 quietly runs on the CPU. Callers that want the CPU (the tests) pass
 ``device="cpu"``.
 
-A mesh (``mesh_shape``, or ``MESH_SHAPE="sp=2"`` for :func:`get_runtime`)
-covers the given ``devices``, or, without them, the first cards of that
-many; a device listed more than once holds several shards (one card running
-an ``sp`` ring: ``devices=["cuda:0"] * 2``). Of the axes only ``sp`` is
-ported: ``attention_fn`` is then ring attention. ``dp`` and ``tp`` wait for
-ROADMAP Queue 1 item 2 and are refused.
+A mesh (``mesh_shape``, or ``MESH_SHAPE="dp=2,tp=2"`` for
+:func:`get_runtime`) covers the given ``devices``, or, without them, the
+first cards of that many; a device listed more than once holds several
+shards (one card running a mesh of four: ``devices=["cuda:0"] * 4``). One
+process owns the whole mesh. Its axes are ``dp`` (batch rows), ``tp``
+(Megatron-split weights), ``sp`` (ring attention), ``pp`` (the GPipe
+encoder pipeline) and ``ep`` (MoE experts); any other axis is refused.
+:meth:`get_params` with ``specs`` places a model's weights over the mesh
+(``parallel.shardings``), :meth:`put_batch` splits a batch over ``dp``, and
+:meth:`attention_fn` launches the kernel once per (dp, tp) shard.
 
 The device knobs of ``DeviceConfig`` apply when no device is given:
 ``TPU_DISABLED=1`` is the operator's request for a CPU runtime;
-``CHIP_SLICE="start:1"`` takes ``cuda:start`` (a slice of several cards is
-refused with dp and tp); and ``PALLAS_ATTN=0`` is refused on a CUDA
-runtime, which has no attention path without the hand-written kernels (on
-the CPU the plain versions always run, so it changes nothing there).
+``CHIP_SLICE="start:count"`` takes cards ``start .. start+count-1``; and
+``PALLAS_ATTN=0`` is refused on a CUDA runtime, which has no attention path
+without the hand-written kernels (on the CPU the plain versions always run,
+so it changes nothing there).
 """
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from agent_tpu_torch.runtime.mesh import AXES, build_mesh, check_sizes
+from agent_tpu_torch.runtime.mesh import PORTED_AXES, build_mesh, check_sizes
 from agent_tpu_torch.utils.logging import log
 
-# Where the port refuses what needs several cards in one runtime.
-NOT_PORTED = "ROADMAP Queue 1 item 2"
+# Where the port refuses what a mesh needs of the decoder families.
+NOT_PORTED = "ROADMAP Queue 1 item 2b"
 
 
 class BuildOnceCache:
@@ -149,45 +152,48 @@ def parse_chip_slice(spec: str) -> Tuple[int, int]:
     return start, count
 
 
-def _configured_device(config) -> Optional[str]:
-    """The device the config's knobs pick when the caller names none:
-    ``"cpu"`` for ``TPU_DISABLED``, ``cuda:start`` for a one-card
-    ``CHIP_SLICE``, else None (the first card)."""
+def _configured_devices(config) -> Optional[List[str]]:
+    """The devices the config's knobs pick when the caller names none:
+    the CPU for ``TPU_DISABLED``, cards ``start .. start+count-1`` for a
+    ``CHIP_SLICE`` (the reference's ``apply_chip_slice``), else None (the
+    first card, or the first cards of the mesh)."""
     if config.tpu_disabled:
         log("TPU_DISABLED set: the runtime runs on the CPU")
-        return "cpu"
+        return ["cpu"]
     if not config.chip_slice:
         return None
     start, count = parse_chip_slice(config.chip_slice)
-    if count > 1:
-        raise ValueError(f"CHIP_SLICE {config.chip_slice!r}: a runtime over several cards "
-                         f"is not ported yet ({NOT_PORTED})")
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if start >= visible:
-        raise ValueError(f"CHIP_SLICE {config.chip_slice!r} wants card {start} but only "
+    if start + count > visible:
+        want = f"card {start}" if count == 1 else f"cards [{start}, {start + count})"
+        raise ValueError(f"CHIP_SLICE {config.chip_slice!r} wants {want} but only "
                          f"{visible} are visible")
-    return f"cuda:{start}"
+    return [f"cuda:{i}" for i in range(start, start + count)]
 
 
 class TorchRuntime:
     """A device mesh, a forward-function cache and a weights store. Weights
-    and staged batches live on the mesh's first device."""
+    placed without specs, and batches put whole, live on the mesh's first
+    device."""
 
     def __init__(self, device=None, devices: Optional[Sequence] = None,
                  mesh_shape: Optional[Dict[str, int]] = None, config=None) -> None:
         from agent_tpu_torch.config import DeviceConfig
 
         self.config = config or DeviceConfig()
+        mesh_shape = mesh_shape or self.config.mesh_shape or None
         if device is None and devices is None:
-            device = _configured_device(self.config)
+            configured = _configured_devices(self.config)
+            if configured is not None and len(configured) == 1 and not mesh_shape:
+                device = configured[0]
+            else:
+                devices = configured
         self.devices = _mesh_devices(device, devices, mesh_shape)
         self.mesh = build_mesh(self.devices, mesh_shape)
-        unported = {n: s for n, s in self.mesh.shape.items()
-                    if n not in AXES or (n != "sp" and s > 1)}
-        if unported:
-            raise ValueError(
-                f"TorchRuntime: mesh axes {unported} are not ported yet (only sp; "
-                f"dp, tp and other axes are {NOT_PORTED})")
+        unknown = [n for n in self.mesh.axis_names if n not in PORTED_AXES]
+        if unknown:
+            raise ValueError(f"TorchRuntime: no path reads mesh axes {unknown}; the "
+                             f"axes are {list(PORTED_AXES)}")
         self.device = self.devices[0]
         self.platform = self.device.type  # "cuda" | "cpu"
         if self.platform == "cuda" and not self.config.pallas_attn:
@@ -207,11 +213,19 @@ class TorchRuntime:
     def axis_size(self, name: str) -> int:
         return self.mesh.shape.get(name, 1)
 
+    @property
+    def sharded(self) -> bool:
+        """Whether a model runs sharded here: the mesh has ``dp``, ``tp``,
+        ``pp`` or ``ep`` above 1 (``sp`` alone shards attention only)."""
+        return any(self.axis_size(a) > 1 for a in ("dp", "tp", "pp", "ep"))
+
     def attention_fn(self):
         """The attention function: ring attention over ``sp`` when the mesh
-        has ``sp`` > 1 (the fold kernel in every hop), else the flash kernel
-        path (the CUDA kernel on the card, its plain version on the CPU).
-        Each sends the shapes it does not take to dense attention."""
+        has ``sp`` > 1 (the fold kernel in every hop, in each (dp, tp)
+        group), else the flash kernel path (the CUDA kernel on the card, its
+        plain version on the CPU), launched once per (dp, tp) shard. Each
+        sends the shapes it does not take to dense attention. A sharded
+        model asks the function for each shard's own (``.shard(i, j)``)."""
         if self.axis_size("sp") > 1:
             from agent_tpu_torch.parallel.ring import make_ring_attention
 
@@ -232,9 +246,9 @@ class TorchRuntime:
     def train_attention_fn(self):
         """The differentiable attention function for the training path: the
         flash kernels in both directions (their plain versions on the CPU,
-        dense attention for shapes the kernels do not take). Ring attention
-        is forward-only, as the reference's, so an ``sp`` mesh trains on
-        dense attention."""
+        dense attention for shapes the kernels do not take), per (dp, tp)
+        shard. Ring attention is forward-only, as the reference's, so an
+        ``sp`` mesh trains on dense attention."""
         if self.axis_size("sp") > 1:
             from agent_tpu_torch.models.layers import dot_product_attention
 
@@ -245,19 +259,36 @@ class TorchRuntime:
 
     # ---- weights store ----
 
-    def get_params(self, model_id: str, build: Callable[[], Any]) -> Any:
-        """Weights on this runtime's device, built once per model id.
-        ``build()`` returns a module (or tensor tree the caller owns); a
-        module is moved to the device here."""
+    def get_params(self, model_id: str, build: Callable[[], Any], specs=None,
+                   place: Optional[Callable[..., Any]] = None) -> Any:
+        """Weights built once per model id and placement.
 
-        def place() -> Any:
+        Without ``specs``: ``build()`` returns a module (or a tensor tree
+        the caller owns), and a module is moved to the first device.
+
+        With ``specs`` (a flat spec dict of ``parallel.shardings``) the
+        weights are placed over the mesh: ``build()`` returns the host flat
+        arrays, and ``place(flat, specs, mesh)`` builds the sharded model.
+        When the mesh has ``tp`` or ``ep`` above 1 the specs are sanitized
+        against it and the weights land split, under a key of their own
+        (``"tp"``); otherwise every leaf replicates (``"rep"``), as the
+        reference's placement does."""
+        from agent_tpu_torch.parallel.shardings import placement_specs, splits_weights
+
+        use_specs = specs is not None and splits_weights(self.mesh.shape)
+
+        def put() -> Any:
             value = build()
-            return value.to(self.device) if hasattr(value, "to") else value
+            if specs is None:
+                return value.to(self.device) if hasattr(value, "to") else value
+            return place(value, placement_specs(self.mesh.shape, value, specs), self.mesh)
 
-        return self._params.get_or_build(model_id, place)
+        return self._params.get_or_build((model_id, "tp" if use_specs else "rep"), put)
 
     def evict_params(self, model_id: str) -> None:
-        self._params.evict(model_id)
+        """Drop ``model_id`` under either placement."""
+        self._params.evict((model_id, "tp"))
+        self._params.evict((model_id, "rep"))
 
     def clear_params(self) -> None:
         """Drop every resident model; the next ``get_params`` rebuilds."""
@@ -270,7 +301,11 @@ class TorchRuntime:
         what is cached is the forward bound to its model and shape)."""
         return self.cache.get_or_build(key, build)
 
-    def put_batch(self, arr) -> torch.Tensor:
+    def dp_devices(self) -> List[torch.device]:
+        """The first device of each dp replica, in dp order."""
+        return [self.mesh.device_at(dp=i) for i in range(self.axis_size("dp"))]
+
+    def put_batch(self, arr):
         """Host batch (numpy) -> device. A tensor already on this runtime's
         device passes through (the agent's pipeline pre-feeds staged
         chunks), and uint16 ids widen to int32 (torch's uint16 support is
@@ -297,7 +332,8 @@ class TorchRuntime:
             # its own (ops._model_common.resolve_quant).
             "quant_default": self.config.quant or "none",
             "executable_cache": self.cache.stats(),
-            "models_resident": sorted(self._params.keys()),
+            "models_resident": sorted({k[0] if isinstance(k, tuple) else k
+                                       for k in self._params.keys()}),
         }
         if self.config.chip_slice:
             out["chip_slice"] = self.config.chip_slice
@@ -349,22 +385,6 @@ _runtime: Optional[TorchRuntime] = None
 _runtime_lock = threading.Lock()
 
 
-def mesh_shape_from_env() -> Dict[str, int]:
-    """``MESH_SHAPE="sp=2"`` (comma-separated ``axis=size``) -> ``{"sp": 2}``,
-    as the reference's ``DeviceConfig.from_env`` parses it: a size that is
-    not an int is skipped, and a bare name means size 1."""
-    shape: Dict[str, int] = {}
-    for tok in os.environ.get("MESH_SHAPE", "").split(","):
-        name, eq, size = (part.strip() for part in tok.partition("="))
-        if not name:
-            continue
-        try:
-            shape[name] = int(size) if eq else 1
-        except ValueError:
-            pass
-    return shape
-
-
 def get_runtime(config=None) -> TorchRuntime:
     """The process-wide runtime, on ``MESH_SHAPE``'s mesh when it is set,
     with ``config`` (else ``DeviceConfig.from_env()``)."""
@@ -373,8 +393,8 @@ def get_runtime(config=None) -> TorchRuntime:
         if _runtime is None:
             from agent_tpu_torch.config import DeviceConfig
 
-            _runtime = TorchRuntime(mesh_shape=mesh_shape_from_env() or None,
-                                    config=config or DeviceConfig.from_env())
+            config = config or DeviceConfig.from_env()
+            _runtime = TorchRuntime(config=config)
         return _runtime
 
 

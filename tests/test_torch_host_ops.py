@@ -290,11 +290,55 @@ def test_risk_device_path_takes_the_threshold(port_ops, runtimes):
     assert "device" not in small and forced["device"] == "mesh" and forced["sum"] == 100.0
 
 
-class _DpRuntime:
-    def axis_size(self, name):
-        return 2 if name == "dp" else 1
-
-
 def test_risk_device_path_refuses_dp_softly(port_ops):
-    out = port_ops["risk_accumulate"]({"values": [1.0] * 5000}, OpContext(runtime=_DpRuntime()))
-    assert out["ok"] is False and "dp" in out["error"]
+    """A dp mesh reduces on the device too now, each dp shard its slice."""
+    values = [float(v) for v in np.random.default_rng(5).normal(size=5000)]
+    rt = TorchRuntime(devices=["cpu"] * 2, mesh_shape={"dp": 2})
+    out = port_ops["risk_accumulate"]({"values": values}, OpContext(runtime=rt))
+    host = port_ops["risk_accumulate"]({"values": values})
+    assert out["ok"] is True and out["device"] == "mesh" and out["count"] == 5000
+    assert out["min"] == np.float32(min(values)) and out["max"] == np.float32(max(values))
+    assert abs(out["sum"] - host["sum"]) <= 5000 * 2.0 ** -24 * sum(abs(v) for v in values)
+
+
+# ---- mesh_reduce_stats over dp ----
+
+_STATS_CASES = {
+    "ramp": [float(i) * 0.5 - 7.0 for i in range(100)],
+    "single": [3.25],
+    "subnormal": [-1.401298464324817e-45, 0.0, 1.401298464324817e-45],
+    "nan": [5.0, 1.0, float("nan")],
+    "inf": [float("inf"), float("-inf"), 2.0],
+    "double-single": [2.0**26 + 0.1875 * (i % 8) for i in range(1000)],
+    "overflow": [1e39] + [1.0] * 1023,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STATS_CASES))
+@pytest.mark.parametrize("dp", [2, 4, 8])
+def test_mesh_reduce_stats_over_dp_matches_the_reference(case, dp):
+    """The reference's own cases (tests/test_collectives.py) on a dp mesh of
+    2, 4 and 8 shards against the reference on its 8-device mesh: count,
+    min and max equal (the f32 rounding of the extremes, subnormals
+    included; NaN in, NaN out), the sum within the reference's f32
+    accumulation bound of its own (an overflow stays inf)."""
+    from agent_tpu.config import DeviceConfig
+    from agent_tpu.parallel.collectives import mesh_reduce_stats as jax_stats
+    from agent_tpu.runtime.runtime import TpuRuntime
+    from agent_tpu_torch.parallel.collectives import mesh_reduce_stats
+
+    values = _STATS_CASES[case]
+    got = mesh_reduce_stats(TorchRuntime(devices=["cpu"] * dp, mesh_shape={"dp": dp}), values)
+    want = jax_stats(TpuRuntime(DeviceConfig()), values)
+    assert got["count"] == want["count"] == len(values)
+    for key in ("min", "max", "sum", "mean"):
+        g, w = got[key], want[key]
+        if math.isnan(w) or math.isinf(w):
+            assert (math.isnan(g) and math.isnan(w)) or g == w, (key, g, w)
+        elif key in ("min", "max"):
+            assert g == w, (key, g, w)
+        else:
+            bound = len(values) * 2.0 ** -24 * math.fsum(abs(v) for v in values)
+            assert abs(g - w) <= bound, (key, g, w)
+    if case == "double-single":
+        assert got["sum"] == pytest.approx(math.fsum(values), rel=1e-7)

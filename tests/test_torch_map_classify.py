@@ -139,11 +139,12 @@ def test_oversize_batch_chunks(classify, monkeypatch):
     ({}, "payload requires"),
     ({"texts": ["x"], "result_format": "nope"}, "result_format"),
     ({"source_uri": "", "start_row": 0}, "source_uri"),  # a malformed shard address
-    # quant int8 and moe_experts serve now (tests/test_torch_quant.py,
-    # test_torch_moe.py); an unknown mode and MoE over pp stay soft errors.
+    # quant int8, moe_experts and pp serve now (tests/test_torch_quant.py,
+    # test_torch_moe.py, test_torch_pipeline.py); an unknown mode, a pp the
+    # one-device runtime cannot hold and MoE over pp stay soft errors.
     ({"text": "x", "model_config": {"quant": "int4"}}, "quant"),
-    ({"text": "x", "model_config": {"pp": 2}}, "pp"),
-    ({"text": "x", "model_config": {"moe_experts": 4, "pp": 2}}, "pp"),
+    ({"text": "x", "model_config": {"pp": 2}}, "pp=2 does not divide the 1-device mesh"),
+    ({"text": "x", "model_config": {"moe_experts": 4, "pp": 2}}, "cannot combine"),
     ({"text": "x", "start_row": -1}, "start_row"),
 ], ids=["payload0-topk", "payload1-topk", "payload2-texts", "payload3-input",
         "payload4-numeric", "payload5-out of range", "payload6-out of range",

@@ -10,6 +10,7 @@ import torch
 
 from agent_tpu.config import DeviceConfig
 from agent_tpu.runtime.mesh import MeshSpec as JaxMeshSpec
+from agent_tpu_torch.config import DeviceConfig as TorchDeviceConfig
 from agent_tpu_torch.kernels import flash_attention as fa
 from agent_tpu_torch.models import layers
 from agent_tpu_torch.runtime import runtime as runtime_mod
@@ -84,9 +85,13 @@ def test_runtime_without_sp_keeps_the_flash_path():
 @pytest.mark.parametrize("shape", [{"dp": 2}, {"tp": 2}, {"sp": 2, "dp": 2}, {"ep": 1},
                                    None])
 def test_runtime_refuses_axes_not_ported(shape):
+    """dp, tp, pp and ep are ported with sp; an axis no path reads is refused."""
     n = 4 if shape and len(shape) == 2 else 2
-    with pytest.raises(ValueError, match="item 2"):
-        TorchRuntime(devices=["cpu"] * n, mesh_shape=shape)
+    rt = TorchRuntime(devices=["cpu"] * n, mesh_shape=shape)
+    assert rt.mesh.size == n and rt.describe()["mesh"] == rt.mesh.shape
+    assert set(rt.mesh.axis_names) <= {"dp", "tp", "sp", "pp", "ep"}
+    with pytest.raises(ValueError, match=r"no path reads mesh axes \['xp'\]"):
+        TorchRuntime(devices=["cpu"] * n, mesh_shape={**(shape or {}), "xp": 1})
 
 
 def test_runtime_mesh_shape_without_devices_needs_cards(monkeypatch):
@@ -114,7 +119,7 @@ MESH_ENVS = ["sp=2", "dp=2, tp = 4,bogus,sp=x", "", "sp=2,sp=4", "tp=2,=3"]
 @pytest.mark.parametrize("raw", MESH_ENVS)
 def test_mesh_shape_env_parses_as_the_reference(monkeypatch, raw):
     monkeypatch.setenv("MESH_SHAPE", raw)
-    assert runtime_mod.mesh_shape_from_env() == DeviceConfig.from_env().mesh_shape
+    assert TorchDeviceConfig.from_env().mesh_shape == DeviceConfig.from_env().mesh_shape
 
 
 def test_get_runtime_reads_mesh_shape(monkeypatch):

@@ -349,3 +349,67 @@ def test_train_op_trains_moe_as_the_reference_and_serves_it(contexts, tmp_path):
     g, w = _run_both("map_classify_tpu", serve, contexts)
     np.testing.assert_array_equal(_topk(g)[0], _topk(w)[0])
     np.testing.assert_allclose(_topk(g)[1], _topk(w)[1], atol=TOL, rtol=0)
+
+
+# ---- experts over ep ----
+
+@pytest.mark.parametrize("quant_mode", ["none", "int8", "w8a16"])
+@pytest.mark.parametrize("shape", [{"ep": 2}, {"dp": 2, "ep": 4}], ids=["ep2", "dp2-ep4"])
+def test_classify_on_an_ep_mesh_matches_the_reference_on_it(shape, quant_mode):
+    """Experts split over ep (the router replicated, routing decided before
+    dispatch) against the reference's op on the same mesh of virtual
+    devices and against the port's one-device run. The texts' token count
+    is under one routing group per dp replica, so the replicas route
+    together, as on one device."""
+    from agent_tpu.config import DeviceConfig
+    from agent_tpu.ops import get_op as jax_get_op
+    from agent_tpu.runtime.context import OpContext as JaxOpContext
+    from agent_tpu.runtime.runtime import TpuRuntime
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    n = int(np.prod(list(shape.values())))
+    mc = {k: v for k, v in dict(ENC, quant=quant_mode).items() if k != "vocab_size"}
+    payload = {"texts": TEXTS, "topk": 5, "model_config": mc}
+    classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
+    rt = TorchRuntime(devices=["cpu"] * n, mesh_shape=shape)
+    got = classify(dict(payload), OpContext(runtime=rt))
+    jrt = TpuRuntime(config=DeviceConfig(tpu_disabled=True, mesh_shape=shape),
+                     devices=jax.devices("cpu")[:n])
+    want = jax_get_op("map_classify_tpu")(dict(payload), JaxOpContext(runtime=jrt))
+    one = classify(dict(payload), OpContext(runtime=TorchRuntime(device="cpu")))
+    model = next(iter(rt._params._cache.values()))
+    experts = model.experts(0, 0)
+    assert len(experts) == shape["ep"] and experts[1].wi is not experts[0].wi
+    table = experts[1].wi.p[quant.TABLE_KEY[quant_mode]] if quant_mode != "none" \
+        else experts[1].wi
+    assert table.shape[0] == ENC["moe_experts"] // shape["ep"]
+    for other, tol in ((want, TOL), (one, 1e-5)):
+        (gi, gs), (wi, ws) = _topk(got), _topk(other)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, atol=tol, rtol=0)
+
+
+def test_routing_groups_that_align_with_dp_route_per_replica(monkeypatch):
+    """With 512-token groups inside each dp replica's rows, each replica
+    routes its own tokens (no gather), and the logits and aux loss equal the
+    one-device forward's."""
+    from agent_tpu_torch.runtime.mesh import build_mesh
+
+    cfg = encoder.EncoderConfig(**{k: v for k, v in ENC.items()})
+    flat = encoder.init_params(cfg, "ep-groups")
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 32)).astype(np.int32))
+    mask = torch.ones(32, 32, dtype=torch.int32)
+    want, want_aux = encoder.from_jax_params(flat, cfg)(ids, mask, with_aux=True)
+    sharded = encoder.from_jax_params(flat, cfg, mesh=build_mesh(["cpu"] * 4,
+                                                                 {"dp": 2, "ep": 2}))
+    sizes = []
+    real = moe.MoeFFN.dispatch
+    monkeypatch.setattr(moe.MoeFFN, "dispatch",
+                        lambda self, x, g, e: sizes.append(x.shape[0]) or real(self, x, g, e))
+    got, aux = sharded(ids, mask, with_aux=True)
+    assert sizes == [512, 512] * cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(aux, want_aux, rtol=0, atol=1e-6)

@@ -360,8 +360,51 @@ def test_sp1_mesh_returns_dense():
 
 
 def test_ring_refuses_unported_axes():
-    with pytest.raises(ValueError, match="only sp"):
-        ring_mod.make_ring_attention(build_mesh(["cpu"] * 4, {"dp": 2, "sp": 2}))
+    """dp and tp compose with the ring now: each (dp, tp) group rings over
+    its sp devices; a batch or head count the mesh cannot split is no
+    longer refused but runs the flash kernel whole (its plain version on
+    the CPU), counted under ``unsharded`` and never as a dense ring."""
+    ring = ring_mod.make_ring_attention(build_mesh(["cpu"] * 4, {"dp": 2, "sp": 2}))
+    q, k, v, mask = _qkvm(Bq=3, Lq=16, Lk=16, Dq=32)
+    before = dict(fa.SELECTION_COUNTS)
+    got = ring(*(_torch(x) for x in (q, k, v)), _torch(mask, torch.int32))
+    assert fa.SELECTION_COUNTS["unsharded"] == before["unsharded"] + 1
+    assert fa.SELECTION_COUNTS["flash"] == before["flash"] + 1
+    assert fa.SELECTION_COUNTS["ring_dense"] == before["ring_dense"]
+    assert fa.SELECTION_COUNTS["ring"] == before["ring"]
+    whole = fa.flash_attention(*(_torch(x) for x in (q, k, v)), _torch(mask, torch.int32))
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [{"dp": 2, "sp": 2}, {"tp": 2, "sp": 2},
+                                   {"dp": 2, "tp": 2, "sp": 2}], ids=["dp2sp2", "tp2sp2",
+                                                                      "dp2tp2sp2"])
+@FOLDS
+def test_ring_composed_with_dp_and_tp_matches_jax(shape, fold):
+    """The ring inside each (dp, tp) group (batch over dp, heads over tp)
+    against the reference's ring on the same mesh of virtual devices; the
+    fold runs sp² times in each group."""
+    n = int(np.prod(list(shape.values())))
+    ref = jax_ring(TpuRuntime(DeviceConfig(mesh_shape=shape), devices=jax.devices()[:n]).mesh,
+                   use_flash_fold=fold == "kernel")
+    port = ring_mod.make_ring_attention(build_mesh(["cpu"] * n, shape),
+                                        use_flash_fold=None if fold == "kernel" else False)
+    q, k, v, mask = _qkvm(Lq=32, Lk=32, Dq=32, seed=4)
+    calls = []
+    real = fa.flash_fold
+    try:
+        fa.flash_fold = lambda *a: calls.append(1) or real(*a)
+        got, want = _run_both(port, ref, q, k, v, mask)
+    finally:
+        fa.flash_fold = real
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    groups = shape.get("dp", 1) * shape.get("tp", 1)
+    assert len(calls) == (groups * 4 if fold == "kernel" else 0)
+    shard = port.shard(1, 0) if shape.get("dp", 1) > 1 else port.shard(0, 1)
+    local = shard(*(_torch(x)[:2, :2] for x in (q, k, v)), _torch(mask, torch.int32)[:2])
+    dense = layers.dot_product_attention(*(_torch(x)[:2, :2] for x in (q, k, v)),
+                                         _torch(mask, torch.int32)[:2])
+    torch.testing.assert_close(local, dense, rtol=2e-5, atol=2e-5)
 
 
 @FOLDS

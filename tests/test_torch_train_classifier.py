@@ -270,3 +270,43 @@ def test_source_uri_errors_like_jax(train, port_rt, jax_ctx, train_csv, tmp_path
     with pytest.raises(exc) as got:
         train(dict(payload), OpContext(runtime=port_rt))
     assert type(got.value) is type(want.value)
+
+
+# ---- dp and tp meshes ----
+
+MESH_PAYLOAD = {"model_config": dict(SMALL, n_heads=4), "epochs": 2, "batch_size": 8,
+                "seed": 2}
+
+
+@pytest.mark.parametrize("shape", [{"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}],
+                         ids=["dp2", "tp2", "dp2-tp2"])
+def test_trains_on_a_mesh_as_the_reference_on_it(train, shape, tmp_path):
+    """The port on a dp/tp mesh of CPU shards against the reference on the
+    same mesh of virtual devices: epoch losses within 1e-5 relative, the
+    gathered ``.npz`` within 1e-5 relative L2 of the reference's, and the
+    artifact serves on a one-device runtime as the one-device run's does."""
+    n = int(np.prod(list(shape.values())))
+    texts, labels = _rows(40, seed=3)
+    payload = dict(MESH_PAYLOAD, texts=texts, labels=labels)
+    rt = TorchRuntime(devices=["cpu"] * n, mesh_shape=shape)
+    got = train(dict(payload, output_path=str(tmp_path / "mesh.npz")), OpContext(runtime=rt))
+    jrt = TpuRuntime(config=DeviceConfig(tpu_disabled=True, mesh_shape=shape),
+                     devices=jax.devices("cpu")[:n])
+    want = jax_get_op("train_classifier")(dict(payload, output_path=str(tmp_path / "jax.npz")),
+                                           JaxOpContext(runtime=jrt))
+    assert got["ok"] and want["ok"] and got["n_steps"] == want["n_steps"]
+    for key in ("first_epoch_loss", "last_epoch_loss"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, err_msg=key)
+    with np.load(got["output_path"]) as a, np.load(want["output_path"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        diff = np.sqrt(sum(float(np.sum((a[k] - b[k]) ** 2)) for k in b.files))
+        norm = np.sqrt(sum(float(np.sum(b[k] ** 2)) for k in b.files))
+        assert diff <= 1e-5 * norm, diff / norm
+    one = train(dict(payload, output_path=str(tmp_path / "one.npz")),
+                OpContext(runtime=TorchRuntime(device="cpu")))
+    classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
+    served = [classify({"texts": texts[:8], "model_path": r["output_path"], "topk": 2,
+                        "model_config": r["model_config"], "result_format": "columnar"},
+                       OpContext(runtime=TorchRuntime(device="cpu"))) for r in (got, one)]
+    assert served[0]["indices"] == served[1]["indices"]
+    np.testing.assert_allclose(served[0]["scores"], served[1]["scores"], rtol=0, atol=1e-5)

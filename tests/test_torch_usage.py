@@ -401,9 +401,17 @@ def _cards(monkeypatch, n):
 
 
 def test_chip_slice_of_several_cards_is_refused(monkeypatch):
+    """A slice of several cards takes them, on dp unless MESH_SHAPE says
+    otherwise (the reference's ``apply_chip_slice``); only a slice past the
+    visible cards is refused."""
     _cards(monkeypatch, 4)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 2"):
-        TorchRuntime(config=DeviceConfig(chip_slice="1:2"))
+    rt = TorchRuntime(config=DeviceConfig(chip_slice="1:2"))
+    assert rt.devices == [torch.device("cuda", 1), torch.device("cuda", 2)]
+    assert rt.mesh.shape["dp"] == 2 and rt.device == torch.device("cuda", 1)
+    rt = TorchRuntime(config=DeviceConfig(chip_slice="0:4", mesh_shape={"tp": 2}))
+    assert rt.mesh.shape["dp"] == 2 and rt.mesh.shape["tp"] == 2
+    with pytest.raises(ValueError, match=r"wants cards \[3, 5\) but only 4 are visible"):
+        TorchRuntime(config=DeviceConfig(chip_slice="3:2"))
 
 
 def test_chip_slice_picks_its_card(monkeypatch):

@@ -19,6 +19,12 @@ decoder's self- and cross-attention are dense, as in the reference's
 dense weights ``[in, out]``, on one device: matmul weights, biases and the
 embeddings in the compute dtype, layer norms and ``final_logits_bias`` in
 f32. No network access: checkpoints load from local disk.
+
+Over a mesh the weights are a :class:`ShardedBart` (``models.sharded_decoder``,
+placed by ``shardings.bart_specs``): rows over dp, heads, ``fc1``'s columns
+and the vocabulary over tp; the learned positions, every LayerNorm and
+``final_logits_bias`` replicate, the bias added after the logits' gather.
+One device's tree runs the same group code as the one shard.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from agent_tpu_torch.models import layers, quant
 from agent_tpu_torch.models.layers import AttnFn, Params
+from agent_tpu_torch.models.sharded_decoder import ShardedDecoder, as_mesh, row_out
 
 _LN_EPS = 1e-5  # BART's LayerNorm eps
 
@@ -136,24 +143,29 @@ def _embed(params: Params, branch: str, ids: torch.Tensor, pos0: int,
            cfg: BartConfig) -> torch.Tensor:
     """Token + learned position embeddings (HF's row = position + 2), then
     the embedding LayerNorm. ``pos0`` is the position of ``ids[:, 0]``."""
-    x = params["embed"][ids.long()]
+    return _embed_rest(params, branch, params["embed"][ids.long()], pos0, cfg)
+
+
+def _embed_rest(params: Params, branch: str, x: torch.Tensor, pos0: int,
+                cfg: BartConfig) -> torch.Tensor:
+    """:func:`_embed` after the token lookup ``x`` [B, L, d]."""
     if cfg.scale_embedding:
         x = x * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=x.dtype)
-    L = ids.shape[1]
+    L = x.shape[1]
     p = params[branch]
     return _ln(p["ln_emb"], x + p["pos"][pos0 + 2:pos0 + 2 + L][None])
 
 
 def _heads(t: torch.Tensor, cfg: BartConfig) -> torch.Tensor:
-    """[B, L, d] -> [B, H, L, d_head]."""
+    """[B, L, H·d_head] -> [B, H, L, d_head] (H: the heads a shard holds)."""
     B, L, _ = t.shape
-    return t.view(B, L, cfg.n_heads, cfg.d_model // cfg.n_heads).transpose(1, 2)
+    return t.view(B, L, -1, cfg.d_model // cfg.n_heads).transpose(1, 2)
 
 
 def _merge(ctx: torch.Tensor, cfg: BartConfig) -> torch.Tensor:
-    """[B, H, L, d_head] -> [B, L, d]."""
+    """[B, H, L, d_head] -> [B, L, H·d_head]."""
     B, _, L, _ = ctx.shape
-    return ctx.transpose(1, 2).reshape(B, L, cfg.d_model)
+    return ctx.transpose(1, 2).reshape(B, L, -1)
 
 
 def _mha(blk: Params, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor,
@@ -166,21 +178,21 @@ def _mha(blk: Params, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tenso
     return _dense(blk["o"], _merge(ctx, cfg), dtype)
 
 
+def _ffn_hidden(blk: Params, x: torch.Tensor, cfg: BartConfig) -> torch.Tensor:
+    """``fc1`` and the GELU (a shard's columns of them)."""
+    return F.gelu(_dense(blk["fc1"], x, cfg.compute_dtype).float(),
+                  approximate="none").to(cfg.compute_dtype)
+
+
 def _ffn(blk: Params, x: torch.Tensor, cfg: BartConfig) -> torch.Tensor:
-    dtype = cfg.compute_dtype
-    h = F.gelu(_dense(blk["fc1"], x, dtype).float(), approximate="none").to(dtype)
-    return _dense(blk["fc2"], h, dtype)
+    return _dense(blk["fc2"], _ffn_hidden(blk, x, cfg), cfg.compute_dtype)
 
 
-def encode(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor, cfg: BartConfig,
+def encode(params, src_ids: torch.Tensor, src_mask: torch.Tensor, cfg: BartConfig,
            attn_fn: AttnFn = layers.dot_product_attention) -> torch.Tensor:
-    """Encoder stack -> [B, Ls, d] (post-LN, HF BartEncoder)."""
-    x = _embed(params, "enc", src_ids, 0, cfg)
-    attn_mask = layers.pad_mask_to_attn(src_mask)
-    for blk in params["enc"]["layers"]:
-        x = _ln(blk["ln1"], x + _mha(blk["self"], x, x, attn_mask, cfg, attn_fn))
-        x = _ln(blk["ln2"], x + _ffn(blk, x, cfg))
-    return x
+    """Encoder stack -> [B, Ls, d] (post-LN, HF BartEncoder) on the ids'
+    device; ``params`` one device's tree or a :class:`ShardedBart`."""
+    return as_mesh(params, ShardedBart, cfg).encode(src_ids, src_mask, attn_fn)
 
 
 def _lm_logits(params: Params, x: torch.Tensor, cfg: BartConfig) -> torch.Tensor:
@@ -206,19 +218,21 @@ def decode_full(params: Params, tgt_ids: torch.Tensor, enc_out: torch.Tensor,
 
 # ---- cached single-step decode (generation) ----
 
-def _init_self_caches(cfg: BartConfig, batch: int, max_new: int, device=None) -> list:
+def _init_self_caches(cfg: BartConfig, batch: int, max_new: int, device=None,
+                      heads: Optional[int] = None) -> list:
     """Zeroed self-attention KV caches of ``max_new`` positions, per decoder
-    layer."""
-    shape = (batch, cfg.n_heads, max_new, cfg.d_model // cfg.n_heads)
+    layer, of ``heads`` heads (all by default)."""
+    shape = (batch, heads or cfg.n_heads, max_new, cfg.d_model // cfg.n_heads)
     return [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
             for _ in range(cfg.n_dec_layers)]
 
 
 def _init_cross_kv(params: Params, enc_out: torch.Tensor, cfg: BartConfig) -> list:
-    """Cross-attention K/V of the encoder output, computed once per
-    generation (the same at every step and for every beam of a row), kept
-    contiguous so the per-step products read them without a copy."""
+    """Cross-attention K/V of the encoder output for the heads ``params``
+    holds, computed once per generation (the same at every step and for
+    every beam of a row), kept contiguous so the per-step products read
+    them without a copy."""
     dtype = cfg.compute_dtype
     return [{"k": _heads(_dense(blk["cross"]["k"], enc_out, dtype), cfg).contiguous(),
              "v": _heads(_dense(blk["cross"]["v"], enc_out, dtype), cfg).contiguous()}
@@ -228,29 +242,17 @@ def _init_cross_kv(params: Params, enc_out: torch.Tensor, cfg: BartConfig) -> li
 def decode_step(params: Params, tok: torch.Tensor, step: int, self_caches: list,
                 cross_kv: list, enc_mask: torch.Tensor, cfg: BartConfig,
                 max_new: int) -> Tuple[torch.Tensor, list]:
-    """One cached decoder step -> (logits [B, V] f32, self_caches). The new
-    K/V row is written into the caches IN PLACE at ``step``; positions past
-    ``step`` are masked."""
-    dtype = cfg.compute_dtype
-    x = _embed(params, "dec", tok[:, None], step, cfg)                  # [B, 1, d]
-    self_mask = (torch.arange(max_new, device=x.device) <= step).to(torch.int32)[None, None, None]
-    enc_attn = enc_mask[:, None, None, :]
-    for blk, s_kv, x_kv in zip(params["dec"]["layers"], self_caches, cross_kv):
-        a = blk["self"]
-        s_kv["k"][:, :, step:step + 1] = _heads(_dense(a["k"], x, dtype), cfg)
-        s_kv["v"][:, :, step:step + 1] = _heads(_dense(a["v"], x, dtype), cfg)
-        ctx = layers.dot_product_attention(_heads(_dense(a["q"], x, dtype), cfg),
-                                           s_kv["k"], s_kv["v"], self_mask)
-        x = _ln(blk["ln1"], x + _dense(a["o"], _merge(ctx, cfg), dtype))
-        c = blk["cross"]
-        cctx = layers.dot_product_attention(_heads(_dense(c["q"], x, dtype), cfg),
-                                            x_kv["k"], x_kv["v"], enc_attn)
-        x = _ln(blk["ln_x"], x + _dense(c["o"], _merge(cctx, cfg), dtype))
-        x = _ln(blk["ln2"], x + _ffn(blk, x, cfg))
-    return _lm_logits(params, x, cfg)[:, 0], self_caches
+    """One device's cached decoder step -> (logits [B, V] f32,
+    self_caches). The new K/V row is written into the caches IN PLACE at
+    ``step``; positions past ``step`` are masked (``max_new`` the caches'
+    length). :meth:`ShardedBart.step_group` with the tree as its one shard."""
+    logits = as_mesh(params, ShardedBart, cfg).step_group(
+        [params], [tok], step, [self_caches],
+        [{"kv": cross_kv, "mask": enc_mask[:, None, None, :]}])
+    return logits, self_caches
 
 
-def generate(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor, cfg: BartConfig,
+def generate(params, src_ids: torch.Tensor, src_mask: torch.Tensor, cfg: BartConfig,
              max_new_tokens: int, num_beams: int = 1, length_penalty: float = 1.0,
              early_stopping: bool = False, min_length: int = 0,
              attn_fn: AttnFn = layers.dot_product_attention
@@ -258,28 +260,106 @@ def generate(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor, cfg:
     """Greedy (or beam) generation -> (tokens [B, T], lengths [B]); tokens
     after EOS are the pad id. ``attn_fn`` serves the encoder pass, where the
     long context is."""
-    from agent_tpu_torch.models.decoding import beam_scan, greedy_scan
+    return as_mesh(params, ShardedBart, cfg).generate(
+        src_ids, src_mask, max_new_tokens, attn_fn, num_beams=num_beams,
+        length_penalty=length_penalty, early_stopping=early_stopping, min_length=min_length)
 
-    B = src_ids.shape[0]
-    T = max_new_tokens
-    enc_out = encode(params, src_ids, src_mask, cfg, attn_fn=attn_fn)
-    K = max(1, num_beams)
-    if K > 1:
-        enc_out = enc_out.repeat_interleave(K, dim=0)
-        src_mask = src_mask.repeat_interleave(K, dim=0)
-    cross_kv = _init_cross_kv(params, enc_out, cfg)
 
-    def step_fn(tok, step, caches):
-        return decode_step(params, tok, step, caches, cross_kv, src_mask, cfg, T)
+class ShardedBart(ShardedDecoder):
+    """BART over a mesh's dp and tp axes (``models.sharded_decoder``): shard
+    (i, j) is the tree of tp piece j (``shardings.bart_specs``) on device
+    (dp=i, tp=j). q/k/v and ``fc1`` are column parallel (their biases
+    split), ``o`` and ``fc2`` row parallel (their biases added once after
+    the sum), the tied embedding's lookups sum and its logits gather over
+    the vocabulary before ``final_logits_bias``."""
 
-    caches = _init_self_caches(cfg, B * K, T, enc_out.device)
-    ids = dict(start_id=cfg.decoder_start_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id,
-               min_length=min_length, forced_first_id=cfg.forced_bos_id,
-               forced_last_id=cfg.forced_eos_id, device=enc_out.device)
-    if K == 1:
-        return greedy_scan(step_fn, caches, B, T, **ids)
-    return beam_scan(step_fn, caches, B, cfg.vocab_size, T, num_beams=K,
-                     length_penalty=length_penalty, early_stopping=early_stopping, **ids)
+    SPLIT_KEYS = {"embed": "embed", "attn": "enc.layers.0.self.q", "ffn": "enc.layers.0.fc1"}
+
+    def scan_ids(self):
+        cfg = self.cfg
+        return dict(start_id=cfg.decoder_start_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id,
+                    forced_first_id=cfg.forced_bos_id, forced_last_id=cfg.forced_eos_id)
+
+    def _out(self, leaves, ctx_of, xs, part: str) -> list:
+        """``o``/``fc2`` over the shards: row parallel, or whole on the first."""
+        dtype = self.cfg.compute_dtype
+        return row_out(self.split_over(part, len(xs)), ctx_of,
+                       lambda x: _dense(leaves[0], x, dtype), lambda: list(leaves), xs, dtype,
+                       part == "attn")
+
+    def _mha(self, parts, q_in, kv_of, masks, fns) -> list:
+        """Multi-head attention over the shards: shard j's heads of
+        ``q_in[j]`` over ``kv_of(j)`` (keys, values), through ``fns[j]``."""
+        cfg, dtype = self.cfg, self.cfg.compute_dtype
+
+        def ctx(j: int) -> torch.Tensor:
+            k, v = kv_of(j)
+            return _merge(fns[j](_heads(_dense(parts[j]["q"], q_in[j], dtype), cfg), k, v,
+                                 masks[j]), cfg)
+
+        return self._out([p["o"] for p in parts], ctx, q_in, "attn")
+
+    def _ffn(self, blks, xs) -> list:
+        cfg = self.cfg
+        f = self._out([b["fc2"] for b in blks], lambda j: _ffn_hidden(blks[j], xs[j], cfg), xs,
+                      "ffn")
+        return [_ln(b["ln2"], x + y) for b, x, y in zip(blks, xs, f)]
+
+    def _embed(self, group, ids, branch: str, pos0: int) -> list:
+        xs = layers.embed_tp([t["embed"] for t in group], ids,
+                             self.split_over("embed", len(group)), self.cfg.compute_dtype)
+        return [_embed_rest(t, branch, x, pos0, self.cfg) for t, x in zip(group, xs)]
+
+    def _kv(self, a: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg, dtype = self.cfg, self.cfg.compute_dtype
+        return _heads(_dense(a["k"], x, dtype), cfg), _heads(_dense(a["v"], x, dtype), cfg)
+
+    def encode_group(self, group, ids, masks, fns):
+        xs = self._embed(group, ids, "enc", 0)
+        attn_masks = [layers.pad_mask_to_attn(m) for m in masks]
+        for blks in zip(*[t["enc"]["layers"] for t in group]):
+            selfs = [b["self"] for b in blks]
+            a = self._mha(selfs, xs, lambda j: self._kv(selfs[j], xs[j]), attn_masks, fns)
+            xs = [_ln(b["ln1"], x + y) for b, x, y in zip(blks, xs, a)]
+            xs = self._ffn(blks, xs)
+        return xs
+
+    def state_group(self, group, encs, masks, steps):
+        return [{"kv": _init_cross_kv(t, e, self.cfg), "mask": m[:, None, None, :]}
+                for t, e, m in zip(group, encs, masks)]
+
+    def caches_group(self, rows, steps, devices):
+        heads = self.heads(0)[1]
+        return [_init_self_caches(self.cfg, rows, steps, dev, heads) for dev in devices]
+
+    def step_group(self, group, toks, step, caches, states):
+        cfg, dtype = self.cfg, self.cfg.compute_dtype
+        n = len(group)
+        dense = [layers.dot_product_attention] * n
+        xs = self._embed(group, [t[:, None] for t in toks], "dec", step)      # [B, 1, d]
+        steps = caches[0][0]["k"].shape[2]
+        self_masks = [(torch.arange(steps, device=x.device) <= step).to(torch.int32)
+                      [None, None, None] for x in xs]
+        for l, blks in enumerate(zip(*[t["dec"]["layers"] for t in group])):
+            selfs = [b["self"] for b in blks]
+
+            def self_kv(j: int):
+                c = caches[j][l]
+                c["k"][:, :, step:step + 1], c["v"][:, :, step:step + 1] = \
+                    self._kv(selfs[j], xs[j])
+                return c["k"], c["v"]
+
+            a = self._mha(selfs, xs, self_kv, self_masks, dense)
+            xs = [_ln(b["ln1"], x + y) for b, x, y in zip(blks, xs, a)]
+            a = self._mha([b["cross"] for b in blks], xs,
+                          lambda j: (states[j]["kv"][l]["k"], states[j]["kv"][l]["v"]),
+                          [s["mask"] for s in states], dense)
+            xs = [_ln(b["ln_x"], x + y) for b, x, y in zip(blks, xs, a)]
+            xs = self._ffn(blks, xs)
+        logits = layers.vocab_logits_tp(lambda w, x: torch.matmul(x.to(dtype), w.t()).float(),
+                                        [t["embed"] for t in group], xs,
+                                        self.split_over("embed", n))
+        return (logits + group[0]["final_logits_bias"])[:, 0]
 
 
 # ---- weight import ----
@@ -303,6 +383,11 @@ def from_state_dict(sd: Dict[str, Any], cfg: BartConfig, device=None) -> Params:
     naming, the ``model.`` prefix stripped; numpy arrays or tensors) -> the
     port's tree on ``device``, quantized on the host from f32 for a
     quantized ``cfg.quant``."""
+    return layers.place_tree(host_tree(sd, cfg), cfg.compute_dtype, device)
+
+
+def host_tree(sd: Dict[str, Any], cfg: BartConfig) -> Params:
+    """:func:`from_state_dict`'s tree on the host before placement."""
     sd = {(k[6:] if k.startswith("model.") else k): torch.as_tensor(v) for k, v in sd.items()}
 
     def branch(name: str, n_layers: int, cross: bool) -> Params:
@@ -328,8 +413,7 @@ def from_state_dict(sd: Dict[str, Any], cfg: BartConfig, device=None) -> Params:
         "enc": branch("encoder", cfg.n_enc_layers, cross=False),
         "dec": branch("decoder", cfg.n_dec_layers, cross=True),
     }
-    return layers.place_tree(quant.quantize_tree(tree, "bart", cfg.quant), cfg.compute_dtype,
-                             device)
+    return quant.quantize_tree(tree, "bart", cfg.quant)
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: BartConfig, device=None) -> Params:
@@ -361,6 +445,14 @@ def load_hf_dir(path: str, device=None, **config_overrides) -> Tuple[BartConfig,
 
     cfg = BartConfig.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
     return cfg, from_state_dict(load_hf_weights(path), cfg, device)
+
+
+def load_hf_flat(path: str, **config_overrides) -> Tuple[BartConfig, Dict[str, Any]]:
+    """(config, the host tree as flat dotted keys): what a mesh places."""
+    from agent_tpu_torch.models.safetensors_io import load_hf_weights
+
+    cfg = BartConfig.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
+    return cfg, layers.flatten(host_tree(load_hf_weights(path), cfg), leaf=lambda v: v)
 
 
 # ---- tokenizer ----

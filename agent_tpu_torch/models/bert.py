@@ -217,7 +217,7 @@ class ShardedBert:
             for j in range(self.tp):
                 key = self._key(i, j)
                 if key not in self.trees:
-                    held = {n: _dense_copy(slice_of(v, specs.get(n, REPLICATED), shape,
+                    held = {n: layers.dense_copy(slice_of(v, specs.get(n, REPLICATED), shape,
                                                     {"tp": j}))
                             for n, v in flat.items()}
                     self.trees[key] = layers.place_tree(layers.unflatten(held),
@@ -244,13 +244,6 @@ class ShardedBert:
                 self.split)
             out.append(logits.to(ids.device, non_blocking=True))
         return torch.cat(out)
-
-
-def _dense_copy(arr: np.ndarray) -> np.ndarray:
-    """A dense copy of a (sliced) host array in its own dim order, so a
-    quantized table keeps its ``gemm_layout``."""
-    order = np.argsort([-st for st in arr.strides], kind="stable")
-    return np.ascontiguousarray(arr.transpose(order)).transpose(np.argsort(order))
 
 
 # ---- weight import ----

@@ -142,15 +142,22 @@ def greedy_scan(
 
 def _reorder(c: torch.Tensor, beam_idx: torch.Tensor) -> torch.Tensor:
     """Rows [B·K, ...] -> the rows of each batch entry's beams in
-    ``beam_idx`` [B, K] order."""
+    ``beam_idx`` [B, K] order (copied to ``c``'s device: a shard's cache
+    on another card)."""
     B, K = beam_idx.shape
     x = c.view(B, K, *c.shape[1:])
     rows = torch.arange(B, device=c.device)[:, None]
-    return x[rows, beam_idx.long()].reshape(c.shape)
+    return x[rows, beam_idx.to(c.device, non_blocking=True).long()].reshape(c.shape)
 
 
 def _reorder_all(caches: Any, beam_idx: torch.Tensor) -> Any:
-    """:func:`_reorder` over every tensor of nested dicts and lists."""
+    """:func:`_reorder` over every tensor of nested dicts and lists. A
+    mesh's ``{"replicas": [...]}`` (``models.sharded_decoder``) gives each dp
+    replica's caches its own rows of ``beam_idx``."""
+    if isinstance(caches, dict) and "replicas" in caches:
+        reps = caches["replicas"]
+        return {"replicas": [_reorder_all(r, b)
+                             for r, b in zip(reps, beam_idx.chunk(len(reps)))]}
     if isinstance(caches, dict):
         return {k: _reorder_all(v, beam_idx) for k, v in caches.items()}
     if isinstance(caches, list):
@@ -317,6 +324,12 @@ def _tree_zeros(tree: Any, rows: int) -> Any:
     return tree.new_zeros((rows,) + tuple(tree.shape[1:]))
 
 
+def paged_shards(caches: dict) -> List[dict]:
+    """A paged cache's per-shard ``{"table", "layers"}`` parts: its
+    ``"shards"`` on a tp group, else the one device's cache itself."""
+    return caches.get("shards", [caches])
+
+
 class DecodeTicket:
     """One request's seat in the continuous engine: the prefill handoff in,
     the emitted tokens out, and its lifecycle: the admit, join (``seat``),
@@ -435,16 +448,18 @@ class ContinuousBatcher:
         self.device = dev
         i32 = dict(dtype=torch.int32, device=dev)
         # Paged KV, detected from the factory's structure
-        # (seq2seq.make_paged_cache_factory).
+        # (seq2seq.make_paged_cache_factory): one block table, one pool per
+        # tp shard, every pool of the same blocks.
         self.paged = isinstance(caches, dict) and "table" in caches
         if self.paged:
             table = caches["table"]
             if table.shape[0] != R:
                 raise ValueError(f"paged cache table has {table.shape[0]} rows, engine "
                                  f"needs slots*num_beams={R}")
-            self.kv_block_size = int(caches["layers"][0]["k"].shape[2])
+            pool = paged_shards(caches)[0]["layers"][0]["k"]
+            self.kv_block_size = int(pool.shape[2])
             self.kv_max_blocks = int(table.shape[1])
-            self.kv_pool_blocks = int(caches["layers"][0]["k"].shape[0])
+            self.kv_pool_blocks = int(pool.shape[0])
             self._table_np = np.zeros((R, self.kv_max_blocks), dtype=np.int64)
             # Block 0 is the trash block: released and unallocated entries
             # point there, so a frozen row's rewrite of its last position
@@ -592,14 +607,16 @@ class ContinuousBatcher:
         """The paged beam reorder: blocks are row-exclusive (sibling beams
         diverge after sharing a parent), so each child row's blocks get a
         copy of its parent row's, logical block j from logical block j; the
-        table is unchanged. Unallocated entries copy trash to trash."""
-        table = caches["table"]
+        table is unchanged. Unallocated entries copy trash to trash. Every
+        tp shard's pools copy the same blocks, under its copy of the table."""
         parent = (self._arange_s[:, None] * self.K + beam_idx).reshape(-1)
-        src = table[parent].reshape(-1)
-        dst = table.reshape(-1)
-        for lc in caches["layers"]:
-            for name in ("k", "v"):
-                lc[name][dst] = lc[name][src]
+        for part in paged_shards(caches):
+            table = part["table"]
+            src = table[parent.to(table.device, non_blocking=True)].reshape(-1)
+            dst = table.reshape(-1)
+            for lc in part["layers"]:
+                for name in ("k", "v"):
+                    lc[name][dst] = lc[name][src]
         return caches
 
     def _insert(self, slot: int, enc_row, mask_row, limit: int) -> None:
@@ -684,8 +701,13 @@ class ContinuousBatcher:
         self._table_dirty = True
 
     def _push_table(self) -> None:
+        """The host table to every tp shard's copy (shards that share a
+        device share one copy)."""
         if self.paged and self._table_dirty:
-            self._dyn["caches"]["table"].copy_(torch.from_numpy(self._table_np))
+            src = torch.from_numpy(self._table_np)
+            for table in {id(p["table"]): p["table"]
+                          for p in paged_shards(self._dyn["caches"])}.values():
+                table.copy_(src)
             self._table_dirty = False
 
     @torch.inference_mode()

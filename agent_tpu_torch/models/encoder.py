@@ -21,7 +21,6 @@ experts over ``ep``; or, with ``pp``, a
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -271,7 +270,9 @@ class ShardedEncoder:
     @classmethod
     def of(cls, model: Encoder) -> "ShardedEncoder":
         """``model`` as the one shard of a mesh of its own device."""
-        mesh = _one_device_mesh(model.embed.device)
+        from agent_tpu_torch.runtime.mesh import one_device_mesh
+
+        mesh = one_device_mesh(model.embed.device)
         return cls(None, model.cfg, {}, mesh, model.training,
                    modules={(mesh.device_at(), 0, 0): model})
 
@@ -432,14 +433,6 @@ class ShardedEncoder:
             return pieces[key]
 
         return gather_flat(piece_at, self.specs, self.shape)
-
-
-@functools.lru_cache(maxsize=None)
-def _one_device_mesh(device: torch.device):
-    """The mesh of one shard on ``device`` (built once per device)."""
-    from agent_tpu_torch.runtime.mesh import build_mesh
-
-    return build_mesh([device])
 
 
 def topk_probs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -369,11 +369,18 @@ class Attention(nn.Module):
     def attend(self, x_q: torch.Tensor, mask: torch.Tensor, kv: KV,
                cache: Cache = None, cache_index=0,
                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`context` through the output projection -> [B, Lq, d]."""
+        return self._proj_out(self.wo, self.context(x_q, mask, kv, cache, cache_index,
+                                                    block_table), self.dtype)
+
+    def context(self, x_q: torch.Tensor, mask: torch.Tensor, kv: KV,
+                cache: Cache = None, cache_index=0,
+                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Attention of the queries of ``x_q`` [B, Lq, d] over ``kv`` with
-        dense attention (the reference's ``attention``). ``mask`` [B|1, 1,
-        Lq|1, Lk] hides what is not yet written. With ``cache`` the new rows
-        ``kv`` are written into it IN PLACE and the queries attend over the
-        cache:
+        dense attention (the reference's ``attention``), every head this
+        module holds -> [B, H, Lq, E]. ``mask`` [B|1, 1, Lq|1, Lk] hides what
+        is not yet written. With ``cache`` the new rows ``kv`` are written
+        into it IN PLACE and the queries attend over the cache:
 
         - ``cache_index`` an int: ``k``/``v`` [B, H, Lmax, E], written at
           that position (the scan decode's ``dynamic_update_slice``);
@@ -394,7 +401,7 @@ class Attention(nn.Module):
                 cache["k"][:, :, cache_index:cache_index + k.shape[2]] = k
                 cache["v"][:, :, cache_index:cache_index + v.shape[2]] = v
                 k, v = cache["k"], cache["v"]
-        return self._proj_out(self.wo, dot_product_attention(q, k, v, mask), self.dtype)
+        return dot_product_attention(q, k, v, mask)
 
 
 def rows_write(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
@@ -498,6 +505,16 @@ class EncoderBlock(nn.Module):
 def leaf_numpy(t: torch.Tensor) -> np.ndarray:
     """A weight read back to the host: floats as f32, int8 tables as int8."""
     return (t.detach().float() if t.is_floating_point() else t.detach()).cpu().numpy()
+
+
+def dense_copy(arr: Any) -> Any:
+    """A compact copy of a (sliced) host numpy piece in its own dim order,
+    so a quantized table keeps its ``gemm_layout``; a tensor as it is
+    (placement copies it)."""
+    if not isinstance(arr, np.ndarray):
+        return arr
+    order = np.argsort([-st for st in arr.strides], kind="stable")
+    return np.ascontiguousarray(arr.transpose(order)).transpose(np.argsort(order))
 
 
 def place_pieces(model: nn.Module, pieces: Dict[str, Any], device) -> nn.Module:
@@ -638,10 +655,91 @@ class DecoderBlock(nn.Module):
                 block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x`` [B, Lq, d]; ``enc_kv`` = ``self.xattn.kv(enc_out)``, which
         is the same every decode step, so callers compute it once.
-        ``cache_index`` and ``block_table`` as :meth:`Attention.attend`."""
-        h = self.ln1(x)
-        x = x + self.attn.attend(h, self_mask, self.attn.kv(h), cache, cache_index,
-                                 block_table)
-        h = self.ln_x(x)
-        x = x + self.xattn.attend(h, enc_mask, enc_kv)
-        return x + self.ffn(self.ln2(x))
+        ``cache_index`` and ``block_table`` as :meth:`Attention.attend`.
+        :func:`decoder_block_tp` with this block as its one shard."""
+        return decoder_block_tp([self], [x], [self_mask], [enc_kv], [enc_mask], [cache],
+                                [cache_index], [block_table], False, False)[0]
+
+
+def attend_tp(attns: Sequence[Attention], hs: Sequence[torch.Tensor],
+              masks: Sequence[torch.Tensor], kvs: Optional[Sequence[KV]], split: bool,
+              caches: Optional[Sequence[Cache]] = None, index: Optional[Sequence] = None,
+              tables: Optional[Sequence[Optional[torch.Tensor]]] = None) -> List[torch.Tensor]:
+    """A decoder's attention over the shards (:meth:`Attention.context`):
+    each shard's queries of ``hs[j]`` attend over ``kvs[j]``, its heads'
+    keys and values (None: the self-attention's new rows, projected from
+    ``hs``), written first into its own cache ``caches[j]`` at ``index[j]``
+    (through ``tables[j]`` for a paged pool) when given; the row-parallel
+    output projection sums. With ``split`` False (heads replicated) the
+    first shard computes it whole, counted under
+    ``SELECTION_COUNTS["unsharded"]`` when there are other shards."""
+    n = len(attns)
+    caches = caches or [None] * n
+    index = index or [0] * n
+    tables = tables or [None] * n
+
+    def kv(j: int) -> KV:
+        return attns[j].kv(hs[j]) if kvs is None else kvs[j]
+
+    if not split:
+        if n > 1:
+            from agent_tpu_torch.kernels.flash_attention import SELECTION_COUNTS
+
+            SELECTION_COUNTS["unsharded"] += 1
+        return on_first(lambda: attns[0].attend(hs[0], masks[0], kv(0), caches[0], index[0],
+                                                tables[0]), hs)
+    outs = [a.context(h, m, kv(j), caches[j], index[j], tables[j])
+            for j, (a, h, m) in enumerate(zip(attns, hs, masks))]
+    b, _, length, _ = outs[0].shape
+    flat = [o.transpose(1, 2).reshape(b, length, -1) for o in outs]
+    return row_parallel([a.out_leaf() for a in attns], flat, attns[0].dtype)
+
+
+def decoder_block_tp(blocks: Sequence[DecoderBlock], xs: Sequence[torch.Tensor],
+                     self_masks: Sequence[torch.Tensor], enc_kvs: Sequence[KV],
+                     enc_masks: Sequence[torch.Tensor], caches: Sequence[Cache],
+                     index: Sequence, tables: Sequence[Optional[torch.Tensor]],
+                     attn_split: bool, ffn_split: bool) -> List[torch.Tensor]:
+    """:meth:`DecoderBlock.forward` over its tp shards, one residual stream
+    per shard: each shard's self-attention writes its heads' keys and
+    values into its own cache (dense rows, or a paged pool under its copy of
+    the one block table) and attends over it, its cross-attention attends
+    with its heads over ``enc_kvs[j]``, and each sums through the
+    row-parallel ``wo``; the FFN is :func:`ffn_tp`."""
+    hs = [b.ln1(x) for b, x in zip(blocks, xs)]
+    a = attend_tp([b.attn for b in blocks], hs, self_masks, None, attn_split, caches, index,
+                  tables)
+    xs = [x + y for x, y in zip(xs, a)]
+    hs = [b.ln_x(x) for b, x in zip(blocks, xs)]
+    a = attend_tp([b.xattn for b in blocks], hs, enc_masks, enc_kvs, attn_split)
+    xs = [x + y for x, y in zip(xs, a)]
+    f = ffn_tp([b.ffn for b in blocks], [b.ln2(x) for b, x in zip(blocks, xs)], ffn_split)
+    return [x + y for x, y in zip(xs, f)]
+
+
+def embed_tp(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor], split: bool,
+             dtype: torch.dtype) -> List[torch.Tensor]:
+    """Token embeddings on every shard: a vocab-split table's lookups
+    (:func:`vocab_lookup`) summed over the shards, or the whole table's rows
+    on the first shard."""
+    from agent_tpu_torch.parallel import collectives
+
+    if split:
+        rows = tables[0].shape[0]
+        return collectives.all_reduce_sum([vocab_lookup(t, i, j * rows, dtype)
+                                           for j, (t, i) in enumerate(zip(tables, ids))])
+    return on_first(lambda: tables[0][ids[0].long()].to(dtype), ids)
+
+
+def vocab_logits_tp(project: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                    tables: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                    split: bool) -> torch.Tensor:
+    """The vocab-split output projection: each shard's logits of its rows of
+    the vocabulary, ``project(tables[j], xs[j])``, concatenated along the
+    vocabulary (not summed) on the first shard's device; a table that is
+    not split projects whole there."""
+    from agent_tpu_torch.parallel import collectives
+
+    if not split:
+        return project(tables[0], xs[0])
+    return collectives.gather([project(t, x) for t, x in zip(tables, xs)], dim=-1)

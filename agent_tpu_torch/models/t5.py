@@ -23,6 +23,13 @@ the decoder's keeps the dense bias path (its per-step Lq = 1 is outside the
 kernel's contract). Generation runs on :mod:`agent_tpu_torch.models.decoding`
 with dense KV caches written in place.
 
+Over a mesh the weights are a :class:`ShardedT5` (``models.sharded_decoder``,
+placed by ``shardings.t5_layout_specs``): rows over dp, heads, FFN columns
+and the vocabulary over tp. The encoder's kernel runs once per shard with
+that shard's heads and the relative bias table's head columns (the table
+itself is replicated), and so does the decoder's causal bias; RMSNorms
+replicate. One device's tree runs the same group code as the one shard.
+
 Text needs the checkpoint's SentencePiece model and the ``sentencepiece``
 package (:func:`hf_spm`), which raises an actionable error when absent; the
 ids-level model path works without it.
@@ -34,7 +41,7 @@ import functools
 import json
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from agent_tpu_torch.models import layers, quant
 from agent_tpu_torch.models.layers import NEG_INF, Params, compute_dtype
+from agent_tpu_torch.models.sharded_decoder import ShardedDecoder, as_mesh, row_out
 
 @dataclass(frozen=True)
 class T5Config:
@@ -134,6 +142,15 @@ def _dense(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), w)
 
 
+def _row_leaf(w) -> Params:
+    """An ``[out, in]`` linear (a tensor or a quantized leaf of that layout)
+    as a row-parallel leaf with an ``[in, out]`` table (``layers.row_parallel``)."""
+    if quant.leaf_mode(w) is None:
+        return {"w": w.t()}
+    table = quant.TABLE_KEY[quant.leaf_mode(w)]
+    return dict(w, **{table: w[table].t()})
+
+
 def relative_position_bucket(relative_position: torch.Tensor, bidirectional: bool,
                              num_buckets: int, max_distance: int) -> torch.Tensor:
     """HF ``_relative_position_bucket``, the reference's arithmetic (f32 log,
@@ -186,15 +203,15 @@ def _pad_bias(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _heads(t: torch.Tensor, cfg: T5Config) -> torch.Tensor:
-    """[B, L, H·d_kv] -> [B, H, L, d_kv]."""
+    """[B, L, H·d_kv] -> [B, H, L, d_kv] (H: the heads a shard holds)."""
     B, L, _ = t.shape
-    return t.view(B, L, cfg.n_heads, cfg.d_kv).transpose(1, 2)
+    return t.view(B, L, -1, cfg.d_kv).transpose(1, 2)
 
 
 def _merge(ctx: torch.Tensor, cfg: T5Config) -> torch.Tensor:
     """[B, H, L, d_kv] -> [B, L, H·d_kv]."""
     B, _, L, _ = ctx.shape
-    return ctx.transpose(1, 2).reshape(B, L, cfg.n_heads * cfg.d_kv)
+    return ctx.transpose(1, 2).reshape(B, L, -1)
 
 
 def _softmax_ctx(q, k, v, bias, dtype) -> torch.Tensor:
@@ -216,20 +233,24 @@ def _attn(blk: Params, q_in, kv_in, bias, cfg: T5Config) -> torch.Tensor:
     return _dense(blk["o"], _merge(_softmax_ctx(q, k, v, bias, dtype), cfg), dtype)
 
 
-def _ffn(blk: Params, x, cfg: T5Config) -> torch.Tensor:
+def _ffn_hidden(blk: Params, x, cfg: T5Config) -> torch.Tensor:
+    """The FFN's activation before ``wo`` (a shard's columns of it)."""
     dtype = cfg.compute_dtype
     if cfg.gated_ffn:
         # HF gated-gelu uses the tanh approximation.
-        h = F.gelu(_dense(blk["wi_0"], x, dtype).float(), approximate="tanh").to(dtype) \
+        return F.gelu(_dense(blk["wi_0"], x, dtype).float(), approximate="tanh").to(dtype) \
             * _dense(blk["wi_1"], x, dtype)
-    else:
-        h = torch.relu(_dense(blk["wi"], x, dtype))
-    return _dense(blk["wo"], h, dtype)
+    return torch.relu(_dense(blk["wi"], x, dtype))
 
 
-def encode(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor,
+def _ffn(blk: Params, x, cfg: T5Config) -> torch.Tensor:
+    return _dense(blk["wo"], _ffn_hidden(blk, x, cfg), cfg.compute_dtype)
+
+
+def encode(params, src_ids: torch.Tensor, src_mask: torch.Tensor,
            cfg: T5Config, kernel=None) -> torch.Tensor:
-    """Encoder stack -> [B, Ls, d].
+    """Encoder stack -> [B, Ls, d] on the ids' device; ``params`` one
+    device's tree or a :class:`ShardedT5`.
 
     ``kernel`` is a T5 attention function with the signature of
     :func:`agent_tpu_torch.kernels.flash_attention.flash_attention_t5`
@@ -238,34 +259,7 @@ def encode(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor,
     The shape gate is the same for every layer, so a decline in the first
     layer sends every layer to the dense path. Without a kernel every layer
     is dense."""
-    dtype = cfg.compute_dtype
-    B, L = src_ids.shape
-    x = params["embed"][src_ids.long()]
-    rel_bias = params["enc"]["rel_bias"]
-    mask4 = src_mask[:, None, None, :].to(torch.int32)
-    dense_bias = None  # built only when the dense path is taken
-
-    for i, blk in enumerate(params["enc"]["layers"]):
-        h = _rms(blk["ln1"], x, cfg.layer_norm_eps)
-        a = blk["attn"]
-        q = _heads(_dense(a["q"], h, dtype), cfg)
-        k = _heads(_dense(a["k"], h, dtype), cfg)
-        v = _heads(_dense(a["v"], h, dtype), cfg)
-        ctx = None
-        if kernel is not None:
-            ctx = kernel(q, k, v, mask4, rel_bias, bidirectional=True,
-                         max_distance=cfg.rel_max_distance, scale=1.0)
-            if i == 0 and ctx is None:
-                kernel = None
-        if ctx is None:
-            if dense_bias is None:
-                pos = torch.arange(L, dtype=torch.int32, device=x.device)
-                dense_bias = _position_bias(rel_bias, pos, pos, True, cfg) + _pad_bias(src_mask)
-            ctx = _softmax_ctx(q, k, v, dense_bias, dtype)
-        x = x + _dense(a["o"], _merge(ctx, cfg), dtype)
-        h = _rms(blk["ln2"], x, cfg.layer_norm_eps)
-        x = x + _ffn(blk["ffn"], h, cfg)
-    return _rms(params["enc"]["ln_f"], x, cfg.layer_norm_eps)
+    return as_mesh(params, ShardedT5, cfg).encode(src_ids, src_mask, kernel)
 
 
 def _lm_logits(params: Params, x: torch.Tensor, cfg: T5Config) -> torch.Tensor:
@@ -300,16 +294,18 @@ def decode_full(params: Params, tgt_ids: torch.Tensor, enc_out: torch.Tensor,
 
 # ---- cached single-step decode (generation) ----
 
-def _init_self_caches(cfg: T5Config, batch: int, max_new: int, device) -> list:
-    shape = (batch, cfg.n_heads, max_new, cfg.d_kv)
+def _init_self_caches(cfg: T5Config, batch: int, max_new: int, device,
+                      heads: Optional[int] = None) -> list:
+    shape = (batch, heads or cfg.n_heads, max_new, cfg.d_kv)
     return [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
             for _ in range(cfg.n_dec_layers)]
 
 
 def _init_cross_kv(params: Params, enc_out: torch.Tensor, cfg: T5Config) -> list:
-    """Cross-attention K/V, computed once per generation (loop-invariant),
-    contiguous so the per-step products read them without a copy."""
+    """Cross-attention K/V of the heads ``params`` holds, computed once per
+    generation (loop-invariant), contiguous so the per-step products read
+    them without a copy."""
     dtype = cfg.compute_dtype
     return [{"k": _heads(_dense(blk["cross"]["k"], enc_out, dtype), cfg).contiguous(),
              "v": _heads(_dense(blk["cross"]["v"], enc_out, dtype), cfg).contiguous()}
@@ -319,66 +315,158 @@ def _init_cross_kv(params: Params, enc_out: torch.Tensor, cfg: T5Config) -> list
 def decode_step(params: Params, tok: torch.Tensor, step: int, self_caches: list,
                 cross_kv: list, dec_bias: torch.Tensor, enc_mask_bias: torch.Tensor,
                 cfg: T5Config) -> Tuple[torch.Tensor, list]:
-    """One cached decoder step -> (logits [B, V] f32, self_caches). The new
-    K/V row is written into the caches IN PLACE at ``step``; ``dec_bias`` is
-    the causal relative bias [1, H, T, T] of the whole decode, of which row
-    ``step`` is used (positions past ``step`` carry NEG_INF)."""
-    dtype = cfg.compute_dtype
-    x = params["embed"][tok.long()][:, None]            # [B, 1, d]
-    bias_row = dec_bias[:, :, step:step + 1]             # [1, H, 1, T]
-    for blk, s_kv, x_kv in zip(params["dec"]["layers"], self_caches, cross_kv):
-        h = _rms(blk["ln1"], x, cfg.layer_norm_eps)
-        a = blk["attn"]
-        q = _heads(_dense(a["q"], h, dtype), cfg)
-        s_kv["k"][:, :, step:step + 1] = _heads(_dense(a["k"], h, dtype), cfg)
-        s_kv["v"][:, :, step:step + 1] = _heads(_dense(a["v"], h, dtype), cfg)
-        ctx = _softmax_ctx(q, s_kv["k"], s_kv["v"], bias_row, dtype)
-        x = x + _dense(a["o"], _merge(ctx, cfg), dtype)
-
-        h = _rms(blk["ln_x"], x, cfg.layer_norm_eps)
-        c = blk["cross"]
-        qx = _heads(_dense(c["q"], h, dtype), cfg)
-        cctx = _softmax_ctx(qx, x_kv["k"], x_kv["v"], enc_mask_bias, dtype)
-        x = x + _dense(c["o"], _merge(cctx, cfg), dtype)
-
-        h = _rms(blk["ln2"], x, cfg.layer_norm_eps)
-        x = x + _ffn(blk["ffn"], h, cfg)
-    x = _rms(params["dec"]["ln_f"], x, cfg.layer_norm_eps)
-    return _lm_logits(params, x, cfg)[:, 0], self_caches
+    """One device's cached decoder step -> (logits [B, V] f32, self_caches).
+    The new K/V row is written into the caches IN PLACE at ``step``;
+    ``dec_bias`` is the causal relative bias [1, H, T, T] of the whole
+    decode, of which row ``step`` is used (positions past ``step`` carry
+    NEG_INF). :meth:`ShardedT5.step_group` with the tree as its one shard."""
+    logits = as_mesh(params, ShardedT5, cfg).step_group(
+        [params], [tok], step, [self_caches],
+        [{"kv": cross_kv, "dec_bias": dec_bias, "mask_bias": enc_mask_bias}])
+    return logits, self_caches
 
 
-def generate(params: Params, src_ids: torch.Tensor, src_mask: torch.Tensor,
+def generate(params, src_ids: torch.Tensor, src_mask: torch.Tensor,
              cfg: T5Config, max_new_tokens: int, num_beams: int = 1,
              length_penalty: float = 1.0, early_stopping: bool = False,
              min_length: int = 0, kernel=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy (or beam) generation on the decode engines. Returns (tokens
     [B, T], lengths [B]); tokens after EOS are the pad id. ``kernel`` routes
     the encoder's self-attention (see :func:`encode`)."""
-    from agent_tpu_torch.models.decoding import beam_scan, greedy_scan
+    return as_mesh(params, ShardedT5, cfg).generate(
+        src_ids, src_mask, max_new_tokens, kernel, num_beams=num_beams,
+        length_penalty=length_penalty, early_stopping=early_stopping, min_length=min_length)
 
-    B = src_ids.shape[0]
-    T = max_new_tokens
-    enc_out = encode(params, src_ids, src_mask, cfg, kernel=kernel)
-    dec_bias = _causal_rel_bias(params, T, cfg, enc_out.device)
-    K = max(1, num_beams)
-    if K > 1:
-        enc_out = enc_out.repeat_interleave(K, dim=0)
-        src_mask = src_mask.repeat_interleave(K, dim=0)
-    cross_kv = _init_cross_kv(params, enc_out, cfg)
-    mask_bias = _pad_bias(src_mask)
 
-    def step_fn(tok, step, caches):
-        return decode_step(params, tok, step, caches, cross_kv, dec_bias, mask_bias, cfg)
+class ShardedT5(ShardedDecoder):
+    """T5 over a mesh's dp and tp axes (``models.sharded_decoder``): shard
+    (i, j) is the tree of tp piece j (``shardings.t5_layout_specs``) on
+    device (dp=i, tp=j). Each shard's attentions use its heads (and its
+    head columns of the relative bias tables, :func:`bias_columns`), ``o``
+    and the FFN's ``wo`` sum over the shards (row parallel), the embedding's
+    lookups sum and the lm head's logits gather over the vocabulary."""
 
-    caches = _init_self_caches(cfg, B * K, T, enc_out.device)
-    if K == 1:
-        return greedy_scan(step_fn, caches, B, T, start_id=cfg.decoder_start_id,
-                           eos_id=cfg.eos_id, pad_id=cfg.pad_id, min_length=min_length,
-                           device=enc_out.device)
-    return beam_scan(step_fn, caches, B, cfg.vocab_size, T, num_beams=K,
-                     length_penalty=length_penalty, early_stopping=early_stopping,
-                     min_length=min_length, start_id=cfg.decoder_start_id,
-                     eos_id=cfg.eos_id, pad_id=cfg.pad_id, device=enc_out.device)
+    SPLIT_KEYS = {"embed": "embed", "attn": "enc.layers.0.attn.q", "ffn": "enc.layers.0.ffn.wo",
+                  "lm_head": "lm_head"}
+
+    def scan_ids(self):
+        cfg = self.cfg
+        return {"start_id": cfg.decoder_start_id, "eos_id": cfg.eos_id, "pad_id": cfg.pad_id}
+
+    def _rel_bias(self, table: torch.Tensor, j: int) -> torch.Tensor:
+        first, count = self.heads(j)
+        return bias_columns(table, first, count)
+
+    def _out(self, leaves, ctx_of, xs, part: str) -> list:
+        """``o``/``wo`` over the shards: row parallel, or whole on the first."""
+        dtype = self.cfg.compute_dtype
+        return row_out(self.split_over(part, len(xs)), ctx_of,
+                       lambda x: _dense(leaves[0], x, dtype),
+                       lambda: [_row_leaf(w) for w in leaves], xs, dtype, part == "attn")
+
+    def _ffn(self, blks, xs) -> list:
+        cfg = self.cfg
+        hs = [_rms(b["ln2"], x, cfg.layer_norm_eps) for b, x in zip(blks, xs)]
+        return self._out([b["ffn"]["wo"] for b in blks],
+                         lambda j: _ffn_hidden(blks[j]["ffn"], hs[j], cfg), xs, "ffn")
+
+    def _embed(self, group, ids):
+        return layers.embed_tp([t["embed"] for t in group], ids,
+                               self.split_over("embed", len(group)), self.cfg.compute_dtype)
+
+    def encode_group(self, group, ids, masks, fns):
+        cfg = self.cfg
+        dtype, eps = cfg.compute_dtype, cfg.layer_norm_eps
+        L = ids[0].shape[1]
+        xs = self._embed(group, ids)
+        rel = [self._rel_bias(t["enc"]["rel_bias"], j) for j, t in enumerate(group)]
+        mask4 = [m[:, None, None, :].to(torch.int32) for m in masks]
+        kernels = list(fns)
+        dense_bias = [None] * len(group)  # built only when the dense path is taken
+
+        def context(j: int, a: Params, h: torch.Tensor) -> torch.Tensor:
+            q = _heads(_dense(a["q"], h, dtype), cfg)
+            k = _heads(_dense(a["k"], h, dtype), cfg)
+            v = _heads(_dense(a["v"], h, dtype), cfg)
+            ctx = None
+            if kernels[j] is not None:
+                ctx = kernels[j](q, k, v, mask4[j], rel[j], bidirectional=True,
+                                 max_distance=cfg.rel_max_distance, scale=1.0)
+                if ctx is None:  # the gate is the same for every layer
+                    kernels[j] = None
+            if ctx is None:
+                if dense_bias[j] is None:
+                    pos = torch.arange(L, dtype=torch.int32, device=h.device)
+                    dense_bias[j] = (_position_bias(rel[j], pos, pos, True, cfg)
+                                     + _pad_bias(masks[j]))
+                ctx = _softmax_ctx(q, k, v, dense_bias[j], dtype)
+            return _merge(ctx, cfg)
+
+        for blks in zip(*[t["enc"]["layers"] for t in group]):
+            hs = [_rms(b["ln1"], x, eps) for b, x in zip(blks, xs)]
+            a = self._out([b["attn"]["o"] for b in blks],
+                          lambda j: context(j, blks[j]["attn"], hs[j]), xs, "attn")
+            xs = [x + y for x, y in zip(xs, a)]
+            xs = [x + y for x, y in zip(xs, self._ffn(blks, xs))]
+        return [_rms(t["enc"]["ln_f"], x, eps) for t, x in zip(group, xs)]
+
+    def state_group(self, group, encs, masks, steps):
+        out = []
+        for j, (t, e) in enumerate(zip(group, encs)):
+            dec = dict(t, dec=dict(t["dec"], rel_bias=self._rel_bias(t["dec"]["rel_bias"], j)))
+            out.append({"kv": _init_cross_kv(t, e, self.cfg),
+                        "dec_bias": _causal_rel_bias(dec, steps, self.cfg, e.device),
+                        "mask_bias": _pad_bias(masks[j])})
+        return out
+
+    def caches_group(self, rows, steps, devices):
+        heads = self.heads(0)[1]
+        return [_init_self_caches(self.cfg, rows, steps, dev, heads) for dev in devices]
+
+    def step_group(self, group, toks, step, caches, states):
+        cfg = self.cfg
+        dtype, eps = cfg.compute_dtype, cfg.layer_norm_eps
+        xs = [x[:, None] for x in self._embed(group, toks)]           # [B, 1, d]
+
+        def self_ctx(j: int, a: Params, h: torch.Tensor, cache: Params) -> torch.Tensor:
+            q = _heads(_dense(a["q"], h, dtype), cfg)
+            cache["k"][:, :, step:step + 1] = _heads(_dense(a["k"], h, dtype), cfg)
+            cache["v"][:, :, step:step + 1] = _heads(_dense(a["v"], h, dtype), cfg)
+            bias_row = states[j]["dec_bias"][:, :, step:step + 1]   # [1, H, 1, T]
+            return _merge(_softmax_ctx(q, cache["k"], cache["v"], bias_row, dtype), cfg)
+
+        def cross_ctx(j: int, c: Params, h: torch.Tensor, kv: Params) -> torch.Tensor:
+            q = _heads(_dense(c["q"], h, dtype), cfg)
+            return _merge(_softmax_ctx(q, kv["k"], kv["v"], states[j]["mask_bias"], dtype), cfg)
+
+        for l, blks in enumerate(zip(*[t["dec"]["layers"] for t in group])):
+            hs = [_rms(b["ln1"], x, eps) for b, x in zip(blks, xs)]
+            a = self._out([b["attn"]["o"] for b in blks],
+                          lambda j: self_ctx(j, blks[j]["attn"], hs[j], caches[j][l]), xs,
+                          "attn")
+            xs = [x + y for x, y in zip(xs, a)]
+            hs = [_rms(b["ln_x"], x, eps) for b, x in zip(blks, xs)]
+            a = self._out([b["cross"]["o"] for b in blks],
+                          lambda j: cross_ctx(j, blks[j]["cross"], hs[j], states[j]["kv"][l]),
+                          xs, "attn")
+            xs = [x + y for x, y in zip(xs, a)]
+            xs = [x + y for x, y in zip(xs, self._ffn(blks, xs))]
+        xs = [_rms(t["dec"]["ln_f"], x, eps) for t, x in zip(group, xs)]
+        if cfg.tie_word_embeddings:
+            return layers.vocab_logits_tp(
+                lambda w, x: F.linear(x * (cfg.d_model ** -0.5), w).float(),
+                [t["embed"] for t in group], xs, self.split_over("embed", len(group)))[:, 0]
+        return layers.vocab_logits_tp(lambda w, x: F.linear(x.to(dtype), w).float(),
+                                      [t["lm_head"] for t in group], xs,
+                                      self.split_over("lm_head", len(group)))[:, 0]
+
+
+def bias_columns(table: torch.Tensor, first: int, count: int) -> torch.Tensor:
+    """A shard's columns of a relative bias table [buckets, H]: its heads
+    ``first .. first + count`` (the table itself when that is every head)."""
+    if first == 0 and count == table.shape[-1]:
+        return table
+    return table[:, first:first + count]
 
 
 # ---- weight import ----
@@ -390,12 +478,18 @@ def from_state_dict(sd: Dict[str, Any], cfg: T5Config, device=None) -> Params:
     compute dtype, norms and relative bias tables in f32. A quantized
     ``cfg.quant`` reads the tree to f32 on the host, quantizes its matrices
     (``quant.quantize_t5``) and then places it."""
-    quantized = cfg.quant in quant.QUANTIZED_MODES
-    dtype = torch.float32 if quantized else cfg.compute_dtype
-    where = "cpu" if quantized else device
+    return layers.place_tree(host_tree(sd, cfg), cfg.compute_dtype, device)
 
-    def get(key: str, as_dtype: torch.dtype = dtype) -> torch.Tensor:
-        return torch.as_tensor(sd[key]).to(device=where, dtype=as_dtype)
+
+def host_tree(sd: Dict[str, Any], cfg: T5Config) -> Params:
+    """:func:`from_state_dict`'s tree on the host before placement: the
+    checkpoint's tensors as they are, or quantized from f32 for a quantized
+    ``cfg.quant``."""
+    quantized = cfg.quant in quant.QUANTIZED_MODES
+
+    def get(key: str) -> torch.Tensor:
+        t = torch.as_tensor(sd[key])
+        return t.float() if quantized else t
 
     def attn_from(prefix: str) -> Params:
         return {n: get(f"{prefix}.{n}.weight") for n in ("q", "k", "v", "o")}
@@ -407,22 +501,22 @@ def from_state_dict(sd: Dict[str, Any], cfg: T5Config, device=None) -> Params:
     def branch(name: str, n_layers: int, cross: bool) -> Params:
         out: Params = {
             "rel_bias": get(f"{name}.block.0.layer.0.SelfAttention"
-                            ".relative_attention_bias.weight", torch.float32),
+                            ".relative_attention_bias.weight"),
             "layers": [],
-            "ln_f": get(f"{name}.final_layer_norm.weight", torch.float32),
+            "ln_f": get(f"{name}.final_layer_norm.weight"),
         }
         ff_idx = 2 if cross else 1
         for i in range(n_layers):
             p = f"{name}.block.{i}"
             blk: Params = {
                 "attn": attn_from(f"{p}.layer.0.SelfAttention"),
-                "ln1": get(f"{p}.layer.0.layer_norm.weight", torch.float32),
+                "ln1": get(f"{p}.layer.0.layer_norm.weight"),
                 "ffn": ffn_from(f"{p}.layer.{ff_idx}.DenseReluDense"),
-                "ln2": get(f"{p}.layer.{ff_idx}.layer_norm.weight", torch.float32),
+                "ln2": get(f"{p}.layer.{ff_idx}.layer_norm.weight"),
             }
             if cross:
                 blk["cross"] = attn_from(f"{p}.layer.1.EncDecAttention")
-                blk["ln_x"] = get(f"{p}.layer.1.layer_norm.weight", torch.float32)
+                blk["ln_x"] = get(f"{p}.layer.1.layer_norm.weight")
             out["layers"].append(blk)
         return out
 
@@ -433,10 +527,7 @@ def from_state_dict(sd: Dict[str, Any], cfg: T5Config, device=None) -> Params:
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = get("lm_head.weight")
-    if quantized:
-        return layers.place_tree(quant.quantize_tree(params, "t5", cfg.quant),
-                                 cfg.compute_dtype, device)
-    return params
+    return quant.quantize_tree(params, "t5", cfg.quant)
 
 
 def is_hf_t5_dir(path: str) -> bool:
@@ -458,6 +549,14 @@ def load_hf_dir(path: str, device=None, **config_overrides) -> Tuple[T5Config, P
 
     cfg = T5Config.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
     return cfg, from_state_dict(load_hf_weights(path), cfg, device)
+
+
+def load_hf_flat(path: str, **config_overrides) -> Tuple[T5Config, Dict[str, Any]]:
+    """(config, the host tree as flat dotted keys): what a mesh places."""
+    from agent_tpu_torch.models.safetensors_io import load_hf_weights
+
+    cfg = T5Config.from_hf_json(os.path.join(path, "config.json"), **config_overrides)
+    return cfg, layers.flatten(host_tree(load_hf_weights(path), cfg), leaf=lambda v: v)
 
 
 # ---- tokenizer (gated on sentencepiece) ----

@@ -83,29 +83,25 @@ def resolve_runtime(ctx):
         return None
 
 
-def refuse_decoder_mesh(ctx, force_cpu: bool = False) -> None:
-    """ValueError (a soft ``bad_input``) when the op would run on a mesh
-    with dp or tp above 1 — the context's runtime's, else the one
-    ``MESH_SHAPE`` asks for: the decoder families (seq2seq, T5, BART) do not
-    shard yet (ROADMAP Queue 1 item 2b)."""
-    from agent_tpu_torch.config import DeviceConfig
-    from agent_tpu_torch.runtime.runtime import NOT_PORTED
-
-    runtime = getattr(ctx, "runtime", None) if ctx is not None else None
-    mesh = {} if force_cpu else (dict(runtime.mesh.shape) if runtime is not None
-                                 else DeviceConfig.from_env().mesh_shape)
-    if mesh.get("dp", 1) > 1 or mesh.get("tp", 1) > 1:
-        raise ValueError(f"a mesh with dp or tp ({mesh}) is not supported by the decoder "
-                         f"families of agent_tpu_torch yet ({NOT_PORTED})")
+# The families map_summarize, serve_infer and summarize_mpmd serve.
+DECODER_FAMILIES = ("seq2seq", "t5", "bart")
 
 
 def stage_divisor(rt, cfg, family: str) -> int:
     """What every staged batch must divide by (the reference's staging
     divisor): dp; on a pp mesh pp · dp (the pipeline's microbatches of each
     replica); for a pp taken from ``model_config`` every device (the dp ×
-    pp mesh derived from them). 1 without a runtime."""
+    pp mesh derived from them). 1 without a runtime. A decoder family runs
+    on dp and tp alone: a mesh with pp or ep above 1 raises ValueError (a
+    soft ``bad_input``), since the reference runs no decoder over either."""
     if rt is None:
         return 1
+    if family in DECODER_FAMILIES:
+        other = {a: rt.axis_size(a) for a in ("pp", "ep") if rt.axis_size(a) > 1}
+        if other:
+            raise ValueError(f"the {family} family serves on dp and tp meshes; this mesh has "
+                             f"{other}, over which no decoder runs")
+        return rt.axis_size("dp")
     if family == "encoder" and rt.axis_size("pp") > 1:
         return rt.axis_size("pp") * rt.axis_size("dp")
     if family == "encoder" and cfg.pp > 1:

@@ -37,9 +37,15 @@ staged ids alone.
 ``quant`` (``int8`` W8A8 or ``w8a16`` weight only; from the payload, else
 ``TPU_QUANT``, else the config) serves every family's block matmuls
 quantized, in the encoder and in every decode step
-(:mod:`agent_tpu_torch.models.quant`). A mesh with ``dp`` or ``tp`` is not
-ported for the decoder families (ROADMAP Queue 1 item 2b) and is rejected
-with a ``bad_input`` that names it.
+(:mod:`agent_tpu_torch.models.quant`).
+
+On a mesh with ``dp`` or ``tp`` (``MESH_SHAPE``) every family serves
+sharded, as the reference's op: staging buckets the batch by dp, the weights
+(quantized too) land split by ``parallel.shardings.LAYOUT_SPECS``
+(:func:`_get_model`, ``models.sharded_decoder``), the encoder's kernel runs
+once per (dp, tp) shard, and the decode loop runs on the mesh's first
+device with each shard's step over its heads. A mesh with ``pp`` or ``ep``
+is a ``bad_input``: no decoder runs over either.
 """
 
 from __future__ import annotations
@@ -129,11 +135,11 @@ def _get_cfg(payload: Dict[str, Any], family: str, model_id: str):
 
 
 def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
-                  model_id: str) -> List[Tuple]:
-    """Tokenize and pad into dispatch chunks: the byte tokenizer with BOS and
-    EOS for the in-house seq2seq, the checkpoint's byte-level BPE (``<s>
-    pieces </s>``) for BART, its SentencePiece model (``pieces </s>``) for
-    T5."""
+                  model_id: str, dp: int = 1) -> List[Tuple]:
+    """Tokenize and pad into dispatch chunks whose rows divide ``dp``: the
+    byte tokenizer with BOS and EOS for the in-house seq2seq, the
+    checkpoint's byte-level BPE (``<s> pieces </s>``) for BART, its
+    SentencePiece model (``pieces </s>``) for T5."""
     from agent_tpu_torch.ops._model_common import stage_text_chunks
 
     encode_pad = None
@@ -153,12 +159,15 @@ def _stage_chunks(texts: List[str], cfg, num_beams: int, family: str,
         def encode_pad(chunk, lb, bb):
             return t5.encode_pad_batch(sp, chunk, cfg, bb, lb)
 
-    return stage_text_chunks(1, texts, max_len=cfg.max_src_len, vocab_size=cfg.vocab_size,
+    return stage_text_chunks(dp, texts, max_len=cfg.max_src_len, vocab_size=cfg.vocab_size,
                              max_batch=max(1, MAX_DECODE_ROWS // num_beams),
                              add_bos=True, add_eos=True, encode_pad=encode_pad)
 
 
 def _build_model(model_id: str, cfg, family: str, device):
+    """One device's weights: BART's or T5's tree on ``device``, or a
+    :class:`~agent_tpu_torch.models.seq2seq.Seq2Seq` (which the runtime
+    moves there)."""
     if family == "bart":
         from agent_tpu_torch.models import bart
 
@@ -169,11 +178,47 @@ def _build_model(model_id: str, cfg, family: str, device):
         return t5.load_hf_dir(model_id, device=device, dtype=cfg.dtype, quant=cfg.quant)[1]
     from agent_tpu_torch.models import seq2seq
 
+    return seq2seq.from_jax_params(_seq2seq_flat(model_id, cfg), cfg)
+
+
+def _seq2seq_flat(model_id: str, cfg):
+    """The seq2seq's f32 flat weights: a ``.npz`` over the seeded init, or
+    the init of the model id."""
+    from agent_tpu_torch.models import seq2seq
+
     if model_id.endswith(".npz") and os.path.exists(model_id):
-        flat = seq2seq.load_npz(model_id, cfg)
-    else:
-        flat = seq2seq.init_params(cfg, model_id=model_id)
-    return seq2seq.from_jax_params(flat, cfg)
+        return seq2seq.load_npz(model_id, cfg)
+    return seq2seq.init_params(cfg, model_id=model_id)
+
+
+def _host_flat(model_id: str, cfg, family: str):
+    """The served weights on the host as flat dotted keys, quantized for a
+    quantized ``cfg.quant``: what a mesh places."""
+    if family in ("bart", "t5"):
+        from agent_tpu_torch.models import bart, t5
+
+        module = bart if family == "bart" else t5
+        return module.load_hf_flat(model_id, dtype=cfg.dtype, quant=cfg.quant)[1]
+    from agent_tpu_torch.models import quant
+
+    return quant.quantize_flat(_seq2seq_flat(model_id, cfg), "seq2seq", cfg.quant)[0]
+
+
+def _get_model(runtime, model_id: str, cfg, family: str):
+    """The served model on the runtime: placed over its mesh by the
+    family's specs when it has dp or tp (a ``models.sharded_decoder``
+    class), else on its device."""
+    key = params_key(model_id, family, cfg)
+    if not runtime.sharded:
+        return runtime.get_params(key, lambda: _build_model(model_id, cfg, family,
+                                                            runtime.device))
+    from agent_tpu_torch.models import bart, seq2seq, t5
+    from agent_tpu_torch.parallel import shardings
+
+    cls = {"seq2seq": seq2seq.ShardedSeq2Seq, "t5": t5.ShardedT5, "bart": bart.ShardedBart}[family]
+    return runtime.get_params(key, lambda: _host_flat(model_id, cfg, family),
+                              specs=shardings.LAYOUT_SPECS[family](cfg),
+                              place=lambda flat, specs, mesh: cls.place(flat, cfg, specs, mesh))
 
 
 def params_key(model_id: str, family: str, cfg) -> str:
@@ -192,8 +237,7 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
     ``[(tokens on the device [B, max_new], n), ...]``."""
     from agent_tpu_torch.models import bart, seq2seq, t5
 
-    model = runtime.get_params(params_key(model_id, family, cfg),
-                               lambda: _build_model(model_id, cfg, family, runtime.device))
+    model = _get_model(runtime, model_id, cfg, family)
     pending = []
     with torch.inference_mode():
         for ids, lengths, n in chunks:
@@ -230,8 +274,9 @@ def stage(payload: Any, ctx: Optional[object] = None):
     """Host-only phase: validation and tokenize+pad. Returns ``("done",
     result)`` for soft errors or ``("staged", state)``."""
     from agent_tpu_torch.ops._model_common import (
-        refuse_decoder_mesh,
         resolve_model_id,
+        resolve_runtime,
+        stage_divisor,
         validate_output_uri,
         validate_start_row,
     )
@@ -296,13 +341,15 @@ def stage(payload: Any, ctx: Optional[object] = None):
     force_cpu = os.environ.get("SUMMARIZE_FORCE_CPU", "").strip().lower() in _TRUTHY
     try:
         cfg = _get_cfg(payload, family, model_id)
-        refuse_decoder_mesh(ctx, force_cpu)
+        # The batch divides the executing mesh's dp (the reference's
+        # resolve_dp); the forced CPU runtime is one device.
+        dp = 1 if force_cpu else stage_divisor(resolve_runtime(ctx), cfg, family)
     except ValueError as exc:
         return "done", bad_input(str(exc))
 
     state = {
         "t0": t0,
-        "chunks": _stage_chunks(texts, cfg, num_beams, family, model_id),
+        "chunks": _stage_chunks(texts, cfg, num_beams, family, model_id, dp),
         "single": single,
         "empty_rows": empty_rows,
         "max_new": min(max_new, cfg.max_tgt_len),

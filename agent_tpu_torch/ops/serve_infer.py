@@ -32,6 +32,14 @@ checkpoint directory stays on ``map_summarize``. ``model_config {"quant":
 "int8" | "w8a16"}`` serves the seq2seq quantized (its weights, key and
 prefix-cache entries are the quantized model's own). A failure on the card
 raises and fails the request; nothing retries on the CPU.
+
+On a mesh with ``dp`` or ``tp`` the weights are ``map_summarize``'s sharded
+seq2seq (``models.seq2seq.ShardedSeq2Seq``): the prefill's encoder runs
+over the shards, and the engine on replica 0's tp group, each tp shard's KV
+cache (dense rows, or a paged pool under the one block table) holding its
+heads. The other replicas hold the same weights and run none of the engine,
+as in the reference, whose engine puts nothing on dp. The prefix cache
+keeps host f32 encoder rows, whatever the mesh.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
-from agent_tpu_torch.ops._model_common import refuse_decoder_mesh
+from agent_tpu_torch.ops._model_common import resolve_runtime, stage_divisor
 from agent_tpu_torch.utils.errors import bad_input
 
 # Process-wide engine store, keyed by runtime and model/config/shape
@@ -223,7 +231,7 @@ def stage(payload: Any, ctx: Optional[object] = None):
     try:
         reqs = _validate_requests(payload)
         model_id, cfg = _resolve(payload)
-        refuse_decoder_mesh(ctx)
+        stage_divisor(resolve_runtime(ctx), cfg, "seq2seq")  # pp or ep: bad_input
     except ValueError as exc:
         return "done", bad_input(str(exc))
 
@@ -287,10 +295,9 @@ def _params_key(model_id: str, cfg) -> str:
 
 
 def _get_params(runtime, model_id: str, cfg):
-    from agent_tpu_torch.ops.map_summarize import _build_model
+    from agent_tpu_torch.ops.map_summarize import _get_model
 
-    return runtime.get_params(_params_key(model_id, cfg),
-                              lambda: _build_model(model_id, cfg, "seq2seq", runtime.device))
+    return _get_model(runtime, model_id, cfg, "seq2seq")
 
 
 def _get_engine(runtime, model, state, serve):
@@ -307,12 +314,13 @@ def _get_engine(runtime, model, state, serve):
            micro_steps, serve.kv_layout, serve.kv_block_size, serve.kv_pool_blocks)
     engine = _ENGINES.get(key)
     if engine is None:
+        shards = model if isinstance(model, seq2seq.ShardedSeq2Seq) else None
         if serve.kv_layout == "paged":
             cache_factory = seq2seq.make_paged_cache_factory(
                 cfg, block_size=serve.kv_block_size, pool_blocks=serve.kv_pool_blocks,
-                device=runtime.device)
+                device=runtime.device, shards=shards)
         else:
-            cache_factory = seq2seq.make_cache_factory(cfg, device=runtime.device)
+            cache_factory = seq2seq.make_cache_factory(cfg, device=runtime.device, shards=shards)
         engine = ContinuousBatcher(
             seq2seq.make_positional_step(model), cache_factory, slots=slots,
             vocab_size=cfg.vocab_size, max_tokens=cfg.max_tgt_len, enc_len=state["bucket"],

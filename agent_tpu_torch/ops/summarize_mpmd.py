@@ -18,6 +18,13 @@ encoder attends through the runtime's attention function (the flash kernel
 on the card); the decode is ``seq2seq.greedy_generate_from_encoded``. These
 ops serve the in-house seq2seq family, quantized when ``model_config``
 asks.
+
+On a mesh with ``dp`` or ``tp`` both stages run ``map_summarize``'s sharded
+seq2seq: the encode stage stages by dp and encodes over the shards, and the
+handoff stays the whole [B, L, d] output. The decode stage splits its rows
+over dp when they divide it (a batch staged by another agent's mesh need
+not), else runs on replica 0's tp group, counted under
+``SELECTION_COUNTS["unsharded"]`` (the reference's ``_put``).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
-from agent_tpu_torch.ops._model_common import refuse_decoder_mesh
+from agent_tpu_torch.ops._model_common import resolve_runtime, stage_divisor
 from agent_tpu_torch.utils.errors import bad_input
 
 DEFAULT_MAX_LENGTH = 130
@@ -48,10 +55,9 @@ def _resolve(payload: Dict[str, Any]):
 
 def _get_params(runtime, model_id: str, cfg):
     """``map_summarize``'s seq2seq weights, under its key (one copy)."""
-    from agent_tpu_torch.ops.map_summarize import _build_model, params_key
+    from agent_tpu_torch.ops.map_summarize import _get_model
 
-    return runtime.get_params(params_key(model_id, "seq2seq", cfg),
-                              lambda: _build_model(model_id, cfg, "seq2seq", runtime.device))
+    return _get_model(runtime, model_id, cfg, "seq2seq")
 
 
 def _runtime(ctx):
@@ -91,7 +97,7 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     try:
         texts, empty_rows = _collect_texts(payload)
         model_id, cfg = _resolve(payload)
-        refuse_decoder_mesh(ctx)
+        dp = stage_divisor(resolve_runtime(ctx), cfg, "seq2seq")
     except ValueError as exc:
         return bad_input(str(exc))
 
@@ -99,7 +105,7 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     from agent_tpu_torch.ops.map_summarize import _stage_chunks
 
     runtime = _runtime(ctx)
-    chunks = _stage_chunks(texts, cfg, 1, "seq2seq", model_id)
+    chunks = _stage_chunks(texts, cfg, 1, "seq2seq", model_id, dp)
     model = _get_params(runtime, model_id, cfg)
     attn_fn = runtime.attention_fn()
     out_chunks = []
@@ -163,7 +169,7 @@ def run_decode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
         return bad_input("max_length must be a positive int")
     try:
         model_id, cfg = _resolve(payload)
-        refuse_decoder_mesh(ctx)
+        stage_divisor(resolve_runtime(ctx), cfg, "seq2seq")  # pp or ep: bad_input
     except ValueError as exc:
         return bad_input(str(exc))
     max_new = min(max_new, cfg.max_tgt_len)

@@ -59,9 +59,14 @@ def all_reduce_max(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
     """``parts`` concatenated along ``dim`` in shard order, one result per
     shard."""
+    return broadcast(gather(parts, dim), [p.device for p in parts])
+
+
+def gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """``parts`` concatenated along ``dim`` in shard order, on the first
+    part's device only (the leader's copy of :func:`all_gather`)."""
     dev = parts[0].device
-    total = torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
-    return broadcast(total, [p.device for p in parts])
+    return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
 
 
 def broadcast(t: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:

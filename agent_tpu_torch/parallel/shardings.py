@@ -175,6 +175,31 @@ def bart_specs(cfg) -> Specs:
 FAMILY_SPECS = {"encoder": encoder_specs, "bert": bert_specs, "seq2seq": seq2seq_specs,
                 "t5": t5_specs, "bart": bart_specs}
 
+_TABLES = ("w_q", "w8")  # models.quant's table leaf names
+
+
+def t5_layout_specs(cfg) -> Specs:
+    """:func:`t5_specs` in the layout the port's T5 holds: HF's ``[out,
+    in]`` linears for ``F.linear`` (ROADMAP Queue 2), so a column-parallel
+    linear splits dim 0 and a row-parallel one dim 1 (the reference's tree is
+    ``[in, out]``). The embedding is ``[V, d]`` in both. A quantized
+    linear's table takes its weight's spec and its scale, taken over the
+    input dim (axis 1, ``quant.quantize_t5``), keeps dim 0's entry: those
+    leaves are named here, since ``_contract`` cannot tell T5's ``cross.q``
+    from BART's, whose tables contract over axis 0."""
+    out: Specs = {}
+    for key, spec in t5_specs(cfg).items():
+        if len(spec) == 2 and key != "embed":
+            spec = spec[::-1]
+            out.update({f"{key}.{t}": spec for t in _TABLES})
+            out[f"{key}.w_scale"] = spec[:1]
+        out[key] = spec
+    return out
+
+
+# The specs weights are placed by, in the layout each family holds them.
+LAYOUT_SPECS = dict(FAMILY_SPECS, t5=t5_layout_specs)
+
 
 def _contract(key: str) -> Tuple[int, ...]:
     """The contracting axes of a quantized table (``models.quant``'s):

@@ -21,6 +21,7 @@ reference's ``ppermute`` moves them inside one program.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -116,6 +117,13 @@ def axis_groups(mesh: Mesh, axis: str) -> List[List[torch.device]]:
     k = mesh.axis_names.index(axis)
     grid = np.moveaxis(mesh.devices, k, -1)
     return [list(row) for row in grid.reshape(-1, grid.shape[-1])]
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_mesh(device: torch.device) -> "Mesh":
+    """The mesh of one shard on ``device``, built once per device: the mesh
+    a one-device model runs its sharded forward on."""
+    return build_mesh([device])
 
 
 def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None) -> Mesh:

@@ -36,9 +36,6 @@ import torch
 from agent_tpu_torch.runtime.mesh import PORTED_AXES, build_mesh, check_sizes
 from agent_tpu_torch.utils.logging import log
 
-# Where the port refuses what a mesh needs of the decoder families.
-NOT_PORTED = "ROADMAP Queue 1 item 2b"
-
 
 class BuildOnceCache:
     """Thread-safe build-once map: key -> built value. The build runs outside

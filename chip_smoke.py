@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # one card
     python3 chip_smoke.py --cards 4    # phases 1, 2, the ring and meshes over 4 cards
+                                       # (the encoder's and the decoders')
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -281,6 +282,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               a pp schedule skipping stage 1, an ep dispatch sending expert
               1's slots to shard 0's weights, a W8A8 row scale from one
               shard. No attention call may run unsharded.
+17. decoder meshes — the decoder families on dp and tp, every shard on the
+              one card, from phases 9 and 12's checkpoints and staged
+              requests (models/sharded_decoder.py: rows over dp, heads, FFN
+              columns and the vocabulary over tp, each tp shard's KV cache
+              its heads; the decode loop on the first device). Each request
+              once warm beside one device's. T5-large: phase 9's greedy and
+              beam requests on tp 2 and dp 2 × tp 2, row 3 24 × tp × dp
+              times a request, the greedy tokens' share equal to one
+              device's, teacher-forced log-probabilities of one device's
+              greedy tokens within LOGP_TOL (bf16); with both relative bias
+              tables redrawn at T5_FAULT_BIAS_STD, tp 2 within it too, and
+              outside it with each shard given the next shard's bias head
+              columns (planted). BART-large-cnn: phase 12's 64-row greedy
+              request on tp 2 (row 1 12 × 2 times), log-probabilities of
+              its first rows within LOGP_TOL. The seq2seq at its defaults:
+              phase 8's requests on dp 2 × tp 2 (row 1 4 × 4 times), the
+              greedy one on tp 2 × sp 2 (row 2 4 × 4 times a tp group),
+              SMALL_S2S_F32 on tp 2 of the card equal to the CPU op's
+              summaries, each tp shard's split decoder-block bytes half of
+              one device's, the greedy request on tp 2 profiled (row 1
+              alone); int8, w8a16 and float on tp 2 over 32 random
+              texts in f32 and bf16 compute, each mode's token share equal
+              to one device's at least the float control's less 0.02.
+              Serving on tp 2: phase 13's stream
+              prefilled on the mesh and decoded by a paged engine of 8
+              slots in bf16 (tok/s beside phase 13's), each shard's pool
+              half the one-device pool's bytes, its first 64 requests in
+              f32 with one device's tokens; serve_summarize twice with one
+              prompt, the second from the prefix cache. summarize_encode on
+              tp 2 then summarize_decode on dp 2 × tp 2 (f32): the
+              one-device split's summaries. Neither the unsharded nor the
+              dense-T5 counter may move.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -288,11 +321,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-15; row 1's
-              launches by path include phases 10-16, and its entry holds
-              two more: at phase 12's encoder shape and at phase 13's
-              stream prefill (B 240, H 8, L 64, D 32); the fold's launches
-              by path include phase 11's ring and phase 16's.
+              point's time beside it). Printed after phases 8-17; row 1's
+              launches by path include phases 10-17, and its entry holds
+              three more: at phase 12's encoder shape, at phase 13's
+              stream prefill (B 240, H 8, L 64, D 32) and at the BART
+              encoder's tp 2 shard (B 64, H 8, L 1024, D 64); the T5
+              kernel's one more at T5-large's tp 2 shard (B 64, H 8, L 512,
+              D 64); the launches by path of rows 1-3 include phase 17's
+              paths, each counted where it launched; the fold's include
+              phase 11's ring and phase 16's.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -3024,6 +3061,47 @@ def shape_entry(fa, check, inputs: str, launches) -> dict:
             q, k, v, attn_mask=bool_mask)), q)
 
 
+def launches_of(tally: dict, kernel: str) -> dict:
+    """Phase 17's paths that launched ``kernel``, with their counts."""
+    return {path: counts[kernel] for path, counts in tally.items() if counts.get(kernel)}
+
+
+def head_shard(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """The first tp shard's heads of [B, H, L, D] inputs."""
+    return t[:, :heads].contiguous()
+
+
+def shard_shape_entry(fa, inputs, launches) -> dict:
+    """Row 1 at the BART encoder's tp 2 shard shape (phase 12's staged
+    inputs, the first half of the heads: B 64, H 8, L 1024, D 64): its own
+    error against the plain version, and the times beside the bound, as
+    :func:`shape_entry`."""
+    q, k, v, mask, lengths = inputs
+    h = q.shape[1] // 2
+    q, k, v = (head_shard(t, h) for t in (q, k, v))
+    _, err, rel = compare(fa.flash_attention(q, k, v, mask),
+                          fa.flash_attention_reference(q, k, v, mask), q.dtype)
+    check = {"max_abs_err": err, "max_rel_err": rel, "inputs": (q, k, v, mask, lengths)}
+    return shape_entry(fa, check, "inputs", launches)
+
+
+def t5_shard_entry(fa, check, launches) -> dict:
+    """Row 3 at T5-large's tp 2 shard shape (phase 9's staged inputs, the
+    first half of the heads and of the bias table's head columns: B 64, H
+    8, L 512, D 64), its own error against the plain version, as
+    :func:`t5_kernel_entry`."""
+    q, k, v, mask, rel_bias, table, lengths = check["inputs"]
+    h = q.shape[1] // 2
+    q, k, v = (head_shard(t, h) for t in (q, k, v))
+    rel_bias, table = rel_bias[:, :h].contiguous(), table[:h].contiguous()
+    maxd = T5_LARGE["relative_attention_max_distance"]
+    _, err, rel = compare(fa.flash_attention_t5(q, k, v, mask, rel_bias, max_distance=maxd),
+                          fa.flash_attention_t5_reference(q, k, v, mask, table,
+                                                          max_distance=maxd), q.dtype)
+    return t5_kernel_entry(fa, {"inputs": (q, k, v, mask, rel_bias, table, lengths),
+                                "max_abs_err": err, "max_rel_err": rel}, launches)
+
+
 def serve_cfg():
     from agent_tpu_torch.models.seq2seq import Seq2SeqConfig
 
@@ -3054,9 +3132,12 @@ def new_engine(model, slots: int, num_beams: int, paged: bool = True, cls=None, 
     from agent_tpu_torch.models import decoding, seq2seq
     from agent_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, PAD_ID
 
-    cfg, dev = model.cfg, model.embed.device
-    factory = (seq2seq.make_paged_cache_factory(cfg, block_size=16, device=dev) if paged
-               else seq2seq.make_cache_factory(cfg, device=dev))
+    cfg = model.cfg
+    # A sharded model's engine runs on replica 0's tp group, one cache a shard.
+    shards = model if isinstance(model, seq2seq.ShardedSeq2Seq) else None
+    dev = model.devices(0)[0] if shards else model.embed.device
+    factory = (seq2seq.make_paged_cache_factory(cfg, block_size=16, device=dev, shards=shards)
+               if paged else seq2seq.make_cache_factory(cfg, device=dev, shards=shards))
     return (cls or decoding.ContinuousBatcher)(
         seq2seq.make_positional_step(model), factory, slots=slots, vocab_size=cfg.vocab_size,
         max_tokens=cfg.max_tgt_len, enc_len=enc_len or SERVE_SRC, d_model=cfg.d_model,
@@ -4190,9 +4271,10 @@ def mesh_agreement(got: dict, want: dict, tol: float) -> dict:
 
 
 def split_block_bytes(block) -> int:
-    """Bytes of a block's split leaves: q/k/v/o and the FFN's matrices and
-    wi's bias."""
-    names = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.wi.w", "ffn.wi.b", "ffn.wo.w")
+    """Bytes of a block's split leaves: q/k/v/o (the decoder's cross
+    attention's too) and the FFN's matrices and wi's bias."""
+    names = tuple(f"{a}.{w}" for a in ("attn", "xattn") for w in ("wq", "wk", "wv", "wo")) \
+        + ("ffn.wi.w", "ffn.wi.b", "ffn.wo.w")
     return sum(t.numel() * t.element_size() for n, t in block.named_parameters()
                if n in names)
 
@@ -4675,6 +4757,513 @@ def mesh_phase(fa, smi, texts, bert_payload, long_payload, train_batch, train_st
     return report
 
 
+# ---- phase 17: the decoder families on dp and tp meshes ----
+
+# Phase 17's meshes, every shard on the one card; the ring's mesh for the
+# seq2seq encoder (row 2 in each tp group).
+DEC_MESHES = {"tp2": {"tp": 2}, "dp2_tp2": {"dp": 2, "tp": 2}}
+DEC_RING = {"tp": 2, "sp": 2}
+# The stream's first requests whose f32 tokens on tp 2 are held to one
+# device's engine (the whole stream runs in bf16 for its rate).
+DEC_SERVE_F32_REQUESTS = 64
+DEC_ROWS = 32  # random texts of phase 8's length for the quant leg
+DEC_PREFIX_BUCKET = 512
+# --cards N: T5-large's widths cut to 2 + 2 layers (a checkpoint of its own).
+DEC_CARDS_T5_LAYERS, DEC_CARDS_ROWS = 2, 16
+
+
+def with_rel_bias(model, enc, dec):
+    """A T5 over the same mesh whose shards hold ``enc``/``dec`` as their
+    relative bias tables (each on its shard's device)."""
+    shards = {key: dict(t, enc=dict(t["enc"], rel_bias=enc.to(key[0])),
+                        dec=dict(t["dec"], rel_bias=dec.to(key[0])))
+              for key, t in model.shards.items()}
+    return type(model)(model.cfg, model.mesh, shards, model.split)
+
+
+def next_shard_columns(real):
+    """Planted fault: each shard reads the next shard's head columns of
+    the relative bias tables (one shard of all heads reads its own)."""
+    return lambda table, first, count: real(table, (first + count) % table.shape[-1], count)
+
+
+def dec_t5(fa, ckpt, requests, tally: dict) -> dict:
+    """Phase 17, T5-large: phase 9's checkpoint and staged ids through the
+    op's device phase on tp 2 and dp 2 × tp 2 against one device, each
+    request once warm: row 3 24 × tp × dp times a request, the greedy
+    tokens' share equal to one device's, teacher-forced log-probabilities
+    of one device's greedy tokens within LOGP_TOL; with both relative bias
+    tables redrawn at T5_FAULT_BIAS_STD the same within it on tp 2, and
+    outside it with each shard given the next shard's bias columns."""
+    from agent_tpu_torch.models import t5
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    cfg = op._get_cfg({"model_path": ckpt}, "t5", ckpt)
+    runs = {"one": TorchRuntime(device=CARD),
+            **{name: mesh_runtime(shape) for name, shape in DEC_MESHES.items()}}
+    models, place_s = {}, {}
+    for name, rt in runs.items():
+        t0 = time.perf_counter()
+        models[name] = op._get_model(rt, ckpt, cfg, "t5")
+        torch.cuda.synchronize()
+        place_s[name] = time.perf_counter() - t0
+    shards = {name: rt.axis_size("dp") * rt.axis_size("tp") for name, rt in runs.items()}
+    report = {"place_s": place_s, "requests": {}}
+    toks = {}
+    def decode(rt, chunks, beams):
+        return [(t.cpu(), n) for t, n in op._decode_chunks(rt, chunks, ckpt, cfg, T5_MAX_NEW,
+                                                           beams, family="t5")]
+
+    for req, chunks, beams, n_rows in requests:
+        entry = {}
+        for name, rt in runs.items():
+            def run(name=name, rt=rt):
+                return launch_delta(fa, lambda: decode(rt, chunks, beams),
+                                    {"flash_attention_t5": cfg.n_enc_layers * shards[name]},
+                    None if name == "one" else tally.setdefault(f"map_summarize_t5_large_{name}",
+                                                                {}))
+            if beams == 1:
+                run()  # warm
+            t0 = time.perf_counter()
+            out = run()
+            entry[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "row3_launches": cfg.n_enc_layers * shards[name]}
+            toks[(req, name)] = out[0][0].numpy()[:out[0][1]]
+        for name in DEC_MESHES:
+            entry[name]["vs_one_device"] = entry["one"]["ms"] / entry[name]["ms"]
+            entry[name]["token_share_equal"] = float(np.mean(toks[(req, name)]
+                                                             == toks[(req, "one")]))
+        report["requests"][req] = entry
+
+    ids_np, lengths_np, n = requests[0][1][0]
+    ids = runs["one"].put_batch(ids_np.astype(np.int32))[:n]
+    mask = (torch.arange(ids.shape[1], device=ids.device)[None, :]
+            < runs["one"].put_batch(lengths_np)[:n, None]).to(torch.int32)
+    gen = torch.from_numpy(toks[(requests[0][0], "one")]).to(CARD, torch.int64)
+    tgt = torch.cat([torch.full_like(gen[:, :1], cfg.decoder_start_id), gen[:, :-1]], dim=1)
+
+    def logp(model, name):
+        return launch_delta(fa, lambda: model.forced_logp(
+            ids, mask, tgt, runs[name].t5_attention_kernel()),
+            {"flash_attention_t5": cfg.n_enc_layers * shards[name]})
+
+    one = t5.ShardedT5.of(cfg, models["one"], CARD)
+    g = torch.Generator(device=CARD).manual_seed(SEED)
+    tables = [torch.randn(models["one"][b]["rel_bias"].shape, generator=g, device=CARD)
+              * T5_FAULT_BIAS_STD for b in ("enc", "dec")]
+    with torch.inference_mode():
+        base = logp(one, "one")
+        report["logp_vs_one_device"] = {name: (logp(models[name], name) - base).abs().max().item()
+                                        for name in DEC_MESHES}
+        report["logp_finite"] = bool(torch.isfinite(base).all())
+        del base
+        strong_base = logp(with_rel_bias(one, *tables), "one")
+        strong = with_rel_bias(models["tp2"], *tables)
+        report["bias_std_1_tp2_logp"] = (logp(strong, "tp2") - strong_base).abs().max().item()
+        with Planted(t5, "bias_columns", next_shard_columns(t5.bias_columns)):
+            report["planted_next_shard_columns_logp"] = (
+                logp(strong, "tp2") - strong_base).abs().max().item()
+        del strong_base
+    report["tp2_split_bytes"] = {
+        "shards": [resident_bytes(s["dec"]["layers"][0]) for s in models["tp2"].group(0)],
+        "one_device": resident_bytes(models["one"]["dec"]["layers"][0])}
+    for rt in runs.values():
+        rt.clear_params()
+    tol = LOGP_TOL["bfloat16"]
+    if not (report["logp_finite"] and max(report["logp_vs_one_device"].values()) <= tol
+            and report["bias_std_1_tp2_logp"] <= tol
+            and report["planted_next_shard_columns_logp"] > tol):
+        raise SystemExit(f"T5 on a mesh disagrees with one device (or the planted bias "
+                         f"columns went unnoticed): {report}")
+    return report
+
+
+def dec_bart(fa, summarize, ckpt, requests, tally: dict) -> dict:
+    """Phase 17, BART-large-cnn: phase 12's checkpoint and 64-row greedy
+    request on tp 2 against one device, once warm: row 1 12 × tp times a
+    request, the token share equal to one device's, and teacher-forced
+    log-probabilities of the first BART_CHECK_ROWS rows' one-device tokens
+    within LOGP_TOL."""
+    from agent_tpu_torch.models import bart
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    cfg = op._get_cfg({"model_path": ckpt}, "bart", ckpt)
+    greedy = requests[0][1]
+    ctxs = {"one": OpContext(runtime=TorchRuntime(device=CARD)),
+            "tp2": OpContext(runtime=mesh_runtime({"tp": 2}))}
+    report, toks, models = {}, {}, {}
+    for name, ctx in ctxs.items():
+        t0 = time.perf_counter()
+        models[name] = op._get_model(ctx.runtime, ckpt, cfg, "bart")
+        torch.cuda.synchronize()
+        n = cfg.n_enc_layers * ctx.runtime.axis_size("tp")
+
+        def run(ctx=ctx, n=n, name=name):
+            return launch_delta(fa, lambda: summarize_tokens(summarize, greedy, ctx),
+                                {"flash_attention": n},
+                                None if name == "one" else tally.setdefault(
+                                    "map_summarize_bart_tp2", {}))
+        place = time.perf_counter() - t0
+        run()
+        t0 = time.perf_counter()
+        out, toks[name] = run()
+        report[name] = {"ms": (time.perf_counter() - t0) * 1e3, "place_s": place,
+                        "row1_launches": n, "ok": out["ok"], "device": out["device"]}
+    report["tp2"]["vs_one_device"] = report["one"]["ms"] / report["tp2"]["ms"]
+    report["tp2"]["token_share_equal"] = float(np.mean(toks["tp2"] == toks["one"]))
+    (ids_np, lengths_np, _), = op._stage_chunks(greedy["texts"][:BART_CHECK_ROWS], cfg, 1,
+                                                "bart", ckpt)
+    rt = ctxs["one"].runtime
+    ids = rt.put_batch(ids_np.astype(np.int32))
+    mask = (torch.arange(ids.shape[1], device=ids.device)[None, :]
+            < rt.put_batch(lengths_np)[:, None]).to(torch.int32)
+    gen = torch.as_tensor(toks["one"][:BART_CHECK_ROWS], device=ids.device).long()
+    tgt = torch.cat([torch.full_like(gen[:, :1], cfg.decoder_start_id), gen[:, :-1]], dim=1)
+    with torch.inference_mode():
+        base = launch_delta(fa, lambda: bart.ShardedBart.of(cfg, models["one"], CARD).forced_logp(
+            ids, mask, tgt, rt.attention_fn()), {"flash_attention": cfg.n_enc_layers})
+        got = launch_delta(fa, lambda: models["tp2"].forced_logp(
+            ids, mask, tgt, ctxs["tp2"].runtime.attention_fn()),
+            {"flash_attention": 2 * cfg.n_enc_layers})
+    report["logp_vs_one_device"] = (got - base).abs().max().item()
+    report["logp_finite"] = bool(torch.isfinite(got).all())
+    del base, got
+    for ctx in ctxs.values():
+        ctx.runtime.clear_params()
+    if not (all(report[n]["ok"] and report[n]["device"] == torch.device(CARD).type
+                for n in ctxs)
+            and report["logp_finite"] and report["logp_vs_one_device"] <= LOGP_TOL["bfloat16"]):
+        raise SystemExit(f"BART on tp 2 disagrees with one device: {report}")
+    return report
+
+
+def dec_seq2seq(fa, summarize, tally: dict) -> dict:
+    """Phase 17, the in-house seq2seq at its defaults: phase 8's 256 rows
+    greedy and 64 rows with 4 beams on dp 2 × tp 2 (row 1 4 × 4 times a
+    request), the greedy request on tp 2 × sp 2 (row 2 4 × sp² per tp
+    group), each once warm against one device with the token share; a
+    small f32 config on tp 2 of the card equal to the CPU op's summaries;
+    each tp shard's split decoder-block bytes; the greedy request on tp 2
+    profiled (row 1 alone, 4 × 2 times), beside phase 8's one-device
+    profile of it."""
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    ctxs = {"one": OpContext(runtime=TorchRuntime(device=CARD)),
+            "dp2_tp2": OpContext(runtime=mesh_runtime({"dp": 2, "tp": 2})),
+            "tp2_sp2": OpContext(runtime=mesh_runtime(DEC_RING))}
+    want = {"one": {"flash_attention": S2S_ENC_LAYERS},
+            "dp2_tp2": {"flash_attention": S2S_ENC_LAYERS * 4},
+            "tp2_sp2": {"flash_fold": S2S_ENC_LAYERS * DEC_RING["sp"] ** 2 * DEC_RING["tp"]}}
+    requests = [("texts256_greedy", {"texts": [S2S_TEXT] * S2S_ROWS,
+                                     "max_length": S2S_MAX_NEW}),
+                ("texts64_beam4", {"texts": [S2S_TEXT] * S2S_BEAM_ROWS,
+                                   "max_length": S2S_MAX_NEW, "num_beams": S2S_BEAMS})]
+    report = {}
+    for req, payload in requests:
+        entry, toks = {}, {}
+        for name, ctx in ctxs.items():
+            if name == "tp2_sp2" and "num_beams" in payload:
+                continue
+
+            def run(ctx=ctx, name=name):
+                return launch_delta(fa, lambda: summarize_tokens(summarize, payload, ctx),
+                                    want[name], None if name == "one" else tally.setdefault(
+                                        f"map_summarize_{name}", {}))
+            run()
+            t0 = time.perf_counter()
+            out, toks[name] = run()
+            entry[name] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": want[name],
+                           "device": out["device"]}
+            if name != "one":
+                entry[name]["vs_one_device"] = entry["one"]["ms"] / entry[name]["ms"]
+                entry[name]["token_share_equal"] = float(np.mean(toks[name] == toks["one"]))
+        report[req] = entry
+    tp2 = OpContext(runtime=mesh_runtime({"tp": 2}))
+    summarize(dict(requests[0][1]), tp2)  # places the weights
+    report["tp2_profile_greedy"] = profile_call(lambda: summarize(dict(requests[0][1]), tp2))
+    check_forwards(report["tp2_profile_greedy"], {"flash_fwd_sm90": 2 * S2S_ENC_LAYERS},
+                   "seq2seq tp 2 request")
+    cfg = op._get_cfg({}, "seq2seq", op.DEFAULT_MODEL_ID)
+    mesh = op._get_model(ctxs["dp2_tp2"].runtime, op.DEFAULT_MODEL_ID, cfg, "seq2seq")
+    whole = op._get_model(ctxs["one"].runtime, op.DEFAULT_MODEL_ID, cfg, "seq2seq")
+    report["split_decoder_block_bytes"] = {
+        "shards": [split_block_bytes(s.dec[0]) for s in mesh.group(0)],
+        "one_device": split_block_bytes(whole.dec[0])}
+    small = {"texts": random_texts(random.Random(SEED + 8), 12, 20, 200),
+             "model_config": SMALL_S2S_F32, "max_length": 24}
+    cpu = OpContext(runtime=TorchRuntime(device="cpu"))
+    report["small_f32_tp2_vs_cpu"] = {
+        f"beams{b}": summarize(dict(small, num_beams=b), tp2)["summaries"]
+        == summarize(dict(small, num_beams=b), cpu)["summaries"] for b in (1, 3)}
+    for ctx in (*ctxs.values(), tp2):
+        ctx.runtime.clear_params()
+    halves = report["split_decoder_block_bytes"]
+    if not all(report["small_f32_tp2_vs_cpu"].values()) \
+            or any(2 * b != halves["one_device"] for b in halves["shards"]) \
+            or any(e["device"] != torch.device(CARD).type
+                   for r in requests for e in report[r[0]].values()):
+        raise SystemExit(f"the seq2seq on a mesh disagrees with the CPU, or tp does not halve "
+                         f"its decoder block: {report}")
+    return report
+
+
+def dec_quant(fa, summarize, tally: dict) -> dict:
+    """Phase 17, quantized: the seq2seq at its widths in int8 and w8a16 on
+    tp 2 against one device over DEC_ROWS random texts, 32 tokens greedy, in
+    f32 and in bf16 compute: each mode's share of tokens equal to its
+    one-device run must reach the float control's share in the same dtype
+    less AGREEMENT_SLACK. (W8A8 rounds each activation to a code: where the
+    mesh's f32 order moves an activation by an ulp across a rounding
+    boundary, the code moves by a step, so int8 need not repeat one
+    device's tokens even where float does.)"""
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    texts = random_texts(random.Random(SEED + 41), DEC_ROWS, 490, 500)
+    one = OpContext(runtime=TorchRuntime(device=CARD))
+    tp2 = OpContext(runtime=mesh_runtime({"tp": 2}))
+    report = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("none",) + QUANT_MODES:
+            payload = {"texts": texts, "max_length": S2S_MAX_NEW,
+                       "model_config": {"dtype": dtype, "quant": mode}}
+            want = summarize_tokens(summarize, payload, one)[1]
+            got = launch_delta(fa, lambda: summarize_tokens(summarize, payload, tp2)[1],
+                               {"flash_attention": 2 * S2S_ENC_LAYERS},
+                               tally.setdefault(f"map_summarize_{mode}_{dtype}_tp2", {}))
+            report[f"{mode}_{dtype}"] = {"token_share_equal": float(np.mean(got == want))}
+    one.runtime.clear_params()
+    tp2.runtime.clear_params()
+    low = {key: r for key, r in report.items() if r["token_share_equal"]
+           < report["none_" + key.split("_")[1]]["token_share_equal"] - AGREEMENT_SLACK}
+    if low:
+        raise SystemExit(f"quantized tokens on tp 2 agree with one device's less than the "
+                         f"float control's: {report}")
+    return report
+
+
+def engine_pool_bytes(caches) -> list:
+    """Bytes of each tp shard's paged pools (a one-device cache: one)."""
+    from agent_tpu_torch.models.decoding import paged_shards
+
+    return [resident_bytes(part["layers"]) for part in paged_shards(caches)]
+
+
+def dec_serving(fa, tally: dict, stream_tok_s: float) -> dict:
+    """Phase 17, serving on tp 2: phase 13's stream prefilled on the mesh
+    (row 1 4 × 2 times), then decoded by a paged engine of 8 slots on the
+    mesh in bf16 (tok/s beside phase 13's), each shard's pool half the
+    one-device pool's bytes; its first DEC_SERVE_F32_REQUESTS requests in
+    f32 on tp 2 and one device, the same tokens; serve_summarize on tp 2
+    twice with one prompt: the second from the prefix cache, equal."""
+    from agent_tpu_torch.config import Config, ServeConfig
+    from agent_tpu_torch.models import seq2seq
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.ops import serve_infer
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    cfg = serve_cfg()
+    ids, mask, limits = serving_stream(cfg)
+    ids_t, mask_t = torch.from_numpy(ids).to(CARD), torch.from_numpy(mask).to(CARD)
+    tp2, one = mesh_runtime({"tp": 2}), TorchRuntime(device=CARD)
+    model = op._get_model(tp2, op.DEFAULT_MODEL_ID, cfg, "seq2seq")
+    with torch.inference_mode():
+        enc_all = launch_delta(fa, lambda: seq2seq.encode(model, ids_t, mask_t, tp2.attention_fn())
+                               .float().cpu().numpy(), {"flash_attention": 2 * cfg.n_enc_layers},
+                               tally.setdefault("serve_engine_prefill_tp2", {}))
+    engine = new_engine(model, SERVE_SLOTS, 1)
+
+    def engine_pass(eng, enc, n):
+        tickets = [eng.admit(enc[i], mask[i], limits[i], data=i) for i in range(n)]
+        while eng.has_work():
+            eng.step()
+        return tickets
+
+    engine_pass(engine, enc_all, SERVE_WARM)
+    torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    tickets = engine_pass(engine, enc_all, len(limits))
+    wall = time.perf_counter() - t0
+    tokens = sum(t.steps for t in tickets)
+    whole_pool = resident_bytes(seq2seq.make_paged_cache_factory(cfg, block_size=16, device=CARD)(
+        SERVE_SLOTS)["layers"])
+    report = {"bf16_tp2": {"requests": len(limits), "tokens": tokens, "wall_s": wall,
+                           "tok_per_s": tokens / wall,
+                           "phase13_one_device_tok_per_s": stream_tok_s,
+                           "vs_one_device": tokens / wall / stream_tok_s},
+              "pool_bytes": {"shards": engine_pool_bytes(engine._dyn["caches"]),
+                             "one_device": whole_pool}}
+    del engine
+
+    f32 = seq2seq.Seq2SeqConfig(**dict(SERVE_MODEL, dtype="float32"))
+    n = DEC_SERVE_F32_REQUESTS
+    toks = {}
+    for name, rt, n_launch in (("tp2", tp2, 2), ("one", one, 1)):
+        m = op._get_model(rt, op.DEFAULT_MODEL_ID, f32, "seq2seq")
+        with torch.inference_mode():
+            enc = launch_delta(fa, lambda: seq2seq.encode(m, ids_t[:n], mask_t[:n],
+                                                          rt.attention_fn()).cpu().numpy(),
+                               {"flash_attention": n_launch * f32.n_enc_layers})
+        toks[name] = [t.tokens for t in engine_pass(new_engine(m, SERVE_SLOTS, 1), enc, n)]
+    report["f32_first_requests_equal"] = all(np.array_equal(a, b)
+                                             for a, b in zip(toks["tp2"], toks["one"]))
+
+    serve_infer.reset_engines()
+    ctx = OpContext(runtime=tp2, config=Config(serve=ServeConfig()))
+    serve = load_ops(["serve_summarize"])["serve_summarize"]
+    payload = with_model({"requests": [{"req_id": "p", "text": S2S_TEXT, "max_length": 8}],
+                          "bucket": DEC_PREFIX_BUCKET})
+    cold = launch_delta(fa, lambda: serve(dict(payload), ctx),
+                        {"flash_attention": 2 * cfg.n_enc_layers},
+                        tally.setdefault("serve_summarize_tp2", {}))
+    warm = launch_delta(fa, lambda: serve(dict(payload), ctx), {})
+    report["prefix_cache"] = {"cold": cold["prefix_cache"], "warm": warm["prefix_cache"],
+                              "equal": cold["results"][0]["summary"]
+                              == warm["results"][0]["summary"]}
+    serve_infer.reset_engines()
+    tp2.clear_params()
+    one.clear_params()
+    pools = report["pool_bytes"]
+    if not report["f32_first_requests_equal"] or not report["prefix_cache"]["equal"] \
+            or report["prefix_cache"]["warm"]["hits"] != 1 \
+            or any(2 * b != pools["one_device"] for b in pools["shards"]):
+        raise SystemExit(f"serving on tp 2 disagrees with one device: {report}")
+    return report
+
+
+def dec_mpmd(fa, tally: dict) -> dict:
+    """Phase 17, summarize_mpmd: summarize_encode on tp 2 (row 1 4 × 2
+    times) then summarize_decode on dp 2 × tp 2 (no kernel), MPMD_ROWS
+    random texts at the seq2seq's widths in f32: the one-device split's
+    summaries."""
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    ops = load_ops(["summarize_encode", "summarize_decode"])
+    texts = random_texts(random.Random(SEED + 43), MPMD_ROWS, 200, 500)
+    conf = {"dtype": "float32"}
+    one = OpContext(runtime=TorchRuntime(device=CARD))
+    enc_ctx = OpContext(runtime=mesh_runtime({"tp": 2}))
+    dec_ctx = OpContext(runtime=mesh_runtime({"dp": 2, "tp": 2}))
+
+    def split(enc, dec, tallied):
+        t0 = time.perf_counter()
+        encoded = launch_delta(fa, lambda: ops["summarize_encode"](
+            {"texts": texts, "model_config": conf}, enc),
+            {"flash_attention": S2S_ENC_LAYERS * enc.runtime.axis_size("tp")},
+            tally.setdefault("summarize_encode_tp2", {}) if tallied else None)
+        out = launch_delta(fa, lambda: ops["summarize_decode"](
+            {"encoded": encoded, "model_config": conf, "max_length": S2S_MAX_NEW}, dec), {})
+        return out, time.perf_counter() - t0
+
+    want, one_s = split(one, one, False)
+    got, mesh_s = split(enc_ctx, dec_ctx, True)
+    for ctx in (one, enc_ctx, dec_ctx):
+        ctx.runtime.clear_params()
+    report = {"rows": len(texts), "one_device_s": one_s, "mesh_s": mesh_s,
+              "equal": got["summaries"] == want["summaries"]}
+    if not report["equal"]:
+        raise SystemExit(f"summarize_mpmd on the meshes differs from one device: {report}")
+    return report
+
+
+def decoder_mesh_phase(fa, smi, t5_ckpt, t5_requests, bart_ckpt, bart_reqs,
+                       stream_tok_s) -> dict:
+    """Phase 17: the decoder families on dp and tp meshes, every shard on
+    the one card (see the module docstring). Returns the launches of rows
+    1-3 by path, each counted where its path launched it; the unsharded and
+    dense-T5 counters must read 0."""
+    from agent_tpu_torch.ops import load_ops
+
+    summarize = load_ops(["map_summarize"])["map_summarize"]
+    seconds, tally = {}, {}
+    report = {"phase": "decoder_meshes", "nvidia_smi": smi, "logp_tolerance": LOGP_TOL}
+    reset_counts(fa)
+    try:
+        for name, fn in (("t5_large", lambda: dec_t5(fa, t5_ckpt, t5_requests, tally)),
+                         ("bart", lambda: dec_bart(fa, summarize, bart_ckpt, bart_reqs, tally)),
+                         ("seq2seq", lambda: dec_seq2seq(fa, summarize, tally)),
+                         ("quant", lambda: dec_quant(fa, summarize, tally)),
+                         ("serving", lambda: dec_serving(fa, tally, stream_tok_s)),
+                         ("mpmd", lambda: dec_mpmd(fa, tally))):
+            t0 = time.perf_counter()
+            report[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+    finally:  # the legs that ran, also when one fails
+        report["seconds_by_part"] = seconds
+        report["selection"] = {k: fa.SELECTION_COUNTS[k]
+                               for k in ("unsharded", "t5_dense", "dense")}
+        report["launches_by_path"] = tally
+        emit(report)
+    if fa.SELECTION_COUNTS["unsharded"] or fa.SELECTION_COUNTS["t5_dense"]:
+        raise SystemExit(f"a decoder mesh path ran a kernel unsharded or T5 dense: "
+                         f"{report['selection']}")
+    return tally
+
+
+def decoder_cards_phase(fa, n: int) -> None:
+    """``--cards N``: the seq2seq at its defaults on tp N (one shard a card)
+    against one card, DEC_CARDS_ROWS rows greedy (the token share), a small f32 config
+    on tp N against the CPU op (equal summaries), and T5-large's widths cut
+    to DEC_CARDS_T5_LAYERS + DEC_CARDS_T5_LAYERS layers on tp N:
+    teacher-forced log-probabilities within LOGP_TOL of one card."""
+    from agent_tpu_torch.models import t5
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.ops import map_summarize as op
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    summarize = load_ops(["map_summarize"])["map_summarize"]
+    shape = {"tp": n}
+    cards = OpContext(runtime=mesh_runtime(shape, distinct=True))
+    one = OpContext(runtime=TorchRuntime(device=CARD))
+    cpu = OpContext(runtime=TorchRuntime(device="cpu"))
+    payload = {"texts": random_texts(random.Random(SEED + 45), DEC_CARDS_ROWS, 490, 500),
+               "max_length": S2S_MAX_NEW}
+    got = launch_delta(fa, lambda: summarize_tokens(summarize, payload, cards)[1],
+                       {"flash_attention": S2S_ENC_LAYERS * n})
+    report = {"seq2seq_token_share_equal": float(np.mean(
+        got == summarize_tokens(summarize, payload, one)[1]))}
+    small = {"texts": payload["texts"][:12], "model_config": SMALL_S2S_F32, "max_length": 24}
+    report["small_f32_vs_cpu"] = (summarize(dict(small), cards)["summaries"]
+                                  == summarize(dict(small), cpu)["summaries"])
+    with tempfile.TemporaryDirectory() as tmp:
+        hf = dict(T5_LARGE, num_layers=DEC_CARDS_T5_LAYERS,
+                  num_decoder_layers=DEC_CARDS_T5_LAYERS)
+        write_t5_checkpoint(tmp, hf, SEED + 47, torch.bfloat16, CARD)
+        cfg = op._get_cfg({"model_path": tmp}, "t5", tmp)
+        rows = t5_rows(DEC_CARDS_ROWS, hf["vocab_size"], T5_LENGTHS, SEED + 48)
+        (ids_np, lengths_np, m), = stage_t5(op, tmp, cfg, rows, 1)
+        ids = one.runtime.put_batch(ids_np.astype(np.int32))[:m]
+        mask = (torch.arange(ids.shape[1], device=ids.device)[None, :]
+                < one.runtime.put_batch(lengths_np)[:m, None]).to(torch.int32)
+        (toks, k), = op._decode_chunks(one.runtime, [(ids_np, lengths_np, m)], tmp, cfg, 8, 1,
+                                       family="t5")
+        gen = toks[:k].long()
+        tgt = torch.cat([torch.full_like(gen[:, :1], cfg.decoder_start_id), gen[:, :-1]], dim=1)
+        with torch.inference_mode():
+            want = t5.ShardedT5.of(cfg, op._get_model(one.runtime, tmp, cfg, "t5"), CARD) \
+                .forced_logp(ids, mask, tgt, one.runtime.t5_attention_kernel())
+            got = launch_delta(fa, lambda: op._get_model(cards.runtime, tmp, cfg, "t5")
+                               .forced_logp(ids, mask, tgt, cards.runtime.t5_attention_kernel()),
+                               {"flash_attention_t5": DEC_CARDS_T5_LAYERS * n})
+        report["t5_logp_vs_one_card"] = (got - want).abs().max().item()
+    for ctx in (cards, one, cpu):
+        ctx.runtime.clear_params()
+    emit({"phase": "decoder_cards", "cards": n, **report})
+    if not report["small_f32_vs_cpu"] or report["t5_logp_vs_one_card"] > LOGP_TOL["bfloat16"]:
+        raise SystemExit(f"a decoder over {n} cards disagrees: {report}")
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -4815,6 +5404,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"--cards {cards}: {torch.cuda.device_count()} visible")
         ring_cards_phase(fa, classify, cards, long_payload, k)
         mesh_cards_phase(fa, classify, cards)
+        decoder_cards_phase(fa, cards)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
@@ -5001,16 +5591,21 @@ def main(argv=None) -> int:
     rt.clear_params()
 
     # 14. quantized serving and the Switch MoE encoder (phases 9 and 12's
-    # checkpoints, then removed)
+    # checkpoints)
     qm = quant_moe_phase(fa, rt, smi, (train_state, take), ckpt, t5_requests, bart_ckpt,
                          bart_reqs)
-    t5_dir.cleanup()
 
     # 16. dp, tp, pp and ep meshes on the one card (phase 14's draws, phase
-    # 11's checkpoint, then removed)
+    # 11's checkpoint)
     meshes = mesh_phase(fa, smi, requests[2][1]["texts"], bert_reqs[0][1], long_payload,
                         (train_state, take), train_step_ms)
     SEEDED.clear()
+
+    # 17. the decoder families on dp and tp meshes on the one card (phases 9
+    # and 12's checkpoints, then removed)
+    dec = decoder_mesh_phase(fa, smi, ckpt, t5_requests, bart_ckpt, bart_reqs,
+                             serving["engine_vs_static"][0]["continuous_tok_per_s"])
+    t5_dir.cleanup()
     hf_dir.cleanup()
 
     # 7. kernels: the serving kernel on the 256-row request's staged shape
@@ -5051,10 +5646,13 @@ def main(argv=None) -> int:
                               qm["engine"]["prefill_launches"],
                           **{f"map_classify_tpu_mesh_{name}": r["row1_launches_total"]
                              for name, r in meshes["serving"].items()
-                             if "vs_one_device" in r}},
+                             if "vs_one_device" in r},
+                          **launches_of(dec, "flash_attention")},
         at_bart_encoder_shape=shape_entry(fa, kernel_check, "inputs_bart", bart_run["launches"]),
         at_serving_prefill_shape=shape_entry(fa, kernel_check, "inputs_serving",
-                                             serving["stream_prefill_launches"]))
+                                             serving["stream_prefill_launches"]),
+        at_bart_tp2_shard_shape=shard_shape_entry(
+            fa, kernel_check["inputs_bart"], dec["map_summarize_bart_tp2"]["flash_attention"]))
     moe_train = qm["moe"]["train"]["launches"]
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches, {
                           "train_classifier": train_launches, "moe_train_step": moe_train,
@@ -5064,11 +5662,16 @@ def main(argv=None) -> int:
                           "map_classify_tpu_bert_sp2": bert_run["fold_launches"],
                           **{f"map_classify_tpu_ring_{name}":
                              meshes["ring"][name]["fold_launches_total"]
-                             for name in MESH_RINGS}}),
+                             for name in MESH_RINGS},
+                          **launches_of(dec, "flash_fold")}),
                       t5_kernel_entry(fa, t5_check, t5_run["launches"], launches_by_path={
                           "map_summarize_t5_large": t5_run["launches"],
                           **{f"map_summarize_t5_large_{'bf16' if m == 'none' else m}": n
-                             for m, n in qm["summarize_t5_large"]["launches"].items()}})]})
+                             for m, n in qm["summarize_t5_large"]["launches"].items()},
+                          **launches_of(dec, "flash_attention_t5")},
+                          at_tp2_shard_shape=t5_shard_entry(
+                              fa, t5_check, dec["map_summarize_t5_large_tp2"]
+                              ["flash_attention_t5"]))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -166,22 +166,6 @@ def test_other_checkpoint_dir_raises_as_the_reference_does(summarize, tmp_path):
         jax_get_op("map_summarize")({"text": "x", "model_path": str(tmp_path)})
 
 
-class _Mesh:
-    shape = {"dp": 2, "sp": 1}
-
-
-class _DpRuntime:
-    mesh = _Mesh()
-
-
-def test_dp_mesh_is_soft(summarize, monkeypatch):
-    out = summarize({"text": "x", "model_config": SMALL}, OpContext(runtime=_DpRuntime()))
-    assert out["ok"] is False and "dp or tp" in out["error"]
-    monkeypatch.setenv("MESH_SHAPE", "tp=2")
-    out = load_ops(["map_summarize"])["map_summarize"]({"text": "x", "model_config": SMALL})
-    assert out["ok"] is False and "dp or tp" in out["error"]
-
-
 def test_sp_mesh_serves_with_ring_attention(summarize):
     """On an sp mesh the seq2seq encoder attends through ring attention."""
     payload = {"texts": TEXTS, "model_config": SMALL, "max_length": 8}

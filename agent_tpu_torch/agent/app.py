@@ -51,8 +51,18 @@ Differences: the default session is ``urllib`` (``utils.http``), so the
 agent runs where ``requests`` is not installed. An agent whose ``TASKS``
 include a device op (``ops.DEVICE_OPS``) builds the runtime when it
 starts — on ``cuda:0``, failing there without CUDA — and an agent of host
-ops only never builds one. Not ported yet: the partition map and
-multi-host slices (ROADMAP Queue 1 items 2 and 3).
+ops only never builds one. Not ported yet: the partition map (ROADMAP
+Queue 1).
+
+Several processes, one lease loop (``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES``, ``PROCESS_ID``; ``runtime.distributed``): process 0,
+the leader, leases, broadcasts each task to the followers before it runs
+it, and alone posts; a follower opens no HTTP session and runs every task
+it receives in lockstep until the leader's shutdown. An op that raises on
+any process takes the whole slice down (the leader first posts the
+failure), since a process that moved on would wait in a collective its
+peers never enter. Several processes run the serial loop, never the
+pipelined runner.
 
 Run it as ``python -m agent_tpu_torch.agent.app`` with ``CONTROLLER_URL``
 and ``TASKS`` set.
@@ -137,7 +147,12 @@ class Agent:
     def __init__(self, config: Optional[Config] = None, session: Any = None,
                  runtime: Any = None) -> None:
         self.config = config or Config.from_env()
-        self.session = session if session is not None else _default_session()
+        # Join the group first: the runtime and the session depend on this
+        # process's place.
+        self.dist = self._dist_info()
+        if session is None and self.dist.is_leader:
+            session = _default_session()
+        self.session = session  # a follower opens none
         self.running = True
         # Set by request_drain (SIGTERM): stop leasing, finish the in-flight
         # task, release the unstarted remainder of the lease, flush, exit.
@@ -193,6 +208,10 @@ class Agent:
             "dropped_overflow/expired)", ("outcome",))
         self.m_spool_depth = self.obs.gauge(
             "result_spool_depth", "Completed results awaiting redelivery")
+        self.m_launches = self.obs.gauge(
+            "kernel_launches",
+            "Hand-written CUDA kernel launches since the process started, per "
+            "kernel (the wrappers' LAUNCH_COUNTS; 0 on the CPU)", ("kernel",))
         self.m_serve_occupancy = self.obs.gauge(
             "serve_batch_occupancy",
             "Continuous-batching running batch: requests currently seated "
@@ -252,6 +271,7 @@ class Agent:
         self._captures_seen: set = set()
         self._capture_done: List[Dict[str, Any]] = []
         self.profiled_tasks = 0  # PROFILE_DIR traces written
+        self._last_broadcast = time.monotonic()  # the leader's, for the keep-alive
 
     # ---- controller I/O ----
 
@@ -414,6 +434,10 @@ class Agent:
         # busy moment.
         self.m_duty.set(round(self._duty.fraction(), 4))
         self._refresh_hbm_gauges()
+        kernels = sys.modules.get("agent_tpu_torch.kernels.flash_attention")
+        if kernels is not None:  # imported by a model op: never imported here
+            for name, n in kernels.LAUNCH_COUNTS.items():
+                self.m_launches.set(n, kernel=name)
         if self.runtime is not None:
             try:
                 m["device"] = self.runtime.describe()
@@ -915,17 +939,30 @@ class Agent:
         # to the execute span.
         exec_span_id = new_span_id()
         t_exec0 = time.perf_counter()
-        # The serial loop's "stage": resolving the task before the call.
-        self.trace_span("stage", trace_id, span_parent, start_mono=t0,
-                        duration_s=t_exec0 - t0, op=op)
-        stamp_usage(ctx.tags, host_s=t_exec0 - t0)
         try:
+            # Several processes: the followers run the same op in lockstep,
+            # so the leader publishes the task before it runs it.
+            self._broadcast_to_followers(op, payload)
+            t_exec0 = time.perf_counter()
+            # The serial loop's "stage": resolving (and broadcasting) the
+            # task before the call.
+            self.trace_span("stage", trace_id, span_parent, start_mono=t0,
+                            duration_s=t_exec0 - t0, op=op)
+            stamp_usage(ctx.tags, host_s=t_exec0 - t0)
             with use_context(self.trace_context(trace_id, job_id, exec_span_id)):
                 result = self.profiled_call(op, lambda: fn(payload, ctx))
             status, error = "succeeded", None
         except Exception as exc:  # noqa: BLE001 — every op error -> failed result
             result, status, error = None, "failed", structured_error(exc)
             self.rate.log("exec", "op raised", op=op, type=type(exc).__name__)
+            if self.dist.process_count > 1:
+                # The followers that raised the same way crash; a leader
+                # that moved on would enter the next broadcast against dead
+                # or desynchronised peers and hang there. Post the failure,
+                # then crash with them: the slice restarts clean.
+                self.post_result(lease_id, job_id, epoch, status, result=None, error=error,
+                                 op=op)
+                raise
         t_done = time.perf_counter()
         self.trace_span("execute", trace_id, span_parent, span_id=exec_span_id,
                         start_mono=t_exec0, duration_s=t_done - t_exec0, op=op, status=status)
@@ -959,6 +996,7 @@ class Agent:
             return False
         self._lease_retry.reset()
         if leased is None:
+            self._keepalive()
             time.sleep(jittered(self.config.agent.idle_sleep_sec))
             return False
         lease_id, tasks = leased
@@ -971,9 +1009,15 @@ class Agent:
         return True
 
     def run(self, max_steps: Optional[int] = None) -> None:
-        """The pipelined runner when ``PIPELINE_DEPTH`` > 0 (and no step
+        """A follower's loop on a process other than the leader; else the
+        pipelined runner when ``PIPELINE_DEPTH`` > 0 (one process, no step
         limit), else the serial loop; either ends when ``running`` flips."""
-        if max_steps is None and self.config.agent.pipeline_depth > 0:
+        info = self.dist
+        if not info.is_leader:
+            self.run_follower()
+            return
+        if max_steps is None and info.process_count == 1 \
+                and self.config.agent.pipeline_depth > 0:
             from agent_tpu_torch.agent.pipeline import PipelineRunner
 
             PipelineRunner(self, depth=self.config.agent.pipeline_depth).run()
@@ -986,6 +1030,78 @@ class Agent:
                 break
         self.flush_spool(force=True)
         self.push_metrics()
+        # A clean exit only: after an op raised, the followers are gone or
+        # desynchronised, and the shutdown broadcast is itself a collective.
+        if info.process_count > 1:
+            from agent_tpu_torch.runtime.distributed import broadcast_shutdown
+
+            broadcast_shutdown()
+
+    # ---- several processes: leader and followers ----
+
+    def _dist_info(self):
+        """This process's place; without ``COORDINATOR_ADDRESS`` nothing of
+        ``torch.distributed`` is touched."""
+        from agent_tpu_torch.runtime.distributed import DistInfo, maybe_initialize
+
+        cfg = self.config.device
+        if cfg.coordinator_address is None:
+            return DistInfo(process_index=0, process_count=1)
+        return maybe_initialize(cfg.coordinator_address, cfg.num_processes, cfg.process_id)
+
+    def _broadcast_to_followers(self, op: str, payload: Dict[str, Any]) -> None:
+        if self.dist.process_count == 1:
+            return
+        from agent_tpu_torch.runtime.distributed import broadcast_task
+
+        broadcast_task({"op": op, "payload": payload})
+        self._last_broadcast = time.monotonic()
+
+    def _keepalive(self) -> None:
+        """An idle leader's sign of life to its followers, well inside the
+        group's timeout (``distributed.KEEPALIVE_SEC``)."""
+        if self.dist.process_count == 1:
+            return
+        from agent_tpu_torch.runtime import distributed
+
+        if time.monotonic() - self._last_broadcast >= distributed.KEEPALIVE_SEC:
+            distributed.broadcast_keepalive()
+            self._last_broadcast = time.monotonic()
+
+    def run_follower(self) -> None:
+        """A follower: run every task the leader broadcasts, in lockstep,
+        and drop the results (the leader posts them); leave on the
+        leader's shutdown. A drain op's ``source_uri`` must be readable on
+        every process."""
+        from agent_tpu_torch.runtime.distributed import broadcast_task, is_keepalive, is_shutdown
+
+        log("follower up", process=self.dist.process_index)
+        while self.running:
+            task = broadcast_task(None)
+            if is_keepalive(task):
+                continue
+            if task is None or is_shutdown(task):
+                break
+            fn = self.handlers.get(task.get("op"))
+            if fn is None:
+                # The leader broadcasts only ops it resolved, and it is
+                # already running this one: skipping it would leave the
+                # slice waiting in different collectives.
+                raise RuntimeError(
+                    f"follower has no handler for broadcast op {task.get('op')!r}: TASKS "
+                    f"must be identical on every process of a slice (have "
+                    f"{sorted(self.handlers)})")
+            try:
+                fn(task.get("payload") or {}, self.task_context(task, "follower", None))
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                # Moving on would put this process in the next broadcast
+                # while the leader waits elsewhere: crash instead, and the
+                # leader, raising the same way, posts the failure.
+                log("follower op raised — crashing to avoid a slice hang",
+                    op=task.get("op"), type=type(exc).__name__, error=str(exc)[:200])
+                raise
+            self.tasks_done += 1
+        log("follower drained", tasks_done=self.tasks_done)
 
     def request_drain(self, reason: str = "drain") -> None:
         """Begin graceful retirement: stop leasing, finish the in-flight

@@ -24,7 +24,7 @@ from __future__ import annotations
 import os
 import socket
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 DEFAULT_CONTROLLER_URL = "http://10.11.12.54:8080"  # the reference's default
 TRUTHY_TOKENS = ("1", "true", "yes", "on", "y")
@@ -284,16 +284,28 @@ class DeviceConfig:
     # PROFILE_TASKS tasks' execute is written there ("" disables).
     profile_dir: str = ""
     profile_tasks: int = 1
+    # Several processes, one lease loop (runtime.distributed): the
+    # coordinator's "host:port" (COORDINATOR_ADDRESS; None = one process),
+    # NUM_PROCESSES and PROCESS_ID.
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     @staticmethod
     def from_env() -> "DeviceConfig":
+        # PROCESS_ID parses forgivingly, as every int env does, but unset or
+        # unparseable stays None, not 0.
+        process_id = env_int("PROCESS_ID", -1) if os.environ.get("PROCESS_ID") else -1
         return DeviceConfig(quant=env_str("TPU_QUANT", "").strip().lower(),
                             tpu_disabled=env_bool("TPU_DISABLED", False),
                             pallas_attn=env_bool("PALLAS_ATTN", True),
                             chip_slice=env_str("CHIP_SLICE", "").strip(),
                             mesh_shape=parse_mesh_shape(env_str("MESH_SHAPE", "")),
                             profile_dir=env_str("PROFILE_DIR", ""),
-                            profile_tasks=env_int("PROFILE_TASKS", 1))
+                            profile_tasks=env_int("PROFILE_TASKS", 1),
+                            coordinator_address=os.environ.get("COORDINATOR_ADDRESS") or None,
+                            num_processes=env_int("NUM_PROCESSES", 0) or None,
+                            process_id=process_id if process_id >= 0 else None)
 
 
 @dataclass(frozen=True)

@@ -226,6 +226,12 @@ class ShardedBert:
     def _key(self, i: int, j: int) -> tuple:
         return (self.mesh.device_at(dp=i, tp=j), j)
 
+    def held(self, i: int, j: int, k: int = 0) -> Dict[str, torch.Tensor]:
+        """The leaves shard (dp i, tp j) holds, by dotted key (its live
+        tensors; {} for an ep coordinate, which BERT does not split)."""
+        tree = self.trees.get(self._key(i, j)) if k == 0 else None
+        return {} if tree is None else layers.flatten(tree, leaf=lambda t: t)
+
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, attn_fn: AttnFn) -> torch.Tensor:
         """``forward`` over the mesh: the rows split over dp, each replica
         through :func:`forward_shards`; logits on ids' device."""

@@ -282,6 +282,14 @@ class ShardedEncoder:
     def shard(self, i: int, j: int) -> Encoder:
         return self.modules[self._key(i, j)]
 
+    def held(self, i: int, j: int, k: int = 0) -> Dict[str, torch.Tensor]:
+        """The leaves the shard at (dp i, tp j, ep k) holds, by dotted key
+        (its live tensors; {} where no shard is)."""
+        m = self.modules.get(self._key(i, j, k))
+        if m is None:
+            return {}
+        return {n: t for n, t in [*m.named_parameters(), *m.named_buffers()] if not t.is_meta}
+
     def experts(self, i: int, layer: int) -> list:
         """Block ``layer``'s MoE modules of dp replica i, one per ep shard."""
         return [self.modules[self._key(i, 0, k)].blocks[layer].moe for k in range(self.n_ep)]
@@ -425,11 +433,9 @@ class ShardedEncoder:
         pieces: Dict[tuple, Dict[str, np.ndarray]] = {}
 
         def piece_at(coords):
-            key = self._key(0, coords.get("tp", 0), coords.get("ep", 0))
+            key = (coords.get("tp", 0), coords.get("ep", 0))
             if key not in pieces:
-                m = self.modules[key]
-                pieces[key] = {n: layers.leaf_numpy(t) for n, t in
-                               [*m.named_parameters(), *m.named_buffers()] if not t.is_meta}
+                pieces[key] = {n: layers.leaf_numpy(t) for n, t in self.held(0, *key).items()}
             return pieces[key]
 
         return gather_flat(piece_at, self.specs, self.shape)

@@ -69,6 +69,21 @@ def stamp_rows(ctx, rows: Any) -> None:
     usage["rows"] = usage.get("rows", 0.0) + float(rows)
 
 
+def device_runtime(ctx, op: str):
+    """The runtime ``op`` executes on: the context's (built if it has
+    none), else the process singleton. On a mesh over several processes it
+    raises ``RuntimeError`` naming the op (``TorchRuntime.require_local``):
+    the reference cannot fetch such a result either."""
+    if ctx is not None and getattr(ctx, "require_runtime", None):
+        runtime = ctx.require_runtime()
+    else:
+        from agent_tpu_torch.runtime.runtime import get_runtime
+
+        runtime = get_runtime()
+    runtime.require_local(op)
+    return runtime
+
+
 def resolve_runtime(ctx):
     """The runtime the op will execute on (the context's, built if it has
     none, else the process singleton), or None when no device is there: a

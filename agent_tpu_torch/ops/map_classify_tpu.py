@@ -438,12 +438,9 @@ def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, An
     and fails the request (no CPU retry)."""
     state["t_exec0"] = time.perf_counter()
     _stamp_flops(state, ctx)
-    if ctx is not None and getattr(ctx, "require_runtime", None):
-        runtime = ctx.require_runtime()
-    else:
-        from agent_tpu_torch.runtime.runtime import get_runtime
+    from agent_tpu_torch.ops._model_common import device_runtime
 
-        runtime = get_runtime()
+    runtime = device_runtime(ctx, "map_classify_tpu")
     state.update(
         pending_dev=_execute_chunks(runtime, state["chunks"], state["model_id"],
                                     state["cfg"], state["k"], state["family"]),

@@ -393,12 +393,10 @@ def execute(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str, An
     _stamp_flops(state, ctx)
     if state["force_cpu"]:
         runtime = _get_cpu_runtime()
-    elif ctx is not None and getattr(ctx, "require_runtime", None):
-        runtime = ctx.require_runtime()
     else:
-        from agent_tpu_torch.runtime.runtime import get_runtime
+        from agent_tpu_torch.ops._model_common import device_runtime
 
-        runtime = get_runtime()
+        runtime = device_runtime(ctx, "map_summarize")
     from agent_tpu_torch.runtime.runtime import HostCopy
 
     # The tokens' copies to the host are queued here; finalize waits for

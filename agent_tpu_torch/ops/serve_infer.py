@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
-from agent_tpu_torch.ops._model_common import resolve_runtime, stage_divisor
+from agent_tpu_torch.ops._model_common import device_runtime, resolve_runtime, stage_divisor
 from agent_tpu_torch.utils.errors import bad_input
 
 # Process-wide engine store, keyed by runtime and model/config/shape
@@ -200,14 +200,6 @@ def _resolve(payload: Dict[str, Any]):
     # the reference's serving ops resolve it; a mode other than int8/w8a16
     # serves float weights.
     return model_id, config_from_payload(payload, Seq2SeqConfig)
-
-
-def _runtime(ctx):
-    if ctx is not None and getattr(ctx, "require_runtime", None):
-        return ctx.require_runtime()
-    from agent_tpu_torch.runtime.runtime import get_runtime
-
-    return get_runtime()
 
 
 def _serve_knobs(ctx):
@@ -388,7 +380,7 @@ def serve_admit(state: Dict[str, Any], ctx: Optional[object] = None) -> Dict[str
     skip it), then join the continuous engine between decode steps. Returns
     the handle the runner pumps. A disaggregated decode job's state already
     holds ``enc_rows`` (the prefill agent's handoff) and skips prefill."""
-    runtime = _runtime(ctx)
+    runtime = device_runtime(ctx, "serve_summarize")
     cfg, model_id = state["cfg"], state["model_id"]
     model = _get_params(runtime, model_id, cfg)
     serve = _serve_knobs(ctx)
@@ -564,7 +556,7 @@ def run_prefill(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     phase, state = stage(payload, ctx)
     if phase == "done":
         return state
-    runtime = _runtime(ctx)
+    runtime = device_runtime(ctx, "serve_prefill")
     model = _get_params(runtime, state["model_id"], state["cfg"])
     enc, prefix = _prefill_rows(runtime, model, state, _serve_knobs(ctx))
     if ctx is not None and hasattr(ctx, "tags"):

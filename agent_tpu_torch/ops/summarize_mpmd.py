@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from agent_tpu_torch.ops import register_op
-from agent_tpu_torch.ops._model_common import resolve_runtime, stage_divisor
+from agent_tpu_torch.ops._model_common import device_runtime, resolve_runtime, stage_divisor
 from agent_tpu_torch.utils.errors import bad_input
 
 DEFAULT_MAX_LENGTH = 130
@@ -58,14 +58,6 @@ def _get_params(runtime, model_id: str, cfg):
     from agent_tpu_torch.ops.map_summarize import _get_model
 
     return _get_model(runtime, model_id, cfg, "seq2seq")
-
-
-def _runtime(ctx):
-    if ctx is not None and getattr(ctx, "require_runtime", None):
-        return ctx.require_runtime()
-    from agent_tpu_torch.runtime.runtime import get_runtime
-
-    return get_runtime()
 
 
 def _collect_texts(payload: Dict[str, Any]) -> Tuple[List[str], List[int]]:
@@ -104,7 +96,7 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     from agent_tpu_torch.models import seq2seq
     from agent_tpu_torch.ops.map_summarize import _stage_chunks
 
-    runtime = _runtime(ctx)
+    runtime = device_runtime(ctx, "summarize_encode")
     chunks = _stage_chunks(texts, cfg, 1, "seq2seq", model_id, dp)
     model = _get_params(runtime, model_id, cfg)
     attn_fn = runtime.attention_fn()
@@ -177,7 +169,7 @@ def run_decode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     from agent_tpu_torch.models import seq2seq
     from agent_tpu_torch.models.tokenizer import ByteTokenizer
 
-    runtime = _runtime(ctx)
+    runtime = device_runtime(ctx, "summarize_decode")
     model = _get_params(runtime, model_id, cfg)
     tok = ByteTokenizer()
     summaries: List[str] = []

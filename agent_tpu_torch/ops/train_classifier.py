@@ -223,12 +223,9 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     phase, state = stage(payload)
     if phase == "done":
         return state
-    if ctx is not None and getattr(ctx, "require_runtime", None):
-        runtime = ctx.require_runtime()
-    else:
-        from agent_tpu_torch.runtime.runtime import get_runtime
+    from agent_tpu_torch.ops._model_common import device_runtime
 
-        runtime = get_runtime()
+    runtime = device_runtime(ctx, "train_classifier")
 
     from agent_tpu_torch.models import checkpoint, encoder, train
     from agent_tpu_torch.ops._model_common import cfg_key

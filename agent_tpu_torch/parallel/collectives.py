@@ -13,7 +13,12 @@ through them: the gradient of a sum reaches every shard's part.
 
 :func:`mesh_reduce_stats` is ``risk_accumulate``'s device path. Each dp
 shard reduces its slice of the values; the partials combine on the host
-(sums in f64, integer keys by min/max). The reference's contract is kept:
+(sums in f64, integer keys by min/max), in dp order. On a mesh over
+several processes each process reduces the slices of the positions it
+holds, one gloo all-gather of the small f64 partials gives every process
+every slice's, and each combines them in the same order: the result is
+the same on every process, and equal to one process's over the same dp.
+The reference's contract is kept:
 
 - the sum comes from a hi/lo f32 pair (hi = f32(v), lo = f32(v - hi)), the
   device partial sums combined on the host in f64, so no input-cast error,
@@ -110,25 +115,37 @@ def mesh_reduce_stats(runtime, values: Sequence[float]) -> Dict[str, Any]:
         lo = np.where(np.isfinite(hi), v64 - hi.astype(np.float64), 0.0).astype(np.float32)
     real = np.zeros(v64.size, dtype=np.bool_)
     real[:n] = True
-    partials = []
-    devices = runtime.dp_devices()
-    for h, l, m in zip(*(scatter_rows(runtime.put_batch(x), devices) for x in (hi, lo, real))):
-        sums = torch.stack([torch.where(m, h, 0.0).sum(), torch.where(m, l, 0.0).sum()])
-        bits = h.view(torch.int32).to(torch.int64) & _ALL
-        keys = torch.where(bits >= _SIGN, bits ^ _ALL, bits ^ _SIGN)
-        # Pad sentinels: above every key for the min, below every key for the max.
-        ends = torch.stack([torch.where(m, keys, _ALL + 1).min(),
-                            torch.where(m, keys, -1).max()])
-        partials.append((sums.double(), ends))
+    mesh, dp = runtime.mesh, runtime.axis_size("dp")
+    # Row i: dp slice i's (s_hi, s_lo, key_min, key_max), exact in f64 (the
+    # keys are below 2^33), computed by the process holding slice i.
+    rows = torch.zeros(dp, 4, dtype=torch.float64)
+    for i, parts in enumerate(zip(*(np.split(x, dp) for x in (hi, lo, real)))):
+        if mesh.is_local(dp=i):
+            rows[i] = _slice_stats(*(torch.from_numpy(p).to(mesh.device_at(dp=i))
+                                     for p in parts))
+    if mesh.spans_processes:
+        from agent_tpu_torch.runtime.distributed import all_gather_tensor
+
+        every = all_gather_tensor(rows)
+        rows = torch.stack([every[mesh.owner_at(dp=i)][i] for i in range(dp)])
     s_hi = s_lo = 0.0
     k_mn, k_mx = _ALL + 1, -1
-    for sums, ends in partials:
-        (h, l), (mn, mx) = sums.tolist(), ends.tolist()
+    for h, l, mn, mx in rows.tolist():  # in dp order, as every process sums them
         s_hi, s_lo = s_hi + h, s_lo + l
-        k_mn, k_mx = min(k_mn, mn), max(k_mx, mx)
+        k_mn, k_mx = min(k_mn, int(mn)), max(k_mx, int(mx))
     total = s_hi + s_lo
     return {"count": n, "sum": total, "mean": total / n,
             "min": _key_to_f32(k_mn), "max": _key_to_f32(k_mx)}
+
+
+def _slice_stats(h: torch.Tensor, l: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """One dp slice's (s_hi, s_lo, key_min, key_max) in f64, on the host."""
+    sums = torch.stack([torch.where(m, h, 0.0).sum(), torch.where(m, l, 0.0).sum()])
+    bits = h.view(torch.int32).to(torch.int64) & _ALL
+    keys = torch.where(bits >= _SIGN, bits ^ _ALL, bits ^ _SIGN)
+    # Pad sentinels: above every key for the min, below every key for the max.
+    ends = torch.stack([torch.where(m, keys, _ALL + 1).min(), torch.where(m, keys, -1).max()])
+    return torch.cat([sums.double(), ends.double()]).cpu()
 
 
 def _key_to_f32(key: int) -> float:

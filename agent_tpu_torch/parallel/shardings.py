@@ -308,22 +308,32 @@ def shard_flat(flat: Dict[str, Any], specs: Specs,
             for c in positions(mesh_shape)]
 
 
+def _is_tensor(x: Any) -> bool:
+    return type(x).__module__.startswith("torch")
+
+
 def gather_flat(piece_at: Callable[[Dict[str, int]], Dict[str, Any]], specs: Specs,
                 mesh_shape: Dict[str, int]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`shard_flat`: ``piece_at(coords)`` gives the
     dict a mesh position holds (``coords`` names only the axes of the
     leaf's split dims; every other axis is at 0), and each leaf of
-    ``specs`` is the concatenation of its pieces along its split dims."""
+    ``specs`` is the concatenation of its pieces along its split dims (a
+    tensor of torch tensors, a numpy array of anything else)."""
     out: Dict[str, np.ndarray] = {}
     for key, spec in specs.items():
         def build(dim: int, coords: Dict[str, int]):
             if dim == len(spec):
-                return np.asarray(piece_at(coords)[key])
+                piece = piece_at(coords)[key]
+                return piece if _is_tensor(piece) else np.asarray(piece)
             axis = spec[dim]
             if axis is None or mesh_shape.get(axis, 1) == 1:
                 return build(dim + 1, coords)
-            return np.concatenate([build(dim + 1, {**coords, axis: c})
-                                   for c in range(mesh_shape[axis])], axis=dim)
+            parts = [build(dim + 1, {**coords, axis: c}) for c in range(mesh_shape[axis])]
+            if _is_tensor(parts[0]):
+                import torch
+
+                return torch.cat(parts, dim=dim)
+            return np.concatenate(parts, axis=dim)
 
         out[key] = build(0, {})
     return out

@@ -17,6 +17,11 @@ exactly as the reference does (``dp`` absorbs what the other axes leave).
 owns the whole mesh, as one ``TpuRuntime`` does in the reference: blocks
 move between its devices by ``Tensor.to`` inside that process, where the
 reference's ``ppermute`` moves them inside one program.
+
+Across processes (``runtime.distributed``) the mesh lists process 0's
+devices, then process 1's, and so on, and ``owners`` says which process
+holds each position; a process runs only its own positions' work
+(``local_positions``).
 """
 
 from __future__ import annotations
@@ -94,10 +99,36 @@ class Mesh:
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    # The process that holds each position (an int ndarray of the devices'
+    # shape), None when this process holds them all; and this process's
+    # index.
+    owners: Optional[np.ndarray] = None
+    process_index: int = 0
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process holds some position of this mesh."""
+        return self.owners is not None and bool((self.owners != self.process_index).any())
+
+    def owner_at(self, **coords: int) -> int:
+        """The process holding the position at ``coords`` (absent axes 0)."""
+        if self.owners is None:
+            return self.process_index
+        return int(self.owners[tuple(coords.get(n, 0) for n in self.axis_names)])
+
+    def is_local(self, **coords: int) -> bool:
+        return self.owner_at(**coords) == self.process_index
+
+    def local_positions(self) -> List[Dict[str, int]]:
+        """The positions this process holds, as axis -> coordinate, in the
+        mesh's (C) order."""
+        grid = np.indices(self.devices.shape).reshape(len(self.axis_names), -1).T
+        out = [dict(zip(self.axis_names, map(int, row))) for row in grid]
+        return [c for c in out if self.is_local(**c)]
 
     @property
     def size(self) -> int:
@@ -126,9 +157,11 @@ def one_device_mesh(device: torch.device) -> "Mesh":
     return build_mesh([device])
 
 
-def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None) -> Mesh:
+def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None,
+               owners: Optional[Sequence[int]] = None, process_index: int = 0) -> Mesh:
     """A :class:`Mesh` over ``devices`` (kept in the order given) with spec
-    ``shape``.
+    ``shape``; ``owners``, one process index a device, when the devices
+    are several processes'.
 
     A device may appear more than once, when the caller lists it so: then
     several shards of the mesh live on one card (or on the CPU), the
@@ -141,4 +174,9 @@ def build_mesh(devices: Sequence, shape: Optional[Dict[str, int]] = None) -> Mes
     spec = MeshSpec.resolve(len(devs), shape)
     grid = np.empty(len(devs), dtype=object)
     grid[:] = devs
-    return Mesh(grid.reshape(spec.sizes), spec.names)
+    held = None
+    if owners is not None:
+        if len(owners) != len(devs):
+            raise ValueError(f"build_mesh: {len(owners)} owners for {len(devs)} devices")
+        held = np.asarray(owners, dtype=np.int64).reshape(spec.sizes)
+    return Mesh(grid.reshape(spec.sizes), spec.names, held, process_index)

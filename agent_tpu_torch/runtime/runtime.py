@@ -23,6 +23,18 @@ The device knobs of ``DeviceConfig`` apply when no device is given:
 ``PALLAS_ATTN=0`` is refused on a CUDA runtime, which has no attention path
 without the hand-written kernels (on the CPU the plain versions always run,
 so it changes nothing there).
+
+Several processes (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``,
+``PROCESS_ID``): the runtime joins the group (``runtime.distributed``)
+before it picks devices, as the reference's does, and exposes ``dist``.
+Each process's own devices are the ones above (its ``CHIP_SLICE``, or the
+first card); the mesh lists process 0's, then process 1's, and so on, with
+``dp`` over all of them unless ``MESH_SHAPE`` says otherwise (on a
+one-card host every process lists ``cuda:0``). ``devices`` are this
+process's. The dp reductions of ``parallel.collectives`` combine across
+processes; a model op on such a mesh raises :meth:`require_local`'s
+``RuntimeError``, as the reference's fetch of a result with pieces on
+other processes' devices does.
 """
 
 from __future__ import annotations
@@ -168,6 +180,18 @@ def _configured_devices(config) -> Optional[List[str]]:
     return [f"cuda:{i}" for i in range(start, start + count)]
 
 
+def _process_mesh(local: List[torch.device], mesh_shape: Optional[Dict[str, int]], info):
+    """The mesh over every process's devices, in process order, each
+    position owned by the process that listed it (``dp`` over all of them
+    without ``mesh_shape``)."""
+    from agent_tpu_torch.runtime.distributed import all_gather_object
+
+    every = all_gather_object([str(d) for d in local])
+    devices = [torch.device(d) for names in every for d in names]
+    owners = [p for p, names in enumerate(every) for _ in names]
+    return build_mesh(devices, mesh_shape, owners=owners, process_index=info.process_index)
+
+
 class TorchRuntime:
     """A device mesh, a forward-function cache and a weights store. Weights
     placed without specs, and batches put whole, live on the mesh's first
@@ -176,17 +200,25 @@ class TorchRuntime:
     def __init__(self, device=None, devices: Optional[Sequence] = None,
                  mesh_shape: Optional[Dict[str, int]] = None, config=None) -> None:
         from agent_tpu_torch.config import DeviceConfig
+        from agent_tpu_torch.runtime.distributed import maybe_initialize
 
         self.config = config or DeviceConfig()
+        # Join first: the devices below depend on this process's place.
+        self.dist = maybe_initialize(self.config.coordinator_address,
+                                     self.config.num_processes, self.config.process_id)
         mesh_shape = mesh_shape or self.config.mesh_shape or None
+        several = self.dist.process_count > 1
         if device is None and devices is None:
             configured = _configured_devices(self.config)
-            if configured is not None and len(configured) == 1 and not mesh_shape:
+            if configured is not None and len(configured) == 1 and (several or not mesh_shape):
                 device = configured[0]
             else:
                 devices = configured
-        self.devices = _mesh_devices(device, devices, mesh_shape)
-        self.mesh = build_mesh(self.devices, mesh_shape)
+        self.devices = _mesh_devices(device, devices, None if several else mesh_shape)
+        if several:
+            self.mesh = _process_mesh(self.devices, mesh_shape, self.dist)
+        else:
+            self.mesh = build_mesh(self.devices, mesh_shape)
         unknown = [n for n in self.mesh.axis_names if n not in PORTED_AXES]
         if unknown:
             raise ValueError(f"TorchRuntime: no path reads mesh axes {unknown}; the "
@@ -206,6 +238,17 @@ class TorchRuntime:
     @property
     def n_devices(self) -> int:
         return len(self.devices)
+
+    def require_local(self, op: str) -> None:
+        """Raise ``RuntimeError`` naming ``op`` when another process holds
+        a position of the mesh: the op's result would have pieces there,
+        and the port, as the reference, cannot fetch them (it neither waits
+        in a collective nor runs the whole batch in this process)."""
+        if self.mesh.spans_processes:
+            raise RuntimeError(
+                f"{op}: the result spans devices of other processes (mesh {self.mesh.shape} "
+                f"over {self.dist.process_count} processes); fetching it is not possible "
+                f"here, as in the reference")
 
     def axis_size(self, name: str) -> int:
         return self.mesh.shape.get(name, 1)
@@ -272,6 +315,7 @@ class TorchRuntime:
         reference's placement does."""
         from agent_tpu_torch.parallel.shardings import placement_specs, splits_weights
 
+        self.require_local(f"model {model_id}")
         use_specs = specs is not None and splits_weights(self.mesh.shape)
 
         def put() -> Any:
@@ -325,6 +369,8 @@ class TorchRuntime:
             "device": str(self.device),
             "mesh": self.mesh.shape,
             "mesh_devices": [str(d) for d in self.devices],
+            "process_index": self.dist.process_index,
+            "process_count": self.dist.process_count,
             # The fleet's default quant mode (TPU_QUANT); each task resolves
             # its own (ops._model_common.resolve_quant).
             "quant_default": self.config.quant or "none",

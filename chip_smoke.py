@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # one card
     python3 chip_smoke.py --cards 4    # phases 1, 2, the ring and meshes over 4 cards
-                                       # (the encoder's and the decoders')
+                                       # (the encoder's and the decoders'), and
+                                       # phase 18 (a), (b) with one process a card
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -314,6 +315,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               tp 2 then summarize_decode on dp 2 × tp 2 (f32): the
               one-device split's summaries. Neither the unsharded nor the
               dense-T5 counter may move.
+18. processes — several processes on the card. (a) Two processes of
+              `python -m agent_tpu_torch.agent.app` joined by
+              COORDINATOR_ADDRESS on a free local port (runtime/distributed.py:
+              gloo on host tensors), both on cuda:0 (under --cards N, N of
+              them, one a card): the leader drains 3 echo, 1 map_tokenize and a
+              risk_accumulate of 1,048,576 values from the seed over the
+              cross-process dp 2 mesh from the stand-in; the sum within n ·
+              2⁻²⁴ Σ|v| of math.fsum and bit-equal to one process's dp 2 mesh,
+              min and max the f32 rounding of the exact extremes, the
+              follower's tasks_done 5, both exit 0 once the leader has SIGTERM
+              (a process alive at the deadline fails); a planted follower that
+              drops an echo must fail the check. Each task's stage span (the
+              broadcast) is printed. (b) spawn_fleet(device_count(),
+              platform="cuda"): each member warmed on one BERT-base request
+              (AGENT_WARM_FILE), ready by wait_for_agents over the stand-in's
+              GET /v1/status, drains phase 10's 65,536-row CSV; results equal
+              to phase 10's serial run bit for bit, each member's row-1 launch
+              counter (its pushed kernel_launches gauge) moved; rows/s beside
+              phase 10's. Run after phase 10's entry point. (c) After phase
+              16: its tp 2 BERT-base encoder (phase 14's draw) saved with
+              models/checkpoint.save_sharded, restored over zeroed weights
+              onto tp 2, dp 2 × tp 2 and one device, each serving phase 4's
+              256-row request: on tp 2 every leaf and probability bitwise the
+              saved model's (a leaf nudged one ulp must fail), elsewhere within
+              MESH_PROB_TOL; bytes written, save and load ms.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -329,7 +355,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               kernel's one more at T5-large's tp 2 shard (B 64, H 8, L 512,
               D 64); the launches by path of rows 1-3 include phase 17's
               paths, each counted where it launched; the fold's include
-              phase 11's ring and phase 16's.
+              phase 11's ring and phase 16's; row 1's phase 18's fleet members
+              (from their metrics) and restored checkpoints.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last line
 is {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
@@ -345,6 +372,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2144,9 +2172,15 @@ class StandInController:
       tests/test_torch_wire.py); ``released`` puts the job back. The body's
       ``spans`` are collected whether or not the result is accepted.
 
+    - ``GET /v1/status``: ``{"agents": {name: {polls, last_seen}}}``, every
+      agent that has polled (the reference's ``agents_summary``, which
+      ``agent/fleet.wait_for_agents`` reads).
+
     Each job's trace holds the stand-in's own ``submit`` root and one
     ``lease`` span per lease, closed by the result. Every post is counted
-    per job, so a shard reported twice shows."""
+    per job, so a shard reported twice shows; each job records the agent
+    that leased it. ``agent_cap`` caps the tasks an agent holds leased at
+    once (a fleet's members then share the shards)."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -2159,10 +2193,22 @@ class StandInController:
         self.spans_shipped = 0  # spans the agents sent
         self.captures: list = []  # profile_captures completion records
         self.agent_obs: dict = {}  # agent name -> its last obs snapshot
+        self.agents: dict = {}  # agent name -> {polls, last_seen}
+        self.agent_cap = None  # at most this many leased tasks an agent (None: no cap)
         self._alerts: list = []  # alert lists for the next granted leases
         ctrl = self
 
         class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — http.server's name
+                with ctrl.lock:
+                    out = {"agents": {k: dict(v) for k, v in ctrl.agents.items()}} \
+                        if self.path == "/v1/status" else {"error": "no such route"}
+                data = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
             def do_POST(self):  # noqa: N802 — http.server's name
                 body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
                 if self.path == "/v1/leases":
@@ -2254,9 +2300,17 @@ class StandInController:
             self.captures += metrics.get("profile_captures") or []
             if body.get("agent") and "obs" in metrics:
                 self.agent_obs[body["agent"]] = metrics["obs"]
+            if body.get("agent"):
+                seen = self.agents.setdefault(body["agent"], {"polls": 0})
+                seen.update(polls=seen["polls"] + 1, last_seen=time.time())
             picked = [j for j, job in self.jobs.items()
                       if job["state"] == "pending" and job["op"] in ops]
-            picked = picked[:int(body.get("max_tasks") or 0)]
+            room = int(body.get("max_tasks") or 0)
+            if self.agent_cap is not None:
+                held = sum(1 for job in self.jobs.values()
+                           if job["state"] == "leased" and job.get("agent") == body.get("agent"))
+                room = min(room, self.agent_cap - held)
+            picked = picked[:max(room, 0)]
             if not picked:
                 return None
             self._n += 1
@@ -2265,7 +2319,8 @@ class StandInController:
             for j in picked:
                 job = self.jobs[j]
                 job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id,
-                           lease_span=self._open_span(j, "lease", job["root"]))
+                           lease_span=self._open_span(j, "lease", job["root"]),
+                           agent=body.get("agent"))
                 tasks.append({"id": j, "op": job["op"], "payload": job["payload"],
                               "job_epoch": job["epoch"], "attempt": job["epoch"],
                               "trace": {"trace_id": j, "span_id": job["lease_span"]}})
@@ -2518,6 +2573,7 @@ def drain_phase(fa, rt, path: str) -> dict:
         report["telemetry"] = telemetry_phase(fa, rt, ctrl, shards, serial, staged)
         if ctrl.stale:
             raise SystemExit(f"{ctrl.stale} results came with a stale epoch or lease")
+    report["serial_results"] = serial  # phase 18's fleet is held to them
     return report
 
 
@@ -5264,6 +5320,341 @@ def decoder_cards_phase(fa, n: int) -> None:
         raise SystemExit(f"a decoder over {n} cards disagrees: {report}")
 
 
+# ---- phase 18: several processes on the card ----
+
+PROC_ECHOS = 3
+PROC_RISK_VALUES = 1 << 20
+PROC_TASKS = "echo,map_tokenize,risk_accumulate,map_classify_tpu"  # a device op: a runtime
+PROC_DEADLINE_S = 240  # a process group's start, drain and exit
+FLEET_DEADLINE_S = 420  # the fleet's start and warm-up, and its drain
+FLEET_TASKS = "map_classify_tpu"
+FLEET_PLATFORM = "cuda"  # each member pinned to its card (CUDA_VISIBLE_DEVICES)
+CKPT_LAYOUTS = {"tp2": {"tp": 2}, "dp2_tp2": {"dp": 2, "tp": 2}, "one_device": None}
+# The planted follower: it drops the first echo it receives, then goes on.
+SKIPPING_FOLLOWER = """
+import sys
+from agent_tpu_torch.agent import app
+from agent_tpu_torch.runtime import distributed
+real, dropped = distributed.broadcast_task, []
+
+def skipping(task, source=0):
+    got = real(task, source)
+    if not dropped and isinstance(got, dict) and got.get("op") == "echo":
+        dropped.append(got)
+        return real(task, source)
+    return got
+
+distributed.broadcast_task = skipping
+sys.exit(app.main())
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def repo_env(**extra) -> dict:
+    """This process's environment with the checkout first on PYTHONPATH."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=root + (os.pathsep + path if path else ""), **extra)
+
+
+def stop_all(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_all(procs: list, deadline: float) -> list:
+    """The processes' return codes; fails, after killing them all, when
+    one is still alive at ``deadline`` (time.monotonic)."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        stop_all(procs)
+        raise SystemExit("a process outlived its deadline")
+    return [p.returncode for p in procs]
+
+
+def follower_tasks(log: str) -> list:
+    """The ``tasks_done`` of each ``follower drained`` line of an agent log."""
+    return [json.loads(ln.split("follower drained ", 1)[1])["tasks_done"]
+            for ln in log.splitlines() if "follower drained " in ln]
+
+
+def leader_followers(n: int, ctrl, tasks: str, tmp: str, cards: int = 0,
+                     follower_code: str = "") -> dict:
+    """``n`` processes of ``python -m agent_tpu_torch.agent.app`` joined on a
+    free local port (``COORDINATOR_ADDRESS``), process 0 leasing from
+    ``ctrl``: all on the first card, or with ``cards`` one a card
+    (``CHIP_SLICE``); a follower runs ``follower_code`` when given. Once the
+    stand-in has every result the leader gets SIGTERM (a clean exit, whose
+    shutdown broadcast ends the followers) -> return codes, each
+    follower's tasks_done, the wall seconds and the logs' tails."""
+    port, procs, logs = free_port(), [], []
+    t0 = time.monotonic()
+    deadline = t0 + PROC_DEADLINE_S
+    try:
+        for i in range(n):
+            env = repo_env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES=str(n),
+                           PROCESS_ID=str(i), TASKS=tasks, CONTROLLER_URL=ctrl.url,
+                           AGENT_NAME=f"chip-smoke-procs-{i}", IDLE_SLEEP_SEC="0.01")
+            env.pop("CHIP_SLICE", None)
+            if cards:
+                env["CHIP_SLICE"] = f"{i}:1"
+            logs.append(os.path.join(tmp, f"procs-{port}-{i}.log"))
+            cmd = [sys.executable, "-c", follower_code] if i and follower_code else \
+                [sys.executable, "-m", "agent_tpu_torch.agent.app"]
+            with open(logs[-1], "w") as out:
+                procs.append(subprocess.Popen(cmd, env=env, stdout=out,
+                                              stderr=subprocess.STDOUT))
+        while not ctrl.drained():
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+                stop_all(procs)
+                tails = [open(f).read()[-2000:] for f in logs]
+                raise SystemExit(f"the processes did not drain the stand-in: {tails}")
+            time.sleep(0.02)
+        drained_s = time.monotonic() - t0
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = wait_all(procs, deadline)
+    finally:
+        stop_all(procs)
+    texts = [open(f).read() for f in logs]
+    return {"rcs": rcs, "follower_tasks_done": [follower_tasks(t) for t in texts[1:]],
+            "drained_s": drained_s, "exit_s": time.monotonic() - t0 - drained_s,
+            "tails": [t[-1500:] for t in texts]}
+
+
+def procs_ok(run: dict, want_tasks: int) -> bool:
+    """Every process exited 0 and every follower ran each of the tasks."""
+    return all(rc == 0 for rc in run["rcs"]) and \
+        all(done == [want_tasks] for done in run["follower_tasks_done"])
+
+
+def stage_ms(ctrl, job_id: str) -> float:
+    """The leader's ``stage`` span of a job: resolving and broadcasting the
+    task before its op ran."""
+    (span,) = [s for s in ctrl.trace(job_id) if s["name"] == "stage"]
+    return span["duration_ms"]
+
+
+def procs_phase(n: int, tmp: str, cards: int = 0) -> dict:
+    """Phase 18 (a): the leader and its followers (see the module
+    docstring), then the planted follower that skips a task."""
+    from agent_tpu_torch.parallel.collectives import mesh_reduce_stats
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    rng = np.random.default_rng(SEED + 18)
+    values = (rng.standard_normal(PROC_RISK_VALUES) * 1e3).tolist()
+    values[:3] = [1.4e-45, -3e-39, 5e-40]
+    with StandInController() as ctrl:
+        ids = [ctrl.submit("echo", {"i": i}) for i in range(PROC_ECHOS)]
+        ids.append(ctrl.submit("map_tokenize", {"text": "several processes, one lease loop"}))
+        ids.append(ctrl.submit("risk_accumulate", {"values": values}))
+        run = leader_followers(n, ctrl, PROC_TASKS, tmp, cards)
+        jobs = ctrl.outcome(ids)
+        stage = {f"{ctrl.jobs[j]['op']}_{j}": stage_ms(ctrl, j) for j in ids}
+    risk = jobs[-1]["result"]
+    one = mesh_reduce_stats(TorchRuntime(
+        devices=[f"cuda:{i}" for i in range(n)] if cards else [CARD] * n,
+        mesh_shape={"dp": n}), values)
+    bound = PROC_RISK_VALUES * 2.0 ** -24 * math.fsum(abs(v) for v in values)
+    exact = math.fsum(values)
+    risk_ok = (risk.get("device") == "mesh" and risk["count"] == PROC_RISK_VALUES
+               and risk["min"] == float(np.float32(min(values)))
+               and risk["max"] == float(np.float32(max(values)))
+               and abs(risk["sum"] - exact) <= bound
+               and all(risk[k] == one[k] for k in ("count", "sum", "min", "max")))
+    echoes = [j["result"].get("echo") for j in jobs[:PROC_ECHOS]]
+    ok = procs_ok(run, len(ids)) and risk_ok and echoes == [{"i": i} for i in range(PROC_ECHOS)]
+    # The planted fault: a follower that drops a task must fail the check.
+    with StandInController() as ctrl:
+        planted_ids = [ctrl.submit("echo", {"i": i}) for i in range(PROC_ECHOS)]
+        planted_ids.append(ctrl.submit("map_tokenize", {"text": "a dropped task"}))
+        planted = leader_followers(2, ctrl, "echo,map_tokenize", tmp,
+                                   follower_code=SKIPPING_FOLLOWER)
+        ctrl.outcome(planted_ids)
+    planted_caught = not procs_ok(planted, len(planted_ids))
+    report = {"processes": n, "cards": cards or 1, "rcs": run["rcs"],
+              "follower_tasks_done": run["follower_tasks_done"], "drained_s": run["drained_s"],
+              "exit_s": run["exit_s"], "stage_ms_by_task": stage,
+              "stage_ms_p50_small_tasks": statistics.median(list(stage.values())[:-1]),
+              "risk": {k: risk[k] for k in ("count", "sum", "min", "max", "device")},
+              "risk_vs_one_process_dp": {k: one[k] for k in ("sum", "min", "max")},
+              "risk_sum_vs_fsum": {"diff": abs(risk["sum"] - exact), "bound": bound},
+              "planted_skip": {"rcs": planted["rcs"],
+                               "follower_tasks_done": planted["follower_tasks_done"],
+                               "caught": planted_caught}}
+    if not ok or not planted_caught:
+        raise SystemExit(f"phase 18 (a) failed: {report}, {run['tails']}")
+    return report
+
+
+def fleet_launches(ctrl, name: str) -> float:
+    """A member's row-1 launch counter, from its last pushed metrics."""
+    got = obs_values(ctrl.agent_obs.get(name), "kernel_launches", kernel="flash_attention")
+    return got[0] if got else 0.0
+
+
+def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
+                drain_rows_per_s: float, tmp: str) -> dict:
+    """Phase 18 (b): ``n`` device-pinned members (``spawn_fleet``, one card
+    each) warmed on one BERT-base request, drain phase 10's 65,536-row CSV
+    after ``wait_for_agents``; the results equal the serial op's, and every
+    member's row-1 counter moved over the drain."""
+    from agent_tpu_torch.agent import fleet
+    from agent_tpu_torch.agent.fleet_cli import http_agents
+
+    _, _, shards, _ = drain_payloads(path)
+    warm = os.path.join(tmp, "warm.json")
+    with open(warm, "w") as fh:
+        json.dump([{"op": "map_classify_tpu", "payload": {
+            "texts": random_texts(random.Random(SEED + 18), 8, 20, 200),
+            "model_config": BERT_BASE, "topk": 5, "allow_fallback": False}}], fh)
+    with StandInController() as ctrl:
+        ctrl.agent_cap = 1 if n > 1 else None
+        t0 = time.monotonic()
+        handle = fleet.spawn_fleet(n, platform=FLEET_PLATFORM, controller_url=ctrl.url,
+                                   tasks=FLEET_TASKS, warm_file=warm,
+                                   extra_env={"IDLE_SLEEP_SEC": "0.01"},
+                                   log_dir=os.path.join(tmp, "fleet"))
+        try:
+            if not fleet.wait_for_agents(lambda: http_agents(ctrl.url), handle.names,
+                                         timeout=FLEET_DEADLINE_S, fleet=handle):
+                raise SystemExit(f"the fleet did not come up: {handle.poll_failures()}")
+            ready_s = time.monotonic() - t0
+            before = {m: fleet_launches(ctrl, m) for m in handle.names}
+            t1 = time.monotonic()
+            ids = [ctrl.submit("map_classify_tpu", p) for p in shards]
+            while not ctrl.drained():
+                if time.monotonic() - t1 > FLEET_DEADLINE_S or handle.poll_failures():
+                    raise SystemExit(f"the fleet did not drain: {handle.poll_failures()}")
+                time.sleep(0.005)
+            wall = time.monotonic() - t1
+            jobs = ctrl.outcome(ids)
+            polls = {m: ctrl.agents[m]["polls"] for m in handle.names}
+            while any(ctrl.agents[m]["polls"] < polls[m] + 2 for m in handle.names):
+                if time.monotonic() - t1 > FLEET_DEADLINE_S or handle.poll_failures():
+                    raise SystemExit("a fleet member stopped polling")
+                time.sleep(0.01)  # a metrics push from each member after the drain
+            after = {m: fleet_launches(ctrl, m) for m in handle.names}
+        finally:
+            handle.stop(timeout=60.0)
+    rcs = [p.returncode for p in handle.procs]
+    by_member = {m: sum(1 for j in jobs if j["agent"] == m) for m in handle.names}
+    same = all(j["result"]["indices"] == want["indices"]
+               and j["result"]["scores"] == want["scores"] for j, want in zip(jobs, serial))
+    report = {"members": n, "names": handle.names, "ready_s": ready_s, "wall_s": wall,
+              "rows": DRAIN_ROWS, "rows_per_s": DRAIN_ROWS / wall,
+              "phase10_serial_rows_per_s": serial_rows_per_s,
+              "phase10_drain_rows_per_s": drain_rows_per_s,
+              "shards_by_member": by_member,
+              "row1_launches_by_member": {m: after[m] - before[m] for m in handle.names},
+              "row1_launches_total": {m: after[m] for m in handle.names},
+              "equal_to_serial": same, "rcs": rcs}
+    if not same or any(rcs) or any(after[m] <= before[m] for m in handle.names) \
+            or any(not j["b1"] for j in jobs):
+        raise SystemExit(f"phase 18 (b) failed: {report}")
+    return report
+
+
+def leaves_equal(a, b) -> bool:
+    """Every leaf of two sharded models bitwise equal, shard by shard."""
+    from agent_tpu_torch.parallel.shardings import positions
+
+    for c in positions(dict(a.mesh.shape)):
+        ha, hb = (m.held(c["dp"], c["tp"], c.get("ep", 0)) for m in (a, b))
+        if ha.keys() != hb.keys() or not all(torch.equal(ha[k], hb[k]) for k in ha):
+            return False
+    return True
+
+
+def checkpoint_phase(fa, classify, texts: list, tmp: str) -> dict:
+    """Phase 18 (c): phase 16's BERT-base encoder on tp 2 (phase 14's draw)
+    saved with ``save_sharded``, restored over zeroed weights onto tp 2,
+    dp 2 x tp 2 and one device, each serving the 256-row request: on tp 2
+    every leaf and every probability bitwise the saved model's, elsewhere
+    within MESH_PROB_TOL; a restored leaf nudged by one ulp must fail."""
+    from agent_tpu_torch.models import checkpoint, encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    dense, conf = SEEDED["dense"], dict(BERT_BASE)
+    cfg = encoder.EncoderConfig(**conf)
+    payload = dict(texts=texts, model_config=conf, topk=5, allow_fallback=False)
+    zeros = {k: np.zeros_like(v) for k, v in dense.items()}
+
+    def placed(shape, flat):
+        rt = mesh_runtime(shape) if shape else TorchRuntime(device=CARD)
+        if not shape:
+            place_seeded(rt, {"one": conf}, flat)
+        return rt, classify_op._get_model(rt, classify_op.DEFAULT_MODEL_ID, cfg, "encoder",
+                                          host=lambda: flat)
+
+    def serve(rt, shape, tally):
+        n = conf["n_layers"] * (shape or {}).get("dp", 1) * (shape or {}).get("tp", 1)
+        out = launch_delta(fa, lambda: classify(dict(payload), OpContext(runtime=rt)),
+                           {"flash_attention": n}, tally)
+        check_result(out, len(texts), 5)
+        return out
+
+    launches: dict = {}
+    src_rt, src = placed({"tp": 2}, dense)
+    want = serve(src_rt, {"tp": 2}, {})
+    path = os.path.join(tmp, "bert_base_tp2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_sharded(src, path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    files = {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+    report = {"saved_from": {"tp": 2}, "save_ms": save_ms, "files": files,
+              "bytes_written": sum(files.values()), "restored": {}}
+    bad = []
+    for name, shape in CKPT_LAYOUTS.items():
+        rt, like = placed(shape, zeros)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.load_sharded(path, like)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        launches[name] = {}
+        out = serve(rt, shape, launches[name])
+        entry = {"load_ms": load_ms, "row1_launches": launches[name].get("flash_attention", 0)}
+        if name == "tp2":
+            entry["leaves_bitwise"] = leaves_equal(like, src)
+            entry["probabilities_bitwise"] = out["results"] == want["results"]
+            wq = like.held(0, 1)["blocks.0.attn.wq"]
+            keep = wq.view(-1)[0].clone()
+            wq.view(-1)[0] = torch.nextafter(keep, torch.tensor(float("inf"), dtype=keep.dtype,
+                                                                 device=keep.device))
+            entry["planted_one_ulp_caught"] = not leaves_equal(like, src)
+            wq.view(-1)[0] = keep
+            if not (entry["leaves_bitwise"] and entry["probabilities_bitwise"]
+                    and entry["planted_one_ulp_caught"]):
+                bad.append(name)
+        else:
+            entry["vs_saved"] = dict(mesh_agreement(out, want, MESH_PROB_TOL),
+                                     tolerance=MESH_PROB_TOL)
+            if not entry["vs_saved"]["ok"]:
+                bad.append(name)
+        report["restored"][name] = entry
+        rt.clear_params()
+    src_rt.clear_params()
+    shutil.rmtree(path, ignore_errors=True)
+    report["launches"] = launches
+    if bad:
+        raise SystemExit(f"phase 18 (c): restores that disagree: {bad}, {report}")
+    return report
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -5405,6 +5796,14 @@ def main(argv=None) -> int:
         ring_cards_phase(fa, classify, cards, long_payload, k)
         mesh_cards_phase(fa, classify, cards)
         decoder_cards_phase(fa, cards)
+        with tempfile.TemporaryDirectory() as tmp:  # 18 (a), (b): one process a card
+            path = os.path.join(tmp, "drain.csv")
+            write_drain_csv(path)
+            serial, serial_wall = serial_shards(classify, TorchRuntime(),
+                                                drain_payloads(path)[2])
+            emit({"phase": "processes", "leader_follower": procs_phase(cards, tmp, cards),
+                  "fleet": fleet_phase(cards, path, serial, DRAIN_ROWS / serial_wall, None,
+                                       tmp)})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
@@ -5567,6 +5966,16 @@ def main(argv=None) -> int:
     rt.clear_params()
     entry_point_phase(drain_csv)
 
+    # 18 (a), (b): several processes on the card — the leader and its
+    # follower, then the device-pinned fleet on phase 10's CSV
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = procs_phase(2, tmp)
+        fleet_run = fleet_phase(torch.cuda.device_count(), drain_csv, drain.pop("serial_results"),
+                                drain["serial_rows_per_s"], drain["rows_per_s"], tmp)
+    emit({"phase": "processes", "leader_follower": procs, "fleet": fleet_run,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
     # 11. a BERT checkpoint through map_classify_tpu
     t0 = time.perf_counter()
     write_hf_checkpoint(bert_ckpt, BERT_BASE_UNCASED,
@@ -5599,6 +6008,13 @@ def main(argv=None) -> int:
     # 11's checkpoint)
     meshes = mesh_phase(fa, smi, requests[2][1]["texts"], bert_reqs[0][1], long_payload,
                         (train_state, take), train_step_ms)
+
+    # 18 (c): the sharded checkpoint of phase 16's tp 2 model
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_run = checkpoint_phase(fa, classify, requests[2][1]["texts"], tmp)
+    emit({"phase": "sharded_checkpoint", **ckpt_run, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
     SEEDED.clear()
 
     # 17. the decoder families on dp and tp meshes on the one card (phases 9
@@ -5647,7 +6063,11 @@ def main(argv=None) -> int:
                           **{f"map_classify_tpu_mesh_{name}": r["row1_launches_total"]
                              for name, r in meshes["serving"].items()
                              if "vs_one_device" in r},
-                          **launches_of(dec, "flash_attention")},
+                          **launches_of(dec, "flash_attention"),
+                          "map_classify_tpu_fleet_members":
+                              sum(fleet_run["row1_launches_by_member"].values()),
+                          **{f"map_classify_tpu_ckpt_{name}": r["row1_launches"]
+                             for name, r in ckpt_run["restored"].items()}},
         at_bart_encoder_shape=shape_entry(fa, kernel_check, "inputs_bart", bart_run["launches"]),
         at_serving_prefill_shape=shape_entry(fa, kernel_check, "inputs_serving",
                                              serving["stream_prefill_launches"]),

@@ -992,6 +992,9 @@ class Agent:
             leased = self.lease_once()
         except RuntimeError as exc:
             self.rate.log("lease", str(exc))
+            # A controller outage must not outlast the followers' group
+            # timeout: the leader waits here as it does on an empty lease.
+            self._keepalive()
             time.sleep(self._lease_retry.next_backoff())
             return False
         self._lease_retry.reset()

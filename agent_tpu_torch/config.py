@@ -14,9 +14,13 @@ front-door fields as plain data; ``DeviceConfig`` the device knobs
 ``MESH_SHAPE``, ``PROFILE_DIR``, ``PROFILE_TASKS``). ``FLIGHT_RECORDER_DIR``,
 ``PROFILE_CAPTURE_DIR``, ``TRACE_ENABLED`` and ``PEAK_TFLOPS`` are read
 where the reference reads them: in ``obs.recorder``, the agent's capture,
-``obs.trace`` and ``obs.health``. Not here: the partition map
-(``CONTROLLER_PARTITION_MAP``) and the multi-host knobs, which wait for
-the control plane and several processes.
+``obs.trace`` and ``obs.health``. The control plane's knobs follow, each
+built by its own ``from_env()``: ``JournalConfig`` (``JOURNAL_*``,
+``SNAPSHOT_*``), ``SchedConfig`` (``SCHED_*``), ``SloConfig``
+(``SLO_*``), ``ObsConfig`` (``USAGE_*``, ``TSDB_*``, ``ANOMALY_*``,
+``INCIDENT_*``, ``PROFILE_*``) and ``FlowConfig`` (``FLOW_*``,
+``CACHE_*``). Not here: the partition map (``CONTROLLER_PARTITION_MAP``),
+which waits for the partitioned control plane.
 """
 
 from __future__ import annotations
@@ -306,6 +310,302 @@ class DeviceConfig:
                             coordinator_address=os.environ.get("COORDINATOR_ADDRESS") or None,
                             num_processes=env_int("NUM_PROCESSES", 0) or None,
                             process_id=process_id if process_id >= 0 else None)
+
+
+@dataclass(frozen=True)
+class JournalConfig:
+    """Controller journal durability knobs.
+
+    Everything defaults to the historical behavior: one append-only JSONL
+    file at ``CONTROLLER_JOURNAL``, flushed but never fsynced, never
+    rotated. Setting any segmentation/snapshot knob switches the journal
+    to bounded ``<path>.seg-NNNNNNNN`` segments with periodic atomic
+    ``<path>.snapshot`` images, after which replay cost is O(live state +
+    uncovered tail) instead of O(history) and covered segments are
+    garbage-collected."""
+
+    # Rotate the active segment past this size / event count (0 = never —
+    # the legacy single-file journal).
+    segment_max_bytes: int = 0            # JOURNAL_SEGMENT_MAX_BYTES
+    segment_max_events: int = 0           # JOURNAL_SEGMENT_MAX_EVENTS
+    # Take a compacting snapshot every N journal appends (0 = never).
+    # Implies segmentation (default 4 MiB segments when no bound is set).
+    snapshot_every_events: int = 0        # SNAPSHOT_EVERY_EVENTS
+    # Terminal-job retention in snapshots: 0 = keep every terminal job
+    # forever (full restart fidelity, unbounded snapshot growth); N =
+    # snapshots keep only the N most recent *droppable* terminal jobs
+    # (jobs a non-terminal job depends on are never dropped). A restart
+    # then forgets older completed jobs: late duplicate results for them
+    # reject as `unknown job` instead of `already complete` — the same
+    # at-most-once outcome — and this is what makes restart cost O(live
+    # state) instead of O(every job ever submitted).
+    snapshot_retain_terminal: int = 0     # SNAPSHOT_RETAIN_TERMINAL
+    # fdatasync journal appends: off by default — the journal protects
+    # against process death (flushed OS buffers survive SIGKILL), not
+    # kernel/power loss; turning this on buys the latter at per-append
+    # syscall cost. fsync_every=N batches the sync (group commit).
+    fsync: bool = False                   # JOURNAL_FSYNC
+    fsync_every: int = 1                  # JOURNAL_FSYNC_EVERY
+
+    @staticmethod
+    def from_env() -> "JournalConfig":
+        return JournalConfig(
+            segment_max_bytes=max(
+                0, env_int("JOURNAL_SEGMENT_MAX_BYTES", 0)
+            ),
+            segment_max_events=max(
+                0, env_int("JOURNAL_SEGMENT_MAX_EVENTS", 0)
+            ),
+            snapshot_every_events=max(
+                0, env_int("SNAPSHOT_EVERY_EVENTS", 0)
+            ),
+            snapshot_retain_terminal=max(
+                0, env_int("SNAPSHOT_RETAIN_TERMINAL", 0)
+            ),
+            fsync=env_bool("JOURNAL_FSYNC", False),
+            fsync_every=max(1, env_int("JOURNAL_FSYNC_EVERY", 1)),
+        )
+
+
+@dataclass(frozen=True)
+class SchedConfig:
+    """Controller scheduler knobs.
+
+    ``policy="fifo"`` (the default) is bit-compatible with the
+    pre-scheduler controller: priority/tenant fields are accepted and
+    recorded but dispatch order is pure arrival order and admission is
+    unbounded unless a budget is set. ``policy="fair"`` enables priority
+    tiers + weighted tenant fair-share + load-aware placement
+    (``agent_tpu/sched/fair.py``).
+    """
+
+    policy: str = "fifo"                 # SCHED_POLICY: fifo | fair
+    # Default priority for submits that don't carry one (0–9, 9 = urgent).
+    default_priority: int = 4            # SCHED_DEFAULT_PRIORITY
+    # Admission control: pending-queue budgets; 0 = unbounded. Submits past
+    # a bound get HTTP 429 + retry_after_ms (transient per utils/retry.py).
+    max_pending: int = 0                 # SCHED_MAX_PENDING (global)
+    max_pending_per_tenant: int = 0      # SCHED_MAX_PENDING_PER_TENANT
+    retry_after_ms: int = 1000           # SCHED_RETRY_AFTER_MS (429 hint)
+    # Fair-share weights, "tenantA=3,tenantB=1" (absent tenants weigh 1).
+    tenant_weights: Dict[str, float] = field(default_factory=dict)
+    # Placement: how many leases a preferred-elsewhere job may be deferred
+    # before any capable agent takes it (0 = placement is advisory only).
+    placement_patience: int = 3          # SCHED_PLACEMENT_PATIENCE
+    # Staged-queue depth beyond which an agent counts as busy: bulk shards
+    # defer and grants shrink by the excess.
+    busy_queue_depth: int = 2            # SCHED_BUSY_QUEUE_DEPTH
+    # Deadline escalation: once this fraction of deadline_sec has elapsed a
+    # still-pending job is bumped one priority tier (once).
+    escalate_frac: float = 0.75          # SCHED_ESCALATE_FRAC
+
+    @staticmethod
+    def from_env() -> "SchedConfig":
+        weights: Dict[str, float] = {}
+        for k, v in parse_labels(
+            os.environ.get("SCHED_TENANT_WEIGHTS", "")
+        ).items():
+            try:
+                weights[k] = float(v)
+            except (TypeError, ValueError):
+                pass
+        return SchedConfig(
+            policy=env_str("SCHED_POLICY", "fifo").strip().lower(),
+            default_priority=min(
+                9, max(0, env_int("SCHED_DEFAULT_PRIORITY", 4))
+            ),
+            max_pending=max(0, env_int("SCHED_MAX_PENDING", 0)),
+            max_pending_per_tenant=max(
+                0, env_int("SCHED_MAX_PENDING_PER_TENANT", 0)
+            ),
+            retry_after_ms=max(0, env_int("SCHED_RETRY_AFTER_MS", 1000)),
+            tenant_weights=weights,
+            placement_patience=max(0, env_int("SCHED_PLACEMENT_PATIENCE", 3)),
+            busy_queue_depth=max(0, env_int("SCHED_BUSY_QUEUE_DEPTH", 2)),
+            escalate_frac=min(
+                1.0, max(0.0, env_float("SCHED_ESCALATE_FRAC", 0.75))
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class SloConfig:
+    """Fleet health / SLO engine knobs.
+
+    ``enabled=False`` (``SLO_ENABLED=0``) no-ops the whole judgment path:
+    no tracker is built, ``observe`` never runs, and ``GET /v1/health``
+    reports ``slo.enabled: false`` while still serving the fleet/queue
+    signals. ``spec`` is the declarative objective list
+    (``SLO_SPEC='[{"tier":8,"p99_ms":250,"availability":0.999}]'``; empty
+    = the built-in interactive-tier default, see ``obs/slo.py``).
+    """
+
+    enabled: bool = True                  # SLO_ENABLED
+    spec: str = ""                        # SLO_SPEC (JSON; "" = default)
+    # Google-SRE multi-window burn-rate alerting: the short window catches
+    # fast burns, the long window stops one bad minute from paging.
+    window_short_sec: float = 300.0       # SLO_WINDOW_SHORT_SEC
+    window_long_sec: float = 3600.0       # SLO_WINDOW_LONG_SEC
+    burn_warn: float = 3.0                # SLO_BURN_WARN (enter `warn`)
+    burn_page: float = 10.0               # SLO_BURN_PAGE (enter `page`)
+    # Hysteresis: a level exits only once the short-window burn falls below
+    # enter_threshold * this fraction — oscillation around the line holds.
+    burn_exit_frac: float = 0.5           # SLO_BURN_EXIT_FRAC
+    # Agents silent longer than this count stale in the /v1/health verdict.
+    agent_stale_sec: float = 60.0         # HEALTH_AGENT_STALE_SEC
+
+    @staticmethod
+    def from_env() -> "SloConfig":
+        short = max(0.1, env_float("SLO_WINDOW_SHORT_SEC", 300.0))
+        return SloConfig(
+            enabled=env_bool("SLO_ENABLED", True),
+            spec=env_str("SLO_SPEC", ""),
+            window_short_sec=short,
+            window_long_sec=max(
+                short, env_float("SLO_WINDOW_LONG_SEC", 3600.0)
+            ),
+            burn_warn=max(0.0, env_float("SLO_BURN_WARN", 3.0)),
+            burn_page=max(0.0, env_float("SLO_BURN_PAGE", 10.0)),
+            burn_exit_frac=min(
+                1.0, max(0.0, env_float("SLO_BURN_EXIT_FRAC", 0.5))
+            ),
+            agent_stale_sec=max(
+                1.0, env_float("HEALTH_AGENT_STALE_SEC", 60.0)
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Resource accounting, trend retention & continuous profiling knobs
+   .
+
+    Everything defaults ON with bounded memory: the ledger is a small
+    aggregate map + a capped per-job table, the time-series ring holds
+    ``window/interval`` flattened samples, and the host profiler starts
+    LAZILY on the first ``GET /v1/profile/host`` (a controller that is never
+    asked for a flamegraph never spawns the sampler thread)."""
+
+    # Usage accounting (GET /v1/usage): per-{tenant,tier,op} + per-job
+    # billing of accepted result applications.
+    usage_enabled: bool = True             # USAGE_ENABLED
+    usage_top_k: int = 10                  # USAGE_TOP_K (top jobs in report)
+    usage_max_jobs: int = 4096             # USAGE_MAX_JOBS (per-job table cap)
+    # $/chip-hour for the report's est_cost lines; 0 = no cost estimate.
+    usage_cost_per_chip_hour: float = 0.0  # USAGE_COST_PER_CHIP_HOUR
+    # Controller time-series ring (GET /v1/timeseries): periodic registry
+    # snapshots spanning TSDB_WINDOW at TSDB_INTERVAL cadence.
+    tsdb_enabled: bool = True              # TSDB_ENABLED
+    tsdb_window_sec: float = 900.0         # TSDB_WINDOW
+    tsdb_interval_sec: float = 10.0        # TSDB_INTERVAL
+    # Durable on-disk store: "" keeps the ring in-memory only;
+    # a directory persists every sample with tiered downsampling.
+    tsdb_dir: str = ""                     # TSDB_DIR
+    tsdb_segment_bytes: int = 1 << 20      # TSDB_SEGMENT_BYTES
+    tsdb_retention_raw_sec: float = 3600.0      # TSDB_RETENTION_RAW_SEC
+    tsdb_retention_1m_sec: float = 86400.0      # TSDB_RETENTION_1M_SEC
+    tsdb_retention_10m_sec: float = 604800.0    # TSDB_RETENTION_10M_SEC
+    tsdb_max_bytes: int = 256 << 20        # TSDB_MAX_BYTES (0 = uncapped)
+    # Rolling-baseline anomaly detection over the sample stream.
+    anomaly_enabled: bool = True           # ANOMALY_ENABLED
+    anomaly_window: int = 60               # ANOMALY_WINDOW (baseline n)
+    anomaly_warmup: int = 12               # ANOMALY_WARMUP (gate)
+    anomaly_z: float = 8.0                 # ANOMALY_Z (MAD z threshold)
+    anomaly_confirm: int = 2               # ANOMALY_CONFIRM (consecutive)
+    anomaly_clear: int = 5                 # ANOMALY_CLEAR (episode close)
+    # Incident forensics bundles (GET /v1/incidents).
+    incident_enabled: bool = True          # INCIDENT_ENABLED
+    incident_dir: str = ""                 # INCIDENT_DIR ("" = memory only)
+    incident_capacity: int = 32            # INCIDENT_CAPACITY
+    incident_min_interval_sec: float = 60.0  # INCIDENT_MIN_INTERVAL_SEC
+    incident_worst_k: int = 3              # INCIDENT_WORST_K (traces kept)
+    # Host sampling profiler (GET /v1/profile/host): collapsed-stack
+    # flamegraph of the controller process, lazily started.
+    profile_host_enabled: bool = True      # PROFILE_HOST_ENABLED
+    profile_host_hz: float = 19.0          # PROFILE_HOST_HZ
+    # Where agents write on-demand torch.profiler capture artifacts
+    # ("" = a per-capture tempdir).
+    profile_capture_dir: str = ""          # PROFILE_CAPTURE_DIR
+
+    @staticmethod
+    def from_env() -> "ObsConfig":
+        interval = max(0.05, env_float("TSDB_INTERVAL", 10.0))
+        return ObsConfig(
+            usage_enabled=env_bool("USAGE_ENABLED", True),
+            usage_top_k=max(1, env_int("USAGE_TOP_K", 10)),
+            usage_max_jobs=max(16, env_int("USAGE_MAX_JOBS", 4096)),
+            usage_cost_per_chip_hour=max(
+                0.0, env_float("USAGE_COST_PER_CHIP_HOUR", 0.0)
+            ),
+            tsdb_enabled=env_bool("TSDB_ENABLED", True),
+            tsdb_window_sec=max(
+                interval, env_float("TSDB_WINDOW", 900.0)
+            ),
+            tsdb_interval_sec=interval,
+            tsdb_dir=env_str("TSDB_DIR", "").strip(),
+            tsdb_segment_bytes=max(
+                4096, env_int("TSDB_SEGMENT_BYTES", 1 << 20)
+            ),
+            tsdb_retention_raw_sec=max(
+                0.0, env_float("TSDB_RETENTION_RAW_SEC", 3600.0)
+            ),
+            tsdb_retention_1m_sec=max(
+                0.0, env_float("TSDB_RETENTION_1M_SEC", 86400.0)
+            ),
+            tsdb_retention_10m_sec=max(
+                0.0, env_float("TSDB_RETENTION_10M_SEC", 604800.0)
+            ),
+            tsdb_max_bytes=max(0, env_int("TSDB_MAX_BYTES", 256 << 20)),
+            anomaly_enabled=env_bool("ANOMALY_ENABLED", True),
+            anomaly_window=max(4, env_int("ANOMALY_WINDOW", 60)),
+            anomaly_warmup=max(2, env_int("ANOMALY_WARMUP", 12)),
+            anomaly_z=max(1.0, env_float("ANOMALY_Z", 8.0)),
+            anomaly_confirm=max(1, env_int("ANOMALY_CONFIRM", 2)),
+            anomaly_clear=max(1, env_int("ANOMALY_CLEAR", 5)),
+            incident_enabled=env_bool("INCIDENT_ENABLED", True),
+            incident_dir=env_str("INCIDENT_DIR", "").strip(),
+            incident_capacity=max(1, env_int("INCIDENT_CAPACITY", 32)),
+            incident_min_interval_sec=max(
+                0.0, env_float("INCIDENT_MIN_INTERVAL_SEC", 60.0)
+            ),
+            incident_worst_k=max(0, env_int("INCIDENT_WORST_K", 3)),
+            profile_host_enabled=env_bool("PROFILE_HOST_ENABLED", True),
+            profile_host_hz=max(0.1, env_float("PROFILE_HOST_HZ", 19.0)),
+            profile_capture_dir=env_str("PROFILE_CAPTURE_DIR", "").strip(),
+        )
+
+@dataclass(frozen=True)
+class FlowConfig:
+    """Workflow DAG engine + result cache knobs.
+
+    The DAG limits bound what one ``POST /v1/workflows`` may expand into
+    (stages x fan-out, before admission control sees the jobs); the cache
+    knobs size the content-addressed result cache and pin the model
+    version that fences its key space (bump => invalidate)."""
+
+    enabled: bool = True                  # FLOW_ENABLED
+    max_stages: int = 32                  # FLOW_MAX_STAGES
+    max_width: int = 64                   # FLOW_MAX_WIDTH
+    cache_enabled: bool = True            # CACHE_ENABLED
+    cache_capacity: int = 4096            # CACHE_CAPACITY (entries; 0 = off)
+    cache_model_version: str = "v1"       # CACHE_MODEL_VERSION
+    # Billed est-cost per cache hit in the usage ledger — the "cache price"
+    # a deduped result charges instead of chip-seconds.
+    cache_price_per_hit: float = 0.0      # CACHE_PRICE_PER_HIT
+
+    @staticmethod
+    def from_env() -> "FlowConfig":
+        return FlowConfig(
+            enabled=env_bool("FLOW_ENABLED", True),
+            max_stages=max(1, env_int("FLOW_MAX_STAGES", 32)),
+            max_width=max(1, env_int("FLOW_MAX_WIDTH", 64)),
+            cache_enabled=env_bool("CACHE_ENABLED", True),
+            cache_capacity=max(0, env_int("CACHE_CAPACITY", 4096)),
+            cache_model_version=env_str("CACHE_MODEL_VERSION", "v1"),
+            cache_price_per_hit=max(
+                0.0, env_float("CACHE_PRICE_PER_HIT", 0.0)
+            ),
+        )
 
 
 @dataclass(frozen=True)

@@ -454,6 +454,19 @@ def paged_write_view(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.T
     return views[0], views[1]
 
 
+def gelu_tanh_as_reference(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU rounded as ``jax.nn.gelu`` rounds it: in the input's
+    dtype, one rounding per step, with the constants in that dtype. In
+    bf16 ``F.gelu`` rounds once from f32 and differs from the reference in
+    about 40 % of elements by one step; this form agrees bit for bit. f32
+    takes ``F.gelu`` (within 1e-6)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = [torch.tensor(v, dtype=x.dtype, device=x.device)
+         for v in (0.7978845608028654, 0.044715, 0.5, 1.0)]
+    return x * (c[2] * (c[3] + torch.tanh(c[0] * (x + c[1] * (x * x * x)))))
+
+
 class FFN(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device=None,
                  trainable: bool = False) -> None:

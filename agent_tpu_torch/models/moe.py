@@ -126,13 +126,39 @@ class MoeFFN(nn.Module):
 
     def expert_ffn(self, x: torch.Tensor) -> torch.Tensor:
         """The FFN of every expert this module holds: x [E, N, d] -> [E, N, d]."""
-        return self._experts(self.wo, F.gelu(self._experts(self.wi, x), approximate="tanh"))
+        return self._experts(self.wo, layers.gelu_tanh_as_reference(self._experts(self.wi, x)))
 
     def forward(self, x: torch.Tensor, group_size: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [T, d] -> (y [T, d] in x's dtype, aux f32 scalar). ``y`` is
         zero for a dropped token (callers add the residual)."""
         return self.dispatch(x, group_size, [self])
+
+    def _route(self, x: torch.Tensor, group_size: int):
+        """Zero-pad x [T, d] to whole routing groups and route it on the
+        router: (padded x, probs [g, t, E], expert [g, t], one-hot
+        [g, t, E], each token's place in its expert's in-group queue from 0
+        [g, t], capacity C). A place >= C is a capacity drop."""
+        T, d = x.shape
+        group = min(T, group_size or MOE_GROUP_TOKENS)
+        pad = (-T) % group
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        n_g = (T + pad) // group
+        xg = x.reshape(n_g, group, d)
+        probs = torch.softmax(torch.matmul(xg.float(), self.router.w.float()), dim=-1)
+        expert = probs.argmax(dim=-1)
+        onehot = F.one_hot(expert, self.cfg.n_experts).float()
+        pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1).long() - 1
+        return x, probs, expert, onehot, pos, self.cfg.capacity(group)
+
+    def routes(self, x: torch.Tensor, group_size: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The routing :meth:`dispatch` decides for x [T, d]: each token's
+        expert [T] and whether it keeps a capacity slot [T] (False = dropped)."""
+        T = x.shape[0]
+        _, _, expert, _, pos, C = self._route(x, group_size)
+        return expert.reshape(-1)[:T], (pos < C).reshape(-1)[:T]
 
     def dispatch(self, x: torch.Tensor, group_size: int, experts: List["MoeFFN"]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,20 +172,9 @@ class MoeFFN(nn.Module):
         E = cfg.n_experts
         if T == 0:  # nothing to route; the aux loss is defined as 0
             return x, x.new_zeros((), dtype=torch.float32)
-        group = min(T, group_size or MOE_GROUP_TOKENS)
-        pad = (-T) % group
-        if pad:
-            x = F.pad(x, (0, 0, 0, pad))
-        n_g = (T + pad) // group
-        C = cfg.capacity(group)
-        xg = x.reshape(n_g, group, d)
-
-        probs = torch.softmax(torch.matmul(xg.float(), self.router.w.float()), dim=-1)
-        expert = probs.argmax(dim=-1)                                    # [g, t]
+        x, probs, expert, onehot, pos, C = self._route(x, group_size)
+        n_g, group = expert.shape
         gate = probs.gather(-1, expert[..., None])[..., 0]
-        onehot = F.one_hot(expert, E).float()                            # [g, t, E]
-        # Each token's place in its expert's in-group queue, from 0.
-        pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1).long() - 1   # [g, t]
         n_slots = E * n_g * C
         groups = torch.arange(n_g, device=x.device)[:, None]
         # Expert-major slot of each kept token; a dropped one goes to the

@@ -1,10 +1,19 @@
-"""Device utilization accounting — the agent-side half of
-``agent_tpu.obs.health``: :class:`RollingWindow` turns the device thread's
+"""Fleet health — counterpart of
+``agent_tpu.obs.health``. The agent's half: :class:`RollingWindow` turns the device thread's
 busy seconds into a rolling duty cycle, and :func:`resolve_peak_flops`
 gives the card's peak dense-bf16 FLOP/s, the denominator of the agent's
 ``device_mfu{op}`` gauge. Both are estimates by design: duty counts the
 device thread's wall time inside op execute, MFU the ops' analytic matmul
-FLOPs over that time. The ``/v1/health`` verdict is the controller's.
+FLOPs over that time.
+
+The controller's half assembles the ``/v1/health`` verdict:
+:func:`agent_health` reads one agent's liveness and utilization from its
+pushed snapshot, and :func:`build_health` rolls SLO judgments, queue
+pressure, starvation, anomalies and per-agent health into one
+machine-readable dict. Verdict: ``page`` iff any SLO objective is paging;
+``warn`` when any objective warns, an agent has gone stale while work is
+queued, or jobs are queued with no live agent at all; else ``ok``; every
+non-ok verdict carries ``reasons``. Pure functions of their inputs.
 """
 
 from __future__ import annotations
@@ -12,7 +21,11 @@ from __future__ import annotations
 import collections
 import os
 import time
-from typing import Any, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+# An agent whose last lease poll is older than this is "stale" to the
+# verdict (HEALTH_AGENT_STALE_SEC overrides at the controller).
+DEFAULT_AGENT_STALE_SEC = 60.0
 
 # Peak dense-bf16 tensor-core FLOP/s (without sparsity) by
 # torch.cuda.get_device_name, from NVIDIA's H100 Tensor Core GPU datasheet.
@@ -87,3 +100,172 @@ class RollingWindow:
             now = self._clock()
         span = min(self.window_sec, max(now - self._born, 1e-6))
         return min(1.0, self.total(now) / span)
+
+
+def _gauge_value(
+    snap: Mapping[str, Any], name: str, **labels: str
+) -> Optional[float]:
+    fam = snap.get(name)
+    if not isinstance(fam, Mapping):
+        return None
+    for s in fam.get("series", []):
+        if all(s.get("labels", {}).get(k) == v for k, v in labels.items()):
+            return float(s.get("value", 0.0))
+    return None
+
+
+def _series_by_label(
+    snap: Mapping[str, Any], name: str, label: str
+) -> Dict[str, float]:
+    fam = snap.get(name)
+    out: Dict[str, float] = {}
+    if not isinstance(fam, Mapping):
+        return out
+    for s in fam.get("series", []):
+        key = s.get("labels", {}).get(label)
+        if key is not None:
+            out[key] = out.get(key, 0.0) + float(s.get("value", 0.0))
+    return out
+
+
+def agent_health(
+    entry: Mapping[str, Any], now_wall: Optional[float] = None
+) -> Dict[str, Any]:
+    """One agent's health row from its ``controller.agent_metrics`` entry:
+    liveness plus the utilization series its obs snapshot carries. The
+    rolling ``device_duty_cycle`` gauge is preferred; agents predating it
+    degrade to the cumulative busy/(busy+idle) ratio."""
+    if now_wall is None:
+        now_wall = time.time()
+    last_seen = float(entry.get("last_seen_wall", 0.0))
+    snap = entry.get("obs") if isinstance(entry.get("obs"), Mapping) else {}
+    busy_by_op = _series_by_label(snap, "device_busy_seconds_total", "op")
+    busy = sum(busy_by_op.values())
+    if not busy_by_op:
+        # Older agents exported the counter unlabeled.
+        busy = _gauge_value(snap, "device_busy_seconds_total") or 0.0
+    idle = _gauge_value(snap, "device_idle_seconds_total") or 0.0
+    duty = _gauge_value(snap, "device_duty_cycle")
+    if duty is None and busy + idle > 0:
+        duty = busy / (busy + idle)
+    mfu = _series_by_label(snap, "device_mfu", "op")
+    out: Dict[str, Any] = {
+        "last_seen_sec_ago": round(max(0.0, now_wall - last_seen), 3),
+        # Retiring member: the autoscaler must not count it as
+        # live capacity, and operators see the drain in flight.
+        "draining": bool(entry.get("draining")),
+        "duty_cycle": round(duty, 4) if duty is not None else None,
+        "device_busy_s": round(busy, 3),
+        "device_busy_s_by_op": {
+            op: round(v, 3) for op, v in sorted(busy_by_op.items())
+        },
+        "mfu": {op: round(v, 4) for op, v in sorted(mfu.items())} or None,
+        "queue_depth": _gauge_value(snap, "queue_depth", queue="staged"),
+    }
+    return out
+
+
+def build_health(
+    *,
+    slo_enabled: bool,
+    slo_objectives: Sequence[Mapping[str, Any]] = (),
+    counts: Optional[Mapping[str, int]] = None,
+    queue_depth: int = 0,
+    queue_by_tier: Optional[Mapping[int, int]] = None,
+    starvation_age_sec: Optional[float] = None,
+    agents: Optional[Mapping[str, Mapping[str, Any]]] = None,
+    agent_stale_sec: float = DEFAULT_AGENT_STALE_SEC,
+    now_wall: Optional[float] = None,
+    partition: Optional[str] = None,
+    anomalies: Sequence[Mapping[str, Any]] = (),
+) -> Dict[str, Any]:
+    """Assemble the ``GET /v1/health`` body. Pure: every input is data the
+    controller already holds (SLO evaluations, job counts, scheduler depth,
+    per-agent telemetry entries)."""
+    if now_wall is None:
+        now_wall = time.time()
+    agents = agents or {}
+    agent_rows = {
+        name: agent_health(entry, now_wall=now_wall)
+        for name, entry in sorted(agents.items())
+    }
+    stale = [
+        name for name, row in agent_rows.items()
+        if row["last_seen_sec_ago"] > agent_stale_sec
+    ]
+    for name, row in agent_rows.items():
+        row["stale"] = name in stale
+
+    reasons: List[Dict[str, Any]] = []
+    verdict = "ok"
+    for obj in slo_objectives:
+        state = obj.get("state", "ok")
+        if state == "ok":
+            continue
+        reasons.append({
+            "kind": "slo_burn",
+            "objective": obj.get("objective"),
+            "state": state,
+            "burn_rate_short": obj.get("burn_rate_short"),
+            "burn_rate_long": obj.get("burn_rate_long"),
+        })
+        if state == "page":
+            verdict = "page"
+        elif verdict == "ok":
+            verdict = "warn"
+    # Confirmed anomaly episodes warn like any other burn
+    # signal — robust-baseline detection feeds the same verdict machinery.
+    for ev in anomalies:
+        reasons.append({
+            "kind": "anomaly",
+            "watch": ev.get("watch"),
+            "value": ev.get("value"),
+            "baseline_median": ev.get("baseline_median"),
+            "z": ev.get("z"),
+            "direction": ev.get("direction"),
+            "wall": ev.get("wall"),
+        })
+        if verdict == "ok":
+            verdict = "warn"
+    live = [n for n in agent_rows if n not in stale]
+    if queue_depth > 0 and agent_rows and not live:
+        reasons.append({"kind": "no_live_agents", "queued": queue_depth})
+        if verdict == "ok":
+            verdict = "warn"
+    elif stale and queue_depth > 0:
+        reasons.append({"kind": "stale_agents", "agents": stale})
+        if verdict == "ok":
+            verdict = "warn"
+
+    out = {
+        "verdict": verdict,
+        "reasons": reasons,
+        "generated_at": round(now_wall, 3),
+        "slo": {
+            "enabled": bool(slo_enabled),
+            "objectives": list(slo_objectives),
+        },
+        "queue": {
+            "depth": int(queue_depth),
+            "by_tier": {
+                str(k): int(v)
+                for k, v in sorted((queue_by_tier or {}).items())
+            },
+            "starvation_age_sec": (
+                round(starvation_age_sec, 3)
+                if starvation_age_sec is not None else None
+            ),
+        },
+        "counts": dict(counts or {}),
+        "fleet": {
+            "n_agents": len(agent_rows),
+            "n_stale": len(stale),
+        },
+        "agents": agent_rows,
+    }
+    if partition:
+        # Partitioned control plane: which shard of the control
+        # plane produced this verdict — the router's fan-out merge keys on
+        # it, and a single-partition reader sees where it is pointed.
+        out["partition"] = partition
+    return out

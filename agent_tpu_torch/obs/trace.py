@@ -1,4 +1,4 @@
-"""Distributed tracing, the agent's half — counterpart of
+"""Distributed tracing — counterpart of
 ``agent_tpu.obs.trace``: the span model, the bounded span ring the agent
 records into, the ambient trace context, and the pure assembly and export
 functions the tests and chip_smoke's stand-in controller use.
@@ -11,9 +11,13 @@ controller's lease span (``task["trace"]``), buffers them in a
 assembles one tree per job. The wire dicts are the reference's, key for
 key, so that store ingests them unchanged.
 
-``TRACE_ENABLED=0`` turns every record path into a no-op. Not here: the
-controller's ``TraceStore`` and span links (the control plane), and
-``xla.compile`` spans, which come from an executor the port does not have.
+The controller's half is :class:`TraceStore`, the bounded per-trace store
+that assembles one tree per job (oldest trace evicted first, spans deduped
+by id), and :func:`span_link`, a causal reference into another trace.
+
+``TRACE_ENABLED=0`` turns every record path into a no-op. Not here:
+``xla.compile`` spans and cache events, which come from an executor the
+port does not have.
 Stdlib only.
 """
 
@@ -32,6 +36,8 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 from agent_tpu_torch.config import TRUTHY_TOKENS
 
 DEFAULT_BUFFER_CAPACITY = 4096
+DEFAULT_MAX_TRACES = 512
+DEFAULT_MAX_SPANS_PER_TRACE = 1024
 
 # ---- global enable switch (TRACE_ENABLED, default on) ----
 
@@ -98,13 +104,15 @@ class Span:
 def make_span(name: str, trace_id: str, parent_span_id: Optional[str] = None, *,
               start_mono: Optional[float] = None, duration_s: Optional[float] = None,
               process: str = "", span_id: Optional[str] = None,
-              attributes: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+              attributes: Optional[Mapping[str, Any]] = None,
+              links: Optional[Sequence[Mapping[str, Any]]] = None) -> Dict[str, Any]:
     """A closed span wire dict from a measured ``(start_mono, duration)``
     pair; the wall anchor is derived from the current clocks, so one
-    measurement never runs two clocks."""
+    measurement never runs two clocks. ``links`` is emitted only when
+    non-empty."""
     now_mono = time.monotonic()
     start_mono = now_mono if start_mono is None else float(start_mono)
-    return {
+    span = {
         "trace_id": trace_id,
         "span_id": span_id or new_span_id(),
         "parent_span_id": parent_span_id,
@@ -115,6 +123,25 @@ def make_span(name: str, trace_id: str, parent_span_id: Optional[str] = None, *,
         "process": process,
         "attributes": dict(attributes or {}),
     }
+    if links:
+        span["links"] = [dict(link) for link in links]
+    return span
+
+
+def span_link(
+    trace_id: str,
+    span_id: Optional[str] = None,
+    **attributes: Any,
+) -> Dict[str, Any]:
+    """One link entry for a span's ``links`` list: a causal reference into
+    ANOTHER trace (the serving batch job ↔ rider request association).
+    ``span_id``/``attributes`` are optional and omitted when empty."""
+    link: Dict[str, Any] = {"trace_id": str(trace_id)}
+    if span_id:
+        link["span_id"] = str(span_id)
+    if attributes:
+        link["attributes"] = dict(attributes)
+    return link
 
 
 def _valid_span(span: Any) -> bool:
@@ -212,6 +239,205 @@ def use_context(ctx: Optional[TraceContext]):
         yield ctx
     finally:
         _current.reset(token)
+
+
+# ---- the controller's bounded per-trace store ----
+
+class TraceStore:
+    """Bounded per-trace span store — the controller's assembly point.
+
+    Traces evict oldest-first past ``max_traces`` (same O(capacity) deal as
+    the flight recorder: a 10M-shard drain keeps the newest window, not the
+    whole history). Spans dedup by ``span_id``, so a piggyback redelivered
+    after a lost response re-ingests idempotently.
+    """
+
+    def __init__(
+        self,
+        max_traces: int = DEFAULT_MAX_TRACES,
+        max_spans_per_trace: int = DEFAULT_MAX_SPANS_PER_TRACE,
+    ) -> None:
+        self.max_traces = max(1, int(max_traces))
+        self.max_spans_per_trace = max(1, int(max_spans_per_trace))
+        self._lock = threading.Lock()
+        # trace_id -> {span_id: span dict}; OrderedDict for FIFO eviction.
+        self._traces: "collections.OrderedDict[str, Dict[str, Dict[str, Any]]]" = (
+            collections.OrderedDict()
+        )
+        self.dropped_traces = 0
+        self.dropped_spans = 0
+
+    def add(self, span: Any) -> bool:
+        """Ingest one span wire dict; False = rejected (malformed/bounds).
+        Ownership transfers like :meth:`SpanBuffer.add`: a plain dict is
+        stored without copying (``finish`` mutates it in place)."""
+        if not enabled():
+            return False
+        if isinstance(span, Span):
+            span = span.to_wire()
+        if not _valid_span(span):
+            return False
+        if type(span) is not dict:
+            span = dict(span)
+        with self._lock:
+            spans = self._traces.get(span["trace_id"])
+            if spans is None:
+                while len(self._traces) >= self.max_traces:
+                    self._traces.popitem(last=False)
+                    self.dropped_traces += 1
+                spans = {}
+                self._traces[span["trace_id"]] = spans
+            if (
+                span["span_id"] not in spans
+                and len(spans) >= self.max_spans_per_trace
+            ):
+                self.dropped_spans += 1
+                return False
+            spans[span["span_id"]] = span
+        return True
+
+    def ingest(self, spans: Any) -> int:
+        """Bulk ``add`` for a piggybacked batch; returns spans accepted."""
+        if not isinstance(spans, (list, tuple)):
+            return 0
+        return sum(1 for s in spans if self.add(s))
+
+    def open(
+        self,
+        trace_id: str,
+        name: str,
+        parent_span_id: Optional[str] = None,
+        *,
+        start_clock: float = 0.0,
+        process: str = "controller",
+        attributes: Optional[Mapping[str, Any]] = None,
+        span_id: Optional[str] = None,
+        links: Optional[Sequence[Mapping[str, Any]]] = None,
+    ) -> Optional[str]:
+        """Record an OPEN span (duration unknown yet) and return its id, or
+        None when tracing is disabled. ``start_clock`` is whatever monotonic
+        clock the caller will later pass to :meth:`finish` — the controller
+        uses its own (injectable) clock."""
+        if not enabled():
+            return None
+        sid = span_id or new_span_id()
+        span: Dict[str, Any] = {
+            "trace_id": trace_id,
+            "span_id": sid,
+            "parent_span_id": parent_span_id,
+            "name": name,
+            "start_wall": time.time(),
+            "start_mono": float(start_clock),
+            "duration_ms": None,
+            "process": process,
+            "attributes": dict(attributes or {}),
+        }
+        if links:
+            span["links"] = [dict(link) for link in links]
+        ok = self.add(span)
+        return sid if ok else None
+
+    def add_links(
+        self,
+        trace_id: str,
+        span_id: Optional[str],
+        links: Sequence[Mapping[str, Any]],
+    ) -> None:
+        """Append cross-trace links to a stored span (the serving batch
+        job's root learns its riders only after the job is submitted, so
+        links land post-``open``). No-op when the span is absent."""
+        if span_id is None or not links:
+            return
+        with self._lock:
+            span = self._traces.get(trace_id, {}).get(span_id)
+            if span is None:
+                return
+            span.setdefault("links", []).extend(dict(link) for link in links)
+
+    def links(self, trace_id: str, span_id: str) -> List[Dict[str, Any]]:
+        """The stored links of one span (empty when absent/link-free)."""
+        with self._lock:
+            span = self._traces.get(trace_id, {}).get(span_id)
+            return [dict(link) for link in span.get("links", [])] \
+                if span else []
+
+    def finish(
+        self,
+        trace_id: str,
+        span_id: Optional[str],
+        end_clock: float,
+        attributes: Optional[Mapping[str, Any]] = None,
+    ) -> None:
+        """Close an open span: duration = ``end_clock`` − its
+        ``start_mono`` (same clock as :meth:`open`'s ``start_clock``)."""
+        if span_id is None:
+            return
+        with self._lock:
+            span = self._traces.get(trace_id, {}).get(span_id)
+            if span is None:
+                return
+            span["duration_ms"] = round(
+                max(0.0, float(end_clock) - float(span.get("start_mono", 0.0)))
+                * 1e3, 3,
+            )
+            if attributes:
+                span.setdefault("attributes", {}).update(attributes)
+
+    def spans(self, trace_id: str) -> Optional[List[Dict[str, Any]]]:
+        with self._lock:
+            spans = self._traces.get(trace_id)
+            if spans is None:
+                return None
+            return [dict(s) for s in spans.values()]
+
+    def trace_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._traces)
+
+    def assemble(self, trace_id: str) -> Optional[Dict[str, Any]]:
+        """The ``GET /v1/trace/{job_id}`` body: spans sorted by wall start,
+        orphans (dangling ``parent_span_id``) flagged, completeness = one
+        root + no orphans + every span closed."""
+        spans = self.spans(trace_id)
+        if spans is None:
+            return None
+        return assemble(trace_id, spans)
+
+    def summaries(self, limit: int = 20) -> List[Dict[str, Any]]:
+        """Newest-first trace listing for ``GET /v1/traces``."""
+        with self._lock:
+            items = [
+                (tid, [dict(s) for s in spans.values()])
+                for tid, spans in self._traces.items()
+            ]
+        out: List[Dict[str, Any]] = []
+        for tid, spans in reversed(items):
+            roots = [s for s in spans if s.get("parent_span_id") is None]
+            root = min(
+                roots, key=lambda s: s.get("start_wall", 0.0)
+            ) if roots else None
+            out.append({
+                "trace_id": tid,
+                "n_spans": len(spans),
+                "root_name": root.get("name") if root else None,
+                "root_duration_ms": root.get("duration_ms") if root else None,
+                "complete": _complete(spans),
+            })
+            if len(out) >= max(1, int(limit)):
+                break
+        return out
+
+
+def _complete(spans: Sequence[Mapping[str, Any]]) -> bool:
+    ids = {s["span_id"] for s in spans}
+    roots = [s for s in spans if s.get("parent_span_id") is None]
+    orphans = [
+        s for s in spans
+        if s.get("parent_span_id") is not None
+        and s["parent_span_id"] not in ids
+    ]
+    open_spans = [s for s in spans if s.get("duration_ms") is None]
+    return len(roots) == 1 and not orphans and not open_spans
 
 
 # ---- assembly and exporters (pure functions of span dicts) ----

@@ -48,6 +48,21 @@ DEVICE_OPS = frozenset({"map_classify_tpu", "map_summarize", "train_classifier",
                         "serve_classify", "serve_summarize", "serve_prefill", "serve_decode",
                         "summarize_encode", "summarize_decode"})
 
+# Deterministic ops whose results may be served from the content-addressed
+# result cache (``flow.result_cache``): same payload + model version =>
+# bit-identical result dict. Excluded on purpose: ``read_csv_shard`` (reads
+# mutable files behind a URI), the ERP triggers (external side effects),
+# ``train_classifier`` (writes an artifact), and the decode-side serving ops
+# (their payloads embed per-request ids).
+CACHEABLE_OPS = frozenset({"echo", "map_tokenize", "map_classify_tpu", "map_summarize",
+                           "summarize_encode", "summarize_decode", "risk_accumulate"})
+
+
+def is_cacheable(name: str) -> bool:
+    """True when ``name`` is registered as deterministic/cache-safe."""
+    return name in CACHEABLE_OPS
+
+
 _imported: Dict[str, bool] = {}
 _lock = threading.Lock()
 

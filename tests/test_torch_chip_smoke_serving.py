@@ -67,7 +67,8 @@ def test_serving_phase_rehearsal(rehearsal, capsys):
         assert leg["requests"] == 24 and leg["tokens"] > 0
         assert leg["kv_blocks_free"] == leg["kv_blocks_total"] > 0
         assert leg["engine_steps"] <= leg["static_steps"]
-    assert "profile_50_steps" in greedy and "profile_50_steps" not in wide
+    assert "profile_50_steps" in greedy
+    assert "profile_50_steps" not in beam and "profile_50_steps" not in wide
     exact = report["exactness_f32"]
     assert exact["beams1_paged_equal"] == exact["beams4_cpu_paged_equal"] == 12
     assert exact["planted_no_trash_repoint_changed"] > 0

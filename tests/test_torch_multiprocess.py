@@ -111,13 +111,31 @@ AGENT_CODE = PRELUDE + textwrap.dedent("""
             while not ctrl.drained():
                 agent.step()
             from agent_tpu_torch.runtime import distributed
+            from agent_tpu_torch.utils.retry import RetryPolicy
             distributed.KEEPALIVE_SEC = 0.0  # idle steps: a keep-alive each
             for _ in range(3):
+                agent.step()
+            # A controller outage: every lease fails. The leader must keep
+            # its followers alive through it, as on an idle step.
+            sent = []
+            keepalive = distributed.broadcast_keepalive
+            distributed.broadcast_keepalive = lambda: (sent.append(1), keepalive())
+            lease_once = agent.lease_once
+            def failing_lease():
+                raise RuntimeError("controller unreachable")
+            agent.lease_once = failing_lease
+            agent._lease_retry = RetryPolicy(base_sec=0.01, max_sec=0.01).start()
+            for _ in range(3):
+                assert agent.step() is False
+            assert len(sent) == 3, sent
+            agent.lease_once = lease_once
+            ctrl.submit("echo", {"i": "after the outage"})
+            while not ctrl.drained():
                 agent.step()
             agent.running = False
             agent.run(max_steps=0)  # the clean exit's shutdown broadcast
             res = ctrl.results()
-            assert len(res) == 4, res
+            assert len(res) == 5, res
             risk = [r for r in res.values() if "sum" in (r or {})][0]
             assert abs(risk["sum"] - 6.0) < 1e-6, risk
         print("OK 0")
@@ -125,7 +143,7 @@ AGENT_CODE = PRELUDE + textwrap.dedent("""
         agent = Agent(config=Config.from_env())
         assert not agent.dist.is_leader and agent.session is None
         agent.run()
-        assert agent.tasks_done == 4, agent.tasks_done
+        assert agent.tasks_done == 5, agent.tasks_done
         print("OK 1")
 """)
 

@@ -190,8 +190,11 @@ class PipelineRunner:
     def _prefeed(self, item: Any) -> None:
         """Queue the NEXT item's host-to-device copies before the current
         item's execute. Only the staged-chunk layout ``state["chunks"] =
-        [(ids, lengths, n), ...]`` of numpy arrays is pre-fed; anything else
-        is left alone. Purely an optimization: it never fails an item."""
+        [(ids, lengths, n), ...]`` of numpy arrays is pre-fed, and only its
+        ids: the op reads the key lengths on the host
+        (``kernels.flash_attention.keyless_rows``) and puts them itself.
+        Anything else is left alone. Purely an optimization: it never fails
+        an item."""
         runtime = self.agent.runtime
         if (runtime is None or item.monolithic or item.staged is None
                 or item.result is not None or item.status == "failed"):
@@ -206,8 +209,7 @@ class PipelineRunner:
                 if (isinstance(chunk, (tuple, list)) and len(chunk) == 3
                         and isinstance(chunk[0], np.ndarray)
                         and isinstance(chunk[1], np.ndarray)):
-                    fed.append((runtime.put_batch(chunk[0]), runtime.put_batch(chunk[1]),
-                                chunk[2]))
+                    fed.append((runtime.put_batch(chunk[0]), chunk[1], chunk[2]))
                 else:
                     fed.append(chunk)
             state["chunks"] = fed

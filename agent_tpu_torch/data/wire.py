@@ -1,7 +1,7 @@
 """Compact binary shard wire ``b1`` — the port's copy of
 ``agent_tpu.data.wire``. Its bytes are the reference's for the same columns
-(``tests/test_torch_wire.py`` holds them byte for byte), since the
-reference's controller decodes what the port's agent posts.
+(``tests/test_torch_wire.py`` holds them byte for byte), since either
+package's controller decodes what either package's agent posts.
 
 The lease/result protocol is JSON, and at drain scale the JSON bodies are
 the transport cost. This module packs the bulk columns of classify and
@@ -40,7 +40,7 @@ drain is bit-identical to a JSON drain once decoded:
   column (name ``""``), serialized with the same ``json`` semantics as the
   plain wire.
 
-Negotiation (``agent_tpu/controller/PROTOCOL.CONTRACT.md``): agents advertise
+Negotiation (the reference's ``controller/PROTOCOL.CONTRACT.md``): agents advertise
 ``capabilities.wire_formats = ["b1"]``; a binary-capable controller answers
 leases with ``wire: "b1"`` and may encode task payloads; the agent then
 encodes result columns. Either side staying silent keeps the other on plain
@@ -73,6 +73,11 @@ _DTYPES = (
     "uint8", "uint16", "float32", "float64",
 )
 _DTYPE_CODE = {np.dtype(d): i for i, d in enumerate(_DTYPES)}
+
+# Ops whose task payloads the controller may binary-encode (their bulk
+# column is ``texts``). Results self-select: ops attach columns only for
+# their own shard-shaped outputs.
+ENCODABLE_OPS = frozenset({"map_classify_tpu", "map_summarize"})
 
 
 def _shrink_int(arr: np.ndarray) -> np.ndarray:
@@ -217,6 +222,28 @@ def unpack_b64(data: str) -> Dict[str, Any]:
 
 
 # ---- task payloads (controller → agent) ----
+
+
+def encodable_task(op: str, payload: Any) -> bool:
+    """Should the controller binary-encode this task's payload? Only the
+    text ops, and only when the payload actually carries a bulk ``texts``
+    column (shard-addressed ``source_uri`` payloads are already tiny)."""
+    if op not in ENCODABLE_OPS or not isinstance(payload, dict):
+        return False
+    texts = payload.get("texts")
+    return (
+        isinstance(texts, list)
+        and bool(texts)
+        and all(isinstance(t, str) for t in texts)
+    )
+
+
+def encode_task_payload(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """``{texts: […], **rest}`` → ``{"__bin__": <b64>}``. The non-bulk keys
+    ride the JSON side-channel column, so the decoded payload is value-equal
+    to the original."""
+    rest = {k: v for k, v in payload.items() if k != "texts"}
+    return {KEY: pack_b64({"texts": payload["texts"], "": rest})}
 
 
 def is_binary_payload(payload: Any) -> bool:

@@ -44,8 +44,10 @@ shapes return None, and the T5 encoder takes its own dense path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+import threading
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +69,12 @@ EXP_CAP = 80.0
 # Largest max_distance the T5 kernel stages in shared memory
 # (kMaxBiasDistance in csrc/flash_attention.cu).
 MAX_BIAS_DISTANCE = 1024
+# The reference's key-length gates (its FLASH_MIN_KEY_LEN for serving and
+# T5, FLASH_TRAIN_MIN_KEY_LEN for training): below them it attends densely.
+# The port runs its kernels at every length; the gates only decide what a
+# batch row with no real key gets (:func:`keyless_rows_dense`).
+FLASH_MIN_KEY_LEN = 2048
+FLASH_TRAIN_MIN_KEY_LEN = 512
 
 # Per-call tally of the selection: "flash" / "flash_train" = the kernel path
 # (the CUDA kernels, or their plain versions for CPU tensors) of serving /
@@ -448,6 +456,74 @@ def _launch_t5(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Te
     return out
 
 
+# The key lengths of the batch that the attention calls of this thread
+# serve, as the caller holds them on the host (:func:`keyless_rows`).
+_HINT = threading.local()
+# More runs of keyless rows than this take the device flag instead.
+MAX_KEYLESS_RUNS = 4
+
+
+@contextlib.contextmanager
+def keyless_rows(lengths: Sequence[int]):
+    """Within this block the attention calls of this thread serve the batch
+    whose per-row key lengths the caller holds on the host (``lengths``,
+    ``[B]``; 0 = a row with no real key), so :func:`keyless_rows_dense`
+    needs no flag from the mask: a batch without such a row skips the rule,
+    and a call over the whole batch replaces those rows alone, by slices,
+    with no index sent to the card. A call over part of the batch (a dp
+    shard, a micro-batch, beams) that may hold one keeps the device flag.
+    Every attention call that reaches the rule inside the block must be
+    over this batch or a part of it (an encoder's; a decoder's own
+    attention never reaches it). Lengths already on the card give no hint:
+    reading them would wait for the card."""
+    if isinstance(lengths, torch.Tensor) and lengths.device.type != "cpu":
+        yield
+        return
+    lengths = np.asarray(lengths).reshape(-1)
+    dead = np.flatnonzero(lengths == 0)
+    # Contiguous runs [a, b) of keyless rows.
+    cuts = np.flatnonzero(np.diff(dead) != 1) + 1
+    runs = [(int(r[0]), int(r[-1]) + 1) for r in np.split(dead, cuts)] if dead.size else []
+    prev = getattr(_HINT, "rows", None)
+    _HINT.rows = (lengths.size, runs)
+    try:
+        yield
+    finally:
+        _HINT.rows = prev
+
+
+def keyless_rows_dense(out: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                       min_key_len: int = FLASH_MIN_KEY_LEN) -> torch.Tensor:
+    """``out`` with each batch row whose key mask holds no real key replaced
+    by the answer the reference gives it at this key length. Below
+    ``min_key_len`` the reference attends densely: every score of such a
+    row is ``NEG_INF``, the softmax uniform, the output the mean of V over
+    all Lk keys: the dense path's P·V with every probability 1/Lk rounded
+    to the dtype, here one such row against V (a batched GEMV). From
+    ``min_key_len`` on its kernel gives 0, as the port's does.
+
+    Inside :func:`keyless_rows` the caller's host lengths decide: nothing
+    to do without a keyless row, and over the whole batch (no gradient
+    asked of ``out``) only those rows' GEMVs, written into ``out`` by
+    slices. Otherwise a ``torch.where`` over a ``[B|1]`` flag made on the
+    device: no host read, and differentiable in ``out`` and ``v``."""
+    Lk = v.shape[2]
+    hint = getattr(_HINT, "rows", None)
+    if Lk >= min_key_len or (hint is not None and not hint[1]):
+        return out
+    uniform = torch.full((1, 1, 1, Lk), 1.0 / Lk, dtype=v.dtype, device=v.device)
+    if hint is not None:
+        n, runs = hint
+        if (out.shape[0] == mask.shape[0] == n and not out.requires_grad
+                and len(runs) <= MAX_KEYLESS_RUNS):
+            for a, b in runs:
+                out[a:b] = torch.matmul(uniform, v[a:b]).to(out.dtype)
+            return out
+    keyless = ~(mask > 0).any(dim=-1, keepdim=True)           # [B|1, 1, 1, 1]
+    mean = torch.matmul(uniform, v).to(out.dtype)             # [B, H, 1, D]
+    return torch.where(keyless, mean, out)
+
+
 def _launch_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the training forward: (out, lse f32 [B, H, Lq, 1])."""
@@ -505,14 +581,17 @@ def flash_attention(
     mask: torch.Tensor,  # [B|1, 1, 1, Lk] key-padding mask (1 = attend)
 ) -> torch.Tensor:
     """Drop-in ``attn_fn``: the kernel path for supported shapes (CUDA
-    kernel, or its plain version for CPU tensors), dense otherwise."""
+    kernel, or its plain version for CPU tensors), dense otherwise. A row
+    with no real key gets the reference's answer (:func:`keyless_rows_dense`)."""
     supported = _supported(q, k, v, mask)
     SELECTION_COUNTS["flash" if supported else "dense"] += 1
     if not supported:
         return dot_product_attention(q, k, v, mask)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask)
-    return _launch(q, k, v, mask)
+        out = flash_attention_reference(q, k, v, mask)
+    else:
+        out = _launch(q, k, v, mask)
+    return keyless_rows_dense(out, v, mask)
 
 
 def flash_fold(
@@ -554,7 +633,8 @@ def flash_attention_t5(
     the bucketed relative-position bias, key-padding masked) V -> [B, H, Lq,
     D], or **None** for shapes the kernel does not take, so the caller keeps
     its own dense path. A CUDA tensor launches the kernel (or raises), a CPU
-    tensor runs :func:`flash_attention_t5_reference`."""
+    tensor runs :func:`flash_attention_t5_reference`. A row with no real
+    key gets the reference's answer (:func:`keyless_rows_dense`)."""
     supported = (_supported(q, k, v, mask) and rel_bias.ndim == 2
                  and rel_bias.shape[1] == q.shape[1] and rel_bias.device == q.device
                  and 1 <= max_distance <= MAX_BIAS_DISTANCE)
@@ -564,10 +644,12 @@ def flash_attention_t5(
     table = distance_bias_table(rel_bias, bidirectional=bidirectional,
                                 max_distance=max_distance)
     if q.device.type == "cpu":
-        return flash_attention_t5_reference(q, k, v, mask, table, max_distance=max_distance,
-                                            scale=scale)
-    return _launch_t5(q.contiguous(), k.contiguous(), v.contiguous(), mask, table,
-                      max_distance, scale)
+        out = flash_attention_t5_reference(q, k, v, mask, table, max_distance=max_distance,
+                                           scale=scale)
+    else:
+        out = _launch_t5(q.contiguous(), k.contiguous(), v.contiguous(), mask, table,
+                         max_distance, scale)
+    return keyless_rows_dense(out, v, mask)
 
 
 class FlashAttentionTrainable(torch.autograd.Function):
@@ -615,15 +697,17 @@ def flash_attention_trainable(
     for supported shapes (their plain versions for CPU tensors), dense
     attention (differentiated by autograd) otherwise.
 
-    Gradient caveat, as in the reference: rows whose mask keeps no key get
-    zero (dq, dk, dv) here, while the dense path backpropagates through its
-    uniform softmax; with any real key present the two agree to dtype
-    tolerance."""
+    A row whose mask keeps no key gets the reference's answer at this key
+    length (:func:`keyless_rows_dense` with the training gate): below 512
+    the mean of V, whose gradient reaches dV as the dense path's uniform
+    softmax sends it (dq, dk 0); from 512 on 0 and a zero gradient, as the
+    reference's kernel gives."""
     supported = _supported(q, k, v, mask)
     SELECTION_COUNTS["flash_train" if supported else "dense_train"] += 1
     if not supported:
         return dot_product_attention(q, k, v, mask)
-    return FlashAttentionTrainable.apply(q, k, v, mask, q.device.type == "cpu")
+    out = FlashAttentionTrainable.apply(q, k, v, mask, q.device.type == "cpu")
+    return keyless_rows_dense(out, v, mask, FLASH_TRAIN_MIN_KEY_LEN)
 
 
 def flash_attention_trainable_reference(q: torch.Tensor, k: torch.Tensor,

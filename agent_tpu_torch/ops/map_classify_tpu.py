@@ -322,6 +322,7 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int,
     (``HostCopy``) and waited for by finalize: one ``(packed, n)`` entry, or
     ``("cat", packed, layout)`` when several dispatch chunks were
     concatenated on the device."""
+    from agent_tpu_torch.kernels.flash_attention import keyless_rows
     from agent_tpu_torch.ops._model_common import cfg_key
     from agent_tpu_torch.runtime.runtime import HostCopy
 
@@ -335,8 +336,9 @@ def _execute_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, k: int,
                 ("map_classify_tpu", model_id, family, B, L, k, cfg_key(cfg)),
                 lambda L=L: _make_forward(L, k, attn_fn, family, cfg),
             )
-            pending.append((fn(model, runtime.put_batch(ids),
-                               runtime.put_batch(lengths)), n))
+            with keyless_rows(lengths):
+                pending.append((fn(model, runtime.put_batch(ids),
+                                   runtime.put_batch(lengths)), n))
         if len(pending) > 1:
             packed = torch.cat([p for p, _ in pending], dim=0)
             return [("cat", HostCopy(packed), [(p.shape[0], n) for p, n in pending])]

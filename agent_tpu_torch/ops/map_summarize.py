@@ -235,6 +235,7 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
                    family: str = "seq2seq") -> List[Tuple[torch.Tensor, int]]:
     """Device phase: decode staged ``(ids, lengths, n)`` chunks -> pending
     ``[(tokens on the device [B, max_new], n), ...]``."""
+    from agent_tpu_torch.kernels.flash_attention import keyless_rows
     from agent_tpu_torch.models import bart, seq2seq, t5
 
     model = _get_model(runtime, model_id, cfg, family)
@@ -242,30 +243,31 @@ def _decode_chunks(runtime, chunks: List[Tuple], model_id: str, cfg, max_new: in
     with torch.inference_mode():
         for ids, lengths, n in chunks:
             L = ids.shape[1]
-            ids_t = runtime.put_batch(ids)
-            n_t = runtime.put_batch(lengths)
-            mask = (torch.arange(L, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
-            if family == "bart":
-                toks, _ = bart.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
-                                        length_penalty=length_penalty,
-                                        early_stopping=early_stopping, min_length=min_length,
-                                        attn_fn=runtime.attention_fn())
-            elif family == "t5":
-                toks, _ = t5.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
-                                      length_penalty=length_penalty,
-                                      early_stopping=early_stopping, min_length=min_length,
-                                      kernel=runtime.t5_attention_kernel())
-            elif num_beams <= 1:
-                toks, _ = seq2seq.greedy_generate(model, ids_t, mask, max_new,
-                                                  min_length=min_length,
-                                                  attn_fn=runtime.attention_fn())
-            else:
-                toks, _ = seq2seq.beam_generate(model, ids_t, mask, max_new,
-                                                num_beams=num_beams,
-                                                length_penalty=length_penalty,
-                                                early_stopping=early_stopping,
-                                                min_length=min_length,
-                                                attn_fn=runtime.attention_fn())
+            with keyless_rows(lengths):
+                ids_t = runtime.put_batch(ids)
+                n_t = runtime.put_batch(lengths)
+                mask = (torch.arange(L, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
+                if family == "bart":
+                    toks, _ = bart.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
+                                            length_penalty=length_penalty,
+                                            early_stopping=early_stopping, min_length=min_length,
+                                            attn_fn=runtime.attention_fn())
+                elif family == "t5":
+                    toks, _ = t5.generate(model, ids_t, mask, cfg, max_new, num_beams=num_beams,
+                                          length_penalty=length_penalty,
+                                          early_stopping=early_stopping, min_length=min_length,
+                                          kernel=runtime.t5_attention_kernel())
+                elif num_beams <= 1:
+                    toks, _ = seq2seq.greedy_generate(model, ids_t, mask, max_new,
+                                                      min_length=min_length,
+                                                      attn_fn=runtime.attention_fn())
+                else:
+                    toks, _ = seq2seq.beam_generate(model, ids_t, mask, max_new,
+                                                    num_beams=num_beams,
+                                                    length_penalty=length_penalty,
+                                                    early_stopping=early_stopping,
+                                                    min_length=min_length,
+                                                    attn_fn=runtime.attention_fn())
             pending.append((toks, n))
     return pending
 

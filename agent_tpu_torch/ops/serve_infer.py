@@ -350,9 +350,10 @@ def _prefill_rows(runtime, model, state, serve):
     ev0 = cache.evictions if cache is not None else 0
     t_pf0 = time.time()
     if miss.size:
+        from agent_tpu_torch.kernels.flash_attention import keyless_rows
         from agent_tpu_torch.models import seq2seq
 
-        with torch.inference_mode():
+        with torch.inference_mode(), keyless_rows(lengths[miss]):
             ids_t = runtime.put_batch(ids[miss])
             n_t = runtime.put_batch(lengths[miss])
             mask = (torch.arange(Ls, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)

@@ -93,6 +93,7 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
     except ValueError as exc:
         return bad_input(str(exc))
 
+    from agent_tpu_torch.kernels.flash_attention import keyless_rows
     from agent_tpu_torch.models import seq2seq
     from agent_tpu_torch.ops.map_summarize import _stage_chunks
 
@@ -108,7 +109,8 @@ def run_encode(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
             mask = (torch.arange(Ls, device=n_t.device)[None, :] < n_t[:, None]).to(torch.int32)
             # f32 on the wire whatever the compute dtype: an exact JSON round
             # trip, and the decode stage casts back to its compute dtype.
-            enc = seq2seq.encode(model, runtime.put_batch(ids), mask, attn_fn).float()
+            with keyless_rows(lengths):
+                enc = seq2seq.encode(model, runtime.put_batch(ids), mask, attn_fn).float()
             out_chunks.append({"enc": enc.cpu().numpy().tolist(),
                                "lengths": np.asarray(lengths).astype(int).tolist(),
                                "n": int(n)})

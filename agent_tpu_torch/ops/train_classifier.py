@@ -227,6 +227,7 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
 
     runtime = device_runtime(ctx, "train_classifier")
 
+    from agent_tpu_torch.kernels.flash_attention import keyless_rows
     from agent_tpu_torch.models import checkpoint, encoder, train
     from agent_tpu_torch.ops._model_common import cfg_key
 
@@ -262,9 +263,10 @@ def run(payload: Any, ctx: Optional[object] = None) -> Dict[str, Any]:
         losses = []
         for s in range(0, order.size, B):
             take = order[s: s + B]
-            model, opt, loss = step(model, opt, runtime.put_batch(ids_all[take]),
-                                    runtime.put_batch(mask_all[take]),
-                                    runtime.put_batch(labels[take]))
+            with keyless_rows(mask_all[take].sum(axis=1)):
+                model, opt, loss = step(model, opt, runtime.put_batch(ids_all[take]),
+                                        runtime.put_batch(mask_all[take]),
+                                        runtime.put_batch(labels[take]))
             losses.append(loss)
             n_steps += 1
         epoch_losses.append(float(np.mean(torch.stack(losses).cpu().numpy(),

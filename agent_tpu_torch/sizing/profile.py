@@ -1,13 +1,14 @@
 """Worker profile assembly — the port's counterpart of
 ``agent_tpu.sizing.profile``: the ``cpu`` block (cores reserved for the OS,
 worker counts, the in-flight target) and the ``gpu`` block (``nvidia-smi``'s
-inventory). There is no ``tpu`` block: the port claims no TPU, and the
-reference controller reads ``suggested_shard_rows`` only from a ``tpu``
-block, so the hint is absent and a CSV job submitted without a shard size
-gets the controller's default. A hint for the card waits for the port's
-control plane, which can read it from the ``gpu`` block (ROADMAP Queue 1
-item 3). With ``TPU_DISABLED=1`` the ``gpu`` block says ``disabled: true``
-and offers no workers, as the reference's ``tpu`` block does.
+inventory). There is no ``tpu`` block: the port claims no TPU. The shard-size
+hint that the reference puts in its ``tpu`` block rides the ``gpu`` block
+instead (``suggested_batch``, ``suggested_shard_rows``, by the reference's
+memory formula with the smallest listed card's ``memory.total`` as the
+per-chip memory and the listed cards as the chips); the port's controller
+reads it from either block, the reference's from ``tpu`` only. With
+``TPU_DISABLED=1`` the ``gpu`` block says ``disabled: true``, offers no
+workers and carries no hint, as the reference's ``tpu`` block does.
 
 Every probe degrades to a conservative answer when its dependency is
 missing (psutil, nvidia-smi), so the agent boots anywhere.
@@ -118,6 +119,17 @@ def detect_gpu() -> Dict[str, Any]:
     return {"gpu_present": True, "gpus": gpus, "max_gpu_workers": len(gpus)}
 
 
+def batch_hints(n_chips: int, mem_bytes_per_chip: int) -> Dict[str, int]:
+    """The reference's topology-derived batching hints (its
+    ``_tpu_batch_hints``): rows per device step, a 64 MiB share of each
+    chip's memory per row, 8 to 1,024 rows a chip; rows per leased task, 16
+    such steps, so that the lease protocol's overhead amortizes."""
+    chips = max(1, int(n_chips))
+    per_chip = max(8, min(1024, int(mem_bytes_per_chip) // (64 * 2**20)))
+    batch = per_chip * chips
+    return {"suggested_batch": batch, "suggested_shard_rows": batch * 16}
+
+
 def build_worker_profile(sizing: Optional[SizingConfig] = None,
                          device: Optional[DeviceConfig] = None) -> Dict[str, Any]:
     """The worker profile shipped with every lease request."""
@@ -126,6 +138,9 @@ def build_worker_profile(sizing: Optional[SizingConfig] = None,
         gpu = {"gpu_present": False, "gpus": [], "max_gpu_workers": 0, "disabled": True}
     else:
         gpu = detect_gpu()
+        mem = [g["memory_mb"] for g in gpu["gpus"] if "memory_mb" in g]
+        if gpu["gpu_present"] and mem:
+            gpu.update(batch_hints(len(gpu["gpus"]), min(mem) * 2**20))
     return {
         "schema": "worker_profile/v2",
         "tier": "gpu" if gpu["gpu_present"] else "cpu",

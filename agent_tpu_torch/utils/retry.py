@@ -4,9 +4,11 @@ it).
 
 Two halves:
 
-- **Classification.** An HTTP failure is either ``transient`` (worth
-  retrying: transport errors, HTTP 5xx, 429) or ``permanent`` (other 4xx:
-  resending the same bytes cannot succeed).
+- **Classification.** A failure is either ``transient`` (worth retrying:
+  transport errors, HTTP 5xx, 429) or ``permanent`` (no retry can fix it:
+  other 4xx, ``UnknownOp``, malformed tasks). The controller uses the same
+  table to decide whether a failed job gets its retry budget or sticks
+  ``failed`` immediately.
 - **Backoff.** ``RetryPolicy`` + ``RetryState`` implement capped exponential
   backoff with *decorrelated jitter* (the AWS-architecture variant: each
   sleep is uniform in ``[base, prev * multiplier]``, capped) — a restarted
@@ -26,6 +28,16 @@ from typing import Any, Optional
 TRANSIENT = "transient"
 PERMANENT = "permanent"
 
+# Structured-error ``type`` names (utils.errors.structured_error) that no
+# retry can fix: re-running the same task yields the same failure. Anything
+# not listed is assumed transient — device flakes, OOMs under contention and
+# transport hiccups surface as RuntimeError/OSError subtypes, and wrongly
+# retrying a permanent error once is cheaper than wrongly killing a
+# recoverable job.
+PERMANENT_ERROR_TYPES = frozenset(
+    {"UnknownOp", "ValueError", "TypeError", "KeyError", "OpError"}
+)
+
 
 def classify_http(status: Any) -> str:
     """HTTP status → ``transient`` | ``permanent``.
@@ -42,6 +54,15 @@ def classify_http(status: Any) -> str:
     if s == 429:
         return TRANSIENT
     if 400 <= s < 500:
+        return PERMANENT
+    return TRANSIENT
+
+
+def classify_error(error: Any) -> str:
+    """Structured error (dict with ``type``, or a bare type name) →
+    ``transient`` | ``permanent``."""
+    name = error.get("type") if isinstance(error, dict) else error
+    if isinstance(name, str) and name in PERMANENT_ERROR_TYPES:
         return PERMANENT
     return TRANSIENT
 

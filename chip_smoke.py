@@ -118,14 +118,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               small f32 T5 (gated-gelu, untied) gives the same tokens on
               the card as on the CPU. p50 ms, tokens/s, peak memory and
               device time by kind.
-10. drain   — the port as a swarm worker: a stand-in controller in this
-              script (the protocol of agent_tpu/agent/app.py on
-              127.0.0.1) shards bench.py's 65,536-row CSV into 8 classify
-              shards of 8,192 rows at BERT-base width; the port's Agent,
+10. drain   — the port as a swarm worker: the port's controller
+              (agent_tpu_torch.controller: ControllerServer around a
+              Controller on 127.0.0.1, port 0) shards bench.py's 65,536-row
+              CSV (submit_csv_job) into 8 classify shards of 8,192 rows at
+              BERT-base width; the port's Agent,
               in this process with its default urllib session and the
               pipelined runner (PIPELINE_DEPTH 2), drains them after one
               warm-up shard of each op. Every result ok on cuda with no
-              fallback, each shard posted once over the b1 wire, n_rows
+              fallback, each shard leased once and decoded from the b1 wire
+              (controller_wire_total), no post refused
+              (controller_results_total's stale_epoch, duplicate), n_rows
               summing to 65,536, row 1 launched n_layers times a dispatch
               chunk, and the decoded indices and scores equal to the same
               shards run serially through the op, bit for bit; wall,
@@ -135,26 +138,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               share); one risk_accumulate shard of 65,536 values on the
               card against the host path; a mixed drain of 2 summarize
               shards (the default seq2seq, 32 tokens) and 2 classify
-              shards, summaries equal to the op's. Then
-              `python -m agent_tpu_torch.agent.app` in a process of its
-              own (TASKS=echo,read_csv_shard,map_classify_tpu, BERT-base
-              cut to 2 layers) drains one echo, one read_csv_shard and two
-              256-row shards; SIGUSR1 must dump its flight recorder (with
-              the lease events) into FLIGHT_RECORDER_DIR, and it must exit 0
-              on SIGTERM, and 2 with TASKS=none. Phases 15 and 19 run
-              between the drains and the entry point.
+              shards, summaries equal to the op's; a CSV submitted without
+              a shard size split by the agent's profile hint (the
+              reference's memory formula over nvidia-smi's memory.total:
+              16,384 rows on an 80 GB card). Then the entry points, each in
+              a process of its own: `python -m
+              agent_tpu_torch.controller.server` (CONTROLLER_PORT=0, its
+              URL from the "serving on" line) and `python -m
+              agent_tpu_torch.agent.app` against it
+              (TASKS=echo,read_csv_shard,map_classify_tpu, BERT-base cut to
+              2 layers) drain one echo, one read_csv_shard and two 256-row
+              shards posted over HTTP; SIGUSR1 must dump the agent's flight
+              recorder (with the lease events) into FLIGHT_RECORDER_DIR,
+              SIGTERM end the agent and then the controller with exit code
+              0, and TASKS=none exit 2. Phases 15 and 19 run between the
+              drains and the entry points.
 15. telemetry — the agent's spans, usage stamps, gauges, captures, flight
-              recorder and failover list on phase 10's stand-in controller
-              (which mints the reference controller's trace context on
-              every task and collects the spans, capture records and obs
-              snapshots), its 8 shards and the BERT-base weights on the
-              card, through the pipelined agent (PIPELINE_DEPTH 2). The
-              shards drain with TRACE_ENABLED=0 (no span may be shipped),
-              then traced with PROFILE_DIR set (PROFILE_TASKS 1) and a
-              profile_capture alert for map_classify_tpu on the first
-              lease. Every shard's trace assembles with the port's
-              trace.assemble into one complete tree, stage, queue, execute
-              and post once each under the stand-in's lease span, and the
+              recorder and failover list against a port controller of its
+              own (which mints trace context on every task and collects
+              the spans, capture records and obs snapshots), on phase 10's
+              8 shards and the BERT-base weights on the card, through the
+              pipelined agent (PIPELINE_DEPTH 2). The shards drain with
+              TRACE_ENABLED=0 (no agent span may reach the controller),
+              then traced with PROFILE_DIR set (PROFILE_TASKS 1) and a deep
+              capture of map_classify_tpu requested from the controller
+              (request_capture). Every shard's trace (GET /v1/trace/{job})
+              assembles with the port's trace.assemble into one complete
+              tree, stage, queue, execute and post once each under the
+              controller's lease span, and the
               Chrome export of all spans validates; Σ usage.device_s equals
               the device_busy_seconds_total the agent shipped within 1 %,
               chips is 1, Σ usage.flops equals Σ encoder_fwd_flops of the
@@ -163,11 +174,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               device_duty_cycle lie in (0, 1]; device_hbm_bytes{device="0"}
               has used, peak and limit, the limit within 1 % of
               mem_get_info's total; the PROFILE_DIR trace and the capture's
-              artifact (its completion record reached the stand-in) each
+              artifact (its completion record reached the controller) each
               hold a flash_fwd_sm90 kernel event (traced printed beside
-              launched, not required equal). One more shard whose lease
-              carries an slo_page alert: one recorder dump, holding the lease
-              and posted events of the traced shards. One shard through an
+              launched, not required equal). One shard of tenant "paging",
+              whose objective (p99 1 ms) it sends to page (GET /v1/health),
+              then one more, whose lease carries the page alert: one
+              recorder dump, holding the lease and posted events of the
+              traced shards. One shard through an
               agent whose CONTROLLER_URLS lists a dead local port first: one
               failover and its recorder event. Every result equals phase
               10's serial run bit for bit; rows/s traced over untraced is
@@ -209,21 +222,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               greedy_generate / beam_generate, each to its longest budget)
               and by one persistent paged engine with 8 slots: tok/s of the
               requested tokens, the speedup, steps, mean occupancy and KV
-              blocks at the end, greedy (with a profiled stretch of 50
-              engine steps) and with 4 beams; greedy again at 64 slots. A small f32
+              blocks at the end, greedy (with a profiled stretch of 20
+              engine steps), then on the stream's first 60 requests with 4
+              beams, and greedy at 64 slots on its first 128. A small f32
               model (SMALL_S2S_F32): 32 requests joining one every 8 steps
               into 4 slots give each request's solo greedy_generate /
               beam_generate tokens (dense and paged), the CPU engine's tokens,
               and other tokens with the trash-block repoint planted away.
-              serve_summarize jobs of 8-32 requests through the port's
-              pipelined agent against the stand-in controller (one shared
-              engine; row 1 4 times a job) equal to the op run serially; TTFT
-              p50/p95 and the occupancy gauge. bench.py's disaggregated mix
-              (32 requests over 4 documents, every 4th a one-off) as
-              serve_prefill (b1 results) -> serve_decode through the agent
-              after a warm round: prefix hit rate >= 0.5, row 1 4 times a
-              prefill with a miss and never in a decode, results equal to
-              the colocated op. summarize_encode -> summarize_decode on 64
+              80 requests of 20-60 bytes through the port's POST /v1/infer
+              front door (the default ServeConfig: batches of up to 16)
+              and pipelined agent (serve_summarize jobs, one shared engine;
+              row 1 4 times a job), each request's tokens equal to its
+              batch payload run serially through the op; TTFT p50/p95, its
+              components from GET /v1/debug/requests, and the occupancy
+              gauge. bench.py's disaggregated mix (32 requests over 4
+              documents, every 4th a one-off) through a front door with
+              disaggregated=True: the controller chains serve_prefill (b1
+              results) -> serve_decode through __collect_partials__, a
+              prefill pool then a decode pool of agents, after a warm round:
+              prefix hit rate >= 0.5, row 1 4 times a prefill with a miss
+              and never in a decode, answers equal to the colocated op on
+              the decode jobs' payloads. summarize_encode -> summarize_decode on 64
               rows equal to map_summarize's greedy summaries (row 1 4 times,
               then 0). serve_classify at BERT-base width (run after phase 4,
               while its weights are on the card): row 1 12 times, answers
@@ -245,7 +264,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               steps with rows 4-6 each 12 times a step, the aux loss before
               and after; a small f32 MoE on the card against the CPU
               (logits, aux loss, every gradient, 3 steps' losses within
-              1e-4); a bf16 MoE layer at BERT-base width routing 8,192
+              1e-4), the batch holding a row with no real key and every
+              MoE layer's routes alike on card and CPU; a bf16 MoE layer at
+              BERT-base width routing 8,192
               seeded tokens on the card and on the CPU from the same
               weights: the share of tokens routed alike (expert, keep or
               drop) at least 0.99, since bf16 gate logits near a tie can
@@ -311,10 +332,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               texts in f32 and bf16 compute, each mode's token share equal
               to one device's at least the float control's less 0.02.
               Serving on tp 2: phase 13's stream
-              prefilled on the mesh and decoded by a paged engine of 8
-              slots in bf16 (tok/s beside phase 13's), each shard's pool
-              half the one-device pool's bytes, its first 64 requests in
-              f32 with one device's tokens; serve_summarize twice with one
+              prefilled on the mesh and its first 60 requests decoded by a
+              paged engine of 8 slots in bf16 (tok/s beside phase 13's),
+              each shard's pool half the one-device pool's bytes, its first
+              32 requests in f32 with one device's tokens; serve_summarize twice with one
               prompt, the second from the prefix cache. summarize_encode on
               tp 2 then summarize_decode on dp 2 × tp 2 (f32): the
               one-device split's summaries. Neither the unsharded nor the
@@ -325,7 +346,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               gloo on host tensors), both on cuda:0 (under --cards N, N of
               them, one a card): the leader drains 3 echo, 1 map_tokenize and a
               risk_accumulate of 1,048,576 values from the seed over the
-              cross-process dp 2 mesh from the stand-in; the sum within n ·
+              cross-process dp 2 mesh from the port's controller; the sum
+              within n ·
               2⁻²⁴ Σ|v| of math.fsum and bit-equal to one process's dp 2 mesh,
               min and max the f32 rounding of the exact extremes, the
               follower's tasks_done 5, both exit 0 once the leader has SIGTERM
@@ -333,8 +355,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               drops an echo must fail the check. Each task's stage span (the
               broadcast) is printed. (b) spawn_fleet(device_count(),
               platform="cuda"): each member warmed on one BERT-base request
-              (AGENT_WARM_FILE), ready by wait_for_agents over the stand-in's
-              GET /v1/status, drains phase 10's 65,536-row CSV; results equal
+              (AGENT_WARM_FILE), ready by wait_for_agents over the
+              controller's GET /v1/status (several members: MAX_TASKS 1 and
+              the serial loop each), drains phase 10's 65,536-row CSV;
+              results equal
               to phase 10's serial run bit for bit, each member's row-1 launch
               counter (its pushed kernel_launches gauge) moved; rows/s beside
               phase 10's. Run after phase 10's entry point. (c) After phase
@@ -344,41 +368,63 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               256-row request: on tp 2 every leaf and probability bitwise the
               saved model's (a leaf nudged one ulp must fail), elsewhere within
               MESH_PROB_TOL; bytes written, save and load ms.
-19. control plane — the reference controller's schedulers, workflow
-              engine and observability through the port's modules
-              (sched/, flow/, obs/, controller/journal.py), in the stand-in
-              controller's opt-in mode (ControlPlane), after phase 10 and on
-              its CSV and BERT-base weights, with a new pipelined agent on
-              cuda:0: one workflow (flow.dag) of 4 classify stages (phase
-              10's first four 8,192-row shards, tier 7, tenant acme of
-              weight 3), 4 risk_accumulate stages of 16,384 host values, a
-              reduce collecting their partials and an echo report after both
-              (tier 5, tenant globex of weight 1), leased by the fair policy
-              from the real lease bodies' capabilities. No job leased before
-              its dependencies, none past a higher tier, each once; no
-              placement deferral of a classify job on the card's agent
-              ("cuda", where the reference's policy defers); the classify
-              results bit for bit phase 10's serial ones; the reduce's sum
-              within n · 2⁻²⁴ Σ|v| of math.fsum; row 1 12 times a shard.
-              The workflow again under a new id: every job from the result
-              cache, no lease, row 1 not launched. Each lease poll samples
-              the plane's registry and the agent's obs (merge_snapshots)
-              into a TimeSeriesRing whose hook feeds a TsdbStore and an
-              AnomalyDetector; the fleet exposition validates and parses
-              back; the store, reopened, reads back the ring's series; an
-              SLO on the classify jobs reports its burn, the usage ledger
-              both tenants; the workflow's trace is complete, each job's
-              submit and lease spans with the agent's spans under the
-              lease. The scheduler's take p50 and max in µs.
+19. control plane — the port's controller with the fair scheduler, the
+              workflow engine, the result cache and its observability,
+              after phase 10 and on its CSV and BERT-base weights, with a
+              new pipelined agent on cuda:0: two workflows, tenant acme's
+              (weight 3) of 4 classify stages (phase 10's first four
+              8,192-row shards, tier 7) and an echo report after them,
+              tenant globex's (weight 1) of 4 risk_accumulate stages of
+              16,384 host values and a reduce collecting their partials,
+              leased by the fair policy from the real lease bodies'
+              capabilities. From the controller's flight recorder: no job
+              leased before its dependencies, none past a higher tier, each
+              once; no placement deferral (sched_decisions_total) on the
+              card's agent ("cuda", where the reference's policy defers);
+              the classify results bit for bit phase 10's serial ones; the
+              reduce's sum within n · 2⁻²⁴ Σ|v| of math.fsum; row 1 12
+              times a shard. Both workflows again under new ids: every
+              job from the result cache (GET /v1/workflows/{id}; the reduce
+              at lease time, keyed on its collected partials), no lease,
+              the same results, row 1 not launched. Each lease poll samples the
+              controller's registry and the agent's obs into its ring and
+              the durable TSDB (TSDB_DIR); GET /v1/metrics validates and
+              parses back; the store, reopened, reads back the ring's
+              series; an SLO on the classify jobs reports its burn (GET
+              /v1/health), GET /v1/usage both tenants; each workflow's trace
+              is complete, each job's submit and lease spans with the
+              agent's spans under the lease.
+20. front door — the port's ControllerServer with the default
+              ServeConfig (max_batch 16, max_wait_ms 25, five length
+              buckets) and one pipelined agent on cuda:0 offering
+              serve_classify, on phase 4's weights: 8 client threads post
+              512 blocking POST /v1/infer classify requests at BERT-base
+              width (bf16, top 5) of 20-900 bytes from the seed, so that
+              every bucket takes requests. Each answer agrees with
+              serve_classify run directly on its batch (phase 4's bf16
+              tolerance); the batches by bucket and flush reason (GET
+              /v1/debug/requests) match serve_batches_total and GET
+              /v1/status; row 1 n_layers times a job the agent ran (its
+              tasks_total). 32 requests of one bucket posted at once:
+              two "full" batches of 16 (serve_batches_total), each answer
+              agreeing with the direct one. A burst of 32 against
+              max_pending 8: each
+              refusal an HTTP 429 with retry_after_ms, its retries
+              answered. Requests/s, p50/p99 latency and the TTFT
+              components beside nvidia-smi's name and power limit.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
-              its launcher, its inputs built outside the timing (the fold
+              its launcher (rows 1 and 3 also through their entry points,
+              which add the keyless-row rule: entry_ms with the ops' host
+              lengths hint, entry_flag_ms without it), its inputs built
+              outside the timing (the fold
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-19; row 1's
-              launches by path include phases 10-17 and 19, and its entry holds
+              point's time beside it). Printed after phases 8-20, after a
+              line of each phase's seconds; row 1's launches by path include
+              phases 10-17, 19 and 20, and its entry holds
               three more: at phase 12's encoder shape, at phase 13's
               stream prefill (B 240, H 8, L 64, D 32) and at the BART
               encoder's tp 2 shard (B 64, H 8, L 1024, D 64); the T5
@@ -397,7 +443,6 @@ from __future__ import annotations
 
 import collections
 import copy
-import dataclasses
 import gc
 import json
 import math
@@ -412,7 +457,6 @@ import sys
 import tempfile
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -538,18 +582,22 @@ BART_CHECK_ROWS = 8  # rows whose f32 tokens are compared, kernel vs plain
 # Phase 13: bench.py's serving leg (bench.py:1376-1392, _bench_serving_beam):
 # 240 requests of 64 source ids, a budget of T // 32 tokens with probability
 # 0.9 and T (max_tgt_len 130) otherwise, seed 5, 8 slots, greedy and 4
-# beams, micro_steps 1; greedy again at 64 slots. Then the agent's jobs of
-# 8-32 requests, and the disaggregated mix (SERVE_DISAGG_REQUESTS over
-# SERVE_DISAGG_DOCS) with ServeConfig's buckets and batch cap.
+# beams, micro_steps 1; greedy again at 64 slots. Then the agent's 80
+# requests (groups of 8-32) through the front door, and the disaggregated
+# mix (DISAGG_REQUESTS over DISAGG_DOCS).
 SERVE_REQUESTS, SERVE_SRC, SERVE_SLOTS, SERVE_WIDE_SLOTS, SERVE_BEAMS = 240, 64, 8, 64, 4
 SERVE_SHORT_FRAC, SERVE_SEED = 0.9, 5
 SERVE_WARM = 8  # requests of each side's warm-up pass
-SERVE_PROFILE_STEPS = 50
+SERVE_PROFILE_STEPS = 20
+# The beam leg decodes this share of the stream (the greedy 8-slot leg all
+# of it): the depth cut to pay for phase 20. The 64-slot leg decodes twice
+# its slots, so that its engine refills slots as a static batch cannot.
+SERVE_BEAM_LEG_FRAC = 1 / 4
+SERVE_WIDE_LEG_PER_SLOT = 2
 SERVE_EXACT_REQUESTS = 32
 SERVE_EXACT_EVERY = 8  # steps between arrivals: slots sit empty, blocks are reused
 SERVE_AGENT_JOBS = (8, 16, 24, 32)
 DISAGG_REQUESTS, DISAGG_DOCS = 32, 4
-SERVE_LEN_BUCKETS, SERVE_MAX_BATCH = (64, 128, 256, 512, 1024), 16
 MPMD_ROWS = 64
 SERVE_MODEL: dict = {}  # Seq2SeqConfig overrides of phase 13 (none: the defaults)
 
@@ -659,7 +707,40 @@ EDGE_CASES = [
     ("lq257_lk129", (2, 3, 257, 129, 64), [129, 100]),
     ("lq1", (2, 3, 1, 77, 64), [77, 5]),
     ("shared_mask_d128", (2, 4, 300, 300, 128), [250]),
+    # A keyless row at the reference's 2048-key gate: 0 there, not the mean.
+    ("dead_row_L2048", (2, 2, 64, 2048, 64), [2048, 0]),
 ]
+
+
+def keyless_check(fa, entry, got, q, k, v, mask, lengths, dtype) -> tuple:
+    """The entry point (``entry()``) against its launcher's ``got``: without
+    a hint it is ``got`` with ``fa.keyless_rows_dense`` on top; with the
+    ops' host hint (``fa.keyless_rows(lengths)``) its rows with keys are
+    ``got`` bit for bit. Its keyless rows, both ways, below the 2048-key
+    gate against the port's dense attention on the same inputs
+    (``layers.dot_product_attention``: every score NEG_INF, a uniform
+    softmax, P·V in the input dtype) at the case's tolerance, from the gate
+    on 0 -> (ok, max |Δ| of the keyless rows against the dense path)."""
+    from agent_tpu_torch.models.layers import dot_product_attention
+
+    plain = entry()
+    with fa.keyless_rows(lengths):
+        hinted = entry()
+    ok = torch.equal(plain, fa.keyless_rows_dense(got, v, mask))
+    dead = torch.as_tensor(np.asarray(lengths) == 0, device=got.device)
+    dead = dead.expand(q.shape[0]) if dead.numel() == 1 else dead
+    ok = ok and torch.equal(hinted[~dead], got[~dead])
+    if not bool(dead.any()):
+        return ok and torch.equal(hinted, plain), 0.0
+    if k.shape[2] >= fa.FLASH_MIN_KEY_LEN:
+        return ok and bool((plain[dead] == 0).all() and (hinted[dead] == 0).all()), 0.0
+    dense = dot_product_attention(q[dead], k[dead], v[dead], mask.expand(
+        q.shape[0], *mask.shape[1:])[dead])
+    err = 0.0
+    for out in (plain, hinted):
+        same, e, _ = compare(out[dead], dense, dtype)
+        ok, err = ok and same, max(err, e)
+    return ok, err
 
 
 def staged_cases(classify, requests) -> list:
@@ -681,18 +762,24 @@ def staged_cases(classify, requests) -> list:
 
 
 def check_kernels(fa, main_cases) -> dict:
-    """Phase 3: the CUDA kernel against its plain version on the card."""
+    """Phase 3: the CUDA kernel (its launcher) against its plain version on
+    the card, a row with no real key 0 in both; and the wrapper, with and
+    without the ops' host hint, against the kernel and its keyless rows
+    against the dense path (``keyless_check``)."""
     cases = [(n, s, ln, dt) for n, s, ln in EDGE_CASES
              for dt in (torch.bfloat16, torch.float32)] + main_cases
     results, inputs = [], {}
     for i, (name, (B, H, Lq, Lk, D), lengths, dtype) in enumerate(cases):
         q, k, v, mask = attn_inputs(B, H, Lq, Lk, D, dtype, lengths, seed=i)
-        got = fa.flash_attention(q, k, v, mask)
+        got = fa._launch(q, k, v, mask)
         want = fa.flash_attention_reference(q, k, v, mask)
         ok, err, rel = compare(got, want, dtype)
         if len(lengths) == B:
             dead = torch.as_tensor(np.asarray(lengths) == 0, device=got.device)
             ok = ok and bool((got[dead] == 0).all())
+        rule_ok, keyless_err = keyless_check(
+            fa, lambda: fa.flash_attention(q, k, v, mask), got, q, k, v, mask, lengths, dtype)
+        ok = ok and rule_ok
         faults = {
             "drop_first_tile": fa.flash_attention_reference(q, k, v, drop_first_tile(mask)),
             "scale_x1.1": fa.flash_attention_reference(q * 1.1, k, v, mask),
@@ -701,6 +788,7 @@ def check_kernels(fa, main_cases) -> dict:
         caught = all(not compare(out, want, dtype)[0] for out in faults.values())
         results.append({"case": name, "dtype": str(dtype).split(".")[-1],
                         "shape": [B, H, Lq, Lk, D], "max_abs_err": err, "max_rel_err": rel,
+                        "keyless_vs_dense_err": keyless_err,
                         "fault_rel_err": fault_rel, "ok": ok, "faults_caught": caught})
         if name.startswith(("texts256/", "bart_greedy/", "serve_stream240/")):
             inputs[name.split("/")[0]] = (q, k, v, mask, lengths)
@@ -1305,6 +1393,17 @@ def kernel_entry(name, source, design, replaces, launches, max_abs_err, max_rel_
             "dtype": str(q.dtype).split(".")[-1], **extra}
 
 
+def entry_times(fa, lengths, entry) -> dict:
+    """The entry point's times beside its launcher's: ``entry_ms`` as the
+    ops call it, inside ``fa.keyless_rows`` with the batch's host lengths
+    (entered once, as an op enters it once for all of a forward's layers;
+    a batch without a keyless row pays no rule), and ``entry_flag_ms``
+    without that hint, the rule's flag made from the mask on the card."""
+    with fa.keyless_rows(lengths):
+        hinted = cuda_ms(entry)
+    return {"entry_ms": hinted, "entry_flag_ms": cuda_ms(entry)}
+
+
 def train_kernel_entries(fa, check, launches, by_path=None) -> list:
     """The kernels line's entries of the three training kernels, timed at
     phase 6's first batch. Their library yardsticks are
@@ -1646,8 +1745,9 @@ T5_EDGE_CASES = [
 
 
 def check_t5_kernel(fa, main_case) -> dict:
-    """Phase 3, the T5 kernel: its entry on the card against the plain
-    version on the same per-distance table, with learned tables of standard
+    """Phase 3, the T5 kernel: its launcher on the card against the plain
+    version on the same per-distance table (the entry equal to it with the
+    keyless-row rule on top), with learned tables of standard
     deviation 1 (so the bias matters beside the scores); the relative
     position reversed (k - q read as q - k) and the table of head h + 1 must
     fail the same check."""
@@ -1657,13 +1757,18 @@ def check_t5_kernel(fa, main_case) -> dict:
         q, k, v, mask = attn_inputs(B, H, Lq, Lk, D, dtype, lengths, seed=400 + i)
         rel_bias = torch.randn(nb, H, generator=torch.Generator().manual_seed(i)).to(CARD)
         table = fa.distance_bias_table(rel_bias, bidirectional=bidir, max_distance=maxd)
-        got = fa.flash_attention_t5(q, k, v, mask, rel_bias, bidirectional=bidir,
-                                    max_distance=maxd)
+        got = fa._launch_t5(q.contiguous(), k.contiguous(), v.contiguous(), mask, table, maxd,
+                            1.0)
         want = fa.flash_attention_t5_reference(q, k, v, mask, table, max_distance=maxd)
         ok, err, rel = compare(got, want, dtype)
         if len(lengths) == B and 0 in lengths:
             dead = torch.as_tensor(np.asarray(lengths) == 0, device=got.device)
             ok = ok and bool((got[dead] == 0).all())
+        rule_ok, keyless_err = keyless_check(
+            fa, lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias, bidirectional=bidir,
+                                              max_distance=maxd),
+            got, q, k, v, mask, lengths, dtype)
+        ok = ok and rule_ok
         faults = {
             "reversed_position": fa.flash_attention_t5_reference(
                 q, k, v, mask, table.flip(-1), max_distance=maxd),
@@ -1675,7 +1780,8 @@ def check_t5_kernel(fa, main_case) -> dict:
         results.append({"case": name, "dtype": str(dtype).split(".")[-1],
                         "shape": [B, H, Lq, Lk, D], "bidirectional": bidir,
                         "buckets_max_distance": [nb, maxd], "max_abs_err": err,
-                        "max_rel_err": rel, "fault_rel_err": fault_rel, "ok": ok,
+                        "max_rel_err": rel, "keyless_vs_dense_err": keyless_err,
+                        "fault_rel_err": fault_rel, "ok": ok,
                         "faults_caught": caught})
         if name.startswith("t5_large/"):
             inputs = (q, k, v, mask, rel_bias, table, lengths)
@@ -2161,7 +2267,7 @@ def t5_phase(fa, op, rt, ckpt, requests) -> dict:
 def t5_kernel_entry(fa, check, launches, **extra) -> dict:
     """The kernels line's entry of the T5 kernel at phase 9's staged shape
     and key lengths, timed through its launcher with the per-distance table
-    built once outside the timing (``entry_ms``: the entry point, which
+    built once outside the timing (``entry_times``: the entry point, which
     builds the table and the int32 keep each call). Its library yardstick is
     scaled_dot_product_attention with the relative bias and the padding
     mask materialised as one float mask [B, H, L, L] (in the input dtype,
@@ -2186,8 +2292,9 @@ def t5_kernel_entry(fa, check, launches, **extra) -> dict:
             q, k, v, attn_mask=float_mask, scale=1.0)), q,
         library_note="SDPA with the bias and padding mask as one float attn_mask, "
                      "materialised outside the timing",
-        entry_ms=cuda_ms(lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias,
-                                                       max_distance=maxd)), **extra)
+        **entry_times(fa, lengths, lambda: fa.flash_attention_t5(q, k, v, mask, rel_bias,
+                                                                 max_distance=maxd)),
+        **extra)
     del float_mask
     return entry
 
@@ -2203,476 +2310,132 @@ CONTROL_SLO = [{"name": "classify_latency", "op": "map_classify_tpu", "p99_ms": 
 CONTROL_RING_INTERVAL_S = 0.05  # the ring's sampling interval (TSDB_INTERVAL)
 
 
-class SchedJob:
-    """The fields of the reference controller's job that a scheduler reads."""
-
-    __slots__ = ("job_id", "op", "tenant", "priority", "critical_path",
-                 "required_labels", "placement_defers")
-
-    def __init__(self, job_id: str, op: str, tenant: str, priority: int,
-                 critical_path: int) -> None:
-        self.job_id, self.op, self.tenant = job_id, op, tenant
-        self.priority, self.critical_path = priority, critical_path
-        self.required_labels: dict = {}
-        self.placement_defers = 0
+LEASE_TTL_S = 600.0  # a lease outlives any task of the run (weights build inside one)
 
 
-class ControlPlane:
-    """The reference controller's pieces, through the port's modules, for
-    the stand-in controller's opt-in mode (phase 19): the fair scheduler
-    (two tenants of CONTROL_TENANTS' weights), the content-addressed result
-    cache, the trace store (one tree per workflow), the usage ledger and
-    an SLO tracker on the plane's own metrics registry, and a time-series
-    ring sampled on every lease poll (the registry's snapshot and the
-    agents' obs snapshots through ``merge_snapshots``) whose ``on_sample``
-    hook appends to a durable TsdbStore in ``directory`` and feeds an
-    AnomalyDetector with ``default_watches()``. It records the lease order,
-    every scheduling decision, each ``take``'s time, the cache's answers,
-    and what the phase audits: jobs leased before their dependencies were
-    done, and leases that passed over a higher tier."""
+class PortController:
+    """The port's controller for a phase: ``ControllerServer`` around a
+    port ``Controller`` on 127.0.0.1, port 0 (``kwargs`` go to the
+    Controller), or with ``env`` ``python -m
+    agent_tpu_torch.controller.server`` in a process of its own, configured
+    by those environment knobs (``c`` is then None). Leases are held up to
+    LEASE_TTL_S; the result cache is off unless ``cache``, since the phases
+    resubmit shards whose kernel launches they count. What the phases read
+    of it comes from the controller's own surfaces: job states and results
+    (``job_snapshot``, ``GET /v1/jobs/{id}``), result posts by outcome
+    (``controller_results_total``: a post of a job twice is ``duplicate``,
+    one fenced by its epoch or lease ``stale_epoch``), the binary wire
+    (``controller_wire_total``), traces (``trace_json``), ``GET
+    /v1/status`` and the agents' pushed metrics."""
 
-    def __init__(self, directory: str) -> None:
-        from agent_tpu_torch.config import SchedConfig
-        from agent_tpu_torch.flow.result_cache import ResultCache
-        from agent_tpu_torch.obs import anomaly, metrics, slo, timeseries, trace, tsdb, usage
-        from agent_tpu_torch.sched import make_scheduler
+    FENCED = ("stale_epoch", "duplicate", "unknown_job")
 
-        self.directory = directory
-        self.decisions: list = []  # (decision, job id) as the policy reports them
-        self.sched = make_scheduler(
-            SchedConfig(policy="fair", tenant_weights=dict(CONTROL_TENANTS)),
-            on_decision=lambda d, job_id=None, **_kw: self.decisions.append((d, job_id)))
-        self.cache = ResultCache()
-        self.traces = trace.TraceStore()
-        self.registry = metrics.MetricsRegistry()
-        self.m_depth = self.registry.gauge("controller_queue_depth", "Queued jobs",
-                                           ("policy",))
-        self.m_leased = self.registry.counter("tasks_leased_total", "Jobs leased", ("op",))
-        self.m_cache = self.registry.counter("result_cache_events_total",
-                                             "Result-cache answers", ("event",))
-        self.usage = usage.UsageLedger(registry=self.registry)
-        self.slo = slo.SloTracker(slo.parse_slo_spec(json.dumps(CONTROL_SLO)),
-                                  registry=self.registry)
-        self.tsdb = tsdb.TsdbStore(directory)
-        self.anomaly = anomaly.AnomalyDetector(anomaly.default_watches())
-        self.anomaly_events: list = []
-        self.ring = timeseries.TimeSeriesRing(window_sec=900.0,
-                                              interval_sec=CONTROL_RING_INTERVAL_S)
-        self.ring.on_sample = self._on_sample
-        self._prev = None
-        self.roots: dict = {}  # workflow id -> its root span
-        self.leases: list = []  # job ids in lease order
-        self.take_us: list = []
-        self.cached: list = []  # job ids answered from the cache
-        self.early: list = []
-        self.tier_breaks: list = []
-        self.agent_kinds: dict = {}  # agent -> the device_kind it advertised
+    def __init__(self, cache: bool = False, env=None, **kwargs) -> None:
+        from agent_tpu_torch.config import FlowConfig
+        from agent_tpu_torch.controller import Controller, ControllerServer
 
-    def _on_sample(self, wall: float, _mono: float, data: dict) -> None:
-        self.tsdb.append_sample(wall, data)
-        sample = {"wall": wall, "data": data}
-        self.anomaly_events += self.anomaly.observe(self._prev, sample)
-        self._prev = sample
-
-    def sample(self, agent_obs: dict) -> bool:
-        """On a lease poll: the ring takes a sample when one is due."""
-        from agent_tpu_torch.obs.metrics import merge_snapshots
-
-        self.m_depth.set(self.sched.total(), policy="fair")
-        return self.ring.maybe_sample(
-            lambda: [self.registry.snapshot(), merge_snapshots(list(agent_obs.values()))])
-
-    @staticmethod
-    def deps_done(jobs: dict, job: dict) -> bool:
-        return all(jobs[d]["state"] == "done" for d in job["after"])
-
-    def cache_hit(self, job_id: str, job: dict, result: dict, now: float) -> None:
-        """A job answered from the result cache: done without a lease,
-        billed as one cache hit."""
-        job.update(state="done", status="succeeded", result=result, cached=True)
-        self.cached.append(job_id)
-        self.m_cache.inc(event="hit")
-        self.traces.finish(job["workflow"], job["root"], now, {"result_cache": "hit"})
-        self.usage.bill(job_id, job["tenant"], job["priority"], job["op"], "cache",
-                        usage={"result_cache_hits": 1})
-
-    def applied(self, job_id: str, job: dict) -> None:
-        """An accepted result: the spans closed, the result cached (a
-        cacheable op), billed to the job's tenant, and a classify job's
-        latency into the SLO tracker."""
-        from agent_tpu_torch.ops import is_cacheable
-
-        now = time.monotonic()
-        ok = job["status"] == "succeeded"
-        self.traces.finish(job["workflow"], job["lease_span"], now, {"status": job["status"]})
-        self.traces.finish(job["workflow"], job["root"], now)
-        if ok and is_cacheable(job["op"]):
-            self.cache.put(job["op"], job["payload"], job["result"])
-        self.usage.bill(job_id, job["tenant"], job["priority"], job["op"], job["epoch"],
-                        usage=(job["result"] or {}).get("usage"))
-        self.slo.observe(now - job["submitted"], ok, tier=job["priority"], tenant=job["tenant"],
-                         op=job["op"])
-
-
-class StandInController:
-    """A controller for phases 10, 13 and 15, kept in this script because
-    chip_smoke imports nothing of agent_tpu. It speaks the protocol of
-    agent_tpu/agent/app.py:3-11 on 127.0.0.1:
-
-    - ``POST /v1/leases``: up to ``max_tasks`` pending jobs whose op the
-      agent offers, each at a bumped ``job_epoch``, with the reference
-      controller's trace context (``trace: {trace_id: job id, span_id: the
-      lease span}``, agent_tpu/controller/core.py:235-242); 204 when there
-      is none (and for the metrics-only poll); ``wire: "b1"`` when the
-      lease offers it; the next queued ``alerts`` list (``queue_alerts``:
-      ``slo_page`` and ``profile_capture`` in the reference's shapes,
-      core.py:2780-2789) on a granted lease. The ``metrics`` channel's
-      ``spans`` and ``profile_captures`` are collected, and its ``obs``
-      snapshot kept per agent;
-    - ``POST /v1/results``: accepted only with the lease's id and the
-      job's current ``job_epoch``; a ``b1`` result is decoded with the
-      port's ``data/wire.py`` (held byte for byte to the reference's by
-      tests/test_torch_wire.py); ``released`` puts the job back. The body's
-      ``spans`` are collected whether or not the result is accepted.
-
-    - ``GET /v1/status``: ``{"agents": {name: {polls, last_seen}}}``, every
-      agent that has polled (the reference's ``agents_summary``, which
-      ``agent/fleet.wait_for_agents`` reads).
-
-    Each job's trace holds the stand-in's own ``submit`` root and one
-    ``lease`` span per lease, closed by the result. Every post is counted
-    per job, so a shard reported twice shows; each job records the agent
-    that leased it. ``agent_cap`` caps the tasks an agent holds leased at
-    once (a fleet's members then share the shards).
-
-    A lease picks pending jobs in arrival order (FIFO), unless the stand-in
-    is given a :class:`ControlPlane` (phase 19, opt-in): its workflows
-    (``submit_workflow``) are then planned, scheduled, cached, billed,
-    traced and sampled by the port's control-plane modules, as the
-    reference controller does."""
-
-    def __init__(self, plane: "ControlPlane | None" = None) -> None:
-        self.plane = plane
-        self.lock = threading.Lock()
-        self.jobs: dict = {}
-        self.posts: dict = {}
-        self.stale = 0
-        self.b1_leases = 0
-        self._n = 0
-        self.spans: dict = {}  # trace id -> {span id: span}
-        self.spans_shipped = 0  # spans the agents sent
-        self.captures: list = []  # profile_captures completion records
-        self.agent_obs: dict = {}  # agent name -> its last obs snapshot
-        self.agents: dict = {}  # agent name -> {polls, last_seen}
-        self.agent_cap = None  # at most this many leased tasks an agent (None: no cap)
-        self._alerts: list = []  # alert lists for the next granted leases
-        ctrl = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def do_GET(self):  # noqa: N802 — http.server's name
-                with ctrl.lock:
-                    out = {"agents": {k: dict(v) for k, v in ctrl.agents.items()}} \
-                        if self.path == "/v1/status" else {"error": "no such route"}
-                data = json.dumps(out).encode()
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def do_POST(self):  # noqa: N802 — http.server's name
-                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
-                if self.path == "/v1/leases":
-                    out = ctrl.lease(body)
-                elif self.path == "/v1/results":
-                    out = ctrl.report(body)
-                else:
-                    out = {"error": "no such route"}
-                data = b"" if out is None else json.dumps(out).encode()
-                self.send_response(204 if out is None else 200)
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def log_message(self, *args):
-                pass
-
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.env, self.c, self.server, self.proc = env, None, None, None
+        if env is None:
+            kwargs.setdefault("lease_ttl_sec", LEASE_TTL_S)
+            kwargs.setdefault("flow", FlowConfig(cache_enabled=cache))
+            self.c = Controller(**kwargs)
+            self.server = ControllerServer(self.c)
+        else:
+            self.env = dict(env, LEASE_TTL_SEC=str(LEASE_TTL_S),
+                            CACHE_ENABLED="1" if cache else "0")
 
     @property
     def url(self) -> str:
-        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        return self.server.url if self.server is not None else self._url
 
     def __enter__(self):
-        self.thread.start()
+        if self.server is not None:
+            self.server.start()
+            return self
+        root = os.path.dirname(os.path.abspath(__file__))
+        self._log = tempfile.TemporaryFile("w+")
+        self.proc, self._url = start_controller(dict(os.environ, PYTHONPATH=root, **self.env),
+                                                self._log)
         return self
 
     def __exit__(self, *exc):
-        self.httpd.shutdown()
-        self.httpd.server_close()
-        self.thread.join(timeout=10)
+        if self.server is not None:
+            self.server.stop()
+            self.c.close()
+            return
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._log.close()
+        if rc != 0 and exc[0] is None:
+            raise SystemExit(f"the controller process exited {rc}")
 
-    def _open_span(self, job_id: str, name: str, parent) -> str:
-        from agent_tpu_torch.obs.trace import make_span
+    def get(self, route: str):
+        status, body = http_json(self.url + route)
+        if status != 200:
+            raise SystemExit(f"GET {route}: {status} {str(body)[:300]}")
+        return body
 
-        span = make_span(name, job_id, parent, process="controller")
-        span["duration_ms"] = None  # open until the result closes it
-        self.spans.setdefault(job_id, {})[span["span_id"]] = span
-        return span["span_id"]
+    def submit(self, op: str, payload: dict, **kwargs) -> str:
+        return self.c.submit(op, payload, **kwargs)
 
-    def _close_span(self, job_id: str, span_id, **attributes) -> None:
-        span = self.spans.get(job_id, {}).get(span_id)
-        if span is not None and span["duration_ms"] is None:
-            span["duration_ms"] = round((time.monotonic() - span["start_mono"]) * 1e3, 3)
-            span["attributes"].update(attributes)
-
-    def _ingest(self, spans) -> None:
-        for span in spans or []:
-            self.spans_shipped += 1
-            self.spans.setdefault(span["trace_id"], {})[span["span_id"]] = span
-        if self.plane is not None:
-            self.plane.traces.ingest(list(spans or []))
-
-    def submit(self, op: str, payload: dict) -> str:
-        with self.lock:
-            self._n += 1
-            job_id = f"job-{self._n:05d}"
-            self.jobs[job_id] = {"op": op, "payload": payload, "epoch": 0, "state": "pending",
-                                 "lease": None, "status": None, "result": None,
-                                 "root": self._open_span(job_id, "submit", None),
-                                 "lease_span": None}
-        return job_id
-
-    def queue_alerts(self, alerts: list) -> None:
-        """Hand ``alerts`` out with the next granted lease."""
-        with self.lock:
-            self._alerts.append(alerts)
-
-    def trace(self, job_id: str) -> list:
-        with self.lock:
-            return [dict(s) for s in self.spans.get(job_id, {}).values()]
-
-    def submit_csv(self, path: str, op: str, start: int, rows: int, shard: int,
-                   extra: dict) -> list:
-        """Shard rows [start, start + rows) of the CSV into ``op`` tasks."""
-        return [self.submit(op, dict(extra, source_uri=path, start_row=s,
-                                     shard_size=min(shard, start + rows - s)))
-                for s in range(start, start + rows, shard)]
+    def submit_csv(self, path: str, op: str, rows: int, shard, extra: dict) -> list:
+        """``submit_csv_job``: rows [0, rows) of the CSV in ``op`` shards of
+        ``shard`` rows (None: the size the agents' profiles suggest)."""
+        return self.c.submit_csv_job(path, rows, shard_size=shard, map_op=op,
+                                     extra_payload=extra)[0]
 
     def drained(self) -> bool:
-        with self.lock:
-            return all(j["state"] == "done" for j in self.jobs.values())
+        return self.c.drained() if self.c is not None else self.get("/v1/status")["drained"]
 
-    def lease(self, body: dict):
-        caps = body.get("capabilities") or {}
-        ops = set(caps.get("ops") or [])
-        metrics = body.get("metrics") or {}
-        with self.lock:
-            self._ingest(metrics.get("spans"))
-            self.captures += metrics.get("profile_captures") or []
-            if body.get("agent") and "obs" in metrics:
-                self.agent_obs[body["agent"]] = metrics["obs"]
-            if body.get("agent"):
-                seen = self.agents.setdefault(body["agent"], {"polls": 0})
-                seen.update(polls=seen["polls"] + 1, last_seen=time.time())
-            if self.plane is not None:
-                self.plane.sample(self.agent_obs)
-                if not body.get("max_tasks"):
-                    return None
-                return self._lease_planned(body, ops, caps)
-            picked = [j for j, job in self.jobs.items()
-                      if job["state"] == "pending" and job["op"] in ops]
-            room = int(body.get("max_tasks") or 0)
-            if self.agent_cap is not None:
-                held = sum(1 for job in self.jobs.values()
-                           if job["state"] == "leased" and job.get("agent") == body.get("agent"))
-                room = min(room, self.agent_cap - held)
-            picked = picked[:max(room, 0)]
-            if not picked:
-                return None
-            self._n += 1
-            lease_id = f"lease-{self._n:05d}"
-            tasks = []
-            for j in picked:
-                job = self.jobs[j]
-                job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id,
-                           lease_span=self._open_span(j, "lease", job["root"]),
-                           agent=body.get("agent"))
-                tasks.append({"id": j, "op": job["op"], "payload": job["payload"],
-                              "job_epoch": job["epoch"], "attempt": job["epoch"],
-                              "trace": {"trace_id": j, "span_id": job["lease_span"]}})
-            out = {"lease_id": lease_id, "tasks": tasks}
-            if self._alerts:
-                out["alerts"] = self._alerts.pop(0)
-            if "b1" in (caps.get("wire_formats") or []):
-                out["wire"] = "b1"
-                self.b1_leases += 1
-            return out
+    def series(self, name: str, **labels) -> float:
+        """The sum of ``GET /v1/metrics``' ``name`` samples whose labels
+        include ``labels``."""
+        from agent_tpu_torch.obs.metrics import parse_exposition
 
-    def report(self, body: dict) -> dict:
-        from agent_tpu_torch.data import wire
+        text = self.c.metrics_text() if self.c is not None else self.get("/v1/metrics")
+        return sum(v for lab, v in parse_exposition(text).get(name, [])
+                   if all(lab.get(k) == str(x) for k, x in labels.items()))
 
-        job_id = body.get("job_id")
-        with self.lock:
-            self._ingest(body.get("spans"))
-            self.posts[job_id] = self.posts.get(job_id, 0) + 1
-            job = self.jobs.get(job_id)
-            if job is None or job["state"] != "leased" or body.get("lease_id") != job["lease"] \
-                    or body.get("job_epoch") != job["epoch"]:
-                self.stale += 1
-                return {"accepted": False, "reason": "stale or unknown"}
-            self._close_span(job_id, job["lease_span"], outcome=body.get("status"))
-            if body.get("status") == "released":
-                job["state"] = "pending"
-                if self.plane is not None and "workflow" in job:
-                    self.plane.sched.add(job["sched"])
-                return {"accepted": True, "released": True}
-            self._close_span(job_id, job["root"])
-            result = body.get("result")
-            job["b1"] = wire.is_binary_result(result)
-            if job["b1"]:
-                result = wire.decode_result(result)
-            job.update(state="done", status=body.get("status"), result=result,
-                       error=body.get("error"))
-            if self.plane is not None and "workflow" in job:
-                self.plane.applied(job_id, job)
-            return {"accepted": True}
+    def fenced(self) -> dict:
+        """Result posts the controller refused, by outcome."""
+        return {o: self.series("controller_results_total", outcome=o) for o in self.FENCED}
 
-    # ---- the control-plane mode (phase 19) ----
-
-    def submit_workflow(self, doc: dict, tenant_of) -> tuple:
-        """Plan ``doc`` with the port's ``flow.dag`` and submit every
-        planned job into the plane's scheduler, ``tenant_of(stage)`` its
-        tenant, as the reference controller's workflow submit does: a
-        dep-free cacheable stage whose result is cached lands done at once
-        and never enters the queue. -> (workflow id, job ids in plan order)."""
-        from agent_tpu_torch.flow import dag
-        from agent_tpu_torch.ops import OP_TO_MODULE, is_cacheable
-
-        plane = self.plane
-        spec = dag.parse_workflow(doc, list(OP_TO_MODULE))
-        with self.lock:
-            self._n += 1
-            wid = f"wf-{self._n:05d}"
-            now = time.monotonic()
-            root = plane.traces.open(wid, "workflow", start_clock=now)
-            plane.roots[wid] = root
-            ids = []
-            for p in dag.expand_workflow(spec, wid):
-                tenant = tenant_of(p.stage)
-                sub = plane.traces.open(wid, "submit", parent_span_id=root, start_clock=now,
-                                        attributes={"job_id": p.job_id, "stage": p.stage})
-                job = {"op": p.op, "payload": dict(p.payload), "epoch": 0, "state": "pending",
-                       "lease": None, "status": None, "result": None, "root": sub,
-                       "lease_span": None, "workflow": wid, "stage": p.stage, "after": p.after,
-                       "tenant": tenant, "priority": p.priority, "submitted": now,
-                       "sched": SchedJob(p.job_id, p.op, tenant, p.priority, p.critical_path)}
-                self.jobs[p.job_id] = job
-                ids.append(p.job_id)
-                cached = plane.cache.get(p.op, job["payload"]) \
-                    if not p.after and is_cacheable(p.op) else None
-                if cached is not None:
-                    plane.cache_hit(p.job_id, job, cached, now)
-                else:
-                    plane.sched.add(job["sched"])
-        return wid, ids
-
-    def _lease_planned(self, body: dict, ops: set, caps: dict):
-        """The reference controller's lease (core.py's ``lease``) over the
-        plane: a LeaseContext from the lease body's capabilities, the fair
-        policy's ``take`` of the eligible jobs (pending, offered op, every
-        job in ``after`` done), a dep-gated job's partials materialized in
-        ``after`` order, a cacheable job answered from the result cache
-        without a lease (the take repeats while it answers some). Called
-        under the lock."""
-        from agent_tpu_torch.ops import is_cacheable
-        from agent_tpu_torch.sched import LeaseContext
-
-        plane = self.plane
-        agent = body.get("agent") or ""
-        n = max(1, int(body.get("max_tasks") or 1))
-        plane.agent_kinds[agent] = caps.get("device_kind")
-        ctx = LeaseContext(agent=agent, now=time.monotonic(), limit=n, requested=n,
-                           ops=frozenset(ops), labels=body.get("labels") or {},
-                           device_kind=caps.get("device_kind"),
-                           mesh_devices=caps.get("mesh_devices"),
-                           queue_depth=caps.get("queue_depth"))
-
-        def eligible(sj) -> bool:
-            job = self.jobs[sj.job_id]
-            return job["state"] == "pending" and sj.op in ops and plane.deps_done(self.jobs, job)
-
-        picked, n_decisions = [], len(plane.decisions)
-        while len(picked) < n:
-            t0 = time.perf_counter_ns()
-            taken = plane.sched.take(dataclasses.replace(ctx, limit=n - len(picked)), eligible)
-            plane.take_us.append((time.perf_counter_ns() - t0) / 1e3)
-            hits = 0
-            for sj in taken:
-                job = self.jobs[sj.job_id]
-                # The audit reads the jobs' states, not the eligibility check.
-                if not all(self.jobs[d]["state"] == "done" for d in job["after"]):
-                    plane.early.append(sj.job_id)
-                if job["payload"].pop("__collect_partials__", None):
-                    job["payload"]["partials"] = [self.jobs[d]["result"] for d in job["after"]]
-                cached = plane.cache.get(sj.op, job["payload"]) if is_cacheable(sj.op) else None
-                if cached is not None:
-                    plane.cache_hit(sj.job_id, job, cached, time.monotonic())
-                    hits += 1
-                else:
-                    picked.append(sj.job_id)
-            if not taken or not hits:
-                break
-        deferred = {j for _d, j in plane.decisions[n_decisions:]}
-        if picked:  # a lower tier only once no higher one is left for this agent
-            floor = min(self.jobs[j]["priority"] for j in picked)
-            above = [j for j in plane.sched.queued_ids() if j not in deferred
-                     and eligible(self.jobs[j]["sched"]) and self.jobs[j]["priority"] > floor]
-            if above:
-                plane.tier_breaks.append((picked, above))
-        if not picked:
-            return None
-        self._n += 1
-        lease_id = f"lease-{self._n:05d}"
-        tasks = []
-        for j in picked:
-            job = self.jobs[j]
-            wid = job["workflow"]
-            job.update(state="leased", epoch=job["epoch"] + 1, lease=lease_id, agent=agent,
-                       lease_span=plane.traces.open(wid, "lease", parent_span_id=job["root"],
-                                                    start_clock=time.monotonic(),
-                                                    attributes={"lease_id": lease_id,
-                                                                "agent": agent}))
-            plane.leases.append(j)
-            plane.m_leased.inc(op=job["op"])
-            tasks.append({"id": j, "op": job["op"], "payload": job["payload"],
-                          "job_epoch": job["epoch"], "attempt": job["epoch"],
-                          "trace": {"trace_id": wid, "span_id": job["lease_span"]}})
-        out = {"lease_id": lease_id, "tasks": tasks}
-        if "b1" in (caps.get("wire_formats") or []):
-            out["wire"] = "b1"
-            self.b1_leases += 1
-        return out
+    def b1_results(self) -> float:
+        """Results that came over the b1 wire and were decoded."""
+        return self.series("controller_wire_total", direction="result", format="b1")
 
     def outcome(self, job_ids: list) -> list:
-        """The accepted results of ``job_ids``; fails unless each succeeded,
-        was posted exactly once and came over the b1 wire."""
-        out = []
-        for j in job_ids:
-            job = self.jobs[j]
-            if job["status"] != "succeeded" or self.posts.get(j) != 1:
-                raise SystemExit(f"{j} ({job['op']}): status {job['status']}, posted "
-                                 f"{self.posts.get(j)} times, error {job['error']}")
-            out.append(job)
+        """The job snapshots of ``job_ids``; fails unless each succeeded, was
+        leased once, and no result post was refused."""
+        out = [self.c.job_snapshot(j) if self.c is not None else self.get(f"/v1/jobs/{j}")
+               for j in job_ids]
+        bad = [s for s in out if s["state"] != "succeeded" or s["attempts"] != 1]
+        fenced = self.fenced()
+        if bad or any(fenced.values()):
+            raise SystemExit(f"jobs {[(s['job_id'], s['op'], s['state'], s['attempts'], s['error']) for s in bad][:4]}, "
+                             f"refused posts {fenced}")
         return out
 
+    def trace(self, trace_id: str) -> list:
+        return (self.c.trace_json(trace_id) or {}).get("spans", [])
 
-def pipelined_drain(agent, ctrl, profile: bool = False):
+    def agent_obs(self, name: str):
+        """The last obs snapshot ``name`` pushed with a lease."""
+        return (self.c.agent_metrics.get(name) or {}).get("obs")
+
+
+def pipelined_drain(agent, ctrl, profile: bool = False, until=None):
     """Run the agent's pipelined runner on this (the device) thread until the
-    stand-in controller has every result -> (wall seconds to that moment,
-    the profile of the run when asked)."""
+    controller has every result (or ``until()`` holds) -> (wall seconds to
+    that moment, the profile of the run when asked)."""
     from agent_tpu_torch.agent.pipeline import PipelineRunner
 
+    until = until or ctrl.drained
     done = {}
 
     def run():
@@ -2680,7 +2443,7 @@ def pipelined_drain(agent, ctrl, profile: bool = False):
         t0 = time.perf_counter()
 
         def watch():
-            while not ctrl.drained() and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
+            while not until() and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
                 time.sleep(0.002)
             done["wall"] = time.perf_counter() - t0
             agent.running = False
@@ -2691,8 +2454,10 @@ def pipelined_drain(agent, ctrl, profile: bool = False):
         watcher.join(timeout=30)
 
     prof = profile_call(run) if profile else run()
-    if not ctrl.drained():
-        raise SystemExit(f"the drain did not finish in {DRAIN_TIMEOUT_S} s")
+    if not until():
+        status = ctrl.get("/v1/status")
+        raise SystemExit(f"the drain did not finish in {DRAIN_TIMEOUT_S} s: jobs "
+                         f"{status['counts_by_op']}, serving {status['serving']}")
     return done["wall"], prof
 
 
@@ -2740,24 +2505,30 @@ def write_drain_csv(path: str) -> None:
 def drain_phase(fa, rt, path: str) -> dict:
     """Phase 10: the port as a swarm worker. The port's Agent, in this
     process with its default urllib session and the pipelined runner
-    (PIPELINE_DEPTH 2), drains the stand-in controller's jobs: one warm-up
-    shard of each op, then 8 classify shards (the counts set to 0 just
-    before, read just after), one profiled shard, one risk_accumulate shard
-    of 65,536 values, and a mixed drain of 2 summarize and 2 classify
-    shards. The same shards run serially through the ops on the same card
+    (PIPELINE_DEPTH 2), drains the port's controller's jobs: one warm-up
+    shard of each op, then the CSV split by ``submit_csv_job`` into 8
+    classify shards (the counts set to 0 just before, read just after), one
+    profiled shard, one risk_accumulate shard of 65,536 values, a mixed
+    drain of 2 summarize and 2 classify shards, and one CSV submitted
+    without a shard size, which must take the card's hint (the reference's
+    memory formula over nvidia-smi's memory.total: 16,384 rows on an 80 GB
+    card). The same shards run serially through the ops on the same card
     for the bit-for-bit comparison and the ratio of rows/s."""
     from agent_tpu_torch.agent.app import Agent
     from agent_tpu_torch.config import AgentConfig, Config
     from agent_tpu_torch.data.staging import default_workers
     from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.controller.core import DEFAULT_SHARD_ROWS
+    from agent_tpu_torch.sizing.profile import batch_hints, detect_gpu
 
     ops = load_ops(["map_classify_tpu", "map_summarize", "risk_accumulate"])
+    on_card = torch.device(CARD).type == "cuda"
     classify_extra, s2s_extra, shards, s2s_shards = drain_payloads(path)
     device = torch.device(CARD).type
     n_layers = BERT_BASE["n_layers"]
     staged = [ops["map_classify_tpu"].stage(dict(p))[1] for p in shards]
     chunks = [len(state["chunks"]) for state in staged]
-    with StandInController() as ctrl:
+    with PortController() as ctrl:
         agent = Agent(Config(agent=AgentConfig(
             controller_url=ctrl.url, agent_name="chip-smoke-drain",
             tasks=("map_classify_tpu", "map_summarize", "risk_accumulate"),
@@ -2767,16 +2538,20 @@ def drain_phase(fa, rt, path: str) -> dict:
 
         # Warm-up: builds both models' weights; not timed.
         t0 = time.perf_counter()
-        warm = ctrl.submit_csv(path, "map_classify_tpu", 0, DRAIN_SHARD, DRAIN_SHARD,
+        warm = ctrl.submit_csv(path, "map_classify_tpu", DRAIN_SHARD, DRAIN_SHARD,
                                classify_extra)
-        warm += ctrl.submit_csv(path, "map_summarize", 0, DRAIN_SHARD, DRAIN_SHARD, s2s_extra)
+        warm += ctrl.submit_csv(path, "map_summarize", DRAIN_SHARD, DRAIN_SHARD, s2s_extra)
         pipelined_drain(agent, ctrl)
         ctrl.outcome(warm)
         warm_s = time.perf_counter() - t0
 
         # The classify drain: the slice's main path. Each timed pass starts
         # with a full collection, so none lands inside it.
-        ids = [ctrl.submit("map_classify_tpu", p) for p in shards]
+        ids = ctrl.submit_csv(path, "map_classify_tpu", DRAIN_ROWS, DRAIN_SHARD, classify_extra)
+        payloads = [ctrl.c.job(j).payload for j in ids]
+        if payloads != shards:
+            raise SystemExit(f"submit_csv_job's shards {payloads[:2]} are not {shards[:2]}")
+        b1_before = ctrl.b1_results()
         torch.cuda.synchronize()
         gc.collect()
         reset_counts(fa)
@@ -2785,14 +2560,16 @@ def drain_phase(fa, rt, path: str) -> dict:
         others = {k: v for k, v in fa.LAUNCH_COUNTS.items() if k != "flash_attention" and v}
         dense = fa.SELECTION_COUNTS["dense"]
         jobs = ctrl.outcome(ids)
+        b1 = ctrl.b1_results() - b1_before
         results = [j["result"] for j in jobs]
         workers = {"max": agent.config.agent.stage_workers or default_workers(),
                    "picked": agent.obs.gauge("stage_pool_workers").value(),
                    "prefetch_depth": agent.obs.gauge("stage_prefetch_depth").value()}
         bad = [r for r in results if not r.get("ok") or r.get("device") != device
                or "fallback" in r]
-        if bad or not all(j["b1"] for j in jobs):
-            raise SystemExit(f"drain results not ok on {device} over b1: {str(bad)[:500]}")
+        if bad or b1 != len(jobs):
+            raise SystemExit(f"drain results not ok on {device}, {b1} of {len(jobs)} over b1: "
+                             f"{str(bad)[:500]}")
         if sum(r["n_rows"] for r in results) != DRAIN_ROWS:
             raise SystemExit(f"the shards' n_rows sum to {sum(r['n_rows'] for r in results)}")
         if launches != n_layers * sum(chunks) or others or dense:
@@ -2829,6 +2606,7 @@ def drain_phase(fa, rt, path: str) -> dict:
             raise SystemExit(f"risk_accumulate on the card {risk} against the host {host}")
 
         # The mixed drain: 2 summarize and 2 classify shards in one drain.
+        mixed_b1 = ctrl.b1_results()
         mixed_s2s = [ctrl.submit("map_summarize", p) for p in s2s_shards]
         mixed_cls = [ctrl.submit("map_classify_tpu", p) for p in shards[:2]]
         mixed_wall, _ = pipelined_drain(agent, ctrl)
@@ -2837,14 +2615,34 @@ def drain_phase(fa, rt, path: str) -> dict:
         s2s_serial, s2s_serial_wall = serial_shards(ops["map_summarize"], rt, s2s_shards)
         for job, want in zip(s2s_jobs, s2s_serial):
             r = job["result"]
-            if not job["b1"] or r.get("device") != device or r["summaries"] != want["summaries"]:
+            if r.get("device") != device or r["summaries"] != want["summaries"]:
                 raise SystemExit("the mixed drain's summaries differ from the serial op's")
         for job, want in zip(cls_jobs, serial):
             if job["result"]["indices"] != want["indices"] \
                     or job["result"]["scores"] != want["scores"]:
                 raise SystemExit("the mixed drain's classify columns differ from the serial op's")
-        if ctrl.stale:
-            raise SystemExit(f"{ctrl.stale} results came with a stale epoch or lease")
+        if ctrl.b1_results() - mixed_b1 != len(mixed_s2s) + len(mixed_cls):
+            raise SystemExit(f"{ctrl.b1_results() - mixed_b1} mixed results over b1, want "
+                             f"{len(mixed_s2s) + len(mixed_cls)}")
+
+        # A CSV without a shard size: the controller splits it by the hint
+        # of the agent's worker profile, the reference's formula over the
+        # card's memory (one shard of that many rows is drained).
+        gpu = detect_gpu()
+        mem = [g["memory_mb"] for g in gpu["gpus"] if "memory_mb" in g]
+        want_rows = batch_hints(len(gpu["gpus"]), min(mem) * 2**20)["suggested_shard_rows"] \
+            if gpu["gpu_present"] and mem else None
+        hint = ctrl.c.suggested_shard_size()
+        hinted_rows = hint or DRAIN_SHARD
+        hinted = ctrl.submit_csv(path, "map_classify_tpu", hinted_rows, None, classify_extra)
+        pipelined_drain(agent, ctrl)
+        hinted_jobs = ctrl.outcome(hinted)
+        shard_rows = ctrl.c.job(hinted[0]).payload["shard_size"]
+        if hint != want_rows or shard_rows != min(want_rows or DEFAULT_SHARD_ROWS, hinted_rows) \
+                or sum(j["result"]["n_rows"] for j in hinted_jobs) != hinted_rows \
+                or (on_card and hint is None):
+            raise SystemExit(f"the shard-size hint: controller {hint}, formula {want_rows}, "
+                             f"a shard of {shard_rows} rows")
         mixed_rows = DRAIN_S2S_SHARDS * DRAIN_SHARD + 2 * DRAIN_SHARD
         report = {
             "phase": "drain", "config": BERT_BASE, "rows": DRAIN_ROWS, "shard_rows": DRAIN_SHARD,
@@ -2863,33 +2661,73 @@ def drain_phase(fa, rt, path: str) -> dict:
                       "rows_per_s": mixed_rows / mixed_wall,
                       "summarize_serial_wall_s": s2s_serial_wall,
                       "p50_phase_ms_summarize": p50_phases([j["result"] for j in s2s_jobs])},
-            "b1_leases": ctrl.b1_leases,
+            "b1_results": b1, "b1_tasks_sent": ctrl.series("controller_wire_total",
+                                                            direction="task", format="b1"),
+            "lease_http_bytes": {d: ctrl.series("controller_http_bytes_total", route="/v1/leases",
+                                                direction=d) for d in ("in", "out")},
+            "result_http_bytes_in": ctrl.series("controller_http_bytes_total",
+                                                route="/v1/results", direction="in"),
+            "shard_hint": {"controller": hint, "formula": want_rows, "cards": len(gpu["gpus"]),
+                           "memory_mb": min(mem) if mem else None, "shard_rows": shard_rows},
         }
         emit(report)
-        # 15. the agent's telemetry, on the same stand-in and weights.
-        report["telemetry"] = telemetry_phase(fa, rt, ctrl, shards, serial, staged)
-        if ctrl.stale:
-            raise SystemExit(f"{ctrl.stale} results came with a stale epoch or lease")
+        # 15. the agent's telemetry, on the same weights.
+        report["telemetry"] = telemetry_phase(fa, rt, shards, serial, staged)
     report["serial_results"] = serial  # phase 18's fleet is held to them
     return report
 
 
-def control_workflow(shards: list, risk_values: list) -> dict:
-    """Phase 19's workflow document: a classify stage for each shard (the
-    CONTROL_CLASSIFY_PRIORITY tier), a risk_accumulate stage for each list
-    of values, a reduce after the risk stages that collects their partials,
-    and an echo report after the reduce and the classify stages, without
-    partials. No op reads ``fan_index``, so each shard is its own stage."""
+def control_workflows(shards: list, risk_values: list) -> tuple:
+    """Phase 19's workflow documents, one a tenant: acme's classify stage
+    for each shard (the CONTROL_CLASSIFY_PRIORITY tier) and an echo report
+    after them, without partials; globex's risk_accumulate stage for each
+    list of values and a reduce after them that collects their partials.
+    No op reads ``fan_index``, so each shard is its own stage."""
     cls = [f"cls{i}" for i in range(len(shards))]
     risk = [f"risk{i}" for i in range(len(risk_values))]
-    return {"stages": [
+    classify = {"stages": [
         *({"name": n, "op": "map_classify_tpu", "payload": dict(p),
            "priority": CONTROL_CLASSIFY_PRIORITY} for n, p in zip(cls, shards)),
+        {"name": "report", "op": "echo", "payload": {"report": "classify"}, "after": cls,
+         "collect": False}]}
+    reduce = {"stages": [
         *({"name": n, "op": "risk_accumulate", "payload": {"values": v}}
           for n, v in zip(risk, risk_values)),
-        {"name": "reduce", "op": "risk_accumulate", "after": risk},
-        {"name": "report", "op": "echo", "payload": {"report": "classify and risk"},
-         "after": ["reduce", *cls], "collect": False}]}
+        {"name": "reduce", "op": "risk_accumulate", "after": risk}]}
+    return classify, reduce
+
+
+def lease_audit(ctrl, ids: list) -> dict:
+    """From the controller's flight recorder (``GET /v1/debug/events``), in
+    its sequence order: the jobs of ``ids`` leased before every dependency
+    had its result (``early``), leases that passed over a job of a higher
+    tier that was already leasable and never deferred for placement
+    (``tier_breaks``), and each job's lease count."""
+    events = sorted(ctrl.c.recorder.events(), key=lambda e: e["seq"])
+    jobs = {j: ctrl.c.job(j) for j in ids}
+    done_at = {e["job_id"]: e["seq"] for e in events
+               if e["kind"] == "result" and e.get("state") == "succeeded"}
+    lease_at: dict = {}
+    for e in events:
+        if e["kind"] == "lease" and e["job_id"] in jobs:
+            lease_at.setdefault(e["job_id"], []).append(e["seq"])
+    submit_at = {e["job_id"]: e["seq"] for e in events if e["kind"] == "submit"}
+
+    def ready(j: str, seq: int) -> bool:
+        return submit_at.get(j, seq) < seq and all(done_at.get(d, seq) < seq
+                                                   for d in jobs[j].after)
+
+    early = [j for j, seqs in lease_at.items() if not ready(j, seqs[0])]
+    breaks = []
+    for j, seqs in lease_at.items():
+        for k, job in jobs.items():
+            if job.priority > jobs[j].priority and k in lease_at and not job.placement_defers \
+                    and lease_at[k][0] > seqs[0] and ready(k, seqs[0]):
+                breaks.append((j, k))
+    return {"early": early, "tier_breaks": breaks,
+            "leases": {j: len(seqs) for j, seqs in lease_at.items()},
+            "order": [e["job_id"] for e in events
+                      if e["kind"] == "lease" and e["job_id"] in jobs]}
 
 
 def exposition_round_trip(parts: list, parsed: dict) -> int:
@@ -2910,30 +2748,33 @@ def exposition_round_trip(parts: list, parsed: dict) -> int:
 
 
 def control_plane_phase(fa, rt, path: str, serial: list, chunks: list) -> dict:
-    """Phase 19: the control plane's schedulers, workflow engine and
-    observability, through the port's modules, driving a classify workflow
-    on the card: phase 10's stand-in controller with a ControlPlane, its
-    CSV's first CONTROL_SHARDS shards and the BERT-base weights phase 10
-    left on the card, and a new agent on the same runtime (PIPELINE_DEPTH
-    2). The workflow (``control_workflow``) is planned by flow.dag and
-    leased by the fair policy from the real lease bodies' capabilities.
-    Checks: no job leased before its dependencies were done, no lease
-    passing over a higher tier, every job leased once; no placement
-    deferral of a classify job on an agent whose device_kind is the device
-    (``sched.fair.DEVICE_KINDS``), where the reference defers one from
-    "cuda"; the classify results bit for bit phase 10's serial results for
-    the same shards; the reduce's sum within n · 2⁻²⁴ Σ|v| of math.fsum;
-    row 1 n_layers times a dispatch chunk. The workflow resubmitted under a
-    new id is answered from the result cache: no lease, the same results,
-    row 1 not launched. The fleet exposition (the plane's registry and the
-    agent's obs) validates and parses back; the TSDB, closed and reopened,
-    reads back the ring's series; the SLO tracker's burn, the usage ledger's
-    two tenants, the anomaly detector's events; the workflow's trace
-    complete, each job's submit and lease spans with the agent's queue,
-    execute and post spans (and a classify job's stage span) under the
-    lease span."""
+    """Phase 19: the port's controller with the fair scheduler, the
+    workflow engine, the result cache and its observability, driving
+    classify workflows on the card: phase 10's CSV's first CONTROL_SHARDS
+    shards and the BERT-base weights phase 10 left on the card, and a new
+    agent on the same runtime (PIPELINE_DEPTH 2). Two workflows
+    (``control_workflows``), one a tenant of CONTROL_TENANTS' weights, are
+    planned by the controller and leased by the fair policy from the real
+    lease bodies' capabilities. From the controller's flight recorder
+    (``lease_audit``): no job leased before its dependencies were done, no
+    lease passing over a higher tier, every job leased once; no placement
+    deferral (``sched_decisions_total``) on an agent whose device_kind is
+    the device (``sched.fair.DEVICE_KINDS``), where the reference defers
+    one from "cuda"; the classify results bit for bit phase 10's serial
+    results for the same shards; the reduce's sum within n · 2⁻²⁴ Σ|v| of
+    math.fsum; row 1 n_layers times a dispatch chunk. Both workflows
+    resubmitted under new ids are answered from the result cache (``GET
+    /v1/workflows/{id}``: every job a cache hit, the reduce's at lease time
+    on its collected partials): no lease, the same results, row 1 not
+    launched. ``GET /v1/metrics`` validates and parses
+    back; the TSDB (TSDB_INTERVAL CONTROL_RING_INTERVAL_S), closed and
+    reopened, reads back the ring's series (``GET /v1/timeseries``); the
+    SLO's burn (``GET /v1/health``), ``GET /v1/usage``'s two tenants, the
+    anomaly detector's events; each workflow's trace complete, each job's
+    submit and lease spans with the agent's queue, execute and post spans
+    (and a classify job's stage span) under the lease span."""
     from agent_tpu_torch.agent.app import Agent
-    from agent_tpu_torch.config import AgentConfig, Config
+    from agent_tpu_torch.config import AgentConfig, Config, ObsConfig, SchedConfig, SloConfig
     from agent_tpu_torch.obs import metrics
     from agent_tpu_torch.obs.tsdb import TsdbStore, query_history
     from agent_tpu_torch.sched.fair import DEVICE_KINDS
@@ -2946,40 +2787,42 @@ def control_plane_phase(fa, rt, path: str, serial: list, chunks: list) -> dict:
     rng = np.random.default_rng(SEED + 19)
     risk_values = [(rng.standard_normal(CONTROL_RISK_VALUES) * 1e3).tolist()
                    for _ in range(CONTROL_SHARDS)]
-    doc = control_workflow(shards, risk_values)
-
-    def tenant_of(stage: str) -> str:
-        return "acme" if stage.startswith("cls") else "globex"
-
+    classify_doc, reduce_doc = control_workflows(shards, risk_values)
     tmp = tempfile.TemporaryDirectory()
-    plane = ControlPlane(os.path.join(tmp.name, "tsdb"))
+    tsdb_dir = os.path.join(tmp.name, "tsdb")
+    ctrl = PortController(
+        cache=True, sched=SchedConfig(policy="fair", tenant_weights=dict(CONTROL_TENANTS)),
+        slo=SloConfig(spec=json.dumps(CONTROL_SLO)),
+        obs=ObsConfig(tsdb_dir=tsdb_dir, tsdb_interval_sec=CONTROL_RING_INTERVAL_S))
+    c = ctrl.c
     try:
-        with StandInController(plane) as ctrl:
+        with ctrl:
             name = "chip-smoke-control"
             agent = Agent(Config(agent=AgentConfig(
                 controller_url=ctrl.url, agent_name=name,
                 tasks=("map_classify_tpu", "risk_accumulate", "echo"), idle_sleep_sec=0.005,
                 pipeline_depth=2)), runtime=rt)
+            kind = agent.capabilities().get("device_kind")
             if on_card:
                 torch.cuda.synchronize()
             gc.collect()
             reset_counts(fa)
-            wid, ids = ctrl.submit_workflow(copy.deepcopy(doc), tenant_of)
+            wfs = [c.submit_workflow(copy.deepcopy(classify_doc), tenant="acme"),
+                   c.submit_workflow(copy.deepcopy(reduce_doc), tenant="globex")]
+            ids = [j for wf in wfs for j in wf["job_ids"]]
+            stage_of = {j: st for wf in wfs for j, st in zip(wf["job_ids"], wf["stages"])}
             wall, _ = pipelined_drain(agent, ctrl)
-            plane.traces.finish(wid, plane.roots[wid], time.monotonic())
             launches = fa.LAUNCH_COUNTS["flash_attention"]
-            leased = collections.Counter(plane.leases)
-            kind = plane.agent_kinds.get(name)
-            defers = [j for d, j in plane.decisions if d == "deferred_placement"
-                      and ctrl.jobs[j]["op"] == "map_classify_tpu"]
-            if plane.early or plane.tier_breaks or sorted(leased) != sorted(ids) \
-                    or set(leased.values()) != {1}:
-                raise SystemExit(f"the workflow's leases: early {plane.early}, past a higher "
-                                 f"tier {plane.tier_breaks}, leased {dict(leased)}")
+            audit = lease_audit(ctrl, ids)
+            defers = ctrl.series("sched_decisions_total", decision="deferred_placement")
+            if audit["early"] or audit["tier_breaks"] or sorted(audit["leases"]) != sorted(ids) \
+                    or set(audit["leases"].values()) != {1}:
+                raise SystemExit(f"the workflows' leases: early {audit['early']}, past a higher "
+                                 f"tier {audit['tier_breaks'][:4]}, leased {audit['leases']}")
             if (kind in DEVICE_KINDS) == bool(defers):
-                raise SystemExit(f"{len(defers)} placement deferrals of map_classify_tpu on an "
-                                 f"agent of device_kind {kind!r}")
-            jobs = {ctrl.jobs[j]["stage"]: job for j, job in zip(ids, ctrl.outcome(ids))}
+                raise SystemExit(f"{defers} placement deferrals on an agent of device_kind "
+                                 f"{kind!r}")
+            jobs = {stage_of[j]: snap for j, snap in zip(ids, ctrl.outcome(ids))}
             for i in range(CONTROL_SHARDS):
                 got = jobs[f"cls{i}"]["result"]
                 if got["indices"] != serial[i]["indices"] or got["scores"] != serial[i]["scores"]:
@@ -2991,106 +2834,121 @@ def control_plane_phase(fa, rt, path: str, serial: list, chunks: list) -> dict:
             exact = math.fsum(every)
             bound = len(every) * 2.0 ** -24 * math.fsum(abs(v) for v in every)
             reduce = jobs["reduce"]["result"]
+            views = [c.workflow_json(wf["workflow_id"]) for wf in wfs]
             if reduce.get("count") != len(every) or reduce.get("n_partials") != CONTROL_SHARDS \
-                    or not abs(reduce["sum"] - exact) <= bound or not jobs["report"]["result"]["ok"]:
-                raise SystemExit(f"the reduce {reduce} against math.fsum {exact} (bound {bound})")
+                    or not abs(reduce["sum"] - exact) <= bound or not jobs["report"]["result"]["ok"] \
+                    or [v["state"] for v in views] != ["succeeded"] * 2:
+                raise SystemExit(f"the reduce {reduce} against math.fsum {exact} (bound {bound}), "
+                                 f"workflows {[v['state'] for v in views]}")
 
-            # The same workflow again, under a new id: every job answered
-            # from the result cache, none leased, row 1 not launched.
+            # Both workflows again, under new ids: every job answered from
+            # the result cache (the risk stages at submit, the reduce at
+            # lease time, keyed on its collected partials), none leased,
+            # row 1 not launched, the same results.
+            leased = ctrl.series("controller_tasks_leased_total")
             t0 = time.perf_counter()
-            wid2, ids2 = ctrl.submit_workflow(copy.deepcopy(doc), tenant_of)
+            again = [c.submit_workflow(copy.deepcopy(classify_doc), tenant="acme"),
+                     c.submit_workflow(copy.deepcopy(reduce_doc), tenant="globex")]
             wall2, _ = pipelined_drain(agent, ctrl)
-            plane.traces.finish(wid2, plane.roots[wid2], time.monotonic())
             resubmit_s = time.perf_counter() - t0
-            again = [j for j in ids2 if j in leased or j in plane.leases]
-            if again or sorted(plane.cached) != sorted(ids2) \
+            views2 = [c.workflow_json(wf["workflow_id"]) for wf in again]
+            cache_hits = sum(v["cache_hits"] for v in views2)
+            if ctrl.series("controller_tasks_leased_total") != leased \
+                    or cache_hits != len(ids) \
+                    or [v["state"] for v in views2] != ["succeeded"] * 2 \
                     or fa.LAUNCH_COUNTS["flash_attention"] != launches:
-                raise SystemExit(f"the cached resubmit leased {again}, cached {plane.cached}, "
-                                 f"row 1 {fa.LAUNCH_COUNTS['flash_attention'] - launches} more")
-            for j in ids2:
-                job = ctrl.jobs[j]
-                if job["result"] != jobs[job["stage"]]["result"]:
-                    raise SystemExit(f"the cache answered {j} with another result")
+                raise SystemExit(f"the cached resubmit: {views2}, leases "
+                                 f"{ctrl.series('controller_tasks_leased_total') - leased}, row 1 "
+                                 f"{fa.LAUNCH_COUNTS['flash_attention'] - launches} more")
+            for wf in again:
+                for j, st in zip(wf["job_ids"], wf["stages"]):
+                    if c.job_snapshot(j)["result"] != jobs[st]["result"]:
+                        raise SystemExit(f"the cache answered {j} ({st}) with another result")
 
             # Observability.
-            parts = [(plane.registry.snapshot(), {}),
-                     *((snap, {"agent": a}) for a, snap in sorted(ctrl.agent_obs.items()))]
-            text = metrics.render_snapshots(parts)
+            text = c.metrics_text()
             problems = metrics.validate_exposition(text, required=(
-                "controller_queue_depth", "tasks_leased_total", "slo_burn_rate",
-                "device_busy_seconds_total"))
+                "controller_queue_depth", "controller_tasks_leased_total", "slo_burn_rate",
+                "device_busy_seconds_total", "sched_decisions_total"))
+            parts = [(c.metrics.snapshot(), {}),
+                     (metrics.merge_snapshots([ctrl.agent_obs(name)]), {})]
             checked = exposition_round_trip(parts, metrics.parse_exposition(text))
-            (slo,) = plane.slo.evaluate()
-            usage = plane.usage.report()
-            tree = plane.traces.assemble(wid)
-            spans = tree["spans"]
+            slo = [o for o in c.health_json()["slo"]["objectives"]
+                   if o["objective"] == CONTROL_SLO[0]["name"]]
+            usage = c.usage_json()
+            trees = [c.trace_json(wf["workflow_id"]) for wf in wfs]
+            spans = [sp for tree in trees for sp in tree["spans"]]
             trace_problems = []
             for j in ids:
-                (sub,) = [sp for sp in spans if sp["name"] == "submit"
-                          and sp["attributes"].get("job_id") == j]
+                job = c.job(j)
+                sub = [sp for sp in spans if sp["span_id"] == job.root_span_id]
                 lease = [sp for sp in spans if sp["name"] == "lease"
-                         and sp["parent_span_id"] == sub["span_id"]]
+                         and sub and sp["parent_span_id"] == sub[0]["span_id"]]
                 under = collections.Counter(sp["name"] for sp in spans if lease
                                             and sp["parent_span_id"] == lease[0]["span_id"])
                 # A host op with nothing to stage (risk_accumulate's values
                 # in the payload) ships no stage span.
                 phases = ("queue", "execute", "post") + (
-                    ("stage",) if ctrl.jobs[j]["op"] == "map_classify_tpu" else ())
-                if len(lease) != 1 or any(under[p] != 1 for p in phases) or under["stage"] > 1:
-                    trace_problems.append(f"{j}: lease {len(lease)}, under it {dict(under)}")
-            if problems or not tree["complete"] or trace_problems \
-                    or set(usage["by_tenant"]) != set(CONTROL_TENANTS) \
-                    or slo["objective"] != CONTROL_SLO[0]["name"]:
-                raise SystemExit(f"exposition {problems[:4]}, trace complete {tree['complete']} "
-                                 f"(orphans {tree['orphans']}, open {tree['open_spans']}), "
-                                 f"{trace_problems[:4]}, tenants {sorted(usage['by_tenant'])}, "
-                                 f"SLO {slo}")
+                    ("stage",) if job.op == "map_classify_tpu" else ())
+                if len(sub) != 1 or len(lease) != 1 or any(under[p] != 1 for p in phases) \
+                        or under["stage"] > 1:
+                    trace_problems.append(f"{j}: submit {len(sub)}, lease {len(lease)}, "
+                                          f"under it {dict(under)}")
+            if problems or not all(t["complete"] for t in trees) or trace_problems \
+                    or set(usage["by_tenant"]) != set(CONTROL_TENANTS) or len(slo) != 1:
+                raise SystemExit(f"exposition {problems[:4]}, traces complete "
+                                 f"{[t['complete'] for t in trees]} (orphans "
+                                 f"{[t['orphans'] for t in trees]}), {trace_problems[:4]}, "
+                                 f"tenants {sorted(usage['by_tenant'])}, SLO {slo}")
             family = "device_busy_seconds_total"
-            from_ring = query_history(family, ring=plane.ring)
-            samples = plane.tsdb.samples_appended
-            plane.tsdb.close()
-            reopened = TsdbStore(plane.directory)
-            from_disk = query_history(family, store=reopened)
-            tsdb_bytes = reopened.stats()["bytes"]
-            reopened.close()
-            if not from_disk["series"] or from_disk["series"] != from_ring["series"]:
-                raise SystemExit(f"the reopened TSDB's {family}: {str(from_disk)[:300]} against "
-                                 f"the ring's {str(from_ring)[:300]}")
-            take = sorted(plane.take_us)
-            report = {
-                "phase": "control_plane", "nvidia_smi": smi, "config": BERT_BASE,
-                "workflow": {"jobs": len(ids), "shards": CONTROL_SHARDS,
-                             "shard_rows": DRAIN_SHARD, "risk_values": len(every),
-                             "tenants": CONTROL_TENANTS},
-                "lease_order": [ctrl.jobs[j]["stage"] for j in plane.leases],
-                "device_kind": kind, "classify_placement_deferrals": len(defers),
-                "wall_s": wall, "cached_resubmit_s": resubmit_s, "cached_drain_s": wall2,
-                "take_us": {"n": len(take), "p50": statistics.median(take), "max": take[-1]},
-                "row1_launches": launches, "row1_launches_want": want,
-                "row1_launches_after_resubmit": fa.LAUNCH_COUNTS["flash_attention"],
-                "cache_hits": len(plane.cached), "cache": plane.cache.stats(),
-                "reduce": {"sum": reduce["sum"], "fsum": exact, "diff": abs(reduce["sum"] - exact),
-                           "bound": bound},
-                "exposition": {"bytes": len(text), "samples_checked": checked},
-                "tsdb": {"bytes": tsdb_bytes, "samples": samples,
-                         "points_read_back": sum(len(s["points"]) for s in from_disk["series"])},
-                "slo": {k: slo[k] for k in ("objective", "state", "attainment",
-                                            "burn_rate_short", "burn_rate_long",
-                                            "error_budget_remaining")},
-                "anomaly": {"events": plane.anomaly_events, "active": plane.anomaly.active()},
-                "usage_by_tenant": {t: {k: v for k, v in u.items() if k in (
-                    "tasks", "device_seconds", "rows", "result_cache_hits")}
-                    for t, u in usage["by_tenant"].items()},
-                "trace_spans": len(spans), "seconds": time.perf_counter() - t_phase}
+            from_ring = query_history(family, ring=c.tsdb)
+            samples = c.tsdb_store.samples_appended
+            points = c.timeseries_json(family)["series"]
+            anomalies = [e for e in c.recorder.events() if e["kind"] == "anomaly"]
+        reopened = TsdbStore(tsdb_dir)  # the controller closed its store on exit
+        from_disk = query_history(family, store=reopened)
+        tsdb_bytes = reopened.stats()["bytes"]
+        reopened.close()
+        if not from_disk["series"] or from_disk["series"] != from_ring["series"] or not points:
+            raise SystemExit(f"the reopened TSDB's {family}: {str(from_disk)[:300]} against "
+                             f"the ring's {str(from_ring)[:300]}")
+        (slo,) = slo
+        report = {
+            "phase": "control_plane", "nvidia_smi": smi, "config": BERT_BASE,
+            "workflows": {"jobs": len(ids), "shards": CONTROL_SHARDS,
+                          "shard_rows": DRAIN_SHARD, "risk_values": len(every),
+                          "tenants": CONTROL_TENANTS},
+            "lease_order": [stage_of[j] for j in audit["order"]],
+            "device_kind": kind, "placement_deferrals": defers,
+            "sched_decisions": {d: ctrl.series("sched_decisions_total", decision=d)
+                                for d in ("leased", "deferred_placement")},
+            "wall_s": wall, "cached_resubmit_s": resubmit_s, "cached_drain_s": wall2,
+            "row1_launches": launches, "row1_launches_want": want,
+            "row1_launches_after_resubmit": fa.LAUNCH_COUNTS["flash_attention"],
+            "cache_hits": cache_hits, "cache": c.workflows_json()["result_cache"],
+            "reduce": {"sum": reduce["sum"], "fsum": exact, "diff": abs(reduce["sum"] - exact),
+                       "bound": bound},
+            "exposition": {"bytes": len(text), "samples_checked": checked},
+            "tsdb": {"bytes": tsdb_bytes, "samples": samples,
+                     "points_read_back": sum(len(s["points"]) for s in from_disk["series"])},
+            "slo": {k: slo[k] for k in ("objective", "state", "attainment",
+                                        "burn_rate_short", "burn_rate_long",
+                                        "error_budget_remaining")},
+            "anomaly_events": anomalies,
+            "usage_by_tenant": {t: {k: v for k, v in u.items() if k in (
+                "tasks", "device_seconds", "rows", "result_cache_hits")}
+                for t, u in usage["by_tenant"].items()},
+            "trace_spans": len(spans), "seconds": time.perf_counter() - t_phase}
     finally:
-        plane.tsdb.close()
         tmp.cleanup()
     emit(report)
     return report
 
 
 TELEMETRY_AGENT = "chip-smoke-telemetry"
-CAPTURE_ID = "cap-chip-smoke"
+# An objective that pages on one slow job of its tenant: phase 15's slo_page.
+TELEMETRY_PAGE = {"name": "telemetry_page", "tenant": "paging", "p99_ms": 1,
+                  "availability": 0.99}
 DEAD_CONTROLLER = "http://127.0.0.1:9"  # a local port nothing listens on
 
 
@@ -3111,9 +2969,10 @@ def trace_kernels(path: str, name: str) -> int:
 
 
 def check_span_trees(ctrl, job_ids: list) -> tuple:
-    """Every job's trace, assembled by the port's ``trace.assemble``, must be
-    complete, with stage, queue, execute and post once each, parented to
-    the stand-in's lease span and closed -> (all spans, spans per job)."""
+    """Every job's trace (``GET /v1/trace/{job}``), assembled again by the
+    port's ``trace.assemble``, must be complete, with stage, queue, execute
+    and post once each, parented to the controller's lease span and closed
+    -> (all spans, spans per job)."""
     from agent_tpu_torch.obs import trace as obs_trace
 
     every, problems = [], []
@@ -3136,23 +2995,26 @@ def check_span_trees(ctrl, job_ids: list) -> tuple:
     return every, len(every) / len(job_ids)
 
 
-def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> dict:
-    """Phase 15: the agent's telemetry on phase 10's stand-in controller,
-    shards and resident BERT-base weights, through the pipelined runner
-    (PIPELINE_DEPTH 2). The 8 shards drain once with TRACE_ENABLED=0 (no
-    span may be shipped) and once traced, with PROFILE_DIR set
-    (PROFILE_TASKS 1) and a profile_capture alert on the first lease: each
-    shard's spans assemble into a complete tree, Σ usage.device_s equals
-    the busy counter the agent shipped within 1 %, Σ usage.flops the
-    staged shapes' encoder_fwd_flops, device_mfu and device_duty_cycle lie
-    in (0, 1], device_hbm_bytes' limit is the card's total within 1 %, and
-    both Chrome traces hold row 1's kernel (on the card). Then one shard
-    whose lease carries an slo_page alert (the recorder's dump must hold the
-    traced shards' lease and posted events), and one shard through an agent
-    whose CONTROLLER_URLS lists a dead local port first (one failover).
-    Every result equals phase 10's serial run bit for bit."""
+def telemetry_phase(fa, rt, shards: list, serial: list, staged: list) -> dict:
+    """Phase 15: the agent's telemetry against a port controller, on phase
+    10's shards and resident BERT-base weights, through the pipelined
+    runner (PIPELINE_DEPTH 2). The 8 shards drain once with TRACE_ENABLED=0
+    (no agent span may reach the controller) and once traced, with
+    PROFILE_DIR set (PROFILE_TASKS 1) and a deep capture requested from the
+    controller (``request_capture``, riding the first granted lease): each
+    shard's trace is complete, Σ usage.device_s equals the busy counter
+    the agent shipped within 1 %, Σ usage.flops the staged shapes'
+    encoder_fwd_flops, device_mfu and device_duty_cycle lie in (0, 1],
+    device_hbm_bytes' limit is the card's total within 1 %, and both Chrome
+    traces hold row 1's kernel (on the card). Then one shard of tenant
+    ``paging``, whose objective (TELEMETRY_PAGE) that one slow job sends to
+    ``page`` (``GET /v1/health``), and one more shard, whose lease carries
+    the page alert: the agent's recorder dump must hold the traced shards'
+    lease and posted events. Last, one shard through an agent whose
+    CONTROLLER_URLS lists a dead local port first (one failover). Every
+    result equals phase 10's serial run bit for bit."""
     from agent_tpu_torch.agent.app import Agent
-    from agent_tpu_torch.config import AgentConfig, Config, DeviceConfig
+    from agent_tpu_torch.config import AgentConfig, Config, DeviceConfig, SloConfig
     from agent_tpu_torch.obs import trace as obs_trace
     from agent_tpu_torch.obs.health import resolve_peak_flops
     from agent_tpu_torch.ops._model_common import encoder_fwd_flops
@@ -3168,8 +3030,8 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
                                               pipeline_depth=2, **kw),
                             device=device or DeviceConfig()), runtime=rt)
 
-    def drain(worker, payloads: list, want: list) -> tuple:
-        ids = [ctrl.submit(op, p) for p in payloads]
+    def drain(worker, payloads: list, want: list, **submit) -> tuple:
+        ids = [ctrl.submit(op, p, **submit) for p in payloads]
         if on_card:
             torch.cuda.synchronize()
         gc.collect()
@@ -3188,14 +3050,16 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
     os.makedirs(rec_dir)
     os.environ["PROFILE_CAPTURE_DIR"] = os.path.join(tmp.name, "captures")
     os.environ["FLIGHT_RECORDER_DIR"] = rec_dir
+    ctrl = PortController(slo=SloConfig(spec=json.dumps([TELEMETRY_PAGE])))
+    ctrl.__enter__()
     try:
         # Tracing off.
         os.environ["TRACE_ENABLED"] = "0"
         obs_trace.set_enabled(None)
-        shipped = ctrl.spans_shipped
-        _, _, wall_off = drain(agent("chip-smoke-trace-off"), shards, serial)
-        if ctrl.spans_shipped != shipped:
-            raise SystemExit(f"TRACE_ENABLED=0 shipped {ctrl.spans_shipped - shipped} spans")
+        off_ids, _, wall_off = drain(agent("chip-smoke-trace-off"), shards, serial)
+        shipped = [s for j in off_ids for s in ctrl.trace(j) if s.get("process") != "controller"]
+        if shipped:
+            raise SystemExit(f"TRACE_ENABLED=0 shipped {len(shipped)} spans")
 
         # Tracing on (the default), PROFILE_DIR, and a capture on the first
         # lease (the staging pool may lease every shard at once): the
@@ -3203,12 +3067,11 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
         del os.environ["TRACE_ENABLED"]
         obs_trace.set_enabled(None)
         on = agent(TELEMETRY_AGENT, DeviceConfig(profile_dir=prof_dir, profile_tasks=1))
-        ctrl.queue_alerts([{"kind": "profile_capture", "capture_id": CAPTURE_ID, "op": op,
-                            "duration_ms": None}])
+        capture_id = ctrl.c.request_capture(TELEMETRY_AGENT, op=op)["capture_id"]
         reset_counts(fa)
         ids, results, wall_on = drain(on, shards, serial)
         launches = fa.LAUNCH_COUNTS["flash_attention"]
-        obs = ctrl.agent_obs[TELEMETRY_AGENT]  # its final flush
+        obs = ctrl.agent_obs(TELEMETRY_AGENT)  # its final flush
         spans, spans_per_job = check_span_trees(ctrl, ids)
 
         # Usage against the agent's own counters and the staged shapes.
@@ -3240,11 +3103,13 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
 
         # Captures: the PROFILE_DIR trace and the on-demand one.
         traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
-        records = [c for c in ctrl.captures if c.get("capture_id") == CAPTURE_ID]
+        records = [c for c in ctrl.c.captures_json()["captures"]
+                   if c.get("capture_id") == capture_id]
         artifact = records[0].get("artifact") if len(records) == 1 else None
         if len(traces) != 1 or artifact is None or records[0]["status"] != "done" \
                 or not os.path.isfile(os.path.join(artifact, "trace.json")):
-            raise SystemExit(f"captures: PROFILE_DIR holds {traces}, the stand-in got {records}")
+            raise SystemExit(f"captures: PROFILE_DIR holds {traces}, the controller has "
+                             f"{records}")
         kernels = {"profile_dir": trace_kernels(os.path.join(prof_dir, traces[0]),
                                                 "flash_fwd_sm90"),
                    "capture": trace_kernels(os.path.join(artifact, "trace.json"),
@@ -3252,11 +3117,18 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
         if on_card and min(kernels.values()) < 1:
             raise SystemExit(f"row 1 missing from the agent's captures: {kernels}")
 
-        # An slo_page alert: the recorder's dump of the traced shards.
-        ctrl.queue_alerts([{"objective": "interactive", "state": "page", "tier": 8, "op": op}])
+        # A slow job of tenant "paging" pages its objective; the next lease
+        # carries the alert, and the agent dumps its recorder.
+        if on.slo_dump_paths:
+            raise SystemExit(f"slo_page dumps before the page: {on.slo_dump_paths}")
+        drain(on, shards[:1], serial[:1], tenant=TELEMETRY_PAGE["tenant"])
+        health = ctrl.c.health_json()
+        paged = [o for o in health["slo"]["objectives"]
+                 if o["objective"] == TELEMETRY_PAGE["name"]]
         drain(on, shards[:1], serial[:1])
-        if len(on.slo_dump_paths) != 1 or not on.slo_dump_paths[0].startswith(rec_dir):
-            raise SystemExit(f"slo_page dumps: {on.slo_dump_paths}")
+        if [o["state"] for o in paged] != ["page"] or len(on.slo_dump_paths) != 1 \
+                or not on.slo_dump_paths[0].startswith(rec_dir):
+            raise SystemExit(f"slo_page: objective {paged}, dumps {on.slo_dump_paths}")
         with open(on.slo_dump_paths[0]) as fh:
             dumped = [json.loads(line) for line in fh]
         leased = {j for e in dumped if e["kind"] == "lease" for j in e["job_ids"]}
@@ -3272,7 +3144,9 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
         if fo.m_failover.value() != 1 or len(failovers) != 1 \
                 or fo.active_controller_url() != ctrl.url:
             raise SystemExit(f"failover: {fo.m_failover.value()} rotations, {failovers}")
+        fenced = ctrl.fenced()
     finally:
+        ctrl.__exit__(None, None, None)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -3294,39 +3168,102 @@ def telemetry_phase(fa, rt, ctrl, shards: list, serial: list, staged: list) -> d
         "launches": launches, "launched_per_shard": sorted({n_layers * len(st["chunks"])
                                                             for st in staged}),
         "flash_fwd_sm90_traced": kernels, "slo_dump_events": len(dumped),
-        "failover": failovers[0],
+        "slo_page": {k: paged[0][k] for k in ("objective", "state", "burn_rate_short",
+                                              "burn_rate_long")},
+        "failover": failovers[0], "refused_posts": fenced,
     }
     emit(report)
     return report
 
 
-def entry_point_phase(path: str) -> dict:
-    """Phase 10, the entry point: ``python -m agent_tpu_torch.agent.app`` in
-    a process of its own against the stand-in controller with
-    TASKS=echo,read_csv_shard,map_classify_tpu drains one echo, one
-    read_csv_shard and two 256-row classify shards, then SIGUSR1 must dump
-    its flight recorder (holding the lease events) and SIGTERM end it with
-    exit code 0; with TASKS=none it must exit 2 at once."""
-    import signal
+def http_json(url: str, body=None, timeout: float = 120.0):
+    """GET ``url`` (or POST ``body`` as JSON) -> (status, the JSON answer,
+    the text of a text answer, or None); an HTTP error's status and body
+    come back, not raised."""
+    import urllib.error
+    import urllib.request
 
+    def decode(raw: bytes, ctype: str):
+        if not raw:
+            return None
+        return json.loads(raw) if "json" in ctype else raw.decode()
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, decode(resp.read(), resp.headers.get("Content-Type", ""))
+    except urllib.error.HTTPError as exc:
+        return exc.code, decode(exc.read(), exc.headers.get("Content-Type", ""))
+
+
+def start_controller(env: dict, log, timeout: float = 120.0):
+    """``python -m agent_tpu_torch.controller.server`` in a process of its own
+    (``CONTROLLER_PORT=0``) -> (the process, the URL of its "serving on"
+    line). Its output goes to ``log`` once the line is read."""
+    proc = subprocess.Popen([sys.executable, "-m", "agent_tpu_torch.controller.server"],
+                            cwd=env["PYTHONPATH"], env=dict(env, CONTROLLER_PORT="0",
+                                                            CONTROLLER_HOST="127.0.0.1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0, seen = time.perf_counter(), []
+    while time.perf_counter() - t0 < timeout:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        seen.append(line)
+        if "serving on " in line:
+            url = line.split("serving on ", 1)[1].split()[0]
+            threading.Thread(target=lambda: shutil.copyfileobj(proc.stdout, log),
+                             daemon=True).start()
+            return proc, url
+    proc.kill()
+    proc.wait()
+    raise SystemExit(f"the controller process did not start: {''.join(seen)[-2000:]}")
+
+
+def entry_point_phase(path: str) -> dict:
+    """Phase 10, the entry points: ``python -m agent_tpu_torch.controller.server``
+    (CONTROLLER_PORT=0, its URL read from the "serving on" line) and
+    ``python -m agent_tpu_torch.agent.app`` against it, each in a process of
+    its own. Over HTTP, one echo, one read_csv_shard and a CSV of two 256-row
+    classify shards go in (``POST /v1/jobs``); with
+    TASKS=echo,read_csv_shard,map_classify_tpu the agent drains them
+    (``GET /v1/status``), then SIGUSR1 must dump its flight recorder (holding
+    the lease events), and SIGTERM end the agent and then the controller,
+    each with exit code 0; with TASKS=none the agent must exit 2 at once."""
     root = os.path.dirname(os.path.abspath(__file__))
     extra = {"text_field": "text", "result_format": "columnar", "allow_fallback": False,
              "model_config": dict(BERT_BASE, n_layers=ENTRY_LAYERS), "topk": 5}
     torch.cuda.empty_cache()  # leave the card's memory to the other process
-    with StandInController() as ctrl, tempfile.TemporaryFile("w+") as log, \
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log, tempfile.TemporaryFile("w+") as ctl_log, \
             tempfile.TemporaryDirectory() as rec_dir:
-        ids = [ctrl.submit("echo", {"hello": "card"}),
-               ctrl.submit("read_csv_shard", {"source_uri": path, "shard_size": 5})]
-        ids += ctrl.submit_csv(path, "map_classify_tpu", 0, 2 * ENTRY_SHARD, ENTRY_SHARD, extra)
-        env = dict(os.environ, CONTROLLER_URL=ctrl.url, AGENT_NAME="chip-smoke-entry",
-                   TASKS="echo,read_csv_shard,map_classify_tpu", IDLE_SLEEP_SEC="0.05",
-                   FLIGHT_RECORDER_DIR=rec_dir, PYTHONPATH=root)
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
-                                env=env, stdout=log, stderr=subprocess.STDOUT)
+        env = dict(os.environ, PYTHONPATH=root, LEASE_TTL_SEC=str(LEASE_TTL_S))
+        t_ctl = time.perf_counter()
+        ctl, url = start_controller(env, ctl_log)
+        ctl_start_s = time.perf_counter() - t_ctl
+        proc = None
         try:
-            while not ctrl.drained() and proc.poll() is None \
-                    and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
+            ids = [http_json(f"{url}/v1/jobs", {"op": "echo", "payload": {"hello": "card"}}),
+                   http_json(f"{url}/v1/jobs", {"op": "read_csv_shard", "payload": {
+                       "source_uri": path, "shard_size": 5}})]
+            status, csv = http_json(f"{url}/v1/jobs", {
+                "source_uri": path, "total_rows": 2 * ENTRY_SHARD, "shard_size": ENTRY_SHARD,
+                "map_op": "map_classify_tpu", "extra_payload": extra})
+            if any(st != 200 for st, _ in ids) or status != 200:
+                raise SystemExit(f"POST /v1/jobs: {ids}, {status} {csv}")
+            ids = [body["job_id"] for _, body in ids] + csv["job_ids"]
+            env = dict(env, CONTROLLER_URL=url, AGENT_NAME="chip-smoke-entry",
+                       TASKS="echo,read_csv_shard,map_classify_tpu", IDLE_SLEEP_SEC="0.05",
+                       FLIGHT_RECORDER_DIR=rec_dir)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "agent_tpu_torch.agent.app"],
+                                    cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+            drained = False
+            while proc.poll() is None and time.perf_counter() - t0 < DRAIN_TIMEOUT_S:
+                drained = bool(http_json(f"{url}/v1/status")[1]["drained"])
+                if drained:
+                    break
                 time.sleep(0.05)
             drained_s = time.perf_counter() - t0
             dump = os.path.join(rec_dir, f"agent_tpu_torch_flight_agent-chip-smoke-entry_"
@@ -3342,28 +3279,44 @@ def entry_point_phase(path: str) -> dict:
                     dumped = [json.loads(line) for line in fh]
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
+            jobs = [http_json(f"{url}/v1/jobs/{j}")[1] for j in ids] if drained else []
+            _, status = http_json(f"{url}/v1/status")
+            t_ctl = time.perf_counter()
+            ctl.send_signal(signal.SIGTERM)
+            ctl_rc = ctl.wait(timeout=60)
+            ctl_stop_s = time.perf_counter() - t_ctl
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            for p in (proc, ctl):
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait()
         log.seek(0)
         out = log.read()
-        jobs = ctrl.outcome(ids) if ctrl.drained() else []
+        ctl_log.seek(0)
+        ctl_out = ctl_log.read()
     none = subprocess.run([sys.executable, "-m", "agent_tpu_torch.agent.app"], cwd=root,
                           env=dict(env, TASKS="none"), capture_output=True, text=True,
                           timeout=300)
     leases = sum(1 for e in dumped if e["kind"] == "lease")
-    report = {"phase": "entry_point", "drained_s": drained_s, "exit_code": rc,
+    report = {"phase": "entry_point", "controller_url": url, "drained_s": drained_s,
+              "exit_code": rc, "controller_exit_code": ctl_rc,
+              "controller_start_s": ctl_start_s, "controller_stop_s": ctl_stop_s,
               "exit_code_tasks_none": none.returncode, "sigusr1_dump_events": len(dumped),
-              "sigusr1_dump_leases": leases, "log_tail": out[-1500:]}
+              "sigusr1_dump_leases": leases, "stale_results": status.get("stale_results"),
+              "agents_seen": sorted(status.get("agents", {})),
+              "seconds": time.perf_counter() - t_phase, "log_tail": out[-1500:],
+              "controller_log_tail": ctl_out[-500:]}
     emit(report)
     cls = [j["result"] for j in jobs if j["op"] == "map_classify_tpu"]
-    if rc != 0 or none.returncode != 2 or len(jobs) != 4 or not leases \
+    if rc != 0 or ctl_rc != 0 or none.returncode != 2 or len(jobs) != 4 \
+            or any(j["state"] != "succeeded" or j["attempts"] != 1 for j in jobs) or not leases \
+            or status.get("stale_results") or "chip-smoke-entry" not in report["agents_seen"] \
             or [r.get("device") for r in cls] != [torch.device(CARD).type] * 2 \
             or [r["n_rows"] for r in cls] != [ENTRY_SHARD] * 2:
-        raise SystemExit(f"the entry point failed: exit {rc}, TASKS=none exit "
-                         f"{none.returncode}, {len(jobs)} of 4 jobs, {leases} leases in the "
-                         f"SIGUSR1 dump, log {out[-2000:]}")
+        raise SystemExit(f"the entry points failed: agent exit {rc}, controller exit {ctl_rc}, "
+                         f"TASKS=none exit {none.returncode}, {len(jobs)} of 4 jobs, {leases} "
+                         f"leases in the SIGUSR1 dump, log {out[-2000:]}, controller "
+                         f"{ctl_out[-1000:]}")
     return report
 
 
@@ -3613,7 +3566,9 @@ def shape_entry(fa, check, inputs: str, launches) -> dict:
     """Row 1 at another staged shape (``check[inputs]``: phase 12's BART
     encoder, B 64, H 16, L 1024, D 64, or phase 13's serving prefill, B 240,
     H 8, L 64, D 32, with their key lengths): kernel, plain and SDPA's
-    forward times beside the bound, as a kernels-line entry of its own."""
+    forward times beside the bound, as a kernels-line entry of its own (ms
+    through the launcher; ``entry_times`` through the entry point, which
+    adds the keyless-row rule)."""
     q, k, v, mask, lengths = check[inputs]
     B, H, L, D = q.shape
     bool_mask = mask > 0
@@ -3621,12 +3576,13 @@ def shape_entry(fa, check, inputs: str, launches) -> dict:
         "flash_attention", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
         "agent_tpu/kernels/flash_attention.py:149", launches,
         check["max_abs_err"], check["max_rel_err"],
-        cuda_ms(lambda: fa.flash_attention(q, k, v, mask)),
+        cuda_ms(lambda: fa._launch(q, k, v, mask)),
         cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask), iters=5),
         4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size(),
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=bool_mask)), q)
+            q, k, v, attn_mask=bool_mask)), q,
+        **entry_times(fa, lengths, lambda: fa.flash_attention(q, k, v, mask)))
 
 
 def launches_of(tally: dict, kernel: str) -> dict:
@@ -3647,7 +3603,7 @@ def shard_shape_entry(fa, inputs, launches) -> dict:
     q, k, v, mask, lengths = inputs
     h = q.shape[1] // 2
     q, k, v = (head_shard(t, h) for t in (q, k, v))
-    _, err, rel = compare(fa.flash_attention(q, k, v, mask),
+    _, err, rel = compare(fa._launch(q, k, v, mask),
                           fa.flash_attention_reference(q, k, v, mask), q.dtype)
     check = {"max_abs_err": err, "max_rel_err": rel, "inputs": (q, k, v, mask, lengths)}
     return shape_entry(fa, check, "inputs", launches)
@@ -3663,7 +3619,7 @@ def t5_shard_entry(fa, check, launches) -> dict:
     q, k, v = (head_shard(t, h) for t in (q, k, v))
     rel_bias, table = rel_bias[:, :h].contiguous(), table[:h].contiguous()
     maxd = T5_LARGE["relative_attention_max_distance"]
-    _, err, rel = compare(fa.flash_attention_t5(q, k, v, mask, rel_bias, max_distance=maxd),
+    _, err, rel = compare(fa._launch_t5(q, k, v, mask, table, maxd, 1.0),
                           fa.flash_attention_t5_reference(q, k, v, mask, table,
                                                           max_distance=maxd), q.dtype)
     return t5_kernel_entry(fa, {"inputs": (q, k, v, mask, rel_bias, table, lengths),
@@ -3713,17 +3669,19 @@ def new_engine(model, slots: int, num_beams: int, paged: bool = True, cls=None, 
 
 
 def engine_vs_static(model, attn_fn, stream, enc_all, num_beams: int, slots: int,
-                     profile: bool) -> dict:
-    """bench.py's comparison on the card: the static path decodes
-    arrival-order batches of ``slots`` requests through greedy_generate /
-    beam_generate, each batch run to its longest budget; one persistent
-    paged engine runs the same stream with per-slot limits. Both count the
-    requested tokens (the engine's steps per request). Each side is warmed
-    on the first SERVE_WARM requests; ``profile`` adds one profiled stretch
-    of SERVE_PROFILE_STEPS engine steps in a third pass."""
+                     profile: bool, requests: int) -> dict:
+    """bench.py's comparison on the card, over the stream's first
+    ``requests``: the static path decodes arrival-order batches of
+    ``slots`` requests through greedy_generate / beam_generate, each batch
+    run to its longest budget; one persistent paged engine runs the same
+    requests with per-slot limits. Both count the requested tokens (the
+    engine's steps per request). Each side is warmed on the first
+    SERVE_WARM requests; ``profile`` adds one profiled stretch of
+    SERVE_PROFILE_STEPS engine steps in a third pass."""
     from agent_tpu_torch.models import seq2seq
 
-    ids, mask, limits = stream
+    ids, mask, limits = (part[:requests] for part in stream)
+    enc_all = enc_all[:requests]
     ids_t, mask_t = torch.from_numpy(ids).to(CARD), torch.from_numpy(mask).to(CARD)
 
     def static_pass(n):
@@ -3786,9 +3744,9 @@ def engine_vs_static(model, attn_fn, stream, enc_all, num_beams: int, slots: int
         for _ in range(10):
             engine.step()
         prof = profile_call(lambda: [engine.step() for _ in range(SERVE_PROFILE_STEPS)])
-        out["profile_50_steps"] = {k: prof[k] for k in (
+        out["profile_steps"] = {"steps": SERVE_PROFILE_STEPS, **{k: prof[k] for k in (
             "wall_ms", "device_ms", "idle_share", "kernels_launched", "host_blocked_reads",
-            "host_blocked_ms", "device_ms_by_kind", "top_kernels", "profile_attempts")}
+            "host_blocked_ms", "device_ms_by_kind", "top_kernels", "profile_attempts")}}
         out["profiled_pass_s"] = time.perf_counter() - t0
     return out
 
@@ -3880,63 +3838,101 @@ def serving_exactness() -> dict:
     return report
 
 
-def serve_batches(texts: list, limits: list, max_batch: int = 64) -> list:
-    """The front door's batching (agent_tpu/controller/serving.py): requests
-    grouped by length bucket (ServeConfig.len_buckets, on the text's bytes),
-    max_batch a job -> serve_summarize payloads (greedy)."""
-    by_bucket: dict = {}
-    for i, (text, limit) in enumerate(zip(texts, limits)):
-        n = len(text.encode("utf-8"))
-        bucket = next((b for b in SERVE_LEN_BUCKETS if n <= b), SERVE_LEN_BUCKETS[-1])
-        by_bucket.setdefault(bucket, []).append({"req_id": f"q{i:04d}", "text": text,
-                                                 "max_length": limit})
-    return [with_model({"requests": reqs[s:s + max_batch], "bucket": bucket})
-            for bucket, reqs in by_bucket.items() for s in range(0, len(reqs), max_batch)]
+def front_door_batches(op: str, requests: list) -> list:
+    """The batch jobs the port's front door (controller/serving.py's
+    ServeFrontDoor, the default ServeConfig) forms from ``requests``
+    (``POST /v1/infer`` bodies) posted at once, before any lease: the full
+    buckets as they fill, then the rest at the deadline -> their payloads
+    in flush order, each request's req_id its index in ``requests``."""
+    from agent_tpu_torch.config import ServeConfig
+    from agent_tpu_torch.controller.serving import ServeFrontDoor
+
+    door, batches, index = ServeFrontDoor(ServeConfig(), clock=lambda: 0.0), [], {}
+    for i, body in enumerate(requests):
+        req, full = door.submit(op, body["text"], params=body.get("params"))
+        index[req.req_id] = f"q{i:04d}"
+        batches += full
+    batches += door.pop_due(now_clock=math.inf)
+    out = []
+    for batch in batches:
+        payload = batch.job_payload()
+        for r in payload["requests"]:
+            r["req_id"] = index[r["req_id"]]
+        out.append(payload)
+    return out
 
 
-def agent_jobs() -> list:
-    """The serve_summarize jobs of the agent's run: SERVE_AGENT_JOBS
-    requests of 20-60 bytes (one length bucket), budgets drawn as the
+def formed_batches(ctrl, op: str, bodies: list, req_ids: list) -> dict:
+    """The batch jobs the front door formed of ``bodies``, posted at once
+    before any lease (``req_ids`` their ids): each request's job from ``GET
+    /v1/debug/requests``, each job's riders held to ``front_door_batches``'
+    prediction -> {job id: (its payload, the predicted one with the
+    controller's req ids; its prefill job or None)}, in flush order."""
+    recs = {r["trace_id"]: r for r in ctrl.get("/v1/debug/requests?limit=4096")["requests"]}
+    riders: dict = {}
+    for i, rid in enumerate(req_ids):
+        riders.setdefault(recs[rid]["job_id"], []).append(i)
+    by_members = {tuple(ids): job for job, ids in riders.items()}
+    out = {}
+    for payload in front_door_batches(op, bodies):
+        members = tuple(int(r["req_id"][1:]) for r in payload["requests"])
+        job = by_members.get(members)
+        if job is None:
+            raise SystemExit(f"the front door's batches {sorted(riders.values())} are not "
+                             f"the predicted ones (no job rode {list(members)})")
+        for r in payload["requests"]:
+            r["req_id"] = req_ids[int(r["req_id"][1:])]
+        out[job] = (payload, recs[req_ids[members[0]]].get("prefill_job_id"))
+    if len(out) != len(riders):
+        raise SystemExit(f"{len(riders)} batch jobs, {len(out)} predicted")
+    return out
+
+
+def summarize_requests(texts: list, limits: list) -> list:
+    """``POST /v1/infer`` bodies of summarize requests (phase 13's model)."""
+    model = {"model_config": SERVE_MODEL} if SERVE_MODEL else {}
+    return [{"op": "summarize", "text": t, "params": {"max_length": n, **model}}
+            for t, n in zip(texts, limits)]
+
+
+def agent_requests() -> list:
+    """The requests of the agent's colocated run: SERVE_AGENT_JOBS groups
+    of requests of 20-60 bytes (one length bucket), budgets drawn as the
     stream's (90 % T // 32, else T)."""
     rng = random.Random(SEED + 17)
     long_ = serve_cfg().max_tgt_len
     short = max(2, long_ // 32)
-    jobs = []
-    for j, n in enumerate(SERVE_AGENT_JOBS):
-        texts = random_texts(rng, n, 20, 60)
-        limits = [short if rng.random() < SERVE_SHORT_FRAC else long_ for _ in texts]
-        for job in serve_batches(texts, limits):
-            for r in job["requests"]:
-                r["req_id"] = f"j{j}-{r['req_id']}"
-            jobs.append(job)
-    return jobs
+    texts, limits = [], []
+    for n in SERVE_AGENT_JOBS:
+        texts += random_texts(rng, n, 20, 60)
+        limits += [short if rng.random() < SERVE_SHORT_FRAC else long_ for _ in range(n)]
+    return summarize_requests(texts, limits)
 
 
-def disagg_jobs(round_idx: int) -> list:
+def disagg_requests(round_idx: int) -> list:
     """bench.py's disaggregated mix (bench.py:1383-1392, :1592-1606): of
     DISAGG_REQUESTS requests every 4th a one-off, the rest one of
-    DISAGG_DOCS shared documents, 4 tokens each, batched as the front door
-    batches them (SERVE_MAX_BATCH a job)."""
+    DISAGG_DOCS shared documents, 4 tokens each."""
     docs = [f"shared context document {d} " + "with common preamble content " * 8
             for d in range(DISAGG_DOCS)]
     texts = [f"one-off request r{round_idx} i{i} " + "tail words " * 18 if i % 4 == 0
              else docs[i % DISAGG_DOCS] for i in range(DISAGG_REQUESTS)]
-    return serve_batches(texts, [4] * DISAGG_REQUESTS, max_batch=SERVE_MAX_BATCH)
+    return summarize_requests(texts, [4] * DISAGG_REQUESTS)
 
 
 def serving_cases(serve) -> list:
     """Row 1's shapes and key lengths on the serving path, as the serve
     stage pads them: one admit batch (B 8) and the whole stream (B 240) of
-    the bench stream at L 64, the agent's jobs and the disaggregated
-    measured round's buckets."""
+    the bench stream at L 64, and the batches the front door forms of the
+    agent's requests and of the disaggregated measured round."""
     cfg = serve_cfg()
     H, D, dtype = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.compute_dtype
     cases = [(f"serve_admit8/B8xL{SERVE_SRC}", (8, H, SERVE_SRC, SERVE_SRC, D),
               [SERVE_SRC] * 8, dtype),
              (f"serve_stream240/B{SERVE_REQUESTS}xL{SERVE_SRC}",
               (SERVE_REQUESTS, H, SERVE_SRC, SERVE_SRC, D), [SERVE_SRC] * SERVE_REQUESTS, dtype)]
-    for name, jobs in (("serve_agent", agent_jobs()), ("serve_disagg", disagg_jobs(1))):
-        for job in jobs:
+    for name, reqs in (("serve_agent", agent_requests()), ("serve_disagg", disagg_requests(1))):
+        for job in front_door_batches("summarize", reqs):
             phase, state = serve.stage(dict(job))
             if phase != "staged":
                 raise SystemExit(f"{name} did not stage: {state}")
@@ -3951,14 +3947,66 @@ def per_request(results: list) -> list:
             for out in results for r in out["results"]]
 
 
+def post_infer(url: str, bodies: list) -> list:
+    """``POST /v1/infer`` each body with ``wait: false`` -> the req_ids."""
+    out = []
+    for body in bodies:
+        status, answer = http_json(f"{url}/v1/infer", dict(body, wait=False))
+        if status != 200:
+            raise SystemExit(f"POST /v1/infer: {status} {answer}")
+        out.append(answer["req_id"])
+    return out
+
+
+def infer_answers(url: str, req_ids: list) -> list:
+    """``GET /v1/infer/{id}`` of each request; fails unless each is done."""
+    out = [http_json(f"{url}/v1/infer/{r}")[1] for r in req_ids]
+    bad = [a for a in out if not a or a.get("state") != "done"]
+    if bad:
+        raise SystemExit(f"{len(bad)} requests not done: {str(bad[:2])[:600]}")
+    return out
+
+
+def requests_done(ctrl, n: int) -> bool:
+    """Every one of the ``n`` requests the front door has seen is terminal
+    (``GET /v1/status``'s serving block)."""
+    states = (ctrl.c.serve_status() if ctrl.c is not None
+              else ctrl.get("/v1/status")["serving"])["requests"]
+    return sum(states.values()) >= n and states.get("done", 0) + states.get("failed", 0) >= n
+
+
+def ttft_components(ctrl, names=("bucket_wait", "queue_wait", "prefill", "handoff",
+                                 "kv_wait", "first_decode")) -> dict:
+    """p50 and max of each TTFT component (ms) over ``GET
+    /v1/debug/requests``' records, and the records' count."""
+    recs = ctrl.get("/v1/debug/requests?limit=4096")["requests"]
+    out = {"records": len(recs)}
+    for name in names:
+        vals = sorted(r["components"][name] for r in recs if name in r["components"])
+        if vals:
+            out[name] = {"p50": statistics.median(vals), "max": vals[-1]}
+    return out
+
+
 def serving_agent(fa, rt) -> dict:
-    """serve_summarize jobs of 8-32 requests through the port's pipelined
-    agent against the stand-in controller, sharing one engine, against the
-    same payloads run serially through the op; then bench.py's
-    disaggregated mix as serve_prefill -> serve_decode over b1 after a warm
-    round, against the colocated op; and summarize_encode ->
-    summarize_decode against map_summarize. Row 1's launches are counted
-    for each."""
+    """The port's front door, in a controller process of its own (no
+    sweeper: ``CONTROLLER_SWEEP_SEC=0``), and pipelined agent, all requests
+    through ``POST /v1/infer`` (the default ServeConfig) and posted before
+    the agent starts, so that the batches are the ones
+    ``front_door_batches`` predicts (``formed_batches`` holds them to it):
+    the agent's requests through serve_summarize jobs sharing one engine,
+    each request's tokens equal to the same batch payloads run serially
+    through the op, row 1 n_enc times a batch job; then bench.py's
+    disaggregated mix with ``disaggregated=True``: the controller chains
+    serve_prefill -> serve_decode through ``__collect_partials__`` (the
+    prefill's encoded rows ride the results wire as b1 and the decode's
+    lease), one pool of agents a stage (the prefill pool drains, then the
+    decode pool), after a warm round of prefills through the op, the
+    answers equal to the colocated op on the decode jobs' payloads, row 1
+    n_enc times a prefill with a miss and never in a decode; and
+    summarize_encode ->
+    summarize_decode against map_summarize. No result post refused; the
+    TTFT components from ``GET /v1/debug/requests``."""
     from agent_tpu_torch.agent.app import Agent
     from agent_tpu_torch.config import AgentConfig, Config
     from agent_tpu_torch.ops import load_ops, serve_infer
@@ -3969,19 +4017,18 @@ def serving_agent(fa, rt) -> dict:
     device = torch.device(CARD).type
     n_enc = serve_cfg().n_enc_layers
     serve_infer.reset_engines()
-    jobs = agent_jobs()
     report = {}
-    with StandInController() as ctrl:
-        agent = Agent(Config(agent=AgentConfig(
-            controller_url=ctrl.url, agent_name="chip-smoke-serving",
-            tasks=("serve_summarize", "serve_prefill", "serve_decode"), max_tasks=4,
+
+    def agent_for(ctrl, name, tasks):
+        return Agent(Config(agent=AgentConfig(
+            controller_url=ctrl.url, agent_name=name, tasks=tasks, max_tasks=4,
             idle_sleep_sec=0.005, pipeline_depth=2)), runtime=rt)
+
+    bodies = agent_requests()
+    with PortController(env={"CONTROLLER_SWEEP_SEC": "0"}) as ctrl:
+        agent = agent_for(ctrl, "chip-smoke-serving", ("serve_summarize",))
         ctx = OpContext(runtime=rt, config=agent.config)
-        now = time.time()
-        for job in jobs:
-            for r in job["requests"]:
-                r["arrived_wall"] = now
-        ids = [ctrl.submit("serve_summarize", job) for job in jobs]
+        req_ids = post_infer(ctrl.url, bodies)
         occupancy, stop = [], threading.Event()
 
         def sample():
@@ -3992,76 +4039,99 @@ def serving_agent(fa, rt) -> dict:
         sampler = threading.Thread(target=sample, daemon=True)
         reset_counts(fa)
         sampler.start()
-        wall, _ = pipelined_drain(agent, ctrl)
+        wall, _ = pipelined_drain(agent, ctrl, until=lambda: requests_done(ctrl, len(bodies)))
         stop.set()
         sampler.join(timeout=10)
         launches = fa.LAUNCH_COUNTS["flash_attention"]
-        results = [j["result"] for j in ctrl.outcome(ids)]
+        answers = infer_answers(ctrl.url, req_ids)
+        batches = formed_batches(ctrl, "summarize", bodies, req_ids)
+        job_ids = list(batches)
+        results = [j["result"] for j in ctrl.outcome(job_ids)]
+        payloads = [batches[j][0] for j in job_ids]
         engines = len(serve_infer._ENGINES)
         bad = [r for r in results if not r.get("ok") or r.get("device") != device]
-        serial = [ops["serve_summarize"](dict(job), ctx) for job in jobs]
-        ttft = sorted(r["ttft_ms"] for out in results for r in out["results"])
+        serial = [ops["serve_summarize"](dict(p), ctx) for p in payloads]
+        by_req = {r["req_id"]: r for out in serial for r in out["results"]}
+        answered = [dict(a["result"], req_id=a["req_id"]) for a in answers]
+        ttft = sorted(a["ttft_ms"] for a in answers)
         tokens = sum(r["steps"] for out in results for r in out["results"])
         report["agent"] = {
-            "jobs": [len(job["requests"]) for job in jobs], "wall_s": wall,
-            "tok_per_s": tokens / wall, "tokens": tokens, "engines": engines,
+            "requests": len(bodies), "jobs": [len(p["requests"]) for p in payloads],
+            "wall_s": wall, "tok_per_s": tokens / wall, "tokens": tokens, "engines": engines,
             "ttft_ms_p50": statistics.median(ttft), "ttft_ms_p95": ttft[int(0.95 * len(ttft))],
+            "ttft_components_ms": ttft_components(ctrl),
             "occupancy_gauge_max": max(occupancy or [0.0]),
             "occupancy_gauge_end": agent.m_serve_occupancy.value(),
             "occupancy_by_job": [r["occupancy"] for r in results],
-            "launches": launches, "launches_want": n_enc * len(jobs)}
+            "launches": launches, "launches_want": n_enc * len(job_ids),
+            "batches_as_predicted": True}  # formed_batches raises otherwise
         if bad or engines != 1 or per_request(results) != per_request(serial) \
-                or launches != n_enc * len(jobs):
+                or per_request([{"results": answered}]) != per_request(
+                    [{"results": [by_req[r] for r in req_ids]}]) \
+                or launches != n_enc * len(job_ids):
             raise SystemExit(f"serving through the agent failed: {report['agent']} "
                              f"{str(bad)[:300]}")
 
-        # bench.py's disaggregated mix: the warm round through the op, the
-        # measured round through the agent.
-        for job in disagg_jobs(0):
-            if not ops["serve_prefill"](dict(job), ctx)["ok"]:
+    # bench.py's disaggregated mix: a warm round, then the measured one.
+    with PortController(env={"CONTROLLER_SWEEP_SEC": "0", "SERVE_DISAGG": "1"}) as ctrl:
+        prefill_pool = agent_for(ctrl, "chip-smoke-prefill", ("serve_prefill",))
+        decode_pool = agent_for(ctrl, "chip-smoke-decode", ("serve_decode",))
+        ctx = OpContext(runtime=rt, config=decode_pool.config)
+        # The warm round through the op, as bench.py warms its prefix cache.
+        for job in front_door_batches("summarize", disagg_requests(0)):
+            if not ops["serve_prefill"](job, ctx)["ok"]:
                 raise SystemExit("a warm serve_prefill failed")
-        measured = disagg_jobs(1)
-        now = time.time()
-        for job in measured:
-            for r in job["requests"]:
-                r["arrived_wall"] = now
+        bodies = disagg_requests(1)
+
+        def prefilled() -> bool:
+            # Every request left its bucket AND rides a submitted job (a
+            # request turns "batched" only after its jobs are submitted).
+            status = ctrl.get("/v1/status")
+            st = status["serving"]["requests"]
+            per_op = status["counts_by_op"].get("serve_prefill", {})
+            return sum(st.values()) >= len(bodies) and not st.get("queued") \
+                and not per_op.get("pending") and not per_op.get("leased")
+
+        t0 = time.perf_counter()
+        req_ids = post_infer(ctrl.url, bodies)
         reset_counts(fa)
-        pre_ids = [ctrl.submit("serve_prefill", job) for job in measured]
-        prefill_wall, _ = pipelined_drain(agent, ctrl)
+        b1_before = ctrl.b1_results()
+        prefill_wall, _ = pipelined_drain(prefill_pool, ctrl, until=prefilled)
         prefill_launches = fa.LAUNCH_COUNTS["flash_attention"]
-        prefills = ctrl.outcome(pre_ids)
-        pre = [j["result"] for j in prefills]
+        prefill_b1 = ctrl.b1_results() - b1_before
+        reset_counts(fa)
+        decode_wall, _ = pipelined_drain(decode_pool, ctrl,
+                                         until=lambda: requests_done(ctrl, len(bodies)))
+        decode_launches = fa.LAUNCH_COUNTS["flash_attention"]
+        wall = time.perf_counter() - t0
+        answers = infer_answers(ctrl.url, req_ids)
+        batches = formed_batches(ctrl, "summarize", bodies, req_ids)
+        dec_ids = list(batches)
+        pre_ids = [batches[j][1] for j in dec_ids]
+        pre = [j["result"] for j in ctrl.outcome(pre_ids)]
+        decoded = [j["result"] for j in ctrl.outcome(dec_ids)]
         hits = sum(r["prefix_cache"]["hits"] for r in pre)
         misses = sum(r["prefix_cache"]["misses"] for r in pre)
         want_prefill = n_enc * sum(1 for r in pre if r["prefix_cache"]["misses"])
-        t0 = time.perf_counter()
-        handoffs = [dict(r, enc_rows=np.asarray(r["enc_rows"]).tolist(),
-                         lengths=np.asarray(r["lengths"]).tolist()) for r in pre]
-        handoff_s = time.perf_counter() - t0
-        reset_counts(fa)
-        dec_ids = [ctrl.submit("serve_decode", dict(job, encoded=h))
-                   for job, h in zip(measured, handoffs)]
-        decode_wall, _ = pipelined_drain(agent, ctrl)
-        decode_launches = fa.LAUNCH_COUNTS["flash_attention"]
-        decoded = [j["result"] for j in ctrl.outcome(dec_ids)]
-        colocated = [ops["serve_summarize"](dict(job), ctx) for job in measured]
-        ttft = sorted(r["ttft_ms"] for out in decoded for r in out["results"])
+        colocated = [ops["serve_summarize"](dict(batches[j][0]), ctx) for j in dec_ids]
+        ttft = sorted(a["ttft_ms"] for a in answers)
+        comps = ttft_components(ctrl)
         report["disagg"] = {
-            "jobs": [[len(j["requests"]), j["bucket"]] for j in measured],
-            "prefill_b1": [j["b1"] for j in prefills], "hit_rate": hits / (hits + misses),
+            "jobs": [[len(batches[j][0]["requests"]), batches[j][0]["bucket"]] for j in dec_ids],
+            "prefill_b1": prefill_b1, "hit_rate": hits / (hits + misses),
             "hits": hits, "misses": misses, "prefill_launches": prefill_launches,
             "prefill_launches_want": want_prefill, "decode_launches": decode_launches,
             "ttft_ms_p50": statistics.median(ttft), "ttft_ms_p95": ttft[int(0.95 * len(ttft))],
-            "prefill_drain_s": prefill_wall, "handoff_tolist_s": handoff_s,
-            "decode_drain_s": decode_wall,
+            "ttft_components_ms": comps, "round_s": wall,
+            "prefill_drain_s": prefill_wall, "decode_drain_s": decode_wall,
             "equal_to_colocated": per_request(decoded) == per_request(colocated)}
-        if not all(j["b1"] for j in prefills) or hits / (hits + misses) < 0.5 \
+        if prefill_b1 != len(pre_ids) or None in pre_ids or hits / (hits + misses) < 0.5 \
                 or prefill_launches != want_prefill or decode_launches \
                 or not report["disagg"]["equal_to_colocated"] \
-                or any(r.get("device") != device for r in pre + decoded):
+                or any(r.get("device") != device for r in pre + decoded) \
+                or not all(n in comps for n in ("queue_wait", "prefill", "handoff",
+                                                 "first_decode")):
             raise SystemExit(f"the disaggregated chain failed: {report['disagg']}")
-        if ctrl.stale:
-            raise SystemExit(f"{ctrl.stale} serving results came with a stale epoch or lease")
 
     # summarize_encode -> summarize_decode against map_summarize, greedy.
     texts = random_texts(random.Random(SEED + 18), MPMD_ROWS, 20, 60)
@@ -4108,6 +4178,241 @@ def serve_classify_check(fa, ctx, texts: list, k: int) -> dict:
     return report
 
 
+DOOR_REQUESTS, DOOR_CLIENTS, DOOR_BYTES = 512, 8, (20, 900)
+DOOR_BURST, DOOR_BURST_PENDING = 32, 8  # the 429 burst, against max_pending 8
+# The loaded burst: two max_batch loads of one bucket (texts within its 64
+# bytes), posted at once, so the front door flushes them "full".
+DOOR_FULL, DOOR_FULL_BYTES = 32, (20, 60)
+
+
+def topk_agreement(got: list, want: list, tol: float) -> dict:
+    """Per request, two top-k answers (``indices``, ``scores``): every class
+    both list within ``tol`` in log p and SCORE_TOL in p, and a top-1 flip
+    only where the reference puts the two classes within ``tol`` in log p
+    (a tie)."""
+    worst_logp = worst_p = 0.0
+    flips = non_ties = exact = 0
+    for g, w in zip(got, want, strict=True):
+        gp, wp = dict(zip(g["indices"], g["scores"])), dict(zip(w["indices"], w["scores"]))
+        exact += g["indices"] == w["indices"] and g["scores"] == w["scores"]
+        for c in gp.keys() & wp.keys():
+            worst_p = max(worst_p, abs(gp[c] - wp[c]))
+            worst_logp = max(worst_logp, abs(math.log(max(gp[c], 1e-30))
+                                             - math.log(max(wp[c], 1e-30))))
+        if g["indices"][0] != w["indices"][0]:
+            flips += 1
+            rival = wp.get(g["indices"][0], w["scores"][-1])
+            non_ties += math.log(w["scores"][0]) - math.log(max(rival, 1e-30)) > tol
+    return {"max_logp_diff": worst_logp, "max_score_diff": worst_p, "top1_flips": flips,
+            "non_tie_flips": non_ties, "bit_equal": exact,
+            "ok": worst_logp <= tol and worst_p <= SCORE_TOL and not non_ties}
+
+
+def door_batches(ctrl) -> dict:
+    """The batches the front door formed, from ``GET /v1/debug/requests``'
+    records: job id -> (bucket, flush reason, riders)."""
+    out: dict = {}
+    for r in ctrl.get("/v1/debug/requests?limit=4096")["requests"]:
+        key = (r["bucket"], r["flush_reason"])
+        prev = out.setdefault(r["job_id"], (*key, 0))
+        if prev[:2] != key:
+            raise SystemExit(f"job {r['job_id']} rode buckets {prev[:2]} and {key}")
+        out[r["job_id"]] = (*key, prev[2] + 1)
+    return out
+
+
+def front_door_phase(fa, rt, ctx, k: int) -> dict:
+    """Phase 20: the front door at full width. The port's ControllerServer
+    with the default ServeConfig (max_batch 16, max_wait_ms 25, the five
+    length buckets), in a process of its own (``python -m
+    agent_tpu_torch.controller.server``, as a deployment runs it: in this
+    process its HTTP threads would share the agent's interpreter), and one
+    pipelined port agent on the card offering serve_classify; DOOR_CLIENTS client threads post DOOR_REQUESTS blocking
+    ``POST /v1/infer`` classify requests at BERT-base width (phase 4's
+    weights, bf16, top 5), texts of 20-900 bytes from SEED, so that every
+    bucket takes requests. Each answer agrees with serve_classify's direct
+    answer on the same text (run here, max_batch texts a call;
+    ``topk_agreement`` at phase 4's bf16 tolerance); the batches by bucket and flush reason (``GET
+    /v1/debug/requests``) match ``serve_batches_total`` and ``GET
+    /v1/status``'s serving block; row 1 launched n_layers times each
+    serve_classify job the agent ran (its ``tasks_total``). Then DOOR_FULL
+    requests of one bucket posted at once: every max_batch of them one
+    "full" batch (``serve_batches_total{reason="full"}``), answered as
+    serve_classify answers them directly. Then a burst of
+    DOOR_BURST requests against a front door of max_pending
+    DOOR_BURST_PENDING, posted before the agent polls: past the budget each
+    draws HTTP 429 with retry_after_ms, and its retries, after that wait,
+    succeed."""
+    from agent_tpu_torch.agent.app import Agent
+    from agent_tpu_torch.config import AgentConfig, Config, ServeConfig
+    from agent_tpu_torch.ops import load_ops
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line() if torch.device(CARD).type == "cuda" else "not a card"
+    serve = load_ops(["serve_classify"])["serve_classify"]
+    n_layers, cfg = BERT_BASE["n_layers"], ServeConfig()
+    rng = random.Random(SEED + 20)
+    params = {"model_config": BERT_BASE, "topk": k}
+    bodies = [{"op": "classify", "text": t, "params": params}
+              for t in random_texts(rng, DOOR_REQUESTS, *DOOR_BYTES)]
+
+    def agent_for(ctrl, name):
+        return Agent(Config(agent=AgentConfig(
+            controller_url=ctrl.url, agent_name=name, tasks=("serve_classify",),
+            idle_sleep_sec=0.005, pipeline_depth=2)), runtime=rt)
+
+    def direct(requests: list) -> list:
+        """serve_classify run directly on this thread over ``requests``'
+        texts, max_batch at a time -> one answer a request, in order."""
+        out = []
+        for s in range(0, len(requests), cfg.max_batch):
+            chunk = [{"req_id": str(i), "text": b["text"]}
+                     for i, b in enumerate(requests[s:s + cfg.max_batch])]
+            out += serve({"requests": chunk, **params}, ctx)["results"]
+        return out
+
+    with PortController(env={}) as ctrl:
+        agent = agent_for(ctrl, "chip-smoke-door")
+        answers, latency = [None] * len(bodies), [None] * len(bodies)
+
+        def client(c: int) -> None:
+            for i in range(c, len(bodies), DOOR_CLIENTS):
+                t0 = time.perf_counter()
+                status, answers[i] = http_json(f"{ctrl.url}/v1/infer", bodies[i],
+                                               timeout=DRAIN_TIMEOUT_S)
+                latency[i] = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    answers[i] = {"state": f"HTTP {status}", "answer": answers[i]}
+
+        clients = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(DOOR_CLIENTS)]
+        gc.collect()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        wall, _ = pipelined_drain(agent, ctrl, until=lambda: not any(
+            t.is_alive() for t in clients))
+        launches = fa.LAUNCH_COUNTS["flash_attention"]
+        tasks = agent.m_tasks.value(op="serve_classify", status="succeeded")
+        bad = [a for a in answers if not a or a.get("state") != "done"]
+        if bad:
+            raise SystemExit(f"{len(bad)} of {len(bodies)} requests failed: {str(bad[:2])[:600]}")
+        agree = topk_agreement([a["result"] for a in answers], direct(bodies),
+                               LOGP_TOL["bfloat16"])
+        batches = door_batches(ctrl)
+        by_reason = collections.Counter(reason for _, reason, _ in batches.values())
+        by_bucket = collections.Counter(bucket for bucket, _, _ in batches.values())
+        status = ctrl.get("/v1/status")["serving"]
+        metric = {r: ctrl.series("serve_batches_total", op="classify", reason=r)
+                  for r in ("full", "deadline")}
+        comps = ttft_components(ctrl)
+        job_ids = {a["job_id"] for a in answers}
+        jobs_ok = ctrl.outcome(sorted(job_ids))
+        lat = sorted(latency)
+        report = {
+            "phase": "front_door", "nvidia_smi": smi, "config": BERT_BASE,
+            "serve_config": {"max_batch": cfg.max_batch, "max_wait_ms": cfg.max_wait_ms,
+                             "len_buckets": list(cfg.len_buckets)},
+            "requests": len(bodies), "clients": DOOR_CLIENTS, "wall_s": wall,
+            "requests_per_s": len(bodies) / wall,
+            "latency_ms": {"p50": statistics.median(lat), "p99": lat[int(0.99 * len(lat))],
+                           "max": lat[-1]},
+            "ttft_ms": {"p50": statistics.median(sorted(a["ttft_ms"] for a in answers))},
+            "ttft_components_ms": comps,
+            "batches": len(batches), "batches_by_reason": dict(by_reason),
+            "batches_by_bucket": {str(b): n for b, n in sorted(by_bucket.items())},
+            "riders_per_batch": {"mean": len(bodies) / len(batches),
+                                 "max": max(n for _, _, n in batches.values())},
+            "serve_batches_total": metric, "status_requests": status["requests"],
+            "agent_tasks": tasks, "launches": launches, "launches_want": n_layers * tasks,
+            "agreement": agree}
+        if not agree["ok"] or launches != n_layers * tasks or tasks != len(batches) \
+                or len(job_ids) != len(batches) or len(jobs_ok) != len(batches) \
+                or {r: by_reason.get(r, 0) for r in metric} != metric \
+                or status["requests"].get("done") != len(bodies) or status["bucketed"] \
+                or set(by_bucket) != set(cfg.len_buckets):
+            raise SystemExit(f"the front door failed: {report}")
+
+        # The loaded burst, on the same front door once the clients are
+        # done: DOOR_FULL requests of one bucket posted before the agent
+        # polls again. Each max_batch of them flushes as a "full" batch (the
+        # blocking clients above, 8 against max_batch 16, flush at the
+        # deadline), one serve_classify job each.
+        loaded = [{"op": "classify", "text": t, "params": params}
+                  for t in random_texts(rng, DOOR_FULL, *DOOR_FULL_BYTES)]
+        posted = [http_json(f"{ctrl.url}/v1/infer", dict(b, wait=False)) for b in loaded]
+        reset_counts(fa)
+        full_wall, _ = pipelined_drain(agent, ctrl, until=lambda: requests_done(
+            ctrl, len(bodies) + len(loaded)))
+        full_answers = infer_answers(ctrl.url, [a["req_id"] for _, a in posted])
+        full_batches = {j: b for j, b in door_batches(ctrl).items()
+                        if j in {a["job_id"] for a in full_answers}}
+        full_metric = ctrl.series("serve_batches_total", op="classify", reason="full")
+        want_full = DOOR_FULL // cfg.max_batch
+        report["loaded_burst"] = {
+            "requests": len(loaded), "posted_200": sum(st == 200 for st, _ in posted),
+            "batches": sorted(full_batches.values()), "serve_batches_full": full_metric,
+            "launches": fa.LAUNCH_COUNTS["flash_attention"],
+            "agent_tasks": agent.m_tasks.value(op="serve_classify", status="succeeded"),
+            "wall_s": full_wall, "agreement": topk_agreement(
+                [a["result"] for a in full_answers], direct(loaded), LOGP_TOL["bfloat16"])}
+        if report["loaded_burst"]["posted_200"] != len(loaded) \
+                or sorted(full_batches.values()) != [(cfg.len_buckets[0], "full",
+                                                      cfg.max_batch)] * want_full \
+                or full_metric - metric["full"] != want_full \
+                or report["loaded_burst"]["agent_tasks"] != tasks + want_full \
+                or report["loaded_burst"]["launches"] != n_layers * want_full \
+                or not report["loaded_burst"]["agreement"]["ok"]:
+            raise SystemExit(f"the loaded burst failed: {report['loaded_burst']}")
+
+    # The 429 burst: a front door of max_pending DOOR_BURST_PENDING, every
+    # request posted before the agent's first poll.
+    burst = [{"op": "classify", "text": t, "params": params}
+             for t in random_texts(rng, DOOR_BURST, *DOOR_BYTES)]
+    with PortController(env={"SERVE_MAX_PENDING": str(DOOR_BURST_PENDING)}) as ctrl:
+        agent = agent_for(ctrl, "chip-smoke-door-burst")
+        first = [http_json(f"{ctrl.url}/v1/infer", dict(b, wait=False)) for b in burst]
+        refused = [i for i, (st, _) in enumerate(first) if st == 429]
+        waits = [first[i][1].get("retry_after_ms") for i in refused]
+        req_ids = {i: a["req_id"] for i, (st, a) in enumerate(first) if st == 200}
+        retries = collections.Counter()
+
+        def retry() -> None:
+            for i in refused:
+                wait_ms = first[i][1]["retry_after_ms"]
+                while True:
+                    time.sleep(wait_ms / 1e3)
+                    st, a = http_json(f"{ctrl.url}/v1/infer", dict(burst[i], wait=False))
+                    retries[i] += 1
+                    if st == 200:
+                        req_ids[i] = a["req_id"]
+                        break
+                    if st != 429 or retries[i] > 1000:
+                        return
+                    wait_ms = a["retry_after_ms"]
+
+        retrier = threading.Thread(target=retry, daemon=True)
+        retrier.start()
+        burst_wall, _ = pipelined_drain(agent, ctrl, until=lambda: not retrier.is_alive()
+                                        and requests_done(ctrl, len(burst)))
+        answers = infer_answers(ctrl.url, [req_ids[i] for i in range(len(burst))])
+        burst_agree = topk_agreement([a["result"] for a in answers], direct(burst),
+                                     LOGP_TOL["bfloat16"])
+        rejected = ctrl.get("/v1/status")["serving"]["rejected"]
+    report["burst"] = {"requests": len(burst), "max_pending": DOOR_BURST_PENDING,
+                       "refused_429": len(refused), "retry_after_ms": sorted(set(waits)),
+                       "retries": sum(retries.values()), "rejected_counter": rejected,
+                       "wall_s": burst_wall, "agreement": burst_agree}
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    if not refused or not all(isinstance(w, int) and w > 0 for w in waits) \
+            or len(req_ids) != len(burst) or not burst_agree["ok"] \
+            or rejected < len(refused):
+        raise SystemExit(f"the 429 burst failed: {report['burst']}")
+    return report
+
+
 def serving_phase(fa, rt, classify_check: dict) -> dict:
     """Phase 13: continuous-batching serving on the card (see the module
     docstring)."""
@@ -4135,11 +4440,16 @@ def serving_phase(fa, rt, classify_check: dict) -> dict:
     seconds = {}
     legs = []
     # One profiled stretch, greedy: the beam search's profiled pass (about
-    # 23 s on the H100) is left out to keep the whole run's time.
-    for beams, slots, profile in ((1, SERVE_SLOTS, True), (SERVE_BEAMS, SERVE_SLOTS, False),
-                                  (1, SERVE_WIDE_SLOTS, False)):
+    # 23 s on the H100) is left out to keep the whole run's time; the beam
+    # leg decodes the stream's first quarter, the 64-slot leg its first
+    # 2 × 64 requests.
+    wide = min(SERVE_REQUESTS, SERVE_WIDE_LEG_PER_SLOT * SERVE_WIDE_SLOTS)
+    for beams, slots, profile, n in ((1, SERVE_SLOTS, True, SERVE_REQUESTS),
+                                     (SERVE_BEAMS, SERVE_SLOTS, False,
+                                      int(SERVE_REQUESTS * SERVE_BEAM_LEG_FRAC)),
+                                     (1, SERVE_WIDE_SLOTS, False, wide)):
         t1 = time.perf_counter()
-        legs.append(engine_vs_static(model, attn_fn, stream, enc_all, beams, slots, profile))
+        legs.append(engine_vs_static(model, attn_fn, stream, enc_all, beams, slots, profile, n))
         seconds[f"beams{beams}_slots{slots}"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     exact = serving_exactness()
@@ -4447,12 +4757,15 @@ def moe_exactness_f32(rt) -> dict:
     """Phase 14, MoE exactness: the small f32 MoE encoder (MOE_F32: 4
     experts, groups of 512 tokens at capacity 1.25, so tokens are dropped)
     on the card against the CPU, from the same weights and MOE_F32_ROWS
-    padded rows: the logits, the Switch aux loss, the training loss and
-    every leaf's gradient of one step (relative L2), then the losses of
-    MOE_F32_STEPS AdamW steps, each within MOE_F32_REL_TOL. The card runs
-    the training kernels (rows 4-6, f32), the CPU their plain version; both
-    run ``moe.Route``'s backward."""
-    from agent_tpu_torch.models import encoder, train
+    padded rows, the first with no real key (it attends as the reference's
+    dense path does, and its tokens compete for capacity): every MoE
+    layer's routes (``MoeFFN.routes`` of the tokens ``dispatch`` got; the
+    share routed alike at least MOE_ROUTE_AGREEMENT), the logits, the Switch
+    aux loss, the training loss and every leaf's gradient of one step
+    (relative L2), then the losses of MOE_F32_STEPS AdamW steps, each within
+    MOE_F32_REL_TOL. The card runs the training kernels (rows 4-6, f32), the
+    CPU their plain version; both run ``moe.Route``'s backward."""
+    from agent_tpu_torch.models import encoder, moe, train
     from agent_tpu_torch.runtime.runtime import TorchRuntime
 
     cfg = encoder.EncoderConfig(**MOE_F32)
@@ -4460,6 +4773,7 @@ def moe_exactness_f32(rt) -> dict:
     rng = np.random.default_rng(SEED + 24)
     B, L = MOE_F32_ROWS, cfg.max_len
     lengths = rng.integers(L // 4, L + 1, B)
+    lengths[0] = 0  # a row with no real key
     mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
     ids = rng.integers(4, cfg.vocab_size, (B, L)).astype(np.int32) * mask
     labels = rng.integers(0, cfg.n_classes, B).astype(np.int32)
@@ -4468,6 +4782,18 @@ def moe_exactness_f32(rt) -> dict:
         attn_fn = run_rt.train_attention_fn()
         model = encoder.from_jax_params(flat, cfg, device=where, trainable=True)
         batch = [torch.from_numpy(a).to(where) for a in (ids, mask, labels)]
+        seen, dispatch = [], moe.MoeFFN.dispatch
+
+        def spy(self, x, group_size, experts, seen=seen, dispatch=dispatch):
+            seen.append(self.routes(x.detach(), group_size))
+            return dispatch(self, x, group_size, experts)
+
+        moe.MoeFFN.dispatch = spy
+        try:
+            with torch.no_grad():
+                model(batch[0], batch[1], run_rt.attention_fn())
+        finally:
+            moe.MoeFFN.dispatch = dispatch
         with torch.enable_grad():
             logits, aux = model(batch[0], batch[1], attn_fn, with_aux=True)
             loss = train.cross_entropy_loss(model, *batch, attn_fn=attn_fn)
@@ -4477,7 +4803,8 @@ def moe_exactness_f32(rt) -> dict:
         init, step = train.make_train_step(cfg, train.adamw(1e-2), attn_fn=attn_fn)
         opt = init(model)
         losses = [float(step(model, opt, *batch)[2]) for _ in range(MOE_F32_STEPS)]
-        sides[side] = {"logits": logits.detach().cpu(), "aux": aux.detach().cpu(),
+        sides[side] = {"routes": [(e.cpu(), k.cpu()) for e, k in seen],
+                       "logits": logits.detach().cpu(), "aux": aux.detach().cpu(),
                        "loss": loss.detach().cpu(), "grads": grads,
                        "losses": torch.tensor(losses)}
     card, cpu = sides["card"], sides["cpu"]
@@ -4488,7 +4815,10 @@ def moe_exactness_f32(rt) -> dict:
     if set(card["grads"]) != set(cpu["grads"]):
         raise SystemExit(f"MoE gradients on different leaves: "
                          f"{sorted(set(card['grads']) ^ set(cpu['grads']))}")
-    report = {"rows": B, "seq_len": L, "tolerance": MOE_F32_REL_TOL,
+    alike = [float(((ec == eu) & (kc == ku)).float().mean())
+             for (ec, kc), (eu, ku) in zip(card["routes"], cpu["routes"], strict=True)]
+    report = {"rows": B, "seq_len": L, "keyless_rows": int((lengths == 0).sum()),
+              "tolerance": MOE_F32_REL_TOL, "share_routed_alike_by_layer": alike,
               **{k: rel(card[k], cpu[k]) for k in ("logits", "aux", "loss", "losses")},
               "grads_max_rel_l2": max(rel(card["grads"][k], cpu["grads"][k])
                                       for k in cpu["grads"]),
@@ -4498,7 +4828,8 @@ def moe_exactness_f32(rt) -> dict:
               "losses_card": card["losses"].tolist(), "losses_cpu": cpu["losses"].tolist()}
     worst = max(v for k, v in report.items() if k in (
         "logits", "aux", "loss", "losses", "grads_max_rel_l2"))
-    if not worst <= MOE_F32_REL_TOL:
+    if not worst <= MOE_F32_REL_TOL or len(alike) != cfg.n_layers \
+            or min(alike) < MOE_ROUTE_AGREEMENT:
         raise SystemExit(f"the f32 MoE on the card disagrees with the CPU: {report}")
     return report
 
@@ -5369,7 +5700,8 @@ DEC_MESHES = {"tp2": {"tp": 2}, "dp2_tp2": {"dp": 2, "tp": 2}}
 DEC_RING = {"tp": 2, "sp": 2}
 # The stream's first requests whose f32 tokens on tp 2 are held to one
 # device's engine (the whole stream runs in bf16 for its rate).
-DEC_SERVE_F32_REQUESTS = 64
+DEC_SERVE_F32_REQUESTS = 32
+DEC_SERVE_REQUESTS = 60  # of phase 13's 240: the depth cut to pay for phase 20
 DEC_ROWS = 32  # random texts of phase 8's length for the quant leg
 DEC_PREFIX_BUCKET = 512
 # --cards N: T5-large's widths cut to 2 + 2 layers (a checkpoint of its own).
@@ -5660,8 +5992,9 @@ def engine_pool_bytes(caches) -> list:
 
 def dec_serving(fa, tally: dict, stream_tok_s: float) -> dict:
     """Phase 17, serving on tp 2: phase 13's stream prefilled on the mesh
-    (row 1 4 × 2 times), then decoded by a paged engine of 8 slots on the
-    mesh in bf16 (tok/s beside phase 13's), each shard's pool half the
+    (row 1 4 × 2 times), then its first DEC_SERVE_REQUESTS decoded by a
+    paged engine of 8 slots on the mesh in bf16 (tok/s beside phase 13's
+    whole stream's), each shard's pool half the
     one-device pool's bytes; its first DEC_SERVE_F32_REQUESTS requests in
     f32 on tp 2 and one device, the same tokens; serve_summarize on tp 2
     twice with one prompt: the second from the prefix cache, equal."""
@@ -5694,12 +6027,12 @@ def dec_serving(fa, tally: dict, stream_tok_s: float) -> dict:
     torch.cuda.synchronize()
     gc.collect()
     t0 = time.perf_counter()
-    tickets = engine_pass(engine, enc_all, len(limits))
+    tickets = engine_pass(engine, enc_all, min(DEC_SERVE_REQUESTS, len(limits)))
     wall = time.perf_counter() - t0
     tokens = sum(t.steps for t in tickets)
     whole_pool = resident_bytes(seq2seq.make_paged_cache_factory(cfg, block_size=16, device=CARD)(
         SERVE_SLOTS)["layers"])
-    report = {"bf16_tp2": {"requests": len(limits), "tokens": tokens, "wall_s": wall,
+    report = {"bf16_tp2": {"requests": len(tickets), "tokens": tokens, "wall_s": wall,
                            "tok_per_s": tokens / wall,
                            "phase13_one_device_tok_per_s": stream_tok_s,
                            "vs_one_device": tokens / wall / stream_tok_s},
@@ -5709,16 +6042,19 @@ def dec_serving(fa, tally: dict, stream_tok_s: float) -> dict:
 
     f32 = seq2seq.Seq2SeqConfig(**dict(SERVE_MODEL, dtype="float32"))
     n = DEC_SERVE_F32_REQUESTS
-    toks = {}
+    toks, decode_s = {}, 0.0
     for name, rt, n_launch in (("tp2", tp2, 2), ("one", one, 1)):
         m = op._get_model(rt, op.DEFAULT_MODEL_ID, f32, "seq2seq")
         with torch.inference_mode():
             enc = launch_delta(fa, lambda: seq2seq.encode(m, ids_t[:n], mask_t[:n],
                                                           rt.attention_fn()).cpu().numpy(),
                                {"flash_attention": n_launch * f32.n_enc_layers})
+        t0 = time.perf_counter()
         toks[name] = [t.tokens for t in engine_pass(new_engine(m, SERVE_SLOTS, 1), enc, n)]
+        decode_s += time.perf_counter() - t0
     report["f32_first_requests_equal"] = all(np.array_equal(a, b)
                                              for a, b in zip(toks["tp2"], toks["one"]))
+    report["f32_requests"], report["f32_decode_s"] = n, decode_s
 
     serve_infer.reset_engines()
     ctx = OpContext(runtime=tp2, config=Config(serve=ServeConfig()))
@@ -5943,7 +6279,7 @@ def leader_followers(n: int, ctrl, tasks: str, tmp: str, cards: int = 0,
     free local port (``COORDINATOR_ADDRESS``), process 0 leasing from
     ``ctrl``: all on the first card, or with ``cards`` one a card
     (``CHIP_SLICE``); a follower runs ``follower_code`` when given. Once the
-    stand-in has every result the leader gets SIGTERM (a clean exit, whose
+    controller has every result the leader gets SIGTERM (a clean exit, whose
     shutdown broadcast ends the followers) -> return codes, each
     follower's tasks_done, the wall seconds and the logs' tails."""
     port, procs, logs = free_port(), [], []
@@ -5967,7 +6303,7 @@ def leader_followers(n: int, ctrl, tasks: str, tmp: str, cards: int = 0,
             if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
                 stop_all(procs)
                 tails = [open(f).read()[-2000:] for f in logs]
-                raise SystemExit(f"the processes did not drain the stand-in: {tails}")
+                raise SystemExit(f"the processes did not drain the controller: {tails}")
             time.sleep(0.02)
         drained_s = time.monotonic() - t0
         procs[0].send_signal(signal.SIGTERM)
@@ -5987,8 +6323,8 @@ def procs_ok(run: dict, want_tasks: int) -> bool:
 
 
 def stage_ms(ctrl, job_id: str) -> float:
-    """The leader's ``stage`` span of a job: resolving and broadcasting the
-    task before its op ran."""
+    """The leader's ``stage`` span of a job (``GET /v1/trace/{job}``):
+    resolving and broadcasting the task before its op ran."""
     (span,) = [s for s in ctrl.trace(job_id) if s["name"] == "stage"]
     return span["duration_ms"]
 
@@ -6002,13 +6338,13 @@ def procs_phase(n: int, tmp: str, cards: int = 0) -> dict:
     rng = np.random.default_rng(SEED + 18)
     values = (rng.standard_normal(PROC_RISK_VALUES) * 1e3).tolist()
     values[:3] = [1.4e-45, -3e-39, 5e-40]
-    with StandInController() as ctrl:
+    with PortController() as ctrl:
         ids = [ctrl.submit("echo", {"i": i}) for i in range(PROC_ECHOS)]
         ids.append(ctrl.submit("map_tokenize", {"text": "several processes, one lease loop"}))
         ids.append(ctrl.submit("risk_accumulate", {"values": values}))
         run = leader_followers(n, ctrl, PROC_TASKS, tmp, cards)
         jobs = ctrl.outcome(ids)
-        stage = {f"{ctrl.jobs[j]['op']}_{j}": stage_ms(ctrl, j) for j in ids}
+        stage = {f"{job['op']}_{j}": stage_ms(ctrl, j) for j, job in zip(ids, jobs)}
     risk = jobs[-1]["result"]
     one = mesh_reduce_stats(TorchRuntime(
         devices=[f"cuda:{i}" for i in range(n)] if cards else [CARD] * n,
@@ -6023,7 +6359,7 @@ def procs_phase(n: int, tmp: str, cards: int = 0) -> dict:
     echoes = [j["result"].get("echo") for j in jobs[:PROC_ECHOS]]
     ok = procs_ok(run, len(ids)) and risk_ok and echoes == [{"i": i} for i in range(PROC_ECHOS)]
     # The planted fault: a follower that drops a task must fail the check.
-    with StandInController() as ctrl:
+    with PortController() as ctrl:
         planted_ids = [ctrl.submit("echo", {"i": i}) for i in range(PROC_ECHOS)]
         planted_ids.append(ctrl.submit("map_tokenize", {"text": "a dropped task"}))
         planted = leader_followers(2, ctrl, "echo,map_tokenize", tmp,
@@ -6047,7 +6383,7 @@ def procs_phase(n: int, tmp: str, cards: int = 0) -> dict:
 
 def fleet_launches(ctrl, name: str) -> float:
     """A member's row-1 launch counter, from its last pushed metrics."""
-    got = obs_values(ctrl.agent_obs.get(name), "kernel_launches", kernel="flash_attention")
+    got = obs_values(ctrl.agent_obs(name), "kernel_launches", kernel="flash_attention")
     return got[0] if got else 0.0
 
 
@@ -6055,8 +6391,11 @@ def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
                 drain_rows_per_s: float, tmp: str) -> dict:
     """Phase 18 (b): ``n`` device-pinned members (``spawn_fleet``, one card
     each) warmed on one BERT-base request, drain phase 10's 65,536-row CSV
-    after ``wait_for_agents``; the results equal the serial op's, and every
-    member's row-1 counter moved over the drain."""
+    after ``wait_for_agents`` (``GET /v1/status``'s agents); the results
+    equal the serial op's, and every member's row-1 counter moved over the
+    drain. With several members each holds one task at a time (MAX_TASKS
+    1 and the serial loop, PIPELINE_DEPTH 0), so that they share the
+    shards."""
     from agent_tpu_torch.agent import fleet
     from agent_tpu_torch.agent.fleet_cli import http_agents
 
@@ -6066,12 +6405,12 @@ def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
         json.dump([{"op": "map_classify_tpu", "payload": {
             "texts": random_texts(random.Random(SEED + 18), 8, 20, 200),
             "model_config": BERT_BASE, "topk": 5, "allow_fallback": False}}], fh)
-    with StandInController() as ctrl:
-        ctrl.agent_cap = 1 if n > 1 else None
+    share = {"MAX_TASKS": "1", "PIPELINE_DEPTH": "0"} if n > 1 else {}
+    with PortController() as ctrl:
         t0 = time.monotonic()
         handle = fleet.spawn_fleet(n, platform=FLEET_PLATFORM, controller_url=ctrl.url,
                                    tasks=FLEET_TASKS, warm_file=warm,
-                                   extra_env={"IDLE_SLEEP_SEC": "0.01"},
+                                   extra_env={"IDLE_SLEEP_SEC": "0.01", **share},
                                    log_dir=os.path.join(tmp, "fleet"))
         try:
             if not fleet.wait_for_agents(lambda: http_agents(ctrl.url), handle.names,
@@ -6079,6 +6418,7 @@ def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
                 raise SystemExit(f"the fleet did not come up: {handle.poll_failures()}")
             ready_s = time.monotonic() - t0
             before = {m: fleet_launches(ctrl, m) for m in handle.names}
+            b1_before = ctrl.b1_results()
             t1 = time.monotonic()
             ids = [ctrl.submit("map_classify_tpu", p) for p in shards]
             while not ctrl.drained():
@@ -6087,8 +6427,11 @@ def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
                 time.sleep(0.005)
             wall = time.monotonic() - t1
             jobs = ctrl.outcome(ids)
-            polls = {m: ctrl.agents[m]["polls"] for m in handle.names}
-            while any(ctrl.agents[m]["polls"] < polls[m] + 2 for m in handle.names):
+            b1 = ctrl.b1_results() - b1_before
+            t_end = time.time()
+            seen = lambda m: (ctrl.c.agent_metrics.get(m) or {}).get(  # noqa: E731
+                "last_seen_wall", 0.0)
+            while any(seen(m) < t_end + 0.05 for m in handle.names):
                 if time.monotonic() - t1 > FLEET_DEADLINE_S or handle.poll_failures():
                     raise SystemExit("a fleet member stopped polling")
                 time.sleep(0.01)  # a metrics push from each member after the drain
@@ -6108,8 +6451,8 @@ def fleet_phase(n: int, path: str, serial: list, serial_rows_per_s: float,
               "row1_launches_total": {m: after[m] for m in handle.names},
               "equal_to_serial": same, "rcs": rcs}
     if not same or any(rcs) or any(after[m] <= before[m] for m in handle.names) \
-            or any(not j["b1"] for j in jobs):
-        raise SystemExit(f"phase 18 (b) failed: {report}")
+            or b1 != len(jobs):
+        raise SystemExit(f"phase 18 (b) failed: {report}, {b1} results over b1")
     return report
 
 
@@ -6284,6 +6627,14 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    times, mark = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        times[name] = times.get(name, 0.0) + now - mark[0]
+        mark[0] = now
 
     # 1. device
     cap = torch.cuda.get_device_capability(0)
@@ -6320,6 +6671,8 @@ def main(argv=None) -> int:
             or not all(r["HGMMA"] and r["UTMALDG"] for r in sm90.values()):
         raise SystemExit(f"the TMA + wgmma instantiations lack wgmma or TMA, or mma.sync "
                          f"kernels remain: {sm90}, {mma_sync}")
+
+    lap("1-2 device, build")
 
     # The requests of phases 4 and 5; phase 3 holds the kernel against its
     # plain version at the shapes they stage.
@@ -6430,6 +6783,7 @@ def main(argv=None) -> int:
         next(c for c in kernel_cases if c[0].startswith("texts8_L4096/"))), [ring_fold_case(
             next(c for c in kernel_cases if c[0].startswith("bert_texts256/")))])
     t5_check = check_t5_kernel(fa, t5_case)
+    lap("3 kernels vs plain (and staging)")
 
     # 4. main path
     rt = TorchRuntime()
@@ -6474,6 +6828,10 @@ def main(argv=None) -> int:
     # Phase 13's serve_classify, while the BERT-base weights are on the card.
     classify_check = serve_classify_check(fa, ctx, random_texts(random.Random(SEED + 19), 8,
                                                                 10, 200), k)
+    lap("4 main path")
+    # 20. the front door at full width, on phase 4's weights
+    door = front_door_phase(fa, rt, ctx, k)
+    lap("20 front door")
 
     # 5. long context
     rt.clear_params()
@@ -6487,19 +6845,23 @@ def main(argv=None) -> int:
           "launches": long_launches, "selection": long_selection,
           "profile_one_request": long_profile})
     check_forwards(long_profile, {"flash_fwd_sm90": LONG_LAYERS}, "long-context request")
+    lap("5 long context")
 
     # 5b. ring
     fold_launches = ring_phase(fa, classify, rt, long_payload, long_report, small_payload, k)
     rt.clear_params()
+    lap("5b ring")
 
     # 6. train
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_step_ms = train_phase(fa, train_op, classify, train_payload,
                                                     (train_state, take), tmp)
+    lap("6 train")
 
     # 8. summarize with the in-house seq2seq
     s2s = summarize_phase(fa, summarize, rt)
     rt.clear_params()
+    lap("8 summarize")
 
     # 9. T5-large
     t0 = time.perf_counter()
@@ -6508,14 +6870,18 @@ def main(argv=None) -> int:
           "bytes": os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))})
     t5_run = t5_phase(fa, summarize_op, rt, ckpt, t5_requests)
     rt.clear_params()
+    lap("9 T5-large")
 
     # 10. the agent's drain, then its entry point in a process of its own;
     # 19. the control plane, on phase 10's CSV and weights, between them
     drain = drain_phase(fa, rt, drain_csv)
+    lap("10 drain, 15 telemetry")
     control = control_plane_phase(fa, rt, drain_csv, drain["serial_results"],
                                   drain["dispatch_chunks"])
     rt.clear_params()
+    lap("19 control plane")
     entry_point_phase(drain_csv)
+    lap("10 entry points")
 
     # 18 (a), (b): several processes on the card — the leader and its
     # follower, then the device-pinned fleet on phase 10's CSV
@@ -6526,6 +6892,7 @@ def main(argv=None) -> int:
                                 drain["serial_rows_per_s"], drain["rows_per_s"], tmp)
     emit({"phase": "processes", "leader_follower": procs, "fleet": fleet_run,
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    lap("18 (a), (b) processes")
 
     # 11. a BERT checkpoint through map_classify_tpu
     t0 = time.perf_counter()
@@ -6536,6 +6903,7 @@ def main(argv=None) -> int:
     bert_run = bert_phase(fa, classify, rt, bert_ckpt, bert_reqs)
     rt.clear_params()
     drain_dir.cleanup()
+    lap("11 bert")
 
     # 12. a BART checkpoint through map_summarize
     t0 = time.perf_counter()
@@ -6545,20 +6913,24 @@ def main(argv=None) -> int:
           "bytes": os.path.getsize(os.path.join(bart_ckpt, "pytorch_model.bin"))})
     bart_run = bart_phase(fa, summarize, rt, bart_ckpt, bart_reqs)
     rt.clear_params()
+    lap("12 bart")
 
     # 13. continuous-batching serving
     serving = serving_phase(fa, rt, classify_check)
     rt.clear_params()
+    lap("13 serving")
 
     # 14. quantized serving and the Switch MoE encoder (phases 9 and 12's
     # checkpoints)
     qm = quant_moe_phase(fa, rt, smi, (train_state, take), ckpt, t5_requests, bart_ckpt,
                          bart_reqs)
+    lap("14 quant and MoE")
 
     # 16. dp, tp, pp and ep meshes on the one card (phase 14's draws, phase
     # 11's checkpoint)
     meshes = mesh_phase(fa, smi, requests[2][1]["texts"], bert_reqs[0][1], long_payload,
                         (train_state, take), train_step_ms)
+    lap("16 meshes")
 
     # 18 (c): the sharded checkpoint of phase 16's tp 2 model
     t0 = time.perf_counter()
@@ -6567,6 +6939,7 @@ def main(argv=None) -> int:
     emit({"phase": "sharded_checkpoint", **ckpt_run, "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi})
     SEEDED.clear()
+    lap("18 (c) sharded checkpoint")
 
     # 17. the decoder families on dp and tp meshes on the one card (phases 9
     # and 12's checkpoints, then removed)
@@ -6574,6 +6947,7 @@ def main(argv=None) -> int:
                              serving["engine_vs_static"][0]["continuous_tok_per_s"])
     t5_dir.cleanup()
     hf_dir.cleanup()
+    lap("17 decoder meshes")
 
     # 7. kernels: the serving kernel on the 256-row request's staged shape
     # and key lengths, the training kernels on phase 6's first batch, the T5
@@ -6585,12 +6959,13 @@ def main(argv=None) -> int:
         "flash_attention", "agent_tpu_torch/kernels/csrc/flash_fwd_sm90.cuh", SM90,
         "agent_tpu/kernels/flash_attention.py:149", main_launches,
         kernel_check["max_abs_err"], kernel_check["max_rel_err"],
-        cuda_ms(lambda: fa.flash_attention(q, k_, v, mask)),
+        cuda_ms(lambda: fa._launch(q, k_, v, mask)),
         cuda_ms(lambda: fa.flash_attention_reference(q, k_, v, mask), iters=5),
         4 * B * H * L * D * q.element_size() + mask.numel() * mask.element_size(),
         4 * H * L * D * float(np.sum(lengths)),  # products with real keys only
         cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v, attn_mask=bool_mask)), q,
+        **entry_times(fa, lengths, lambda: fa.flash_attention(q, k_, v, mask)),
         launches_by_path={"map_classify_tpu": main_launches, "map_summarize": s2s["launches"],
                           "agent_drain_map_classify_tpu": drain["launches"],
                           "agent_telemetry_map_classify_tpu": drain["telemetry"]["launches"],
@@ -6598,6 +6973,7 @@ def main(argv=None) -> int:
                           "map_classify_tpu_bert": bert_run["launches"],
                           "map_summarize_bart": bart_run["launches"],
                           "serve_classify": classify_check["launches"],
+                          "serve_classify_front_door": door["launches"],
                           "serve_summarize_stream_prefill": serving["stream_prefill_launches"],
                           "serve_summarize_agent": serving["agent"]["launches"],
                           "serve_prefill_disagg": serving["disagg"]["prefill_launches"],
@@ -6626,6 +7002,9 @@ def main(argv=None) -> int:
         at_bart_tp2_shard_shape=shard_shape_entry(
             fa, kernel_check["inputs_bart"], dec["map_summarize_bart_tp2"]["flash_attention"]))
     moe_train = qm["moe"]["train"]["launches"]
+    lap("7 kernel timings")
+    emit({"phase": "times", "nvidia_smi": smi, "total_s": time.perf_counter() - t_start,
+          "seconds": times})
     emit({"kernels": [serving, *train_kernel_entries(fa, train_check, train_launches, {
                           "train_classifier": train_launches, "moe_train_step": moe_train,
                           "train_step_mesh_dp2_tp2": meshes["train"]["launches"]}),

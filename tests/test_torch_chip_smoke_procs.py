@@ -1,5 +1,5 @@
 """A rehearsal of chip_smoke's phase 18 on the CPU at toy size: (a) two
-agent processes joined on a free port, the leader draining the stand-in
+agent processes joined on a free port, the leader draining the port's
 controller (echo, map_tokenize, risk_accumulate over the cross-process dp
 2) and the planted follower that skips a task; (b) a two-member fleet
 warmed and draining phase 10's CSV, its results equal to the serial op's;
@@ -71,7 +71,7 @@ def test_procs_ok_needs_every_task_on_every_follower():
 
 def test_fleet_rehearsal(rehearsal, monkeypatch):
     monkeypatch.setattr(chip_smoke, "fleet_launches", lambda ctrl, name: sum(
-        chip_smoke.obs_values(ctrl.agent_obs.get(name), "tasks_total", op="map_classify_tpu")))
+        chip_smoke.obs_values(ctrl.agent_obs(name), "tasks_total", op="map_classify_tpu")))
     path = str(rehearsal / "drain.csv")
     chip_smoke.write_drain_csv(path)
     classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
@@ -112,22 +112,22 @@ def test_checkpoint_rehearsal(rehearsal):
         "tp2": 4, "dp2_tp2": 8, "one_device": 2}
 
 
-def test_the_stand_in_lists_the_agents_that_polled(rehearsal):
+def test_the_controller_lists_the_agents_that_polled(rehearsal):
+    """``GET /v1/status``'s agents, which ``wait_for_agents`` reads, and a
+    member of MAX_TASKS 1 holding one task at a time."""
     from agent_tpu_torch.agent.fleet_cli import http_agents
     from agent_tpu_torch.utils.http import UrllibSession
 
-    with chip_smoke.StandInController() as ctrl:
+    with chip_smoke.PortController() as ctrl:
         assert http_agents(ctrl.url) == {}
-        ctrl.agent_cap = 1
         ids = [ctrl.submit("echo", {"i": i}) for i in range(3)]
-        body = {"agent": "a-1", "capabilities": {"ops": ["echo"]}, "max_tasks": 8}
+        body = {"agent": "a-1", "capabilities": {"ops": ["echo"]}, "max_tasks": 1,
+                "metrics": {"cpu_util": 0.0}}
         lease = UrllibSession().post(ctrl.url + "/v1/leases", json=body, timeout=5).json()
-        assert len(lease["tasks"]) == 1 and ctrl.jobs[ids[0]]["agent"] == "a-1"
-        # a-1 holds its one task: nothing more until it reports
-        assert UrllibSession().post(ctrl.url + "/v1/leases", json=body,
-                                    timeout=5).status_code == 204
+        assert [t["id"] for t in lease["tasks"]] == [ids[0]]
+        assert ctrl.c.job_snapshot(ids[0])["agent"] == "a-1"
         other = UrllibSession().post(ctrl.url + "/v1/leases", json=dict(body, agent="a-2"),
                                      timeout=5).json()
         assert [t["id"] for t in other["tasks"]] == [ids[1]]
         assert set(http_agents(ctrl.url)) == {"a-1", "a-2"}
-        assert http_agents(ctrl.url)["a-1"]["polls"] == 2
+        assert http_agents(ctrl.url)["a-1"]["last_seen_sec_ago"] >= 0

@@ -1,14 +1,16 @@
 """A rehearsal of chip_smoke's phase 15 on the CPU at toy size: the port's
-pipelined agent drains the stand-in controller's classify shards with
-tracing off and on, every shard's spans assemble into a complete tree,
-the usage stamps reconcile with the busy counter the agent shipped (within
-1 %) and with the staged shapes' FLOPs (exactly), every result equals the
-serial run's bit for bit, the PROFILE_DIR trace and the capture's artifact
-are written (the CPU has no CUDA kernel events to find in them), the
-slo_page alert dumps the recorder, and the failover list rotates once. The
-MFU gauge needs a peak: PEAK_TFLOPS on the CPU, without which the phase
-fails. Also phase 10's entry point with ``TPU_DISABLED=1`` (a CPU runtime
-in its own process): SIGUSR1 dumps its recorder and SIGTERM ends it."""
+pipelined agent drains the port's controller's classify shards with
+tracing off and on, every shard's trace is complete, the usage stamps
+reconcile with the busy counter the agent shipped (within 1 %) and with
+the staged shapes' FLOPs (exactly), every result equals the serial run's
+bit for bit, the PROFILE_DIR trace and the capture the controller asked
+for are written (the CPU has no CUDA kernel events to find in them), the
+objective that a slow job pages makes the agent dump its recorder, and the
+failover list rotates once. The MFU gauge needs a peak: PEAK_TFLOPS on the
+CPU, without which the phase fails. Also phase 10's entry points with
+``TPU_DISABLED=1`` (a CPU runtime): the controller and the agent each in a
+process of their own, SIGUSR1 dumps the agent's recorder and SIGTERM ends
+both."""
 
 import pytest
 import torch
@@ -47,23 +49,23 @@ def rehearsal(monkeypatch, tmp_path):
 
 
 def _phase(path):
-    """Phase 15 on a stand-in of its own, with phase 10's shards, their
+    """Phase 15 (on a controller of its own) with phase 10's shards, their
     serial results and staged states at toy size."""
     rt = TorchRuntime(device="cpu")
     op = load_ops(["map_classify_tpu"])["map_classify_tpu"]
     _, _, shards, _ = chip_smoke.drain_payloads(path)
     serial, _ = chip_smoke.serial_shards(op, rt, shards)
     staged = [op.stage(dict(p))[1] for p in shards]
-    with chip_smoke.StandInController() as ctrl:
-        report = chip_smoke.telemetry_phase(fa, rt, ctrl, shards, serial, staged)
-        assert ctrl.stale == 0
+    report = chip_smoke.telemetry_phase(fa, rt, shards, serial, staged)
+    assert not any(report["refused_posts"].values())
     return report
 
 
 def test_telemetry_phase_rehearsal(rehearsal, monkeypatch, capsys):
     monkeypatch.setenv("PEAK_TFLOPS", "1")
     report = _phase(rehearsal)
-    assert report["spans_per_job"] == 6  # submit, lease, stage, queue, execute, post
+    # submit, sched.decide, lease, apply; the agent's stage, queue, execute, post
+    assert report["spans_per_job"] == 8
     assert report["launches"] == TINY["n_layers"] * 3
     assert report["launched_per_shard"] == [TINY["n_layers"]]
     usage = report["usage"]
@@ -72,7 +74,7 @@ def test_telemetry_phase_rehearsal(rehearsal, monkeypatch, capsys):
     assert 0 < report["device_mfu"] <= 1 and report["peak_tflops"] == 1.0
     assert 0 < report["device_duty_cycle"] <= 1
     assert report["flash_fwd_sm90_traced"] == {"profile_dir": 0, "capture": 0}
-    assert report["slo_dump_events"] > 0
+    assert report["slo_dump_events"] > 0 and report["slo_page"]["state"] == "page"
     assert report["failover"]["failed"] == chip_smoke.DEAD_CONTROLLER
     assert '"phase": "telemetry"' in capsys.readouterr().out
 
@@ -86,5 +88,7 @@ def test_telemetry_phase_fails_without_a_peak(rehearsal, monkeypatch):
 def test_entry_point_sigusr1_rehearsal(rehearsal, monkeypatch):
     monkeypatch.setenv("TPU_DISABLED", "1")
     report = chip_smoke.entry_point_phase(rehearsal)
-    assert report["exit_code"] == 0 and report["exit_code_tasks_none"] == 2
-    assert report["sigusr1_dump_leases"] >= 1
+    assert report["exit_code"] == report["controller_exit_code"] == 0
+    assert report["exit_code_tasks_none"] == 2 and report["stale_results"] == 0
+    assert report["sigusr1_dump_leases"] >= 1 and report["agents_seen"] == ["chip-smoke-entry"]
+    assert report["controller_url"].startswith("http://127.0.0.1:")

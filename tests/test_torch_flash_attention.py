@@ -165,3 +165,69 @@ def test_selects_flash_and_dispatch_split():
     parts = _model_common.split_padded_chunk(ids, lengths, 50, 1, 16, torch.bfloat16)
     assert [p[0].shape[0] for p in parts] == [32, 32]
     assert [p[2] for p in parts] == [32, 18]
+
+
+@pytest.mark.parametrize("Lk", [40, 2048], ids=["below_gate", "at_gate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wrapper_gives_a_keyless_row_the_references_answer(Lk, dtype):
+    """A batch row with no real key: below the reference's 2048-key gate its
+    dense path gives the mean of V, from the gate on its kernel gives 0; the
+    wrapper gives the same on the same inputs, the other rows unchanged."""
+    q, k, v, mask = _qkvm(B=3, Lq=16, Lk=Lk, pad_tail=7, seed=13)
+    mask = mask.copy()
+    mask[1] = 0
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(pallas_flash(*(jnp.asarray(x).astype(jd) for x in (q, k, v)),
+                                   jnp.asarray(mask))).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, torch.from_numpy(mask))
+    assert got.dtype == dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    if Lk < fa.FLASH_MIN_KEY_LEN:
+        mean_v = tv.float().mean(dim=2, keepdim=True).to(dtype).float().numpy()[1]
+        np.testing.assert_allclose(got[1], np.broadcast_to(mean_v, got[1].shape),
+                                   rtol=tol, atol=tol)
+    else:
+        np.testing.assert_array_equal(got[1], np.zeros_like(got[1]))
+
+
+@pytest.mark.parametrize("keyless", [[], [1], [0, 1, 4], [0, 2, 4, 6, 7]],
+                         ids=["none", "one", "two_runs", "past_run_cap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_host_lengths_hint_gives_the_device_flags_answer(keyless, dtype):
+    """Inside ``keyless_rows(lengths)`` the rule reads the caller's host
+    lengths in place of a flag made from the mask: the whole batch, a dp
+    shard of it (the flag again) and a batch past the run cap all give
+    what the flag gives, and a batch without a keyless row is the kernel
+    path's answer untouched."""
+    B, Lk = 8, 40
+    q, k, v, mask = _qkvm(B=B, Lq=16, Lk=Lk, pad_tail=7, seed=21)
+    mask = mask.copy()
+    mask[keyless] = 0
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    tm = torch.from_numpy(mask)
+    lengths = mask[:, 0, 0, :].sum(axis=-1)
+    want = fa.flash_attention(tq, tk, tv, tm)
+    with fa.keyless_rows(lengths):
+        got = fa.flash_attention(tq, tk, tv, tm)
+        half = fa.flash_attention(tq[4:], tk[4:], tv[4:], tm[4:])
+    assert torch.equal(got, want) and torch.equal(half, want[4:])
+    if not keyless:
+        assert torch.equal(got, fa.flash_attention_reference(tq, tk, tv, tm))
+
+
+def test_lengths_on_a_device_give_no_hint():
+    """Lengths that are not on the host would have to be read from the
+    card: the rule keeps its device flag."""
+    q, k, v, mask = _qkvm(B=2, Lq=8, Lk=24, pad_tail=3, seed=5)
+    mask = mask.copy()
+    mask[0] = 0
+    tq, tk, tv, tm = (torch.from_numpy(x) for x in (q, k, v, mask))
+    with fa.keyless_rows(torch.zeros(2, device="meta")):
+        assert fa._HINT.rows is None
+        got = fa.flash_attention(tq, tk, tv, tm)
+    assert torch.equal(got, fa.flash_attention(tq, tk, tv, tm))
+    mean_v = torch.matmul(torch.full((1, 1, 1, 24), 1 / 24), tv[:1])
+    assert torch.equal(got[:1], mean_v.expand_as(got[:1]))

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from agent_tpu.kernels.flash_attention import flash_attention_t5 as pallas_t5
@@ -215,3 +216,41 @@ def test_reference_adds_the_bias_tiles():
     bias = fa.t5_bias_tile(table, 0, L, 0, L, max_distance=maxd)
     want = torch.softmax(bias, dim=-1)[None] @ v
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("Lk", [48, 2048], ids=["below_gate", "at_gate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wrapper_gives_a_keyless_row_the_references_answer(Lk, dtype):
+    """A batch row with no real key: below the reference's 2048-key gate the
+    T5 encoder's dense bias path (softmax over scores + position bias +
+    NEG_INF padding bias) gives the mean of V, from the gate on the Pallas
+    T5 kernel gives 0; the wrapper gives the same, and the other rows the
+    kernel's answer (bf16 rounds the dense path's scores elsewhere)."""
+    H, maxd = 2, 16
+    q, k, v, mask, rel_bias = _inputs(3, H, 16, Lk, 32, [Lk, 0, Lk - 9], seed=14)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jq, jk, jv = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    kernel = np.asarray(pallas_t5(jq, jk, jv, jnp.asarray(mask), jnp.asarray(rel_bias),
+                                  bidirectional=True, max_distance=maxd, scale=1.0,
+                                  min_key_len=0, block_k=min(Lk, 512), interpret=True))
+    if Lk < fa.FLASH_MIN_KEY_LEN:
+        cfg = jax_t5.T5Config(n_heads=H, rel_max_distance=maxd)
+        bias = (jax_t5._position_bias(jnp.asarray(rel_bias), jnp.arange(16, dtype=jnp.int32),
+                                      jnp.arange(Lk, dtype=jnp.int32), True, cfg)
+                + jax_t5._pad_bias(jnp.asarray(mask[:, 0, 0])))
+        scores = jnp.einsum("bhqd,bhkd->bhqk", jq, jk).astype(jnp.float32) + bias
+        probs = jax.nn.softmax(scores, axis=-1).astype(jd)
+        keyless = np.asarray(jnp.einsum("bhqk,bhkd->bhqd", probs, jv))[1]
+    else:
+        keyless = np.zeros_like(kernel[1])
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    got = fa.flash_attention_t5(tq, tk, tv, torch.from_numpy(mask), torch.from_numpy(rel_bias),
+                                bidirectional=True, max_distance=maxd)
+    assert got.dtype == dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got[[0, 2]], kernel[[0, 2]].astype(np.float32), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(got[1], keyless.astype(np.float32), rtol=tol, atol=tol)
+    if Lk >= fa.FLASH_MIN_KEY_LEN:
+        np.testing.assert_array_equal(got[1], np.zeros_like(got[1]))

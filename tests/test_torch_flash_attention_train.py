@@ -107,16 +107,39 @@ def test_fwd_lse_matches_pallas(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_row_without_keys_has_zero_finite_grads(dtype):
-    """The reference's documented caveat (:848-851): a batch row whose mask
-    keeps no key gets zero (dq, dk, dv), finite, not the dense path's."""
-    q, k, v, g, mask = _inputs(3, 2, 48, 48, 32, [48, 0, 20], seed=4)
+    """The reference's documented caveat (:848-851): from its training gate
+    on (512 keys, where it runs its kernel), a batch row whose mask keeps no
+    key gets zero (o, dq, dk, dv), finite, not the dense path's."""
+    q, k, v, g, mask = _inputs(3, 2, 64, 512, 32, [512, 0, 200], seed=4)
     o, dq, dk, dv = _port_grads(q, k, v, g, mask, dtype)
     for x in (o, dq, dk, dv):
         assert np.isfinite(x).all()
         np.testing.assert_array_equal(x[1], np.zeros_like(x[1]))
-    want = _jax_grads(q, k, v, g, mask, dtype, 16)
+    want = _jax_grads(q, k, v, g, mask, dtype, 64)
     for a, b in zip((o, dq, dk, dv), want):
         np.testing.assert_allclose(a, b, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_without_keys_below_512_gets_the_dense_path_and_its_grads(dtype):
+    """Below the training gate the reference attends densely: a row with no
+    real key gets the mean of V, dV the uniform softmax's share of dO, and
+    dq, dk 0. The other rows keep the kernel's answer."""
+    q, k, v, g, mask = _inputs(3, 2, 48, 48, 32, [48, 0, 20], seed=4)
+    got = _port_grads(q, k, v, g, mask, dtype)
+    kernel = _jax_grads(q, k, v, g, mask, dtype, 16)
+    jd = JAX_DTYPE[dtype]
+    jq, jk, jv, jg = (jnp.asarray(x).astype(jd) for x in (q, k, v, g))
+    o, vjp = jax.vjp(lambda a, b, c: jax_layers.dot_product_attention(
+        a, b, c, jnp.asarray(mask)), jq, jk, jv)
+    dense = [np.asarray(x).astype(np.float32) for x in (o, *vjp(jg))]
+    for name, a, kern, dns in zip(("o", "dq", "dk", "dv"), got, kernel, dense):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a[1], dns[1], rtol=TOL[dtype], atol=TOL[dtype],
+                                   err_msg=name)
+        np.testing.assert_allclose(a[[0, 2]], kern[[0, 2]], rtol=TOL[dtype],
+                                   atol=TOL[dtype], err_msg=name)
+    assert np.abs(got[3][1]).max() > 0 and not got[1][1].any() and not got[2][1].any()
 
 
 def test_masked_keys_get_zero_dk_dv():

@@ -383,11 +383,9 @@ def test_bf16_classify_op_serves_moe_as_the_reference(seed, experts, contexts):
     scores within their 1e-3 plus the reference's bf16 2e-2 relative. Not
     1e-3 alone: that holds for their fixed texts only; on these seeded
     texts the dense bf16 encoder itself differs from the reference by up to
-    1.9e-3 (0.8 % of the score), and the MoE by up to 3.0e-3 (1.2 %). Eight non-empty texts fill the batch bucket: a row
-    with no real token (an empty text, or a row padding the batch to its
-    bucket) attends to nothing, which the reference's dense attention and
-    the port's kernel answer differently, and the capacity couples every
-    token's route to it (ROADMAP Queue 3)."""
+    1.9e-3 (0.8 % of the score), and the MoE by up to 3.0e-3 (1.2 %). Eight non-empty texts fill the batch bucket; a
+    batch with rows that hold no real token is
+    :func:`test_keyless_rows_route_every_token_as_the_reference`'s."""
     from tests.test_torch_map_classify import SMALL
 
     rng = np.random.default_rng(seed)
@@ -497,3 +495,98 @@ def test_routing_groups_that_align_with_dp_route_per_replica(monkeypatch):
     assert sizes == [512, 512] * cfg.n_layers
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     torch.testing.assert_close(aux, want_aux, rtol=0, atol=1e-6)
+
+
+# ---- a batch with keyless rows: an empty text and the rows padding it ----
+
+KEYLESS_TEXTS = ["hello world", "", "a somewhat longer row of text " * 3, "naïve café ☕",
+                 "row with a \x00 NUL byte", "x" * 70]  # tests/test_torch_map_classify.py
+
+
+@pytest.mark.parametrize("dtype,tol,n_layers", [("float32", 2e-5, 2), ("bfloat16", 2e-2, 1)],
+                         ids=["f32", "bf16"])
+def test_keyless_rows_route_every_token_as_the_reference(dtype, tol, n_layers, monkeypatch):
+    """Six texts, one empty, padded to a batch of 8 (the classify op's
+    batch bucket): three rows hold no real key. Through each package's
+    serving attention (the reference's dense below 2048 keys, the port's
+    kernel path with its keyless-row rule), every MoE layer's input agrees,
+    every token takes the same expert and the same tokens drop, and the
+    logits agree within the reference's tolerance for the dtype.
+
+    bf16 only: the kernel and the dense path round a real row's attention
+    differently, so a token whose reference router logits are tied within
+    the bf16 tolerance may take the other expert of the tie. Such a token is
+    allowed (at most 1 % of them), and so is a changed drop in a queue
+    (group, expert) it joins or leaves; the rows of such tokens, whose
+    later layers attend to them, are then held to finite values only. Everything else must match
+    as in f32. One layer in bf16: a second layer's input already differs by
+    up to 1.1 times the one-op bf16 tolerance, by rounding alone."""
+    from agent_tpu.kernels.flash_attention import flash_attention as jax_flash
+    from agent_tpu.models import moe as jax_moe_mod
+    from agent_tpu_torch.kernels import flash_attention as fa
+    from agent_tpu_torch.models.tokenizer import byte_encode_pad
+
+    kw = dict(ENC, d_model=64, d_ff=128, max_len=128, dtype=dtype, moe_capacity_factor=1.0,
+              n_layers=n_layers)
+    jcfg, cfg = jax_encoder.EncoderConfig(**kw), encoder.EncoderConfig(**kw)
+    ids, lengths = byte_encode_pad(KEYLESS_TEXTS, buckets=(64, 128), batch_buckets=(8,))
+    mask = (np.arange(ids.shape[1])[None, :] < lengths[:, None]).astype(np.int32)
+    assert ids.shape == (8, 128) and (mask.sum(1) == 0).sum() == 3
+
+    seen_jax, seen_port = [], []
+    real_moe_ffn = jax_moe_mod.moe_ffn
+
+    def jax_spy(params, x, mcfg, **kwargs):
+        seen_jax.append((params, np.asarray(x.astype(jnp.float32)), x))
+        return real_moe_ffn(params, x, mcfg, **kwargs)
+
+    monkeypatch.setattr(jax_moe_mod, "moe_ffn", jax_spy)
+    real_dispatch = moe.MoeFFN.dispatch
+
+    def port_spy(self, x, group_size, experts):
+        seen_port.append((self, x.detach().clone(), group_size))
+        return real_dispatch(self, x, group_size, experts)
+
+    monkeypatch.setattr(moe.MoeFFN, "dispatch", port_spy)
+
+    jp = jax_encoder.init_params(jcfg, "moe-keyless")
+    want = np.asarray(jax_encoder.forward(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg,
+                                          attn_fn=jax_flash))
+    model = encoder.from_jax_params(encoder.init_params(cfg, "moe-keyless"), cfg)
+    flash = fa.SELECTION_COUNTS["flash"]
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask),
+                    attn_fn=fa.flash_attention).numpy()
+    assert fa.SELECTION_COUNTS["flash"] == flash + n_layers  # the kernel path, d_head 32
+    assert len(seen_jax) == len(seen_port) == n_layers
+    mcfg = dict(d_model=64, d_ff=128, n_experts=4, capacity_factor=1.0, dtype=dtype)
+    dropped, L = 0, ids.shape[1]
+    same_rows = np.ones(ids.shape[0], dtype=bool)  # rows no tie has reached
+    for (jparams, jx32, jx), (mod, px, group) in zip(seen_jax, seen_port):
+        row = np.arange(jx32.shape[0]) // L
+        held = same_rows[row]
+        np.testing.assert_allclose(px.float().numpy()[held], jx32[held], rtol=tol, atol=tol)
+        w_expert, w_kept = _jax_routes(jparams, jx, mcfg, group)
+        with torch.no_grad():
+            expert, kept = mod.routes(px, group)
+        expert, kept = expert.numpy(), kept.numpy()
+        flipped = (expert != w_expert) & held
+        if dtype == "float32":
+            assert not flipped.any()
+        else:
+            top2 = np.sort(jx32 @ np.asarray(jparams["router"]["w"], np.float32), axis=1)
+            assert (top2[flipped, -1] - top2[flipped, -2] < tol).all()
+            assert flipped.sum() <= 0.01 * flipped.size
+        g = np.arange(expert.size) // group
+        touched = {(a, b) for a, b in zip(g[flipped], expert[flipped])}
+        touched |= {(a, b) for a, b in zip(g[flipped], w_expert[flipped])}
+        free = held & np.array([(a, b) not in touched for a, b in zip(g, w_expert)])
+        np.testing.assert_array_equal(expert[held & ~flipped], w_expert[held & ~flipped])
+        np.testing.assert_array_equal(kept[free], w_kept[free])
+        dropped += int((~w_kept).sum())
+        same_rows[row[flipped | (held & (kept != w_kept))]] = False
+    assert same_rows[mask.sum(1) == 0].all()  # the keyless rows are held throughout
+    assert np.isfinite(got).all()
+    got, want = got[same_rows], want[same_rows]
+    assert dropped > 0  # capacity factor 1 drops tokens, so routing competes
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)

@@ -51,8 +51,14 @@ Differences: the default session is ``urllib`` (``utils.http``), so the
 agent runs where ``requests`` is not installed. An agent whose ``TASKS``
 include a device op (``ops.DEVICE_OPS``) builds the runtime when it
 starts — on ``cuda:0``, failing there without CUDA — and an agent of host
-ops only never builds one. Not ported yet: the partition map (ROADMAP
-Queue 1).
+ops only never builds one.
+
+``CONTROLLER_PARTITION_MAP`` (``p0=http://a|http://a-standby,p1=http://b``)
+wraps the session in ``controller.partition.PartitionSession``, the
+router's logic in-process: home-first leases, stealing from a deeper
+partition, lease ids tagged ``<partition>!<lease_id>`` and results routed
+by their tag. The poster thread gets the same shim over its own urllib
+session, so every result it posts is routed by its tag too.
 
 Several processes, one lease loop (``COORDINATOR_ADDRESS``,
 ``NUM_PROCESSES``, ``PROCESS_ID``; ``runtime.distributed``): process 0,
@@ -254,6 +260,9 @@ class Agent:
         self.lease_batch_hint: Optional[int] = None
         # Poster-thread session factory; None = a fresh default session.
         self.post_session_factory: Optional[Any] = None
+        self.partition_sessions: List[Any] = []  # the partition map's shims
+        if a.controller_partition_map and self.session is not None:
+            self._use_partition_map(a.controller_partition_map)
         # Utilization: the rolling duty window and each op's busy seconds
         # and FLOPs for the MFU gauge; the device thread alone touches them.
         self._duty = RollingWindow(DUTY_WINDOW_SEC)
@@ -272,6 +281,35 @@ class Agent:
         self._capture_done: List[Dict[str, Any]] = []
         self.profiled_tasks = 0  # PROFILE_DIR traces written
         self._last_broadcast = time.monotonic()  # the leader's, for the keep-alive
+
+    def _use_partition_map(self, spec: str) -> None:
+        """Wrap the session (and the poster thread's) in the in-process
+        router shim over the map ``spec``. The spool keeps the tagged lease
+        id, so a redelivered result follows its granting partition."""
+        from agent_tpu_torch.controller.partition import PartitionMap, PartitionSession
+        from agent_tpu_torch.sched.steal import StealPolicy
+
+        pmap = PartitionMap.parse(spec)
+        steal = StealPolicy.from_env()
+        timeout = self.config.agent.http_timeout_sec
+
+        def shim(inner: Any) -> PartitionSession:
+            session = PartitionSession(inner, pmap, steal=steal, timeout_sec=timeout)
+            self.partition_sessions.append(session)
+            return session
+
+        self.session = shim(self.session)
+        self.post_session_factory = lambda: shim(_default_session())
+
+    def partition_counters(self) -> Dict[str, int]:
+        """The routing counters (home and stolen lease grants, results
+        routed by tag or fanned out, failovers) summed over the agent's
+        partition shims; empty without a partition map."""
+        out: Dict[str, int] = {}
+        for session in self.partition_sessions:
+            for key, n in session.core.counters.items():
+                out[key] = out.get(key, 0) + n
+        return out
 
     # ---- controller I/O ----
 
@@ -434,10 +472,11 @@ class Agent:
         # busy moment.
         self.m_duty.set(round(self._duty.fraction(), 4))
         self._refresh_hbm_gauges()
+        # Imported by a model op, never here. A stage worker may be importing
+        # it right now: a partly initialised module has no counts yet.
         kernels = sys.modules.get("agent_tpu_torch.kernels.flash_attention")
-        if kernels is not None:  # imported by a model op: never imported here
-            for name, n in kernels.LAUNCH_COUNTS.items():
-                self.m_launches.set(n, kernel=name)
+        for name, n in dict(getattr(kernels, "LAUNCH_COUNTS", None) or {}).items():
+            self.m_launches.set(n, kernel=name)
         if self.runtime is not None:
             try:
                 m["device"] = self.runtime.describe()
@@ -1036,9 +1075,10 @@ class Agent:
         # A clean exit only: after an op raised, the followers are gone or
         # desynchronised, and the shutdown broadcast is itself a collective.
         if info.process_count > 1:
-            from agent_tpu_torch.runtime.distributed import broadcast_shutdown
+            from agent_tpu_torch.runtime.distributed import broadcast_shutdown, shutdown
 
             broadcast_shutdown()
+            shutdown()
 
     # ---- several processes: leader and followers ----
 
@@ -1076,14 +1116,18 @@ class Agent:
         and drop the results (the leader posts them); leave on the
         leader's shutdown. A drain op's ``source_uri`` must be readable on
         every process."""
-        from agent_tpu_torch.runtime.distributed import broadcast_task, is_keepalive, is_shutdown
+        from agent_tpu_torch.runtime.distributed import (
+            broadcast_task, is_keepalive, is_shutdown, shutdown)
 
         log("follower up", process=self.dist.process_index)
         while self.running:
             task = broadcast_task(None)
             if is_keepalive(task):
                 continue
-            if task is None or is_shutdown(task):
+            if is_shutdown(task):
+                shutdown()
+                break
+            if task is None:
                 break
             fn = self.handlers.get(task.get("op"))
             if fn is None:
@@ -1156,6 +1200,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         except OSError:
             pass
         raise
+    from agent_tpu_torch.runtime.distributed import shutdown
+
+    shutdown()  # a clean exit leaves its group, if it joined one
+    if agent.partition_sessions:
+        log("partition routing", **agent.partition_counters())
     log("agent drained", tasks_done=agent.tasks_done)
     return 0
 

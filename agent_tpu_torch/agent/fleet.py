@@ -206,15 +206,24 @@ def warm_from_file(path: str) -> int:
 
 def child_main() -> int:
     """A fleet member: warm (when ``AGENT_WARM_FILE`` is set), then the
-    agent loop; a failed warm-up exits 3."""
+    agent loop; a failed warm-up exits 3. A SIGTERM that arrives while the
+    member warms (an autoscaler retiring a member it just spawned) lets the
+    warm-up finish and exits 0 without leasing, the drain path of a member
+    that holds no lease; the reference's member dies of the signal there."""
     warm_file = os.environ.get("AGENT_WARM_FILE", "")
     if warm_file:
+        retired: List[int] = []
+        signal.signal(signal.SIGTERM, lambda signum, _frame: retired.append(signum))
         try:
             warm_from_file(warm_file)
         except Exception as exc:  # noqa: BLE001 — fatal by contract
             print(f"[agent-tpu-torch] fleet warmup failed: {type(exc).__name__}: {exc}",
                   flush=True)
             return 3
+        if retired:
+            log("fleet member retired while warming")
+            return 0
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)  # until the agent installs its drain
     from agent_tpu_torch.agent.app import main as agent_main
 
     return agent_main()

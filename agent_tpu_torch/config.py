@@ -19,8 +19,11 @@ built by its own ``from_env()``: ``JournalConfig`` (``JOURNAL_*``,
 ``SNAPSHOT_*``), ``SchedConfig`` (``SCHED_*``), ``SloConfig``
 (``SLO_*``), ``ObsConfig`` (``USAGE_*``, ``TSDB_*``, ``ANOMALY_*``,
 ``INCIDENT_*``, ``PROFILE_*``) and ``FlowConfig`` (``FLOW_*``,
-``CACHE_*``). Not here: the partition map (``CONTROLLER_PARTITION_MAP``),
-which waits for the partitioned control plane.
+``CACHE_*``). The partitioned control plane and the operations tooling
+read ``PartitionConfig`` (``PARTITIONS``, ``PARTITION_URLS``, ``ROUTER_*``),
+``LoadgenConfig`` (``LOADGEN_*``) and ``AutoscaleConfig``
+(``AUTOSCALE_*``); the agent's partition map is ``AgentConfig``'s
+``controller_partition_map`` (``CONTROLLER_PARTITION_MAP``).
 """
 
 from __future__ import annotations
@@ -103,6 +106,11 @@ class AgentConfig:
     # CONTROLLER_URLS: the failover candidates, primary first; a transport
     # error rotates the agent to the next one.
     controller_urls: Tuple[str, ...] = ()
+    # CONTROLLER_PARTITION_MAP: an explicit partition map
+    # ("p0=http://a|http://a-standby,p1=http://b") makes the agent run the
+    # router's placement, steal and result routing in-process
+    # (controller/partition.PartitionSession); empty = no map.
+    controller_partition_map: str = ""
     agent_name: str = field(default_factory=socket.gethostname)
     http_timeout_sec: float = 10.0
     idle_sleep_sec: float = 0.25
@@ -135,6 +143,7 @@ class AgentConfig:
             controller_url=env_str("CONTROLLER_URL",
                                    urls[0] if urls else DEFAULT_CONTROLLER_URL).rstrip("/"),
             controller_urls=urls,
+            controller_partition_map=env_str("CONTROLLER_PARTITION_MAP", "").strip(),
             agent_name=env_str("AGENT_NAME", socket.gethostname()),
             http_timeout_sec=env_float("HTTP_TIMEOUT_SEC", 10.0),
             idle_sleep_sec=env_float("IDLE_SLEEP_SEC", 0.25),
@@ -607,6 +616,141 @@ class FlowConfig:
             ),
         )
 
+
+@dataclass(frozen=True)
+class LoadgenConfig:
+    """Open-loop traffic generator knobs (the LOADGEN_* env
+    surface, consumed by ``agent_tpu_torch/loadgen.py``).
+
+    Arrivals follow a seeded non-homogeneous Poisson process:
+    ``rate(t) = base_rate · (1 + diurnal_amplitude·sin(2πt/period)) ·
+    burst_factor(t)`` — the diurnal term models the day/night swing of a
+    planet-scale user base, the burst window the 10× thundering herd the
+    autoscaler must absorb. The same seed always produces the same
+    arrival schedule (open loop: arrivals never wait on completions)."""
+
+    seed: int = 0                          # LOADGEN_SEED
+    base_rate: float = 2.0                 # LOADGEN_RATE (jobs/sec)
+    duration_sec: float = 30.0             # LOADGEN_DURATION_SEC
+    # One burst window: rate multiplies by burst_factor inside
+    # [burst_at_sec, burst_at_sec + burst_len_sec). factor 1 / len 0 = off.
+    burst_factor: float = 10.0             # LOADGEN_BURST_FACTOR
+    burst_at_sec: float = 0.0              # LOADGEN_BURST_AT_SEC
+    burst_len_sec: float = 0.0             # LOADGEN_BURST_LEN_SEC
+    # Sinusoidal diurnal modulation (0 = flat; 1 = full swing to zero).
+    diurnal_amplitude: float = 0.0         # LOADGEN_DIURNAL_AMPLITUDE
+    diurnal_period_sec: float = 86400.0    # LOADGEN_DIURNAL_PERIOD_SEC
+
+    @staticmethod
+    def from_env() -> "LoadgenConfig":
+        return LoadgenConfig(
+            seed=env_int("LOADGEN_SEED", 0),
+            base_rate=max(0.0, env_float("LOADGEN_RATE", 2.0)),
+            duration_sec=max(0.0, env_float("LOADGEN_DURATION_SEC", 30.0)),
+            burst_factor=max(0.0, env_float("LOADGEN_BURST_FACTOR", 10.0)),
+            burst_at_sec=max(0.0, env_float("LOADGEN_BURST_AT_SEC", 0.0)),
+            burst_len_sec=max(0.0, env_float("LOADGEN_BURST_LEN_SEC", 0.0)),
+            diurnal_amplitude=min(
+                1.0, max(0.0, env_float("LOADGEN_DIURNAL_AMPLITUDE", 0.0))
+            ),
+            diurnal_period_sec=max(
+                1e-3, env_float("LOADGEN_DIURNAL_PERIOD_SEC", 86400.0)
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class AutoscaleConfig:
+    """Elastic-fleet control loop knobs (the AUTOSCALE_* env
+    surface, consumed by ``agent_tpu_torch/autoscale.py``).
+
+    The loop scales up on queue pressure / SLO burn / starvation and down
+    only after ``down_idle_evals`` consecutive idle judgments, with
+    separate up/down cooldowns so a noisy signal cannot flap the fleet."""
+
+    min_agents: int = 1                    # AUTOSCALE_MIN
+    max_agents: int = 4                    # AUTOSCALE_MAX
+    interval_sec: float = 2.0              # AUTOSCALE_INTERVAL_SEC
+    # Scale up when queued jobs per live agent exceed this...
+    up_queue_per_agent: float = 4.0        # AUTOSCALE_UP_QUEUE_PER_AGENT
+    # ...or the oldest queued job has waited longer than this.
+    up_starvation_sec: float = 10.0        # AUTOSCALE_UP_STARVATION_SEC
+    # Members added per scale-up decision (capacity replacement after a
+    # reclaim is separate and always allowed up to `max_agents`).
+    step_up: int = 2                       # AUTOSCALE_STEP_UP
+    step_down: int = 1                     # AUTOSCALE_STEP_DOWN
+    # Scale down only after this many consecutive idle evaluations
+    # (queue empty AND every live agent's duty cycle below down_max_duty).
+    down_idle_evals: int = 3               # AUTOSCALE_DOWN_IDLE_EVALS
+    down_max_duty: float = 0.10            # AUTOSCALE_DOWN_MAX_DUTY
+    # Hysteresis: no scale-up within up_cooldown of the last scale-up; no
+    # scale-down within down_cooldown of the last scale event either way.
+    up_cooldown_sec: float = 5.0           # AUTOSCALE_UP_COOLDOWN_SEC
+    down_cooldown_sec: float = 10.0        # AUTOSCALE_DOWN_COOLDOWN_SEC
+
+    @staticmethod
+    def from_env() -> "AutoscaleConfig":
+        min_agents = max(0, env_int("AUTOSCALE_MIN", 1))
+        return AutoscaleConfig(
+            min_agents=min_agents,
+            max_agents=max(min_agents, env_int("AUTOSCALE_MAX", 4)),
+            interval_sec=max(0.05, env_float("AUTOSCALE_INTERVAL_SEC", 2.0)),
+            up_queue_per_agent=max(
+                0.1, env_float("AUTOSCALE_UP_QUEUE_PER_AGENT", 4.0)
+            ),
+            up_starvation_sec=max(
+                0.1, env_float("AUTOSCALE_UP_STARVATION_SEC", 10.0)
+            ),
+            step_up=max(1, env_int("AUTOSCALE_STEP_UP", 2)),
+            step_down=max(1, env_int("AUTOSCALE_STEP_DOWN", 1)),
+            down_idle_evals=max(1, env_int("AUTOSCALE_DOWN_IDLE_EVALS", 3)),
+            down_max_duty=min(
+                1.0, max(0.0, env_float("AUTOSCALE_DOWN_MAX_DUTY", 0.10))
+            ),
+            up_cooldown_sec=max(
+                0.0, env_float("AUTOSCALE_UP_COOLDOWN_SEC", 5.0)
+            ),
+            down_cooldown_sec=max(
+                0.0, env_float("AUTOSCALE_DOWN_COOLDOWN_SEC", 10.0)
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class PartitionConfig:
+    """Partitioned control plane knobs (PARTITIONS/ROUTER_*).
+
+    The router process (``python -m agent_tpu_torch.controller.router``) fronts
+    either an EXISTING fleet of partition controllers (``partition_urls``
+    names them, ``|``-separated alternates per partition for the hot
+    standby's slot) or, when only ``partitions`` is set, N in-process
+    partitions it boots itself — the single-host convenience mode.
+    The steal decision's own knobs (STEAL_ENABLED / STEAL_MIN_ADVANTAGE)
+    live with the policy in ``sched/steal.py``.
+    """
+
+    partitions: int = 0                   # PARTITIONS (0 = unpartitioned)
+    partition_urls: str = ""              # PARTITION_URLS ("p0=url|alt,p1=url")
+    router_host: str = "0.0.0.0"          # ROUTER_HOST
+    router_port: int = 8800               # ROUTER_PORT
+    # Steal-probe depth sample TTL: how stale the per-partition leasable
+    # depths the router steals against may be.
+    depth_cache_sec: float = 0.25         # ROUTER_DEPTH_CACHE_SEC
+    # Per-proxied-request upstream timeout.
+    timeout_sec: float = 30.0             # ROUTER_TIMEOUT_SEC
+
+    @staticmethod
+    def from_env() -> "PartitionConfig":
+        return PartitionConfig(
+            partitions=max(0, env_int("PARTITIONS", 0)),
+            partition_urls=env_str("PARTITION_URLS", "").strip(),
+            router_host=env_str("ROUTER_HOST", "0.0.0.0"),
+            router_port=env_int("ROUTER_PORT", 8800),
+            depth_cache_sec=max(
+                0.0, env_float("ROUTER_DEPTH_CACHE_SEC", 0.25)
+            ),
+            timeout_sec=max(0.1, env_float("ROUTER_TIMEOUT_SEC", 30.0)),
+        )
 
 @dataclass(frozen=True)
 class Config:

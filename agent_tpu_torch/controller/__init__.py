@@ -13,6 +13,12 @@ counterpart of ``agent_tpu.controller``:
 - :class:`~agent_tpu_torch.controller.journal.SegmentedJournal` — the
   durable journal (bounded segments, atomic snapshots, torn-tail sealing),
   which ``obs.tsdb`` also stores its tiers in.
+- ``controller.partition`` (placement, ``RouterCore``, the agent's
+  ``PartitionSession``), ``controller.router`` (``RouterServer``; ``python
+  -m agent_tpu_torch.controller.router``) and ``controller.standby``
+  (``HotStandby``; ``python -m agent_tpu_torch.controller.standby``): the
+  partitioned control plane, imported by their module names as in the
+  reference.
 
 Host code only: nothing here imports torch.
 """

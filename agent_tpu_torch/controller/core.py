@@ -1,9 +1,12 @@
 """Controller scheduling core — the port's counterpart of
 ``agent_tpu.controller.core``, host code that imports no torch (protocol
 per SURVEY.md §2.9, inferred from the reference client at
-``app.py:162-213``). It differs from the reference in one place: a CSV
+``app.py:162-213``). It differs from the reference in two places: a CSV
 job's shard-size hint is read from the worker profile's ``tpu`` block or
-its ``gpu`` block (:func:`sizing_block`), where the port's agents put it.
+its ``gpu`` block (:func:`sizing_block`), where the port's agents put it;
+and a result applied to a job requeued since its lease takes the job's
+queue entry with it (``report``), where the reference leaves an entry that
+counts as queued work until a lease pops it.
 
 Design decisions:
 
@@ -2945,6 +2948,15 @@ class Controller:
                     {"ev": "requeue", "job_id": job_id, "epoch": job.epoch}
                 )
                 return {"accepted": True, "released": True}
+            if job.state == PENDING:
+                # A result for a job requeued since its lease (a promoted
+                # standby or a restart requeues every leased job, and the
+                # agent's spool then redelivers): its queue entry goes too.
+                # The reference keeps it, and it counts as queued work (GET
+                # /v1/health's queue depth) until a lease pops it, which an
+                # agent without the job's labels never does.
+                self._sched.discard(job_id)
+                self._delayed.discard(job_id)
             # result/error before state: unlocked readers keying on a
             # terminal state must never see it paired with a stale result.
             t_apply = self._clock()

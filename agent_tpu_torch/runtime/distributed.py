@@ -14,7 +14,10 @@ and a one-card host runs both on ``cuda:0``.
 
 :func:`maybe_initialize` joins when ``COORDINATOR_ADDRESS`` /
 ``NUM_PROCESSES`` / ``PROCESS_ID`` are set; without them every function
-here is a pass-through, so one process runs the same code.
+here is a pass-through, so one process runs the same code. :func:`shutdown`
+destroys the group at a clean exit, so its threads do not die with the
+interpreter (which aborts the process: "terminate called without an active
+exception").
 """
 
 from __future__ import annotations
@@ -197,3 +200,13 @@ def barrier() -> None:
         import torch.distributed as dist
 
         dist.barrier()
+
+
+def shutdown() -> None:
+    """Leave the group at a clean exit: ``destroy_process_group`` when one
+    is joined, else nothing. It waits for no peer (no barrier), so a peer
+    that crashed never holds this process's exit."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

@@ -54,8 +54,22 @@ def post_json(url: str, body: Any, timeout: float,
             return Response(exc.code, exc.read())
 
 
+def get(url: str, timeout: float) -> Response:
+    """GET ``url``; errors as :func:`post_json`'s."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return Response(resp.status, resp.read())
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return Response(exc.code, exc.read())
+
+
 class UrllibSession:
-    """The agent's default session: ``post(url, json=, timeout=)``."""
+    """The agent's default session: ``post(url, json=, timeout=)``, and
+    ``get(url, timeout=)`` for the partition map's depth probes."""
 
     def post(self, url: str, json: Any = None, timeout: float = 10.0) -> Response:  # noqa: A002
         return post_json(url, json, timeout)
+
+    def get(self, url: str, timeout: float = 10.0) -> Response:
+        return get(url, timeout)

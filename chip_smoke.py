@@ -253,7 +253,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               host and placed in all its modes (place_seeded). BERT-base
               classify (bench.py's bert_base_int8 leg: 256 rows of 480
               bytes) in bf16, int8 and w8a16 in turns: rows/s, the ratio to
-              bf16, top-1 agreement with bf16 over 5,120 rows of bench.py's
+              bf16, top-1 agreement with bf16 over 1,280 rows of bench.py's
               keyword texts, held to the f32 control's agreement less 0.02,
               the resident weight bytes, row 1 n_layers times a request in
               every mode; one int8 request of one 8-byte text ([1, 16]
@@ -266,16 +266,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (logits, aux loss, every gradient, 3 steps' losses within
               1e-4), the batch holding a row with no real key and every
               MoE layer's routes alike on card and CPU; a bf16 MoE layer at
-              BERT-base width routing 8,192
+              BERT-base width routing 4,096
               seeded tokens on the card and on the CPU from the same
               weights: the share of tokens routed alike (expert, keep or
               drop) at least 0.99, since bf16 gate logits near a tie can
               flip between devices. Phase 8's
               requests in w8a16 against bf16, and greedy token agreement on
-              1,024 rows of random ids with the f32 control; phase 9's T5-large
+              256 rows of random ids with the f32 control; phase 9's T5-large
               greedy request (row 3 24 times a request) and 8 rows of phase
               12's BART greedy request, each in w8a16 against bf16; phase
-              13's stream through a paged engine of 8 slots in bf16 and
+              13's stream (its first 80 requests) through a paged engine of 8 slots in bf16 and
               w8a16; the small f32 model in int8 and w8a16 through the engine
               (4 slots: 4-row W8A8 decode steps), the card's tokens equal to
               the CPU engine's.
@@ -412,6 +412,55 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               refusal an HTTP 429 with retry_after_ms, its retries
               answered. Requests/s, p50/p99 latency and the TTFT
               components beside nvidia-smi's name and power limit.
+21. partitioned plane — on phase 10's CSV and weights (its agent process,
+              started after phase 10, builds its weights while phases 19
+              and 10's entry points run):
+              two partition controllers (`python -m
+              agent_tpu_torch.controller.server`, CONTROLLER_PARTITION p0
+              and p1, each its own segmented journal), p0's hot standby
+              (`python -m agent_tpu_torch.controller.standby`) and the
+              router (`python -m agent_tpu_torch.controller.router`,
+              PARTITION_URLS "p0=<p0>|<standby>,p1=<p1>"), each a process
+              of its own. Phase 10's CSV under two source names that the
+              router's hash homes one on each partition, submitted through
+              the router; one pipelined agent process on cuda:0 with
+              CONTROLLER_PARTITION_MAP drains the 16 shards. Once p0 has
+              accepted 2 results its primary is SIGKILLed; the standby
+              promotes (SIGUSR1, or its missed polls) and serves at p0's
+              alternate URL, where the agent's session rotates. Every shard
+              applied and billed once (GET /v1/usage through the router),
+              no result refused as unknown, results bit for bit phase 10's
+              serial run, at least one lease stolen from the agent's other
+              partition (its shim's counters), row 1 n_layers times each
+              dispatch chunk a shard run (runs again after the kill
+              counted), and the router's merged status, health and metrics
+              naming both partitions. Rows/s, the failover gap (the kill to
+              the promoted standby's first lease), the standby's lag at
+              promotion and its torn-tail seal, the steals and each
+              process's start seconds.
+22. elastic fleet and chaos — on phase 21's router and partitions (p0
+              now its promoted standby). (a) The autoscaler (min 1, max 2,
+              interval 0.5 s, 2 idle evaluations, 2 s cooldowns) over a
+              ProcessFleetDriver of `python -m agent_tpu_torch.agent.fleet`
+              members on the router (map_classify_tpu and serve_classify
+              at BERT-base width, warmed, all on card 0), reading the
+              router's merged GET /v1/health, while two seeded open-loop
+              LoadGens run 15 s: /v1/infer classify requests of 20-900
+              bytes at 30 a second with a 3x burst for 4 s (tenant homed on
+              p1, whose front door takes 32 pending), and 256-row classify
+              jobs at 2 a second. Every admitted arrival completes and
+              agrees with the op run here (phase 4's bf16 tolerance); the
+              429 drops per partition equal the partitions' refused
+              counters; at least one scale-up, then a scale-down by
+              SIGTERM's drain, every member exiting 0, no replacement, each
+              member's row-1 launches moved. (b) A port agent in this
+              process with a ChaosSession (seeded FaultPlan: dropped
+              requests and responses, fabricated 500s, duplicate
+              deliveries) on its result posts over the partition map's
+              shim drains phase 10's first 4 shards under new ids: the
+              plan's counts equal chaos_faults_injected_total, each shard
+              applied once, every redelivery refused as a duplicate, the
+              results bit for bit phase 10's serial ones.
 7. kernels  — per kernel: launches on its path, error against plain,
               kernel / plain / library times and the card's bound, and its
               design (all TMA + wgmma); each kernel timed through
@@ -612,7 +661,7 @@ SERVE_MODEL: dict = {}  # Seq2SeqConfig overrides of phase 13 (none: the default
 # 9 and 12's checkpoints; the continuous engine on phase 13's stream.
 QUANT_MODES = ("int8", "w8a16")
 QUANT_ROWS, QUANT_TEXT_LEN = 256, 480
-AGREEMENT_ROWS, AGREEMENT_CHUNK = 5120, 512
+AGREEMENT_ROWS, AGREEMENT_CHUNK = 1280, 512
 AGREEMENT_WORDS = ["alpha", "risk", "ledger", "breach", "routine", "audit", "wire", "flag",
                    "normal", "urgent", "invoice", "metric"]
 W8A8_SMALL_TEXT = "tiny row"  # one row of 8 bytes: a staged [1, 16] -> 16 rows of _int_mm
@@ -625,15 +674,16 @@ AGREEMENT_SLACK = 0.02
 MOE_F32 = dict(SMALL_TRAIN_F32, moe_experts=4)
 MOE_F32_ROWS, MOE_F32_STEPS, MOE_F32_REL_TOL = 16, 3, 1e-4
 # The bf16 MoE's routes, card against CPU: one layer at BERT-base width
-# with MOE_EXPERTS experts, MOE_ROUTE_TOKENS seeded bf16 tokens (16 routing
+# with MOE_EXPERTS experts, MOE_ROUTE_TOKENS seeded bf16 tokens (8 routing
 # groups of 512). The router's logits are f32 on both, but the card and the
 # CPU sum the products in different orders, so a token whose top two logits
 # nearly tie can take another expert, and that moves the capacity queue of
 # the tokens after it in its group: the share routed alike (the same expert
 # and the same keep or drop) must reach MOE_ROUTE_AGREEMENT, not 1.
-MOE_ROUTE_TOKENS, MOE_ROUTE_AGREEMENT = 8192, 0.99
-DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC = 1024, 64
-QUANT_REPS = 3  # timed repetitions of each phase-14 request, after one warm-up
+MOE_ROUTE_TOKENS, MOE_ROUTE_AGREEMENT = 4096, 0.99
+DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC = 256, 64
+QUANT_REPS = 2  # timed repetitions of each phase-14 request, after one warm-up
+QUANT_ENGINE_REQUESTS = 80  # of phase 13's 240, timed through the bf16 and w8a16 engines
 BART_QUANT_ROWS = 8
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
@@ -3958,9 +4008,13 @@ def post_infer(url: str, bodies: list) -> list:
     return out
 
 
-def infer_answers(url: str, req_ids: list) -> list:
-    """``GET /v1/infer/{id}`` of each request; fails unless each is done."""
-    out = [http_json(f"{url}/v1/infer/{r}")[1] for r in req_ids]
+def infer_answers(url: str, req_ids: list, threads: int = 1) -> list:
+    """``GET /v1/infer/{id}`` of each request, ``threads`` at a time; fails
+    unless each is done."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        out = list(pool.map(lambda r: http_json(f"{url}/v1/infer/{r}")[1], req_ids))
     bad = [a for a in out if not a or a.get("state") != "done"]
     if bad:
         raise SystemExit(f"{len(bad)} requests not done: {str(bad[:2])[:600]}")
@@ -4468,6 +4522,20 @@ def serving_phase(fa, rt, classify_check: dict) -> dict:
     return report
 
 
+def seeded_dense():
+    """The classify op's default encoder at BERT_BASE as one f32 host draw,
+    kept in SEEDED and reused (phases 10, 14, 16, 18 (c)): the op would draw
+    it again at each build, about 16 s on the card's host."""
+    from agent_tpu_torch.models import encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    if SEEDED.get("dense_config") != BERT_BASE:
+        SEEDED["dense"] = encoder.init_params(encoder.EncoderConfig(**BERT_BASE),
+                                              classify_op.DEFAULT_MODEL_ID)
+        SEEDED["dense_config"] = dict(BERT_BASE)
+    return SEEDED["dense"]
+
+
 def place_seeded(rt, configs: dict, flat) -> None:
     """The classify op's seeded encoder in each of ``configs``' modes put on
     ``rt`` under the op's weights key, from one f32 draw ``flat`` of the
@@ -4586,9 +4654,7 @@ def quant_classify(fa, classify, ctx, rt) -> dict:
     modes = ("none",) + QUANT_MODES
     configs = {m: dict(BERT_BASE, quant=m) for m in modes}
     configs["float32"] = dict(BERT_BASE, dtype="float32")  # the agreement's control
-    SEEDED["dense"] = encoder.init_params(encoder.EncoderConfig(**BERT_BASE),
-                                          classify_op.DEFAULT_MODEL_ID)
-    place_seeded(rt, configs, SEEDED["dense"])
+    place_seeded(rt, configs, seeded_dense())
     launches = {m: 0 for m in modes}
 
     def request(mode):
@@ -5039,10 +5105,12 @@ def engine_w8a16(fa, rt) -> dict:
 
     for mode in sides:
         engine_pass(mode, SERVE_WARM)
-    timed = interleaved({m: (lambda m=m: engine_pass(m)) for m in sides}, 2, lambda m, out: None)
+    timed = interleaved({m: (lambda m=m: engine_pass(m, QUANT_ENGINE_REQUESTS)) for m in sides},
+                        QUANT_REPS, lambda m, out: None)
     n_tok = timed["none"][1]
     same = sum(a == b for a, b in zip(tokens["w8a16"], tokens["none"]))
-    report = {"requests": len(limits), "slots": SERVE_SLOTS, "num_beams": 1, "tokens": n_tok,
+    report = {"requests": QUANT_ENGINE_REQUESTS, "slots": SERVE_SLOTS, "num_beams": 1,
+              "tokens": n_tok,
               "requests_equal_vs_bf16": same,
               "prefill_launches": fa.LAUNCH_COUNTS["flash_attention"],
               **{f"{m}_tok_per_s": timed[m][1] / timed[m][0] for m in sides},
@@ -6546,6 +6614,778 @@ def checkpoint_phase(fa, classify, texts: list, tmp: str) -> dict:
     return report
 
 
+# ---- phases 21 and 22: the partitioned control plane, the elastic fleet ----
+
+# Phase 21: partition controllers p0 and p1, each `python -m
+# agent_tpu_torch.controller.server` with its own segmented journal, p0's hot
+# standby and the router, each in a process of its own on 127.0.0.1; phase
+# 10's CSV under two source names, one homed on each partition, drained by
+# one pipelined agent process with the partition map. p0's primary is
+# SIGKILLed once it has accepted PART_KILL_AFTER results.
+PART_NAMES = ("p0", "p1")
+PART_KILL_AFTER = 2
+PART_LABELS = {"smoke_phase": "21"}  # the phase's shards lease to its own agent alone
+PART_SEGMENT_EVENTS = 256  # JOURNAL_SEGMENT_MAX_EVENTS: the promotion opens a fresh segment
+PART_SERVE_MAX_PENDING = 96  # p1's front-door budget (SERVE_MAX_PENDING), which the burst passes
+PROMOTE_DEADLINE_S = 60
+STANDBY_CMD = [sys.executable, "-m", "agent_tpu_torch.controller.standby"]
+# Phase 22 (a): the autoscaler over a process fleet on the router, under two
+# open-loop LoadGen schedules from SEED: serve_classify requests of 20-900
+# bytes at LOAD_INFER_RATE a second with a LOAD_INFER_BURST (start, length,
+# factor), and 256-row map_classify_tpu jobs (phase 4's shape). The burst
+# comes first, so that the backlog it leaves outlasts the start of the
+# member it scales up (a member starts in 9 s on an idle host, 18 s under
+# this load: 7 s of it importing torch). The members share the queue as
+# phase 18's fleet does, one task at a time (MAX_TASKS 1, the serial loop):
+# the backlog stays in the queue the autoscaler reads, not in one member's
+# leases. The scale-down is judged on the queue alone (down_max_duty 1): the
+# members' duty window is 60 s, longer than the phase.
+ELASTIC_TASKS = "map_classify_tpu,serve_classify"
+# BERT-base width at the depth of phase 10's entry point: each member builds
+# its weights anew, which takes the host about 24 s at 12 layers, longer than
+# a member scaled up in the burst could wait and still take work.
+ELASTIC_LAYERS = 2
+ELASTIC_PLATFORM = "cuda"
+ELASTIC_EXTRA_ENV: dict = {}
+ELASTIC_SCALER = {"min_agents": 1, "max_agents": 2, "interval_sec": 0.5, "down_idle_evals": 2,
+                  "up_cooldown_sec": 2.0, "down_cooldown_sec": 2.0, "down_max_duty": 1.0}
+ELASTIC_DEADLINE_S = 300
+LOAD_SECONDS = 15.0
+LOAD_INFER_RATE, LOAD_INFER_BURST, LOAD_INFER_BYTES = 30.0, (0.0, 4.0, 3.0), (20, 900)
+LOAD_JOBS_RATE, LOAD_JOB_ROWS, LOAD_JOB_BYTES = 2.0, 256, (490, 500)
+# Phase 22 (b): phase 10's first CHAOS_SHARDS shards under new ids through a
+# ChaosSession on the result posts (a faulted lease would strand its job for
+# the lease's 600 s).
+CHAOS_SHARDS = 4
+CHAOS_PLAN = {"drop_request": 0.2, "drop_response": 0.2, "http_500": 0.2,
+              "duplicate_result": 0.3}
+
+
+class Service:
+    """A command in a process of its own, its output copied line by line to
+    ``log_path`` and kept; ``wait(marker)`` returns the first line holding
+    ``marker`` and records the seconds the process took to print it."""
+
+    def __init__(self, name: str, cmd: list, env: dict, log_path: str) -> None:
+        self.name, self.log_path, self.ready_s = name, log_path, None
+        self.lines, self.times, self.closed = [], [], False
+        self._cv = threading.Condition()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._copy, daemon=True).start()
+
+    def _copy(self) -> None:
+        with open(self.log_path, "w") as log:
+            for line in self.proc.stdout:
+                log.write(line)
+                log.flush()
+                with self._cv:
+                    self.lines.append(line)
+                    self.times.append(time.perf_counter())
+                    self._cv.notify_all()
+        with self._cv:
+            self.closed = True
+            self._cv.notify_all()
+
+    def wait(self, marker: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                for line in self.lines:
+                    if marker in line:
+                        if self.ready_s is None:
+                            self.ready_s = time.perf_counter() - self.t0
+                        return line
+                if self.closed or time.monotonic() > deadline:
+                    raise SystemExit(f"{self.name}: no {marker!r} line in {timeout} s (exit "
+                                     f"{self.proc.poll()}): {''.join(self.lines)[-2000:]}")
+                self._cv.wait(timeout=0.1)
+
+    def url(self, marker: str, timeout: float = 120.0) -> str:
+        return self.wait(marker, timeout).split(marker, 1)[1].split()[0]
+
+    def since(self, t0: float) -> list:
+        """The lines printed after ``t0`` (perf_counter), each with its
+        seconds since ``t0``."""
+        return [(round(t - t0, 3), ln.rstrip()[:200]) for t, ln in zip(self.times, self.lines)
+                if t >= t0]
+
+    def logged(self, message: str) -> dict:
+        """The fields of the last ``[agent-tpu-torch] <message> {...}`` line."""
+        head = f"] {message} "
+        found = [ln for ln in self.lines if head in ln]
+        return json.loads(found[-1].split(head, 1)[1]) if found else {}
+
+    def stop(self, timeout: float = 60.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise SystemExit(f"{self.name} outlived SIGTERM by {timeout} s")
+
+
+class PartitionedPlane:
+    """Phase 21's processes, kept for phase 22: p0 and p1, p0's standby
+    (serving at p0's alternate URL once promoted) and the router in front of
+    both. On exit every live one gets SIGTERM and must exit 0."""
+
+    def __init__(self, tmp: str) -> None:
+        self.tmp, self.services, self.killed = tmp, {}, set()
+
+    def _start(self, name: str, cmd: list, env: dict) -> Service:
+        self.services[name] = Service(name, cmd, env, os.path.join(self.tmp, f"{name}.log"))
+        return self.services[name]
+
+    def __enter__(self):
+        base = repo_env(LEASE_TTL_SEC=str(LEASE_TTL_S), CACHE_ENABLED="0",
+                        JOURNAL_SEGMENT_MAX_EVENTS=str(PART_SEGMENT_EVENTS),
+                        CONTROLLER_HOST="127.0.0.1", CONTROLLER_SWEEP_SEC="1")
+        base.pop("CHIP_SLICE", None)
+        self.journal = os.path.join(self.tmp, "p0.jsonl")
+        try:
+            for name in PART_NAMES:
+                extra = {"SERVE_MAX_PENDING": str(PART_SERVE_MAX_PENDING)} if name == "p1" else {}
+                self._start(name, [sys.executable, "-m", "agent_tpu_torch.controller.server"],
+                            dict(base, CONTROLLER_PARTITION=name, CONTROLLER_PORT="0",
+                                 CONTROLLER_JOURNAL=os.path.join(self.tmp, f"{name}.jsonl"),
+                                 **extra))
+            self.urls = {name: self.services[name].url("serving on ") for name in PART_NAMES}
+            port = free_port()
+            self.standby_url = f"http://127.0.0.1:{port}"
+            self.spec = f"p0={self.urls['p0']}|{self.standby_url},p1={self.urls['p1']}"
+            self._start("standby", STANDBY_CMD, dict(
+                base, CONTROLLER_JOURNAL=self.journal, PRIMARY_URL=self.urls["p0"],
+                PRIMARY_DOWN_AFTER="2", STANDBY_POLL_SEC="0.05", CONTROLLER_PORT=str(port)))
+            self._start("router", [sys.executable, "-m", "agent_tpu_torch.controller.router"],
+                        dict(base, PARTITION_URLS=self.spec, ROUTER_HOST="127.0.0.1",
+                             ROUTER_PORT="0", ROUTER_COLLECT_SEC="0"))
+            self.services["standby"].wait("tailing ", 120)
+            self.url = self.services["router"].url("routing on ")
+        except BaseException:
+            self.__exit__(*sys.exc_info())
+            raise
+        return self
+
+    def kill(self, name: str) -> None:
+        proc = self.services[name].proc
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        self.killed.add(name)
+
+    def promoted(self) -> bool:
+        return any("promoted — serving on " in ln for ln in self.services["standby"].lines)
+
+    def live_urls(self) -> dict:
+        """Each partition's URL now: p0's standby's once it promoted."""
+        return dict(self.urls, p0=self.standby_url) if self.promoted() else dict(self.urls)
+
+    def __exit__(self, *exc):
+        rcs, late = {}, None
+        for name in ("router", "standby", "p1", "p0"):
+            service = self.services.get(name)
+            if service is None or name in self.killed:
+                continue
+            try:
+                rcs[name] = service.stop()
+            except SystemExit as err:
+                late = late or err
+        self.rcs = rcs
+        if exc[0] is None:
+            if late is not None:
+                raise late
+            if any(rcs.values()):
+                raise SystemExit(f"a process of the partitioned plane exited non-zero: {rcs}, "
+                                 f"{ {n: self.services[n].lines[-5:] for n in rcs if rcs[n]} }")
+
+
+def get_json(url: str) -> dict:
+    status, body = http_json(url)
+    if status != 200:
+        raise SystemExit(f"GET {url}: {status} {str(body)[:300]}")
+    return body
+
+
+def scrape(url: str) -> dict:
+    from agent_tpu_torch.obs.metrics import parse_exposition
+
+    return parse_exposition(get_json(url + "/v1/metrics"))
+
+
+def series(samples: dict, family: str, **labels) -> float:
+    return sum(v for lab, v in samples.get(family, [])
+               if all(lab.get(k) == str(x) for k, x in labels.items()))
+
+
+def agent_gauge(plane, family: str, agent: str, **labels) -> float:
+    """An agent's pushed gauge, the largest over the partitions' exposition:
+    its ``agent``-labelled sample, or the fleet's unlabelled one on a
+    partition where it is the only agent that polled."""
+    best = 0.0
+    for url in plane.live_urls().values():
+        samples = scrape(url)
+        agents = {lab.get("agent") for lab, _ in samples.get("agent_last_seen_seconds", [])}
+        for lab, value in samples.get(family, []):
+            if all(lab.get(k) == str(x) for k, x in labels.items()) and (
+                    lab.get("agent") == agent or ("agent" not in lab and agents == {agent})):
+                best = max(best, value)
+    return best
+
+
+def fleet_counter(plane, family: str, **labels) -> float:
+    """A counter the agents push, merged over a partition's agents, the
+    largest over the partitions (the freshest push)."""
+    return max(sum(v for lab, v in scrape(url).get(family, [])
+                   if "agent" not in lab and all(lab.get(k) == str(x) for k, x in labels.items()))
+               for url in plane.live_urls().values())
+
+
+def results_by_outcome(plane) -> dict:
+    """``controller_results_total`` by outcome, summed over the partitions
+    now serving."""
+    out: dict = collections.Counter()
+    for url in plane.live_urls().values():
+        for lab, value in scrape(url).get("controller_results_total", []):
+            out[lab.get("outcome")] += value
+    return dict(out)
+
+
+def billed(plane) -> tuple:
+    """``GET /v1/usage`` through the router -> (billed tasks, job id ->
+    attempts billed)."""
+    usage = get_json(plane.url + "/v1/usage?top_k=100000")
+    return usage["billed_tasks"], {j["job_id"]: j["attempts_billed"] for j in usage["top_jobs"]}
+
+
+def homed_names(ring, key, prefix: str) -> dict:
+    """partition -> the first ``<prefix><i>`` that ``key`` places there."""
+    out: dict = {}
+    for i in range(10_000):
+        out.setdefault(ring.place(key(f"{prefix}{i}")), f"{prefix}{i}")
+        if len(out) == len(PART_NAMES):
+            return out
+    raise SystemExit(f"no {prefix} names homed on every partition")
+
+
+def submit_partitioned(plane, sources: dict, extra: dict) -> dict:
+    """Each CSV source through the router's POST /v1/jobs -> partition ->
+    (the partition the answer names, the shard job ids)."""
+    out = {}
+    for want, source in sources.items():
+        status, body = http_json(plane.url + "/v1/jobs", {
+            "source_uri": source, "total_rows": DRAIN_ROWS, "shard_size": DRAIN_SHARD,
+            "map_op": "map_classify_tpu", "extra_payload": extra,
+            "required_labels": PART_LABELS})
+        if status != 200:
+            raise SystemExit(f"POST /v1/jobs through the router: {status} {body}")
+        out[want] = (body.get("partition"), body["job_ids"])
+    return out
+
+
+def warm_file(tmp: str, name: str, specs: list) -> str:
+    path = os.path.join(tmp, name)
+    with open(path, "w") as fh:
+        json.dump(specs, fh)
+    return path
+
+
+def classify_warm(model: dict, n: int = 8) -> dict:
+    """One small request: a fresh process builds ``model``'s weights on it."""
+    return {"op": "map_classify_tpu", "payload": {
+        "texts": random_texts(random.Random(SEED + 21), n, 20, 200),
+        "model_config": model, "topk": 5, "allow_fallback": False}}
+
+
+def start_partition_drain(plane, path: str, tmp: str) -> dict:
+    """Phase 21's start: phase 10's CSV under two source names that the
+    router's hash homes one on each partition, submitted through the
+    router with the phase's label, and the agent process started. It builds
+    the BERT-base weights on the host (about 16 s), which main() overlaps
+    with phases 19 and 10's entry points; nothing else leases the labelled
+    shards."""
+    from agent_tpu_torch.controller.partition import HashRing, placement_key
+    from agent_tpu_torch.ops import load_ops
+
+    ring = HashRing(PART_NAMES)
+    names = homed_names(ring, lambda s: placement_key(None, "csv\x1f" + os.path.join(tmp, s)),
+                        "drain-")
+    sources = {}
+    for part, name in names.items():
+        sources[part] = os.path.join(tmp, name)
+        os.symlink(path, sources[part])
+    agent = homed_names(ring, lambda a: f"agent\x1f{a}", "chip-smoke-part-")["p0"]
+    warm = classify_warm(BERT_BASE)
+    warm_chunks = len(load_ops(["map_classify_tpu"])["map_classify_tpu"].stage(
+        dict(warm["payload"]))[1]["chunks"])
+    proc = Service("agent", [sys.executable, "-m", "agent_tpu_torch.agent.fleet"], repo_env(
+        CONTROLLER_PARTITION_MAP=plane.spec, CONTROLLER_URL=plane.url,
+        TASKS="map_classify_tpu,echo",
+        AGENT_NAME=agent, AGENT_LABELS=",".join(f"{k}={v}" for k, v in PART_LABELS.items()),
+        IDLE_SLEEP_SEC="0.01", PIPELINE_DEPTH="2", RETRY_BASE_SEC="0.05", RETRY_MAX_SEC="0.5",
+        ERROR_BACKOFF_SEC="0.05", AGENT_WARM_FILE=warm_file(tmp, "part-warm.json", [warm])),
+        os.path.join(tmp, "agent.log"))
+    try:
+        submitted = submit_partitioned(plane, sources, drain_payloads(path)[0])
+    except BaseException:
+        proc.stop()
+        raise
+    return {"ring": ring, "sources": sources, "agent": agent, "warm_chunks": warm_chunks,
+            "proc": proc, "submitted": submitted}
+
+
+def partition_phase(fa, plane, started: dict, serial: list, chunks: list) -> dict:
+    """Phase 21 (see the module docstring), on ``start_partition_drain``'s
+    shards and agent process."""
+    from agent_tpu_torch.controller.partition import job_id_for_partition
+
+    t_phase = time.perf_counter()
+    n_layers = BERT_BASE["n_layers"]
+    ring, sources, agent, proc, submitted, warm_chunks = (started[k] for k in (
+        "ring", "sources", "agent", "proc", "submitted", "warm_chunks"))
+    try:
+        ids = [j for part in PART_NAMES for j in submitted[part][1]]
+        shard_of = {j: i % len(serial) for i, j in enumerate(ids)}
+        t0 = time.perf_counter()
+        while agent not in get_json(plane.url + "/v1/status")["agents"]:
+            if proc.proc.poll() is not None or time.perf_counter() - t0 > DRAIN_TIMEOUT_S:
+                raise SystemExit(f"the agent did not come up: {''.join(proc.lines)[-2000:]}")
+            time.sleep(0.02)
+        t_ready = time.perf_counter()
+        proc.ready_s = t_ready - proc.t0  # its start, its warm-up and its first poll
+        # The kill: p0's primary once it has accepted PART_KILL_AFTER results.
+        while get_json(plane.urls["p0"] + "/v1/status")["counts"].get("succeeded", 0) \
+                < PART_KILL_AFTER:
+            if proc.proc.poll() is not None or time.perf_counter() - t_ready > DRAIN_TIMEOUT_S:
+                raise SystemExit(f"p0 accepted no results: {''.join(proc.lines)[-2000:]}")
+            time.sleep(0.005)
+        # A shard's result body is journaled only when a job depends on it,
+        # so the standby replays p0's applied shards without their bodies:
+        # they are read from the primary first, the agent paused (SIGSTOP)
+        # so that no result lands between that read and the kill.
+        proc.proc.send_signal(signal.SIGSTOP)
+        time.sleep(0.1)
+        before_kill = {j: snap for j in submitted["p0"][1] if (snap := get_json(
+            f"{plane.urls['p0']}/v1/jobs/{j}"))["state"] == "succeeded"}
+        plane.kill("p0")
+        t_kill, kill_wall = time.perf_counter(), time.time()
+        proc.proc.send_signal(signal.SIGCONT)
+        plane.services["standby"].proc.send_signal(signal.SIGUSR1)
+        plane.services["standby"].wait("promoted — serving on ", PROMOTE_DEADLINE_S)
+        t_promoted = time.perf_counter()
+        # A canary homed on p0, so that the promoted standby has a job to
+        # lease even when the agent leased all of p0's shards before the kill.
+        canary = job_id_for_partition(ring, "p0", prefix="chip-smoke-canary-")
+        status, body = http_json(plane.url + "/v1/jobs", {
+            "op": "echo", "payload": {"canary": True}, "job_id": canary,
+            "required_labels": PART_LABELS})
+        if status != 200 or body.get("partition") != "p0":
+            raise SystemExit(f"the canary's submit: {status} {body}")
+        t_canary = time.perf_counter()
+        while not get_json(plane.url + "/v1/status")["drained"]:
+            if proc.proc.poll() is not None or time.perf_counter() - t_ready > DRAIN_TIMEOUT_S:
+                raise SystemExit(f"the partitioned drain did not finish: "
+                                 f"{get_json(plane.url + '/v1/status')['counts_by_op']}, "
+                                 f"{''.join(proc.lines)[-2000:]}")
+            time.sleep(0.01)
+        wall = time.perf_counter() - t_ready
+        # The promoted standby's first lease: the earliest lease span it
+        # recorded (GET /v1/trace/{job}) of p0's jobs and the canary.
+        leases = [span["start_wall"] for j in submitted["p0"][1] + [canary]
+                  for span in (http_json(f"{plane.standby_url}/v1/trace/{j}")[1] or {}).get(
+                      "spans", []) if span["name"] == "lease" and span["start_wall"] >= kill_wall]
+        rc = proc.stop()  # SIGTERM: the drain ends with a last metrics push
+        # The agent's pushed counters: its runs and its row-1 launches.
+        runs = fleet_counter(plane, "tasks_total", op="map_classify_tpu", status="succeeded")
+        launches = agent_gauge(plane, "kernel_launches", agent, kernel="flash_attention")
+        status = get_json(plane.url + "/v1/status")
+        health = get_json(plane.url + "/v1/health")
+        merged = scrape(plane.url)
+        jobs = {j: get_json(f"{plane.url}/v1/jobs/{j}") for j in ids}
+        canary_state = get_json(f"{plane.url}/v1/jobs/{canary}")["state"]
+        for j, snap in before_kill.items():  # the body the primary applied
+            if jobs[j]["state"] == "succeeded" and jobs[j]["result"] is None:
+                jobs[j] = snap
+        tasks, by_job = billed(plane)
+        outcomes = results_by_outcome(plane)
+    finally:
+        proc.stop()
+    routing = proc.logged("partition routing")
+    promotion = plane.services["standby"].logged("standby promotion")
+    bad = [j for j, s in jobs.items() if s["state"] != "succeeded" or s["result"] is None
+           or s["result"]["indices"] != serial[shard_of[j]]["indices"]
+           or s["result"]["scores"] != serial[shard_of[j]]["scores"]]
+    once = [by_job.get(j) for j in ids]
+    classify_done = status["counts_by_op"].get("map_classify_tpu", {}).get("succeeded")
+    per_run = sorted({n_layers * c for c in chunks})  # row 1 a shard run (one value: exact)
+    reruns = int(runs) - len(ids)
+    run_launches = launches - n_layers * warm_chunks
+    launches_ok = per_run[0] * runs <= run_launches <= per_run[-1] * runs
+    report = {
+        "phase": "partitioned_plane", "config": BERT_BASE, "rows": len(ids) * DRAIN_SHARD,
+        "shards": len(ids), "sources": {p: os.path.basename(s) for p, s in sources.items()},
+        "partition_of_source": {p: submitted[p][0] for p in PART_NAMES},
+        "agent": agent, "agent_home": "p0", "wall_s": wall,
+        "applied_before_kill": len(before_kill),
+        "rows_per_s": len(ids) * DRAIN_SHARD / wall,
+        "failover_gap_s": min(leases) - kill_wall if leases else None,
+        "canary": {"job_id": canary, "state": canary_state},
+        "kill_to_promotion_s": t_promoted - t_kill, "standby_promotion": promotion,
+        "torn_tail_seals": promotion.get("torn_sealed_bytes", 0) > 0,
+        "routing": routing, "runs": runs, "reruns": reruns,
+        "row1_launches": launches, "row1_launches_runs": run_launches,
+        "row1_launches_warm": n_layers * warm_chunks,
+        "billed_tasks": tasks, "billed_once": once.count(1), "results_by_outcome": outcomes,
+        "status_partitions": [(r["name"], r["ok"]) for r in status["partitions"]],
+        "health_partitions": [(r["name"], r["ok"]) for r in health["partitions"]],
+        "metrics_partitions": sorted({lab["partition"] for samples in merged.values()
+                                      for lab, _ in samples if "partition" in lab}),
+        "start_s": {n: s.ready_s for n, s in plane.services.items()} | {"agent": proc.ready_s},
+        "agent_exit_code": rc, "canary_submitted_s": t_canary - t_kill,
+        "after_kill": {"agent": proc.since(t_kill)[:40],
+                       "standby": plane.services["standby"].since(t_kill)[:20]},
+        "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    if bad or once != [1] * len(ids) or tasks != len(ids) + by_job.get(canary, 0) \
+            or classify_done != len(ids) or canary_state != "succeeded" \
+            or outcomes.get("unknown_job") or rc != 0 or not leases \
+            or [p for p, (got, _) in submitted.items() if got != p] \
+            or routing.get("lease_grants_stolen_total", 0) < 1 or not launches_ok \
+            or report["status_partitions"] != [(p, True) for p in PART_NAMES] \
+            or report["health_partitions"] != [(p, True) for p in PART_NAMES] \
+            or report["metrics_partitions"] != list(PART_NAMES):
+        raise SystemExit(f"phase 21 failed: {len(bad)} shards wrong, billed {once}, "
+                         f"{str(report)[:3000]}, agent log {''.join(proc.lines)[-1500:]}")
+    return report
+
+
+def elastic_driver(plane, tmp: str):
+    """Phase 22's ProcessFleetDriver on the router, its first member spawned
+    now so that it builds its weights while phase 21 runs (phase 21's shards
+    require a label it lacks): warmed on one classify request
+    (AGENT_WARM_FILE; serve_classify serves the same weights); every member
+    takes one task at a time (MAX_TASKS 1, the serial loop), every one
+    pinned to card 0."""
+    from agent_tpu_torch.autoscale import ProcessFleetDriver
+
+    warm = warm_file(tmp, "elastic-warm.json",
+                     [classify_warm(dict(BERT_BASE, n_layers=ELASTIC_LAYERS))])
+    extra = {"IDLE_SLEEP_SEC": "0.01", "AGENT_WARM_FILE": warm, "RETRY_BASE_SEC": "0.05",
+             "RETRY_MAX_SEC": "0.5", "ERROR_BACKOFF_SEC": "0.05", "MAX_TASKS": "1",
+             "PIPELINE_DEPTH": "0"}
+    if ELASTIC_PLATFORM == "cuda":
+        extra["CUDA_VISIBLE_DEVICES"] = "0"  # the one card; agent_env would give slot i card i
+    driver = ProcessFleetDriver(plane.url, ELASTIC_TASKS, max_agents=ELASTIC_SCALER["max_agents"],
+                                platform=ELASTIC_PLATFORM, name_prefix="chip-smoke-elastic",
+                                extra_env=dict(extra, **ELASTIC_EXTRA_ENV),
+                                log_dir=os.path.join(tmp, "elastic"))
+    driver.spawn(1)
+    # The members it scales up poll at once and build their weights on
+    # their first job: a warm-up would outlast the load they are spawned for.
+    driver.extra_env.pop("AGENT_WARM_FILE")
+    return driver
+
+
+def elastic_phase(fa, ctx, plane, driver, k: int) -> dict:
+    """Phase 22 (a) (see the module docstring)."""
+    from agent_tpu_torch.autoscale import HOLD, Autoscaler, read_signals
+    from agent_tpu_torch.config import AutoscaleConfig
+    from agent_tpu_torch.controller.partition import HashRing
+    from agent_tpu_torch.loadgen import ArrivalPattern, LoadGen, TrafficClass, session_submitter
+    from agent_tpu_torch.obs.scrape import fetch_health
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.utils.http import UrllibSession
+
+    t_phase = time.perf_counter()
+    ring = HashRing(PART_NAMES)
+    tenants = homed_names(ring, lambda t: f"tenant\x1f{t}", "tenant-")
+    model = dict(BERT_BASE, n_layers=ELASTIC_LAYERS)
+    params = {"model_config": model, "topk": k}
+    job_base = {"model_config": model, "topk": k, "allow_fallback": False,
+                "result_format": "columnar"}
+    infer = LoadGen([TrafficClass("infer", "classify", tenant=tenants["p1"], route="infer",
+                                  payload_fn=lambda rng, seq: {
+                                      "text": random_texts(rng, 1, *LOAD_INFER_BYTES)[0],
+                                      "params": params})],
+                    ArrivalPattern(LOAD_INFER_RATE, bursts=[(LOAD_INFER_BURST[0], sum(
+                        LOAD_INFER_BURST[:2]), LOAD_INFER_BURST[2])]), seed=SEED + 22)
+    jobs = LoadGen([TrafficClass("jobs", "map_classify_tpu", tenant=tenants["p0"],
+                                 payload_fn=lambda rng, seq: dict(job_base, texts=random_texts(
+                                     rng, LOAD_JOB_ROWS, *LOAD_JOB_BYTES)))],
+                   ArrivalPattern(LOAD_JOBS_RATE), seed=SEED + 23)
+    cfg = AutoscaleConfig(**ELASTIC_SCALER)
+    scaler = Autoscaler(driver, lambda: fetch_health(plane.url, timeout=10.0), config=cfg)
+    ready, at_ready, decisions, holds, errors = {}, {}, [], collections.Counter(), []
+    signals = []  # every evaluation: (s since the load began, queue, active jobs, fleet)
+    stop, t_load = threading.Event(), [None]
+
+    def watch_ready():
+        """Each member's first poll (GET /v1/status's agents) and its row-1
+        launches then: its warm-up's."""
+        while not stop.is_set():
+            try:
+                seen = get_json(plane.url + "/v1/status")["agents"]
+                for name in list(driver.history):
+                    if name in seen and name not in ready:
+                        ready[name] = time.monotonic()
+                        at_ready[name] = agent_gauge(plane, "kernel_launches", name,
+                                                     kernel="flash_attention")
+            except (OSError, ValueError, SystemExit):
+                pass
+            time.sleep(0.25)
+
+    def scale():
+        """The autoscaler's step (read, decide, act), each decision kept
+        with its signals and the members it spawned or retired; a step that
+        raises is kept and the loop goes on, as ``Autoscaler.run``'s."""
+        while not stop.wait(cfg.interval_sec):
+            try:
+                step()
+            except Exception as exc:  # noqa: BLE001 — reported, and the phase fails
+                errors.append(repr(exc)[:300])
+
+    def step():
+        sig = read_signals(fetch_health(plane.url, timeout=10.0))
+        decision = scaler.decide(sig)
+        if t_load[0] is not None:
+            signals.append((round(time.perf_counter() - t_load[0], 2), sig.queue_depth,
+                            sig.active_jobs, driver.size()))
+        spawned = set(driver.history)
+        retired = {n for n, h in driver.history.items() if "retired" in h}
+        scaler.apply(decision)
+        if decision.action == HOLD:
+            holds[decision.reason] += 1
+            return
+        decisions.append({
+            "t_s": None if t_load[0] is None else time.perf_counter() - t_load[0],
+            "action": decision.action, "n": decision.n, "reason": decision.reason,
+            "queue_depth": sig.queue_depth, "active_jobs": sig.active_jobs,
+            "live_agents": sig.live_agents, "fleet": driver.size(),
+            "spawned": sorted(set(driver.history) - spawned),
+            "retired": sorted({n for n, h in driver.history.items() if "retired" in h}
+                              - retired)})
+
+    watchers = [threading.Thread(target=fn, daemon=True) for fn in (watch_ready, scale)]
+    watchers[0].start()
+    first = next(iter(driver.history))
+    while first not in ready:
+        if driver.size() < 1 or time.monotonic() - driver.history[first]["spawned"] \
+                > ELASTIC_DEADLINE_S:
+            stop.set()
+            driver.reap()
+            raise SystemExit(f"the first fleet member did not come up: {driver.history}")
+        time.sleep(0.05)
+    live = plane.live_urls()
+    before = {p: (get_json(u + "/v1/status")["serving"]["rejected"],
+                  series(scrape(u), "controller_admission_rejections_total"))
+              for p, u in live.items()}
+    watchers[1].start()
+    stats = {}
+
+    def run(name, gen):
+        stats[name] = gen.run(session_submitter(UrllibSession(), plane.url), LOAD_SECONDS)
+
+    loads = [threading.Thread(target=run, args=a, daemon=True)
+             for a in (("infer", infer), ("jobs", jobs))]
+    gc.collect()
+    t_load[0] = time.perf_counter()
+    for t in loads:
+        t.start()
+    for t in loads:
+        t.join(timeout=LOAD_SECONDS + 120)
+    t_sent = time.perf_counter()
+    req_ids = stats["infer"].job_ids()
+    while True:
+        status = get_json(plane.url + "/v1/status")
+        states = status["serving"].get("requests", {})
+        if status["drained"] and states.get("done", 0) + states.get("failed", 0) \
+                >= len(req_ids) and sum(states.values()) >= len(req_ids):
+            break
+        if time.perf_counter() - t_sent > ELASTIC_DEADLINE_S or [
+                h for h in driver.history.values() if h.get("rc") not in (None, 0)]:
+            stop.set()
+            raise SystemExit(f"the elastic load did not finish: {status['counts_by_op']}, "
+                             f"{status['serving']}, members {driver.history}")
+        time.sleep(0.05)
+    t_done = time.perf_counter()
+    # The fleet back at its floor once the load is served: at least one
+    # member retired by SIGTERM, every retired member reaped.
+    while not (scaler.scale_downs and driver.size() == cfg.min_agents and all(
+            "rc" in h for h in driver.history.values() if "retired" in h)):
+        if time.perf_counter() - t_done > ELASTIC_DEADLINE_S:
+            stop.set()
+            raise SystemExit(f"no member was retired: {decisions}, {dict(holds)}, {errors}, "
+                             f"{driver.history}, signals {signals}")
+        driver.reap()
+        time.sleep(0.1)
+    launches = {n: agent_gauge(plane, "kernel_launches", n, kernel="flash_attention")
+                for n in driver.history if n in ready}
+    after = {p: (get_json(u + "/v1/status")["serving"]["rejected"],
+                 series(scrape(u), "controller_admission_rejections_total"))
+             for p, u in live.items()}
+    stop.set()
+    for t in watchers:
+        t.join(timeout=10)
+    driver.stop_all(timeout=60)
+    # The answers: every admitted request and job, against the ops run here.
+    answers = infer_answers(plane.url, req_ids, threads=8)
+    texts = {a.seq: a.payload["text"] for a in infer.schedule(LOAD_SECONDS)}
+    by_req = {j["job_id"]: texts[j["seq"]] for j in stats["infer"].jobs}
+    serve = load_ops(["serve_classify"])["serve_classify"]
+    direct = []
+    for s in range(0, len(req_ids), 16):
+        chunk = [{"req_id": str(i), "text": by_req[r]} for i, r in enumerate(req_ids[s:s + 16])]
+        direct += serve({"requests": chunk, **params}, ctx)["results"]
+    infer_agree = topk_agreement([a["result"] for a in answers], direct, LOGP_TOL["bfloat16"])
+    payloads = {a.seq: a.payload for a in jobs.schedule(LOAD_SECONDS)}
+    classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
+    got_rows, want_rows = [], []
+    for j in stats["jobs"].jobs:
+        snap = get_json(f"{plane.url}/v1/jobs/{j['job_id']}")
+        want = classify(dict(payloads[j["seq"]]), ctx)
+        if snap["state"] != "succeeded":
+            raise SystemExit(f"job {j['job_id']} {snap['state']}: {snap['error']}")
+        for r in (snap["result"], want):
+            (got_rows if r is snap["result"] else want_rows).extend(
+                {"indices": i, "scores": sc} for i, sc in zip(r["indices"], r["scores"]))
+    jobs_agree = topk_agreement(got_rows, want_rows, LOGP_TOL["bfloat16"])
+    drops = dict(collections.Counter(stats["infer"].rejected_by_partition)
+                 + collections.Counter(stats["jobs"].rejected_by_partition))
+    refused = {p: (after[p][0] - before[p][0]) + (after[p][1] - before[p][1]) for p in live}
+    lat = sorted(a["latency_ms"] for a in answers)
+    h = driver.history
+    report = {
+        "phase": "elastic_fleet", "config": model, "scaler": dict(ELASTIC_SCALER),
+        "load_seconds": LOAD_SECONDS, "infer_rate": LOAD_INFER_RATE,
+        "infer_burst": LOAD_INFER_BURST, "jobs_rate": LOAD_JOBS_RATE, "tenants": tenants,
+        "submitted": {n: s.total_submitted() for n, s in stats.items()},
+        "rejected": {n: s.total_rejected() for n, s in stats.items()},
+        "errors": {n: dict(s.errors) for n, s in stats.items()},
+        "requests_per_s_offered": (len(req_ids) + stats["infer"].total_rejected()) / LOAD_SECONDS,
+        "requests_per_s_done": len(req_ids) / (t_done - t_load[0]),
+        "latency_ms": {"p50": statistics.median(lat), "p99": lat[int(0.99 * (len(lat) - 1))]},
+        "drops_by_partition": drops, "refused_by_partition": refused,
+        "decisions": decisions, "holds": dict(holds), "scaler_errors": errors,
+        "signals": signals,
+        "scale_ups": scaler.scale_ups, "scale_downs": scaler.scale_downs,
+        "replacements": scaler.replacements,
+        "members": {n: {"spawn_to_ready_s": ready[n] - h[n]["spawned"] if n in ready else None,
+                        "retire_to_exit_s": h[n]["exited"] - h[n]["retired"]
+                        if "retired" in h[n] and "exited" in h[n] else None,
+                        "exit_code": h[n].get("rc"), "retired_by_scaler": n in driver.retired,
+                        "row1_launches": launches.get(n),
+                        "row1_launches_at_ready": at_ready.get(n)} for n in h},
+        "infer_agreement": infer_agree, "jobs_agreement": jobs_agree,
+        "seconds": time.perf_counter() - t_phase}
+    # Every member that polled ran work; a member retired while it still
+    # warmed never polled (it exits 0 after its warm-up, leasing nothing).
+    moved = all(launches[n] > at_ready[n] for n in ready)
+    burst_end = sum(LOAD_INFER_BURST[:2]) + cfg.interval_sec
+    in_burst = [n for d in decisions if d["action"] == "up" and d["t_s"] is not None
+                and d["t_s"] <= burst_end for n in d["spawned"]]
+    report["checks"] = {"every_polling_member_launched": moved,
+                        "scaled_up_in_burst": in_burst,
+                        "scaled_up_member_launched": [n for n in in_burst if n in ready],
+                        "retired_by_sigterm": sorted(n for n, x in h.items() if "retired" in x
+                                                     and n in driver.retired)}
+    emit(report)
+    if not infer_agree["ok"] or not jobs_agree["ok"] or errors or scaler.replacements \
+            or not report["checks"]["scaled_up_member_launched"] or not moved \
+            or first not in ready or not scaler.scale_downs \
+            or any(m["exit_code"] != 0 for m in report["members"].values()) \
+            or {p: drops.get(p, 0) for p in live} != refused or any(
+                report["errors"].values()):
+        raise SystemExit(f"phase 22 (a) failed: {str(report)[:4000]}")
+    return report
+
+
+class CountingSession:
+    """``inner``'s posts, counted in ``n``."""
+
+    def __init__(self, inner) -> None:
+        self.inner, self.n = inner, 0
+
+    def post(self, url: str, json=None, timeout=None):  # noqa: A002
+        self.n += 1
+        return self.inner.post(url, json=json, timeout=timeout)
+
+
+class ResultsThrough:
+    """Phase 22 (b)'s agent session: result posts through ``chaos``, every
+    other post (leases, metrics polls) straight to ``inner``."""
+
+    def __init__(self, inner, chaos) -> None:
+        self.inner, self.chaos = inner, chaos
+
+    def post(self, url: str, json=None, timeout=None):  # noqa: A002
+        target = self.chaos if url.endswith("/v1/results") else self.inner
+        return target.post(url, json=json, timeout=timeout)
+
+
+def chaos_phase(fa, rt, plane, path: str, serial: list, chunks: list) -> dict:
+    """Phase 22 (b) (see the module docstring)."""
+    from agent_tpu_torch.agent.app import Agent
+    from agent_tpu_torch.chaos import ChaosSession, FaultPlan
+    from agent_tpu_torch.config import AgentConfig, Config
+    from agent_tpu_torch.obs.metrics import MetricsRegistry, parse_exposition
+
+    t_phase = time.perf_counter()
+    shards = drain_payloads(path)[2][:CHAOS_SHARDS]
+    ids = [f"chip-smoke-chaos-{i}" for i in range(len(shards))]
+    for jid, payload in zip(ids, shards):
+        status, body = http_json(plane.url + "/v1/jobs", {"op": "map_classify_tpu",
+                                                          "payload": payload, "job_id": jid})
+        if status != 200:
+            raise SystemExit(f"POST /v1/jobs: {status} {body}")
+    plan, registry = FaultPlan(seed=SEED, **CHAOS_PLAN), MetricsRegistry()
+    agent = Agent(Config(agent=AgentConfig(
+        controller_url=plane.url, controller_partition_map=plane.spec,
+        agent_name="chip-smoke-chaos", tasks=("map_classify_tpu",), idle_sleep_sec=0.005,
+        error_backoff_sec=0.01, retry_base_sec=0.01, retry_max_sec=0.05, pipeline_depth=0)),
+        runtime=rt)
+    delivered = CountingSession(agent.session)  # the partition map's shim
+    agent.session = ResultsThrough(agent.session, ChaosSession(delivered, plan,
+                                                               registry=registry))
+    before = results_by_outcome(plane)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    while not (get_json(plane.url + "/v1/status")["drained"] and not len(agent.spool)):
+        if time.perf_counter() - t0 > DRAIN_TIMEOUT_S:
+            raise SystemExit(f"the chaos drain did not finish: {plan.counts}")
+        agent.step()
+        if len(agent.spool):
+            agent.flush_spool(force=True)
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCH_COUNTS["flash_attention"]
+    after = results_by_outcome(plane)
+    delta = {o: after.get(o, 0) - before.get(o, 0) for o in set(after) | set(before)}
+    jobs = [get_json(f"{plane.url}/v1/jobs/{j}") for j in ids]
+    _, by_job = billed(plane)
+    injected = collections.Counter()
+    for lab, value in parse_exposition(registry.render()).get("chaos_faults_injected_total", []):
+        injected[lab["fault"]] += value
+    same = all(j["state"] == "succeeded" and j["result"]["indices"] == w["indices"]
+               and j["result"]["scores"] == w["scores"] for j, w in zip(jobs, serial))
+    report = {"phase": "chaos", "shards": len(ids), "rows": len(ids) * DRAIN_SHARD,
+              "plan": CHAOS_PLAN, "seed": SEED, "fault_counts": dict(plan.counts),
+              "chaos_faults_injected_total": dict(injected), "result_posts_delivered":
+              delivered.n, "results_by_outcome": delta,
+              "billed_attempts": [by_job.get(j) for j in ids], "equal_to_serial": same,
+              "launches": launches, "launches_want": BERT_BASE["n_layers"] * sum(
+                  chunks[:len(ids)]), "wall_s": wall, "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    if not same or dict(injected) != {k: float(v) for k, v in plan.counts.items()} \
+            or not plan.counts or report["billed_attempts"] != [1] * len(ids) \
+            or delta.get("succeeded", 0) != len(ids) or delta.get("unknown_job", 0) \
+            or delta.get("stale_epoch", 0) \
+            or delta.get("duplicate", 0) != delivered.n - len(ids) \
+            or launches != report["launches_want"]:
+        raise SystemExit(f"phase 22 (b) failed: {report}")
+    return report
+
+
 def cuobjdump_path(build) -> str:
     """cuobjdump beside nvcc, else the copy Triton's package carries."""
     found = shutil.which("cuobjdump")
@@ -6874,14 +7714,33 @@ def main(argv=None) -> int:
 
     # 10. the agent's drain, then its entry point in a process of its own;
     # 19. the control plane, on phase 10's CSV and weights, between them
+    place_seeded(rt, {"none": BERT_BASE}, seeded_dense())  # phase 10's weights, drawn once
     drain = drain_phase(fa, rt, drain_csv)
     lap("10 drain, 15 telemetry")
-    control = control_plane_phase(fa, rt, drain_csv, drain["serial_results"],
-                                  drain["dispatch_chunks"])
+    # 21. the partitioned control plane and 22. the elastic fleet and chaos,
+    # on phase 10's CSV and weights. Their agent processes build their
+    # weights on the host while phases 19 and 10's entry points run.
+    with tempfile.TemporaryDirectory() as tmp, PartitionedPlane(tmp) as plane:
+        driver = elastic_driver(plane, tmp)
+        started = start_partition_drain(plane, drain_csv, tmp)
+        try:
+            lap("21, 22 start")
+            control = control_plane_phase(fa, rt, drain_csv, drain["serial_results"],
+                                          drain["dispatch_chunks"])
+            lap("19 control plane")
+            entry_point_phase(drain_csv)
+            lap("10 entry points")
+            part = partition_phase(fa, plane, started, drain["serial_results"],
+                                   drain["dispatch_chunks"])
+            lap("21 partitioned plane")
+            elastic = elastic_phase(fa, ctx, plane, driver, k)
+        finally:
+            driver.stop_all(timeout=60)
+            started["proc"].stop()
+        chaos = chaos_phase(fa, rt, plane, drain_csv, drain["serial_results"],
+                            drain["dispatch_chunks"])
+    lap("22 elastic fleet, chaos")
     rt.clear_params()
-    lap("19 control plane")
-    entry_point_phase(drain_csv)
-    lap("10 entry points")
 
     # 18 (a), (b): several processes on the card — the leader and its
     # follower, then the device-pinned fleet on phase 10's CSV
@@ -6970,6 +7829,10 @@ def main(argv=None) -> int:
                           "agent_drain_map_classify_tpu": drain["launches"],
                           "agent_telemetry_map_classify_tpu": drain["telemetry"]["launches"],
                           "workflow_map_classify_tpu": control["row1_launches"],
+                          "map_classify_tpu_partitioned_agent": part["row1_launches"],
+                          "elastic_fleet_members": sum(m["row1_launches"] or 0 for m in
+                                                       elastic["members"].values()),
+                          "map_classify_tpu_chaos": chaos["launches"],
                           "map_classify_tpu_bert": bert_run["launches"],
                           "map_summarize_bart": bart_run["launches"],
                           "serve_classify": classify_check["launches"],

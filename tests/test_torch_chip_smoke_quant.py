@@ -45,7 +45,8 @@ def rehearsal(monkeypatch, tmp_path):
                         ("DECODE_AGREEMENT_ROWS", 8), ("DECODE_AGREEMENT_SRC", 16),
                         ("T5_LARGE", T5_TINY), ("T5_MAX_NEW", 3), ("BART_LARGE_CNN", BART_TINY),
                         ("BART_MAX_NEW", 3), ("BART_QUANT_ROWS", 2), ("SERVE_MODEL", SERVE_TINY),
-                        ("SERVE_REQUESTS", 10), ("SERVE_SLOTS", 4), ("SERVE_WARM", 2),
+                        ("SERVE_REQUESTS", 10), ("QUANT_ENGINE_REQUESTS", 6),
+                        ("SERVE_SLOTS", 4), ("SERVE_WARM", 2),
                         ("SMALL_S2S_F32", S2S_SMALL), ("SERVE_EXACT_REQUESTS", 6)):
         monkeypatch.setattr(chip_smoke, name, value)
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):

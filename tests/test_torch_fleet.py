@@ -223,6 +223,25 @@ def test_the_agent_pushes_its_kernel_launches(monkeypatch):
         fa.LAUNCH_COUNTS["flash_fold"]]
 
 
+def test_metrics_while_a_stage_worker_imports_the_kernels(monkeypatch):
+    """The feeder thread reads the launch counts while a stage worker may be
+    importing the kernel module: a partly initialised module (in
+    ``sys.modules``, no ``LAUNCH_COUNTS`` yet) leaves the gauge alone and
+    the lease goes on; once the counts exist they are pushed."""
+    import types
+
+    import chip_smoke
+
+    agent = Agent(config=Config(agent=AgentConfig(tasks=("echo",))), session=object())
+    partial = types.ModuleType("agent_tpu_torch.kernels.flash_attention")
+    monkeypatch.setitem(sys.modules, partial.__name__, partial)
+    snap = agent._metrics()["obs"]
+    assert chip_smoke.obs_values(snap, "kernel_launches", kernel="flash_attention") == []
+    partial.LAUNCH_COUNTS = {"flash_attention": 3}
+    snap = agent._metrics()["obs"]
+    assert chip_smoke.obs_values(snap, "kernel_launches", kernel="flash_attention") == [3]
+
+
 def test_the_cli_refuses_no_agents_and_stops_on_a_dead_member(tmp_path, capsys):
     """``fleet_cli`` (scripts/fleet.py's flags): --agents 0 exits 2; a
     member whose warm-up fails (exit 3) ends the wait, and the CLI exits 1."""

@@ -69,8 +69,8 @@ PRELUDE = textwrap.dedent("""
 
 BROADCAST_CODE = PRELUDE + textwrap.dedent("""
     from agent_tpu_torch.runtime.distributed import (
-        _broadcast_bytes, all_gather_tensor, broadcast_shutdown, broadcast_task, is_shutdown,
-        maybe_initialize)
+        _broadcast_bytes, all_gather_tensor, broadcast_shutdown, broadcast_task, current,
+        is_shutdown, maybe_initialize, shutdown)
     import torch
     info = maybe_initialize(addr, 2, pid, timeout_s=60)
     assert info.process_count == 2 and info.process_index == pid
@@ -87,6 +87,8 @@ BROADCAST_CODE = PRELUDE + textwrap.dedent("""
         broadcast_shutdown()
     else:
         assert is_shutdown(broadcast_task(None))
+    shutdown()
+    assert current().process_count == 1  # the group is gone
     print(f"OK {pid}")
 """)
 
@@ -133,7 +135,8 @@ AGENT_CODE = PRELUDE + textwrap.dedent("""
             while not ctrl.drained():
                 agent.step()
             agent.running = False
-            agent.run(max_steps=0)  # the clean exit's shutdown broadcast
+            agent.run(max_steps=0)  # the clean exit's shutdown broadcast, then shutdown()
+            assert distributed.current().process_count == 1  # the group is gone
             res = ctrl.results()
             assert len(res) == 5, res
             risk = [r for r in res.values() if "sum" in (r or {})][0]
@@ -142,7 +145,9 @@ AGENT_CODE = PRELUDE + textwrap.dedent("""
     else:
         agent = Agent(config=Config.from_env())
         assert not agent.dist.is_leader and agent.session is None
-        agent.run()
+        agent.run()  # leaves the group on the leader's shutdown
+        from agent_tpu_torch.runtime.distributed import current
+        assert current().process_count == 1
         assert agent.tasks_done == 5, agent.tasks_done
         print("OK 1")
 """)
@@ -154,6 +159,19 @@ def test_broadcast_round_trip():
 
 def test_agent_leader_follower_drains_the_reference_controller():
     _ok(*_spawn(AGENT_CODE, str(_free_port())))
+
+
+@pytest.mark.parametrize("repeat", range(3))
+def test_a_clean_exit_leaves_the_group(repeat):
+    """The broadcast round trip on a fresh port, both processes calling
+    ``shutdown()`` at the end: each exits 0, and neither aborts at
+    interpreter exit ("terminate called without an active exception", the
+    gloo group's threads dying with an interpreter that never destroyed
+    the group)."""
+    rcs, outs = _spawn(BROADCAST_CODE, str(_free_port()))
+    _ok(rcs, outs)
+    for pid, out in enumerate(outs):
+        assert "terminate called" not in out, f"process {pid}:\n{out[-3000:]}"
 
 
 # ---- the op table: the same payloads through both packages ----
@@ -211,6 +229,9 @@ TABLE_CODE = PRELUDE + textwrap.dedent("""
         except Exception as exc:
             outcome[op] = {"raised": type(exc).__name__}
     print("OUTCOME " + json.dumps(outcome))
+    if pkg != "jax":
+        from agent_tpu_torch.runtime.distributed import shutdown
+        shutdown()
     print(f"OK {pid}")
 """)
 
@@ -253,6 +274,8 @@ RISK_CODE = PRELUDE + textwrap.dedent("""
     assert rt.mesh.spans_processes and rt.mesh.local_positions() == [
         {"dp": pid, "tp": 0, "sp": 0}]
     print("STATS " + json.dumps(mesh_reduce_stats(rt, values)))
+    from agent_tpu_torch.runtime.distributed import shutdown
+    shutdown()
     print(f"OK {pid}")
 """)
 
@@ -342,7 +365,7 @@ def test_a_raise_takes_both_processes_down(kind, tasks):
 
 JOIN_CODE = PRELUDE + textwrap.dedent("""
     import torch.distributed as dist
-    from agent_tpu_torch.runtime.distributed import DistInfo, maybe_initialize
+    from agent_tpu_torch.runtime.distributed import DistInfo, maybe_initialize, shutdown
     kind = sys.argv[3]
     if kind == "joined_alone":
         dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=1, rank=0)
@@ -350,6 +373,7 @@ JOIN_CODE = PRELUDE + textwrap.dedent("""
             maybe_initialize(addr, 2, 0)
         except RuntimeError:
             print(f"OK {pid}")
+        shutdown()
     elif kind == "other_count":
         info = maybe_initialize(addr, 2, pid, timeout_s=60)
         assert maybe_initialize(addr, None, pid) == info
@@ -357,6 +381,7 @@ JOIN_CODE = PRELUDE + textwrap.dedent("""
             maybe_initialize(addr, 3, pid)
         except RuntimeError:
             print(f"OK {pid}")
+        shutdown()
     else:  # "no_peer": the peer never comes
         try:
             info = maybe_initialize(addr, 2, 0, timeout_s=3)
@@ -393,6 +418,8 @@ CKPT_CODE = PRELUDE + textwrap.dedent("""
     like = {"w": np.zeros((2, 8), np.float32), "b": np.zeros(3, np.float32)}
     checkpoint.load_sharded(path, like)
     assert all((like[k] == tree[k]).all() for k in tree)
+    from agent_tpu_torch.runtime.distributed import shutdown
+    shutdown()
     print(f"OK {pid}")
 """)
 

@@ -284,6 +284,15 @@ class DeviceConfig:
     # TPU_DISABLED=1: the operator asks for a CPU runtime (the accelerator
     # is never touched).
     tpu_disabled: bool = False
+    # TPU_ONLY=1: the worker profile caps its CPU block at one worker, so the
+    # controller routes no host work to this device agent
+    # (sizing.profile.build_worker_profile).
+    tpu_only: bool = False
+    # COMPUTE_DTYPE: the reference's runtime-wide dtype, which only its
+    # describe() reports. Each model's own config sets what its forward runs
+    # in (bf16, the MoE encoder f32), so the port's runtime reports none and
+    # refuses any value but the default rather than ignore it.
+    compute_dtype: str = "bfloat16"
     # PALLAS_ATTN=0 asks for attention without the hand-written kernels;
     # the port has no such path on the card, so a CUDA runtime refuses it.
     pallas_attn: bool = True
@@ -311,6 +320,8 @@ class DeviceConfig:
         process_id = env_int("PROCESS_ID", -1) if os.environ.get("PROCESS_ID") else -1
         return DeviceConfig(quant=env_str("TPU_QUANT", "").strip().lower(),
                             tpu_disabled=env_bool("TPU_DISABLED", False),
+                            tpu_only=env_bool("TPU_ONLY", False),
+                            compute_dtype=env_str("COMPUTE_DTYPE", "bfloat16"),
                             pallas_attn=env_bool("PALLAS_ATTN", True),
                             chip_slice=env_str("CHIP_SLICE", "").strip(),
                             mesh_shape=parse_mesh_shape(env_str("MESH_SHAPE", "")),
@@ -753,6 +764,22 @@ class PartitionConfig:
         )
 
 @dataclass(frozen=True)
+class OpsConfig:
+    """Per-op knobs that an op reads. The reference's class also carries
+    ``summarize_model`` and the SAP/Oracle credentials, which nothing reads:
+    the summarize ops resolve ``BART_MODEL`` themselves and the trigger ops
+    read their credentials from the environment, in both packages."""
+
+    # SUMMARIZE_FORCE_CPU=1 asks map_summarize for a CPU runtime; off, the
+    # op runs on the card or fails (never a retry on the CPU).
+    summarize_force_cpu: bool = False
+
+    @staticmethod
+    def from_env() -> "OpsConfig":
+        return OpsConfig(summarize_force_cpu=env_bool("SUMMARIZE_FORCE_CPU", False))
+
+
+@dataclass(frozen=True)
 class Config:
     """The agent's whole configuration."""
 
@@ -760,8 +787,10 @@ class Config:
     sizing: SizingConfig = field(default_factory=SizingConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     device: DeviceConfig = field(default_factory=DeviceConfig)
+    ops: OpsConfig = field(default_factory=OpsConfig)
 
     @staticmethod
     def from_env() -> "Config":
         return Config(agent=AgentConfig.from_env(), sizing=SizingConfig.from_env(),
-                      serve=ServeConfig.from_env(), device=DeviceConfig.from_env())
+                      serve=ServeConfig.from_env(), device=DeviceConfig.from_env(),
+                      ops=OpsConfig.from_env())

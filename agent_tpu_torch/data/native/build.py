@@ -2,7 +2,8 @@
 copy of ``agent_tpu.data.native.build``.
 
 The shared object compiles once per source change into ``_build/`` beside
-the source (git-ignored; nothing outside the checkout is written), named by
+the source (git-ignored; nothing outside the checkout is written), or into
+``AGENT_TPU_NATIVE_CACHE`` when that is set, named by
 a hash of ``csv_scan.cpp`` so an edit rebuilds and a stale binary never
 loads. Everything is best-effort: no compiler, a failed compile or a failed
 load all mean "return None", and the caller uses the numpy scanner
@@ -29,6 +30,11 @@ _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
+def build_dir() -> str:
+    """``AGENT_TPU_NATIVE_CACHE`` when set, else ``_build/`` beside the source."""
+    return os.environ.get("AGENT_TPU_NATIVE_CACHE") or BUILD_DIR
+
+
 def _build() -> Optional[str]:
     """Compile csv_scan.cpp -> the cached .so; returns its path or None."""
     gxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
@@ -36,12 +42,13 @@ def _build() -> Optional[str]:
         return None
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"csv_scan_{digest}.so")
+    cache = build_dir()
+    out = os.path.join(cache, f"csv_scan_{digest}.so")
     if os.path.exists(out):
         return out
     tmp = out + f".tmp{os.getpid()}"
     try:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(cache, exist_ok=True)
         proc = subprocess.run(
             [gxx, "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
             capture_output=True,

@@ -21,7 +21,7 @@ experts over ``ep``; or, with ``pp``, a
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -57,6 +57,9 @@ class EncoderConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return layers.compute_dtype(self.dtype)
+
+    def scaled(self, **overrides) -> "EncoderConfig":
+        return replace(self, **overrides)
 
 
 def init_params(cfg: EncoderConfig, model_id: str = "classify-default") -> Dict[str, np.ndarray]:

@@ -141,6 +141,19 @@ def flatten(tree: Params, prefix: str = "", leaf: Callable = np.asarray) -> Dict
     return out
 
 
+def count_params(params: Any) -> int:
+    """Elements in a module's parameters, or in the leaves of a nested or
+    flat tree of arrays or tensors."""
+    if isinstance(params, nn.Module):
+        return int(sum(p.numel() for p in params.parameters()))
+    return int(sum(int(np.prod(v.shape)) for v in flatten(params, leaf=lambda x: x).values()))
+
+
+def causal_mask(length: int) -> np.ndarray:
+    """[1, 1, L, L] lower-triangular attend mask."""
+    return np.tril(np.ones((length, length), dtype=np.int32))[None, None]
+
+
 def unflatten(flat: Dict[str, Any]) -> Params:
     """``{"layers.0.attn.q.w": x, ...}`` -> nested dicts, with a node whose
     keys are all integers as a list (the inverse of :func:`flatten`)."""

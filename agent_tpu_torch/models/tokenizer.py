@@ -3,7 +3,7 @@ and ``map_tokenize``.
 
 A copy of the part of ``agent_tpu.models.tokenizer`` that the ported ops
 use: the byte vocabulary's specials, ``ByteTokenizer``, the wordpiece
-tokenizer over a local vocab file (loading and encoding), the length
+tokenizer (its trainer, a vocab file's load and save, encode and decode), the length
 buckets, the fused byte-tokenize-and-pad (``byte_encode_pad``, with BOS/EOS
 and its ``raw_uint8`` wire), ``pad_batch`` for pre-tokenized ids and the
 ``get_tokenizer`` factory, whose ``bpe`` kind is :mod:`agent_tpu_torch.models.bpe`.
@@ -12,7 +12,7 @@ and its ``raw_uint8`` wire), ``pad_batch`` for pre-tokenized ids and the
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,13 +54,14 @@ _WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
 
 class WordPieceTokenizer:
     """Greedy longest-match wordpiece (BERT-style ``##`` continuations) over
-    a vocab file: one token per line, id = line number."""
+    a vocab file: one token per line, id = line number. Without a vocab it
+    holds the four specials alone."""
 
     pad_id, bos_id, eos_id, unk_id = PAD_ID, BOS_ID, EOS_ID, UNK_ID
 
-    def __init__(self, vocab: Dict[str, int], lowercase: bool = True,
+    def __init__(self, vocab: Optional[Dict[str, int]] = None, lowercase: bool = True,
                  max_word_chars: int = 64) -> None:
-        self.vocab = vocab
+        self.vocab = vocab or {t: i for i, t in enumerate(SPECIAL_TOKENS)}
         self.lowercase = lowercase
         self.max_word_chars = max_word_chars
 
@@ -74,6 +75,37 @@ class WordPieceTokenizer:
         with open(path, "r", encoding="utf-8") as f:
             for i, line in enumerate(f):
                 vocab[line.rstrip("\n")] = i
+        return cls(vocab=vocab, lowercase=lowercase)
+
+    def save(self, path: str) -> None:
+        """Write the vocab file :meth:`from_file` reads (tokens in id order)."""
+        with open(path, "w", encoding="utf-8") as f:
+            for tok, _ in sorted(self.vocab.items(), key=lambda kv: kv[1]):
+                f.write(tok + "\n")
+
+    @classmethod
+    def train(cls, corpus: Iterable[str], vocab_size: int = 8192,
+              lowercase: bool = True) -> "WordPieceTokenizer":
+        """Frequency-based trainer: the specials, then every single character
+        seen (with its ``##`` variant) by count, so any word over the seen
+        alphabet encodes piece-wise, then whole words by count; ties by the
+        piece itself. Deterministic and dependency-free; not merge-optimal."""
+        counts: Dict[str, int] = {}
+        chars: Dict[str, int] = {}
+        for text in corpus:
+            if lowercase:
+                text = text.lower()
+            for w in _WORD_RE.findall(text):
+                counts[w] = counts.get(w, 0) + 1
+                for c in w:
+                    chars[c] = chars.get(c, 0) + 1
+                    chars["##" + c] = chars.get("##" + c, 0) + 1
+        vocab: Dict[str, int] = {t: i for i, t in enumerate(SPECIAL_TOKENS)}
+        for pool in (chars, counts):
+            for piece in sorted(pool, key=lambda p: (-pool[p], p)):
+                if len(vocab) >= vocab_size:
+                    break
+                vocab.setdefault(piece, len(vocab))
         return cls(vocab=vocab, lowercase=lowercase)
 
     def _encode_word(self, word: str) -> List[int]:
@@ -110,6 +142,21 @@ class WordPieceTokenizer:
         if add_eos:
             ids.append(self.eos_id)
         return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Words joined by spaces, ``##`` pieces glued to the word before;
+        specials and unknown ids are dropped."""
+        inv = {i: t for t, i in self.vocab.items()}
+        out: List[str] = []
+        for i in ids:
+            tok = inv.get(int(i))
+            if tok is None or tok in SPECIAL_TOKENS:
+                continue
+            if tok.startswith("##") and out:
+                out[-1] += tok[2:]
+            else:
+                out.append(tok)
+        return " ".join(out)
 
 
 def get_tokenizer(kind: str = "byte", vocab_path: Optional[str] = None):

@@ -86,6 +86,14 @@ class FlightRecorder:
         return len(events)
 
 
+# The process-global default; tests and the agent inject their own instances.
+_default_recorder = FlightRecorder()
+
+
+def get_recorder() -> FlightRecorder:
+    return _default_recorder
+
+
 def default_dump_path(tag: str) -> str:
     """``$FLIGHT_RECORDER_DIR`` (or the temp dir) /
     ``agent_tpu_torch_flight_<tag>_<pid>.jsonl``: one file per tag and

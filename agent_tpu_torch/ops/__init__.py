@@ -4,7 +4,8 @@
 modules load lazily on first ``get_op`` and import failures are recorded in
 ``OPS_LOAD_ERRORS``, never raised at package import. The ``TASKS``
 environment variable gates which ops are visible (``*``/``all`` = all,
-``none`` = none, unset = all).
+``none`` = none, unset = all). ``OPS_PLUGIN_PATH`` names extra op files
+(``:``-separated) that ``load_ops`` loads once, before it resolves names.
 
 Op call contract: ``fn(payload: dict, ctx: OpContext | None = None) -> dict``.
 """
@@ -12,6 +13,7 @@ Op call contract: ``fn(payload: dict, ctx: OpContext | None = None) -> dict``.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -65,6 +67,7 @@ def is_cacheable(name: str) -> bool:
 
 _imported: Dict[str, bool] = {}
 _lock = threading.Lock()
+_plugins_loaded = False
 
 
 def register_op(name: str) -> Callable[[OpFn], OpFn]:
@@ -73,6 +76,53 @@ def register_op(name: str) -> Callable[[OpFn], OpFn]:
         return fn
 
     return deco
+
+
+def load_plugins(paths: Optional[str] = None) -> List[str]:
+    """Load extra op modules from ``OPS_PLUGIN_PATH`` (``:``-separated files).
+
+    Each path is executed as a module; its ``register_op`` decorations land
+    in the registry and in ``OP_TO_MODULE``, so the TASKS gate and
+    ``list_ops`` see them. Missing files and import errors are recorded in
+    ``OPS_LOAD_ERRORS``, never raised: the agent boots without its plugins.
+    With ``paths`` None the environment is read, once per process.
+
+    Returns the op names newly registered by plugins.
+    """
+    global _plugins_loaded
+    raw = paths if paths is not None else os.environ.get("OPS_PLUGIN_PATH", "")
+    if paths is None:
+        with _lock:
+            if _plugins_loaded:
+                return []
+            _plugins_loaded = True
+    new_names: List[str] = []
+    for path in [p for p in (raw or "").split(":") if p.strip()]:
+        before = set(OPS_REGISTRY)
+        try:
+            spec = importlib.util.spec_from_file_location(
+                f"agent_tpu_torch_plugin_{abs(hash(path)) & 0xFFFF:04x}", path)
+            if spec is None or spec.loader is None:
+                raise ImportError(f"cannot load plugin {path!r}")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        except Exception as exc:  # noqa: BLE001 — recorded, not raised
+            OPS_LOAD_ERRORS.append((f"plugin:{path}", repr(exc)))
+            # An op registered by a plugin that then failed would sit in the
+            # registry with no OP_TO_MODULE entry: registered but unreachable.
+            for name in set(OPS_REGISTRY) - before:
+                if name not in OP_TO_MODULE:
+                    del OPS_REGISTRY[name]
+            continue
+        for name in set(OPS_REGISTRY) - before:
+            if name in OP_TO_MODULE:
+                # A builtin registered by the plugin's own imports keeps its
+                # builtin module.
+                continue
+            OP_TO_MODULE[name] = f"plugin:{path}"
+            _imported[f"plugin:{path}"] = True
+            new_names.append(name)
+    return new_names
 
 
 def _parse_tasks_env(raw: Optional[str] = None) -> Optional[List[str]]:
@@ -132,5 +182,7 @@ def get_op(name: str) -> OpFn:
 
 
 def load_ops(tasks: List[str]) -> Dict[str, OpFn]:
-    """Resolve a list of op names; raise early on any unknown/disabled name."""
+    """Resolve a list of op names; raise early on any unknown/disabled name.
+    ``OPS_PLUGIN_PATH``'s ops join the registry first (once)."""
+    load_plugins()
     return {name: get_op(name) for name in tasks}

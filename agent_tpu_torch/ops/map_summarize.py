@@ -66,7 +66,6 @@ DEFAULT_MAX_LENGTH = 130
 # Decode rows per dispatch chunk; beams multiply the rows in flight, so
 # staging divides it by num_beams (the reference's budget).
 MAX_DECODE_ROWS = 8192
-_TRUTHY = ("1", "true", "yes", "on", "y")  # the reference's TRUTHY_TOKENS
 
 _cpu_runtime = None
 _cpu_runtime_lock = threading.Lock()
@@ -340,7 +339,12 @@ def stage(payload: Any, ctx: Optional[object] = None):
     # Checkpoint-integrity problems raise past the soft-error handlers on
     # purpose: a retryable failure, not bad input.
     family = _resolve_family(model_id)
-    force_cpu = os.environ.get("SUMMARIZE_FORCE_CPU", "").strip().lower() in _TRUTHY
+    # The typed config when the context carries one, else the environment,
+    # as the reference reads it.
+    from agent_tpu_torch.config import OpsConfig
+
+    config = getattr(ctx, "config", None)
+    force_cpu = (config.ops if config is not None else OpsConfig.from_env()).summarize_force_cpu
     try:
         cfg = _get_cfg(payload, family, model_id)
         # The batch divides the executing mesh's dp (the reference's

@@ -163,21 +163,29 @@ def parse_chip_slice(spec: str) -> Tuple[int, int]:
 
 def _configured_devices(config) -> Optional[List[str]]:
     """The devices the config's knobs pick when the caller names none:
-    the CPU for ``TPU_DISABLED``, cards ``start .. start+count-1`` for a
-    ``CHIP_SLICE`` (the reference's ``apply_chip_slice``), else None (the
-    first card, or the first cards of the mesh)."""
+    the CPU for ``TPU_DISABLED`` (``count`` CPU devices for a ``CHIP_SLICE``
+    of ``count``, as the reference's host devices), cards ``start ..
+    start+count-1`` for a ``CHIP_SLICE`` (the reference's
+    ``apply_chip_slice``), else None (the first card, or the first cards of
+    the mesh)."""
     if config.tpu_disabled:
         log("TPU_DISABLED set: the runtime runs on the CPU")
-        return ["cpu"]
+        return ["cpu"] * (parse_chip_slice(config.chip_slice)[1] if config.chip_slice else 1)
     if not config.chip_slice:
         return None
-    start, count = parse_chip_slice(config.chip_slice)
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if start + count > visible:
+    return apply_chip_slice([f"cuda:{i}" for i in range(visible)], config.chip_slice)
+
+
+def apply_chip_slice(devices: Sequence, spec: str) -> list:
+    """The ``[start, start+count)`` slice of ``devices``; a slice past the
+    visible devices raises rather than running on fewer."""
+    start, count = parse_chip_slice(spec)
+    if start + count > len(devices):
         want = f"card {start}" if count == 1 else f"cards [{start}, {start + count})"
-        raise ValueError(f"CHIP_SLICE {config.chip_slice!r} wants {want} but only "
-                         f"{visible} are visible")
-    return [f"cuda:{i}" for i in range(start, start + count)]
+        raise ValueError(f"CHIP_SLICE {spec!r} wants {want} but only "
+                         f"{len(devices)} are visible")
+    return list(devices)[start:start + count]
 
 
 def _process_mesh(local: List[torch.device], mesh_shape: Optional[Dict[str, int]], info):
@@ -225,6 +233,11 @@ class TorchRuntime:
                              f"axes are {list(PORTED_AXES)}")
         self.device = self.devices[0]
         self.platform = self.device.type  # "cuda" | "cpu"
+        if self.config.compute_dtype != "bfloat16":
+            raise ValueError(
+                f"TorchRuntime: COMPUTE_DTYPE={self.config.compute_dtype!r} sets no dtype in "
+                "the port: each model computes in its config's dtype (a payload's "
+                "model_config {\"dtype\": ...}); unset it")
         if self.platform == "cuda" and not self.config.pallas_attn:
             raise RuntimeError(
                 "TorchRuntime: PALLAS_ATTN=0 asks for attention without the kernels, and "
@@ -361,6 +374,14 @@ class TorchRuntime:
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def peak_flops(self) -> Optional[float]:
+        """Peak dense-bf16 FLOP/s of one device (the MFU denominator):
+        ``PEAK_TFLOPS`` first, else the card's spec-sheet figure; None when
+        unknown."""
+        from agent_tpu_torch.obs.health import resolve_peak_flops
+
+        return resolve_peak_flops(self)
 
     def describe(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {

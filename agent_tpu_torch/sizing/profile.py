@@ -21,7 +21,7 @@ import shutil
 import subprocess
 from typing import Any, Dict, List, Optional
 
-from agent_tpu_torch.config import DeviceConfig, SizingConfig
+from agent_tpu_torch.config import DeviceConfig, SizingConfig, env_bool
 
 # Hard limits advertised to the controller with every lease (the reference's
 # wire contract numbers).
@@ -132,8 +132,15 @@ def batch_hints(n_chips: int, mem_bytes_per_chip: int) -> Dict[str, int]:
 
 def build_worker_profile(sizing: Optional[SizingConfig] = None,
                          device: Optional[DeviceConfig] = None) -> Dict[str, Any]:
-    """The worker profile shipped with every lease request."""
+    """The worker profile shipped with every lease request.
+
+    ``TPU_ONLY`` caps the CPU block at one worker and one task in flight, as
+    the reference does, so the controller routes no host work here. The
+    reference also empties its ``gpu`` block; the port keeps it, since the
+    card is its accelerator and the shard hint rides that block."""
     cpu = detect_cpu(sizing)
+    if (device is not None and device.tpu_only) or env_bool("TPU_ONLY", False):
+        cpu = dict(cpu, max_cpu_workers=1, target_inflight=1)
     if device is not None and device.tpu_disabled:
         gpu = {"gpu_present": False, "gpus": [], "max_gpu_workers": 0, "disabled": True}
     else:

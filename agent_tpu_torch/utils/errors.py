@@ -12,6 +12,11 @@ import traceback
 from typing import Any, Dict
 
 
+class OpError(Exception):
+    """Raised by ops for contract violations that should fail the task
+    (``utils.retry`` classifies it as permanent)."""
+
+
 def structured_error(exc: BaseException) -> Dict[str, Any]:
     """Exception -> the wire error shape the controller expects."""
     return {

@@ -15,15 +15,17 @@ Two halves:
   fleet decorrelates instead of thundering back in lockstep. ``jittered``
   is the lighter helper for spreading fixed sleeps (idle polls).
 
-Policy knobs ride the env surface (``RETRY_BASE_SEC``, ``RETRY_MAX_SEC`` —
-see ``config.AgentConfig``); everything here is dependency-free.
+Policy knobs ride the env surface (``RETRY_BASE_SEC``, ``RETRY_MAX_SEC``,
+``RETRY_DEADLINE_SEC`` — see ``config.AgentConfig``); everything here is
+dependency-free.
 """
 
 from __future__ import annotations
 
 import random
+import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 TRANSIENT = "transient"
 PERMANENT = "permanent"
@@ -81,29 +83,43 @@ def jittered(
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """Capped exponential backoff with decorrelated jitter."""
+    """Capped exponential backoff with decorrelated jitter.
+
+    ``deadline_sec`` is the overall budget for one logical operation (0 =
+    unbounded); ``RetryState.expired()`` reports when it is spent, and the
+    caller decides what giving up means.
+    """
 
     base_sec: float = 0.5
     max_sec: float = 30.0
     multiplier: float = 3.0
+    deadline_sec: float = 0.0
 
-    def start(self, rng: Optional[random.Random] = None) -> "RetryState":
-        return RetryState(self, rng=rng)
+    def start(self, rng: Optional[random.Random] = None,
+              clock: Callable[[], float] = time.monotonic) -> "RetryState":
+        return RetryState(self, rng=rng, clock=clock)
 
 
 class RetryState:
     """Mutable per-operation backoff state (one per thing being retried)."""
 
-    def __init__(self, policy: RetryPolicy, rng: Optional[random.Random] = None) -> None:
+    def __init__(self, policy: RetryPolicy, rng: Optional[random.Random] = None,
+                 clock: Callable[[], float] = time.monotonic) -> None:
         self.policy = policy
         self._rng = rng or random.Random()
+        self._clock = clock
         self._prev = 0.0
+        self._started: Optional[float] = None
+        self.attempts = 0
 
     def next_backoff(self) -> float:
         """The next sleep: uniform in ``[base, prev * multiplier]``, capped at
         ``max_sec``. The first call returns something in ``[base, base *
         multiplier]``; repeated failures grow toward the cap without ever
         synchronizing two independent retriers."""
+        if self._started is None:
+            self._started = self._clock()
+        self.attempts += 1
         p = self.policy
         prev = self._prev if self._prev > 0 else p.base_sec
         hi = max(p.base_sec, prev * p.multiplier)
@@ -111,6 +127,17 @@ class RetryState:
         self._prev = sleep
         return sleep
 
+    def expired(self) -> bool:
+        """True once the overall deadline is spent (never before the first
+        ``next_backoff``; a policy without a deadline never expires)."""
+        return (
+            self.policy.deadline_sec > 0
+            and self._started is not None
+            and self._clock() - self._started >= self.policy.deadline_sec
+        )
+
     def reset(self) -> None:
         """Forget the failure streak (call on success)."""
         self._prev = 0.0
+        self._started = None
+        self.attempts = 0

@@ -11,7 +11,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   — CUDA present, an H100 SXM (compute capability (9, 0)),
               nvidia-smi's name and power limit.
 2. build    — nvcc builds every kernel of the paths from csrc/ (sm_90a),
-              all sources at once; for each of the 12 flash_fwd_sm90
+              all sources at once (phase 14's MoE host draw on a thread
+              beside it); for each of the 12 flash_fwd_sm90
               instantiations (serving, training with lse, the ring's fold
               and T5's, at d_head 32, 64 and 128) and the 6 flash_bwd_*_sm90
               ones (the bf16 dQ and dK/dV), cuobjdump's SASS must hold
@@ -60,7 +61,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               sp = 2 shard.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
-              random weights from the model id): one text, 64 mixed-length
+              random weights from the model id, drawn once on the host and
+              placed as the op's own build, then shared with phase 10):
+              one text, 64 mixed-length
               rows, 256 rows of ~500 bytes, one 100-id input. Every request
               must run on cuda and launch the flash kernel once per layer;
               the 256-row request's profile must show the TMA + wgmma
@@ -199,6 +202,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               device; the same weights as model.safetensors alone, read by
               the port's reader, give the same results. p50 ms, rows/s, the
               idle share and device ms by kind of kernel.
+23. drain at scale — right after phase 11, on its checkpoint: `python -m
+              agent_tpu_torch.scripts.drain_at_scale --rows 65536` in a
+              process of its own, TPU_MODEL_PATH set to phase 11's
+              bert-base-uncased directory (classify at BERT-base width, the
+              in-house seq2seq summarizing with 32 new tokens): 8 classify
+              and 8 summarize shards of 8,192 rows through the port's
+              controller, HTTP server, agent and pipeline, per-row JSONL
+              sinks. Exit 0; rows_written and each sink's lines equal the
+              rows for both ops, no non-ok result; each op's first shard bit
+              for bit the op run here on the same rows, checkpoint and
+              payload; the drain agent's pushed row-1 launches above 0. Its
+              total_rows_per_sec and each op's rows_per_span_sec printed
+              beside nvidia-smi's name and power limit.
 12. bart    — a checkpoint directory with facebook/bart-large-cnn's
               published config.json, a synthetic byte-level vocab.json and
               merges.txt (the 256 byte symbols, 4,000 merges) and random
@@ -222,10 +238,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               greedy_generate / beam_generate, each to its longest budget)
               and by one persistent paged engine with 8 slots: tok/s of the
               requested tokens, the speedup, steps, mean occupancy and KV
-              blocks at the end, greedy (with a profiled stretch of 20
-              engine steps), then on the stream's first 60 requests with 4
-              beams, and greedy at 64 slots on its first 128. A small f32
-              model (SMALL_S2S_F32): 32 requests joining one every 8 steps
+              blocks at the end, greedy on the stream's first 120 requests
+              (with a profiled stretch of 20 engine steps), then on its
+              first 60 with 4 beams, and greedy at 64 slots on its first
+              128. A small f32
+              model (SMALL_S2S_F32): 16 requests joining one every 8 steps
               into 4 slots give each request's solo greedy_generate /
               beam_generate tokens (dense and paged), the CPU engine's tokens,
               and other tokens with the trash-block repoint planted away.
@@ -260,7 +277,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               staged: _int_mm's 16-row case), its top-1 equal to bf16's. The
               MoE encoder at BERT-base width and depth with 8 experts: the
               256-row request in bf16 and int8 (agreement held as above),
-              and the train step at phase 6's batch (128 x L 512), 3 timed
+              and the train step at phase 6's batch (128 x L 512), 2 timed
               steps with rows 4-6 each 12 times a step, the aux loss before
               and after; a small f32 MoE on the card against the CPU
               (logits, aux loss, every gradient, 3 steps' losses within
@@ -332,7 +349,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               texts in f32 and bf16 compute, each mode's token share equal
               to one device's at least the float control's less 0.02.
               Serving on tp 2: phase 13's stream
-              prefilled on the mesh and its first 60 requests decoded by a
+              prefilled on the mesh and its first 40 requests decoded by a
               paged engine of 8 slots in bf16 (tok/s beside phase 13's),
               each shard's pool half the one-device pool's bytes, its first
               32 requests in f32 with one device's tokens; serve_summarize twice with one
@@ -471,9 +488,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-20, after a
+              point's time beside it). Printed after phases 8-23, after a
               line of each phase's seconds; row 1's launches by path include
-              phases 10-17, 19 and 20, and its entry holds
+              phases 10-17 and 19-23, and its entry holds
               three more: at phase 12's encoder shape, at phase 13's
               stream prefill (B 240, H 8, L 64, D 32) and at the BART
               encoder's tp 2 shard (B 64, H 8, L 1024, D 64); the T5
@@ -515,7 +532,9 @@ BERT_BASE = {"d_model": 768, "n_heads": 12, "n_layers": 12, "d_ff": 3072, "max_l
 LONG_CTX = {"d_model": 512, "n_heads": 4, "max_len": 4096}
 SMALL_F32 = {"d_model": 128, "n_heads": 2, "n_layers": 2, "d_ff": 256, "max_len": 128,
              "n_classes": 50, "dtype": "float32"}
-REPS = 5  # timed repetitions of each main-path request, after one warm-up
+# Timed repetitions of each main-path request, after one warm-up (5 until
+# the cut that paid for phase 23).
+REPS = 3
 # Phase 6: the two keyword "languages" of tests/test_train_lifecycle.py:11-14.
 TRAIN_WORDS = {
     0: ["invoice", "payment", "ledger", "account", "balance"],
@@ -638,12 +657,14 @@ SERVE_REQUESTS, SERVE_SRC, SERVE_SLOTS, SERVE_WIDE_SLOTS, SERVE_BEAMS = 240, 64,
 SERVE_SHORT_FRAC, SERVE_SEED = 0.9, 5
 SERVE_WARM = 8  # requests of each side's warm-up pass
 SERVE_PROFILE_STEPS = 20
-# The beam leg decodes this share of the stream (the greedy 8-slot leg all
-# of it): the depth cut to pay for phase 20. The 64-slot leg decodes twice
-# its slots, so that its engine refills slots as a static batch cannot.
+# The beam leg decodes this share of the stream (the depth cut to pay for
+# phase 20), the greedy 8-slot leg this one (all of it until the cut that
+# paid for phase 23). The 64-slot leg decodes twice its slots, so that its
+# engine refills slots as a static batch cannot.
 SERVE_BEAM_LEG_FRAC = 1 / 4
+SERVE_GREEDY_LEG_FRAC = 1 / 2
 SERVE_WIDE_LEG_PER_SLOT = 2
-SERVE_EXACT_REQUESTS = 32
+SERVE_EXACT_REQUESTS = 16  # 32 until the cut that paid for phase 23
 SERVE_EXACT_EVERY = 8  # steps between arrivals: slots sit empty, blocks are reused
 SERVE_AGENT_JOBS = (8, 16, 24, 32)
 DISAGG_REQUESTS, DISAGG_DOCS = 32, 4
@@ -665,7 +686,7 @@ AGREEMENT_ROWS, AGREEMENT_CHUNK = 1280, 512
 AGREEMENT_WORDS = ["alpha", "risk", "ledger", "breach", "routine", "audit", "wire", "flag",
                    "normal", "urgent", "invoice", "metric"]
 W8A8_SMALL_TEXT = "tiny row"  # one row of 8 bytes: a staged [1, 16] -> 16 rows of _int_mm
-MOE_EXPERTS, MOE_TRAIN_STEPS = 8, 3
+MOE_EXPERTS, MOE_TRAIN_STEPS = 8, 2  # 3 steps until the cut that paid for phase 23
 # A quantized mode's top-1 agreement with bf16 may fall this far below the
 # f32 control's (the same weights and rows in f32 against bf16).
 AGREEMENT_SLACK = 0.02
@@ -682,7 +703,9 @@ MOE_F32_ROWS, MOE_F32_STEPS, MOE_F32_REL_TOL = 16, 3, 1e-4
 # and the same keep or drop) must reach MOE_ROUTE_AGREEMENT, not 1.
 MOE_ROUTE_TOKENS, MOE_ROUTE_AGREEMENT = 4096, 0.99
 DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC = 256, 64
-QUANT_REPS = 2  # timed repetitions of each phase-14 request, after one warm-up
+# Timed repetitions of each phase-14 request, after one warm-up (3, then 2,
+# before the cut that paid for phase 23).
+QUANT_REPS = 1
 QUANT_ENGINE_REQUESTS = 80  # of phase 13's 240, timed through the bf16 and w8a16 engines
 BART_QUANT_ROWS = 8
 
@@ -2915,13 +2938,19 @@ def control_plane_phase(fa, rt, path: str, serial: list, chunks: list) -> dict:
                     if c.job_snapshot(j)["result"] != jobs[st]["result"]:
                         raise SystemExit(f"the cache answered {j} ({st}) with another result")
 
-            # Observability.
-            text = c.metrics_text()
+            # Observability. The server counts a request's bytes after its
+            # response is sent, so the agent's last lease may land between
+            # two reads: the exposition is read between two equal snapshots.
+            for _ in range(100):
+                snap = c.metrics.snapshot()
+                text = c.metrics_text()
+                if c.metrics.snapshot() == snap:
+                    break
+                time.sleep(0.01)
             problems = metrics.validate_exposition(text, required=(
                 "controller_queue_depth", "controller_tasks_leased_total", "slo_burn_rate",
                 "device_busy_seconds_total", "sched_decisions_total"))
-            parts = [(c.metrics.snapshot(), {}),
-                     (metrics.merge_snapshots([ctrl.agent_obs(name)]), {})]
+            parts = [(snap, {}), (metrics.merge_snapshots([ctrl.agent_obs(name)]), {})]
             checked = exposition_round_trip(parts, metrics.parse_exposition(text))
             slo = [o for o in c.health_json()["slo"]["objectives"]
                    if o["objective"] == CONTROL_SLO[0]["name"]]
@@ -4498,7 +4527,8 @@ def serving_phase(fa, rt, classify_check: dict) -> dict:
     # leg decodes the stream's first quarter, the 64-slot leg its first
     # 2 × 64 requests.
     wide = min(SERVE_REQUESTS, SERVE_WIDE_LEG_PER_SLOT * SERVE_WIDE_SLOTS)
-    for beams, slots, profile, n in ((1, SERVE_SLOTS, True, SERVE_REQUESTS),
+    for beams, slots, profile, n in ((1, SERVE_SLOTS, True,
+                                      int(SERVE_REQUESTS * SERVE_GREEDY_LEG_FRAC)),
                                      (SERVE_BEAMS, SERVE_SLOTS, False,
                                       int(SERVE_REQUESTS * SERVE_BEAM_LEG_FRAC)),
                                      (1, SERVE_WIDE_SLOTS, False, wide)):
@@ -4524,7 +4554,7 @@ def serving_phase(fa, rt, classify_check: dict) -> dict:
 
 def seeded_dense():
     """The classify op's default encoder at BERT_BASE as one f32 host draw,
-    kept in SEEDED and reused (phases 10, 14, 16, 18 (c)): the op would draw
+    kept in SEEDED and reused (phases 4, 10, 14, 16, 18 (c)): the op would draw
     it again at each build, about 16 s on the card's host."""
     from agent_tpu_torch.models import encoder
     from agent_tpu_torch.ops import map_classify_tpu as classify_op
@@ -4534,6 +4564,24 @@ def seeded_dense():
                                               classify_op.DEFAULT_MODEL_ID)
         SEEDED["dense_config"] = dict(BERT_BASE)
     return SEEDED["dense"]
+
+
+def seeded_moe():
+    """The classify op's default encoder at BERT_BASE with MOE_EXPERTS
+    experts as one f32 host draw (453M normals), kept in SEEDED for phases
+    14 and 16. ``main`` runs it on a thread of its own beside the kernels'
+    build, whose nvcc processes leave most cores idle."""
+    from agent_tpu_torch.models import encoder
+    from agent_tpu_torch.ops import map_classify_tpu as classify_op
+
+    conf = dict(BERT_BASE, moe_experts=MOE_EXPERTS)
+    if SEEDED.get("moe_config") != conf:
+        t0 = time.perf_counter()
+        SEEDED["moe"] = encoder.init_params(encoder.EncoderConfig(**conf),
+                                            classify_op.DEFAULT_MODEL_ID)
+        SEEDED["moe_config"] = conf
+        SEEDED["moe_draw_s"] = time.perf_counter() - t0
+    return SEEDED["moe"]
 
 
 def place_seeded(rt, configs: dict, flat) -> None:
@@ -4733,10 +4781,8 @@ def moe_phase(fa, classify, ctx, rt, train_batch) -> dict:
     configs = {m: dict(moe_base, quant=m) for m in ("none", "int8")}
     control = dict(configs, float32=dict(moe_base, dtype="float32"))
     launches = {m: 0 for m in configs}
-    t0 = time.perf_counter()
-    flat = encoder.init_params(encoder.EncoderConfig(**moe_base), classify_op.DEFAULT_MODEL_ID)
-    SEEDED["moe"] = flat  # phase 16 places it on its ep meshes
-    weights_draw_s = time.perf_counter() - t0
+    flat = seeded_moe()  # drawn beside the kernels' build; phase 16 places it too
+    weights_draw_s = SEEDED["moe_draw_s"]
     t0 = time.perf_counter()
     place_seeded(rt, control, flat)
     weights_place_s = time.perf_counter() - t0
@@ -5029,7 +5075,8 @@ def t5_w8a16(fa, op, rt, ckpt, requests) -> dict:
         return toks[mode]
 
     reset_counts(fa)
-    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, 2, lambda m, out: None)
+    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, QUANT_REPS,
+                        lambda m, out: None)
     report = {"request": name, "rows": n_rows, "max_new": T5_MAX_NEW, "launches": launches,
               "token_agreement_vs_bf16": float(np.mean(toks["w8a16"] == toks["none"]))}
     for mode, (cfg, params, load_s) in models.items():
@@ -5057,7 +5104,7 @@ def bart_w8a16(fa, summarize, ctx, rt, ckpt, requests) -> dict:
         launches[mode] += layers
         return out
 
-    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, 2,
+    timed = interleaved({m: (lambda m=m: request(m)) for m in launches}, QUANT_REPS,
                         ok_rows(BART_QUANT_ROWS))
     report = {"rows": BART_QUANT_ROWS, "max_new": BART_MAX_NEW, "launches": launches,
               "token_agreement_vs_bf16": float(np.mean(toks["w8a16"] == toks["none"])),
@@ -5216,7 +5263,7 @@ MESH_F32_TOL = 1e-5   # a small f32 model on a mesh of the card against the CPU
 MESH_F32 = {"d_model": 64, "n_heads": 2, "n_layers": 2, "d_ff": 128, "max_len": 64,
             "n_classes": 40, "dtype": "float32"}
 MESH_RISK_VALUES = 1 << 20
-MESH_REPS = 3
+MESH_REPS = 2  # 3 until the cut that paid for phase 23
 # Phase 14's host draws of the BERT-base encoders ("dense", "moe"): phase 16
 # places them on its meshes instead of drawing them again.
 SEEDED: dict = {}
@@ -5769,7 +5816,8 @@ DEC_RING = {"tp": 2, "sp": 2}
 # The stream's first requests whose f32 tokens on tp 2 are held to one
 # device's engine (the whole stream runs in bf16 for its rate).
 DEC_SERVE_F32_REQUESTS = 32
-DEC_SERVE_REQUESTS = 60  # of phase 13's 240: the depth cut to pay for phase 20
+# Of phase 13's 240 (cut to 60 to pay for phase 20, to 40 for phase 23).
+DEC_SERVE_REQUESTS = 40
 DEC_ROWS = 32  # random texts of phase 8's length for the quant leg
 DEC_PREFIX_BUCKET = 512
 # --cards N: T5-large's widths cut to 2 + 2 layers (a checkpoint of its own).
@@ -6270,6 +6318,101 @@ def decoder_cards_phase(fa, n: int) -> None:
     emit({"phase": "decoder_cards", "cards": n, **report})
     if not report["small_f32_vs_cpu"] or report["t5_logp_vs_one_card"] > LOGP_TOL["bfloat16"]:
         raise SystemExit(f"a decoder over {n} cards disagrees: {report}")
+
+
+# ---- phase 23: the north-star drain's entry point ----
+
+# bench.py's drain shape again (DRAIN_ROWS), through both ops: 8 shards of
+# 8,192 rows each (drain_at_scale's CLASSIFY_SHARD and SUMMARIZE_SHARD).
+AT_SCALE_ROWS = DRAIN_ROWS
+AT_SCALE_TIMEOUT_S = 600
+AT_SCALE_AGENT = "drain-at-scale"  # drain_at_scale's agent name
+
+
+def drain_at_scale_phase(classify, summarize, rt, bert_ckpt: str, smi: str) -> dict:
+    """Phase 23 (see the module docstring): the drain's entry point in a
+    process of its own on phase 11's checkpoint, its sinks and report
+    checked, each op's first shard against the op run here."""
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.scripts import drain_at_scale as das
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()  # leave the card's memory to the other process
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir, report_path = os.path.join(tmp, "work"), os.path.join(tmp, "report.json")
+        env = dict(os.environ, PYTHONPATH=root, TPU_MODEL_PATH=bert_ckpt)
+        for name in ("TASKS", "BART_MODEL"):
+            env.pop(name, None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "agent_tpu_torch.scripts.drain_at_scale",
+             "--rows", str(AT_SCALE_ROWS), "--workdir", workdir, "--report", report_path,
+             "--progress-sec", "30"], cwd=root, env=env, capture_output=True, text=True,
+            timeout=AT_SCALE_TIMEOUT_S)
+        process_s = time.perf_counter() - t0
+        report = None
+        if os.path.exists(report_path):
+            with open(report_path) as fh:
+                report = json.load(fh)
+        shard_files = {op: f"{op}_rows_{0:012d}.jsonl" for op in das.DRAIN_OPS}
+        sinks = {op: os.path.join(workdir, "classify_out" if op == "map_classify_tpu"
+                                  else "summarize_out") for op in das.DRAIN_OPS}
+        lines = {op: sum(file_bytes(os.path.join(d, name)).count(b"\n")
+                         for name in (os.listdir(d) if os.path.isdir(d) else [])
+                         if name.endswith(".jsonl")) for op, d in sinks.items()}
+        # Each op's first shard here, with the drain's payload, into sinks
+        # of this process's own.
+        t0 = time.perf_counter()
+        here = das.op_payloads(os.path.join(tmp, "here"), "none")
+        csv = os.path.join(workdir, f"drain_{AT_SCALE_ROWS}.csv")
+        ctx = OpContext(runtime=rt)
+        equal = {}
+        for op, fn, extra in (("map_classify_tpu", classify, {"model_path": bert_ckpt}),
+                              ("map_summarize", summarize, {})):
+            shard = das.shard_sizes()[op]
+            out = fn(dict(here[op], source_uri=csv, start_row=0, shard_size=shard, **extra), ctx)
+            mine = os.path.join(here[op]["output_uri"], shard_files[op])
+            theirs = os.path.join(sinks[op], shard_files[op])
+            equal[op] = (bool(out.get("ok")) and os.path.exists(theirs)
+                         and file_bytes(mine) == file_bytes(theirs))
+        here_s = time.perf_counter() - t0
+    rep = report or {}
+    launches = (rep.get("kernel_launches") or {}).get(AT_SCALE_AGENT, {}).get("flash_attention",
+                                                                             0)
+    run = {"phase": "drain_at_scale", "rows": AT_SCALE_ROWS, "returncode": proc.returncode,
+           "process_s": process_s, "first_shards_here_s": here_s,
+           "wall_s": rep.get("wall_s"), "total_rows_per_sec": rep.get("total_rows_per_sec"),
+           "rows_per_span_sec": {op: (rep.get(block) or {}).get("rows_per_span_sec")
+                                 for op, block in (("map_classify_tpu", "classify"),
+                                                   ("map_summarize", "summarize"))},
+           "rows_written": {op: (rep.get(block) or {}).get("rows_written")
+                            for op, block in (("map_classify_tpu", "classify"),
+                                              ("map_summarize", "summarize"))},
+           "sink_lines": lines, "non_ok_results": rep.get("non_ok_results"),
+           "counts": rep.get("counts"), "platform": rep.get("platform"),
+           "n_chips": rep.get("n_chips"), "card": rep.get("card"),
+           "first_shard_equal_here": equal, "row1_launches": launches,
+           "slowest_trace": rep.get("slowest_trace"),
+           "stage_execute_overlap": rep.get("stage_execute_overlap"), "nvidia_smi": smi}
+    gates = {"exit_0": proc.returncode == 0 and report is not None,
+             "no_non_ok_result": rep.get("non_ok_results") == 0,
+             "on_the_card": rep.get("platform") == torch.device(CARD).type,
+             "every_row": all(run["rows_written"][op] == AT_SCALE_ROWS
+                              and lines[op] == AT_SCALE_ROWS for op in das.DRAIN_OPS),
+             "first_shards_equal": all(equal.values()),
+             "row1_launches": launches > 0}
+    run["failed"] = [name for name, ok in gates.items() if not ok]
+    emit(run)
+    print(f"drain_at_scale: {run['total_rows_per_sec']} rows/s in all, rows/span-s "
+          f"{run['rows_per_span_sec']}, {smi}", flush=True)
+    if run["failed"]:
+        raise SystemExit(f"phase 23 failed: {run}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return run
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
 
 
 # ---- phase 18: several processes on the card ----
@@ -7488,7 +7631,9 @@ def main(argv=None) -> int:
     if "H100" not in kind or "PCIe" in kind or "NVL" in kind:
         raise SystemExit(f"{kind}: the bound below uses the H100 SXM's data-sheet peaks")
 
-    # 2. build
+    # 2. build, with phase 14's MoE host draw beside it (joined below)
+    moe_draw = threading.Thread(target=seeded_moe, daemon=True)
+    moe_draw.start()
     t0 = time.perf_counter()
     paths = build.build_all(["flash_attention", "flash_attention_bwd"])
     ptxas = {}
@@ -7512,6 +7657,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"the TMA + wgmma instantiations lack wgmma or TMA, or mma.sync "
                          f"kernels remain: {sm90}, {mma_sync}")
 
+    moe_draw.join()
     lap("1-2 device, build")
 
     # The requests of phases 4 and 5; phase 3 holds the kernel against its
@@ -7625,12 +7771,16 @@ def main(argv=None) -> int:
     t5_check = check_t5_kernel(fa, t5_case)
     lap("3 kernels vs plain (and staging)")
 
-    # 4. main path
+    # 4. main path, on the BERT-base host draw that phase 10 reuses
     rt = TorchRuntime()
     ctx = OpContext(runtime=rt)
-    t_build = time.perf_counter()
-    classify(dict(requests[0][1]), ctx)  # builds the BERT-base weights once
-    build_weights_s = time.perf_counter() - t_build
+    # The seeded host draw and its placement; the op then finds the weights
+    # resident and builds none of its own.
+    t_place = time.perf_counter()
+    place_seeded(rt, {"none": BERT_BASE}, seeded_dense())
+    classify(dict(requests[0][1]), ctx)  # finds the weights resident
+    held_resident(rt, {"none": BERT_BASE})
+    seeded_weights_s = time.perf_counter() - t_place
     reset_counts(fa)
     report = timed_requests(classify, ctx, fa, requests,
                             {"flash_attention": BERT_BASE["n_layers"]}, k)
@@ -7656,7 +7806,7 @@ def main(argv=None) -> int:
     on_cpu = classify(dict(small_payload), OpContext(runtime=TorchRuntime(device="cpu")))
     vs_cpu = op_agreement(on_card, on_cpu, LOGP_TOL["float32"])
     total_rows = sum(r["rows"] for r in report)
-    emit({"phase": "main_path", "config": BERT_BASE, "weights_build_s": build_weights_s,
+    emit({"phase": "main_path", "config": BERT_BASE, "seeded_weights_s": seeded_weights_s,
           "requests": report, "launches": main_launches, "selection": main_selection,
           "profile_256_rows": profile,
           "rows_per_s_all": total_rows / sum(r["p50_ms"] / 1e3 for r in report),
@@ -7714,7 +7864,7 @@ def main(argv=None) -> int:
 
     # 10. the agent's drain, then its entry point in a process of its own;
     # 19. the control plane, on phase 10's CSV and weights, between them
-    place_seeded(rt, {"none": BERT_BASE}, seeded_dense())  # phase 10's weights, drawn once
+    place_seeded(rt, {"none": BERT_BASE}, seeded_dense())  # phase 4's host draw again
     drain = drain_phase(fa, rt, drain_csv)
     lap("10 drain, 15 telemetry")
     # 21. the partitioned control plane and 22. the elastic fleet and chaos,
@@ -7763,6 +7913,11 @@ def main(argv=None) -> int:
     rt.clear_params()
     drain_dir.cleanup()
     lap("11 bert")
+
+    # 23. the north-star drain's entry point, on phase 11's checkpoint
+    at_scale = drain_at_scale_phase(classify, summarize, rt, bert_ckpt, smi)
+    rt.clear_params()
+    lap("23 drain at scale")
 
     # 12. a BART checkpoint through map_summarize
     t0 = time.perf_counter()
@@ -7834,6 +7989,7 @@ def main(argv=None) -> int:
                                                        elastic["members"].values()),
                           "map_classify_tpu_chaos": chaos["launches"],
                           "map_classify_tpu_bert": bert_run["launches"],
+                          "drain_at_scale_agent": at_scale["row1_launches"],
                           "map_summarize_bart": bart_run["launches"],
                           "serve_classify": classify_check["launches"],
                           "serve_classify_front_door": door["launches"],

@@ -64,9 +64,9 @@ def test_serving_phase_rehearsal(rehearsal, capsys):
     assert report["stream_prefill_launches"] == SERVE_TINY["n_enc_layers"]
     greedy, beam, wide = report["engine_vs_static"]
     assert (greedy["slots"], beam["num_beams"], wide["slots"]) == (4, 4, 8)
-    # The beam leg decodes the first quarter of the stream, the wide leg
-    # twice its slots.
-    assert [leg["requests"] for leg in (greedy, beam, wide)] == [24, 6, 16]
+    # The greedy leg decodes the first half of the stream, the beam leg the
+    # first quarter, the wide leg twice its slots.
+    assert [leg["requests"] for leg in (greedy, beam, wide)] == [12, 6, 16]
     for leg in (greedy, beam, wide):
         assert leg["tokens"] > 0
         assert leg["kv_blocks_free"] == leg["kv_blocks_total"] > 0

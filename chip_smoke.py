@@ -5,6 +5,8 @@
     python3 chip_smoke.py --cards 4    # phases 1, 2, the ring and meshes over 4 cards
                                        # (the encoder's and the decoders'), and
                                        # phase 18 (a), (b) with one process a card
+    python3 chip_smoke.py --mix-shard 8192 4096  # phase 24 at each bulk shard size
+                                       # (after phase 3's check at its shapes)
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -57,8 +59,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (BERT-base's, and the BART encoder's B 64, H 16, L 1024), and
               phase 13's serving prefills (d_head 32: one admit batch B 8
               and the whole stream B 240 at L 64, the agent's jobs, the
-              disaggregated mix's buckets); the fold's include phase 11's
-              sp = 2 shard.
+              disaggregated mix's buckets), and phase 24's first bulk shard
+              (B 4096) and the batches its front doors form of the
+              script's requests (serve_classify at BERT-base width,
+              serve_summarize and serve_prefill at the seq2seq's); the
+              fold's include phase 11's sp = 2 shard.
 4. main path — map_classify_tpu through the op registry at BERT-base width
               (d_model 768, 12 heads, 12 layers, d_ff 3072, max_len 512;
               random weights from the model id, drawn once on the host and
@@ -238,7 +243,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               greedy_generate / beam_generate, each to its longest budget)
               and by one persistent paged engine with 8 slots: tok/s of the
               requested tokens, the speedup, steps, mean occupancy and KV
-              blocks at the end, greedy on the stream's first 120 requests
+              blocks at the end, greedy on the stream's first 60 requests
               (with a profiled stretch of 20 engine steps), then on its
               first 60 with 4 beams, and greedy at 64 slots on its first
               128. A small f32
@@ -246,13 +251,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               into 4 slots give each request's solo greedy_generate /
               beam_generate tokens (dense and paged), the CPU engine's tokens,
               and other tokens with the trash-block repoint planted away.
-              80 requests of 20-60 bytes through the port's POST /v1/infer
+              48 requests of 20-60 bytes through the port's POST /v1/infer
               front door (the default ServeConfig: batches of up to 16)
               and pipelined agent (serve_summarize jobs, one shared engine;
               row 1 4 times a job), each request's tokens equal to its
               batch payload run serially through the op; TTFT p50/p95, its
               components from GET /v1/debug/requests, and the occupancy
-              gauge. bench.py's disaggregated mix (32 requests over 4
+              gauge. bench.py's disaggregated mix (its first 16 requests over 4
               documents, every 4th a one-off) through a front door with
               disaggregated=True: the controller chains serve_prefill (b1
               results) -> serve_decode through __collect_partials__, a
@@ -292,7 +297,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               256 rows of random ids with the f32 control; phase 9's T5-large
               greedy request (row 3 24 times a request) and 8 rows of phase
               12's BART greedy request, each in w8a16 against bf16; phase
-              13's stream (its first 80 requests) through a paged engine of 8 slots in bf16 and
+              13's stream (its first 40 requests) through a paged engine of 8 slots in bf16 and
               w8a16; the small f32 model in int8 and w8a16 through the engine
               (4 slots: 4-row W8A8 decode steps), the card's tokens equal to
               the CPU engine's.
@@ -349,7 +354,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               texts in f32 and bf16 compute, each mode's token share equal
               to one device's at least the float control's less 0.02.
               Serving on tp 2: phase 13's stream
-              prefilled on the mesh and its first 40 requests decoded by a
+              prefilled on the mesh and its first 16 requests decoded by a
               paged engine of 8 slots in bf16 (tok/s beside phase 13's),
               each shard's pool half the one-device pool's bytes, its first
               32 requests in f32 with one device's tokens; serve_summarize twice with one
@@ -429,6 +434,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               refusal an HTTP 429 with retry_after_ms, its retries
               answered. Requests/s, p50/p99 latency and the TTFT
               components beside nvidia-smi's name and power limit.
+24. serving beside a drain — right after phase 20, on phase 4's weights:
+              agent_tpu_torch.scripts.check_serving_pipeline's three legs
+              in this process (the port's controller and HTTP server,
+              pipelined agents on cuda:0) at full width: classify and the
+              bulk drain at BERT-base width (bf16), summarize with phase
+              13's seq2seq. A serving-off drain of 196,608 rows of phase
+              10's CSV shape in 4,096-row shards; then the same drain
+              beside the script's traffic (warm-ups, a seeded 4 s open-loop
+              LoadGen of classify and summarize requests, greedy and beam,
+              an 8-request volley) through one agent offering
+              serve_classify, serve_summarize and the bulk op; then 10
+              shared-prefix summarize requests colocated, and split
+              (SERVE_DISAGG) over a serve_prefill agent and a serve_decode
+              agent that drains 32,768 rows beside them. The script's six
+              bars (every request done, TTFT under 30 s, a batch holding
+              more than one request, the bulk results bit for bit the
+              serving-off drain's, the TTFT objective saw every request,
+              the split's summaries bit for bit the colocated ones with
+              both halves run and prefix hits). Every job on cuda with no
+              fallback; row 1 n_layers times a bulk shard's dispatch chunk
+              and a serve_classify batch, n_enc times a prefill with a
+              miss, never in a decode, in each leg and in all; no result
+              post refused; the last answer before the last bulk result
+              (the load starts after the first bulk lease). TTFT
+              p50/p99, requests/s, the drain's rows/s with and without
+              serving, the overlap.
 21. partitioned plane — on phase 10's CSV and weights (its agent process,
               started after phase 10, builds its weights while phases 19
               and 10's entry points run):
@@ -488,9 +519,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               at phase 5b's shard shape: launches over its timed requests;
               the T5 kernel at phase 9's staged shape with its per-distance
               table built once, launches over its requests, the entry
-              point's time beside it). Printed after phases 8-23, after a
+              point's time beside it). Printed after phases 8-24, after a
               line of each phase's seconds; row 1's launches by path include
-              phases 10-17 and 19-23, and its entry holds
+              phases 10-17 and 19-24, and its entry holds
               three more: at phase 12's encoder shape, at phase 13's
               stream prefill (B 240, H 8, L 64, D 32) and at the BART
               encoder's tp 2 shard (B 64, H 8, L 1024, D 64); the T5
@@ -532,9 +563,8 @@ BERT_BASE = {"d_model": 768, "n_heads": 12, "n_layers": 12, "d_ff": 3072, "max_l
 LONG_CTX = {"d_model": 512, "n_heads": 4, "max_len": 4096}
 SMALL_F32 = {"d_model": 128, "n_heads": 2, "n_layers": 2, "d_ff": 256, "max_len": 128,
              "n_classes": 50, "dtype": "float32"}
-# Timed repetitions of each main-path request, after one warm-up (5 until
-# the cut that paid for phase 23).
-REPS = 3
+# Timed repetitions of each main-path request, after one warm-up.
+REPS = 2
 # Phase 6: the two keyword "languages" of tests/test_train_lifecycle.py:11-14.
 TRAIN_WORDS = {
     0: ["invoice", "payment", "ledger", "account", "balance"],
@@ -657,19 +687,26 @@ SERVE_REQUESTS, SERVE_SRC, SERVE_SLOTS, SERVE_WIDE_SLOTS, SERVE_BEAMS = 240, 64,
 SERVE_SHORT_FRAC, SERVE_SEED = 0.9, 5
 SERVE_WARM = 8  # requests of each side's warm-up pass
 SERVE_PROFILE_STEPS = 20
-# The beam leg decodes this share of the stream (the depth cut to pay for
-# phase 20), the greedy 8-slot leg this one (all of it until the cut that
-# paid for phase 23). The 64-slot leg decodes twice its slots, so that its
-# engine refills slots as a static batch cannot.
+# The beam leg and the greedy 8-slot leg decode these shares of the stream.
+# The 64-slot leg decodes twice its slots, so that its engine refills slots
+# as a static batch cannot.
 SERVE_BEAM_LEG_FRAC = 1 / 4
-SERVE_GREEDY_LEG_FRAC = 1 / 2
+SERVE_GREEDY_LEG_FRAC = 1 / 4
 SERVE_WIDE_LEG_PER_SLOT = 2
 SERVE_EXACT_REQUESTS = 16  # 32 until the cut that paid for phase 23
 SERVE_EXACT_EVERY = 8  # steps between arrivals: slots sit empty, blocks are reused
-SERVE_AGENT_JOBS = (8, 16, 24, 32)
-DISAGG_REQUESTS, DISAGG_DOCS = 32, 4
+SERVE_AGENT_JOBS = (8, 16, 24)
+DISAGG_REQUESTS, DISAGG_DOCS = 16, 4
 MPMD_ROWS = 64
 SERVE_MODEL: dict = {}  # Seq2SeqConfig overrides of phase 13 (none: the defaults)
+# Phase 24: the bulk drain beside the serving load, in rows of phase 10's CSV
+# shape. The agent interleaves one decode step with each bulk shard it runs,
+# so a request's latency grows with the shard, and half of DRAIN_SHARD leaves
+# the overlap gate a margin that DRAIN_SHARD does not (PERF.md section 6;
+# ``--mix-shard`` runs the phase at other sizes). The split leg's bulk drains
+# the first MIX_DISAGG_ROWS.
+MIX_ROWS, MIX_SHARD = 196_608, 4096
+MIX_DISAGG_ROWS = 32_768
 
 # Phase 14: quantized serving and the Switch MoE encoder. bench.py's
 # bert_base_int8 leg (BERT_CONFIG, text_len 480; top-1 agreement with bf16
@@ -706,7 +743,7 @@ DECODE_AGREEMENT_ROWS, DECODE_AGREEMENT_SRC = 256, 64
 # Timed repetitions of each phase-14 request, after one warm-up (3, then 2,
 # before the cut that paid for phase 23).
 QUANT_REPS = 1
-QUANT_ENGINE_REQUESTS = 80  # of phase 13's 240, timed through the bf16 and w8a16 engines
+QUANT_ENGINE_REQUESTS = 40  # of phase 13's 240, timed through the bf16 and w8a16 engines
 BART_QUANT_ROWS = 8
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W limit.
@@ -2567,11 +2604,11 @@ def drain_payloads(path: str) -> tuple:
     return classify, summarize, shards, s2s
 
 
-def write_drain_csv(path: str) -> None:
+def write_drain_csv(path: str, rows: int = DRAIN_ROWS) -> None:
     """bench.py's drain rows (bench.py:892-896)."""
     with open(path, "w") as f:
         f.write("id,text,risk\n")
-        for i in range(DRAIN_ROWS):
+        for i in range(rows):
             f.write(f'{i},"drain record {i} with a payload of text",{i % 89}\n')
 
 
@@ -3917,16 +3954,18 @@ def serving_exactness() -> dict:
     return report
 
 
-def front_door_batches(op: str, requests: list) -> list:
+def front_door_batches(op: str, requests: list, config=None) -> list:
     """The batch jobs the port's front door (controller/serving.py's
-    ServeFrontDoor, the default ServeConfig) forms from ``requests``
-    (``POST /v1/infer`` bodies) posted at once, before any lease: the full
-    buckets as they fill, then the rest at the deadline -> their payloads
-    in flush order, each request's req_id its index in ``requests``."""
+    ServeFrontDoor, on ``config`` or the default ServeConfig) forms from
+    ``requests`` (``POST /v1/infer`` bodies) posted at once, before any
+    lease: the full buckets as they fill, then the rest at the deadline ->
+    their payloads in flush order, each request's req_id its index in
+    ``requests``."""
     from agent_tpu_torch.config import ServeConfig
     from agent_tpu_torch.controller.serving import ServeFrontDoor
 
-    door, batches, index = ServeFrontDoor(ServeConfig(), clock=lambda: 0.0), [], {}
+    door = ServeFrontDoor(config or ServeConfig(), clock=lambda: 0.0)
+    batches, index = [], {}
     for i, body in enumerate(requests):
         req, full = door.submit(op, body["text"], params=body.get("params"))
         index[req.req_id] = f"q{i:04d}"
@@ -4018,6 +4057,50 @@ def serving_cases(serve) -> list:
             B, L = state["ids"].shape
             cases.append((f"{name}/B{B}xL{L}", (B, H, L, L, D), state["lengths"].tolist(),
                           dtype))
+    return cases
+
+
+def serving_mix_cases(classify, serve) -> list:
+    """Row 1's shapes and key lengths on phase 24's serving legs: the
+    batches the front door forms of check_serving_pipeline's bodies posted
+    at once (each warm-up alone; the LoadGen schedule and the volley at the
+    serving leg's batching; the split leg's requests at its own), staged by
+    map_classify_tpu at BERT_BASE (serve_classify's forward) and by
+    serve_summarize at SERVE_MODEL (serve_prefill stages alike). Under load
+    the door flushes subsets of these batches. Distinct shapes and key
+    lengths only."""
+    from agent_tpu_torch.config import ServeConfig
+    from agent_tpu_torch.scripts import check_serving_pipeline as csp
+
+    serving, split = ServeConfig(**csp.SERVE_KNOBS), ServeConfig(**csp.SPLIT_SERVE_KNOBS)
+    load = [dict(a.payload, op=a.cls.op)
+            for a in csp.traffic(BERT_BASE, SERVE_MODEL).schedule(csp.LOAD_SECONDS)]
+    groups = [("mix_warm", [b], serving) for b in csp.warm_bodies(BERT_BASE, SERVE_MODEL)] + [
+        ("mix_load", load, serving), ("mix_volley", csp.volley_bodies(SERVE_MODEL), serving),
+        ("mix_split", csp.disagg_bodies(SERVE_MODEL), split)]
+    cfg = serve_cfg()
+    H, D = cfg.n_heads, cfg.d_model // cfg.n_heads
+    cases, seen = [], set()
+    for name, bodies, door in groups:
+        for op in ("classify", "summarize"):
+            for job in front_door_batches(op, [b for b in bodies if b["op"] == op], door):
+                texts = [r["text"] for r in job["requests"]]
+                if op == "classify":
+                    new = staged_cases(classify, [(f"{name}_classify", {
+                        "texts": texts, "topk": job["topk"],
+                        "model_config": job["model_config"]}, len(texts))])
+                else:
+                    phase, state = serve.stage(dict(job))
+                    if phase != "staged":
+                        raise SystemExit(f"{name} did not stage: {state}")
+                    B, L = state["ids"].shape
+                    new = [(f"{name}_summarize/B{B}xL{L}", (B, H, L, L, D),
+                            state["lengths"].tolist(), cfg.compute_dtype)]
+                for case in new:
+                    key = (case[1], tuple(case[2]), case[3])
+                    if key not in seen:
+                        seen.add(key)
+                        cases.append(case)
     return cases
 
 
@@ -4494,6 +4577,144 @@ def front_door_phase(fa, rt, ctx, k: int) -> dict:
             or rejected < len(refused):
         raise SystemExit(f"the 429 burst failed: {report['burst']}")
     return report
+
+
+def mix_payload(path: str, start_row: int = 0, shard: int = 0) -> dict:
+    """Phase 24's bulk shard of ``path`` at ``start_row``, ``shard`` rows
+    (MIX_SHARD by default), as check_serving_pipeline submits it."""
+    from agent_tpu_torch.scripts import check_serving_pipeline as csp
+
+    return dict(csp.bulk_payload(BERT_BASE), source_uri=path, start_row=start_row,
+                shard_size=shard or MIX_SHARD)
+
+
+def mix_want(job: dict, chunks: dict, n_layers: int, n_enc: int) -> int:
+    """Row 1's launches a job of phase 24 makes: n_layers a dispatch chunk
+    of a bulk shard, n_layers a serve_classify batch, n_enc a prefill with
+    a prefix-cache miss (serve_summarize, serve_prefill), none in a
+    decode."""
+    op = job["op"]
+    if op == "map_classify_tpu":
+        return n_layers * chunks[job["start_row"]]
+    if op == "serve_classify":
+        return n_layers
+    if op in ("serve_summarize", "serve_prefill"):
+        return n_enc if job["prefix_misses"] else 0
+    return 0
+
+
+def serving_mix_phase(fa, rt, smi: str, shard: int = 0) -> dict:
+    """Phase 24: ``agent_tpu_torch.scripts.check_serving_pipeline``'s three
+    legs in this process at full width: classify and the bulk drain at
+    BERT_BASE on phase 4's weights (bf16, on ``rt``), summarize with phase
+    13's seq2seq (SERVE_MODEL), MIX_ROWS rows of phase 10's CSV shape in
+    ``shard``-row shards (MIX_SHARD by default; MIX_DISAGG_ROWS of them
+    beside the split leg). The script's six bars, and: every job of every
+    leg on the card with no fallback; row 1 launched as ``mix_want`` says,
+    job by job, in each leg's window and in all; no result post refused;
+    the last answer before the last bulk result (the script starts the load
+    once the agent holds its first bulk shard, so the first request comes
+    after the first bulk lease by construction)."""
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.scripts import check_serving_pipeline as csp
+
+    t_phase = time.perf_counter()
+    classify = load_ops(["map_classify_tpu"])["map_classify_tpu"]
+    n_layers, n_enc = BERT_BASE["n_layers"], serve_cfg().n_enc_layers
+    device = torch.device(CARD).type
+    shard = shard or MIX_SHARD
+    report: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mix.csv")
+        write_drain_csv(path, MIX_ROWS)
+        reset_counts(fa)
+        try:
+            csp.main(BERT_BASE, SERVE_MODEL, MIX_ROWS, shard, csv_path=path,
+                     disagg_rows=MIX_DISAGG_ROWS, runtime=rt, report=report)
+        except csp.BarFailed as exc:
+            raise SystemExit(f"phase 24 failed a serving bar: {exc}") from exc
+        launches = fa.LAUNCH_COUNTS["flash_attention"]
+        t_stage = time.perf_counter()
+        payloads = [mix_payload(path, s, min(shard, MIX_ROWS - s))
+                    for s in range(0, MIX_ROWS, shard)]
+        chunks = {p["start_row"]: len(classify.stage(p)[1]["chunks"]) for p in payloads}
+        stage_s = time.perf_counter() - t_stage
+    serving, ref = report["serving"], report["reference"]
+    stacks = {"reference": ref, "serving": serving, "colocated": report["disagg"]["colocated"],
+              "split": report["disagg"]["split"]}
+    jobs = [j for st in stacks.values() for j in st["jobs"]]
+    by_stack = {name: {"launches": st["launches"],
+                       "launches_want": sum(mix_want(j, chunks, n_layers, n_enc)
+                                            for j in st["jobs"]),
+                       "jobs_by_op": dict(collections.Counter(j["op"] for j in st["jobs"])),
+                       "result_outcomes": st["result_outcomes"]}
+                for name, st in stacks.items()}
+    for name in ("serving", "split"):  # one agent, two: the ops each agent ran
+        agents = collections.defaultdict(set)
+        for j in stacks[name]["jobs"]:
+            agents[j["agent"]].add(j["op"])
+        by_stack[name]["by_agent"] = {a: {"ops": sorted(ops)} for a, ops in sorted(agents.items())}
+    split = stacks["split"]
+    out = {
+        "phase": "serving_mix", "config": {"classify": BERT_BASE, "summarize": SERVE_MODEL},
+        "rows": MIX_ROWS, "shard": shard, "disagg_rows": MIX_DISAGG_ROWS,
+        "requests": serving["requests"], "max_occupancy": serving["max_occupancy"],
+        "slo_requests_seen": serving["slo_requests_seen"],
+        "ttft_ms": {name: {"p50": stacks[name]["ttft_ms_p50"],
+                           "p99": stacks[name]["ttft_ms_p99"]}
+                    for name in ("serving", "colocated", "split")},
+        "requests_per_s": {name: stacks[name]["requests_per_s"]
+                           for name in ("serving", "colocated", "split")},
+        "drain_rows_per_s": {"without_serving": ref["bulk_rows_per_s"],
+                             "beside_serving": serving["bulk_rows_per_s"],
+                             "beside_the_split": split["bulk_rows_per_s"]},
+        "overlap_s": serving["overlap_s"],
+        "window_s": {k: serving[k] - serving["first_bulk_lease_wall"] for k in (
+            "first_request_wall", "last_answer_wall", "last_bulk_result_wall")},
+        "prefix_hits_split": split["prefix_hits"], "split_ops": split["ops"],
+        "devices": sorted({str(j["device"]) for j in jobs}),
+        "fallbacks": sum(j["fallback"] for j in jobs),
+        "refused_result_posts": {n: st["refused_result_posts"] for n, st in stacks.items()},
+        "launches": launches,
+        "launches_want": sum(b["launches_want"] for b in by_stack.values()),
+        "by_stack": by_stack, "chunks_stage_s": stage_s, "nvidia_smi": smi,
+        "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if out["devices"] != [device] or out["fallbacks"] \
+            or any(b["launches"] != b["launches_want"] for b in by_stack.values()) \
+            or launches != out["launches_want"] or any(out["refused_result_posts"].values()) \
+            or not serving["last_answer_wall"] < serving["last_bulk_result_wall"]:
+        raise SystemExit(f"phase 24 failed: {str(out)[:4000]}")
+    return out
+
+
+def mix_sizes_phase(fa, classify, warm: dict, shards: list, smi: str) -> None:
+    """``--mix-shard``: phase 3's row-1 check at phase 24's shapes (a first
+    bulk shard of each size, the serving legs' batches), then phase 24 on
+    BERT_BASE's seeded weights once for each of ``shards`` (bulk rows a
+    shard), in that order; fails after the last run if any run failed."""
+    from agent_tpu_torch.ops import load_ops
+    from agent_tpu_torch.runtime.context import OpContext
+    from agent_tpu_torch.runtime.runtime import TorchRuntime
+
+    serve = load_ops(["serve_summarize"])["serve_summarize"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "drain.csv")
+        write_drain_csv(path, max(shards))
+        check_kernels(fa, staged_cases(classify, [(f"mix_shard{n}", mix_payload(path, 0, n), n)
+                                                  for n in sorted(set(shards))])
+                      + serving_mix_cases(classify, serve))
+    rt = TorchRuntime()
+    place_seeded(rt, {"none": BERT_BASE}, seeded_dense())
+    classify(dict(warm), OpContext(runtime=rt))  # finds the weights resident
+    failed = []
+    for n in shards:
+        try:
+            serving_mix_phase(fa, rt, smi, n)
+        except SystemExit as exc:
+            failed.append({"shard": n, "error": str(exc)[:500]})
+    if failed:
+        raise SystemExit(f"phase 24 failed: {failed}")
 
 
 def serving_phase(fa, rt, classify_check: dict) -> dict:
@@ -5263,7 +5484,7 @@ MESH_F32_TOL = 1e-5   # a small f32 model on a mesh of the card against the CPU
 MESH_F32 = {"d_model": 64, "n_heads": 2, "n_layers": 2, "d_ff": 128, "max_len": 64,
             "n_classes": 40, "dtype": "float32"}
 MESH_RISK_VALUES = 1 << 20
-MESH_REPS = 2  # 3 until the cut that paid for phase 23
+MESH_REPS = 1
 # Phase 14's host draws of the BERT-base encoders ("dense", "moe"): phase 16
 # places them on its meshes instead of drawing them again.
 SEEDED: dict = {}
@@ -5816,8 +6037,7 @@ DEC_RING = {"tp": 2, "sp": 2}
 # The stream's first requests whose f32 tokens on tp 2 are held to one
 # device's engine (the whole stream runs in bf16 for its rate).
 DEC_SERVE_F32_REQUESTS = 32
-# Of phase 13's 240 (cut to 60 to pay for phase 20, to 40 for phase 23).
-DEC_SERVE_REQUESTS = 40
+DEC_SERVE_REQUESTS = 16  # of phase 13's 240
 DEC_ROWS = 32  # random texts of phase 8's length for the quant leg
 DEC_PREFIX_BUCKET = 512
 # --cards N: T5-large's widths cut to 2 + 2 layers (a checkpoint of its own).
@@ -6841,9 +7061,25 @@ class Service:
                             self.ready_s = time.perf_counter() - self.t0
                         return line
                 if self.closed or time.monotonic() > deadline:
-                    raise SystemExit(f"{self.name}: no {marker!r} line in {timeout} s (exit "
-                                     f"{self.proc.poll()}): {''.join(self.lines)[-2000:]}")
+                    raise SystemExit(f"{self.name}: no {marker!r} line in {timeout} s "
+                                     f"{self.tail()}")
                 self._cv.wait(timeout=0.1)
+
+    def _read_to_end(self, timeout: float) -> None:
+        """Once the process has exited, wait for the copying thread to read
+        its output to the end: the lines it printed as it exited may still
+        be in the pipe when it is reaped."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while not self.closed and time.monotonic() < deadline:
+                self._cv.wait(timeout=0.1)
+
+    def tail(self, n: int = 2000) -> str:
+        """The exit code (None while it runs) and the last ``n`` characters
+        of the output, read to its end when the process has exited."""
+        if self.proc.poll() is not None:
+            self._read_to_end(10.0)
+        return f"(exit {self.proc.poll()}): {''.join(self.lines)[-n:]}"
 
     def url(self, marker: str, timeout: float = 120.0) -> str:
         return self.wait(marker, timeout).split(marker, 1)[1].split()[0]
@@ -6861,14 +7097,18 @@ class Service:
         return json.loads(found[-1].split(head, 1)[1]) if found else {}
 
     def stop(self, timeout: float = 60.0) -> int:
+        """SIGTERM -> the exit code, the output read to its end (``logged``
+        after ``stop`` sees the lines the process printed as it exited)."""
         if self.proc.poll() is None:
             self.proc.send_signal(signal.SIGTERM)
         try:
-            return self.proc.wait(timeout=timeout)
+            rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
             raise SystemExit(f"{self.name} outlived SIGTERM by {timeout} s")
+        self._read_to_end(timeout)
+        return rc
 
 
 class PartitionedPlane:
@@ -7094,7 +7334,7 @@ def partition_phase(fa, plane, started: dict, serial: list, chunks: list) -> dic
         t0 = time.perf_counter()
         while agent not in get_json(plane.url + "/v1/status")["agents"]:
             if proc.proc.poll() is not None or time.perf_counter() - t0 > DRAIN_TIMEOUT_S:
-                raise SystemExit(f"the agent did not come up: {''.join(proc.lines)[-2000:]}")
+                raise SystemExit(f"the agent did not come up: {proc.tail()}")
             time.sleep(0.02)
         t_ready = time.perf_counter()
         proc.ready_s = t_ready - proc.t0  # its start, its warm-up and its first poll
@@ -7102,7 +7342,7 @@ def partition_phase(fa, plane, started: dict, serial: list, chunks: list) -> dic
         while get_json(plane.urls["p0"] + "/v1/status")["counts"].get("succeeded", 0) \
                 < PART_KILL_AFTER:
             if proc.proc.poll() is not None or time.perf_counter() - t_ready > DRAIN_TIMEOUT_S:
-                raise SystemExit(f"p0 accepted no results: {''.join(proc.lines)[-2000:]}")
+                raise SystemExit(f"p0 accepted no results: {proc.tail()}")
             time.sleep(0.005)
         # A shard's result body is journaled only when a job depends on it,
         # so the standby replays p0's applied shards without their bodies:
@@ -7131,7 +7371,7 @@ def partition_phase(fa, plane, started: dict, serial: list, chunks: list) -> dic
             if proc.proc.poll() is not None or time.perf_counter() - t_ready > DRAIN_TIMEOUT_S:
                 raise SystemExit(f"the partitioned drain did not finish: "
                                  f"{get_json(plane.url + '/v1/status')['counts_by_op']}, "
-                                 f"{''.join(proc.lines)[-2000:]}")
+                                 f"{proc.tail()}")
             time.sleep(0.01)
         wall = time.perf_counter() - t_ready
         # The promoted standby's first lease: the earliest lease span it
@@ -7200,7 +7440,7 @@ def partition_phase(fa, plane, started: dict, serial: list, chunks: list) -> dic
             or report["health_partitions"] != [(p, True) for p in PART_NAMES] \
             or report["metrics_partitions"] != list(PART_NAMES):
         raise SystemExit(f"phase 21 failed: {len(bad)} shards wrong, billed {once}, "
-                         f"{str(report)[:3000]}, agent log {''.join(proc.lines)[-1500:]}")
+                         f"{str(report)[:3000]}, agent log {proc.tail(1500)}")
     return report
 
 
@@ -7598,7 +7838,11 @@ def main(argv=None) -> int:
     parser.add_argument("--cards", type=int, default=0,
                         help="only phases 1, 2, the ring and phase 16's serving checks "
                              "over the first CARDS cards")
-    cards = parser.parse_args(argv).cards
+    parser.add_argument("--mix-shard", type=int, nargs="+", default=[], metavar="ROWS",
+                        help="only phases 1, 2, phase 3 at phase 24's shapes and phase 24 "
+                             "once for each bulk shard size given, in that order")
+    args = parser.parse_args(argv)
+    cards, mix_shards = args.cards, args.mix_shard
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no CUDA card", file=sys.stderr)
         return 2
@@ -7695,6 +7939,12 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
         return 0
+    if mix_shards:
+        mix_sizes_phase(fa, classify, requests[0][1], mix_shards, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # Phase 6's payload; phase 3 holds the training kernels against their
     # plain versions at its first batch's shape and key lengths.
@@ -7757,12 +8007,14 @@ def main(argv=None) -> int:
                                                     BART_ROWS, BART_TOKENS, SEED + 16))
 
     # 3. kernel vs plain
+    serve = load_ops(["serve_summarize"])["serve_summarize"]
     kernel_cases = staged_cases(
         classify, requests + long_requests + [("small_f32", small_payload, 12),
-                                              ("drain_shard", drain_shards[0], DRAIN_SHARD)]
+                                              ("drain_shard", drain_shards[0], DRAIN_SHARD),
+                                              ("mix_shard", mix_payload(drain_csv), MIX_SHARD)]
     ) + staged_cases(summarize, s2s_cases + [("drain_s2s_shard", drain_s2s[0], DRAIN_SHARD)]) \
         + staged_cases(classify, bert_reqs) + staged_cases(summarize, bart_reqs) \
-        + serving_cases(load_ops(["serve_summarize"])["serve_summarize"])
+        + serving_cases(serve) + serving_mix_cases(classify, serve)
     kernel_check = check_kernels(fa, kernel_cases)
     train_check = check_train_kernels(fa, train_case)
     fold_check = check_fold_kernel(fa, ring_fold_case(
@@ -7822,6 +8074,10 @@ def main(argv=None) -> int:
     # 20. the front door at full width, on phase 4's weights
     door = front_door_phase(fa, rt, ctx, k)
     lap("20 front door")
+    # 24. /v1/infer beside a bulk drain (check_serving_pipeline's legs), on
+    # phase 4's weights
+    mix = serving_mix_phase(fa, rt, smi)
+    lap("24 serving beside a drain")
 
     # 5. long context
     rt.clear_params()
@@ -7993,6 +8249,7 @@ def main(argv=None) -> int:
                           "map_summarize_bart": bart_run["launches"],
                           "serve_classify": classify_check["launches"],
                           "serve_classify_front_door": door["launches"],
+                          "serving_beside_a_drain": mix["launches"],
                           "serve_summarize_stream_prefill": serving["stream_prefill_launches"],
                           "serve_summarize_agent": serving["agent"]["launches"],
                           "serve_prefill_disagg": serving["disagg"]["prefill_launches"],

@@ -1,6 +1,6 @@
 """agent_tpu_torch and chip_smoke.py must import nothing of JAX and nothing
 of the JAX package, and none of the packages the card's machine lacks
-(``regex``, ``safetensors``, ``transformers``; this environment has them,
+(``regex``, ``safetensors``, ``transformers``, ``requests``; this environment has them,
 so a port leaning on them would pass here and fail on the card). Checked
 on the source (AST), because this environment preloads jax into every
 interpreter, so sys.modules cannot show it."""
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "agent_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "agent_tpu", "regex", "safetensors", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "agent_tpu", "regex", "safetensors", "transformers", "requests")
 
 
 def _imported_modules(tree: ast.AST):
@@ -34,7 +34,8 @@ def test_the_port_has_files_to_scan():
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_agent_tpu_imports(path):
-    """Nor regex, safetensors or transformers (the name is older than them)."""
+    """Nor regex, safetensors, transformers or requests (the name is older
+    than them)."""
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
     bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

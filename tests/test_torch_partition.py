@@ -4,7 +4,7 @@ the reference's, on the CPU: ``stable_hash`` and ``HashRing.place`` over
 and a remove), ``PartitionMap.parse``'s grammar with the same error types
 for bad specs, ``job_id_for_partition``, ``RouterCore`` under one scripted
 transport (the reference's routing cases: equal bodies, tags, steal choices
-and ``PartitionDown``s), the exactly-once pins against real controllers of
+and ``PartitionDown``s; the default depth cache on an injected clock), the exactly-once pins against real controllers of
 either package, and the port's agent with ``CONTROLLER_PARTITION_MAP``
 draining two port partitions through the pipelined runner, its poster
 thread's results routed by their tags. Every comparison is exact."""
@@ -132,6 +132,7 @@ class StubTransport:
         self.depths = {}
         self.down = set()
         self.calls = []
+        self.now = 0.0  # the router's clock
 
     def _name(self, url):
         return next(n for n in self.pmap.names if url in self.pmap.urls(n))
@@ -164,23 +165,28 @@ class _Uuid:
         return type("U", (), {"hex": f"{self.n:032x}"})()
 
 
-def _run(side, case, monkeypatch, urls=None, names=("p0", "p1", "p2")):
-    """``case(core, stub, mod)`` on one package's RouterCore -> the log of
-    what it returned or raised, the transport's calls and the counters."""
+def _run(side, case, monkeypatch, urls=None, names=("p0", "p1", "p2"), depth_cache=False):
+    """``case(core, stub, mod)`` on one package's RouterCore (its depth
+    cache off, or at its default TTL on ``stub.now``) -> the log of what it
+    returned or raised, the transport's calls and the counters."""
     mod, steal, _ = SIDES[side]
     monkeypatch.setattr(mod, "uuid", _Uuid())
     pmap = mod.PartitionMap(urls or {n: (f"http://{n}",) for n in names})
     stub = StubTransport(pmap)
     core = mod.RouterCore(pmap, stub.post, get_fn=stub.get,
                           steal=steal.StealPolicy(enabled=True, min_advantage=1),
-                          depth_cache_sec=0.0)
+                          clock=lambda: stub.now,
+                          **({} if depth_cache else {"depth_cache_sec": 0.0}))
     log = []
 
     def call(fn, *args):
         try:
-            log.append(("ok", fn(*args)))
+            out = fn(*args)
         except mod.PartitionDown as exc:
             log.append(("PartitionDown", exc.partition, str(exc)))
+            return None
+        log.append(("ok", out))
+        return out
 
     case(core, stub, call)
     return log, stub.calls, dict(core.counters), core.stats()
@@ -290,16 +296,41 @@ def case_failover(core, stub, call):
     call(core.leasable_depths)
 
 
+def case_depth_cache(core, stub, call):
+    """The default depth cache (0.25 s) on the injected clock: a read or a
+    steal inside the TTL goes by the sample, one after it samples again."""
+    home = core.home_for_agent("worker-4")
+    victim = _other(core, home)
+    stub.depths.update({n: 0 for n in core.pmap.names}, **{victim: 5})
+    stub.responses[(home, "/v1/leases")] = lambda body: (204, None)
+    stub.responses[(victim, "/v1/leases")] = lambda body: (
+        200, {"lease_id": "lease-c", "tasks": [{"id": "j4"}]})
+    assert call(core.leasable_depths)[victim] == 5
+    stub.depths[victim] = 0
+    stub.now = 0.2
+    assert call(core.leasable_depths)[victim] == 5
+    assert call(core.route_lease, {"agent": "worker-4", "max_tasks": 1})[1]["tasks"]
+    stub.now = 0.3
+    assert call(core.leasable_depths)[victim] == 0
+    assert call(core.route_lease, {"agent": "worker-4", "max_tasks": 1}) == (204, None)
+    stub.depths[victim] = 2
+    stub.now = 0.5
+    assert call(core.route_lease, {"agent": "worker-4", "max_tasks": 1}) == (204, None)
+    stub.now = 0.55
+    assert call(core.route_lease, {"agent": "worker-4", "max_tasks": 1})[1]["tasks"]
+
+
 CASES = {"submit": case_submit, "workflow": case_workflow, "infer": case_infer,
          "stolen_dag_stage": case_stolen_dag_stage, "429": case_429,
          "lease_and_result": case_lease_and_result, "steal": case_steal,
-         "home_down": case_home_down, "fanout": case_fanout, "failover": case_failover}
+         "home_down": case_home_down, "fanout": case_fanout, "failover": case_failover,
+         "depth_cache": case_depth_cache}
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_router_core_routes_as_the_reference(name, monkeypatch):
-    kw = {"urls": {"p0": ("http://p0-primary", "http://p0-standby")}} \
-        if name == "failover" else {}
+    kw = {"failover": {"urls": {"p0": ("http://p0-primary", "http://p0-standby")}},
+          "depth_cache": {"depth_cache": True}}.get(name, {})
     port, ref = (_run(side, CASES[name], monkeypatch, **kw) for side in ("port", "ref"))
     assert port == ref
     assert port[0], "the case returned nothing"

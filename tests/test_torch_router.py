@@ -37,6 +37,13 @@ SIDES = {"port": (port_part, port_router, port_config, "agent_tpu_torch"),
          "ref": (ref_part, ref_router, ref_config, "agent_tpu")}
 MAX_PENDING = 6
 SERVE_WAIT_MS = 600_000  # the infer request stays queued in its bucket
+# Both routers sample the partitions' depths afresh at every steal decision
+# and every /v1/depth: with the default 0.25 s cache, whether an answer is the
+# live depth or one sampled earlier in the script depends on how long the
+# script took between the two reads, which a loaded host changes. The cache
+# itself is held to the reference's on an injected clock in
+# tests/test_torch_partition.py.
+DEPTH_CACHE_SEC = 0.0
 URL = re.compile(r"http://127\.0\.0\.1:\d+")
 HEX = re.compile(r"(?<![0-9a-z])[0-9a-f]{8,32}(?![0-9a-z])")
 DROPPED = re.compile(r"bytes|wall|_sec|_ms$|uptime|age|generated_at|^ts$|^t$|cursors|"
@@ -169,7 +176,7 @@ def _in_process(side, csv_path):
         serve=config.ServeConfig(max_wait_ms=SERVE_WAIT_MS),
         obs=config.ObsConfig(tsdb_interval_sec=0.0))).start()
     try:
-        with router.RouterServer(parts.pmap) as srv:
+        with router.RouterServer(parts.pmap, depth_cache_sec=DEPTH_CACHE_SEC) as srv:
             return script(srv.url, csv_path, Ids())
     finally:
         parts.stop()
@@ -193,6 +200,7 @@ def _subprocess(side, csv_path, tmp_path):
     env = dict(os.environ, PARTITIONS="2", ROUTER_PORT="0", ROUTER_HOST="127.0.0.1",
                CONTROLLER_JOURNAL=str(tmp_path / f"{side}.jsonl"), JAX_PLATFORMS="cpu",
                SCHED_MAX_PENDING=str(MAX_PENDING), ROUTER_COLLECT_SEC="0",
+               ROUTER_DEPTH_CACHE_SEC=str(DEPTH_CACHE_SEC),
                SERVE_MAX_WAIT_MS=str(SERVE_WAIT_MS),
                CONTROLLER_SWEEP_SEC="0", TSDB_INTERVAL="0.05",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

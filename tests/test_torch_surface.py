@@ -136,8 +136,8 @@ SCRIPTS = {
     "check_sched_fairness.py": "tests/test_torch_sched.py",
     "check_slo_pipeline.py": "tests/test_torch_slo.py",
     "check_trace_pipeline.py": "tests/test_torch_trace.py",
+    "check_serving_pipeline.py": "agent_tpu_torch/scripts/check_serving_pipeline.py",
     "check_request_trace.py": "ROADMAP",
-    "check_serving_pipeline.py": "ROADMAP",
     "check_telemetry_pipeline.py": "ROADMAP",
     "chaos_soak.py": "ROADMAP",
     "controller_bench.py": "ROADMAP",
